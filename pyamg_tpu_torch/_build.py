@@ -1,0 +1,179 @@
+"""Build the hand-written CUDA kernels and bind them with ctypes.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` into ONE shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/libpyamg_tpu_torch_<hash>.so csrc/*.cu
+
+The library lands in ``pyamg_tpu_torch/_build/`` (git-ignored), named by
+a hash of the sources and flags, so an unchanged tree builds once.  The
+build runs at the first kernel launch on a CUDA tensor, never at import
+and never for a CPU tensor.  Pointers and the stream pass as
+``c_void_p``; each C entry point returns ``cudaGetLastError()`` and
+:func:`check` raises when it is not 0.
+
+``launches`` counts kernel launches per ``"<kernel>.<dtype>"``: each
+wrapper adds one where it launches its kernel and nowhere else, so a run
+can show that its path really went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["library", "build", "check", "launches", "reset_launches",
+           "count_launch", "on_cpu", "check_vector", "dtype_name",
+           "NVCC_FLAGS"]
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# -Xptxas -v prints registers, shared memory and spills per kernel into
+# the build log; it changes nothing in the generated code.
+_REPORT_FLAGS = ("-Xptxas", "-v")
+
+launches: dict[str, int] = {}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# name -> argtypes; every function returns the cudaError_t as int
+_SIGNATURES = {
+    # data, offsets, nd, n_pad, x, b, dinv, omega, y, r, mode, stream
+    "pyamg_dia_f32": (_P, _P, _I, _L, _P, _P, _P, ctypes.c_float, _P, _P,
+                      _I, _P),
+    "pyamg_dia_f64": (_P, _P, _I, _L, _P, _P, _P, ctypes.c_double, _P, _P,
+                      _I, _P),
+    # data, idx, starts, k, block, w2, n_rows, x|r, y, stream
+    "pyamg_windowed_matvec_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
+    "pyamg_windowed_matvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
+    "pyamg_windowed_rmatvec_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
+    "pyamg_windowed_rmatvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
+}
+
+
+# -- helpers of the kernel wrappers ------------------------------------------
+
+def on_cpu(*tensors) -> bool:
+    """True when every operand lies on the CPU (the plain twin's case);
+    False when all lie on one CUDA device; raises on a mix or another
+    device type."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"operands on different devices: "
+                         f"{sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def check_vector(name, v, n, dtype):
+    """Raise unless ``v`` is a contiguous 1-D ``dtype`` vector of length n."""
+    if v.ndim != 1 or v.shape[0] != n:
+        raise ValueError(f"{name}: expected shape ({n},), got "
+                         f"{tuple(v.shape)}")
+    if v.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {v.dtype}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def reset_launches():
+    launches.clear()
+
+
+def count_launch(name: str):
+    launches[name] = launches.get(name, 0) + 1
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                       "CUDA kernels of pyamg_tpu_torch cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def build() -> Path:
+    """Compile csrc/ into the cached shared library; returns its path."""
+    sources, headers = _sources()
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out = BUILD_DIR / f"libpyamg_tpu_torch_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True, log="")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *_REPORT_FLAGS, "-I", str(CSRC),
+           "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      cached=False, log=proc.stdout + proc.stderr)
+    return out
+
+
+def _load(path: Path):
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.pyamg_error_string.argtypes = [ctypes.c_int]
+    lib.pyamg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _load(build())
+        return _lib
+
+
+def check(name: str, err: int):
+    """Raise when a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = library().pyamg_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
