@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into ONE shared library with
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all of them
+started together, and the objects are linked into ONE shared library with
 a plain C interface (no PyTorch headers, so the build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libpyamg_tpu_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <work>/<source>.o csrc/<source>.cu   # each
+    nvcc -shared -o _build/libpyamg_tpu_torch_<hash>.so <work>/*.o
 
 The library lands in ``pyamg_tpu_torch/_build/`` (git-ignored), named by
 a hash of the sources and flags, so an unchanged tree builds once.  The
@@ -27,6 +29,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["library", "build", "check", "launches", "reset_launches",
@@ -37,7 +40,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+_LINK_FLAGS = ("-shared",)
 # -Xptxas -v prints registers, shared memory and spills per kernel into
 # the build log; it changes nothing in the generated code.
 _REPORT_FLAGS = ("-Xptxas", "-v")
@@ -53,11 +57,18 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> argtypes; every function returns the cudaError_t as int
 _SIGNATURES = {
-    # data, offsets, nd, n_pad, x, b, dinv, omega, y, r, mode, stream
-    "pyamg_dia_f32": (_P, _P, _I, _L, _P, _P, _P, ctypes.c_float, _P, _P,
+    # data, offsets, nd, n_pad, x, b, dinv, omega, omega_dev, y, r, mode,
+    # stream
+    "pyamg_dia_f32": (_P, _P, _I, _L, _P, _P, _P, ctypes.c_float, _P, _P, _P,
                       _I, _P),
     "pyamg_dia_f64": (_P, _P, _I, _L, _P, _P, _P, ctypes.c_double, _P, _P,
-                      _I, _P),
+                      _P, _I, _P),
+    # data, offsets, nd, sdata, soffsets, nds, n_pad, x, b, dinv, tv, omega,
+    # omega_dev, out0, out1, mode, stream
+    "pyamg_dia_chain_f32": (_P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _P,
+                            ctypes.c_float, _P, _P, _P, _I, _P),
+    "pyamg_dia_chain_f64": (_P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _P,
+                            ctypes.c_double, _P, _P, _P, _I, _P),
     # data, idx, starts, k, block, w2, n_rows, x|r, y, stream
     "pyamg_windowed_matvec_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_matvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
@@ -124,12 +135,21 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _run(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
+def _failed(cmd, proc):
+    return RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                        f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+
+
 def build() -> Path:
     """Compile csrc/ into the cached shared library; returns its path."""
     sources, headers = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _LINK_FLAGS).encode())
     for p in sources + headers:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -137,18 +157,29 @@ def build() -> Path:
     if out.exists():
         build_info.update(path=str(out), seconds=0.0, cached=True, log="")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *_REPORT_FLAGS, "-I", str(CSRC),
-           "-o", str(tmp), *map(str, sources)]
+    work = BUILD_DIR / f"{out.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objects = [work / f"{src.stem}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, *_REPORT_FLAGS, "-I", str(CSRC), "-c",
+             "-o", str(obj), str(src)] for src, obj in zip(sources, objects)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        procs = list(pool.map(_run, cmds))
+    for cmd, proc in zip(cmds, procs):
+        if proc.returncode != 0:
+            raise _failed(cmd, proc)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    link = [nvcc, *NVCC_FLAGS, *_LINK_FLAGS, "-o", str(tmp),
+            *map(str, objects)]
+    proc = _run(link)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise _failed(link, proc)
     os.replace(tmp, out)
+    shutil.rmtree(work, ignore_errors=True)
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      cached=False, log=proc.stdout + proc.stderr)
+                      cached=False,
+                      log="".join(p.stdout + p.stderr for p in procs))
     return out
 
 

@@ -4,7 +4,10 @@
 ``pyamg_tpu.engine.DeviceHierarchy`` with ``np.asarray`` (no ``jax``
 import) and builds the port's hierarchy from exactly those arrays: the
 counterpart of loading weights.  Operators shared inside the JAX
-hierarchy (R's transposed tentative operator is P's) stay shared.
+hierarchy (R's transposed tentative operator is P's) stay shared.  The
+device-built hierarchy's structured transfers and ``jacobi_dyn``
+smoothers carry across too; :func:`structured_solver_from_jax` wraps such
+a hierarchy with the JAX solver's grid layout.
 """
 
 from __future__ import annotations
@@ -13,12 +16,15 @@ import numpy as np
 import torch
 
 from .backend import resolve_device
+from .engine.device_setup import (StructuredDeviceSolver,
+                                  StructuredProlongator,
+                                  StructuredRestrictor)
 from .engine.hierarchy import DeviceHierarchy, DeviceLevel
 from .engine.relaxation import DeviceSmoother
 from .sparse import (ComposedOperator, DenseOperator, DIAMatrix,
                      TransposedWindowed, WindowedELL)
 
-__all__ = ["hierarchy_from_jax"]
+__all__ = ["hierarchy_from_jax", "structured_solver_from_jax"]
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -68,13 +74,21 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
         if name == "ComposedOperator":
             return ComposedOperator(ops=tuple(op(f) for f in o.ops),
                                     shape=tuple(o.shape), nnz=int(o.nnz))
+        if name in ("StructuredProlongator", "StructuredRestrictor"):
+            cls, factor = ((StructuredProlongator, "S")
+                           if name == "StructuredProlongator"
+                           else (StructuredRestrictor, "St"))
+            return cls(**{factor: op(getattr(o, factor))}, tv=tensor(o.tv),
+                       fine_grid_p=o.fine_grid_p, coarse_grid=o.coarse_grid,
+                       coarse_grid_p=o.coarse_grid_p, stride=o.stride,
+                       center=o.center)
         raise NotImplementedError(
             f"{name} has no counterpart in pyamg_tpu_torch yet "
             "(ROADMAP.md Queue 1)")
 
     def smoother(s):
         kind = s.config[0]
-        if kind not in ("identity", "jacobi"):
+        if kind not in ("identity", "jacobi", "jacobi_dyn"):
             raise NotImplementedError(
                 f"smoother {kind!r} is not ported yet (ROADMAP.md Queue 1 "
                 "item 8)")
@@ -89,3 +103,10 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
     return DeviceHierarchy(levels=levels, coarse_inv=tensor(dh.coarse_inv),
                            nc=int(dh.nc), nc_pad=int(dh.nc_pad),
                            dtype=_dtype(dh.dtype), A64=op(dh.A64))
+
+
+def structured_solver_from_jax(dsa, device) -> StructuredDeviceSolver:
+    """The port's StructuredDeviceSolver over the arrays of a JAX
+    ``device_sa_setup`` result, with its grid and padded grid."""
+    return StructuredDeviceSolver(hierarchy_from_jax(dsa.hierarchy, device),
+                                  dsa.grid, dsa.grid_p)

@@ -29,8 +29,8 @@ from ..backend import resolve_device
 from ..sparse import (ComposedOperator, DIAMatrix, TransposedWindowed,
                       WindowedELL, dense_from_scipy, dia_from_scipy, pad_to,
                       select_operator, windowed_from_scipy)
+from ..sparse.dia import dia_transpose
 from . import relaxation as device_relaxation
-from .device_setup import dia_transpose
 
 __all__ = ["DeviceLevel", "DeviceHierarchy", "compile_hierarchy"]
 

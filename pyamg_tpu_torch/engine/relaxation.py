@@ -1,9 +1,13 @@
 """Device smoothers (counterpart of ``pyamg_tpu/engine/relaxation.py``).
 
-Ported so far: ``identity`` and weighted ``jacobi``.  On a DIA operator a
-Jacobi sweep is one :func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi`
-kernel pass, and the zero-guess sweep plus its residual one
-:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_zero_res` pass.  The other
+Ported so far: ``identity``, weighted ``jacobi`` and ``jacobi_dyn`` (the
+same sweep with its weight held as a 0-d tensor on the device, as the
+device-built hierarchy stores it).  On a DIA operator a Jacobi sweep is
+one :func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi` kernel pass, the
+zero-guess sweep plus its residual one
+:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_zero_res` pass, and a sweep
+from a nonzero guess plus the residual of its result one
+:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_res` pass.  The other
 smoothers are ROADMAP.md Queue 1 item 8.
 """
 
@@ -14,9 +18,10 @@ from typing import Tuple
 
 import torch
 
-from ..sparse.dia import DIAMatrix, dia_jacobi, dia_jacobi_zero_res
+from ..sparse.dia import (DIAMatrix, dia_jacobi, dia_jacobi_res,
+                          dia_jacobi_zero_res)
 
-__all__ = ["DeviceSmoother", "identity", "jacobi"]
+__all__ = ["DeviceSmoother", "identity", "jacobi", "jacobi_dyn"]
 
 
 @dataclass(frozen=True)
@@ -26,12 +31,23 @@ class DeviceSmoother:
     config: Tuple
     arrays: Tuple
 
-    def __call__(self, A, x, b):
+    def _jacobi(self):
+        """(dinv, omega, iterations) of a Jacobi smoother, else None."""
         kind = self.config[0]
-        if kind == "identity":
+        if kind == "jacobi":
+            _, omega, iterations = self.config
+            (dinv,) = self.arrays
+        elif kind == "jacobi_dyn":
+            _, iterations = self.config
+            dinv, omega = self.arrays
+        else:
+            return None
+        return dinv, omega, iterations
+
+    def __call__(self, A, x, b):
+        if self.config[0] == "identity":
             return x
-        _, omega, iterations = self.config
-        (dinv,) = self.arrays
+        dinv, omega, iterations = self._jacobi()
         for _ in range(iterations):
             x = _jacobi_step(A, x, b, dinv, omega)
         return x
@@ -39,11 +55,9 @@ class DeviceSmoother:
     def zero_call(self, A, b):
         """Apply with a known-zero initial guess: the first Jacobi sweep
         collapses to omega * dinv * b."""
-        kind = self.config[0]
-        if kind == "identity":
+        if self.config[0] == "identity":
             return torch.zeros_like(b)
-        _, omega, iterations = self.config
-        (dinv,) = self.arrays
+        dinv, omega, iterations = self._jacobi()
         x = omega * (dinv * b)
         for _ in range(iterations - 1):
             x = _jacobi_step(A, x, b, dinv, omega)
@@ -53,19 +67,25 @@ class DeviceSmoother:
         """(x, r) = (zero_call(A, b), b - A @ x) in one kernel pass when
         the smoother is a single Jacobi sweep on a DIA operator; None
         otherwise (the caller composes)."""
-        if not isinstance(A, DIAMatrix) or self.config[0] != "jacobi":
+        jac = self._jacobi()
+        if not isinstance(A, DIAMatrix) or jac is None:
             return None
-        _, omega, iterations = self.config
-        (dinv,) = self.arrays
+        dinv, omega, iterations = jac
         if iterations != 1 or dinv.shape != b.shape:
             return None
         return dia_jacobi_zero_res(A, b, dinv, omega)
 
     def call_residual(self, A, x, b):
-        """The fused sweep-then-residual of a nonzero guess is TPU kernel
-        K4, not ported yet (ROADMAP.md Queue 2): None makes the caller
-        compose the step, as the reference does when its gate refuses."""
-        return None
+        """(y, r) = (self(A, x, b), b - A @ y) in one kernel pass when the
+        smoother is a single Jacobi sweep on a DIA operator; None
+        otherwise (the caller composes)."""
+        jac = self._jacobi()
+        if not isinstance(A, DIAMatrix) or jac is None:
+            return None
+        dinv, omega, iterations = jac
+        if iterations != 1 or dinv.shape != b.shape or x.shape != b.shape:
+            return None
+        return dia_jacobi_res(A, x, b, dinv, omega)
 
 
 def identity():
@@ -75,6 +95,14 @@ def identity():
 def jacobi(dinv, omega, iterations=1):
     return DeviceSmoother(config=("jacobi", float(omega), int(iterations)),
                           arrays=(dinv,))
+
+
+def jacobi_dyn(dinv, omega, iterations=1):
+    """Weighted Jacobi whose ``omega`` is a 0-d tensor on the device (the
+    device-built setup computes it there from a spectral-radius estimate;
+    the kernels read it by pointer, so no sweep syncs the host)."""
+    return DeviceSmoother(config=("jacobi_dyn", int(iterations)),
+                          arrays=(dinv, omega))
 
 
 def _jacobi_step(A, x, b, dinv, omega):

@@ -5,10 +5,12 @@ Python loop bounded by ``maxiter``.  ``precision="mixed"`` runs the outer
 loop in float64 (matvec with the hierarchy's ``A64``) and the cycle in
 the hierarchy's float32.
 
-Ported so far: the V-cycle (and the single-level direct solve),
-``accel in (None, "cg")``, ``precision in ("native", "mixed")``, 1-D
-right-hand sides.  W/F/AMLI cycles and the other Krylov methods are
-ROADMAP.md Queue 1 item 7; batched right-hand sides item 12.
+Ported so far: the V-cycle (and the single-level direct solve) over both
+the host-built and the device-built hierarchy, with the reference's fused
+level front-ends and correction add, ``accel in (None, "cg")``,
+``precision in ("native", "mixed")``, 1-D right-hand sides.  W/F/AMLI
+cycles and the other Krylov methods are ROADMAP.md Queue 1 item 7;
+batched right-hand sides item 12.
 """
 
 from __future__ import annotations
@@ -17,12 +19,42 @@ import numpy as np
 import torch
 
 from ..backend import resolve_device
+from ..sparse.dia import DIAMatrix, dia_zero_chain
 from ..sparse.formats import fit as _fitv
 from ..sparse.formats import pad_vector
 from .hierarchy import DeviceHierarchy, compile_hierarchy
 from .krylov import _norm, _rtol_of, device_cg
 
 __all__ = ["DeviceMultilevelSolver", "as_device_solver"]
+
+
+def _fused_zero_entry_chain(lvl, b):
+    """The zero-entry level front-end in one kernel pass (K5,
+    :func:`~pyamg_tpu_torch.sparse.dia.dia_zero_chain`):
+
+        x = pre.zero_call(A, b);  y = tv * (St @ (b - A @ x))
+
+    then the restrictor's block sum.  Returns (x, unpadded rc), or None
+    when the level has no factored StructuredRestrictor with a
+    solve-padded tv, or its pre-smoother is not a single Jacobi sweep on
+    a DIA operator (the caller composes)."""
+    R = lvl.R
+    St = getattr(R, "St", None)
+    tv = getattr(R, "tv", None)
+    finish = getattr(R, "_finish", None)
+    if St is None or tv is None or finish is None:
+        return None
+    if not isinstance(St, DIAMatrix) or not isinstance(lvl.A, DIAMatrix):
+        return None
+    jac = lvl.pre._jacobi()
+    if jac is None:
+        return None
+    dinv, omega, iters = jac
+    if (iters != 1 or dinv.shape != b.shape
+            or tv.shape[0] != St.n_pad or St.n_pad != b.shape[0]):
+        return None
+    x, y = dia_zero_chain(lvl.A, St, b, dinv, tv, omega)
+    return x, finish(y)
 
 
 def _make_cycle(nlev, cycle):
@@ -42,21 +74,32 @@ def _make_cycle(nlev, cycle):
 
     def visit(h, i, x, b, xz=False):
         """``xz``: x is known zero, so the entry smoother takes its
-        zero-guess form (fused with the residual on DIA levels)."""
+        zero-guess form.  The entry front-end is the deepest fused form
+        that applies: sweep + residual + scaled restrict (K5), else sweep
+        + residual (K3 from zero, K4 from a nonzero x), else composed."""
         lvl = h.levels[i]
-        fused = (lvl.pre.zero_call_residual(lvl.A, b) if xz
-                 else lvl.pre.call_residual(lvl.A, x, b))
-        if fused is not None:
-            x, r = fused
+        chain = _fused_zero_entry_chain(lvl, b) if xz else None
+        if chain is not None:
+            x, rc_raw = chain
+            rc = _fitv(rc_raw, h.levels[i + 1].n_pad)
         else:
-            x = lvl.pre.zero_call(lvl.A, b) if xz else lvl.pre(lvl.A, x, b)
-            r = b - (lvl.A @ x)
-        rc = _fitv(lvl.R @ r, h.levels[i + 1].n_pad)
+            fused = (lvl.pre.zero_call_residual(lvl.A, b) if xz
+                     else lvl.pre.call_residual(lvl.A, x, b))
+            if fused is not None:
+                x, r = fused
+            else:
+                x = lvl.pre.zero_call(lvl.A, b) if xz else lvl.pre(lvl.A, x, b)
+                r = b - (lvl.A @ x)
+            rc = _fitv(lvl.R @ r, h.levels[i + 1].n_pad)
         if i == nlev - 2:
             xc = h.coarse_solve(rc)
         else:
             xc = visit(h, i + 1, None, rc, xz=True)
-        x = x + _fitv(lvl.P @ xc, x.shape[0])
+        if hasattr(lvl.P, "apply_correction"):
+            # the correction add in the SpMV's epilogue (K1 SPMV_ADD)
+            x = lvl.P.apply_correction(xc, x)
+        else:
+            x = x + _fitv(lvl.P @ xc, x.shape[0])
         return lvl.post(lvl.A, x, b)
 
     def one_cycle(h, x, b):

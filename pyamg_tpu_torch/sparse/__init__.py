@@ -6,7 +6,9 @@ import torch
 
 from .composed import ComposedOperator
 from .dia import (DenseOperator, DIAMatrix, dense_from_scipy, dia_from_scipy,
-                  dia_jacobi, dia_jacobi_zero_res, dia_spmv)
+                  dia_from_stencil, dia_jacobi, dia_jacobi_res,
+                  dia_jacobi_zero_res, dia_spgemm, dia_spmv, dia_spmv_add,
+                  dia_spmv_scaled, dia_zero_chain)
 from .formats import pad_to, pad_vector
 from .window import (TransposedWindowed, WindowedELL, windowed_from_scipy,
                      windowed_matvec, windowed_rmatvec)
@@ -19,9 +21,15 @@ __all__ = [
     "WindowedELL",
     "dense_from_scipy",
     "dia_from_scipy",
+    "dia_from_stencil",
     "dia_jacobi",
+    "dia_jacobi_res",
     "dia_jacobi_zero_res",
+    "dia_spgemm",
     "dia_spmv",
+    "dia_spmv_add",
+    "dia_spmv_scaled",
+    "dia_zero_chain",
     "pad_to",
     "pad_vector",
     "select_operator",

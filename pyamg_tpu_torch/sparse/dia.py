@@ -5,15 +5,27 @@ offsets[d]]``, zero where A has no entry or the column falls outside the
 matrix, so padded rows and out-of-range positions contribute exactly
 zero and padded vector entries stay zero.
 
-Kernel entry points (``csrc/dia.cu``, one template in three modes):
+Kernel entry points (``csrc/dia.cu``, one template in five modes, and
+``csrc/dia_chain.cu``, two two-stage kernels):
 
 - :func:`dia_spmv`            y = A x                        (TPU: ``_dia_pallas_matvec``)
+- :func:`dia_spmv_scaled`     s (A r)                        (TPU: ``_dia_pallas_matvec``, ``scale=``)
+- :func:`dia_spmv_add`        x + A t                        (TPU: ``_dia_pallas_matvec``, ``addv=``)
 - :func:`dia_jacobi`          x + w dinv (b - A x)           (TPU: ``dia_pallas_jacobi``)
 - :func:`dia_jacobi_zero_res` (w dinv b, b - A (w dinv b))   (TPU: ``dia_pallas_jacobi_zero_res``)
+- :func:`dia_jacobi_res`      (y, b - A y), y = x + w dinv (b - A x)
+                                                             (TPU: ``dia_pallas_jacobi_res``)
+- :func:`dia_zero_chain`      (x, tv (St (b - A x))), x = w dinv b
+                                                             (TPU: ``dia_pallas_zero_chain``)
 
 Each has a plain PyTorch twin (``*_ref``) in this module.  A wrapper runs
 the twin only when its operands lie on the CPU; on CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises.  The Jacobi weight ``omega`` is a Python
+float or a 0-d tensor of the operator's dtype on its device; a tensor
+reaches the kernel by pointer, so no launch reads it to the host.
+
+:func:`dia_spgemm`, :func:`dia_transpose` and :func:`dia_from_stencil` are
+plain PyTorch (rolls and masks), as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -31,12 +43,18 @@ import torch.nn.functional as F
 from .. import _build
 from .formats import pad_to
 
-__all__ = ["DIAMatrix", "dia_from_scipy", "DenseOperator",
-           "dense_from_scipy", "dia_spmv", "dia_jacobi",
-           "dia_jacobi_zero_res", "dia_spmv_ref", "dia_jacobi_ref",
-           "dia_jacobi_zero_res_ref"]
+__all__ = ["DIAMatrix", "dia_from_scipy", "dia_from_stencil", "dia_spgemm",
+           "dia_transpose",
+           "DenseOperator", "dense_from_scipy", "dia_spmv",
+           "dia_spmv_scaled", "dia_spmv_add", "dia_jacobi",
+           "dia_jacobi_zero_res", "dia_jacobi_res", "dia_zero_chain",
+           "dia_spmv_ref", "dia_spmv_scaled_ref", "dia_spmv_add_ref",
+           "dia_jacobi_ref", "dia_jacobi_zero_res_ref", "dia_jacobi_res_ref",
+           "dia_zero_chain_ref"]
 
-_SPMV, _JACOBI, _JACOBI_ZERO_RES = 0, 1, 2
+# modes of csrc/dia.cu::dia_kernel and csrc/dia_chain.cu
+_SPMV, _JACOBI, _JACOBI_ZERO_RES, _SPMV_SCALED, _SPMV_ADD = 0, 1, 2, 3, 4
+_ZERO_CHAIN, _JACOBI_RES = 0, 1
 
 
 @dataclass(frozen=True)
@@ -88,6 +106,11 @@ class DIAMatrix:
                 "DIAMatrix applies to 1-D vectors only; the batched forms "
                 "are ROADMAP.md Queue 1 item 12")
         return self.matvec(x)
+
+    def diagonal(self):
+        if 0 in self.offsets:
+            return self.data[self.offsets.index(0)]
+        return torch.zeros(self.n_pad, dtype=self.dtype, device=self.device)
 
 
 def dia_from_scipy(A, dtype=torch.float32, device=None, row_pad=8,
@@ -185,40 +208,132 @@ def dia_jacobi_zero_res_ref(A: DIAMatrix, b, dinv, omega):
     return x, b - dia_spmv_ref(A, x)
 
 
+def dia_spmv_scaled_ref(A: DIAMatrix, r, s):
+    return dia_spmv_ref(A, r) * s
+
+
+def dia_spmv_add_ref(A: DIAMatrix, t, x):
+    return x + dia_spmv_ref(A, t)
+
+
+def dia_jacobi_res_ref(A: DIAMatrix, x, b, dinv, omega):
+    y = dia_jacobi_ref(A, x, b, dinv, omega)
+    return y, b - dia_spmv_ref(A, y)
+
+
+def dia_zero_chain_ref(A: DIAMatrix, St: DIAMatrix, b, dinv, tv, omega):
+    x, r = dia_jacobi_zero_res_ref(A, b, dinv, omega)
+    return x, tv * dia_spmv_ref(St, r)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-_KERNEL_DTYPES = {torch.float32: ("pyamg_dia_f32", ctypes.c_float),
-                  torch.float64: ("pyamg_dia_f64", ctypes.c_double)}
+# dtype -> (C entry-point suffix, by-value scalar type)
+_KERNEL_DTYPES = {torch.float32: ("f32", ctypes.c_float),
+                  torch.float64: ("f64", ctypes.c_double)}
 
 
-def _launch_dia(mode, A, x, b, dinv, omega, y, r):
+def _kernel_operand(A, name="A"):
     if A.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"DIA kernel takes float32 or float64, not {A.dtype}")
     if not A.data.is_contiguous():
-        raise ValueError("DIA data must be contiguous")
-    fn_name, c_scalar = _KERNEL_DTYPES[A.dtype]
-    lib = _build.library()
+        raise ValueError(f"{name}: DIA data must be contiguous")
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    err = getattr(lib, fn_name)(
+def _omega_args(omega, A, c_scalar):
+    """(weight by value, pointer to a 0-d device weight or None)."""
+    if isinstance(omega, torch.Tensor):
+        if omega.ndim != 0 or omega.device != A.device:
+            raise ValueError(f"omega: expected a 0-d tensor on {A.device}, "
+                             f"got shape {tuple(omega.shape)} on "
+                             f"{omega.device}")
+        if omega.dtype != A.dtype:
+            raise TypeError(f"omega: expected {A.dtype}, got {omega.dtype}")
+        return c_scalar(0.0), omega.data_ptr()
+    return c_scalar(float(omega)), None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_dia(mode, A, x, b, dinv, omega, y, r):
+    _kernel_operand(A)
+    suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
+    fn_name = f"pyamg_dia_{suffix}"
+    w, w_dev = _omega_args(omega, A, c_scalar)
+    err = getattr(_build.library(), fn_name)(
         A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags, A.n_pad,
-        ptr(x), ptr(b), ptr(dinv), c_scalar(float(omega)), y.data_ptr(),
-        ptr(r), mode, torch.cuda.current_stream(A.device).cuda_stream)
+        _ptr(x), _ptr(b), _ptr(dinv), w, w_dev, y.data_ptr(), _ptr(r), mode,
+        torch.cuda.current_stream(A.device).cuda_stream)
     _build.check(fn_name, err)
+
+
+def _launch_chain(mode, A, St, x, b, dinv, tv, omega, out0, out1):
+    _kernel_operand(A)
+    suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
+    fn_name = f"pyamg_dia_chain_{suffix}"
+    w, w_dev = _omega_args(omega, A, c_scalar)
+    if St is not None:
+        _kernel_operand(St, "St")
+        if St.dtype != A.dtype or St.n_pad != A.n_pad:
+            raise ValueError(f"St: expected {A.dtype} with n_pad {A.n_pad}, "
+                             f"got {St.dtype} with n_pad {St.n_pad}")
+        sdata, soffs, nds = St.data.data_ptr(), St.offsets_t.data_ptr(), \
+            St.ndiags
+    else:
+        sdata, soffs, nds = None, None, 0
+    err = getattr(_build.library(), fn_name)(
+        A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags, sdata, soffs,
+        nds, A.n_pad, _ptr(x), _ptr(b), _ptr(dinv), _ptr(tv), w, w_dev,
+        out0.data_ptr(), out1.data_ptr(), mode,
+        torch.cuda.current_stream(A.device).cuda_stream)
+    _build.check(fn_name, err)
+
+
+def _check_vectors(A, **vectors):
+    for name, v in vectors.items():
+        _build.check_vector(name, v, A.n_pad, A.dtype)
+
+
+def _count(kernel, A):
+    _build.count_launch(f"{kernel}.{_build.dtype_name(A.dtype)}")
 
 
 def dia_spmv(A: DIAMatrix, x):
     """y = A @ x for a padded 1-D x of length ``A.n_pad``."""
     if _build.on_cpu(A.data, x):
         return dia_spmv_ref(A, x)
-    _build.check_vector("x", x, A.n_pad, A.dtype)
+    _check_vectors(A, x=x)
     y = torch.empty_like(x)
     _launch_dia(_SPMV, A, x, None, None, 0.0, y, None)
-    _build.count_launch(f"dia_spmv.{_build.dtype_name(A.dtype)}")
+    _count("dia_spmv", A)
+    return y
+
+
+def dia_spmv_scaled(A: DIAMatrix, r, s):
+    """s * (A @ r) with the scale in the SpMV's epilogue (the structured
+    restrictor's tv factor)."""
+    if _build.on_cpu(A.data, r, s):
+        return dia_spmv_scaled_ref(A, r, s)
+    _check_vectors(A, r=r, s=s)
+    y = torch.empty_like(r)
+    _launch_dia(_SPMV_SCALED, A, r, s, None, 0.0, y, None)
+    _count("dia_spmv_scaled", A)
+    return y
+
+
+def dia_spmv_add(A: DIAMatrix, t, x):
+    """x + A @ t with the add in the SpMV's epilogue (the structured
+    prolongator's coarse-grid correction)."""
+    if _build.on_cpu(A.data, t, x):
+        return dia_spmv_add_ref(A, t, x)
+    _check_vectors(A, t=t, x=x)
+    y = torch.empty_like(t)
+    _launch_dia(_SPMV_ADD, A, t, x, None, 0.0, y, None)
+    _count("dia_spmv_add", A)
     return y
 
 
@@ -226,11 +341,10 @@ def dia_jacobi(A: DIAMatrix, x, b, dinv, omega):
     """One weighted-Jacobi sweep x + omega * dinv * (b - A @ x)."""
     if _build.on_cpu(A.data, x, b, dinv):
         return dia_jacobi_ref(A, x, b, dinv, omega)
-    for name, v in (("x", x), ("b", b), ("dinv", dinv)):
-        _build.check_vector(name, v, A.n_pad, A.dtype)
+    _check_vectors(A, x=x, b=b, dinv=dinv)
     y = torch.empty_like(x)
     _launch_dia(_JACOBI, A, x, b, dinv, omega, y, None)
-    _build.count_launch(f"dia_jacobi.{_build.dtype_name(A.dtype)}")
+    _count("dia_jacobi", A)
     return y
 
 
@@ -239,10 +353,131 @@ def dia_jacobi_zero_res(A: DIAMatrix, b, dinv, omega):
     (x, r) = (omega * dinv * b, b - A @ x)."""
     if _build.on_cpu(A.data, b, dinv):
         return dia_jacobi_zero_res_ref(A, b, dinv, omega)
-    for name, v in (("b", b), ("dinv", dinv)):
-        _build.check_vector(name, v, A.n_pad, A.dtype)
+    _check_vectors(A, b=b, dinv=dinv)
     x = torch.empty_like(b)
     r = torch.empty_like(b)
     _launch_dia(_JACOBI_ZERO_RES, A, None, b, dinv, omega, x, r)
-    _build.count_launch(f"dia_jacobi_zero_res.{_build.dtype_name(A.dtype)}")
+    _count("dia_jacobi_zero_res", A)
     return x, r
+
+
+def dia_jacobi_res(A: DIAMatrix, x, b, dinv, omega):
+    """A Jacobi sweep from a nonzero guess and the residual of the updated
+    iterate in one pass: (y, r) = (x + omega * dinv * (b - A @ x),
+    b - A @ y)."""
+    if _build.on_cpu(A.data, x, b, dinv):
+        return dia_jacobi_res_ref(A, x, b, dinv, omega)
+    _check_vectors(A, x=x, b=b, dinv=dinv)
+    y = torch.empty_like(x)
+    r = torch.empty_like(x)
+    _launch_chain(_JACOBI_RES, A, None, x, b, dinv, None, omega, y, r)
+    _count("dia_jacobi_res", A)
+    return y, r
+
+
+def dia_zero_chain(A: DIAMatrix, St: DIAMatrix, b, dinv, tv, omega):
+    """The zero-entry level front-end in one pass: (x, y) =
+    (omega * dinv * b, tv * (St @ (b - A @ x))); the residual is never
+    stored."""
+    if _build.on_cpu(A.data, St.data, b, dinv, tv):
+        return dia_zero_chain_ref(A, St, b, dinv, tv, omega)
+    _check_vectors(A, b=b, dinv=dinv, tv=tv)
+    x = torch.empty_like(b)
+    y = torch.empty_like(b)
+    _launch_chain(_ZERO_CHAIN, A, St, None, b, dinv, tv, omega, x, y)
+    _count("dia_zero_chain", A)
+    return x, y
+
+
+# ---------------------------------------------------------------------------
+# device-built operators (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def dia_from_stencil(S, grid, dtype=torch.float32, device=None):
+    """A grid-stencil DIA operator built on ``device`` (the device analog of
+    ``gallery.stencil_grid``): each nonzero entry of the centred stencil
+    array S becomes one diagonal, its constant value masked by boundary
+    validity per grid dimension."""
+    if device is None:
+        raise ValueError("pass device= explicitly")
+    S = np.asarray(S)
+    grid = tuple(int(g) for g in grid)
+    dim = len(grid)
+    if S.ndim != dim:
+        raise ValueError("stencil dim must match grid dim")
+    if np.iscomplexobj(S) or dtype.is_complex:
+        raise NotImplementedError("complex DIA is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 2)")
+    center = tuple(s // 2 for s in S.shape)
+    n = int(np.prod(grid))
+    entries = []
+    for idx in np.ndindex(*S.shape):
+        v = S[idx]
+        if v == 0:
+            continue
+        coords = tuple(int(i) - c for i, c in zip(idx, center))
+        off = 0
+        stride_acc = 1
+        for d in range(dim - 1, -1, -1):
+            off += coords[d] * stride_acc
+            stride_acc *= grid[d]
+        entries.append((int(off), coords, float(v)))
+    entries.sort(key=lambda e: e[0])
+    nnz = 0
+    for _off, coords, _v in entries:
+        count = 1
+        for d in range(dim):
+            count *= grid[d] - abs(coords[d])
+        nnz += count
+    rows = []
+    for _off, coords, v in entries:
+        mask = None
+        for d in range(dim):
+            i = torch.arange(grid[d], device=device)
+            ok = (i + coords[d] >= 0) & (i + coords[d] < grid[d])
+            shape = [1] * dim
+            shape[d] = grid[d]
+            ok = ok.reshape(shape)
+            mask = ok if mask is None else (mask & ok)
+        rows.append(torch.where(mask, torch.tensor(v, dtype=dtype,
+                                                   device=device),
+                                0).reshape(-1))
+    return DIAMatrix(data=torch.stack(rows), offsets=tuple(e[0] for e in entries),
+                     shape=(n, n), nnz=int(nnz))
+
+
+def dia_spgemm(A: DIAMatrix, B: DIAMatrix):
+    """C = A @ B for banded operands, by rolls and elementwise products:
+    C_data[oa + ob] += A_data[oa] * roll(B_data[ob], -oa), accumulated in
+    the reference's order (A's offsets outer, B's inner).  Wrapped terms
+    vanish because out-of-range entries store zero."""
+    if A.shape[1] != B.shape[0]:
+        raise ValueError("dimension mismatch")
+    if A.n_pad != B.n_pad:
+        raise ValueError("operands must share padding")
+    acc = {}
+    for da, oa in enumerate(A.offsets):
+        a = A.data[da]
+        for db, ob in enumerate(B.offsets):
+            oc = oa + ob
+            term = a * torch.roll(B.data[db], -oa)
+            acc[oc] = acc[oc] + term if oc in acc else term
+    offsets = tuple(sorted(acc))
+    nnz_est = min(A.nnz * max(len(B.offsets), 1), len(offsets) * A.shape[0])
+    return DIAMatrix(data=torch.stack([acc[o] for o in offsets]),
+                     offsets=offsets, shape=(A.shape[0], B.shape[1]),
+                     nnz=int(nnz_est))
+
+
+def dia_transpose(A: DIAMatrix) -> DIAMatrix:
+    """Transpose of a DIAMatrix, by rolls only
+    (``pyamg_tpu/engine/device_setup.py::dia_transpose``).
+
+    B = A^T has B[j, j+p] = A[j+p, j] = A_data[d(-p)][j+p], so
+    B_data[p] = roll(A_data[d(-p)], -p).  Wrapped entries land on
+    positions whose source entries are stored as zero."""
+    lookup = {o: d for d, o in enumerate(A.offsets)}
+    offsets = tuple(sorted(-o for o in A.offsets))
+    data = torch.stack([torch.roll(A.data[lookup[-p]], -p) for p in offsets])
+    return DIAMatrix(data=data, offsets=offsets,
+                     shape=(A.shape[1], A.shape[0]), nnz=A.nnz)

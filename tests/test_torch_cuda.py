@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 import pyamg_tpu  # noqa: E402
 from pyamg_tpu.gallery import poisson  # noqa: E402
 
-from pyamg_tpu_torch import _build, as_device_solver  # noqa: E402
+from pyamg_tpu_torch import _build, as_device_solver, device_sa_setup  # noqa: E402
 from pyamg_tpu_torch.sparse import (dia, dia_from_scipy, window,  # noqa: E402
                                     windowed_from_scipy)
 
@@ -65,6 +65,68 @@ def test_dia_kernels_match_twins(cuda, dtype, grid):
     assert _build.launches == {f"dia_spmv.{name}": 1,
                                f"dia_jacobi.{name}": 1,
                                f"dia_jacobi_zero_res.{name}": 1}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid", [(64, 64), (33, 70)])
+def test_epilogue_and_chain_kernels_match_twins(cuda, dtype, grid):
+    """K1's SPMV_SCALED and SPMV_ADD, K4 and K5 against their twins, with
+    omega by value and as a 0-d device tensor; St is a second operator
+    with a wider pattern (the 9-point stencil of the coarse levels)."""
+    A = poisson(grid, format="csr")
+    D = dia_from_scipy(A, dtype=dtype, device=cuda, row_pad=1024)
+    n9 = sp.diags([np.full(A.shape[0], v) for v in (0.3, 0.2, 0.3)],
+                  [-grid[1] - 1, 0, grid[1] + 1], shape=A.shape)
+    St = dia_from_scipy((0.1 * A + n9).tocsr(), dtype=dtype, device=cuda,
+                        row_pad=1024)
+    x, b, s, tv = (_rand(D.n_pad, dtype, cuda, k) for k in (0, 1, 2, 3))
+    dinv = torch.zeros(D.n_pad, dtype=dtype, device=cuda)
+    dinv[: A.shape[0]] = torch.as_tensor(1.0 / A.diagonal(), dtype=dtype)
+    w_dev = torch.tensor(0.85, dtype=dtype, device=cuda)
+    _build.reset_launches()
+    assert _rel_err(dia.dia_spmv_scaled(D, x, s),
+                    dia.dia_spmv_scaled_ref(D, x, s)) <= TOL[dtype]
+    assert _rel_err(dia.dia_spmv_add(D, x, b),
+                    dia.dia_spmv_add_ref(D, x, b)) <= TOL[dtype]
+    for omega in (0.85, w_dev):
+        for got, want in (
+                (dia.dia_jacobi_res(D, x, b, dinv, omega),
+                 dia.dia_jacobi_res_ref(D, x, b, dinv, omega)),
+                (dia.dia_zero_chain(D, St, b, dinv, tv, omega),
+                 dia.dia_zero_chain_ref(D, St, b, dinv, tv, omega)),
+                ((dia.dia_jacobi(D, x, b, dinv, omega),),
+                 (dia.dia_jacobi_ref(D, x, b, dinv, omega),))):
+            for g, w in zip(got, want):
+                assert _rel_err(g, w) <= TOL[dtype]
+    name = str(dtype).removeprefix("torch.")
+    assert _build.launches == {f"dia_spmv_scaled.{name}": 1,
+                               f"dia_spmv_add.{name}": 1,
+                               f"dia_jacobi_res.{name}": 2,
+                               f"dia_zero_chain.{name}": 2,
+                               f"dia_jacobi.{name}": 2}
+
+
+def test_device_built_solve_on_card_matches_cpu(cuda):
+    """The 128^2 device-built float64 hierarchy, built and solved on the
+    card, against the same setup and solve on the CPU (plain twins): the
+    same count, histories to rtol 1e-8; every path kernel launched."""
+    A = poisson((128, 128), format="csr")
+    b = np.random.default_rng(0).random(A.shape[0])
+    kw = dict(grid=(128, 128), dtype=torch.float64, max_coarse=100,
+              mixed_precision=True)
+    res_g, res_c = [], []
+    dg = device_sa_setup(A, device=cuda, **kw)
+    _build.reset_launches()
+    x = dg.solve(b, tol=1e-10, accel="cg", precision="mixed",
+                 residuals=res_g)
+    counts = dict(_build.launches)
+    device_sa_setup(A, device="cpu", **kw).solve(
+        b, tol=1e-10, accel="cg", precision="mixed", residuals=res_c)
+    assert len(res_g) == len(res_c)
+    np.testing.assert_allclose(res_g, res_c, rtol=1e-8)
+    assert np.linalg.norm(b - A @ x) < 1e-10 * np.linalg.norm(b)
+    for k in ("dia_zero_chain", "dia_spmv_add", "dia_jacobi", "dia_spmv"):
+        assert counts.get(f"{k}.float64", 0) > 0, (k, counts)
 
 
 def _random_rect(n, m, per_row, spread, seed):

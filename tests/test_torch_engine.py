@@ -21,7 +21,7 @@ from pyamg_tpu.gallery import poisson  # noqa: E402
 
 from pyamg_tpu_torch import (DeviceMultilevelSolver, as_device_solver,  # noqa: E402
                              compile_hierarchy, hierarchy_from_jax)
-from pyamg_tpu_torch.engine.relaxation import jacobi  # noqa: E402
+from pyamg_tpu_torch.engine.relaxation import jacobi, jacobi_dyn  # noqa: E402
 from pyamg_tpu_torch.sparse import (ComposedOperator, DIAMatrix,  # noqa: E402
                                     TransposedWindowed, WindowedELL,
                                     dia_from_scipy)
@@ -135,8 +135,9 @@ def test_cg_float64_matches_reference(pair64, b):
 
 
 def test_stationary_float64_matches_reference(pair64, b):
-    """accel=None: repeated V-cycles from the nonzero iterate (the
-    composed sweep-then-residual path), histories to rtol 1e-8."""
+    """accel=None: repeated V-cycles from the nonzero iterate (the fused
+    sweep-then-residual entry, K4's twin, on the DIA levels), histories
+    to rtol 1e-8."""
     hj, ht = pair64
     res_j, res_t = [], []
     JaxSolver(hj).solve(b, tol=1e-6, maxiter=12, residuals=res_j)
@@ -232,10 +233,42 @@ def test_zero_call_residual_equals_composed_step():
     np.testing.assert_allclose(r.numpy()[: A.shape[0]],
                                bb.numpy()[: A.shape[0]] - A @ xn,
                                rtol=1e-13, atol=1e-14)
-    assert sm.call_residual(D, x, bb) is None
     y = sm(D, x, bb)
     want = xn + 0.8 * 0.25 * (bb.numpy()[: A.shape[0]] - A @ xn)
     np.testing.assert_allclose(y.numpy()[: A.shape[0]], want, rtol=1e-13)
+    # the nonzero-guess sweep + residual of its result (K4's entry)
+    y_k4, r_k4 = sm.call_residual(D, x, bb)
+    torch.testing.assert_close(y_k4, y, rtol=0, atol=0)
+    yn = y.numpy()[: A.shape[0]]
+    np.testing.assert_allclose(r_k4.numpy()[: A.shape[0]],
+                               bb.numpy()[: A.shape[0]] - A @ yn,
+                               rtol=1e-13, atol=1e-14)
+    assert jacobi(dinv, 0.8, iterations=2).call_residual(D, x, bb) is None
+
+
+def test_jacobi_dyn_equals_jacobi():
+    """The device-weight Jacobi smoother (omega a 0-d tensor) gives the
+    float-weight one's results in every entry form."""
+    A = poisson((24, 24), format="csr")
+    D = dia_from_scipy(A, dtype=torch.float64, device=CPU, row_pad=1024)
+    rng = np.random.default_rng(5)
+    dinv = torch.zeros(D.n_pad, dtype=torch.float64)
+    dinv[: A.shape[0]] = 0.25
+    x, bb = (torch.as_tensor(rng.random(D.n_pad)) for _ in range(2))
+    for iters in (1, 2):
+        s_f = jacobi(dinv, 0.8, iters)
+        s_t = jacobi_dyn(dinv, torch.tensor(0.8, dtype=torch.float64), iters)
+        assert s_t.config == ("jacobi_dyn", iters)
+        for name, args in (("__call__", (D, x, bb)), ("zero_call", (D, bb)),
+                           ("zero_call_residual", (D, bb)),
+                           ("call_residual", (D, x, bb))):
+            got, want = getattr(s_t, name)(*args), getattr(s_f, name)(*args)
+            if want is None:
+                assert got is None and iters == 2
+                continue
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                torch.testing.assert_close(g, w, rtol=1e-15, atol=0)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -22,8 +22,12 @@ from pyamg_tpu.sparse import pad_vector as jax_pad_vector  # noqa: E402
 from pyamg_tpu.sparse import select_operator as jax_select_operator  # noqa: E402
 from pyamg_tpu.sparse.dia import (_dia_pallas_matvec,  # noqa: E402
                                   dia_pallas_jacobi,
-                                  dia_pallas_jacobi_zero_res)
+                                  dia_pallas_jacobi_res,
+                                  dia_pallas_jacobi_zero_res,
+                                  dia_pallas_zero_chain)
 from pyamg_tpu.sparse.dia import dia_from_scipy as jax_dia_from_scipy  # noqa: E402
+from pyamg_tpu.sparse.dia import dia_from_stencil as jax_dia_from_stencil  # noqa: E402
+from pyamg_tpu.sparse.dia import dia_spgemm as jax_dia_spgemm  # noqa: E402
 from pyamg_tpu.sparse.window import \
     windowed_from_scipy as jax_windowed_from_scipy  # noqa: E402
 
@@ -32,10 +36,13 @@ from pyamg_tpu_torch.engine.device_setup import dia_transpose  # noqa: E402
 from pyamg_tpu_torch.sparse import (ComposedOperator, DenseOperator,  # noqa: E402
                                     DIAMatrix, TransposedWindowed,
                                     WindowedELL, dia_from_scipy,
-                                    dia_jacobi, dia_jacobi_zero_res,
-                                    dia_spmv, pad_to, pad_vector,
-                                    select_operator, windowed_from_scipy,
-                                    windowed_matvec, windowed_rmatvec)
+                                    dia_from_stencil, dia_jacobi,
+                                    dia_jacobi_res, dia_jacobi_zero_res,
+                                    dia_spgemm, dia_spmv, dia_spmv_add,
+                                    dia_spmv_scaled, dia_zero_chain, pad_to,
+                                    pad_vector, select_operator,
+                                    windowed_from_scipy, windowed_matvec,
+                                    windowed_rmatvec)
 
 CPU = "cpu"
 
@@ -134,6 +141,149 @@ def test_dia_jacobi_zero_res_k3_matches_pallas_interpret():
         torch.as_tensor(np.array(dinv)), 0.85)
     np.testing.assert_allclose(x_got.numpy(), np.asarray(x_want), atol=2e-6)
     np.testing.assert_allclose(r_got.numpy(), np.asarray(r_want), atol=2e-5)
+
+
+@pytest.mark.parametrize("mode", ["scale", "addv"])
+def test_dia_spmv_epilogues_k1_match_pallas_interpret(mode):
+    """K1's two epilogues (the restrictor's tv scale, the prolongator's
+    correction add) against _dia_pallas_matvec(scale=/addv=, B=1024) on
+    the reference test's operator, to its rtol 1e-6 / atol 1e-6."""
+    A = poisson((64, 64), format="csr")
+    jd, td = _pair(A, 128)
+    rng = np.random.default_rng(31)
+    x, s, c = (rng.standard_normal(jd.n_pad).astype(np.float32)
+               for _ in range(3))
+    e = s if mode == "scale" else c
+    want = np.asarray(_dia_pallas_matvec(jd.data, jd.offsets, jnp.asarray(x),
+                                         1024, interpret=True,
+                                         **{mode: jnp.asarray(e)}))
+    if mode == "scale":
+        got = dia_spmv_scaled(td, torch.as_tensor(x), torch.as_tensor(e))
+    else:
+        got = dia_spmv_add(td, torch.as_tensor(x), torch.as_tensor(e))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_dia_jacobi_res_k4_matches_pallas_interpret():
+    """K4 (sweep from a nonzero guess + residual of the result) against
+    dia_pallas_jacobi_res on the reference test's 512^2, row_pad=32768,
+    force_B=8192 setup (double halos at both array ends): atol 2e-6 on y,
+    2e-5 on r; a 0-d omega tensor gives the same."""
+    A = poisson((512, 512), format="csr")
+    jd, td = _pair(A, 32768)
+    rng = np.random.default_rng(11)
+    xh = rng.random(A.shape[0]).astype(np.float32)
+    bh = rng.random(A.shape[0]).astype(np.float32)
+    dinv = _dinv_of(jd)
+    y_want, r_want = dia_pallas_jacobi_res(
+        jd, jax_pad_vector(jnp.asarray(xh), jd.n_pad),
+        jax_pad_vector(jnp.asarray(bh), jd.n_pad), dinv, 0.85,
+        interpret=True, force_B=8192)
+    xt, bt = (pad_vector(v, td.n_pad, device=CPU) for v in (xh, bh))
+    dt = torch.as_tensor(np.array(dinv))
+    for omega in (0.85, torch.tensor(0.85, dtype=torch.float32)):
+        y_got, r_got = dia_jacobi_res(td, xt, bt, dt, omega)
+        np.testing.assert_allclose(y_got.numpy(), np.asarray(y_want),
+                                   atol=2e-6)
+        np.testing.assert_allclose(r_got.numpy(), np.asarray(r_want),
+                                   atol=2e-5)
+
+
+def test_dia_zero_chain_k5_matches_pallas_interpret():
+    """K5 (zero-guess sweep, residual, scaled St apply) against
+    dia_pallas_zero_chain on the reference test's 512^2, row_pad=32768,
+    force_B=8192 setup, with its St = 0.1 A + 0.9 I: atol 2e-6 on x,
+    2e-5 on y."""
+    A = poisson((512, 512), format="csr")
+    jd, td = _pair(A, 32768)
+    St = (0.1 * A + 0.9 * sp.eye(A.shape[0], format="csr")).tocsr()
+    jst, tst = _pair(St, 32768)
+    rng = np.random.default_rng(23)
+    bh = rng.random(A.shape[0]).astype(np.float32)
+    tvh = rng.random(A.shape[0]).astype(np.float32)
+    dinv = _dinv_of(jd)
+    x_want, y_want = dia_pallas_zero_chain(
+        jd, jst, jax_pad_vector(jnp.asarray(bh), jd.n_pad), dinv,
+        jax_pad_vector(jnp.asarray(tvh), jd.n_pad), 0.85, interpret=True,
+        force_B=8192)
+    x_got, y_got = dia_zero_chain(
+        td, tst, pad_vector(bh, td.n_pad, device=CPU),
+        torch.as_tensor(np.array(dinv)), pad_vector(tvh, td.n_pad,
+                                                    device=CPU), 0.85)
+    np.testing.assert_allclose(x_got.numpy(), np.asarray(x_want), atol=2e-6)
+    np.testing.assert_allclose(y_got.numpy(), np.asarray(y_want), atol=2e-5)
+
+
+def test_dia_spgemm_matches_reference():
+    """Banded SpGEMM: the same offsets and, in float64, the same values
+    as the reference, and equal to the scipy product."""
+    A = poisson((30, 20), format="csr")
+    B = (sp.diags(np.arange(1.0, 601), 0, shape=(600, 600))
+         + sp.diags(np.arange(1.0, 580), 21, shape=(600, 600))
+         + sp.diags(np.arange(1.0, 598), -3, shape=(600, 600))).tocsr()
+    ja, ta = _pair(A, 1, dtype=np.float64)
+    jb, tb = _pair(B, 1, dtype=np.float64)
+    jc, tc = jax_dia_spgemm(ja, jb), dia_spgemm(ta, tb)
+    assert tc.offsets == jc.offsets and tc.nnz == jc.nnz
+    np.testing.assert_array_equal(tc.data.numpy(), np.asarray(jc.data))
+    dense = np.zeros((600, 600))
+    for d, off in enumerate(tc.offsets):
+        i = np.arange(600)
+        ok = (i + off >= 0) & (i + off < 600)
+        dense[i[ok], i[ok] + off] = tc.data[d].numpy()[ok]
+    np.testing.assert_allclose(dense, (A @ B).toarray(), rtol=1e-14)
+
+
+@pytest.mark.parametrize("grid", [(24, 31), (6, 7, 9)])
+def test_dia_from_stencil_matches_reference(grid):
+    """The stencil-built operator equals the reference's and the scipy
+    gallery operator (5-point and 7-point Poisson)."""
+    S = np.zeros((3,) * len(grid))
+    c = (1,) * len(grid)
+    S[c] = 2.0 * len(grid)
+    for d in range(len(grid)):
+        for s in (0, 2):
+            idx = list(c)
+            idx[d] = s
+            S[tuple(idx)] = -1.0
+    jd = jax_dia_from_stencil(S, grid, dtype=jnp.float64)
+    td = dia_from_stencil(S, grid, dtype=torch.float64, device=CPU)
+    assert td.offsets == jd.offsets and td.nnz == jd.nnz
+    assert td.shape == jd.shape
+    np.testing.assert_array_equal(td.data.numpy(), np.asarray(jd.data))
+    ref = dia_from_scipy(poisson(grid, format="csr"), dtype=torch.float64,
+                         device=CPU, row_pad=1)
+    assert td.offsets == ref.offsets and td.nnz == ref.nnz
+    np.testing.assert_array_equal(td.data.numpy(), ref.data.numpy())
+
+
+def test_dia_diagonal():
+    A = poisson((10, 10), format="csr")
+    td = dia_from_scipy(A, dtype=torch.float64, device=CPU, row_pad=128)
+    np.testing.assert_array_equal(td.diagonal().numpy()[:100], A.diagonal())
+    off = DIAMatrix(data=td.data[:1], offsets=td.offsets[:1], shape=td.shape,
+                    nnz=1)
+    assert not off.diagonal().any() and off.diagonal().shape == (128,)
+
+
+def test_new_wrappers_run_the_twin_only_on_cpu():
+    """The epilogue and two-stage wrappers count no launch on CPU tensors
+    and refuse a mix of devices instead of falling back."""
+    A = poisson((40, 40), format="csr")
+    td = dia_from_scipy(A, device=CPU, row_pad=1024)
+    x = torch.ones(td.n_pad)
+    _build.reset_launches()
+    dia_spmv_scaled(td, x, x)
+    dia_spmv_add(td, x, x)
+    dia_jacobi_res(td, x, x, x, 0.5)
+    dia_zero_chain(td, td, x, x, x, torch.tensor(0.5))
+    assert _build.launches == {}
+    for fn, args in ((dia_spmv_scaled, (td, x, x.to("meta"))),
+                     (dia_spmv_add, (td, x.to("meta"), x)),
+                     (dia_jacobi_res, (td, x, x, x.to("meta"), 0.5)),
+                     (dia_zero_chain, (td, td, x, x, x.to("meta"), 0.5))):
+        with pytest.raises(ValueError, match="different devices"):
+            fn(*args)
 
 
 @pytest.mark.parametrize("block", [256, 1024, 2048])
