@@ -4,14 +4,17 @@
     python3 chip_smoke.py        # from the repository root; one CUDA card,
                                  # nvcc and nvidia-smi on the machine
 
-Phases, in order (any failure exits non-zero before the result lines):
+It imports nothing of JAX or of the JAX package: the port carries its own
+host setup.  Phases, in order (any failure exits non-zero before the
+result lines):
 
 1. toolchain record: Python, torch and CUDA versions, nvcc, the card;
 2. build every kernel of pyamg_tpu_torch/csrc with nvcc (one process per
    source, all started together);
-3. host smoothed-aggregation setup of BASELINE config 1 (2-D 5-point
-   Poisson, 2048^2, Jacobi omega=4/3 before and after) and its compile to
-   the card (coarse_cutoff=1024, float32 hierarchy + float64 A64);
+3. the port's host smoothed-aggregation setup of BASELINE config 1 (2-D
+   5-point Poisson, 2048^2, Jacobi omega=4/3 before and after) and its
+   compile to the card (coarse_cutoff=1024, float32 hierarchy + float64
+   A64);
 4. the device-built hierarchy of the same operator on the card
    (device_sa_setup, float32, max_coarse=400, float64 A64): the setup
    time of a second call after a warm one, and each level's forms;
@@ -20,20 +23,32 @@ Phases, in order (any failure exits non-zero before the result lines):
    float32 and float64 (three DIA modes) and tentative operators T, T^T;
    the device-built level-0 and level-1 zero-entry chain (K5), level 0's
    Jacobi-plus-residual (K4) and the two SpMV epilogues on level 0's S
-   and S^T: max error, and CUDA-event times of both;
+   and S^T; the K-lane kernels at K = 8 on the device-built level-0 and
+   level-1 operators (K8 in its three modes, K9, K11): max error,
+   CUDA-event times of both, the bound from the bytes and operations the
+   call needs, and one PyTorch library call as a yardstick where one
+   computes the same function (never on the path);
 6. a small-input reference check: a 128^2 float64 host-built solve on the
-   card against the host solver's residual history;
+   card against the same hierarchy copied to the CPU (the plain twins);
 7. host-built config 1: mixed-precision CG to 1e-8 with
    b = default_rng(1).random(n), launch counters zeroed just before and
    read just after; the iteration count, the residual, the solve time;
 8. device-built config 1: the same with b = default_rng(0).random(n)
    (the reference bench's right-hand side);
-9. a stationary phase (accel=None, native float32, 5 V-cycles) on a
-   256^2 device-built hierarchy, against the same run on a CPU copy of
-   that hierarchy (the plain twins), with launch counters;
-10. one V-cycle of the 2048^2 device-built hierarchy under
-    torch.cuda.set_sync_debug_mode("error"): no host read in the cycle;
-11. result lines: the kernels' JSON, the card's name and power limit, and
+9. batched device-built config 1: B = default_rng(3).random((n, 8)),
+   native float32 CG to 1e-5 and mixed CG to 1e-8, launch counters zeroed
+   before and read after; per-lane counts, residuals, and the wall time
+   per solve and per right-hand side beside the 1-D solve;
+10. a stationary phase (accel=None, native float32, 5 V-cycles) on a
+    256^2 device-built hierarchy, one right-hand side and then K = 4,
+    each against the same run on a CPU copy of that hierarchy (the plain
+    twins), with launch counters;
+11. one V-cycle of the 2048^2 device-built hierarchy under
+    torch.cuda.set_sync_debug_mode("error"), on one vector and on a K = 8
+    stack: no host read in either cycle; then a torch.profiler trace of
+    the batched solves and the 1-D one (wall, kernel time, launches, busy
+    share, largest kernels);
+12. result lines: the kernels' JSON, the card's name and power limit, and
     last {"ok": true, "device": {...}}.
 """
 
@@ -51,7 +66,16 @@ GRID = (2048, 2048)
 COARSE_CUTOFF = 1024
 REF_ITERS = 16         # bench_detail.json config1.iters_to_1e8
 REF_ITERS_DEVICE = 18  # bench_detail.json config1.device_setup_iters_to_1e8
+# bench_detail.json config1.device_setup_cg_iters_to_1e-5 and
+# batched_rhs.solve_iters
+REF_ITERS_BATCHED_1E5 = 13
+LANES = 8
 STATIONARY_GRID = (256, 256)
+STATIONARY_LANES = 4
+# the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM3
+# bytes/s, and float32 / float64 operations/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -73,6 +97,16 @@ KERNELS = {
                         "pyamg_tpu/sparse/window.py:152"),
     "windowed_rmatvec": ("pyamg_tpu_torch/csrc/window.cu",
                          "pyamg_tpu/sparse/window.py:226"),
+    "dia_spmm": ("pyamg_tpu_torch/csrc/dia_k.cu",
+                 "pyamg_tpu/sparse/dia.py:353"),
+    "dia_spmm_scaled": ("pyamg_tpu_torch/csrc/dia_k.cu",
+                        "pyamg_tpu/sparse/dia.py:353"),
+    "dia_spmm_add": ("pyamg_tpu_torch/csrc/dia_k.cu",
+                     "pyamg_tpu/sparse/dia.py:353"),
+    "dia_jacobi_k": ("pyamg_tpu_torch/csrc/dia_k.cu",
+                     "pyamg_tpu/sparse/dia.py:1262"),
+    "dia_zero_chain_k": ("pyamg_tpu_torch/csrc/dia_k.cu",
+                         "pyamg_tpu/sparse/dia.py:975"),
 }
 # path -> the kernel instances it must launch
 PATHS = {
@@ -85,6 +119,12 @@ PATHS = {
         "dia_jacobi.float32", "dia_spmv.float64"),
     "device-built stationary": (
         "dia_jacobi_res.float32", "dia_spmv_scaled.float32"),
+    "device-built batched config 1": (
+        "dia_zero_chain_k.float32", "dia_spmm_add.float32",
+        "dia_jacobi_k.float32", "dia_spmm.float32", "dia_spmm.float64"),
+    "device-built batched stationary": (
+        "dia_jacobi_k.float32", "dia_spmm.float32",
+        "dia_spmm_scaled.float32"),
 }
 
 
@@ -127,10 +167,14 @@ class Checks:
             self.failures.append(what)
 
 
-def compare(check, name, dtype, kernel_fn, plain_fn, results, nbytes=None):
+def compare(check, name, dtype, kernel_fn, plain_fn, results, nbytes, ops,
+            library_fn=None):
     """Run a kernel and its plain twin on the same inputs; record errors
-    and times (the twin first, then the kernel, twice over).  ``nbytes``:
-    the bytes the kernel must move, for its rate."""
+    and times (the twin first, then the kernel, twice over).  ``nbytes``
+    and ``ops``: the bytes the call must move (each input read once, each
+    output written once) and the operations it must do, for its bound.
+    ``library_fn``: one PyTorch call computing the same function, timed as
+    a yardstick only."""
     import torch
 
     got = kernel_fn()
@@ -148,12 +192,59 @@ def compare(check, name, dtype, kernel_fn, plain_fn, results, nbytes=None):
         t_plain.append(time_ms(plain_fn))
         t_kernel.append(time_ms(kernel_fn))
     ms, plain_ms = min(t_kernel), min(t_plain)
-    rate = (f", {nbytes / ms / 1e6:.0f} GB/s" if nbytes else "")
+    library_ms = time_ms(library_fn) if library_fn is not None else None
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[str(dtype).removeprefix("torch.")] * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     check(finite and rel_err <= tol,
           f"{name}: max_rel_err {rel_err:.3e} (tol {tol:g}), max_abs_err "
-          f"{abs_err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{rate}")
+          f"{abs_err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{nbytes / ms / 1e6:.0f} GB/s")
     results.append(dict(name=name, max_abs_err=abs_err, max_rel_err=rel_err,
-                        ms=ms, plain_ms=plain_ms))
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms))
+
+
+def dia_cost(A, vectors, lanes=1, stacks=0, extra_ops=0):
+    """(bytes, operations) of a DIA pass: A's diagonals, ``vectors``
+    shared (n_pad,) vectors and ``stacks`` (lanes, n_pad) stacks, each
+    read or written once; 2 operations per stored diagonal entry per lane
+    plus ``extra_ops`` per row and lane."""
+    n, sz = A.n_pad, A.data.element_size()
+    nbytes = (A.ndiags + vectors + stacks * lanes) * n * sz
+    return nbytes, (2 * A.ndiags + extra_ops) * n * lanes
+
+
+def dia_to_csr(A):
+    """The DIA operator as a torch CSR matrix on its device (the library
+    yardstick's input)."""
+    import torch
+
+    n = A.n_pad
+    i = torch.arange(n, device=A.device)
+    rows, cols, vals = [], [], []
+    for d, off in enumerate(A.offsets):
+        j = i + off
+        m = (j >= 0) & (j < n) & (A.data[d] != 0)
+        rows.append(i[m])
+        cols.append(j[m])
+        vals.append(A.data[d][m])
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (n, n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def scipy_to_csr(M, dtype, dev):
+    import torch
+
+    M = M.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(M.indptr, dtype=torch.int64),
+        torch.as_tensor(M.indices, dtype=torch.int64),
+        torch.as_tensor(M.data), size=M.shape).to(dtype=dtype, device=dev)
 
 
 def to_device(obj, dev):
@@ -235,6 +326,189 @@ def solve_phase(check, label, solver, A, b, ref_iters, launches):
     launches[label] = counts
 
 
+def stationary_phase(check, label, solver, b, launches):
+    """accel=None, native, 5 V-cycles on the card (counters zeroed just
+    before, read just after) against the same run on a CPU copy of the
+    hierarchy (the plain twins).  ``b`` is a vector or an (n, K) stack."""
+    import numpy as np
+
+    from pyamg_tpu_torch import _build
+
+    kw = dict(tol=0.0, maxiter=5, accel=None, precision="native")
+    _build.reset_launches()
+    res_g = []
+    solver.solve(b, residuals=res_g, **kw)
+    launches[label] = dict(_build.launches)
+    cpu_copy = type(solver)(to_device(solver.hierarchy, "cpu"), solver.grid,
+                            solver.grid_p)
+    res_c = []
+    cpu_copy.solve(b, residuals=res_c, **kw)
+    if np.ndim(b) == 1:
+        res_g, res_c = [res_g], [res_c]
+    st_err = max(float(np.max(np.abs(np.subtract(g, c)) / np.asarray(c)))
+                 for g, c in zip(res_g, res_c))
+    for k, g in enumerate(res_g):
+        log(f"{label} lane {k} (256^2, f32, accel=None, 5 cycles): card "
+            f"history {' '.join(f'{r:.6e}' for r in g)}")
+    log(f"  launches: {json.dumps(launches[label], sort_keys=True)}")
+    check(all(len(g) == len(c) == 6 for g, c in zip(res_g, res_c))
+          and st_err <= STATIONARY_RTOL,
+          f"{label}: history vs the CPU copy (twins) rel diff {st_err:.2e} "
+          f"(tol {STATIONARY_RTOL:g}); factor lane 0 "
+          f"{(res_g[0][-1] / res_g[0][0]) ** 0.2:.4f}")
+    for k in PATHS[label]:
+        check(launches[label].get(k, 0) > 0, f"{label}: {k} launched "
+              f"({launches[label].get(k, 0)} launches)")
+
+
+def batched_phase(check, label, dsa, A, launches):
+    """Batched device-built config 1: K = 8 lanes, native f32 CG to 1e-5
+    and mixed CG to 1e-8 (counters zeroed before both, read after both),
+    then wall times per solve and per right-hand side beside the 1-D
+    solve of column 0.  B lives on the card, so the times exclude the
+    host copies of the (n, 8) float64 stack."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import _build
+
+    n = A.shape[0]
+    B = np.random.default_rng(3).random((n, LANES))
+    Bt = torch.as_tensor(B, device=dsa.hierarchy.device)
+    native = dict(tol=1e-5, maxiter=100, accel="cg", precision="native")
+    mixed = dict(tol=1e-8, maxiter=100, accel="cg", precision="mixed")
+    dsa.solve(Bt, **native)                    # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res_n, res_m = [], []
+    Xn, info_n = dsa.solve(Bt, residuals=res_n, return_info=True, **native)
+    Xm, info_m = dsa.solve(Bt, residuals=res_m, return_info=True, **mixed)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    launches[label] = counts
+    Xn, Xm = Xn.cpu().numpy(), Xm.cpu().numpy()
+    normb = np.linalg.norm(B, axis=0)
+    it_n = [len(r) - 1 for r in res_n]
+    it_m = [len(r) - 1 for r in res_m]
+    true_n = np.linalg.norm(B - A @ Xn, axis=0) / normb
+    true_m = np.linalg.norm(B - A @ Xm, axis=0) / normb
+    hist_m = np.array([r[-1] for r in res_m]) / normb
+    res_1 = []
+    dsa.solve(Bt[:, 0].contiguous(), residuals=res_1, **native)
+    it_1 = len(res_1) - 1
+    times = {}
+    for key, b, kw in (("batched native", Bt, native),
+                       ("1-D native", Bt[:, 0].contiguous(), native),
+                       ("batched mixed", Bt, mixed),
+                       ("1-D mixed", Bt[:, 0].contiguous(), mixed)):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dsa.solve(b, **kw)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[key] = float(np.median(ts))
+    log(f"{label} (2048^2, K={LANES}, b on the card):")
+    log(f"  native f32 CG to 1e-5: iterations per lane {it_n} (info "
+        f"{info_n}); true relres max {true_n.max():.3e}; 1-D solve of "
+        f"column 0: {it_1} iterations")
+    log(f"  mixed CG to 1e-8: iterations per lane {it_m} (info {info_m}); "
+        f"history relres max {hist_m.max():.3e}, true relres max "
+        f"{true_m.max():.3e}")
+    for kind in ("native", "mixed"):
+        tb, t1 = times[f"batched {kind}"], times[f"1-D {kind}"]
+        log(f"  {kind}: batched solve {tb:.4f} s = {tb / LANES:.4f} s per "
+            f"right-hand side; 1-D solve {t1:.4f} s; amortization "
+            f"{t1 * LANES / tb:.2f}x (median of 3)")
+    log(f"  launches in those two solves: {json.dumps(counts, sort_keys=True)}")
+    check(Xn.shape == Xm.shape == (n, LANES)
+          and bool(np.isfinite(Xn).all() and np.isfinite(Xm).all()),
+          f"{label}: solutions finite, shape (n, {LANES})")
+    check(all(abs(i - REF_ITERS_BATCHED_1E5) <= 1 for i in it_n)
+          and info_n == 0,
+          f"{label}: native f32 lanes {it_n} within {REF_ITERS_BATCHED_1E5}"
+          " +- 1 (reference) to 1e-5")
+    check(all(abs(i - REF_ITERS_DEVICE) <= 1 for i in it_m) and info_m == 0,
+          f"{label}: mixed lanes {it_m} within {REF_ITERS_DEVICE} +- 1 "
+          "(reference) to 1e-8")
+    check(bool(hist_m.max() <= 1e-8 and true_m.max() <= 1e-8),
+          f"{label}: every lane's true relres <= 1e-8 ({true_m.max():.3e})")
+    check(it_n[0] == it_1, f"{label}: lane 0 takes the 1-D solve's "
+          f"{it_1} iterations ({it_n[0]})")
+    for k in PATHS[label]:
+        check(counts.get(k, 0) > 0, f"{label}: {k} launched "
+              f"({counts.get(k, 0)} launches)")
+
+
+def profile_phase(dsa, A):
+    """A torch.profiler trace of one batched (K = 8) native f32 CG solve to
+    1e-5 and one mixed solve to 1e-8, b on the card, and of the 1-D native
+    solve of column 0: wall time, CUDA kernel time, kernel launches, the
+    device's busy share, and the largest kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    B = torch.as_tensor(np.random.default_rng(3).random((A.shape[0], LANES)),
+                        device=dsa.hierarchy.device)
+    runs = (("batched native", B, dict(tol=1e-5, accel="cg")),
+            ("batched mixed", B, dict(tol=1e-8, accel="cg",
+                                      precision="mixed")),
+            ("1-D native", B[:, 0].contiguous(), dict(tol=1e-5, accel="cg")))
+    log(f"profile (torch.profiler, CUDA kernels; 2048^2 device-built, "
+        f"K={LANES}):")
+    for label, b, kw in runs:
+        dsa.solve(b, **kw)                     # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dsa.solve(b, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.name if len(e.name) < 60 else e.name[:57] + "..."
+            t, c = kern.get(name, (0.0, 0))
+            kern[name] = (t + e.device_time_total / 1e3, c + 1)
+        busy = sum(t for t, _ in kern.values())
+        launches = sum(c for _, c in kern.values())
+        share = (f"{busy / (wall * 1e3):.3f}" if busy > 0
+                 else "not measured (no device events in the trace)")
+        log(f"  {label}: wall {wall * 1e3:.2f} ms, kernel time {busy:.2f} "
+            f"ms, {launches} kernels, device busy share {share}")
+        for name, (t, c) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]:
+            log(f"    {t:8.3f} ms {c:5d}x  {name}")
+
+
+def sync_free_cycle(check, hd, r, what):
+    """One device-built V-cycle on ``r`` with every host sync an error."""
+    import torch
+
+    from pyamg_tpu_torch import DeviceMultilevelSolver
+
+    cycle = DeviceMultilevelSolver(hd).cycle_operator("V")
+    cycle(r)                                   # warm: cached offsets
+    torch.cuda.synchronize()
+    y = None
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        y = cycle(r)
+        sync_err = None
+    except RuntimeError as exc:
+        sync_err = str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(sync_err is None and y is not None and y.shape == r.shape
+          and bool(torch.isfinite(y).all()),
+          f"one device-built V-cycle on {what} under "
+          "set_sync_debug_mode('error'): "
+          + ("no host sync" if sync_err is None else sync_err))
+
+
 def main():
     import numpy as np
     import torch
@@ -242,11 +516,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    import pyamg_tpu
-    from pyamg_tpu.gallery import poisson
 
     from pyamg_tpu_torch import (_build, as_device_solver, device_sa_setup,
-                                 DeviceMultilevelSolver)
+                                 DeviceMultilevelSolver, poisson,
+                                 smoothed_aggregation_solver)
     from pyamg_tpu_torch.sparse import DIAMatrix, WindowedELL, dia, window
 
     check = Checks()
@@ -273,13 +546,13 @@ def main():
         if "Used" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
-    # 3. host setup and compile at 2048^2
+    # 3. the port's host setup and its compile at 2048^2
+    config1 = dict(presmoother=("jacobi", {"omega": 4.0 / 3.0}),
+                   postsmoother=("jacobi", {"omega": 4.0 / 3.0}))
     A = poisson(GRID, format="csr")
     n = A.shape[0]
     t0 = time.perf_counter()
-    ml = pyamg_tpu.smoothed_aggregation_solver(
-        A, presmoother=("jacobi", {"omega": 4.0 / 3.0}),
-        postsmoother=("jacobi", {"omega": 4.0 / 3.0}))
+    ml = smoothed_aggregation_solver(A, **config1)
     t_setup = time.perf_counter() - t0
     t0 = time.perf_counter()
     dml = as_device_solver(ml, device=dev, mixed_precision=True,
@@ -287,8 +560,9 @@ def main():
     torch.cuda.synchronize()
     t_compile = time.perf_counter() - t0
     h = dml.hierarchy
-    log(f"host SA setup {t_setup:.2f} s; compile to the card "
-        f"{t_compile:.2f} s; {len(h.levels)} device levels")
+    log(f"host SA setup (the port's own, g++ build of its native subset "
+        f"included) {t_setup:.2f} s; {len(ml.levels)} host levels; compile "
+        f"to the card {t_compile:.2f} s; {len(h.levels)} device levels")
     for i, lvl in enumerate(h.levels):
         log(f"  level {i}: n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
 
@@ -317,11 +591,12 @@ def main():
         log(f"  level {i}: {grid} n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
 
     # 5. kernels against their plain twins at the paths' shapes
-    log("kernel checks (kernel vs plain twin, same inputs):")
+    log("kernel checks (kernel vs plain twin, same inputs; library calls "
+        "are yardsticks only):")
     rng = np.random.default_rng(0)
 
-    def rand(m, dtype):
-        return torch.as_tensor(rng.random(m), dtype=dtype, device=dev)
+    def rand(shape, dtype):
+        return torch.as_tensor(rng.random(shape), dtype=dtype, device=dev)
 
     def as_dtype(M, dtype):
         return DIAMatrix(data=M.data.to(dtype), offsets=M.offsets,
@@ -345,20 +620,27 @@ def main():
             b = rand(Ad.n_pad, dtype)
             tag = f"host {label} nd={Ad.ndiags} n_pad={Ad.n_pad}"
             dt = str(dtype).removeprefix("torch.")
+            lib = None
+            if label == "level0":
+                A_csr = dia_to_csr(Ad)
+                lib = lambda: torch.mv(A_csr, x)   # noqa: E731
             compare(check, f"dia_spmv.{dt} [{tag}]", dtype,
                     lambda: dia.dia_spmv(Ad, x),
-                    lambda: dia.dia_spmv_ref(Ad, x), results)
+                    lambda: dia.dia_spmv_ref(Ad, x), results,
+                    *dia_cost(Ad, 2), library_fn=lib)
             compare(check, f"dia_jacobi.{dt} [{tag}]", dtype,
                     lambda: dia.dia_jacobi(Ad, x, b, dinv, omega0),
                     lambda: dia.dia_jacobi_ref(Ad, x, b, dinv, omega0),
-                    results)
+                    results, *dia_cost(Ad, 4, extra_ops=4))
             compare(check, f"dia_jacobi_zero_res.{dt} [{tag}]", dtype,
                     lambda: dia.dia_jacobi_zero_res(Ad, b, dinv, omega0),
                     lambda: dia.dia_jacobi_zero_res_ref(Ad, b, dinv, omega0),
-                    results)
-    for label, lvl in (("level0", lv0), ("level1", lv1)):
-        Tf = lvl.P.ops[-1]
-        assert isinstance(Tf, WindowedELL) and lvl.R.ops[0].base is Tf
+                    results, *dia_cost(Ad, 4, extra_ops=3))
+    for label, hlvl, host_lvl in (("level0", lv0, ml.levels[0]),
+                                  ("level1", lv1, ml.levels[1])):
+        Tf = hlvl.P.ops[-1]
+        assert isinstance(Tf, WindowedELL) and hlvl.R.ops[0].base is Tf
+        T_host = host_lvl.P._sa_factor["T"]
         for dtype in (torch.float32, torch.float64):
             T = Tf if dtype == torch.float32 else WindowedELL(
                 data=Tf.data.double(), idx=Tf.idx, starts=Tf.starts,
@@ -369,14 +651,31 @@ def main():
             tag = (f"host {label} T {T.shape[0]}x{T.shape[1]} k={T.k} "
                    f"block={T.block} w2={T.w2}")
             dt = str(dtype).removeprefix("torch.")
+            sz = T.data.element_size()
+            meta = T.data.numel() * sz + (T.idx.numel()
+                                          + T.starts.numel()) * 4
+            ops = 2 * T.data.numel()
+            lib_mv = lib_rmv = None
+            if label == "level0":
+                T_csr = scipy_to_csr(T_host, dtype, dev)
+                Tt_csr = scipy_to_csr(T_host.T, dtype, dev)
+                xm = x[: T.shape[1]].contiguous()
+                rn = r[: T.shape[0]].contiguous()
+                lib_mv = lambda: torch.mv(T_csr, xm)     # noqa: E731
+                lib_rmv = lambda: torch.mv(Tt_csr, rn)   # noqa: E731
             compare(check, f"windowed_matvec.{dt} [{tag}]", dtype,
                     lambda: window.windowed_matvec(T, x),
-                    lambda: window.windowed_matvec_ref(T, x), results)
+                    lambda: window.windowed_matvec_ref(T, x), results,
+                    meta + (x.numel() + T.n_pad) * sz, ops,
+                    library_fn=lib_mv)
             compare(check, f"windowed_rmatvec.{dt} [{tag}]", dtype,
                     lambda: window.windowed_rmatvec(T, r),
-                    lambda: window.windowed_rmatvec_ref(T, r), results)
-    # the device-built path's new kernels: K5 on levels 0 and 1, K4 and
-    # the two K1 epilogues on level 0, each in float32 and float64
+                    lambda: window.windowed_rmatvec_ref(T, r), results,
+                    meta + (r.numel() + T.m_chunks * T.w2) * sz, ops,
+                    library_fn=lib_rmv)
+    # the device-built path's kernels: K5 on levels 0 and 1, K4 and the
+    # two K1 epilogues on level 0; the K-lane kernels (K8 in three modes,
+    # K9, K11) at K = 8 on levels 0 and 1; each in float32 and float64
     for label, lvl in (("level0", hd.levels[0]), ("level1", hd.levels[1])):
         for dtype in (torch.float32, torch.float64):
             Ad, St = as_dtype(lvl.A, dtype), as_dtype(lvl.R.St, dtype)
@@ -385,49 +684,97 @@ def main():
             tv = lvl.R.tv.to(dtype)
             m = Ad.n_pad
             b, x, t = (rand(m, dtype) for _ in range(3))
-            sz = Ad.data.element_size()
             nd, nds = Ad.ndiags, St.ndiags
+            sz = Ad.data.element_size()
             tag = f"device {label} nd={nd} St nd={nds} n_pad={m}"
             dt = str(dtype).removeprefix("torch.")
             compare(check, f"dia_zero_chain.{dt} [{tag}]", dtype,
                     lambda: dia.dia_zero_chain(Ad, St, b, dinv, tv, omega),
                     lambda: dia.dia_zero_chain_ref(Ad, St, b, dinv, tv,
                                                    omega),
-                    results, nbytes=(nd + nds + 5) * m * sz)
+                    results, (nd + nds + 5) * m * sz,
+                    (2 * nd + 2 * nds + 4) * m)
+            Xk, Bk, Vk = (rand((LANES, m), dtype) for _ in range(3))
+            ktag = f"{tag} K={LANES}"
+            compare(check, f"dia_zero_chain_k.{dt} [{ktag}]", dtype,
+                    lambda: dia.dia_zero_chain_k(Ad, St, Bk, dinv, tv,
+                                                 omega),
+                    lambda: dia.dia_zero_chain_k_ref(Ad, St, Bk, dinv, tv,
+                                                     omega),
+                    results, (nd + nds + 2 + 3 * LANES) * m * sz,
+                    (2 * nd + 2 * nds + 4) * m * LANES)
+            if dtype == torch.float32:
+                # K11's unfused alternative: the zero-guess sweep, the
+                # residual through K8 and K8's scale epilogue (three
+                # passes, the (K, n) residual stored and read back)
+                def composed():
+                    Xc = omega * (dinv * Bk)
+                    Rc = Bk - dia.dia_spmm(Ad, Xc)
+                    return Xc, dia.dia_spmm_scaled(St, Rc, tv)
+                log(f"  composed alternative of dia_zero_chain_k.{dt} "
+                    f"[{ktag}]: {min(time_ms(composed), time_ms(composed)):.4f}"
+                    " ms (sweep + K8 residual + K8 scale)")
+            compare(check, f"dia_jacobi_k.{dt} [{ktag}]", dtype,
+                    lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv, omega),
+                    lambda: dia.dia_jacobi_k_ref(Ad, Xk, Bk, dinv, omega),
+                    results, *dia_cost(Ad, 1, LANES, 3, extra_ops=4))
+            lib = lib_add = None
+            if label == "level0":
+                A_csr, S_csr = dia_to_csr(Ad), dia_to_csr(S)
+                Xcols, Vcols = Xk.T.contiguous(), Vk.T.contiguous()
+                lib = lambda: torch.sparse.mm(A_csr, Xcols)   # noqa: E731
+                lib_add = lambda: torch.addmm(               # noqa: E731
+                    Vcols, S_csr, Xcols)
+            compare(check, f"dia_spmm.{dt} [{ktag}]", dtype,
+                    lambda: dia.dia_spmm(Ad, Xk),
+                    lambda: dia.dia_spmm_ref(Ad, Xk), results,
+                    *dia_cost(Ad, 0, LANES, 2), library_fn=lib)
+            compare(check, f"dia_spmm_scaled.{dt} [device {label} St nd="
+                    f"{nds} n_pad={m} K={LANES}]", dtype,
+                    lambda: dia.dia_spmm_scaled(St, Xk, tv),
+                    lambda: dia.dia_spmm_scaled_ref(St, Xk, tv), results,
+                    *dia_cost(St, 1, LANES, 2, extra_ops=1))
+            compare(check, f"dia_spmm_add.{dt} [device {label} S nd="
+                    f"{S.ndiags} n_pad={m} K={LANES}]", dtype,
+                    lambda: dia.dia_spmm_add(S, Xk, Vk),
+                    lambda: dia.dia_spmm_add_ref(S, Xk, Vk), results,
+                    *dia_cost(S, 0, LANES, 3, extra_ops=1),
+                    library_fn=lib_add)
             if label != "level0":
                 continue
             compare(check, f"dia_jacobi_res.{dt} [{tag}]", dtype,
                     lambda: dia.dia_jacobi_res(Ad, x, b, dinv, omega),
                     lambda: dia.dia_jacobi_res_ref(Ad, x, b, dinv, omega),
-                    results, nbytes=(nd + 5) * m * sz)
+                    results, *dia_cost(Ad, 5, extra_ops=6))
             compare(check, f"dia_spmv_add.{dt} [device {label} S nd="
                     f"{S.ndiags} n_pad={m}]", dtype,
                     lambda: dia.dia_spmv_add(S, t, x),
                     lambda: dia.dia_spmv_add_ref(S, t, x),
-                    results, nbytes=(S.ndiags + 3) * m * sz)
+                    results, *dia_cost(S, 3, extra_ops=1),
+                    library_fn=lambda: torch.addmv(x, S_csr, t))
             compare(check, f"dia_spmv_scaled.{dt} [device {label} St nd="
                     f"{nds} n_pad={m}]", dtype,
                     lambda: dia.dia_spmv_scaled(St, x, tv),
                     lambda: dia.dia_spmv_scaled_ref(St, x, tv),
-                    results, nbytes=(nds + 3) * m * sz)
+                    results, *dia_cost(St, 3, extra_ops=1))
 
-    # 6. small input against the host solver (float64, every level kept)
+    # 6. small input: the float64 host-built solve on the card against the
+    # same hierarchy copied to the CPU (the plain twins), every level kept
     A_s = poisson((128, 128), format="csr")
-    ml_s = pyamg_tpu.smoothed_aggregation_solver(
-        A_s, presmoother=("jacobi", {"omega": 4.0 / 3.0}),
-        postsmoother=("jacobi", {"omega": 4.0 / 3.0}))
+    ml_s = smoothed_aggregation_solver(A_s, **config1)
     b_s = np.random.default_rng(6).random(A_s.shape[0])
+    d_s = as_device_solver(ml_s, dtype=torch.float64, device=dev)
+    c_s = DeviceMultilevelSolver(to_device(d_s.hierarchy, "cpu"))
     res_d, res_h = [], []
-    as_device_solver(ml_s, dtype=torch.float64, device=dev).solve(
-        b_s, tol=1e-10, maxiter=25, accel="cg", residuals=res_d)
-    ml_s.solve(b_s, tol=1e-10, maxiter=25, accel="cg", residuals=res_h)
+    d_s.solve(b_s, tol=1e-10, maxiter=25, accel="cg", residuals=res_d)
+    c_s.solve(b_s, tol=1e-10, maxiter=25, accel="cg", residuals=res_h)
     m = min(len(res_d), len(res_h))
     hist_err = float(np.max(np.abs(np.subtract(res_d[:m], res_h[:m]))
                             / np.asarray(res_h[:m])))
     check(len(res_d) == len(res_h) and hist_err <= 1e-8,
-          f"128^2 float64 CG on the card vs host solver: {len(res_d) - 1} "
-          f"vs {len(res_h) - 1} iterations, history rel diff "
-          f"{hist_err:.2e} (tol 1e-8)")
+          f"128^2 float64 CG on the card vs its CPU copy (twins): "
+          f"{len(res_d) - 1} vs {len(res_h) - 1} iterations, history rel "
+          f"diff {hist_err:.2e} (tol 1e-8)")
 
     # 7. and 8. config 1, host-built and device-built, with counters
     launches = {}
@@ -437,51 +784,28 @@ def main():
                 np.random.default_rng(0).random(n), REF_ITERS_DEVICE,
                 launches)
 
-    # 9. stationary V-cycles from a nonzero iterate (K4, K1 SPMV_SCALED)
-    label = "device-built stationary"
+    # 9. batched device-built config 1 (K8, K9, K11)
+    batched_phase(check, "device-built batched config 1", dsa, A, launches)
+
+    # 10. stationary V-cycles from a nonzero iterate, one right-hand side
+    # (K4, K1 SPMV_SCALED) and K = 4 lanes (K9 + K8, K8 scale)
     A_st = poisson(STATIONARY_GRID, format="csr")
     d_st = device_sa_setup(A_st, grid=STATIONARY_GRID, dtype=torch.float32,
                            device=dev, max_coarse=400)
-    b_st = np.random.default_rng(2).random(A_st.shape[0])
-    kw = dict(tol=0.0, maxiter=5, accel=None, precision="native")
-    _build.reset_launches()
-    res_g = []
-    d_st.solve(b_st, residuals=res_g, **kw)
-    launches[label] = dict(_build.launches)
-    cpu_copy = type(d_st)(to_device(d_st.hierarchy, "cpu"), d_st.grid,
-                          d_st.grid_p)
-    res_c = []
-    cpu_copy.solve(b_st, residuals=res_c, **kw)
-    st_err = float(np.max(np.abs(np.subtract(res_g, res_c))
-                          / np.asarray(res_c)))
-    log(f"{label} (256^2, f32, accel=None, 5 cycles): card history "
-        f"{' '.join(f'{r:.6e}' for r in res_g)}")
-    log(f"  launches: {json.dumps(launches[label], sort_keys=True)}")
-    check(len(res_g) == len(res_c) == 6 and st_err <= STATIONARY_RTOL,
-          f"{label}: history vs the CPU copy (twins) rel diff {st_err:.2e} "
-          f"(tol {STATIONARY_RTOL:g}); factor "
-          f"{(res_g[-1] / res_g[0]) ** 0.2:.4f}")
-    for k in PATHS[label]:
-        check(launches[label].get(k, 0) > 0, f"{label}: {k} launched "
-              f"({launches[label].get(k, 0)} launches)")
+    rng_st = np.random.default_rng(2)
+    stationary_phase(check, "device-built stationary", d_st,
+                     rng_st.random(A_st.shape[0]), launches)
+    stationary_phase(check, "device-built batched stationary", d_st,
+                     rng_st.random((A_st.shape[0], STATIONARY_LANES)),
+                     launches)
 
-    # 10. one device-built V-cycle with every host sync an error
-    cycle = DeviceMultilevelSolver(hd).cycle_operator("V")
-    r = rand(hd.levels[0].n_pad, torch.float32)
-    cycle(r)                                   # warm: cached offsets
-    torch.cuda.synchronize()
-    try:
-        torch.cuda.set_sync_debug_mode("error")
-        y = cycle(r)
-        sync_err = None
-    except RuntimeError as exc:
-        sync_err = str(exc).splitlines()[0]
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    check(sync_err is None and bool(torch.isfinite(y).all()),
-          "one device-built V-cycle under set_sync_debug_mode('error'): "
-          + ("no host sync" if sync_err is None else sync_err))
+    # 11. one device-built V-cycle, on a vector and on a K = 8 stack, with
+    # every host sync an error; then the batched solve's profile
+    sync_free_cycle(check, hd, rand(hd.levels[0].n_pad, torch.float32),
+                    "one vector")
+    sync_free_cycle(check, hd, rand((LANES, hd.levels[0].n_pad),
+                                    torch.float32), f"a K={LANES} stack")
+    profile_phase(dsa, A)
 
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
@@ -490,8 +814,8 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 11. result lines: each path kernel instance, with its launches on
-    # the paths that run it
+    # 12. result lines: each path kernel instance, with its launches on
+    # the paths that run it (``launches``: the first of them)
     rows = []
     for key in dict.fromkeys(k for ks in PATHS.values() for k in ks):
         base, dt = key.split(".")
@@ -504,7 +828,9 @@ def main():
                      "launches": next(iter(by_path.values())),
                      "launches_by_path": by_path,
                      "max_abs_err": r0["max_abs_err"], "ms": r0["ms"],
-                     "plain_ms": r0["plain_ms"], "shape": r0["name"]})
+                     "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
+                     "bound_by": r0["bound_by"],
+                     "library_ms": r0["library_ms"], "shape": r0["name"]})
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["library", "build", "check", "launches", "reset_launches",
-           "count_launch", "on_cpu", "check_vector", "dtype_name",
+           "count_launch", "on_cpu", "check_vector", "check_stack",
+           "dtype_name",
            "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent
@@ -69,6 +70,18 @@ _SIGNATURES = {
                             ctypes.c_float, _P, _P, _P, _I, _P),
     "pyamg_dia_chain_f64": (_P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _P,
                             ctypes.c_double, _P, _P, _P, _I, _P),
+    # data, offsets, nd, n_pad, lanes, x, b, dinv, omega, omega_dev, y,
+    # mode, stream
+    "pyamg_dia_k_f32": (_P, _P, _I, _L, _I, _P, _P, _P, ctypes.c_float, _P,
+                        _P, _I, _P),
+    "pyamg_dia_k_f64": (_P, _P, _I, _L, _I, _P, _P, _P, ctypes.c_double,
+                        _P, _P, _I, _P),
+    # data, offsets, nd, sdata, soffsets, nds, n_pad, lanes, b, dinv, tv,
+    # omega, omega_dev, x_out, y_out, stream
+    "pyamg_dia_zero_chain_k_f32": (_P, _P, _I, _P, _P, _I, _L, _I, _P, _P,
+                                   _P, ctypes.c_float, _P, _P, _P, _P),
+    "pyamg_dia_zero_chain_k_f64": (_P, _P, _I, _P, _P, _I, _L, _I, _P, _P,
+                                   _P, ctypes.c_double, _P, _P, _P, _P),
     # data, idx, starts, k, block, w2, n_rows, x|r, y, stream
     "pyamg_windowed_matvec_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_matvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
@@ -99,6 +112,20 @@ def check_vector(name, v, n, dtype):
     """Raise unless ``v`` is a contiguous 1-D ``dtype`` vector of length n."""
     if v.ndim != 1 or v.shape[0] != n:
         raise ValueError(f"{name}: expected shape ({n},), got "
+                         f"{tuple(v.shape)}")
+    if v.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {v.dtype}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def check_stack(name, v, n, dtype, lanes=None):
+    """Raise unless ``v`` is a contiguous K-major ``dtype`` lane stack of
+    shape (K, n) (with K == ``lanes`` when given)."""
+    if v.ndim != 2 or v.shape[1] != n or (lanes is not None
+                                          and v.shape[0] != lanes):
+        want = f"({'K' if lanes is None else lanes}, {n})"
+        raise ValueError(f"{name}: expected shape {want}, got "
                          f"{tuple(v.shape)}")
     if v.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {v.dtype}")

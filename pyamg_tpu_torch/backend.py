@@ -37,10 +37,12 @@ def require_cuda() -> torch.device:
 def resolve_device(device) -> torch.device:
     """``device`` (a string or torch.device) as a torch.device.
 
-    A CUDA device must exist: asking for one without a GPU raises instead
-    of running somewhere else."""
+    ``None`` means the current CUDA device: the port runs on the card
+    unless the caller asks for the CPU (``device="cpu"``).  A CUDA device
+    must exist: asking for one, or for the default, without a GPU raises
+    instead of running somewhere else."""
     if device is None:
-        raise ValueError("pass device= explicitly ('cuda' or 'cpu')")
+        return require_cuda()
     dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()

@@ -20,10 +20,14 @@ one-hot contractions for the aggregate sum and spread (an MXU idiom) are
 an exact reshape-and-sum and an expand here; both use the aggregate map
 ``f // stride`` per dimension, so R stays P^T to rounding.
 
+The transfers and the grid transforms take K-major (K, n) lane stacks as
+well as vectors, so :class:`StructuredDeviceSolver` solves an (n, K)
+right-hand side lane by lane on the K-lane kernels (K8, K9, K11).
+
 Not ported (each raises ``NotImplementedError``): operators that are not
 grid stencils (the unstructured device setup, ROADMAP.md Queue 1 item 13),
-``lane_align=True`` (the batched layout, item 12), and the ``richardson``
-and ``chebyshev`` smoothers (item 8).
+``lane_align=True`` (the interleaved batched layout, K15, item 12), and
+the ``richardson`` and ``chebyshev`` smoothers (item 8).
 """
 
 from __future__ import annotations
@@ -38,9 +42,9 @@ import torch.nn.functional as F
 
 from ..backend import resolve_device
 from ..sparse.dia import (DenseOperator, DIAMatrix, dia_from_scipy,
-                          dia_spgemm, dia_spmv_add, dia_spmv_scaled,
-                          dia_transpose)
-from ..sparse.formats import pad_to
+                          dia_spgemm, dia_spmm_add, dia_spmm_scaled,
+                          dia_spmv_add, dia_spmv_scaled, dia_transpose)
+from ..sparse.formats import fit, pad_to
 from . import relaxation as device_relaxation
 from .hierarchy import DeviceHierarchy, DeviceLevel
 from .krylov import _norm
@@ -174,14 +178,18 @@ def _grid_pads(grid, grid_p):
 
 
 def _grid_pad_vec(v, grid, grid_p):
-    """Zero-pad a grid vector (row-major) to the padded grid layout."""
-    v = v[: int(np.prod(grid))].reshape(grid)
-    return F.pad(v, _grid_pads(grid, grid_p)).reshape(-1)
+    """Zero-pad a grid vector (row-major), or each lane of a (K, n) stack,
+    to the padded grid layout."""
+    lead = tuple(v.shape[:-1])
+    v = v[..., : int(np.prod(grid))].reshape(lead + tuple(grid))
+    return F.pad(v, _grid_pads(grid, grid_p)).reshape(lead + (-1,))
 
 
 def _grid_unpad_vec(v, grid, grid_p):
-    v = v.reshape(grid_p)
-    return v[tuple(slice(0, g) for g in grid)].reshape(-1)
+    lead = tuple(v.shape[:-1])
+    v = v.reshape(lead + tuple(grid_p))
+    return v[(Ellipsis,) + tuple(slice(0, g) for g in grid)].reshape(
+        lead + (-1,))
 
 
 def _compact_fine(v, coarse_grid, stride, center):
@@ -199,22 +207,28 @@ def _blocked(coarse_grid, ss):
 
 
 def _block_sum(v, coarse_grid, stride):
-    """Per-aggregate sum of a fine padded-grid vector: the transpose of
-    :func:`_broadcast_coarse` (both use the aggregate map f // stride)."""
+    """Per-aggregate sum of a fine padded-grid vector, or of each lane of
+    a (K, n) stack: the transpose of :func:`_broadcast_coarse` (both use
+    the aggregate map f // stride)."""
     dim = len(coarse_grid)
     ss = _tup(stride, dim)
-    return v.reshape(_blocked(coarse_grid, ss)).sum(
-        dim=tuple(range(1, 2 * dim, 2))).reshape(-1)
+    lead = tuple(v.shape[:-1])
+    return v.reshape(lead + _blocked(coarse_grid, ss)).sum(
+        dim=tuple(len(lead) + d for d in range(1, 2 * dim, 2))).reshape(
+            lead + (-1,))
 
 
 def _broadcast_coarse(vc, coarse_grid, stride, center):
     """Replicate each coarse value over its stride^d fine block
-    (out[f] = vc[f // stride] per dim), an exact copy.  ``center`` is
-    immaterial (kept for signature parity)."""
+    (out[f] = vc[f // stride] per dim), an exact copy, lane by lane for a
+    (K, nc) stack.  ``center`` is immaterial (kept for signature
+    parity)."""
     dim = len(coarse_grid)
     ss = _tup(stride, dim)
+    lead = tuple(vc.shape[:-1])
     ones = tuple(x for c in coarse_grid for x in (c, 1))
-    return vc.reshape(ones).expand(_blocked(coarse_grid, ss)).reshape(-1)
+    return vc.reshape(lead + ones).expand(
+        lead + _blocked(coarse_grid, ss)).reshape(lead + (-1,))
 
 
 def _block_norms(B, coarse_grid, stride):
@@ -303,7 +317,8 @@ def _dia_to_dense(A: DIAMatrix):
 class StructuredProlongator:
     """P = S T applied factored, coarse padded-grid vector -> fine
     padded-grid vector: P xc = S (tv * spread(unpad(xc))).  The coarse
-    side uses the coarse level's padded grid."""
+    side uses the coarse level's padded grid.  A K-major (K, nc) stack
+    is prolongated lane by lane."""
 
     S: DIAMatrix                     # smoothing factor I - w D^-1 A
     tv: torch.Tensor                 # (prod(fine_grid_p),) tentative values
@@ -325,7 +340,7 @@ class StructuredProlongator:
     def _smooth_input(self, xc):
         # xc may carry solve padding beyond the coarse padded grid; the
         # grid lives in its leading prod(coarse_grid_p) entries
-        xc = xc[: int(np.prod(self.coarse_grid_p))]
+        xc = xc[..., : int(np.prod(self.coarse_grid_p))]
         xc = _grid_unpad_vec(xc, self.coarse_grid, self.coarse_grid_p)
         t = self.tv * _broadcast_coarse(xc, self.coarse_grid, self.stride,
                                         self.center)
@@ -338,23 +353,21 @@ class StructuredProlongator:
         return self.S @ self._smooth_input(xc)
 
     def apply_correction(self, xc, x):
-        """x + P @ xc, the add in the SpMV's epilogue (K1 ``SPMV_ADD``)
-        when x has the smoothing factor's length."""
+        """x + P @ xc, the add in the SpMV's epilogue when x has the
+        smoothing factor's length: K1 ``SPMV_ADD`` for a vector, K8
+        ``add`` for a lane stack."""
         t = self._smooth_input(xc)
-        if isinstance(self.S, DIAMatrix) and x.shape[0] == self.S.n_pad:
-            return dia_spmv_add(self.S, t, x)
-        y = self.S @ t
-        if y.shape[0] > x.shape[0]:
-            y = y[: x.shape[0]]
-        elif y.shape[0] < x.shape[0]:
-            y = F.pad(y, (0, x.shape[0] - y.shape[0]))
-        return x + y
+        if isinstance(self.S, DIAMatrix) and x.shape[-1] == self.S.n_pad:
+            add = dia_spmm_add if x.ndim == 2 else dia_spmv_add
+            return add(self.S, t, x)
+        return x + fit(self.S @ t, x.shape[-1])
 
 
 @dataclass(frozen=True)
 class StructuredRestrictor:
     """R = P^T = T^T S^T applied factored:
-    R r = pad(block_sum(tv * (S^T r)))."""
+    R r = pad(block_sum(tv * (S^T r))), lane by lane for a K-major
+    stack."""
 
     St: DIAMatrix                    # S^T
     tv: torch.Tensor                 # padded to St.n_pad
@@ -382,16 +395,19 @@ class StructuredRestrictor:
         # lives in its leading prod(fine_grid_p) entries
         nf = int(np.prod(self.fine_grid_p))
         if isinstance(self.St, DIAMatrix) and self.tv.shape[0] == self.St.n_pad:
-            y = dia_spmv_scaled(self.St, r, self.tv)[:nf]
+            # the tv scale in the SpMV's epilogue: K1 SPMV_SCALED, or K8
+            # scale for a lane stack
+            scaled = dia_spmm_scaled if r.ndim == 2 else dia_spmv_scaled
+            y = scaled(self.St, r, self.tv)[..., :nf]
         else:
-            y = (self.St @ r)[:nf] * self.tv[:nf]
+            y = (self.St @ r)[..., :nf] * self.tv[:nf]
         return self._finish(y)
 
     def _finish(self, y):
         """Per-aggregate block sum and coarse-grid pad: the back half of
         the restriction, shared with the fused zero-entry chain (K5)."""
         nf = int(np.prod(self.fine_grid_p))
-        yc = _block_sum(y[:nf], self.coarse_grid, self.stride)
+        yc = _block_sum(y[..., :nf], self.coarse_grid, self.stride)
         return _grid_pad_vec(yc, self.coarse_grid, self.coarse_grid_p)
 
 
@@ -708,8 +724,12 @@ def _ns_pinv(A, iters=60):
 
 class StructuredDeviceSolver(DeviceMultilevelSolver):
     """DeviceMultilevelSolver whose level-0 vector space is a padded grid:
-    ``solve`` encodes b and decodes x by reshape-pad.  A tensor is
-    re-laid on its own device, never taken through the host."""
+    ``solve`` encodes b and decodes x by reshape-pad, for one right-hand
+    side or an (n, K) column stack (the batched solve, whose lanes this
+    hierarchy's kernels take).  A tensor is re-laid on its own device,
+    never taken through the host."""
+
+    lane_solves = True
 
     def __init__(self, hierarchy, grid, grid_p, setup_info=None):
         super().__init__(hierarchy)
@@ -718,17 +738,25 @@ class StructuredDeviceSolver(DeviceMultilevelSolver):
         self.setup_info = setup_info or {}
 
     def _encode(self, v):
-        if np.ndim(v) != 1:
-            raise _not_ported("batched (2-D) right-hand sides", 12)
+        """Grid-pad a vector, or each column of an (n, K) stack (the
+        reference's ``engine/device_setup.py::_encode``)."""
+        if np.ndim(v) not in (1, 2):
+            raise ValueError(f"expected a vector or an (n, K) column "
+                             f"stack, got {np.ndim(v)} dimensions")
+        tail = tuple(v.shape[1:]) if np.ndim(v) == 2 else ()
         if isinstance(v, torch.Tensor):
-            return F.pad(v.reshape(self.grid),
-                         _grid_pads(self.grid, self.grid_p)).reshape(-1)
+            pads = [0, 0] * len(tail) + _grid_pads(self.grid, self.grid_p)
+            return F.pad(v.reshape(self.grid + tail), pads).reshape(
+                (-1,) + tail)
         pads = [(0, gp - g) for g, gp in zip(self.grid, self.grid_p)]
-        return np.pad(np.asarray(v).reshape(self.grid), pads).reshape(-1)
+        pads += [(0, 0)] * len(tail)
+        return np.pad(np.asarray(v).reshape(self.grid + tail),
+                      pads).reshape((-1,) + tail)
 
     def _decode(self, v):
+        tail = tuple(v.shape[1:])
         sl = tuple(slice(0, g) for g in self.grid)
-        return v.reshape(self.grid_p)[sl].reshape(-1)
+        return v.reshape(self.grid_p + tail)[sl].reshape((-1,) + tail)
 
     def solve(self, b, x0=None, **kw):
         b = self._encode(b)

@@ -1,9 +1,10 @@
 """Compile a host MultilevelSolver into a device hierarchy of tensors
 (counterpart of ``pyamg_tpu/engine/hierarchy.py``).
 
-The host setup (``pyamg_tpu.aggregation`` and friends, NumPy/SciPy) is
-shared with the JAX package, not ported.  This module converts its
-operators once into padded DIA / dense / windowed / composed operators on
+The host setup is the port's own copy of the JAX package's
+(``pyamg_tpu_torch.aggregation`` and friends, NumPy/SciPy plus a native
+C++ subset); a ``pyamg_tpu`` MultilevelSolver, which has the same
+attributes, compiles too.  This module converts the host operators once into padded DIA / dense / windowed / composed operators on
 ``device`` and resolves the smoother specs.  Every decision follows the
 JAX package's rules (row padding 1024, the 2048 dense threshold, the
 factored transfers, the windowed block/w2 choice, the transpose gate), so
@@ -23,13 +24,13 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from pyamg_tpu.relaxation.smoothing import rho_D_inv_A
-
 from ..backend import resolve_device
+from ..relaxation.smoothing import rho_D_inv_A
 from ..sparse import (ComposedOperator, DIAMatrix, TransposedWindowed,
                       WindowedELL, dense_from_scipy, dia_from_scipy, pad_to,
                       select_operator, windowed_from_scipy)
 from ..sparse.dia import dia_transpose
+from ..util.utils import scale_rows
 from . import relaxation as device_relaxation
 
 __all__ = ["DeviceLevel", "DeviceHierarchy", "compile_hierarchy"]
@@ -69,7 +70,11 @@ class DeviceHierarchy:
         return self.coarse_inv.device
 
     def coarse_solve(self, bc):
-        # padded with zero rows/cols beyond nc: the padded product is exact
+        """The dense pseudo-inverse applied to a vector, or lane by lane to
+        a K-major (K, nc_pad) stack; zero rows/cols beyond nc keep the
+        padded product exact."""
+        if bc.ndim == 2:
+            return torch.matmul(bc, self.coarse_inv.T)
         return torch.matmul(self.coarse_inv, bc)
 
 
@@ -140,8 +145,6 @@ def _smoothing_factor_dia(A_dev, A_host, fac, dtype):
 
 def _smoothing_factor_host(A_host, fac):
     """Materialized host CSR of S = I - omega * diag(dinv) @ A."""
-    from pyamg_tpu.util.utils import scale_rows
-
     A_csr = sp.csr_matrix(A_host)
     dinv = fac["dinv"]
     scaled = (A_csr * (-fac["omega"]) if dinv is None

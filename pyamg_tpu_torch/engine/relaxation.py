@@ -7,8 +7,16 @@ one :func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi` kernel pass, the
 zero-guess sweep plus its residual one
 :func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_zero_res` pass, and a sweep
 from a nonzero guess plus the residual of its result one
-:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_res` pass.  The other
-smoothers are ROADMAP.md Queue 1 item 8.
+:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_res` pass.
+
+Every entry form also takes K-major (K, n_pad) lane stacks for x and b
+(the batched solve): a sweep is one K9 pass
+(:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_k`), a sweep plus the
+residual of its result is K9 then the residual through K8
+(:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_res_k`, the reference's
+batch rule), and the zero-guess sweep plus residual is composed (its
+K-lane kernel, K10, belongs with the host-built batched path, ROADMAP.md
+Queue 1 item 12).  The other smoothers are ROADMAP.md Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -18,7 +26,8 @@ from typing import Tuple
 
 import torch
 
-from ..sparse.dia import (DIAMatrix, dia_jacobi, dia_jacobi_res,
+from ..sparse.dia import (DIAMatrix, dia_jacobi, dia_jacobi_k,
+                          dia_jacobi_res, dia_jacobi_res_k,
                           dia_jacobi_zero_res)
 
 __all__ = ["DeviceSmoother", "identity", "jacobi", "jacobi_dyn"]
@@ -65,10 +74,10 @@ class DeviceSmoother:
 
     def zero_call_residual(self, A, b):
         """(x, r) = (zero_call(A, b), b - A @ x) in one kernel pass when
-        the smoother is a single Jacobi sweep on a DIA operator; None
-        otherwise (the caller composes)."""
+        the smoother is a single Jacobi sweep on a DIA operator and b is
+        one vector; None otherwise (the caller composes)."""
         jac = self._jacobi()
-        if not isinstance(A, DIAMatrix) or jac is None:
+        if not isinstance(A, DIAMatrix) or jac is None or b.ndim != 1:
             return None
         dinv, omega, iterations = jac
         if iterations != 1 or dinv.shape != b.shape:
@@ -77,14 +86,17 @@ class DeviceSmoother:
 
     def call_residual(self, A, x, b):
         """(y, r) = (self(A, x, b), b - A @ y) in one kernel pass when the
-        smoother is a single Jacobi sweep on a DIA operator; None
-        otherwise (the caller composes)."""
+        smoother is a single Jacobi sweep on a DIA operator (for lane
+        stacks, K9 then K8); None otherwise (the caller composes)."""
         jac = self._jacobi()
         if not isinstance(A, DIAMatrix) or jac is None:
             return None
         dinv, omega, iterations = jac
-        if iterations != 1 or dinv.shape != b.shape or x.shape != b.shape:
+        if (iterations != 1 or dinv.shape[0] != b.shape[-1]
+                or x.shape != b.shape):
             return None
+        if b.ndim == 2:
+            return dia_jacobi_res_k(A, x, b, dinv, omega)
         return dia_jacobi_res(A, x, b, dinv, omega)
 
 
@@ -107,5 +119,7 @@ def jacobi_dyn(dinv, omega, iterations=1):
 
 def _jacobi_step(A, x, b, dinv, omega):
     if isinstance(A, DIAMatrix):
+        if x.ndim == 2:
+            return dia_jacobi_k(A, x, b, dinv, omega)
         return dia_jacobi(A, x, b, dinv, omega)
     return x + omega * (dinv * (b - (A @ x)))

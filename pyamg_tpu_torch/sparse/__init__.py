@@ -6,9 +6,11 @@ import torch
 
 from .composed import ComposedOperator
 from .dia import (DenseOperator, DIAMatrix, dense_from_scipy, dia_from_scipy,
-                  dia_from_stencil, dia_jacobi, dia_jacobi_res,
-                  dia_jacobi_zero_res, dia_spgemm, dia_spmv, dia_spmv_add,
-                  dia_spmv_scaled, dia_zero_chain)
+                  dia_from_stencil, dia_jacobi, dia_jacobi_k, dia_jacobi_res,
+                  dia_jacobi_res_k, dia_jacobi_zero_res, dia_spgemm,
+                  dia_spmm, dia_spmm_add, dia_spmm_scaled, dia_spmv,
+                  dia_spmv_add, dia_spmv_scaled, dia_zero_chain,
+                  dia_zero_chain_k)
 from .formats import pad_to, pad_vector
 from .window import (TransposedWindowed, WindowedELL, windowed_from_scipy,
                      windowed_matvec, windowed_rmatvec)
@@ -23,13 +25,19 @@ __all__ = [
     "dia_from_scipy",
     "dia_from_stencil",
     "dia_jacobi",
+    "dia_jacobi_k",
     "dia_jacobi_res",
+    "dia_jacobi_res_k",
     "dia_jacobi_zero_res",
     "dia_spgemm",
+    "dia_spmm",
+    "dia_spmm_add",
+    "dia_spmm_scaled",
     "dia_spmv",
     "dia_spmv_add",
     "dia_spmv_scaled",
     "dia_zero_chain",
+    "dia_zero_chain_k",
     "pad_to",
     "pad_vector",
     "select_operator",

@@ -18,6 +18,19 @@ Kernel entry points (``csrc/dia.cu``, one template in five modes, and
 - :func:`dia_zero_chain`      (x, tv (St (b - A x))), x = w dinv b
                                                              (TPU: ``dia_pallas_zero_chain``)
 
+K-lane entry points (``csrc/dia_k.cu``) over K-major (K, n_pad) lane
+stacks, the batched solve's layout:
+
+- :func:`dia_spmm`            Y = A X                        (TPU: ``_dia_pallas_matmat_k``)
+- :func:`dia_spmm_scaled`     s (A R), s shared by the lanes (TPU: ``_dia_pallas_matmat_k``, ``scale=``)
+- :func:`dia_spmm_add`        V + A T, V per lane            (TPU: ``_dia_pallas_matmat_k``, ``addk=``)
+- :func:`dia_jacobi_k`        X + w dinv (B - A X)           (TPU: ``dia_pallas_jacobi_km``)
+- :func:`dia_zero_chain_k`    (X, tv (St (B - A X))), X = w dinv B
+                                                             (TPU: ``dia_pallas_zero_chain_km``)
+
+and :func:`dia_jacobi_res_k`, the batched Jacobi-plus-residual composed
+as the reference's batch rule composes it: K9, then B - A Y through K8.
+
 Each has a plain PyTorch twin (``*_ref``) in this module.  A wrapper runs
 the twin only when its operands lie on the CPU; on CUDA tensors it
 launches the kernel or raises.  The Jacobi weight ``omega`` is a Python
@@ -41,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..backend import resolve_device
 from .formats import pad_to
 
 __all__ = ["DIAMatrix", "dia_from_scipy", "dia_from_stencil", "dia_spgemm",
@@ -50,11 +64,17 @@ __all__ = ["DIAMatrix", "dia_from_scipy", "dia_from_stencil", "dia_spgemm",
            "dia_jacobi_zero_res", "dia_jacobi_res", "dia_zero_chain",
            "dia_spmv_ref", "dia_spmv_scaled_ref", "dia_spmv_add_ref",
            "dia_jacobi_ref", "dia_jacobi_zero_res_ref", "dia_jacobi_res_ref",
-           "dia_zero_chain_ref"]
+           "dia_zero_chain_ref", "dia_spmm", "dia_spmm_scaled",
+           "dia_spmm_add", "dia_jacobi_k", "dia_zero_chain_k",
+           "dia_jacobi_res_k", "dia_spmm_ref", "dia_spmm_scaled_ref",
+           "dia_spmm_add_ref", "dia_jacobi_k_ref", "dia_zero_chain_k_ref"]
 
 # modes of csrc/dia.cu::dia_kernel and csrc/dia_chain.cu
 _SPMV, _JACOBI, _JACOBI_ZERO_RES, _SPMV_SCALED, _SPMV_ADD = 0, 1, 2, 3, 4
 _ZERO_CHAIN, _JACOBI_RES = 0, 1
+# modes of csrc/dia_k.cu::dia_k_kernel, and its lanes per launch
+_SPMM, _SPMM_SCALED, _SPMM_ADD, _JACOBI_K = 0, 1, 2, 3
+_MAX_LANES = 16
 
 
 @dataclass(frozen=True)
@@ -91,20 +111,28 @@ class DIAMatrix:
     def matvec(self, x):
         return dia_spmv(self, x)
 
+    def matmat_k(self, Xk):
+        """Y = A @ X for a K-major lane stack Xk (K, n_pad) (K8)."""
+        return dia_spmm(self, Xk)
+
     def rmatvec(self, x):
         """A.T @ x by rolls (plain PyTorch, as the JAX package leaves it
         to XLA): y = sum_d roll(data[d] * x, +offsets[d]); out-of-range
-        slots hold zero, so wrapped terms vanish."""
-        y = torch.roll(self.data[0] * x, self.offsets[0])
+        slots hold zero, so wrapped terms vanish.  A K-major (K, n_pad)
+        lane stack rolls along its last axis, lane by lane."""
+        y = torch.roll(self.data[0] * x, self.offsets[0], dims=-1)
         for d in range(1, self.ndiags):
-            y = y + torch.roll(self.data[d] * x, self.offsets[d])
+            y = y + torch.roll(self.data[d] * x, self.offsets[d], dims=-1)
         return y
 
     def __matmul__(self, x):
+        """A @ x for a vector, or A @ X lane by lane for a K-major (K,
+        n_pad) stack."""
+        if x.ndim == 2:
+            return self.matmat_k(x)
         if x.ndim != 1:
-            raise NotImplementedError(
-                "DIAMatrix applies to 1-D vectors only; the batched forms "
-                "are ROADMAP.md Queue 1 item 12")
+            raise ValueError(f"DIAMatrix applies to a vector or a (K, n_pad) "
+                             f"stack, got shape {tuple(x.shape)}")
         return self.matvec(x)
 
     def diagonal(self):
@@ -226,6 +254,36 @@ def dia_zero_chain_ref(A: DIAMatrix, St: DIAMatrix, b, dinv, tv, omega):
     return x, tv * dia_spmv_ref(St, r)
 
 
+def dia_spmm_ref(A: DIAMatrix, Xk):
+    """The padded-slice sum of :func:`dia_spmv_ref`, lane by lane over a
+    K-major (K, n_pad) stack."""
+    h = max(max(A.offsets), -min(A.offsets), 0)
+    Xp = F.pad(Xk, (h, h))
+    n_pad = A.n_pad
+    Y = A.data[0] * Xp[:, h + A.offsets[0]: h + A.offsets[0] + n_pad]
+    for d in range(1, A.ndiags):
+        off = A.offsets[d]
+        Y = Y + A.data[d] * Xp[:, h + off: h + off + n_pad]
+    return Y
+
+
+def dia_spmm_scaled_ref(A: DIAMatrix, Rk, s):
+    return dia_spmm_ref(A, Rk) * s
+
+
+def dia_spmm_add_ref(A: DIAMatrix, Tk, Xk):
+    return Xk + dia_spmm_ref(A, Tk)
+
+
+def dia_jacobi_k_ref(A: DIAMatrix, Xk, Bk, dinv, omega):
+    return Xk + omega * (dinv * (Bk - dia_spmm_ref(A, Xk)))
+
+
+def dia_zero_chain_k_ref(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
+    Xk = omega * (dinv * Bk)
+    return Xk, tv * dia_spmm_ref(St, Bk - dia_spmm_ref(A, Xk))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -291,6 +349,35 @@ def _launch_chain(mode, A, St, x, b, dinv, tv, omega, out0, out1):
         out0.data_ptr(), out1.data_ptr(), mode,
         torch.cuda.current_stream(A.device).cuda_stream)
     _build.check(fn_name, err)
+
+
+def _lane_chunks(K):
+    """(k0, k1) lane ranges of at most _MAX_LANES lanes (one launch
+    each)."""
+    return [(k0, min(K, k0 + _MAX_LANES)) for k0 in range(0, K, _MAX_LANES)]
+
+
+def _launch_k(kernel, mode, A, Xk, b, dinv, omega, Yk):
+    """Launch csrc/dia_k.cu::dia_k_kernel over (K, n_pad) stacks in lane
+    chunks; ``b`` is a shared (n_pad,) vector or a per-lane stack."""
+    _kernel_operand(A)
+    suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
+    fn_name = f"pyamg_dia_k_{suffix}"
+    fn = getattr(_build.library(), fn_name)
+    w, w_dev = _omega_args(omega, A, c_scalar)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    for k0, k1 in _lane_chunks(Yk.shape[0]):
+        bk = b if b is None or b.ndim == 1 else b[k0:k1]
+        err = fn(A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags,
+                 A.n_pad, k1 - k0, Xk[k0:k1].data_ptr(), _ptr(bk),
+                 _ptr(dinv), w, w_dev, Yk[k0:k1].data_ptr(), mode, stream)
+        _build.check(fn_name, err)
+        _count(kernel, A)
+
+
+def _check_stacks(A, K, **stacks):
+    for name, v in stacks.items():
+        _build.check_stack(name, v, A.n_pad, A.dtype, K)
 
 
 def _check_vectors(A, **vectors):
@@ -389,6 +476,90 @@ def dia_zero_chain(A: DIAMatrix, St: DIAMatrix, b, dinv, tv, omega):
     return x, y
 
 
+def dia_spmm(A: DIAMatrix, Xk):
+    """Y = A @ X lane by lane for a K-major stack Xk (K, n_pad) (K8)."""
+    if _build.on_cpu(A.data, Xk):
+        return dia_spmm_ref(A, Xk)
+    _check_stacks(A, None, Xk=Xk)
+    Yk = torch.empty_like(Xk)
+    _launch_k("dia_spmm", _SPMM, A, Xk, None, None, 0.0, Yk)
+    return Yk
+
+
+def dia_spmm_scaled(A: DIAMatrix, Rk, s):
+    """s * (A @ R) lane by lane, with the shared scale s (n_pad,) in the
+    epilogue (the structured restrictor's tv factor; K8 ``scale``)."""
+    if _build.on_cpu(A.data, Rk, s):
+        return dia_spmm_scaled_ref(A, Rk, s)
+    _check_stacks(A, None, Rk=Rk)
+    _check_vectors(A, s=s)
+    Yk = torch.empty_like(Rk)
+    _launch_k("dia_spmm_scaled", _SPMM_SCALED, A, Rk, s, None, 0.0, Yk)
+    return Yk
+
+
+def dia_spmm_add(A: DIAMatrix, Tk, Xk):
+    """X + A @ T lane by lane, with the per-lane add in the epilogue (the
+    structured prolongator's correction add; K8 ``addk``)."""
+    if _build.on_cpu(A.data, Tk, Xk):
+        return dia_spmm_add_ref(A, Tk, Xk)
+    _check_stacks(A, Tk.shape[0], Tk=Tk, Xk=Xk)
+    Yk = torch.empty_like(Tk)
+    _launch_k("dia_spmm_add", _SPMM_ADD, A, Tk, Xk, None, 0.0, Yk)
+    return Yk
+
+
+def dia_jacobi_k(A: DIAMatrix, Xk, Bk, dinv, omega):
+    """One weighted-Jacobi sweep per lane, X + omega * dinv * (B - A @ X)
+    (K9)."""
+    if _build.on_cpu(A.data, Xk, Bk, dinv):
+        return dia_jacobi_k_ref(A, Xk, Bk, dinv, omega)
+    _check_stacks(A, Xk.shape[0], Xk=Xk, Bk=Bk)
+    _check_vectors(A, dinv=dinv)
+    Yk = torch.empty_like(Xk)
+    _launch_k("dia_jacobi_k", _JACOBI_K, A, Xk, Bk, dinv, omega, Yk)
+    return Yk
+
+
+def dia_jacobi_res_k(A: DIAMatrix, Xk, Bk, dinv, omega):
+    """(Y, B - A @ Y), Y = X + omega * dinv * (B - A @ X), per lane: the
+    reference's batch rule of the Jacobi-plus-residual step, K9 then the
+    residual through K8."""
+    Yk = dia_jacobi_k(A, Xk, Bk, dinv, omega)
+    return Yk, Bk - dia_spmm(A, Yk)
+
+
+def dia_zero_chain_k(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
+    """The zero-entry level front-end per lane in one pass: (X, Y) =
+    (omega * dinv * B, tv * (St @ (B - A @ X))); the residual is never
+    stored (K11)."""
+    if _build.on_cpu(A.data, St.data, Bk, dinv, tv):
+        return dia_zero_chain_k_ref(A, St, Bk, dinv, tv, omega)
+    _kernel_operand(A)
+    _kernel_operand(St, "St")
+    if St.dtype != A.dtype or St.n_pad != A.n_pad:
+        raise ValueError(f"St: expected {A.dtype} with n_pad {A.n_pad}, "
+                         f"got {St.dtype} with n_pad {St.n_pad}")
+    _check_stacks(A, None, Bk=Bk)
+    _check_vectors(A, dinv=dinv, tv=tv)
+    suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
+    fn_name = f"pyamg_dia_zero_chain_k_{suffix}"
+    fn = getattr(_build.library(), fn_name)
+    w, w_dev = _omega_args(omega, A, c_scalar)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    Xk = torch.empty_like(Bk)
+    Yk = torch.empty_like(Bk)
+    for k0, k1 in _lane_chunks(Bk.shape[0]):
+        err = fn(A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags,
+                 St.data.data_ptr(), St.offsets_t.data_ptr(), St.ndiags,
+                 A.n_pad, k1 - k0, Bk[k0:k1].data_ptr(), dinv.data_ptr(),
+                 tv.data_ptr(), w, w_dev, Xk[k0:k1].data_ptr(),
+                 Yk[k0:k1].data_ptr(), stream)
+        _build.check(fn_name, err)
+        _count("dia_zero_chain_k", A)
+    return Xk, Yk
+
+
 # ---------------------------------------------------------------------------
 # device-built operators (plain PyTorch)
 # ---------------------------------------------------------------------------
@@ -397,9 +568,8 @@ def dia_from_stencil(S, grid, dtype=torch.float32, device=None):
     """A grid-stencil DIA operator built on ``device`` (the device analog of
     ``gallery.stencil_grid``): each nonzero entry of the centred stencil
     array S becomes one diagonal, its constant value masked by boundary
-    validity per grid dimension."""
-    if device is None:
-        raise ValueError("pass device= explicitly")
+    validity per grid dimension.  ``device=None`` is the CUDA device."""
+    device = resolve_device(device)
     S = np.asarray(S)
     grid = tuple(int(g) for g in grid)
     dim = len(grid)

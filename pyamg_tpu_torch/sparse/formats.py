@@ -32,11 +32,12 @@ def pad_vector(x, n_pad, dtype=None, device=None):
 
 
 def fit(v, n):
-    """Slice or zero-pad a 1-D vector to length ``n`` (operators of one
-    level may use different row paddings; the tail rows are structural
-    zeros)."""
-    if v.shape[0] == n:
+    """Slice or zero-pad a vector, or each lane of a K-major (K, m)
+    stack, to length ``n`` (operators of one level may use different row
+    paddings; the tail rows are structural zeros)."""
+    m = v.shape[-1]
+    if m == n:
         return v
-    if v.shape[0] > n:
-        return v[:n]
-    return F.pad(v, (0, n - v.shape[0]))
+    if m > n:
+        return v[..., :n].contiguous()
+    return F.pad(v, (0, n - m))

@@ -15,10 +15,8 @@ import scipy.sparse as sp
 
 torch = pytest.importorskip("torch")
 
-import pyamg_tpu  # noqa: E402
-from pyamg_tpu.gallery import poisson  # noqa: E402
-
-from pyamg_tpu_torch import _build, as_device_solver, device_sa_setup  # noqa: E402
+from pyamg_tpu_torch import (_build, as_device_solver, device_sa_setup,  # noqa: E402
+                             poisson, smoothed_aggregation_solver)
 from pyamg_tpu_torch.sparse import (dia, dia_from_scipy, window,  # noqa: E402
                                     windowed_from_scipy)
 
@@ -167,7 +165,7 @@ def test_mixed_solve_on_card_matches_cpu(cuda):
     CPU (plain twins): iteration counts within one, first five history
     entries to 1e-3 (f32 summation order), both converged."""
     A = poisson((128, 128), format="csr")
-    ml = pyamg_tpu.smoothed_aggregation_solver(
+    ml = smoothed_aggregation_solver(
         A, presmoother=("jacobi", {"omega": 4.0 / 3.0}),
         postsmoother=("jacobi", {"omega": 4.0 / 3.0}))
     b = np.random.default_rng(1).random(A.shape[0])
@@ -180,3 +178,88 @@ def test_mixed_solve_on_card_matches_cpu(cuda):
     assert abs(len(res_g) - len(res_c)) <= 1
     np.testing.assert_allclose(res_g[:5], res_c[:5], rtol=1e-3)
     assert np.linalg.norm(b - A @ x) < 1e-8 * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K", [3, 8, 19])
+def test_k_lane_kernels_match_twins(cuda, dtype, K):
+    """K8 in its three modes, K9 and K11 against their twins on K-major
+    stacks; K=19 takes two launches (16 lanes, then 3) per call; omega by
+    value and as a 0-d device tensor."""
+    grid = (48, 70)
+    A = poisson(grid, format="csr")
+    D = dia_from_scipy(A, dtype=dtype, device=cuda, row_pad=1024)
+    n9 = sp.diags([np.full(A.shape[0], v) for v in (0.3, 0.2, 0.3)],
+                  [-grid[1] - 1, 0, grid[1] + 1], shape=A.shape)
+    St = dia_from_scipy((0.1 * A + n9).tocsr(), dtype=dtype, device=cuda,
+                        row_pad=1024)
+    rng = np.random.default_rng(K)
+    X, B, V = (torch.as_tensor(rng.random((K, D.n_pad)), dtype=dtype,
+                               device=cuda) for _ in range(3))
+    s, tv = (_rand(D.n_pad, dtype, cuda, k) for k in (2, 3))
+    dinv = torch.zeros(D.n_pad, dtype=dtype, device=cuda)
+    dinv[: A.shape[0]] = torch.as_tensor(1.0 / A.diagonal(), dtype=dtype)
+    w_dev = torch.tensor(0.85, dtype=dtype, device=cuda)
+    _build.reset_launches()
+    cases = [(dia.dia_spmm(D, X), dia.dia_spmm_ref(D, X)),
+             (dia.dia_spmm_scaled(D, X, s), dia.dia_spmm_scaled_ref(D, X, s)),
+             (dia.dia_spmm_add(D, X, V), dia.dia_spmm_add_ref(D, X, V))]
+    for omega in (0.85, w_dev):
+        cases.append((dia.dia_jacobi_k(D, X, B, dinv, omega),
+                      dia.dia_jacobi_k_ref(D, X, B, dinv, omega)))
+        got = dia.dia_zero_chain_k(D, St, B, dinv, tv, omega)
+        want = dia.dia_zero_chain_k_ref(D, St, B, dinv, tv, omega)
+        cases += list(zip(got, want))
+    torch.cuda.synchronize()
+    for got, want in cases:
+        assert got.shape == (K, D.n_pad)
+        assert _rel_err(got, want) <= TOL[dtype]
+    name = str(dtype).removeprefix("torch.")
+    per_call = -(-K // 16)
+    assert _build.launches == {f"dia_spmm.{name}": per_call,
+                               f"dia_spmm_scaled.{name}": per_call,
+                               f"dia_spmm_add.{name}": per_call,
+                               f"dia_jacobi_k.{name}": 2 * per_call,
+                               f"dia_zero_chain_k.{name}": 2 * per_call}
+
+
+def test_batched_device_built_solve_on_card_matches_cpu(cuda):
+    """A 128^2 device-built float64 batched solve (K=3, one lane zero) on
+    the card against the same on the CPU (twins): per-lane counts equal,
+    histories to rtol 1e-8; the K-lane kernels launched."""
+    A = poisson((128, 128), format="csr")
+    B = np.random.default_rng(0).random((A.shape[0], 3))
+    B[:, 1] = 0.0
+    kw = dict(grid=(128, 128), dtype=torch.float64, max_coarse=100,
+              mixed_precision=True)
+    res_g, res_c = [], []
+    dg = device_sa_setup(A, device=cuda, **kw)
+    _build.reset_launches()
+    X = dg.solve(B, tol=1e-10, accel="cg", precision="mixed",
+                 residuals=res_g)
+    counts = dict(_build.launches)
+    device_sa_setup(A, device="cpu", **kw).solve(
+        B, tol=1e-10, accel="cg", precision="mixed", residuals=res_c)
+    assert [len(r) for r in res_g] == [len(r) for r in res_c]
+    for g, c in zip(res_g, res_c):
+        np.testing.assert_allclose(g, c, rtol=1e-8)
+    for j in (0, 2):
+        assert np.linalg.norm(B[:, j] - A @ X[:, j]) < 1e-10 * np.linalg.norm(
+            B[:, j])
+    for k in ("dia_zero_chain_k", "dia_spmm_add", "dia_jacobi_k", "dia_spmm"):
+        assert counts.get(f"{k}.float64", 0) > 0, (k, counts)
+
+
+def test_k_lane_wrapper_rejects_bad_operands(cuda):
+    A = poisson((32, 32), format="csr")
+    D = dia_from_scipy(A, device=cuda, row_pad=1024)
+    with pytest.raises(TypeError):
+        dia.dia_spmm(D, torch.ones(2, D.n_pad, dtype=torch.float64,
+                                   device=cuda))
+    with pytest.raises(ValueError):
+        dia.dia_spmm(D, torch.ones(2, D.n_pad + 1, device=cuda))
+    with pytest.raises(ValueError):
+        dia.dia_spmm(D, torch.ones(D.n_pad, 2, device=cuda).T)  # strided
+    with pytest.raises(ValueError):
+        dia.dia_spmm_add(D, torch.ones(2, D.n_pad, device=cuda),
+                         torch.ones(3, D.n_pad, device=cuda))

@@ -295,5 +295,10 @@ def test_unported_smoother_raises():
 
 
 def test_compile_needs_an_explicit_device(ml):
-    with pytest.raises(ValueError, match="device"):
+    """With no device given the compile targets the CUDA device: where
+    torch sees none it raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        assert compile_hierarchy(ml).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         compile_hierarchy(ml)

@@ -1,6 +1,7 @@
-"""The port imports torch and never jax: no module of ``pyamg_tpu_torch``
-imports ``jax`` or the JAX-backed parts of ``pyamg_tpu`` (``engine``,
-``sparse``, ``parallel``), directly or at run time."""
+"""The port imports torch and never jax: no module of ``pyamg_tpu_torch``,
+and not ``chip_smoke.py``, imports ``jax`` or anything of the JAX package
+``pyamg_tpu`` (not even its host modules, which load no JAX), directly or
+at run time."""
 import ast
 import os
 import subprocess
@@ -13,8 +14,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "pyamg_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "pyamg_tpu.engine", "pyamg_tpu.sparse",
-             "pyamg_tpu.parallel")
+FORBIDDEN = ("jax", "jaxlib", "pyamg_tpu")
 
 
 def _imported_modules(path):
@@ -30,6 +30,7 @@ def _imported_modules(path):
 
 
 def _forbidden(name):
+    """``pyamg_tpu`` and its submodules; ``pyamg_tpu_torch`` is the port."""
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
@@ -45,22 +46,51 @@ def test_scan_sees_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import jax.numpy as jnp\n"
                  "from pyamg_tpu import sparse\n"
-                 "from pyamg_tpu.gallery import poisson\n")
+                 "from pyamg_tpu.gallery import poisson\n"
+                 "import pyamg_tpu_torch.gallery\n"
+                 "from pyamg_tpu_torch import poisson\n")
     assert [m for m in _imported_modules(p) if _forbidden(m)] == [
-        "jax.numpy", "pyamg_tpu.sparse"]
+        "jax.numpy", "pyamg_tpu", "pyamg_tpu.sparse", "pyamg_tpu.gallery",
+        "pyamg_tpu.gallery.poisson"]
 
 
 def test_import_loads_no_jax():
-    """Importing the port (and compiling nothing) leaves jax out of
-    sys.modules, in a fresh interpreter."""
-    code = ("import sys, pyamg_tpu_torch, pyamg_tpu_torch.convert, "
-            "pyamg_tpu_torch.engine, pyamg_tpu_torch.sparse; "
-            "bad = sorted(m for m in sys.modules "
-            "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
-            "'pyamg_tpu.engine', 'pyamg_tpu.sparse', 'pyamg_tpu.parallel')));"
+    """Importing the port, running its host SA setup with the compile to
+    the (CPU) device, and its device-built setup with a batched solve, in
+    a fresh interpreter, leaves every ``jax*`` and ``pyamg_tpu*`` module
+    (but the port's own) out of sys.modules."""
+    code = ("import sys, numpy as np, pyamg_tpu_torch as pt, "
+            "pyamg_tpu_torch.convert, pyamg_tpu_torch.engine, "
+            "pyamg_tpu_torch.sparse\n"
+            "A = pt.poisson((40, 40), format='csr')\n"
+            "kw = dict(presmoother=('jacobi', {'omega': 4 / 3}), "
+            "postsmoother=('jacobi', {'omega': 4 / 3}))\n"
+            "ml = pt.smoothed_aggregation_solver(A, **kw)\n"
+            "b = np.random.default_rng(0).random((A.shape[0], 2))\n"
+            "pt.as_device_solver(ml, device='cpu').solve(b[:, 0], "
+            "accel='cg')\n"
+            "pt.device_sa_setup(A, grid=(40, 40), device='cpu', "
+            "max_coarse=100).solve(b, accel='cg')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'pyamg_tpu'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_default_device_is_the_card():
+    """``device=None`` means the CUDA device: it raises where torch sees
+    no GPU, and it never resolves to the CPU."""
+    import torch
+
+    from pyamg_tpu_torch.backend import resolve_device
+
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
