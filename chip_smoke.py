@@ -17,14 +17,17 @@ result lines):
    A64);
 4. the device-built hierarchy of the same operator on the card
    (device_sa_setup, float32, max_coarse=400, float64 A64): the setup
-   time of a second call after a warm one, and each level's forms;
+   time of a second call after a warm one, and each level's forms; then
+   the same with lane_align=True (the interleaved route's layout);
 5. each kernel against its plain PyTorch twin on the same inputs, at the
    paths' shapes: the host-built level-0 and level-1 DIA operators in
    float32 and float64 (three DIA modes) and tentative operators T, T^T;
    the device-built level-0 and level-1 zero-entry chain (K5), level 0's
    Jacobi-plus-residual (K4) and the two SpMV epilogues on level 0's S
    and S^T; the K-lane kernels at K = 8 on the device-built level-0 and
-   level-1 operators (K8 in its three modes, K9, K11): max error,
+   level-1 operators (K8 in its three modes, K9, K11); K10 at host level 0
+   and K12, K13 on the host-built T at K = 8; K15's five modes on the
+   lane-aligned level-0 operators at K = 8: max error,
    CUDA-event times of both, the bound from the bytes and operations the
    call needs, and one PyTorch library call as a yardstick where one
    computes the same function (never on the path);
@@ -35,19 +38,25 @@ result lines):
    read just after; the iteration count, the residual, the solve time;
 8. device-built config 1: the same with b = default_rng(0).random(n)
    (the reference bench's right-hand side);
-9. batched device-built config 1: B = default_rng(3).random((n, 8)),
-   native float32 CG to 1e-5 and mixed CG to 1e-8, launch counters zeroed
-   before and read after; per-lane counts, residuals, and the wall time
-   per solve and per right-hand side beside the 1-D solve;
+9. batched config 1, B = default_rng(3).random((n, 8)), native float32 CG
+   to 1e-5 and mixed CG to 1e-8, launch counters zeroed before and read
+   after; per-lane counts against each column's 1-D solve, residuals, and
+   the wall time per solve and per right-hand side beside the 1-D solve:
+   on the device-built hierarchy (K8, K9, K11), on the host-built one
+   (K10, K12, K13), then on the lane-aligned device-built hierarchy the
+   interleaved route (native, K15's five modes) and the K-major mixed
+   solve;
 10. a stationary phase (accel=None, native float32, 5 V-cycles) on a
     256^2 device-built hierarchy, one right-hand side and then K = 4,
     each against the same run on a CPU copy of that hierarchy (the plain
     twins), with launch counters;
 11. one V-cycle of the 2048^2 device-built hierarchy under
-    torch.cuda.set_sync_debug_mode("error"), on one vector and on a K = 8
-    stack: no host read in either cycle; then a torch.profiler trace of
-    the batched solves and the 1-D one (wall, kernel time, launches, busy
-    share, largest kernels);
+    torch.cuda.set_sync_debug_mode("error"), on one vector, on a K = 8
+    stack and (interleaved) on the lane-aligned hierarchy: no host read in
+    any; the lane-aligned V-cycle's time per right-hand side, interleaved
+    and K-major; then a torch.profiler trace of the batched solves and
+    the 1-D one (wall, kernel time, launches, busy share, largest
+    kernels);
 12. result lines: the kernels' JSON, the card's name and power limit, and
     last {"ok": true, "device": {...}}.
 """
@@ -107,6 +116,16 @@ KERNELS = {
                      "pyamg_tpu/sparse/dia.py:1262"),
     "dia_zero_chain_k": ("pyamg_tpu_torch/csrc/dia_k.cu",
                          "pyamg_tpu/sparse/dia.py:975"),
+    "dia_jacobi_zero_res_k": ("pyamg_tpu_torch/csrc/dia_k.cu",
+                              "pyamg_tpu/sparse/dia.py:1141"),
+    "windowed_matmat_k": ("pyamg_tpu_torch/csrc/window.cu",
+                          "pyamg_tpu/sparse/window.py:505"),
+    "windowed_rmatmat_k": ("pyamg_tpu_torch/csrc/window.cu",
+                           "pyamg_tpu/sparse/window.py:600"),
+    **{name: ("pyamg_tpu_torch/csrc/interleaved.cu",
+              "pyamg_tpu/sparse/interleaved.py:160")
+       for name in ("int_jacobi_zero_res", "int_spmv_scaled", "int_spmv",
+                    "int_spmv_add", "int_jacobi_step")},
 }
 # path -> the kernel instances it must launch
 PATHS = {
@@ -125,7 +144,21 @@ PATHS = {
     "device-built batched stationary": (
         "dia_jacobi_k.float32", "dia_spmm.float32",
         "dia_spmm_scaled.float32"),
+    "host-built batched config 1": (
+        "dia_jacobi_zero_res_k.float32", "windowed_matmat_k.float32",
+        "windowed_rmatmat_k.float32", "dia_jacobi_k.float32",
+        "dia_spmm.float32", "dia_spmm.float64"),
+    "interleaved batched config 1": (
+        "int_jacobi_zero_res.float32", "int_spmv_scaled.float32",
+        "int_spmv.float32", "int_spmv_add.float32", "int_jacobi_step.float32",
+        "dia_zero_chain_k.float32"),
+    "lane-aligned batched mixed": (
+        "dia_zero_chain_k.float32", "dia_spmm_add.float32",
+        "dia_jacobi_k.float32", "dia_spmm.float64"),
 }
+# the lane-aligned 2048^2 fine grid and its solve padding (the reference's)
+LANE_GRID_P = (2064, 2304)
+LANE_N_PAD = 4784128
 
 
 def log(msg):
@@ -361,12 +394,16 @@ def stationary_phase(check, label, solver, b, launches):
               f"({launches[label].get(k, 0)} launches)")
 
 
-def batched_phase(check, label, dsa, A, launches):
-    """Batched device-built config 1: K = 8 lanes, native f32 CG to 1e-5
-    and mixed CG to 1e-8 (counters zeroed before both, read after both),
-    then wall times per solve and per right-hand side beside the 1-D
-    solve of column 0.  B lives on the card, so the times exclude the
-    host copies of the (n, 8) float64 stack."""
+def batched_phase(check, label, solver, A, launches, ref_native,
+                  ref_mixed):
+    """Batched config 1: K = 8 lanes, native f32 CG to 1e-5 and mixed CG to
+    1e-8 (counters zeroed before both, read after both), then wall times
+    per solve and per right-hand side beside the 1-D solve of column 0.
+    Every lane takes its own column's 1-D native solve's count +- 1, and
+    the reference's counts +- 1 where given (``ref_native`` None: the
+    reference has no batched count for this hierarchy).  B lives on the
+    card, so the times exclude the host copies of the (n, 8) float64
+    stack."""
     import numpy as np
     import torch
 
@@ -374,15 +411,16 @@ def batched_phase(check, label, dsa, A, launches):
 
     n = A.shape[0]
     B = np.random.default_rng(3).random((n, LANES))
-    Bt = torch.as_tensor(B, device=dsa.hierarchy.device)
+    Bt = torch.as_tensor(B, device=solver.hierarchy.device)
     native = dict(tol=1e-5, maxiter=100, accel="cg", precision="native")
     mixed = dict(tol=1e-8, maxiter=100, accel="cg", precision="mixed")
-    dsa.solve(Bt, **native)                    # warm-up
+    solver.solve(Bt, **native)                 # warm-up
     torch.cuda.synchronize()
     _build.reset_launches()
     res_n, res_m = [], []
-    Xn, info_n = dsa.solve(Bt, residuals=res_n, return_info=True, **native)
-    Xm, info_m = dsa.solve(Bt, residuals=res_m, return_info=True, **mixed)
+    Xn, info_n = solver.solve(Bt, residuals=res_n, return_info=True,
+                              **native)
+    Xm, info_m = solver.solve(Bt, residuals=res_m, return_info=True, **mixed)
     torch.cuda.synchronize()
     counts = dict(_build.launches)
     launches[label] = counts
@@ -393,9 +431,11 @@ def batched_phase(check, label, dsa, A, launches):
     true_n = np.linalg.norm(B - A @ Xn, axis=0) / normb
     true_m = np.linalg.norm(B - A @ Xm, axis=0) / normb
     hist_m = np.array([r[-1] for r in res_m]) / normb
-    res_1 = []
-    dsa.solve(Bt[:, 0].contiguous(), residuals=res_1, **native)
-    it_1 = len(res_1) - 1
+    it_1 = []
+    for j in range(LANES):
+        res_1 = []
+        solver.solve(Bt[:, j].contiguous(), residuals=res_1, **native)
+        it_1.append(len(res_1) - 1)
     times = {}
     for key, b, kw in (("batched native", Bt, native),
                        ("1-D native", Bt[:, 0].contiguous(), native),
@@ -404,14 +444,14 @@ def batched_phase(check, label, dsa, A, launches):
         ts = []
         for _ in range(3):
             t0 = time.perf_counter()
-            dsa.solve(b, **kw)
+            solver.solve(b, **kw)
             torch.cuda.synchronize()
             ts.append(time.perf_counter() - t0)
         times[key] = float(np.median(ts))
     log(f"{label} (2048^2, K={LANES}, b on the card):")
     log(f"  native f32 CG to 1e-5: iterations per lane {it_n} (info "
-        f"{info_n}); true relres max {true_n.max():.3e}; 1-D solve of "
-        f"column 0: {it_1} iterations")
+        f"{info_n}); true relres max {true_n.max():.3e}; 1-D solves of the "
+        f"columns: {it_1} iterations")
     log(f"  mixed CG to 1e-8: iterations per lane {it_m} (info {info_m}); "
         f"history relres max {hist_m.max():.3e}, true relres max "
         f"{true_m.max():.3e}")
@@ -424,46 +464,118 @@ def batched_phase(check, label, dsa, A, launches):
     check(Xn.shape == Xm.shape == (n, LANES)
           and bool(np.isfinite(Xn).all() and np.isfinite(Xm).all()),
           f"{label}: solutions finite, shape (n, {LANES})")
-    check(all(abs(i - REF_ITERS_BATCHED_1E5) <= 1 for i in it_n)
+    if ref_native is not None:
+        check(all(abs(i - ref_native) <= 1 for i in it_n) and info_n == 0,
+              f"{label}: native f32 lanes {it_n} within {ref_native} +- 1 "
+              "(reference) to 1e-5")
+    check(all(abs(i - i1) <= 1 for i, i1 in zip(it_n, it_1))
           and info_n == 0,
-          f"{label}: native f32 lanes {it_n} within {REF_ITERS_BATCHED_1E5}"
-          " +- 1 (reference) to 1e-5")
-    check(all(abs(i - REF_ITERS_DEVICE) <= 1 for i in it_m) and info_m == 0,
-          f"{label}: mixed lanes {it_m} within {REF_ITERS_DEVICE} +- 1 "
+          f"{label}: native f32 lanes {it_n} within +- 1 of their 1-D "
+          f"solves {it_1} to 1e-5")
+    check(all(abs(i - ref_mixed) <= 1 for i in it_m) and info_m == 0,
+          f"{label}: mixed lanes {it_m} within {ref_mixed} +- 1 "
           "(reference) to 1e-8")
     check(bool(hist_m.max() <= 1e-8 and true_m.max() <= 1e-8),
           f"{label}: every lane's true relres <= 1e-8 ({true_m.max():.3e})")
-    check(it_n[0] == it_1, f"{label}: lane 0 takes the 1-D solve's "
-          f"{it_1} iterations ({it_n[0]})")
     for k in PATHS[label]:
         check(counts.get(k, 0) > 0, f"{label}: {k} launched "
               f"({counts.get(k, 0)} launches)")
 
 
-def profile_phase(dsa, A):
-    """A torch.profiler trace of one batched (K = 8) native f32 CG solve to
-    1e-5 and one mixed solve to 1e-8, b on the card, and of the 1-D native
-    solve of column 0: wall time, CUDA kernel time, kernel launches, the
-    device's busy share, and the largest kernels."""
+def interleaved_phase(check, dla, A, launches):
+    """The lane-aligned device-built config 1, K = 8, B =
+    default_rng(3).random((n, 8)) on the card: native f32 CG to 1e-5 takes
+    the interleaved route (every K15 mode launched, the reference's 13 +-
+    1 iterations per lane), then mixed CG to 1e-8 takes the K-major path
+    at the lane-aligned n_pad (no K15 launch; every lane's true relres <=
+    1e-8); counters zeroed just before each solve and read just after;
+    wall times per solve and per right-hand side."""
     import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import _build
+
+    n = A.shape[0]
+    B = np.random.default_rng(3).random((n, LANES))
+    Bt = torch.as_tensor(B, device=dla.hierarchy.device)
+    native = dict(tol=1e-5, maxiter=100, accel="cg")
+    mixed = dict(tol=1e-8, maxiter=100, accel="cg", precision="mixed")
+    dla.solve(Bt, **native)                    # warm-up
+    dla.solve(Bt, **mixed)
+    torch.cuda.synchronize()
+    label = "interleaved batched config 1"
+    _build.reset_launches()
+    res_n = []
+    Xn, info_n = dla.solve(Bt, residuals=res_n, return_info=True, **native)
+    torch.cuda.synchronize()
+    counts_n = launches[label] = dict(_build.launches)
+    label_m = "lane-aligned batched mixed"
+    _build.reset_launches()
+    res_m = []
+    Xm, info_m = dla.solve(Bt, residuals=res_m, return_info=True, **mixed)
+    torch.cuda.synchronize()
+    counts_m = launches[label_m] = dict(_build.launches)
+    Xn, Xm = Xn.cpu().numpy(), Xm.cpu().numpy()
+    normb = np.linalg.norm(B, axis=0)
+    it_n = [len(r) - 1 for r in res_n]
+    it_m = [len(r) - 1 for r in res_m]
+    hist_n = np.array([r[-1] for r in res_n]) / normb
+    true_n = np.linalg.norm(B - A @ Xn, axis=0) / normb
+    true_m = np.linalg.norm(B - A @ Xm, axis=0) / normb
+    times = {}
+    for key, kw in (("interleaved native", native),
+                    ("K-major mixed", mixed)):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dla.solve(Bt, **kw)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[key] = float(np.median(ts))
+    log(f"{label} (2048^2 lane-aligned, grid_p {dla.grid_p}, n_pad "
+        f"{dla.hierarchy.levels[0].n_pad}, K={LANES}, b on the card):")
+    log(f"  native f32 CG to 1e-5 (interleaved route): iterations per lane "
+        f"{it_n} (info {info_n}); history relres max {hist_n.max():.3e}, "
+        f"true relres max {true_n.max():.3e}")
+    log(f"  mixed CG to 1e-8 (K-major path): iterations per lane {it_m} "
+        f"(info {info_m}); true relres max {true_m.max():.3e}")
+    for key, t in times.items():
+        log(f"  {key}: {t:.4f} s per solve = {t / LANES:.4f} s per "
+            "right-hand side (median of 3)")
+    log(f"  launches, native: {json.dumps(counts_n, sort_keys=True)}")
+    log(f"  launches, mixed: {json.dumps(counts_m, sort_keys=True)}")
+    check(Xn.shape == Xm.shape == (n, LANES)
+          and bool(np.isfinite(Xn).all() and np.isfinite(Xm).all()),
+          f"{label}: solutions finite, shape (n, {LANES})")
+    check(all(abs(i - REF_ITERS_BATCHED_1E5) <= 1 for i in it_n)
+          and info_n == 0 and hist_n.max() <= 1e-5,
+          f"{label}: native f32 lanes {it_n} within {REF_ITERS_BATCHED_1E5}"
+          " +- 1 (reference) to 1e-5")
+    check(info_m == 0 and true_m.max() <= 1e-8
+          and not any(k.startswith("int_") for k in counts_m),
+          f"{label_m}: lanes {it_m} converged to true relres "
+          f"{true_m.max():.3e} <= 1e-8 on the K-major path")
+    for lab, counts in ((label, counts_n), (label_m, counts_m)):
+        for k in PATHS[lab]:
+            check(counts.get(k, 0) > 0, f"{lab}: {k} launched "
+                  f"({counts.get(k, 0)} launches)")
+
+
+def profile_phase(runs):
+    """A torch.profiler trace of each (label, solver, b, kwargs) solve,
+    after a warm one: wall time, CUDA kernel time, kernel launches, the
+    device's busy share, and the largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    B = torch.as_tensor(np.random.default_rng(3).random((A.shape[0], LANES)),
-                        device=dsa.hierarchy.device)
-    runs = (("batched native", B, dict(tol=1e-5, accel="cg")),
-            ("batched mixed", B, dict(tol=1e-8, accel="cg",
-                                      precision="mixed")),
-            ("1-D native", B[:, 0].contiguous(), dict(tol=1e-5, accel="cg")))
-    log(f"profile (torch.profiler, CUDA kernels; 2048^2 device-built, "
-        f"K={LANES}):")
-    for label, b, kw in runs:
-        dsa.solve(b, **kw)                     # warm
+    log(f"profile (torch.profiler, CUDA kernels; 2048^2, K={LANES}):")
+    for label, solver, b, kw in runs:
+        solver.solve(b, **kw)                  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            dsa.solve(b, **kw)
+            solver.solve(b, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kern = {}
@@ -483,13 +595,10 @@ def profile_phase(dsa, A):
             log(f"    {t:8.3f} ms {c:5d}x  {name}")
 
 
-def sync_free_cycle(check, hd, r, what):
-    """One device-built V-cycle on ``r`` with every host sync an error."""
+def sync_free_cycle(check, cycle, r, what):
+    """One V-cycle ``cycle(r)`` with every host sync an error."""
     import torch
 
-    from pyamg_tpu_torch import DeviceMultilevelSolver
-
-    cycle = DeviceMultilevelSolver(hd).cycle_operator("V")
     cycle(r)                                   # warm: cached offsets
     torch.cuda.synchronize()
     y = None
@@ -504,9 +613,42 @@ def sync_free_cycle(check, hd, r, what):
     torch.cuda.synchronize()
     check(sync_err is None and y is not None and y.shape == r.shape
           and bool(torch.isfinite(y).all()),
-          f"one device-built V-cycle on {what} under "
-          "set_sync_debug_mode('error'): "
+          f"one V-cycle on {what} under set_sync_debug_mode('error'): "
           + ("no host sync" if sync_err is None else sync_err))
+
+
+def lane_cycle_times(check, dla, rand):
+    """The lane-aligned hierarchy's zero V-cycle on K = 8 lanes, the
+    interleaved one against the K-major one (CUDA events, 20 cycles each,
+    min of 2 turns), per right-hand side; the layout conversion beside
+    them; and the two corrections against each other (f32)."""
+    import torch
+
+    from pyamg_tpu_torch import DeviceMultilevelSolver
+    from pyamg_tpu_torch.engine.batched_cycle import interleaved_zero_vcycle
+    from pyamg_tpu_torch.sparse.interleaved import (from_interleaved,
+                                                    to_interleaved)
+
+    h = dla.hierarchy
+    Bk = rand((LANES, h.levels[0].n_pad), torch.float32)
+    Bi = to_interleaved(Bk)
+    kmajor = DeviceMultilevelSolver(h).cycle_operator("V")
+    t_int, t_km = [], []
+    for _ in range(2):
+        t_int.append(time_ms(lambda: interleaved_zero_vcycle(h, Bi), 20))
+        t_km.append(time_ms(lambda: kmajor(Bk), 20))
+    t_conv = time_ms(lambda: from_interleaved(to_interleaved(Bk)), 20)
+    err = float((from_interleaved(interleaved_zero_vcycle(h, Bi))
+                 - kmajor(Bk)).abs().max() / kmajor(Bk).abs().max())
+    log(f"lane-aligned V-cycle, K={LANES} (CUDA events, 20 cycles, min of "
+        f"2): interleaved {min(t_int):.4f} ms = {min(t_int) / LANES:.4f} ms "
+        f"per right-hand side; K-major {min(t_km):.4f} ms = "
+        f"{min(t_km) / LANES:.4f} ms per right-hand side; to_interleaved + "
+        f"from_interleaved of the stack {t_conv:.4f} ms")
+    check(err <= 1e-4, f"interleaved V-cycle vs the K-major one: max rel "
+          f"diff {err:.2e} (tol 1e-4, f32 sums in another order)")
+    sync_free_cycle(check, lambda r: interleaved_zero_vcycle(h, r), Bi,
+                    f"a K={LANES} interleaved stack (lane-aligned)")
 
 
 def main():
@@ -520,7 +662,10 @@ def main():
     from pyamg_tpu_torch import (_build, as_device_solver, device_sa_setup,
                                  DeviceMultilevelSolver, poisson,
                                  smoothed_aggregation_solver)
+    from pyamg_tpu_torch.engine.batched_cycle import (_jacobi_wd,
+                                                      supports_interleaved)
     from pyamg_tpu_torch.sparse import DIAMatrix, WindowedELL, dia, window
+    from pyamg_tpu_torch.sparse import interleaved as il
 
     check = Checks()
     dev = torch.device(DEVICE)
@@ -589,6 +734,23 @@ def main():
                 f"rho={float(dsa.setup_info['levels'][i]['rho_D_inv_A']):.6f}"
                 if lvl.P is not None else f"dense {lvl.n}x{lvl.n}")
         log(f"  level {i}: {grid} n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
+    # ... and lane-aligned, the interleaved route's layout
+    t0 = time.perf_counter()
+    dla = device_sa_setup(A, lane_align=True, **setup_kw)
+    torch.cuda.synchronize()
+    log(f"lane-aligned device SA setup on the card: "
+        f"{time.perf_counter() - t0:.3f} s; grid_p {dla.grid_p}; "
+        f"supports_interleaved {supports_interleaved(dla.hierarchy)}")
+    for i, lvl in enumerate(dla.hierarchy.levels):
+        grid = (f"grid_p={lvl.P.fine_grid_p}" if lvl.P is not None
+                else f"dense {lvl.n}x{lvl.n}")
+        log(f"  level {i}: {grid} n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
+    check(dla.grid_p == LANE_GRID_P
+          and dla.hierarchy.levels[0].n_pad == LANE_N_PAD
+          and supports_interleaved(dla.hierarchy),
+          f"lane-aligned hierarchy: grid_p {dla.grid_p}, n_pad "
+          f"{dla.hierarchy.levels[0].n_pad} (the reference's {LANE_GRID_P}, "
+          f"{LANE_N_PAD}), interleaved route admitted")
 
     # 5. kernels against their plain twins at the paths' shapes
     log("kernel checks (kernel vs plain twin, same inputs; library calls "
@@ -636,6 +798,14 @@ def main():
                     lambda: dia.dia_jacobi_zero_res(Ad, b, dinv, omega0),
                     lambda: dia.dia_jacobi_zero_res_ref(Ad, b, dinv, omega0),
                     results, *dia_cost(Ad, 4, extra_ops=3))
+            # K10, the host-built batched cycle's zero-entry front-end
+            Bk = rand((LANES, Ad.n_pad), dtype)
+            compare(check, f"dia_jacobi_zero_res_k.{dt} [{tag} K={LANES}]",
+                    dtype,
+                    lambda: dia.dia_jacobi_zero_res_k(Ad, Bk, dinv, omega0),
+                    lambda: dia.dia_jacobi_zero_res_k_ref(Ad, Bk, dinv,
+                                                          omega0),
+                    results, *dia_cost(Ad, 1, LANES, 3, extra_ops=3))
     for label, hlvl, host_lvl in (("level0", lv0, ml.levels[0]),
                                   ("level1", lv1, ml.levels[1])):
         Tf = hlvl.P.ops[-1]
@@ -673,6 +843,27 @@ def main():
                     lambda: window.windowed_rmatvec_ref(T, r), results,
                     meta + (r.numel() + T.m_chunks * T.w2) * sz, ops,
                     library_fn=lib_rmv)
+            # K12 and K13 at K = 8 (library: torch.sparse.mm of T and T^T
+            # in CSR against (n, 8) column stacks)
+            Xk = rand((LANES, T.m_chunks * T.w2), dtype)
+            Rk = rand((LANES, T.n_pad), dtype)
+            lib_mm = lib_rmm = None
+            if label == "level0":
+                Xc = Xk[:, : T.shape[1]].T.contiguous()
+                Rc = Rk[:, : T.shape[0]].T.contiguous()
+                lib_mm = lambda: torch.sparse.mm(T_csr, Xc)     # noqa: E731
+                lib_rmm = lambda: torch.sparse.mm(Tt_csr, Rc)   # noqa: E731
+            ktag = f"{tag} K={LANES}"
+            compare(check, f"windowed_matmat_k.{dt} [{ktag}]", dtype,
+                    lambda: window.windowed_matmat_k(T, Xk),
+                    lambda: window.windowed_matmat_k_ref(T, Xk), results,
+                    meta + (Xk.numel() + LANES * T.n_pad) * sz,
+                    ops * LANES, library_fn=lib_mm)
+            compare(check, f"windowed_rmatmat_k.{dt} [{ktag}]", dtype,
+                    lambda: window.windowed_rmatmat_k(T, Rk),
+                    lambda: window.windowed_rmatmat_k_ref(T, Rk), results,
+                    meta + (Rk.numel() + LANES * T.m_chunks * T.w2) * sz,
+                    ops * LANES, library_fn=lib_rmm)
     # the device-built path's kernels: K5 on levels 0 and 1, K4 and the
     # two K1 epilogues on level 0; the K-lane kernels (K8 in three modes,
     # K9, K11) at K = 8 on levels 0 and 1; each in float32 and float64
@@ -758,6 +949,41 @@ def main():
                     lambda: dia.dia_spmv_scaled_ref(St, x, tv),
                     results, *dia_cost(St, 3, extra_ops=1))
 
+    # K15's five modes on the lane-aligned level-0 operators, K = 8, f32
+    # (library: torch.sparse.mm of A and torch.addmm of S in CSR against
+    # (n, 8) column stacks)
+    la0 = dla.hierarchy.levels[0]
+    A_la, S_la, St_la, tv_la = la0.A, la0.P.S, la0.R.St, la0.R.tv
+    wd_la = _jacobi_wd(la0.pre)
+    f32 = torch.float32
+    Bi, Xi = (rand((A_la.n_pad // 128, LANES, 128), f32) for _ in range(2))
+    Tcols = il.from_interleaved(Bi).T.contiguous()
+    Xcols = il.from_interleaved(Xi).T.contiguous()
+    A_la_csr, S_la_csr = dia_to_csr(A_la), dia_to_csr(S_la)
+    itag = f"lane-aligned level0 n_pad={A_la.n_pad} K={LANES}"
+    for name, op, kern, plain, cost, lib in (
+            ("int_jacobi_zero_res", A_la,
+             lambda: il.int_jacobi_zero_res(A_la, wd_la, Bi),
+             lambda: il.int_jacobi_zero_res_ref(A_la, wd_la, Bi),
+             dia_cost(A_la, 1, LANES, 3, extra_ops=2), None),
+            ("int_spmv_scaled", St_la,
+             lambda: il.int_spmv_scaled(St_la, Bi, tv_la),
+             lambda: il.int_spmv_scaled_ref(St_la, Bi, tv_la),
+             dia_cost(St_la, 1, LANES, 2, extra_ops=1), None),
+            ("int_spmv", A_la, lambda: il.int_spmv(A_la, Bi),
+             lambda: il.int_spmv_ref(A_la, Bi), dia_cost(A_la, 0, LANES, 2),
+             lambda: torch.sparse.mm(A_la_csr, Tcols)),
+            ("int_spmv_add", S_la, lambda: il.int_spmv_add(S_la, Bi, Xi),
+             lambda: il.int_spmv_add_ref(S_la, Bi, Xi),
+             dia_cost(S_la, 0, LANES, 3, extra_ops=1),
+             lambda: torch.addmm(Xcols, S_la_csr, Tcols)),
+            ("int_jacobi_step", A_la,
+             lambda: il.int_jacobi_step(A_la, wd_la, Bi, Xi),
+             lambda: il.int_jacobi_step_ref(A_la, wd_la, Bi, Xi),
+             dia_cost(A_la, 1, LANES, 3, extra_ops=3), None)):
+        compare(check, f"{name}.float32 [{itag} nd={op.ndiags}]", f32, kern,
+                plain, results, *cost, library_fn=lib)
+
     # 6. small input: the float64 host-built solve on the card against the
     # same hierarchy copied to the CPU (the plain twins), every level kept
     A_s = poisson((128, 128), format="csr")
@@ -785,7 +1011,15 @@ def main():
                 launches)
 
     # 9. batched device-built config 1 (K8, K9, K11)
-    batched_phase(check, "device-built batched config 1", dsa, A, launches)
+    batched_phase(check, "device-built batched config 1", dsa, A, launches,
+                  REF_ITERS_BATCHED_1E5, REF_ITERS_DEVICE)
+    # host-built (K10, K12, K13): the reference times no batched host-built
+    # native solve; its mixed count is the 1-D host-built one
+    batched_phase(check, "host-built batched config 1", dml, A, launches,
+                  None, REF_ITERS)
+    # the lane-aligned device-built hierarchy: the interleaved route (K15)
+    # and the K-major mixed solve
+    interleaved_phase(check, dla, A, launches)
 
     # 10. stationary V-cycles from a nonzero iterate, one right-hand side
     # (K4, K1 SPMV_SCALED) and K = 4 lanes (K9 + K8, K8 scale)
@@ -801,11 +1035,26 @@ def main():
 
     # 11. one device-built V-cycle, on a vector and on a K = 8 stack, with
     # every host sync an error; then the batched solve's profile
-    sync_free_cycle(check, hd, rand(hd.levels[0].n_pad, torch.float32),
-                    "one vector")
-    sync_free_cycle(check, hd, rand((LANES, hd.levels[0].n_pad),
-                                    torch.float32), f"a K={LANES} stack")
-    profile_phase(dsa, A)
+    cycle = DeviceMultilevelSolver(hd).cycle_operator("V")
+    sync_free_cycle(check, cycle, rand(hd.levels[0].n_pad, torch.float32),
+                    "one vector (device-built)")
+    sync_free_cycle(check, cycle, rand((LANES, hd.levels[0].n_pad),
+                                       torch.float32),
+                    f"a K={LANES} stack (device-built)")
+    lane_cycle_times(check, dla, rand)
+    Bp = torch.as_tensor(np.random.default_rng(3).random((n, LANES)),
+                         device=dev)
+    b0 = Bp[:, 0].contiguous()
+    profile_phase((
+        ("device-built batched native", dsa, Bp, dict(tol=1e-5, accel="cg")),
+        ("device-built batched mixed", dsa, Bp,
+         dict(tol=1e-8, accel="cg", precision="mixed")),
+        ("device-built 1-D native", dsa, b0, dict(tol=1e-5, accel="cg")),
+        ("host-built batched native", dml, Bp, dict(tol=1e-5, accel="cg")),
+        ("host-built batched mixed", dml, Bp,
+         dict(tol=1e-8, accel="cg", precision="mixed")),
+        ("interleaved batched native (lane-aligned)", dla, Bp,
+         dict(tol=1e-5, accel="cg"))))
 
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",

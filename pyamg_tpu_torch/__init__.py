@@ -5,10 +5,11 @@ setup for the options config 1 runs (``aggregation``, ``strength``,
 ``relaxation``, ``util``, ``gallery``, ``multilevel`` and a native C++
 subset in ``amg_core``, NumPy/SciPy), and the device half: padded DIA /
 dense / windowed operators as tensors, the smoothers, the V-cycle and CG
-(one right-hand side, or a K-lane batch on the device-built hierarchy),
-the device-built smoothed-aggregation setup of grid-stencil operators,
-and hand-written CUDA kernels for Hopper (``csrc/``) where the JAX
-package had TPU kernels.  It imports ``torch`` and nothing of ``jax`` or
+(one right-hand side, or a K-lane batch on either hierarchy), the
+device-built smoothed-aggregation setup of grid-stencil operators (its
+lane-aligned layout sends a batched float32 CG down the interleaved
+route), and hand-written CUDA kernels for Hopper (``csrc/``) where the
+JAX package had TPU kernels.  It imports ``torch`` and nothing of ``jax`` or
 ``pyamg_tpu``.  Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``.
 
@@ -21,6 +22,7 @@ passes ``device="cpu"``.
         postsmoother=("jacobi", {"omega": 4 / 3}))
     dml = as_device_solver(ml, mixed_precision=True, coarse_cutoff=1024)
     x = dml.solve(b, tol=1e-8, accel="cg", precision="mixed")
+    X = dml.solve(B, tol=1e-8, accel="cg", precision="mixed")  # B (n, K)
 
 or, with the hierarchy built on the card, and K right-hand sides at once:
 
@@ -30,6 +32,8 @@ or, with the hierarchy built on the card, and K right-hand sides at once:
                           mixed_precision=True)
     x = dsa.solve(b, tol=1e-8, accel="cg", precision="mixed")
     X = dsa.solve(B, tol=1e-5, accel="cg")     # B (n, K) -> X (n, K)
+    dla = device_sa_setup(A, grid=(2048, 2048), lane_align=True)
+    X = dla.solve(B, tol=1e-5, accel="cg")     # the interleaved route
 
 The kernels build with ``nvcc`` at their first launch on a CUDA tensor
 (``_build.py``).  On CPU tensors every kernel entry point runs its plain

@@ -34,8 +34,8 @@ from pathlib import Path
 
 __all__ = ["library", "build", "check", "launches", "reset_launches",
            "count_launch", "on_cpu", "check_vector", "check_stack",
-           "dtype_name",
-           "NVCC_FLAGS"]
+           "dtype_name", "lane_chunks",
+           "NVCC_FLAGS", "MAX_LANES"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -48,6 +48,10 @@ _LINK_FLAGS = ("-shared",)
 _REPORT_FLAGS = ("-Xptxas", "-v")
 
 launches: dict[str, int] = {}
+
+# lanes per launch of every K-lane kernel: each holds its lanes' sums in a
+# register array of this size (kMaxLanes in csrc/*.cu)
+MAX_LANES = 16
 
 _lock = threading.Lock()
 _lib = None
@@ -70,12 +74,12 @@ _SIGNATURES = {
                             ctypes.c_float, _P, _P, _P, _I, _P),
     "pyamg_dia_chain_f64": (_P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _P,
                             ctypes.c_double, _P, _P, _P, _I, _P),
-    # data, offsets, nd, n_pad, lanes, x, b, dinv, omega, omega_dev, y,
+    # data, offsets, nd, n_pad, lanes, x, b, dinv, omega, omega_dev, y, r,
     # mode, stream
     "pyamg_dia_k_f32": (_P, _P, _I, _L, _I, _P, _P, _P, ctypes.c_float, _P,
-                        _P, _I, _P),
-    "pyamg_dia_k_f64": (_P, _P, _I, _L, _I, _P, _P, _P, ctypes.c_double,
                         _P, _P, _I, _P),
+    "pyamg_dia_k_f64": (_P, _P, _I, _L, _I, _P, _P, _P, ctypes.c_double,
+                        _P, _P, _P, _I, _P),
     # data, offsets, nd, sdata, soffsets, nds, n_pad, lanes, b, dinv, tv,
     # omega, omega_dev, x_out, y_out, stream
     "pyamg_dia_zero_chain_k_f32": (_P, _P, _I, _P, _P, _I, _L, _I, _P, _P,
@@ -87,6 +91,19 @@ _SIGNATURES = {
     "pyamg_windowed_matvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_rmatvec_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_rmatvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
+    # data, idx, starts, k, block, w2, n_rows, m, lanes, x|r, y, stream
+    "pyamg_windowed_matmat_k_f32": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
+                                    _P, _P),
+    "pyamg_windowed_matmat_k_f64": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
+                                    _P, _P),
+    "pyamg_windowed_rmatmat_k_f32": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
+                                     _P, _P),
+    "pyamg_windowed_rmatmat_k_f64": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
+                                     _P, _P),
+    # data, offsets, nd, n_pad, K, k0, lanes, in, aux, vec, out0, out1,
+    # mode, stream
+    "pyamg_interleaved_f32": (_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _I, _P),
 }
 
 
@@ -131,6 +148,11 @@ def check_stack(name, v, n, dtype, lanes=None):
         raise TypeError(f"{name}: expected {dtype}, got {v.dtype}")
     if not v.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def lane_chunks(K):
+    """(k0, k1) lane ranges of at most MAX_LANES lanes, one launch each."""
+    return [(k0, min(K, k0 + MAX_LANES)) for k0 in range(0, K, MAX_LANES)]
 
 
 def dtype_name(dtype) -> str:

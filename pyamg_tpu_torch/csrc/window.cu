@@ -3,6 +3,10 @@
 //
 //   windowed_matvec_kernel   replaces pyamg_tpu/sparse/window.py::WindowedELL._matvec_pallas
 //   windowed_rmatvec_kernel  replaces pyamg_tpu/sparse/window.py::WindowedELL._rmatvec_pallas
+//   windowed_matmat_k_kernel (K12)
+//                            replaces pyamg_tpu/sparse/window.py::WindowedELL._matmat_pallas_k
+//   windowed_rmatmat_k_kernel (K13)
+//                            replaces pyamg_tpu/sparse/window.py::WindowedELL._rmatmat_pallas_k
 //
 // Layout (built on the host by windowed_from_scipy, identical to the JAX
 // package's): rows in blocks of `block`; block b reads the source window
@@ -36,11 +40,27 @@
 // the padding rows) are skipped: they add nothing and would otherwise
 // pile atomics onto one address.  A deterministic transpose is left for
 // later.
+//
+// The K-lane forms take K-major lane stacks (the batched solve's layout):
+// X (lanes, m_chunks * w2) -> Y (lanes, n_pad) forward, R (lanes, n_pad)
+// -> Y (lanes, m_chunks * w2) transposed.  Each entry's data and idx are
+// read once for all lanes of a launch (the point of the TPU kernels: the
+// operator's bytes are paid once per batch instead of once per lane),
+// the lanes loop inside the thread with a register accumulator of
+// kMaxLanes (indexed only by unrolled constants), and a launch covers at
+// most kMaxLanes lanes (the wrapper launches larger K in chunks).  The
+// forward form keeps K6's indexed load; the transpose K7's atomicAdd
+// scatter, one atomic per lane and entry, so its float32 sum order varies
+// from run to run exactly as K7's does.  Bound: device-memory bandwidth,
+// data and idx once (k * n * (sizeof(T) + 4) bytes) plus the K input and
+// output rows.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
+
+constexpr int kMaxLanes = 16;
 
 template <typename T>
 __global__ void windowed_matvec_kernel(const T* __restrict__ data,
@@ -81,6 +101,63 @@ __global__ void windowed_rmatvec_kernel(const T* __restrict__ data,
             a * r[blk * block + row]);
 }
 
+template <typename T>
+__global__ void windowed_matmat_k_kernel(const T* __restrict__ data,
+                                         const int* __restrict__ idx,
+                                         const int* __restrict__ starts,
+                                         int k, int block, int w2,
+                                         int64_t n_rows, int64_t m,
+                                         int lanes, const T* __restrict__ x,
+                                         T* __restrict__ y) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= n_rows) return;
+  const int64_t blk = g / block;
+  const int64_t row = g - blk * block;
+  const int64_t base = static_cast<int64_t>(starts[blk]) * w2;
+  const int64_t e0 = blk * k * block + row;
+  T acc[kMaxLanes];
+#pragma unroll
+  for (int l = 0; l < kMaxLanes; ++l) acc[l] = T(0);
+  for (int s = 0; s < k; ++s) {
+    const int64_t e = e0 + static_cast<int64_t>(s) * block;
+    const T a = data[e];
+    const int64_t col = base + idx[e];
+#pragma unroll
+    for (int l = 0; l < kMaxLanes; ++l) {
+      if (l < lanes) acc[l] += a * x[static_cast<int64_t>(l) * m + col];
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < kMaxLanes; ++l) {
+    if (l < lanes) y[static_cast<int64_t>(l) * n_rows + g] = acc[l];
+  }
+}
+
+template <typename T>
+__global__ void windowed_rmatmat_k_kernel(const T* __restrict__ data,
+                                          const int* __restrict__ idx,
+                                          const int* __restrict__ starts,
+                                          int k, int block, int w2,
+                                          int64_t n_rows, int64_t m,
+                                          int lanes,
+                                          const T* __restrict__ r,
+                                          T* __restrict__ y) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n_rows * k) return;
+  const T a = data[e];
+  if (a == T(0)) return;
+  const int64_t per_block = static_cast<int64_t>(k) * block;
+  const int64_t blk = e / per_block;
+  const int64_t g = blk * block + e % block;
+  const int64_t col = static_cast<int64_t>(starts[blk]) * w2 + idx[e];
+#pragma unroll
+  for (int l = 0; l < kMaxLanes; ++l) {
+    if (l < lanes)
+      atomicAdd(&y[static_cast<int64_t>(l) * m + col],
+                a * r[static_cast<int64_t>(l) * n_rows + g]);
+  }
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned int grid_for(long long n) {
@@ -110,6 +187,42 @@ int launch_rmatvec(const void* data, const void* idx, const void* starts,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int*>(idx),
       static_cast<const int*>(starts), k, block, w2, n_entries,
+      static_cast<const T*>(r), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The K-lane launches: x (lanes, m) in, y (lanes, n_rows) out for the
+// forward form; r (lanes, n_rows) in, y (lanes, m) accumulated (zeroed by
+// the caller) for the transpose.
+template <typename T>
+int launch_matmat_k(const void* data, const void* idx, const void* starts,
+                    int k, int block, int w2, long long n_rows, long long m,
+                    int lanes, const void* x, void* y, void* stream) {
+  if (lanes < 1 || lanes > kMaxLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows <= 0) return static_cast<int>(cudaSuccess);
+  windowed_matmat_k_kernel<T><<<grid_for(n_rows), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int*>(idx),
+      static_cast<const int*>(starts), k, block, w2, n_rows, m, lanes,
+      static_cast<const T*>(x), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_rmatmat_k(const void* data, const void* idx, const void* starts,
+                     int k, int block, int w2, long long n_rows, long long m,
+                     int lanes, const void* r, void* y, void* stream) {
+  if (lanes < 1 || lanes > kMaxLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_entries = n_rows * k;
+  if (n_entries <= 0) return static_cast<int>(cudaSuccess);
+  windowed_rmatmat_k_kernel<T><<<grid_for(n_entries), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int*>(idx),
+      static_cast<const int*>(starts), k, block, w2, n_rows, m, lanes,
       static_cast<const T*>(r), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
@@ -148,6 +261,41 @@ int pyamg_windowed_rmatvec_f64(const void* data, const void* idx,
                                void* stream) {
   return launch_rmatvec<double>(data, idx, starts, k, block, w2, n_rows, r, y,
                                 stream);
+}
+
+// data, idx, starts, k, block, w2, n_rows, m, lanes, x|r, y, stream
+int pyamg_windowed_matmat_k_f32(const void* data, const void* idx,
+                                const void* starts, int k, int block, int w2,
+                                long long n_rows, long long m, int lanes,
+                                const void* x, void* y, void* stream) {
+  return launch_matmat_k<float>(data, idx, starts, k, block, w2, n_rows, m,
+                                lanes, x, y, stream);
+}
+
+int pyamg_windowed_matmat_k_f64(const void* data, const void* idx,
+                                const void* starts, int k, int block, int w2,
+                                long long n_rows, long long m, int lanes,
+                                const void* x, void* y, void* stream) {
+  return launch_matmat_k<double>(data, idx, starts, k, block, w2, n_rows, m,
+                                 lanes, x, y, stream);
+}
+
+int pyamg_windowed_rmatmat_k_f32(const void* data, const void* idx,
+                                 const void* starts, int k, int block,
+                                 int w2, long long n_rows, long long m,
+                                 int lanes, const void* r, void* y,
+                                 void* stream) {
+  return launch_rmatmat_k<float>(data, idx, starts, k, block, w2, n_rows, m,
+                                 lanes, r, y, stream);
+}
+
+int pyamg_windowed_rmatmat_k_f64(const void* data, const void* idx,
+                                 const void* starts, int k, int block,
+                                 int w2, long long n_rows, long long m,
+                                 int lanes, const void* r, void* y,
+                                 void* stream) {
+  return launch_rmatmat_k<double>(data, idx, starts, k, block, w2, n_rows,
+                                  m, lanes, r, y, stream);
 }
 
 }  // extern "C"

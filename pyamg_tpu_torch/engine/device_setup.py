@@ -23,15 +23,19 @@ an exact reshape-and-sum and an expand here; both use the aggregate map
 The transfers and the grid transforms take K-major (K, n) lane stacks as
 well as vectors, so :class:`StructuredDeviceSolver` solves an (n, K)
 right-hand side lane by lane on the K-lane kernels (K8, K9, K11).
+``lane_align=True`` pads each level's last grid dim to a multiple of
+lcm(stride, 128) and the one before to lcm(stride, 8) (the reference's
+layout for its batched route): a batched native float32 CG on such a
+hierarchy runs the interleaved route (``engine/batched_cycle.py``, K15).
 
 Not ported (each raises ``NotImplementedError``): operators that are not
-grid stencils (the unstructured device setup, ROADMAP.md Queue 1 item 13),
-``lane_align=True`` (the interleaved batched layout, K15, item 12), and
-the ``richardson`` and ``chebyshev`` smoothers (item 8).
+grid stencils (the unstructured device setup, ROADMAP.md Queue 1 item 13)
+and the ``richardson`` and ``chebyshev`` smoothers (item 8).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Tuple
 
@@ -159,10 +163,23 @@ def _tup(v, dim):
     return (int(v),) * dim
 
 
-def _padded_grid(grid, stride):
-    """The grid padded up to a multiple of the stride in each dim."""
+def _padded_grid(grid, stride, lane_align=False):
+    """The grid padded up to a multiple of the stride in each dim; with
+    ``lane_align`` the last dim (when >= 512) pads to a multiple of
+    lcm(stride, 128) and the second-to-last (when >= 64) to lcm(stride,
+    8), the reference's lane-aligned layout (its grid rows are whole
+    128-row tiles of the interleaved stacks)."""
     ss = _tup(stride, len(grid))
-    return tuple(int(s * -(-g // s)) for g, s in zip(grid, ss))
+    nd = len(grid)
+    out = []
+    for d, (g, s) in enumerate(zip(grid, ss)):
+        q = s
+        if lane_align and d == nd - 1 and g >= 512:
+            q = math.lcm(s, 128)
+        elif lane_align and d == nd - 2 and g >= 64:
+            q = math.lcm(s, 8)
+        out.append(int(q * -(-g // q)))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -786,12 +803,13 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
     (default ones); ``improve_candidates_iters`` relaxes A z = 0 on it
     before each level's tentative fit.  ``mixed_precision=True`` also
     stores the finest operator in float64 on the padded grid for the
-    mixed-precision outer loop.  Smoothers: ``jacobi`` specs."""
+    mixed-precision outer loop.  ``lane_align=True`` lays each level on
+    the lane-aligned padded grid (:func:`_padded_grid`), so that batched
+    native float32 CG solves take the interleaved route.  Smoothers:
+    ``jacobi`` specs."""
     device = resolve_device(device)
     if dtype not in (torch.float32, torch.float64):
         raise _not_ported(f"dtype {dtype}", 4)
-    if lane_align:
-        raise _not_ported("the lane-aligned grid layout", 12)
     if grid is None:
         if not (sp.issparse(A) or isinstance(A, np.ndarray)):
             raise ValueError("grid= is required for DIAMatrix inputs")
@@ -849,7 +867,7 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
     cur_couple = couple
     while int(np.prod(cur_grid)) > max_coarse and len(plan) < max_levels - 1:
         strides = _level_strides(cur_couple)
-        grid_p = _padded_grid(cur_grid, strides)
+        grid_p = _padded_grid(cur_grid, strides, lane_align=lane_align)
         if not all(gp >= 3 * s for gp, s in zip(grid_p, strides) if s > 1):
             break
         plan.append((cur_grid, grid_p, strides))

@@ -14,9 +14,10 @@ Every entry form also takes K-major (K, n_pad) lane stacks for x and b
 (:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_k`), a sweep plus the
 residual of its result is K9 then the residual through K8
 (:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_res_k`, the reference's
-batch rule), and the zero-guess sweep plus residual is composed (its
-K-lane kernel, K10, belongs with the host-built batched path, ROADMAP.md
-Queue 1 item 12).  The other smoothers are ROADMAP.md Queue 1 item 8.
+batch rule), and the zero-guess sweep plus residual one K10 pass
+(:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_zero_res_k`).  On an
+operator that is not DIA the sweep composes through ``A @ X``.  The
+other smoothers are ROADMAP.md Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 from ..sparse.dia import (DIAMatrix, dia_jacobi, dia_jacobi_k,
                           dia_jacobi_res, dia_jacobi_res_k,
-                          dia_jacobi_zero_res)
+                          dia_jacobi_zero_res, dia_jacobi_zero_res_k)
 
 __all__ = ["DeviceSmoother", "identity", "jacobi", "jacobi_dyn"]
 
@@ -74,14 +75,17 @@ class DeviceSmoother:
 
     def zero_call_residual(self, A, b):
         """(x, r) = (zero_call(A, b), b - A @ x) in one kernel pass when
-        the smoother is a single Jacobi sweep on a DIA operator and b is
-        one vector; None otherwise (the caller composes)."""
+        the smoother is a single Jacobi sweep on a DIA operator (K3, or
+        K10 for a K-major lane stack b); None otherwise (the caller
+        composes)."""
         jac = self._jacobi()
-        if not isinstance(A, DIAMatrix) or jac is None or b.ndim != 1:
+        if not isinstance(A, DIAMatrix) or jac is None:
             return None
         dinv, omega, iterations = jac
-        if iterations != 1 or dinv.shape != b.shape:
+        if iterations != 1 or dinv.shape[0] != b.shape[-1]:
             return None
+        if b.ndim == 2:
+            return dia_jacobi_zero_res_k(A, b, dinv, omega)
         return dia_jacobi_zero_res(A, b, dinv, omega)
 
     def call_residual(self, A, x, b):

@@ -9,13 +9,16 @@ Ported so far: the V-cycle (and the single-level direct solve) over both
 the host-built and the device-built hierarchy, with the reference's fused
 level front-ends and correction add, ``accel in (None, "cg")``,
 ``precision in ("native", "mixed")``.  A 2-D ``b`` of shape (n, K) solves
-K right-hand sides at once on a device-built hierarchy: the lanes ride
-K-major (K, n_pad) stacks through the K-lane kernels, each lane stops at
+K right-hand sides at once on either hierarchy: the lanes ride K-major
+(K, n_pad) stacks through the K-lane kernels (K8-K13), each lane stops at
 its own convergence and stays frozen after (the reference vmaps its
-whole solve over the lanes, ``pyamg_tpu/engine/solver.py:289-296``).
-W/F/AMLI cycles and the other Krylov methods are ROADMAP.md Queue 1 item
-7; batched solves on a host-built hierarchy (K10, K12, K13) and the
-interleaved lane-aligned route (K15) item 12.
+whole solve over the lanes, ``pyamg_tpu/engine/solver.py:289-296``).  A
+batched native float32 V-cycle CG from x0 = 0 on a hierarchy that
+:func:`~pyamg_tpu_torch.engine.batched_cycle.supports_interleaved` admits
+(a lane-aligned device-built one) takes the reference's interleaved route
+instead (:func:`~pyamg_tpu_torch.engine.batched_cycle.interleaved_batched_cg`,
+K15; ``pyamg_tpu/engine/solver.py:355-385``).  W/F/AMLI cycles and the
+other Krylov methods are ROADMAP.md Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -132,12 +135,6 @@ def _make_cycle(nlev, cycle):
 class DeviceMultilevelSolver:
     """Solve engine over a compiled DeviceHierarchy."""
 
-    # whether ``solve`` takes an (n, K) right-hand side.  The batched
-    # solve is this engine's code, but only the device-built hierarchy's
-    # cycle has a K-lane kernel for every apply (the host-built one lacks
-    # K10, K12 and K13), so StructuredDeviceSolver alone turns it on.
-    lane_solves = False
-
     def __init__(self, hierarchy: DeviceHierarchy):
         self.hierarchy = hierarchy
 
@@ -167,10 +164,13 @@ class DeviceMultilevelSolver:
         runs the outer loop in float64 with the cycle as preconditioner
         (requires compile_hierarchy(mixed_precision=True)).
 
-        A ``b`` of shape (n, K) solves K systems at once (where
-        ``lane_solves``): x has shape (n, K), ``residuals`` receives K
-        per-lane history arrays, each lane stops at its own convergence,
-        and ``return_info`` gives 0 only if every lane converged."""
+        A ``b`` of shape (n, K) solves K systems at once: x has shape
+        (n, K), ``residuals`` receives K per-lane history arrays, each lane
+        stops at its own convergence, and ``return_info`` gives 0 only if
+        every lane converged.  A native float32 V-cycle CG from x0 = 0 on
+        a hierarchy that ``supports_interleaved`` runs the interleaved
+        route (the reference's semantics: convergence checked every 4
+        iterations, info ``maxiter`` when a lane did not converge)."""
         h = self.hierarchy
         if accel not in (None, "cg"):
             raise NotImplementedError(
@@ -183,11 +183,6 @@ class DeviceMultilevelSolver:
             raise ValueError("mixed precision requires a hierarchy compiled "
                              "with mixed_precision=True")
         lanes = np.ndim(b) == 2
-        if lanes and not self.lane_solves:
-            raise NotImplementedError(
-                "batched (n, K) right-hand sides on a host-built hierarchy "
-                "need the K-lane windowed and zero-guess kernels (K10, K12, "
-                "K13), not ported yet (ROADMAP.md Queue 1 item 12)")
         if np.ndim(b) not in (1, 2):
             raise ValueError(f"b must be a vector or an (n, K) stack, got "
                              f"{np.ndim(b)} dimensions")
@@ -197,6 +192,17 @@ class DeviceMultilevelSolver:
         tensor_out = isinstance(b, torch.Tensor)
         stage = _stage_lanes if lanes else pad_vector
         b_dev = stage(b, n_pad, dtype=dtype, device=h.device)
+        if (lanes and accel == "cg" and not mixed and x0 is None
+                and str(cycle).upper() == "V" and dtype == torch.float32):
+            # imported here: batched_cycle builds on this module
+            from .batched_cycle import (interleaved_batched_cg,
+                                        supports_interleaved)
+            if supports_interleaved(h):
+                x, history = interleaved_batched_cg(h, b_dev, tol=tol,
+                                                    maxiter=int(maxiter))
+                return self._finish(x, history, b_dev, n, tol, tensor_out,
+                                    True, residuals, return_info,
+                                    int(maxiter))
         x0_dev = (torch.zeros_like(b_dev) if x0 is None
                   else stage(x0, n_pad, dtype=dtype, device=h.device))
         one_cycle, matvec, precond = self._ops(cycle, mixed)
@@ -208,6 +214,17 @@ class DeviceMultilevelSolver:
         else:
             x, history, it = device_cg(matvec, b_dev, x0_dev, tol=tol,
                                        maxiter=int(maxiter), M=precond)
+        return self._finish(x, history, b_dev, n, tol, tensor_out, lanes,
+                            residuals, return_info,
+                            int(torch.as_tensor(it).max()))
+
+    @staticmethod
+    def _finish(x, history, b_dev, n, tol, tensor_out, lanes, residuals,
+                return_info, it):
+        """Unpad x (and turn a (K, n_pad) stack into (n, K) columns), fill
+        ``residuals`` with the NaN-free history (one array per lane), and
+        give the info: 0 when every lane's last residual is below
+        tol * ||b||, else ``it``."""
         x = x[..., :n]
         if lanes:
             x = x.T
@@ -223,7 +240,7 @@ class DeviceMultilevelSolver:
             converged = all(
                 len(hl) >= 1 and hl[-1] < tol * max(float(nb), 1e-300)
                 for hl, nb in zip(hists, normb.cpu().numpy()))
-            return x, (0 if converged else int(torch.as_tensor(it).max()))
+            return x, (0 if converged else it)
         return x
 
     def _stationary(self, one_cycle, matvec, b, x0, tol, maxiter, mixed):

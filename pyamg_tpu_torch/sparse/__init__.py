@@ -7,13 +7,15 @@ import torch
 from .composed import ComposedOperator
 from .dia import (DenseOperator, DIAMatrix, dense_from_scipy, dia_from_scipy,
                   dia_from_stencil, dia_jacobi, dia_jacobi_k, dia_jacobi_res,
-                  dia_jacobi_res_k, dia_jacobi_zero_res, dia_spgemm,
+                  dia_jacobi_res_k, dia_jacobi_zero_res,
+                  dia_jacobi_zero_res_k, dia_spgemm,
                   dia_spmm, dia_spmm_add, dia_spmm_scaled, dia_spmv,
                   dia_spmv_add, dia_spmv_scaled, dia_zero_chain,
                   dia_zero_chain_k)
 from .formats import pad_to, pad_vector
 from .window import (TransposedWindowed, WindowedELL, windowed_from_scipy,
-                     windowed_matvec, windowed_rmatvec)
+                     windowed_matmat_k, windowed_matvec, windowed_rmatmat_k,
+                     windowed_rmatvec)
 
 __all__ = [
     "ComposedOperator",
@@ -29,6 +31,7 @@ __all__ = [
     "dia_jacobi_res",
     "dia_jacobi_res_k",
     "dia_jacobi_zero_res",
+    "dia_jacobi_zero_res_k",
     "dia_spgemm",
     "dia_spmm",
     "dia_spmm_add",
@@ -42,7 +45,9 @@ __all__ = [
     "pad_vector",
     "select_operator",
     "windowed_from_scipy",
+    "windowed_matmat_k",
     "windowed_matvec",
+    "windowed_rmatmat_k",
     "windowed_rmatvec",
 ]
 

@@ -3,7 +3,8 @@ factor (counterpart of ``pyamg_tpu/sparse/composed.py``).
 
 Smoothed-aggregation transfers are compiled as factors: P = S^d T with S
 a DIA smoothing factor and T the k=1 windowed tentative operator, and
-R = T^T (S^T)^d sharing T's arrays."""
+R = T^T (S^T)^d sharing T's arrays.  A K-major (K, n) lane stack goes
+through the same factors, each fitted along its last axis."""
 
 from __future__ import annotations
 
@@ -56,11 +57,13 @@ class ComposedOperator:
         return getattr(self.ops[0], "n_pad", self.shape[0])
 
     def matvec(self, x):
+        """The product applied to a vector, or lane by lane to a K-major
+        (K, n) stack."""
         for op in reversed(self.ops):
             need = _expected_in(op)
             if need is not None:
                 x = _fit(x, need)
-            x = op.matvec(x)
+            x = op @ x
         return x
 
     def rmatvec(self, x):
@@ -70,8 +73,7 @@ class ComposedOperator:
         return x
 
     def __matmul__(self, x):
-        if x.ndim != 1:
-            raise NotImplementedError(
-                "ComposedOperator applies to 1-D vectors only; the batched "
-                "forms are ROADMAP.md Queue 1 item 12")
+        if x.ndim not in (1, 2):
+            raise ValueError(f"ComposedOperator applies to a vector or a "
+                             f"(K, n) stack, got shape {tuple(x.shape)}")
         return self.matvec(x)

@@ -25,6 +25,7 @@ stacks, the batched solve's layout:
 - :func:`dia_spmm_scaled`     s (A R), s shared by the lanes (TPU: ``_dia_pallas_matmat_k``, ``scale=``)
 - :func:`dia_spmm_add`        V + A T, V per lane            (TPU: ``_dia_pallas_matmat_k``, ``addk=``)
 - :func:`dia_jacobi_k`        X + w dinv (B - A X)           (TPU: ``dia_pallas_jacobi_km``)
+- :func:`dia_jacobi_zero_res_k` (w dinv B, B - A (w dinv B)) (TPU: ``dia_pallas_jacobi_zero_res_km``)
 - :func:`dia_zero_chain_k`    (X, tv (St (B - A X))), X = w dinv B
                                                              (TPU: ``dia_pallas_zero_chain_km``)
 
@@ -66,15 +67,15 @@ __all__ = ["DIAMatrix", "dia_from_scipy", "dia_from_stencil", "dia_spgemm",
            "dia_jacobi_ref", "dia_jacobi_zero_res_ref", "dia_jacobi_res_ref",
            "dia_zero_chain_ref", "dia_spmm", "dia_spmm_scaled",
            "dia_spmm_add", "dia_jacobi_k", "dia_zero_chain_k",
-           "dia_jacobi_res_k", "dia_spmm_ref", "dia_spmm_scaled_ref",
-           "dia_spmm_add_ref", "dia_jacobi_k_ref", "dia_zero_chain_k_ref"]
+           "dia_jacobi_res_k", "dia_jacobi_zero_res_k", "dia_spmm_ref",
+           "dia_spmm_scaled_ref", "dia_spmm_add_ref", "dia_jacobi_k_ref",
+           "dia_jacobi_zero_res_k_ref", "dia_zero_chain_k_ref"]
 
 # modes of csrc/dia.cu::dia_kernel and csrc/dia_chain.cu
 _SPMV, _JACOBI, _JACOBI_ZERO_RES, _SPMV_SCALED, _SPMV_ADD = 0, 1, 2, 3, 4
 _ZERO_CHAIN, _JACOBI_RES = 0, 1
-# modes of csrc/dia_k.cu::dia_k_kernel, and its lanes per launch
-_SPMM, _SPMM_SCALED, _SPMM_ADD, _JACOBI_K = 0, 1, 2, 3
-_MAX_LANES = 16
+# modes of csrc/dia_k.cu::dia_k_kernel
+_SPMM, _SPMM_SCALED, _SPMM_ADD, _JACOBI_K, _ZERO_RES_K = 0, 1, 2, 3, 4
 
 
 @dataclass(frozen=True)
@@ -172,7 +173,9 @@ def dia_from_scipy(A, dtype=torch.float32, device=None, row_pad=8,
 @dataclass(frozen=True)
 class DenseOperator:
     """Dense operator for small (coarse) levels; products run in full
-    float32 (``backend`` turns TF32 off)."""
+    float32 (``backend`` turns TF32 off).  A K-major (K, m_pad) lane stack
+    is applied lane by lane as ``X @ data.T`` (plain ``torch.matmul``, as
+    the reference leaves it to XLA outside any kernel)."""
 
     data: torch.Tensor           # (n_pad, m_pad)
     shape: Tuple[int, int]
@@ -187,13 +190,15 @@ class DenseOperator:
         return self.data.dtype
 
     def matvec(self, x):
+        if x.ndim == 2:
+            return torch.matmul(x, self.data.T)
         return torch.matmul(self.data, x)
 
     def rmatvec(self, x):
         return torch.matmul(x, self.data)
 
     def __matmul__(self, x):
-        return torch.matmul(self.data, x)
+        return self.matvec(x)
 
 
 def dense_from_scipy(A, dtype=torch.float32, device=None, row_pad=8):
@@ -279,6 +284,11 @@ def dia_jacobi_k_ref(A: DIAMatrix, Xk, Bk, dinv, omega):
     return Xk + omega * (dinv * (Bk - dia_spmm_ref(A, Xk)))
 
 
+def dia_jacobi_zero_res_k_ref(A: DIAMatrix, Bk, dinv, omega):
+    Xk = omega * (dinv * Bk)
+    return Xk, Bk - dia_spmm_ref(A, Xk)
+
+
 def dia_zero_chain_k_ref(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
     Xk = omega * (dinv * Bk)
     return Xk, tv * dia_spmm_ref(St, Bk - dia_spmm_ref(A, Xk))
@@ -351,26 +361,23 @@ def _launch_chain(mode, A, St, x, b, dinv, tv, omega, out0, out1):
     _build.check(fn_name, err)
 
 
-def _lane_chunks(K):
-    """(k0, k1) lane ranges of at most _MAX_LANES lanes (one launch
-    each)."""
-    return [(k0, min(K, k0 + _MAX_LANES)) for k0 in range(0, K, _MAX_LANES)]
-
-
-def _launch_k(kernel, mode, A, Xk, b, dinv, omega, Yk):
+def _launch_k(kernel, mode, A, Xk, b, dinv, omega, Yk, Rk=None):
     """Launch csrc/dia_k.cu::dia_k_kernel over (K, n_pad) stacks in lane
-    chunks; ``b`` is a shared (n_pad,) vector or a per-lane stack."""
+    chunks; ``b`` is a shared (n_pad,) vector or a per-lane stack, ``Rk``
+    the second output stack (K10's residual)."""
     _kernel_operand(A)
     suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
     fn_name = f"pyamg_dia_k_{suffix}"
     fn = getattr(_build.library(), fn_name)
     w, w_dev = _omega_args(omega, A, c_scalar)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    for k0, k1 in _lane_chunks(Yk.shape[0]):
+    for k0, k1 in _build.lane_chunks(Yk.shape[0]):
         bk = b if b is None or b.ndim == 1 else b[k0:k1]
+        xk = None if Xk is None else Xk[k0:k1]
+        rk = None if Rk is None else Rk[k0:k1]
         err = fn(A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags,
-                 A.n_pad, k1 - k0, Xk[k0:k1].data_ptr(), _ptr(bk),
-                 _ptr(dinv), w, w_dev, Yk[k0:k1].data_ptr(), mode, stream)
+                 A.n_pad, k1 - k0, _ptr(xk), _ptr(bk), _ptr(dinv), w, w_dev,
+                 Yk[k0:k1].data_ptr(), _ptr(rk), mode, stream)
         _build.check(fn_name, err)
         _count(kernel, A)
 
@@ -521,6 +528,20 @@ def dia_jacobi_k(A: DIAMatrix, Xk, Bk, dinv, omega):
     return Yk
 
 
+def dia_jacobi_zero_res_k(A: DIAMatrix, Bk, dinv, omega):
+    """Zero-guess Jacobi sweep and its residual per lane in one pass:
+    (X, R) = (omega * dinv * B, B - A @ X) (K10)."""
+    if _build.on_cpu(A.data, Bk, dinv):
+        return dia_jacobi_zero_res_k_ref(A, Bk, dinv, omega)
+    _check_stacks(A, None, Bk=Bk)
+    _check_vectors(A, dinv=dinv)
+    Xk = torch.empty_like(Bk)
+    Rk = torch.empty_like(Bk)
+    _launch_k("dia_jacobi_zero_res_k", _ZERO_RES_K, A, None, Bk, dinv, omega,
+              Xk, Rk)
+    return Xk, Rk
+
+
 def dia_jacobi_res_k(A: DIAMatrix, Xk, Bk, dinv, omega):
     """(Y, B - A @ Y), Y = X + omega * dinv * (B - A @ X), per lane: the
     reference's batch rule of the Jacobi-plus-residual step, K9 then the
@@ -549,7 +570,7 @@ def dia_zero_chain_k(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
     stream = torch.cuda.current_stream(A.device).cuda_stream
     Xk = torch.empty_like(Bk)
     Yk = torch.empty_like(Bk)
-    for k0, k1 in _lane_chunks(Bk.shape[0]):
+    for k0, k1 in _build.lane_chunks(Bk.shape[0]):
         err = fn(A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags,
                  St.data.data_ptr(), St.offsets_t.data_ptr(), St.ndiags,
                  A.n_pad, k1 - k0, Bk[k0:k1].data_ptr(), dinv.data_ptr(),

@@ -10,8 +10,15 @@ exactly as the JAX package builds it (same block, w2, starts, idx):
 
 Kernel entry points (``csrc/window.cu``):
 
-- :func:`windowed_matvec`  y = A x    (TPU: ``WindowedELL._matvec_pallas``)
-- :func:`windowed_rmatvec` y = A^T r  (TPU: ``WindowedELL._rmatvec_pallas``)
+- :func:`windowed_matvec`     y = A x    (TPU: ``WindowedELL._matvec_pallas``)
+- :func:`windowed_rmatvec`    y = A^T r  (TPU: ``WindowedELL._rmatvec_pallas``)
+- :func:`windowed_matmat_k`   Y = A X    (TPU: ``WindowedELL._matmat_pallas_k``)
+- :func:`windowed_rmatmat_k`  Y = A^T R  (TPU: ``WindowedELL._rmatmat_pallas_k``)
+
+The last two take K-major (K, m) lane stacks, the batched solve's
+layout; the operators' ``@`` takes a vector or such a stack, padding and
+slicing along the last axis.  The TPU forms' lane caps (VMEM budgets) do
+not carry over: any K runs, in launches of at most 16 lanes.
 
 Each has a plain PyTorch twin (gather / scatter-add, ``*_ref``).  A
 wrapper runs the twin only when its operands lie on the CPU; on CUDA
@@ -26,14 +33,15 @@ from typing import Tuple
 import numpy as np
 import scipy.sparse as sp
 import torch
-import torch.nn.functional as F
 
 from .. import _build
-from .formats import pad_to
+from .formats import fit, pad_to
 
 __all__ = ["WindowedELL", "TransposedWindowed", "windowed_from_scipy",
-           "windowed_matvec", "windowed_rmatvec", "windowed_matvec_ref",
-           "windowed_rmatvec_ref"]
+           "windowed_matvec", "windowed_rmatvec", "windowed_matmat_k",
+           "windowed_rmatmat_k", "windowed_matvec_ref",
+           "windowed_rmatvec_ref", "windowed_matmat_k_ref",
+           "windowed_rmatmat_k_ref"]
 
 _LANES = 128
 
@@ -73,10 +81,9 @@ class WindowedELL:
         return self.data.device
 
     def _x_padded(self, x):
-        need = self.m_chunks * self.w2
-        if x.shape[0] < need:
-            return F.pad(x, (0, need - x.shape[0]))
-        return x[:need]
+        """x (or each lane of a (K, m) stack) fitted to the source length
+        ``m_chunks * w2``."""
+        return fit(x, self.m_chunks * self.w2)
 
     def _can_transpose_pallas(self):
         """The JAX package's gate for its transpose kernel (the output had
@@ -88,10 +95,26 @@ class WindowedELL:
                 and self.dtype in _PALLAS_DTYPES)
 
     def matvec(self, x):
+        """A @ x for a vector, or lane by lane for a K-major stack (K12)."""
+        if x.ndim == 2:
+            return self.matmat_k(x)
         return windowed_matvec(self, self._x_padded(x))
 
     def rmatvec(self, x):
+        """A^T @ x for a vector, or lane by lane for a K-major stack
+        (K13)."""
+        if x.ndim == 2:
+            return self.rmatmat_k(x)
         return windowed_rmatvec(self, x[: self.n_pad])
+
+    def matmat_k(self, Xk):
+        """Y = A @ X for a K-major stack (K, m) -> (K, n_pad) (K12)."""
+        return windowed_matmat_k(self, self._x_padded(Xk))
+
+    def rmatmat_k(self, Rk):
+        """Y = A^T @ R for a K-major stack (K, n_pad) -> (K, m_chunks * w2)
+        (K13)."""
+        return windowed_rmatmat_k(self, fit(Rk, self.n_pad))
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -100,7 +123,8 @@ class WindowedELL:
 @dataclass(frozen=True)
 class TransposedWindowed:
     """Lazy transpose of a WindowedELL: ``matvec`` is the base operator's
-    transpose apply, on the base operator's own arrays."""
+    transpose apply, on the base operator's own arrays (K7, or K13 lane by
+    lane for a K-major stack)."""
 
     base: WindowedELL
 
@@ -121,12 +145,7 @@ class TransposedWindowed:
         return self.base.m_chunks * self.base.w2
 
     def matvec(self, x):
-        need = self.base.n_pad
-        if x.shape[0] < need:
-            x = F.pad(x, (0, need - x.shape[0]))
-        elif x.shape[0] > need:
-            x = x[:need]
-        return self.base.rmatvec(x)
+        return self.base.rmatvec(fit(x, self.base.n_pad))
 
     def rmatvec(self, x):
         return self.base.matvec(x)
@@ -248,11 +267,21 @@ def windowed_rmatvec_ref(W: WindowedELL, r):
                         (W.data * rb).reshape(-1))
 
 
+def windowed_matmat_k_ref(W: WindowedELL, Xk):
+    """The gather form lane by lane; ``Xk`` is (K, m_chunks * w2)."""
+    return torch.stack([windowed_matvec_ref(W, x) for x in Xk])
+
+
+def windowed_rmatmat_k_ref(W: WindowedELL, Rk):
+    """The scatter-add form lane by lane; ``Rk`` is (K, n_pad)."""
+    return torch.stack([windowed_rmatvec_ref(W, r) for r in Rk])
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch_windowed(kind, W, v, y):
+def _check_operator(W):
     if W.dtype not in _KERNEL_SUFFIX:
         raise TypeError(f"windowed kernel takes float32 or float64, not "
                         f"{W.dtype}")
@@ -260,12 +289,32 @@ def _launch_windowed(kind, W, v, y):
                         ("starts", W.starts, torch.int32)):
         if t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"windowed {name}: expected contiguous {dt}")
+
+
+def _launch_windowed(kind, W, v, y):
+    _check_operator(W)
     fn_name = f"pyamg_windowed_{kind}_{_KERNEL_SUFFIX[W.dtype]}"
     err = getattr(_build.library(), fn_name)(
         W.data.data_ptr(), W.idx.data_ptr(), W.starts.data_ptr(), W.k,
         W.block, W.w2, W.n_pad, v.data_ptr(), y.data_ptr(),
         torch.cuda.current_stream(W.device).cuda_stream)
     _build.check(fn_name, err)
+
+
+def _launch_windowed_k(kind, W, V, Y):
+    """Launch a K-lane windowed kernel over the stacks V -> Y in lane
+    chunks, counting each launch."""
+    _check_operator(W)
+    fn_name = f"pyamg_windowed_{kind}_{_KERNEL_SUFFIX[W.dtype]}"
+    fn = getattr(_build.library(), fn_name)
+    stream = torch.cuda.current_stream(W.device).cuda_stream
+    m = W.m_chunks * W.w2
+    for k0, k1 in _build.lane_chunks(V.shape[0]):
+        err = fn(W.data.data_ptr(), W.idx.data_ptr(), W.starts.data_ptr(),
+                 W.k, W.block, W.w2, W.n_pad, m, k1 - k0,
+                 V[k0:k1].data_ptr(), Y[k0:k1].data_ptr(), stream)
+        _build.check(fn_name, err)
+        _build.count_launch(f"windowed_{kind}.{_build.dtype_name(W.dtype)}")
 
 
 def windowed_matvec(W: WindowedELL, x):
@@ -290,3 +339,28 @@ def windowed_rmatvec(W: WindowedELL, r):
     _launch_windowed("rmatvec", W, r, y)
     _build.count_launch(f"windowed_rmatvec.{_build.dtype_name(W.dtype)}")
     return y
+
+
+def windowed_matmat_k(W: WindowedELL, Xk):
+    """Y = A @ X lane by lane for a K-major stack Xk (K, m_chunks * w2); Y
+    is (K, n_pad) (K12: data and idx read once for all lanes)."""
+    if _build.on_cpu(W.data, Xk):
+        return windowed_matmat_k_ref(W, Xk)
+    _build.check_stack("Xk", Xk, W.m_chunks * W.w2, W.dtype)
+    Y = torch.empty(Xk.shape[0], W.n_pad, dtype=W.dtype, device=Xk.device)
+    _launch_windowed_k("matmat_k", W, Xk, Y)
+    return Y
+
+
+def windowed_rmatmat_k(W: WindowedELL, Rk):
+    """Y = A^T @ R lane by lane for a K-major stack Rk (K, n_pad); Y is
+    (K, m_chunks * w2) (K13: one atomicAdd per lane and entry into a
+    zeroed output, so on the card the float summation order varies from
+    run to run, as K7's does)."""
+    if _build.on_cpu(W.data, Rk):
+        return windowed_rmatmat_k_ref(W, Rk)
+    _build.check_stack("Rk", Rk, W.n_pad, W.dtype)
+    Y = torch.zeros(Rk.shape[0], W.m_chunks * W.w2, dtype=W.dtype,
+                    device=Rk.device)
+    _launch_windowed_k("rmatmat_k", W, Rk, Y)
+    return Y

@@ -366,12 +366,18 @@ def test_batched_float32_cycle_goes_through_the_lane_kernels():
             B[:, j])
 
 
-def test_batched_on_a_host_built_solver_raises():
-    """A 2-D b on a host-built hierarchy needs K10, K12 and K13."""
+def test_batched_on_a_host_built_solver_runs():
+    """A 2-D b on a host-built hierarchy solves lane by lane (K10, K12 and
+    K13 on the card; tests/test_torch_host_batched.py holds it against
+    the reference): every lane converges against the true operator."""
     A = pt.poisson((32, 32), format="csr")
     ml = pt.smoothed_aggregation_solver(
         A, presmoother=("jacobi", {"omega": 4.0 / 3.0}),
         postsmoother=("jacobi", {"omega": 4.0 / 3.0}))
-    dml = pt.as_device_solver(ml, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        dml.solve(np.ones((A.shape[0], 2)))
+    dml = pt.as_device_solver(ml, dtype=torch.float64, device=CPU)
+    B = np.random.default_rng(9).random((A.shape[0], 2))
+    X, info = dml.solve(B, tol=1e-10, accel="cg", return_info=True)
+    assert X.shape == B.shape and info == 0
+    for j in range(2):
+        assert np.linalg.norm(B[:, j] - A @ X[:, j]) < 1e-10 * np.linalg.norm(
+            B[:, j])

@@ -9,6 +9,8 @@ from the repository root:
 (``--noconftest``: the suite's conftest configures JAX, which the port
 neither needs nor imports.)
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -263,3 +265,145 @@ def test_k_lane_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(ValueError):
         dia.dia_spmm_add(D, torch.ones(2, D.n_pad, device=cuda),
                          torch.ones(3, D.n_pad, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K", [3, 8, 19])
+def test_k10_zero_res_k_matches_twin(cuda, dtype, K):
+    """K10 against its twin on K-major stacks, omega by value and as a 0-d
+    device tensor; K=19 takes two launches per call."""
+    A = poisson((48, 70), format="csr")
+    D = dia_from_scipy(A, dtype=dtype, device=cuda, row_pad=1024)
+    B = torch.as_tensor(np.random.default_rng(K).random((K, D.n_pad)),
+                        dtype=dtype, device=cuda)
+    dinv = torch.zeros(D.n_pad, dtype=dtype, device=cuda)
+    dinv[: A.shape[0]] = torch.as_tensor(1.0 / A.diagonal(), dtype=dtype)
+    _build.reset_launches()
+    for omega in (0.85, torch.tensor(0.85, dtype=dtype, device=cuda)):
+        got = dia.dia_jacobi_zero_res_k(D, B, dinv, omega)
+        want = dia.dia_jacobi_zero_res_k_ref(D, B, dinv, omega)
+        for g, w in zip(got, want):
+            assert g.shape == (K, D.n_pad)
+            assert _rel_err(g, w) <= TOL[dtype]
+    name = str(dtype).removeprefix("torch.")
+    assert _build.launches == {f"dia_jacobi_zero_res_k.{name}":
+                               2 * -(-K // 16)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K", [3, 8, 19])
+def test_k12_k13_windowed_lane_kernels_match_twins(cuda, dtype, K):
+    """K12 and K13 against their twins (the gather and scatter-add forms
+    lane by lane); K13's float32 sum order varies run to run (atomics)."""
+    P = _random_rect(8192, 2600, per_row=4, spread=60, seed=4)
+    W = windowed_from_scipy(P, dtype=dtype, device=cuda)
+    rng = np.random.default_rng(K)
+    X = torch.as_tensor(rng.random((K, W.m_chunks * W.w2)), dtype=dtype,
+                        device=cuda)
+    R = torch.as_tensor(rng.random((K, W.n_pad)), dtype=dtype, device=cuda)
+    _build.reset_launches()
+    Y = window.windowed_matmat_k(W, X)
+    Z = window.windowed_rmatmat_k(W, R)
+    assert Y.shape == (K, W.n_pad) and Z.shape == (K, W.m_chunks * W.w2)
+    assert _rel_err(Y, window.windowed_matmat_k_ref(W, X)) <= TOL[dtype]
+    assert _rel_err(Z, window.windowed_rmatmat_k_ref(W, R)) <= TOL[dtype]
+    name = str(dtype).removeprefix("torch.")
+    assert _build.launches == {f"windowed_matmat_k.{name}": -(-K // 16),
+                               f"windowed_rmatmat_k.{name}": -(-K // 16)}
+
+
+@pytest.mark.parametrize("K", [3, 8, 19])
+def test_k15_interleaved_modes_match_twins(cuda, K):
+    """K15's five modes against their twins on the lane-aligned level-0
+    operators of a (24, 512) grid; K=19 takes two launches per call."""
+    from pyamg_tpu_torch.engine.batched_cycle import _jacobi_wd
+    from pyamg_tpu_torch.sparse import interleaved as il
+
+    grid = (24, 512)
+    dsa = device_sa_setup(poisson(grid, format="csr"), grid=grid,
+                          device=cuda, max_coarse=60, lane_align=True)
+    lvl = dsa.hierarchy.levels[0]
+    A, St, S, tv = lvl.A, lvl.R.St, lvl.P.S, lvl.R.tv
+    wd = _jacobi_wd(lvl.pre)
+    rng = np.random.default_rng(K)
+    Bi, Xi = (torch.as_tensor(rng.random((A.n_pad // 128, K, 128)),
+                              dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    _build.reset_launches()
+    cases = [(il.int_jacobi_zero_res(A, wd, Bi),
+              il.int_jacobi_zero_res_ref(A, wd, Bi)),
+             ((il.int_spmv_scaled(St, Bi, tv),),
+              (il.int_spmv_scaled_ref(St, Bi, tv),)),
+             ((il.int_spmv(A, Bi),), (il.int_spmv_ref(A, Bi),)),
+             ((il.int_spmv_add(S, Bi, Xi),), (il.int_spmv_add_ref(S, Bi, Xi),)),
+             ((il.int_jacobi_step(A, wd, Bi, Xi),),
+              (il.int_jacobi_step_ref(A, wd, Bi, Xi),))]
+    torch.cuda.synchronize()
+    for got, want in cases:
+        for g, w in zip(got, want):
+            assert g.shape == Bi.shape
+            assert _rel_err(g, w) <= TOL[torch.float32]
+    per_call = -(-K // 16)
+    assert _build.launches == {f"{m}.float32": per_call for m in (
+        "int_jacobi_zero_res", "int_spmv_scaled", "int_spmv", "int_spmv_add",
+        "int_jacobi_step")}
+    with pytest.raises(ValueError):             # a K-major stack
+        il.int_spmv(A, Bi.reshape(K, -1))
+    with pytest.raises(TypeError):              # float64 operator
+        il.int_spmv(dataclasses.replace(A, data=A.data.double()), Bi)
+
+
+def test_host_built_batched_solve_on_card_matches_cpu(cuda):
+    """A 128^2 host-built float64 batched solve (K=3, one lane zero) on the
+    card against the same on the CPU (twins): per-lane counts equal,
+    histories to rtol 1e-8; K10, K12 and K13 launched."""
+    A = poisson((128, 128), format="csr")
+    ml = smoothed_aggregation_solver(
+        A, presmoother=("jacobi", {"omega": 4.0 / 3.0}),
+        postsmoother=("jacobi", {"omega": 4.0 / 3.0}))
+    B = np.random.default_rng(0).random((A.shape[0], 3))
+    B[:, 1] = 0.0
+    kw = dict(tol=1e-10, accel="cg", precision="mixed")
+    res_g, res_c = [], []
+    dg = as_device_solver(ml, dtype=torch.float64, device=cuda,
+                          mixed_precision=True)
+    _build.reset_launches()
+    X = dg.solve(B, residuals=res_g, **kw)
+    counts = dict(_build.launches)
+    as_device_solver(ml, dtype=torch.float64, device="cpu",
+                     mixed_precision=True).solve(B, residuals=res_c, **kw)
+    assert [len(r) for r in res_g] == [len(r) for r in res_c]
+    for g, c in zip(res_g, res_c):
+        np.testing.assert_allclose(g, c, rtol=1e-8)
+    for j in (0, 2):
+        assert np.linalg.norm(B[:, j] - A @ X[:, j]) < 1e-10 * np.linalg.norm(
+            B[:, j])
+    for k in ("dia_jacobi_zero_res_k", "windowed_matmat_k",
+              "windowed_rmatmat_k", "dia_jacobi_k", "dia_spmm"):
+        assert counts.get(f"{k}.float64", 0) > 0, (k, counts)
+
+
+def test_interleaved_solve_on_card_matches_cpu(cuda):
+    """The (24, 512) lane-aligned float32 batched CG on the card takes the
+    interleaved route (every K15 mode launched) and agrees with the same
+    solve on the CPU: counts within one, first histories to 1e-4."""
+    grid = (24, 512)
+    A = poisson(grid, format="csr")
+    B = np.random.default_rng(5).standard_normal((A.shape[0], 4))
+    kw = dict(grid=grid, max_coarse=60, lane_align=True)
+    res_g, res_c = [], []
+    _build.reset_launches()
+    X = device_sa_setup(A, device=cuda, **kw).solve(
+        B, tol=1e-6, maxiter=60, accel="cg", residuals=res_g)
+    counts = dict(_build.launches)
+    device_sa_setup(A, device="cpu", **kw).solve(
+        B, tol=1e-6, maxiter=60, accel="cg", residuals=res_c)
+    for g, c in zip(res_g, res_c):
+        assert abs(len(g) - len(c)) <= 1
+        np.testing.assert_allclose(g[:5], c[:5], rtol=1e-4)
+    for j in range(4):
+        assert np.linalg.norm(B[:, j] - A @ X[:, j]) < 5e-6 * np.linalg.norm(
+            B[:, j])
+    for m in ("int_jacobi_zero_res", "int_spmv_scaled", "int_spmv",
+              "int_spmv_add", "int_jacobi_step"):
+        assert counts.get(f"{m}.float32", 0) > 0, (m, counts)

@@ -318,7 +318,7 @@ def test_candidate_options():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(lane_align=True), "item 12"),
+    (dict(dtype=torch.bfloat16), "item 4"),
     (dict(presmoother=("chebyshev", {"degree": 3})), "item 8"),
     (dict(postsmoother=("richardson", {})), "item 8"),
 ])

@@ -282,9 +282,23 @@ def test_unported_solve_options_raise(pair32, b, kwargs):
 
 
 def test_batched_rhs_raises(pair32, b):
+    """An (n, K) right-hand side solves lane by lane on the host-built
+    hierarchy (a lane scaled by 2 takes the same steps, scaled exactly;
+    lane 0 is the 1-D solve to float32 rounding); a ``b`` of more than
+    two dimensions raises."""
     _, ht = pair32
-    with pytest.raises(NotImplementedError, match="item 12"):
-        DeviceMultilevelSolver(ht).solve(np.stack([b, b], axis=1))
+    solver = DeviceMultilevelSolver(ht)
+    kw = dict(tol=1e-5, accel="cg")
+    res, res1 = [], []
+    X = solver.solve(np.stack([b, 2 * b], axis=1), residuals=res, **kw)
+    x1 = solver.solve(b, residuals=res1, **kw)
+    assert X.shape == (b.shape[0], 2)
+    np.testing.assert_array_equal(res[1], 2 * res[0])
+    assert abs(len(res[0]) - len(res1)) <= 1
+    np.testing.assert_allclose(X[:, 0], x1, rtol=0,
+                               atol=1e-4 * np.abs(x1).max())
+    with pytest.raises(ValueError, match="dimensions"):
+        solver.solve(np.ones((b.shape[0], 2, 1)))
 
 
 def test_unported_smoother_raises():

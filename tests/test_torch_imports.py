@@ -56,8 +56,9 @@ def test_scan_sees_a_forbidden_import(tmp_path):
 
 def test_import_loads_no_jax():
     """Importing the port, running its host SA setup with the compile to
-    the (CPU) device, and its device-built setup with a batched solve, in
-    a fresh interpreter, leaves every ``jax*`` and ``pyamg_tpu*`` module
+    the (CPU) device and a batched solve on it, and its device-built setup
+    with a batched solve, lane-aligned too (the interleaved route), in a
+    fresh interpreter, leaves every ``jax*`` and ``pyamg_tpu*`` module
     (but the port's own) out of sys.modules."""
     code = ("import sys, numpy as np, pyamg_tpu_torch as pt, "
             "pyamg_tpu_torch.convert, pyamg_tpu_torch.engine, "
@@ -67,10 +68,14 @@ def test_import_loads_no_jax():
             "postsmoother=('jacobi', {'omega': 4 / 3}))\n"
             "ml = pt.smoothed_aggregation_solver(A, **kw)\n"
             "b = np.random.default_rng(0).random((A.shape[0], 2))\n"
-            "pt.as_device_solver(ml, device='cpu').solve(b[:, 0], "
-            "accel='cg')\n"
+            "dml = pt.as_device_solver(ml, device='cpu')\n"
+            "dml.solve(b[:, 0], accel='cg'); dml.solve(b, accel='cg')\n"
             "pt.device_sa_setup(A, grid=(40, 40), device='cpu', "
             "max_coarse=100).solve(b, accel='cg')\n"
+            "A2 = pt.poisson((24, 512), format='csr')\n"
+            "pt.device_sa_setup(A2, grid=(24, 512), device='cpu', "
+            "max_coarse=60, lane_align=True).solve(np.ones((A2.shape[0], 2)),"
+            " accel='cg', tol=1e-5)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyamg_tpu'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
