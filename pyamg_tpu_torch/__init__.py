@@ -8,8 +8,8 @@ dense / windowed operators as tensors, the smoothers, the V-cycle and CG
 (one right-hand side, or a K-lane batch on either hierarchy), the
 device-built smoothed-aggregation setup of grid-stencil operators (its
 lane-aligned layout sends a batched float32 CG down the interleaved
-route), and hand-written CUDA kernels for Hopper (``csrc/``) where the
-JAX package had TPU kernels.  It imports ``torch`` and nothing of ``jax`` or
+route) and of unstructured ones, and hand-written CUDA kernels for
+Hopper (``csrc/``) where the JAX package had TPU kernels.  It imports ``torch`` and nothing of ``jax`` or
 ``pyamg_tpu``.  Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``.
 
@@ -35,6 +35,17 @@ or, with the hierarchy built on the card, and K right-hand sides at once:
     dla = device_sa_setup(A, grid=(2048, 2048), lane_align=True)
     X = dla.solve(B, tol=1e-5, accel="cg")     # the interleaved route
 
+or, for an operator that is not a grid stencil (a FEM mesh, a graph
+Laplacian), the unstructured device setup (``device_sa_setup`` routes
+such an operator there):
+
+    from pyamg_tpu_torch import (device_unstructured_sa_setup,
+                                 gradgradform, regular_triangle_mesh)
+
+    A = gradgradform(*regular_triangle_mesh(800, 800))
+    dus = device_unstructured_sa_setup(A, max_coarse=1000)
+    x = dus.solve(b, tol=1e-6, accel="cg")
+
 The kernels build with ``nvcc`` at their first launch on a CUDA tensor
 (``_build.py``).  On CPU tensors every kernel entry point runs its plain
 PyTorch twin instead, which is what the CPU tests exercise.
@@ -43,17 +54,22 @@ PyTorch twin instead, which is what the CPU tests exercise.
 from . import backend
 from ._build import launches, reset_launches
 from .aggregation import smoothed_aggregation_solver
-from .convert import hierarchy_from_jax, structured_solver_from_jax
-from .engine import (DeviceHierarchy, DeviceMultilevelSolver,
+from .convert import (hierarchy_from_jax, structured_solver_from_jax,
+                      unstructured_solver_from_jax)
+from .engine import (ComposedWindowed, DeviceHierarchy,
+                     DeviceMultilevelSolver, ReorderedSolver,
                      StructuredDeviceSolver, as_device_solver,
-                     compile_hierarchy, detect_grid, device_sa_setup)
-from .gallery import poisson
+                     compile_hierarchy, detect_grid, device_sa_setup,
+                     device_unstructured_sa_setup)
+from .gallery import gradgradform, poisson, regular_triangle_mesh
 from .multilevel import MultilevelSolver
 from .sparse import dia_from_stencil
 
-__all__ = ["DeviceHierarchy", "DeviceMultilevelSolver", "MultilevelSolver",
-           "StructuredDeviceSolver", "as_device_solver", "backend",
-           "compile_hierarchy", "detect_grid", "device_sa_setup",
-           "dia_from_stencil", "hierarchy_from_jax", "launches", "poisson",
-           "reset_launches", "smoothed_aggregation_solver",
-           "structured_solver_from_jax"]
+__all__ = ["ComposedWindowed", "DeviceHierarchy", "DeviceMultilevelSolver",
+           "MultilevelSolver", "ReorderedSolver", "StructuredDeviceSolver",
+           "as_device_solver", "backend", "compile_hierarchy", "detect_grid",
+           "device_sa_setup", "device_unstructured_sa_setup",
+           "dia_from_stencil", "gradgradform", "hierarchy_from_jax",
+           "launches", "poisson", "regular_triangle_mesh", "reset_launches",
+           "smoothed_aggregation_solver", "structured_solver_from_jax",
+           "unstructured_solver_from_jax"]

@@ -100,6 +100,9 @@ _SIGNATURES = {
                                      _P, _P),
     "pyamg_windowed_rmatmat_k_f64": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
                                      _P, _P),
+    # idx, starts, k, block, w2, n_rows, x, out, stream
+    "pyamg_windowed_select_f32": (_P, _P, _I, _I, _I, _L, _P, _P, _P),
+    "pyamg_windowed_select_f64": (_P, _P, _I, _I, _I, _L, _P, _P, _P),
     # data, offsets, nd, n_pad, K, k0, lanes, in, aux, vec, out0, out1,
     # mode, stream
     "pyamg_interleaved_f32": (_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,

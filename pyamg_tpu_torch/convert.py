@@ -7,7 +7,10 @@ counterpart of loading weights.  Operators shared inside the JAX
 hierarchy (R's transposed tentative operator is P's) stay shared.  The
 device-built hierarchy's structured transfers and ``jacobi_dyn``
 smoothers carry across too; :func:`structured_solver_from_jax` wraps such
-a hierarchy with the JAX solver's grid layout.
+a hierarchy with the JAX solver's grid layout.  The unstructured setup's
+composed prolongators carry across as well, and
+:func:`unstructured_solver_from_jax` wraps its hierarchy (in the JAX
+``ReorderedSolver``'s permutation when it has one).
 """
 
 from __future__ import annotations
@@ -21,10 +24,13 @@ from .engine.device_setup import (StructuredDeviceSolver,
                                   StructuredRestrictor)
 from .engine.hierarchy import DeviceHierarchy, DeviceLevel
 from .engine.relaxation import DeviceSmoother
+from .engine.solver import DeviceMultilevelSolver
+from .engine.unstructured_setup import ComposedWindowed, ReorderedSolver
 from .sparse import (ComposedOperator, DenseOperator, DIAMatrix,
                      TransposedWindowed, WindowedELL)
 
-__all__ = ["hierarchy_from_jax", "structured_solver_from_jax"]
+__all__ = ["hierarchy_from_jax", "structured_solver_from_jax",
+           "unstructured_solver_from_jax"]
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -71,6 +77,8 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
                                nnz=int(o.nnz))
         if name == "TransposedWindowed":
             return TransposedWindowed(base=op(o.base))
+        if name == "ComposedWindowed":
+            return ComposedWindowed(factors=tuple(op(f) for f in o.factors))
         if name == "ComposedOperator":
             return ComposedOperator(ops=tuple(op(f) for f in o.ops),
                                     shape=tuple(o.shape), nnz=int(o.nnz))
@@ -110,3 +118,16 @@ def structured_solver_from_jax(dsa, device) -> StructuredDeviceSolver:
     ``device_sa_setup`` result, with its grid and padded grid."""
     return StructuredDeviceSolver(hierarchy_from_jax(dsa.hierarchy, device),
                                   dsa.grid, dsa.grid_p)
+
+
+def unstructured_solver_from_jax(dsa, device):
+    """The port's solver over the arrays of a JAX
+    ``device_unstructured_sa_setup`` result: a DeviceMultilevelSolver, in
+    a :class:`ReorderedSolver` with the JAX one's permutation when the
+    JAX setup reordered."""
+    inner = getattr(dsa, "_inner", None)
+    dml = DeviceMultilevelSolver(hierarchy_from_jax(dsa.hierarchy, device))
+    dml.setup_info = dict(getattr(inner or dsa, "setup_info", {}))
+    if inner is None:
+        return dml
+    return ReorderedSolver(dml, np.asarray(dsa._perm))

@@ -7,6 +7,8 @@
 //                            replaces pyamg_tpu/sparse/window.py::WindowedELL._matmat_pallas_k
 //   windowed_rmatmat_k_kernel (K13)
 //                            replaces pyamg_tpu/sparse/window.py::WindowedELL._rmatmat_pallas_k
+//   windowed_select_kernel (K14)
+//                            replaces pyamg_tpu/sparse/window.py::WindowedELL._select_pallas
 //
 // Layout (built on the host by windowed_from_scipy, identical to the JAX
 // package's): rows in blocks of `block`; block b reads the source window
@@ -54,6 +56,18 @@
 // from run to run exactly as K7's does.  Bound: device-memory bandwidth,
 // data and idx once (k * n * (sizeof(T) + 4) bytes) plus the K input and
 // output rows.
+//
+// The select (K14) reads x at every entry's column and writes it to that
+// entry's slot: out[b, s, row] = x[starts[b] * w2 + idx[b, s, row]], one
+// thread per entry, no arithmetic.  The TPU resolved the index by a
+// one-hot product through a three-way bf16 split of x (exact for integers
+// below 2^24, within 2^-26 relative otherwise); here the load is exact for
+// every payload, so the unstructured setup's integer payloads (coarse
+// indices, cumulative root counts riding float32) and its finite sentinels
+// come back unchanged.  x is the payload's own dtype, not the operator's:
+// the setup selects float32 indices from a float64 operator.  Bound:
+// device-memory bandwidth, idx read and out written once (k * n * (4 +
+// sizeof(T)) bytes) plus the starts and the window of x.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -158,6 +172,18 @@ __global__ void windowed_rmatmat_k_kernel(const T* __restrict__ data,
   }
 }
 
+template <typename T>
+__global__ void windowed_select_kernel(const int* __restrict__ idx,
+                                       const int* __restrict__ starts, int k,
+                                       int block, int w2, int64_t n_entries,
+                                       const T* __restrict__ x,
+                                       T* __restrict__ out) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n_entries) return;
+  const int64_t blk = e / (static_cast<int64_t>(k) * block);
+  out[e] = x[static_cast<int64_t>(starts[blk]) * w2 + idx[e]];
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned int grid_for(long long n) {
@@ -224,6 +250,19 @@ int launch_rmatmat_k(const void* data, const void* idx, const void* starts,
       static_cast<const T*>(data), static_cast<const int*>(idx),
       static_cast<const int*>(starts), k, block, w2, n_rows, m, lanes,
       static_cast<const T*>(r), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_select(const void* idx, const void* starts, int k, int block,
+                  int w2, long long n_rows, const void* x, void* out,
+                  void* stream) {
+  const long long n_entries = n_rows * k;
+  if (n_entries <= 0) return static_cast<int>(cudaSuccess);
+  windowed_select_kernel<T><<<grid_for(n_entries), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), static_cast<const int*>(starts), k, block,
+      w2, n_entries, static_cast<const T*>(x), static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -296,6 +335,21 @@ int pyamg_windowed_rmatmat_k_f64(const void* data, const void* idx,
                                  void* stream) {
   return launch_rmatmat_k<double>(data, idx, starts, k, block, w2, n_rows,
                                   m, lanes, r, y, stream);
+}
+
+// idx, starts, k, block, w2, n_rows, x, out, stream
+int pyamg_windowed_select_f32(const void* idx, const void* starts, int k,
+                              int block, int w2, long long n_rows,
+                              const void* x, void* out, void* stream) {
+  return launch_select<float>(idx, starts, k, block, w2, n_rows, x, out,
+                              stream);
+}
+
+int pyamg_windowed_select_f64(const void* idx, const void* starts, int k,
+                              int block, int w2, long long n_rows,
+                              const void* x, void* out, void* stream) {
+  return launch_select<double>(idx, starts, k, block, w2, n_rows, x, out,
+                               stream);
 }
 
 }  // extern "C"

@@ -9,9 +9,13 @@ from .hierarchy import DeviceHierarchy, DeviceLevel, compile_hierarchy
 from .krylov import device_cg
 from .relaxation import DeviceSmoother
 from .solver import DeviceMultilevelSolver, as_device_solver
+from .unstructured_setup import (ComposedWindowed, ReorderedSolver,
+                                 device_unstructured_sa_setup)
 
-__all__ = ["DeviceHierarchy", "DeviceLevel", "DeviceMultilevelSolver",
-           "DeviceSmoother", "StructuredDeviceSolver", "as_device_solver",
-           "compile_hierarchy", "detect_grid", "device_cg", "device_sa_setup",
-           "dia_from_stencil", "dia_transpose", "interleaved_batched_cg",
+__all__ = ["ComposedWindowed", "DeviceHierarchy", "DeviceLevel",
+           "DeviceMultilevelSolver", "DeviceSmoother", "ReorderedSolver",
+           "StructuredDeviceSolver", "as_device_solver", "compile_hierarchy",
+           "detect_grid", "device_cg", "device_sa_setup",
+           "device_unstructured_sa_setup", "dia_from_stencil",
+           "dia_transpose", "interleaved_batched_cg",
            "interleaved_zero_vcycle", "supports_interleaved"]

@@ -28,9 +28,12 @@ lcm(stride, 128) and the one before to lcm(stride, 8) (the reference's
 layout for its batched route): a batched native float32 CG on such a
 hierarchy runs the interleaved route (``engine/batched_cycle.py``, K15).
 
-Not ported (each raises ``NotImplementedError``): operators that are not
-grid stencils (the unstructured device setup, ROADMAP.md Queue 1 item 13)
-and the ``richardson`` and ``chebyshev`` smoothers (item 8).
+An operator that is not a grid stencil (``detect_grid`` finds no grid)
+goes to the unstructured device setup
+(:func:`~pyamg_tpu_torch.engine.unstructured_setup.device_unstructured_sa_setup`)
+with the arguments the reference passes.  Not ported (each raises
+``NotImplementedError``): the ``richardson`` and ``chebyshev`` smoothers
+(ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -484,10 +487,12 @@ def _tentative_emb(B, grid_p, stride, center, dtype):
     return T, norms, tv.to(dtype)
 
 
-def _power_rho(A: DIAMatrix, dinv=None, iters=40):
+def _power_rho(A, dinv=None, iters=40):
     """Spectral-radius estimate of D^-1 A by power iteration from the
-    reference's hashed start vector; the SpMV is the K1 kernel on the
-    card.  Returns a 0-d device tensor (never read to the host)."""
+    reference's hashed start vector.  ``A`` is any operator with
+    ``diagonal()``, ``n_pad``, ``dtype``, ``device`` and ``@``: the SpMV
+    is K1 for a DIAMatrix and K6 for a WindowedELL on the card.  Returns
+    a 0-d device tensor (never read to the host)."""
     v = _hash_weights(A.n_pad, 12345, device=A.device).to(A.dtype) - 0.5
     v = torch.where(A.diagonal() != 0, v, 0)
     v = v / _norm(v)
@@ -792,7 +797,9 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
                     improve_candidates_iters=0, mixed_precision=False,
                     lane_align=False):
     """Build a smoothed-aggregation hierarchy on ``device`` for a
-    grid-stencil operator and return its :class:`StructuredDeviceSolver`.
+    grid-stencil operator and return its :class:`StructuredDeviceSolver`
+    (an operator that is not one, with ``grid=None``, goes to the
+    unstructured device setup instead).
 
     ``A`` is scipy sparse (or dense numpy) or a :class:`DIAMatrix` (then
     ``grid`` is required); ``grid`` is the row-major grid of the unknowns
@@ -815,11 +822,15 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
             raise ValueError("grid= is required for DIAMatrix inputs")
         try:
             grid = detect_grid(A)
-        except ValueError as exc:
-            raise _not_ported(
-                f"the device setup of an operator that is not a grid "
-                f"stencil ({exc}); the unstructured device setup", 13) \
-                from exc
+        except ValueError:
+            # not a grid stencil: the unstructured device setup, which
+            # raises ValueError itself when A is not windowable either
+            from .unstructured_setup import device_unstructured_sa_setup
+            return device_unstructured_sa_setup(
+                A, B=B, dtype=dtype, device=device, omega=omega,
+                max_coarse=max_coarse, max_levels=max_levels,
+                presmoother=presmoother, postsmoother=postsmoother,
+                improve_candidates_iters=improve_candidates_iters)
     grid = tuple(int(g) for g in grid)
     dim = len(grid)
     n = int(np.prod(grid))

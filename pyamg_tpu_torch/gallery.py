@@ -1,14 +1,18 @@
-"""Poisson problems on regular grids (a copy of
-``pyamg_tpu/gallery/laplacian.py::poisson`` and
-``pyamg_tpu/gallery/stencil.py::stencil_grid``, which the port carries so
-that it imports nothing of the JAX package)."""
+"""Test problems: Poisson on regular grids and the P1 finite-element
+stiffness matrix on a triangle mesh (copies of
+``pyamg_tpu/gallery/laplacian.py::poisson``,
+``pyamg_tpu/gallery/stencil.py::stencil_grid``,
+``pyamg_tpu/gallery/mesh.py::regular_triangle_mesh`` and
+``pyamg_tpu/gallery/fem.py::gradgradform``, which the port carries so that
+it imports nothing of the JAX package)."""
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["poisson", "stencil_grid"]
+__all__ = ["gradgradform", "poisson", "regular_triangle_mesh",
+           "stencil_grid"]
 
 
 def stencil_grid(S, grid, dtype=None, format=None):
@@ -103,3 +107,64 @@ def poisson(grid, dtype=float, format=None, type="FD"):
     else:
         raise ValueError("only 1D/2D/3D Poisson supported")
     return stencil_grid(S, grid, dtype=dtype, format=format)
+
+
+def regular_triangle_mesh(nx, ny):
+    """Triangulated regular grid on the unit square: (vertices (n, 2)
+    float, elements (ne, 3) int)."""
+    nx, ny = int(nx), int(ny)
+    if nx < 2 or ny < 2:
+        raise ValueError("minimum mesh dimension is 2: %s" % ((nx, ny),))
+    x = np.linspace(0.0, 1.0, nx)
+    y = np.linspace(0.0, 1.0, ny)
+    X, Y = np.meshgrid(x, y, indexing="xy")
+    vertices = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    node = np.arange(nx * ny).reshape(ny, nx)
+    n00 = node[:-1, :-1].ravel()
+    n10 = node[:-1, 1:].ravel()
+    n01 = node[1:, :-1].ravel()
+    n11 = node[1:, 1:].ravel()
+    lower = np.stack([n00, n10, n01], axis=1)
+    upper = np.stack([n10, n11, n01], axis=1)
+    elements = np.vstack([lower, upper]).astype(np.int64)
+    return vertices, elements
+
+
+def gradgradform(vertices, elements, kappa=None):
+    """P1 stiffness matrix of int kappa grad(u).grad(v) on a triangle mesh
+    (CSR); ``kappa`` is None (1), a constant or a function of the element
+    centre."""
+    V = np.asarray(vertices, dtype=float)
+    E = np.asarray(elements, dtype=np.int64)
+    n = V.shape[0]
+    ne = E.shape[0]
+
+    p0, p1, p2 = V[E[:, 0]], V[E[:, 1]], V[E[:, 2]]
+    d1 = p1 - p0
+    d2 = p2 - p0
+    detJ = d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0]
+    area = 0.5 * np.abs(detJ)
+
+    grads = np.empty((ne, 3, 2))
+    inv_det = 1.0 / detJ
+    grads[:, 1, 0] = d2[:, 1] * inv_det
+    grads[:, 1, 1] = -d2[:, 0] * inv_det
+    grads[:, 2, 0] = -d1[:, 1] * inv_det
+    grads[:, 2, 1] = d1[:, 0] * inv_det
+    grads[:, 0, :] = -(grads[:, 1, :] + grads[:, 2, :])
+
+    if kappa is None:
+        k = np.ones(ne)
+    elif callable(kappa):
+        centers = (p0 + p1 + p2) / 3.0
+        k = np.asarray([kappa(c) for c in centers], dtype=float)
+    else:
+        k = np.full(ne, float(kappa))
+
+    Ke = np.einsum("eid,ejd,e,e->eij", grads, grads, area, k)  # (ne, 3, 3)
+    rows = np.repeat(E, 3, axis=1).ravel()
+    cols = np.tile(E, (1, 3)).ravel()
+    A = sp.coo_matrix((Ke.ravel(), (rows, cols)), shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A

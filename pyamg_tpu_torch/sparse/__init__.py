@@ -15,7 +15,7 @@ from .dia import (DenseOperator, DIAMatrix, dense_from_scipy, dia_from_scipy,
 from .formats import pad_to, pad_vector
 from .window import (TransposedWindowed, WindowedELL, windowed_from_scipy,
                      windowed_matmat_k, windowed_matvec, windowed_rmatmat_k,
-                     windowed_rmatvec)
+                     windowed_rmatvec, windowed_select)
 
 __all__ = [
     "ComposedOperator",
@@ -49,6 +49,7 @@ __all__ = [
     "windowed_matvec",
     "windowed_rmatmat_k",
     "windowed_rmatvec",
+    "windowed_select",
 ]
 
 

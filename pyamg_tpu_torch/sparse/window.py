@@ -14,8 +14,10 @@ Kernel entry points (``csrc/window.cu``):
 - :func:`windowed_rmatvec`    y = A^T r  (TPU: ``WindowedELL._rmatvec_pallas``)
 - :func:`windowed_matmat_k`   Y = A X    (TPU: ``WindowedELL._matmat_pallas_k``)
 - :func:`windowed_rmatmat_k`  Y = A^T R  (TPU: ``WindowedELL._rmatmat_pallas_k``)
+- :func:`windowed_select`     out[b, s, r] = x[starts[b] * w2 + idx[b, s, r]]
+                              (TPU: ``WindowedELL._select_pallas``)
 
-The last two take K-major (K, m) lane stacks, the batched solve's
+The K-lane forms take K-major (K, m) lane stacks, the batched solve's
 layout; the operators' ``@`` takes a vector or such a stack, padding and
 slicing along the last axis.  The TPU forms' lane caps (VMEM budgets) do
 not carry over: any K runs, in launches of at most 16 lanes.
@@ -39,9 +41,9 @@ from .formats import fit, pad_to
 
 __all__ = ["WindowedELL", "TransposedWindowed", "windowed_from_scipy",
            "windowed_matvec", "windowed_rmatvec", "windowed_matmat_k",
-           "windowed_rmatmat_k", "windowed_matvec_ref",
+           "windowed_rmatmat_k", "windowed_select", "windowed_matvec_ref",
            "windowed_rmatvec_ref", "windowed_matmat_k_ref",
-           "windowed_rmatmat_k_ref"]
+           "windowed_rmatmat_k_ref", "windowed_select_ref"]
 
 _LANES = 128
 
@@ -115,6 +117,20 @@ class WindowedELL:
         """Y = A^T @ R for a K-major stack (K, n_pad) -> (K, m_chunks * w2)
         (K13)."""
         return windowed_rmatmat_k(self, fit(Rk, self.n_pad))
+
+    def select(self, x):
+        """Per-slot window selection, (n_blocks, k, block) in x's dtype:
+        each entry's slot holds x at the entry's column (K14).  The
+        unstructured setup's graph passes are elementwise functions of
+        it."""
+        return windowed_select(self, self._x_padded(x))
+
+    def diagonal(self):
+        """The diagonal as an (n_pad,) vector (duplicate entries summed)."""
+        rows = torch.arange(self.n_pad, device=self.device).reshape(
+            self.data.shape[0], 1, self.block)
+        return torch.sum(torch.where(_global_index(self) == rows, self.data,
+                                     0), dim=1).reshape(-1)
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -277,6 +293,12 @@ def windowed_rmatmat_k_ref(W: WindowedELL, Rk):
     return torch.stack([windowed_rmatvec_ref(W, r) for r in Rk])
 
 
+def windowed_select_ref(W: WindowedELL, x):
+    """The gather ``x[column]`` per entry; ``x`` has length
+    ``m_chunks * w2``."""
+    return x[_global_index(W)]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -339,6 +361,30 @@ def windowed_rmatvec(W: WindowedELL, r):
     _launch_windowed("rmatvec", W, r, y)
     _build.count_launch(f"windowed_rmatvec.{_build.dtype_name(W.dtype)}")
     return y
+
+
+def windowed_select(W: WindowedELL, x):
+    """out[b, s, r] = x[starts[b] * w2 + idx[b, s, r]], (n_blocks, k,
+    block) in x's dtype (float32 or float64, whatever W's dtype), with x of
+    length ``m_chunks * w2`` (K14: an exact indexed load)."""
+    if _build.on_cpu(W.idx, x):
+        return windowed_select_ref(W, x)
+    if x.dtype not in _KERNEL_SUFFIX:
+        raise TypeError(f"windowed select takes float32 or float64 "
+                        f"payloads, not {x.dtype}")
+    _build.check_vector("x", x, W.m_chunks * W.w2, x.dtype)
+    for name, t in (("idx", W.idx), ("starts", W.starts)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"windowed {name}: expected contiguous int32")
+    out = torch.empty(W.idx.shape, dtype=x.dtype, device=x.device)
+    fn_name = f"pyamg_windowed_select_{_KERNEL_SUFFIX[x.dtype]}"
+    err = getattr(_build.library(), fn_name)(
+        W.idx.data_ptr(), W.starts.data_ptr(), W.k, W.block, W.w2, W.n_pad,
+        x.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(fn_name, err)
+    _build.count_launch(f"windowed_select.{_build.dtype_name(x.dtype)}")
+    return out
 
 
 def windowed_matmat_k(W: WindowedELL, Xk):

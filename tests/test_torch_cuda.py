@@ -407,3 +407,57 @@ def test_interleaved_solve_on_card_matches_cpu(cuda):
     for m in ("int_jacobi_zero_res", "int_spmv_scaled", "int_spmv",
               "int_spmv_add", "int_jacobi_step"):
         assert counts.get(f"{m}.float32", 0) > 0, (m, counts)
+
+
+@pytest.mark.parametrize("payload", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k14_windowed_select_matches_twin(cuda, dtype, payload):
+    """K14 against its twin (the gather x[column]): exact, for a payload
+    of either dtype on an operator of either dtype; one launch, counted
+    under the payload's dtype."""
+    P = _random_rect(8192, 2600, per_row=4, spread=60, seed=4)
+    W = windowed_from_scipy(P, dtype=dtype, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(9).integers(
+        -2 ** 23, 2 ** 23, W.m_chunks * W.w2), dtype=payload, device=cuda)
+    x = x / 7                          # non-integers too, still exact
+    _build.reset_launches()
+    got = window.windowed_select(W, x)
+    assert got.shape == W.idx.shape and got.dtype == payload
+    assert torch.equal(got, window.windowed_select_ref(W, x))
+    assert torch.equal(W.select(x[: P.shape[1]]), got)
+    assert _build.launches == {
+        f"windowed_select.{str(payload).removeprefix('torch.')}": 2}
+    with pytest.raises(ValueError):
+        window.windowed_select(W, x[:-1])
+    with pytest.raises(TypeError):
+        window.windowed_select(W, x.to(torch.int32))
+
+
+def test_unstructured_setup_on_card_matches_cpu(cuda):
+    """A 48^2 P1 mesh operator: the unstructured setup on the card gives
+    the CPU's levels (float64), every setup kernel launched, and its f32
+    solve converges as the CPU one does."""
+    from pyamg_tpu_torch import (device_unstructured_sa_setup,
+                                 gradgradform, regular_triangle_mesh)
+
+    A = gradgradform(*regular_triangle_mesh(48, 48))
+    A = (A + 1e-2 * sp.eye(A.shape[0], format="csr")).tocsr()
+    _build.reset_launches()
+    g = device_unstructured_sa_setup(A, dtype=torch.float64, device=cuda,
+                                     max_coarse=30)
+    counts = dict(_build.launches)
+    c = device_unstructured_sa_setup(A, dtype=torch.float64, device="cpu",
+                                     max_coarse=30)
+    assert g.setup_info == c.setup_info
+    for k in ("windowed_select.float32", "windowed_select.float64",
+              "windowed_matvec.float64", "windowed_rmatvec.float64",
+              "windowed_matmat_k.float64", "windowed_rmatmat_k.float64"):
+        assert counts.get(k, 0) > 0, (k, counts)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    res_g, res_c = [], []
+    g32 = device_unstructured_sa_setup(A, device=cuda, max_coarse=30)
+    g32.solve(b, tol=1e-6, accel="cg", residuals=res_g)
+    device_unstructured_sa_setup(A, device="cpu", max_coarse=30).solve(
+        b, tol=1e-6, accel="cg", residuals=res_c)
+    assert abs(len(res_g) - len(res_c)) <= 1
+    assert res_g[-1] <= 1e-6 * np.linalg.norm(b)

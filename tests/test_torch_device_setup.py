@@ -330,13 +330,24 @@ def test_unported_options_raise(kwargs, match):
 
 
 def test_non_grid_operator_raises():
-    """An operator that is not a grid stencil names the unstructured
-    device setup, which is not ported."""
+    """An operator that is not a grid stencil goes to the unstructured
+    device setup (the reference's route); it raises only when that setup
+    cannot take the operator either (not windowable, even after RCM), and
+    a DIAMatrix without its grid raises."""
+    from pyamg_tpu_torch import device_unstructured_sa_setup
+
     n = 400
-    M = sp.random(n, n, density=0.2, random_state=1, format="csr")
+    M = sp.random(n, n, density=0.02, random_state=1, format="csr")
     A = (M + M.T + sp.identity(n) * n).tocsr()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        device_sa_setup(A, device=CPU)
+    routed = device_sa_setup(A, device=CPU, max_coarse=50)
+    assert routed.setup_info == device_unstructured_sa_setup(
+        A, device=CPU, max_coarse=50).setup_info
+    assert routed.setup_info["levels"][0]["n"] == n
+    n = 80000
+    M = sp.random(n, n, density=2e-4, random_state=np.random.default_rng(0),
+                  format="csr")
+    with pytest.raises(ValueError, match="windowable"):
+        device_sa_setup((M + sp.identity(n)).tocsr(), device=CPU)
     with pytest.raises(ValueError, match="grid="):
         device_sa_setup(DIAMatrix(data=torch.ones(1, 9), offsets=(0,),
                                   shape=(9, 9), nnz=9), device=CPU)

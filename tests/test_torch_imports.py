@@ -56,10 +56,11 @@ def test_scan_sees_a_forbidden_import(tmp_path):
 
 def test_import_loads_no_jax():
     """Importing the port, running its host SA setup with the compile to
-    the (CPU) device and a batched solve on it, and its device-built setup
-    with a batched solve, lane-aligned too (the interleaved route), in a
-    fresh interpreter, leaves every ``jax*`` and ``pyamg_tpu*`` module
-    (but the port's own) out of sys.modules."""
+    the (CPU) device and a batched solve on it, its device-built setup
+    with a batched solve, lane-aligned too (the interleaved route), and
+    an unstructured setup with a solve, in a fresh interpreter, leaves
+    every ``jax*`` and ``pyamg_tpu*`` module (but the port's own) out of
+    sys.modules."""
     code = ("import sys, numpy as np, pyamg_tpu_torch as pt, "
             "pyamg_tpu_torch.convert, pyamg_tpu_torch.engine, "
             "pyamg_tpu_torch.sparse\n"
@@ -76,6 +77,11 @@ def test_import_loads_no_jax():
             "pt.device_sa_setup(A2, grid=(24, 512), device='cpu', "
             "max_coarse=60, lane_align=True).solve(np.ones((A2.shape[0], 2)),"
             " accel='cg', tol=1e-5)\n"
+            "V, E = pt.regular_triangle_mesh(30, 30)\n"
+            "M = pt.gradgradform(V, E) + 1e-2 * __import__('scipy.sparse')"
+            ".sparse.eye(900)\n"
+            "pt.device_unstructured_sa_setup(M, device='cpu', max_coarse=50)"
+            ".solve(np.ones(900), accel='cg', tol=1e-6)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyamg_tpu'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
