@@ -30,7 +30,13 @@ result lines):
    lane-aligned level-0 operators at K = 8: max error,
    CUDA-event times of both, the bound from the bytes and operations the
    call needs, and one PyTorch library call as a yardstick where one
-   computes the same function (never on the path);
+   computes the same function (never on the path); the transposes (K7,
+   K13) launched twice, bit-identical, equal to the CPU twins bit for bit,
+   with their column plan's build time and size;
+5b. K16 (dia_halo_spmv) at host level 0, float32 and float64: the ring of
+   one against its twin and bit for bit against K1, four in-process row
+   blocks (halos copied on a side stream) against K1, and the interior
+   alone, the halo copies alone and the overlapped total;
 6. a small-input reference check: a 128^2 float64 host-built solve on the
    card against the same hierarchy copied to the CPU (the plain twins);
 7. host-built config 1: mixed-precision CG to 1e-8 with
@@ -70,9 +76,17 @@ result lines):
     "error"; then a 200^2 jittered mesh, scrambled, routed by
     device_sa_setup through RCM (float64; its float64 kernel instances
     K14, K6/K7 and K12/K13 at K = 64 checked on its level 0's A and P),
-    and aggressive with smooth_passes=2 in float64 and in float32, each
-    solved to 1e-6 through the ReorderedSolver;
-13. result lines: the script's seconds, the kernels' JSON, the card's name
+    and aggressive with smooth_passes=2 in float64 and in float32 (twice),
+    each solved to 1e-6 through the ReorderedSolver; the two 640k setups
+    must give identical levels and f32 CG histories, the two float32
+    aggressive runs identical true residuals (the transposes sum in a
+    fixed order);
+13. row-sharded solves (pyamg_tpu_torch.parallel) in a world of one NCCL
+    rank: host-built config 1 (native f32 CG to 1e-5, K16 on its DIA
+    levels) and the 640k unstructured hierarchy (f32 CG to 1e-6), each at
+    its unsharded solve's iteration count, with counters; the process
+    group is destroyed before the result lines;
+14. result lines: the script's seconds, the kernels' JSON, the card's name
     and power limit, and last {"ok": true, "device": {...}}.
 """
 
@@ -83,6 +97,7 @@ import sys
 import time
 
 F32_REL_TOL = 1e-5     # f32 kernels vs twin: FMA contraction, atomics order
+                       # of the transposes' twins (index_add_) on the card
 F64_REL_TOL = 1e-12    # f64 kernels vs twin
 STATIONARY_RTOL = 1e-4  # f32 card vs f32 CPU twins over 5 cycles
 DEVICE = "cuda:0"
@@ -139,6 +154,8 @@ KERNELS = {
                            "pyamg_tpu/sparse/window.py:600"),
     "windowed_select": ("pyamg_tpu_torch/csrc/window.cu",
                         "pyamg_tpu/sparse/window.py:361"),
+    "dia_halo_spmv": ("pyamg_tpu_torch/csrc/halo.cu",
+                      "pyamg_tpu/parallel/pallas_halo.py:50"),
     **{name: ("pyamg_tpu_torch/csrc/interleaved.cu",
               "pyamg_tpu/sparse/interleaved.py:160")
        for name in ("int_jacobi_zero_res", "int_spmv_scaled", "int_spmv",
@@ -182,6 +199,11 @@ PATHS = {
         "windowed_select.float64", "windowed_select.float32",
         "windowed_matvec.float64", "windowed_rmatvec.float64",
         "windowed_matmat_k.float64", "windowed_rmatmat_k.float64"),
+    "sharded host-built config 1": (
+        "dia_halo_spmv.float32", "windowed_matvec.float32",
+        "windowed_rmatvec.float32"),
+    "sharded unstructured": (
+        "windowed_matvec.float32", "windowed_rmatvec.float32"),
 }
 # the lane-aligned 2048^2 fine grid and its solve padding (the reference's)
 LANE_GRID_P = (2064, 2304)
@@ -255,7 +277,7 @@ class Checks:
 
 
 def compare(check, name, dtype, kernel_fn, plain_fn, results, nbytes, ops,
-            library_fn=None, path=None, exact=False):
+            library_fn=None, path=None, exact=False, repeat_exact=False):
     """Run a kernel and its plain twin on the same inputs; record errors
     and times (the twin first, then the kernel, twice over).  ``nbytes``
     and ``ops``: the bytes the call must move (each input read once, each
@@ -264,14 +286,18 @@ def compare(check, name, dtype, kernel_fn, plain_fn, results, nbytes, ops,
     a yardstick only.  ``path``: the path (a key of PATHS) whose shapes
     these are; the kernels line takes a kernel's numbers from the check
     at its first path's shapes where there is one.  ``exact``: the kernel
-    must equal its twin bit for bit."""
+    must equal its twin bit for bit.  ``repeat_exact``: a second launch
+    must give the first one's bits (a fixed summation order)."""
     import torch
 
     got = kernel_fn()
+    again = kernel_fn() if repeat_exact else got
     want = plain_fn()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
     want = want if isinstance(want, tuple) else (want,)
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
     abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     rel_err = max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-300))
                   for g, w in zip(got, want))
@@ -290,15 +316,54 @@ def compare(check, name, dtype, kernel_fn, plain_fn, results, nbytes, ops,
     t_ops = ops / PEAK_OPS[str(dtype).removeprefix("torch.")] * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
-    check(finite and rel_err <= tol,
+    check(finite and rel_err <= tol and same,
           f"{name}: max_rel_err {rel_err:.3e} "
           f"({'bit-exact required' if exact else f'tol {tol:g}'}), "
+          + (f"two launches {'bit-identical' if same else 'DIFFER'}, "
+             if repeat_exact else "") +
           f"max_abs_err {abs_err:.3e}, kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by}), "
           f"{nbytes / ms / 1e6:.0f} GB/s")
     results.append(dict(name=name, max_abs_err=abs_err, max_rel_err=rel_err,
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms, path=path))
+
+
+def transpose_checks(check, label, W, r, Rk):
+    """The column plan of the windowed transposes (K7, K13): its build on
+    a fresh copy of ``W`` with every host sync an error (CUDA-synchronised
+    ms, int32 bytes), and K7 (and K13 on ``Rk`` when given) against the
+    plain twins run on the CPU, bit for bit (the kernels sum each column in
+    the CPU twin's order, with separately rounded products and sums)."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import window
+
+    fresh = dataclasses.replace(W)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        perm, colptr = fresh.column_plan
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    mb = (perm.numel() + colptr.numel()) * 4 / 1e6
+    live = int(colptr[-1])
+    W_cpu = dataclasses.replace(W, data=W.data.cpu(), idx=W.idx.cpu(),
+                                starts=W.starts.cpu())
+    same = torch.equal(window.windowed_rmatvec(W, r).cpu(),
+                       window.windowed_rmatvec_ref(W_cpu, r.cpu()))
+    if Rk is not None:
+        same = same and torch.equal(
+            window.windowed_rmatmat_k(W, Rk).cpu(),
+            window.windowed_rmatmat_k_ref(W_cpu, Rk.cpu()))
+    check(same, f"{label}: column plan of {perm.numel()} entries ({live} "
+          f"live), {mb:.2f} MB int32 (perm + colptr), built with no host "
+          f"sync in {build_ms:.2f} ms; "
+          f"K7{' and K13' if Rk is not None else ''} equal the CPU twins "
+          "bit for bit")
 
 
 def dia_cost(A, vectors, lanes=1, stacks=0, extra_ops=0):
@@ -711,6 +776,164 @@ def lane_cycle_times(check, dla, rand):
     sync_free_cycle(check, lambda r: interleaved_zero_vcycle(h, r), Bi,
                     f"a K={LANES} interleaved stack (lane-aligned)")
 
+def halo_phase(check, h, rand, results):
+    """K16 at host level 0 of 2048^2 (nd = 5, n = 4.19M, halo 2048), in
+    float32 (the level's operator) and float64 (A64): the ring of one
+    against its plain twin (the rolled sum over [tail, x, head]) and bit
+    for bit against K1; P = 4 in-process row blocks (halos copied on a
+    side stream) against K1; then the interior alone, the halo copies
+    alone and the overlapped total beside K1 and the bound.  One H100
+    gives no scaling number."""
+    import torch
+
+    from pyamg_tpu_torch.parallel import halo_width
+    from pyamg_tpu_torch.parallel.dist_spmv import dia_halo_rows_ref
+    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv, halo_spmv_shards
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+    from pyamg_tpu_torch.sparse import dia
+
+    shards = 4
+    side = torch.cuda.Stream()
+    for A in (h.levels[0].A, h.A64):
+        one = SolverMesh(rank=0, world=1, device=A.device)
+        dtype, n, halo = A.dtype, A.n_pad, halo_width(A)
+        dt = str(dtype).removeprefix("torch.")
+        x = rand(n, dtype)
+        A_csr = dia_to_csr(A)
+        tag = f"host level0 nd={A.ndiags} n_pad={n} halo={halo}"
+
+        def ring():
+            return halo_spmv(A.data, A.offsets, A.offsets_t, x, halo, one, 1)
+
+        def plain():
+            return dia_halo_rows_ref(A.data, A.offsets, x[n - halo:], x,
+                                     x[:halo], halo, ((0, n),),
+                                     torch.empty_like(x))
+
+        nbytes, ops = dia_cost(A, 2)
+        compare(check, f"dia_halo_spmv.{dt} [{tag} ring of one]", dtype,
+                ring, plain, results, nbytes, ops,
+                library_fn=lambda: torch.mv(A_csr, x),
+                path="sharded host-built config 1"
+                if dtype == torch.float32 else None, repeat_exact=True)
+        k1 = dia.dia_spmv(A, x)
+        split = halo_spmv_shards(A, x, shards, side)
+        torch.cuda.synchronize()
+        check(torch.equal(ring(), k1) and torch.equal(split, k1),
+              f"dia_halo_spmv.{dt} [{tag}]: the ring of one and {shards} "
+              "in-process shards equal K1 (dia_spmv) bit for bit")
+        t = {}
+        for label, phases in (("interior", ("interior",)),
+                              ("halo copies", ("halos",)),
+                              ("overlapped", ("interior", "halos",
+                                              "boundary"))):
+            t[label] = min(time_ms(lambda: halo_spmv_shards(
+                A, x, shards, side, phases=phases)) for _ in range(2))
+        t_k1 = min(time_ms(lambda: dia.dia_spmv(A, x)) for _ in range(2))
+        log(f"  K16 {shards} shards in one process [{dt} {tag}]: interior "
+            f"alone {t['interior']:.4f} ms, halo copies alone (side stream, "
+            f"{2 * shards} copies) {t['halo copies']:.4f} ms, overlapped "
+            f"total {t['overlapped']:.4f} ms; K1 on the whole operator "
+            f"{t_k1:.4f} ms; bound {nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+
+
+def sharded_phase(check, dev, dml, A, dus, A_un, launches):
+    """Row-sharded solves in a world of one NCCL rank (file:// rendezvous
+    in a temporary directory): the host-built config 1 hierarchy sharded
+    (every level a ring of one; its DIA levels through K16), native f32 CG
+    to 1e-5, and the 640k unstructured hierarchy sharded, f32 CG to 1e-6;
+    each against the unsharded solve of the same b in this run (the same
+    iterations; the reference's 7 +- 1 for the unstructured one),
+    counters zeroed just before each sharded solve and read just after,
+    wall times (numpy b and x, median of 3).  The process group is
+    destroyed before returning."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pyamg_tpu_torch import DeviceMultilevelSolver, _build
+    from pyamg_tpu_torch.parallel import (initialize_distributed,
+                                          make_solver_mesh, shard_hierarchy)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rank, world, _ = initialize_distributed(
+            init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+            device=dev)
+        try:
+            mesh = make_solver_mesh(device=dev)
+            log(f"sharded solves: torch.distributed {dist.get_backend()}, "
+                f"rank {rank} of {world} (file:// rendezvous)")
+            # the solves below send nothing (every level is a ring of one),
+            # so the NCCL collectives on card tensors run here once
+            v = torch.arange(1024.0, device=dev)
+            parts, s = [torch.empty_like(v)], v.clone()
+            dist.all_gather(parts, v)
+            dist.all_reduce(s)
+            check(torch.equal(parts[0], v) and torch.equal(s, v),
+                  "NCCL all_gather and all_reduce of a card tensor in the "
+                  "world of one")
+            for label, solver, M, b, tol, ref in (
+                    ("sharded host-built config 1", dml, A,
+                     np.random.default_rng(1).random(A.shape[0]), 1e-5, None),
+                    ("sharded unstructured", dus, A_un,
+                     np.random.default_rng(0).standard_normal(A_un.shape[0]),
+                     1e-6, UNSTR_REF_ITERS)):
+                kw = dict(tol=tol, maxiter=100, accel="cg")
+                t0 = time.perf_counter()
+                sharded = DeviceMultilevelSolver(
+                    shard_hierarchy(solver.hierarchy, mesh))
+                t_shard = time.perf_counter() - t0
+                res0 = []
+                solver.solve(b, residuals=res0, **kw)
+                sharded.solve(b, **kw)                 # warm-up
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                res1 = []
+                x = sharded.solve(b, residuals=res1, **kw)
+                torch.cuda.synchronize()
+                counts = launches[label] = dict(_build.launches)
+                times = {}
+                for key, s in (("sharded", sharded), ("unsharded", solver)):
+                    ts = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        s.solve(b, **kw)
+                        ts.append(time.perf_counter() - t0)
+                    times[key] = float(np.median(ts))
+                normb = float(np.linalg.norm(b))
+                it0, it1 = len(res0) - 1, len(res1) - 1
+                true_rel = float(np.linalg.norm(
+                    b - M @ x.astype(np.float64))) / normb
+                m = min(it0, it1) + 1
+                hist_diff = float(np.max(np.abs(np.subtract(
+                    res1[:m], res0[:m])) / np.asarray(res0[:m])))
+                log(f"{label} (world of one, native f32 CG to {tol:g}): "
+                    f"{it1} iterations (unsharded {it0}), history relres "
+                    f"{res1[-1] / normb:.3e}, true relres {true_rel:.3e}, "
+                    f"history vs unsharded max rel diff {hist_diff:.2e}; "
+                    f"shard_hierarchy {t_shard:.3f} s; solve "
+                    f"{times['sharded']:.4f} s sharded, "
+                    f"{times['unsharded']:.4f} s unsharded (numpy b, "
+                    "median of 3)")
+                log(f"  launches in that solve: "
+                    f"{json.dumps(counts, sort_keys=True)}")
+                check(x.shape == (M.shape[0],) and bool(np.isfinite(x).all())
+                      and res1[-1] <= tol * normb,
+                      f"{label}: solution finite, relres <= {tol:g}")
+                check(it1 == it0, f"{label}: {it1} CG iterations, the "
+                      f"unsharded solve's {it0}")
+                if ref is not None:
+                    check(abs(it1 - ref) <= 1, f"{label}: {it1} iterations "
+                          f"within {ref} +- 1 (reference)")
+                for k in PATHS[label]:
+                    check(counts.get(k, 0) > 0, f"{label}: {k} launched "
+                          f"({counts.get(k, 0)} launches)")
+        finally:
+            dist.destroy_process_group()
+
+
 # the reference's 640k unstructured case (scripts/measure_unstructured_tpu.py:
 # a P1 stiffness matrix on a regular 800^2 triangle mesh plus 1e-2 I)
 UNSTR_NX = 800
@@ -810,8 +1033,10 @@ def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
                 lambda: window.windowed_rmatvec(W, r),
                 lambda: window.windowed_rmatvec_ref(W, r), results,
                 meta + (m + W.n_pad) * sz, flops,
-                library_fn=lambda: torch.mv(Wt_csr, r), path=path)
+                library_fn=lambda: torch.mv(Wt_csr, r), path=path,
+                repeat_exact=True)
         if label not in probes:
+            transpose_checks(check, f"{where} {label} {dt}", W, r, None)
             continue
         K = PROBE_LANES
         Xk, Rk = rand((K, m), dtype), rand((K, W.n_pad), dtype)
@@ -826,7 +1051,9 @@ def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
                 lambda: window.windowed_rmatmat_k(W, Rk),
                 lambda: window.windowed_rmatmat_k_ref(W, Rk), results,
                 meta + K * (m + W.n_pad) * sz, flops * K,
-                library_fn=lambda: torch.sparse.mm(Wt_csr, Rc), path=path)
+                library_fn=lambda: torch.sparse.mm(Wt_csr, Rc), path=path,
+                repeat_exact=True)
+        transpose_checks(check, f"{where} {label} {dt}", W, r, Rk)
 
 
 def unstructured_kernel_checks(check, h, rand, results):
@@ -918,11 +1145,11 @@ def unstructured_phase(check, dev, rand, results, launches):
         log(f"  setup_info {json.dumps(info)}")
     for i, lvl in enumerate(dus.hierarchy.levels):
         log(f"  level {i}: n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
-    # the transpose kernels' float32 sum order varies from run to run, and
-    # with theta = 0 a coarse entry that cancels to a few ulp instead of 0
-    # can move the aggregation of the deep levels
-    same = "agree" if runs[0][1] == runs[1][1] else "differ"
-    log(f"  the two runs' levels {same}: {runs[0][1]} / {runs[1][1]}")
+    # the transposes sum in a fixed order (K7/K13's column plan), so the
+    # two setups must agree at every level: with theta = 0 a coarse entry
+    # that cancels to a few ulp would otherwise move the deep levels
+    check(runs[0][1] == runs[1][1], f"unstructured setup: the two runs' "
+          f"levels identical: {runs[0][1]} / {runs[1][1]}")
     check(tuple(sizes[:3]) == UNSTR_LEVELS, f"unstructured setup: levels "
           f"0-2 {sizes[:3]} (the reference's {list(UNSTR_LEVELS)}); levels "
           f"3+ {sizes[3:]} (JAX on the CPU: {list(UNSTR_DEEP_CPU)})")
@@ -951,6 +1178,11 @@ def unstructured_phase(check, dev, rand, results, launches):
         dus.solve(bt, **skw)
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
+    res_first = []
+    runs[0][0].solve(b, residuals=res_first, **skw)
+    check(res_first == res, f"unstructured solve: the two setups' f32 CG "
+          f"histories identical ({len(res_first) - 1} and {len(res) - 1} "
+          "iterations)")
     normb = float(np.linalg.norm(b))
     iters = len(res) - 1
     rel = res[-1] / normb
@@ -980,7 +1212,7 @@ def unstructured_phase(check, dev, rand, results, launches):
                     .cycle_operator("V"),
                     rand(dus.hierarchy.levels[0].n_pad, torch.float32),
                     "one vector (unstructured 640k)")
-    del runs, dus
+    del runs
 
     # (e) a jittered, scrambled mesh routed through RCM
     A0 = fem_operator(ROUTED_NX, jitter_seed=5)
@@ -989,6 +1221,7 @@ def unstructured_phase(check, dev, rand, results, launches):
     br = np.random.default_rng(12).standard_normal(Ar.shape[0])
     aggr = dict(device=dev, max_coarse=400, aggregate="aggressive",
                 smooth_passes=2)
+    true_rels = []
     # (label, setup, true-relres limit): float64 closes the gap between
     # the history and the true residual; in float32 the true relres stalls
     # near 1e-4 on this distorted mesh in the JAX package as in the port
@@ -1001,6 +1234,9 @@ def unstructured_phase(check, dev, rand, results, launches):
              device_unstructured_sa_setup(Ar, dtype=torch.float64, **aggr),
              1e-5),
             ("routed aggressive smooth_passes=2 float32", lambda:
+             device_unstructured_sa_setup(Ar, dtype=torch.float32, **aggr),
+             1e-3),
+            ("routed aggressive smooth_passes=2 float32, again", lambda:
              device_unstructured_sa_setup(Ar, dtype=torch.float32, **aggr),
              1e-3)):
         _build.reset_launches()
@@ -1032,6 +1268,13 @@ def unstructured_phase(check, dev, rand, results, launches):
                   f"({launches[label].get(k, 0)} launches)")
         if label == "routed unstructured setup":
             routed_kernel_checks(check, rs.hierarchy, rand, results)
+        true_rels.append(true_rel)
+    # the float32 true relres sits at this mesh's f32 floor, where any
+    # change of summation order shows: the two f32 runs must agree exactly
+    check(true_rels[-1] == true_rels[-2], f"routed aggressive float32: true "
+          f"relres identical in two runs ({true_rels[-2]!r} / "
+          f"{true_rels[-1]!r})")
+    return dus, A
 
 
 def main():
@@ -1226,7 +1469,8 @@ def main():
                     lambda: window.windowed_rmatvec(T, r),
                     lambda: window.windowed_rmatvec_ref(T, r), results,
                     meta + (r.numel() + T.m_chunks * T.w2) * sz, ops,
-                    library_fn=lib_rmv)
+                    library_fn=lib_rmv,
+                    repeat_exact=True)
             # K12 and K13 at K = 8 (library: torch.sparse.mm of T and T^T
             # in CSR against (n, 8) column stacks)
             Xk = rand((LANES, T.m_chunks * T.w2), dtype)
@@ -1247,7 +1491,9 @@ def main():
                     lambda: window.windowed_rmatmat_k(T, Rk),
                     lambda: window.windowed_rmatmat_k_ref(T, Rk), results,
                     meta + (Rk.numel() + LANES * T.m_chunks * T.w2) * sz,
-                    ops * LANES, library_fn=lib_rmm)
+                    ops * LANES, library_fn=lib_rmm,
+                    repeat_exact=True)
+            transpose_checks(check, f"host {label} T {dt}", T, r, Rk)
     # the device-built path's kernels: K5 on levels 0 and 1, K4 and the
     # two K1 epilogues on level 0; the K-lane kernels (K8 in three modes,
     # K9, K11) at K = 8 on levels 0 and 1; each in float32 and float64
@@ -1368,6 +1614,9 @@ def main():
         compare(check, f"{name}.float32 [{itag} nd={op.ndiags}]", f32, kern,
                 plain, results, *cost, library_fn=lib)
 
+    # 5b. K16 at host level 0: ring of one and in-process shards vs K1
+    halo_phase(check, h, rand, results)
+
     # 6. small input: the float64 host-built solve on the card against the
     # same hierarchy copied to the CPU (the plain twins), every level kept
     A_s = poisson((128, 128), format="csr")
@@ -1442,8 +1691,13 @@ def main():
 
     # 12. the unstructured device setup and solve
     t_u = time.perf_counter()
-    unstructured_phase(check, dev, rand, results, launches)
+    dus, A_un = unstructured_phase(check, dev, rand, results, launches)
     log(f"unstructured phases: {time.perf_counter() - t_u:.1f} s")
+
+    # 13. row-sharded solves in a world of one NCCL rank
+    t_s = time.perf_counter()
+    sharded_phase(check, dev, dml, A, dus, A_un, launches)
+    log(f"sharded phase: {time.perf_counter() - t_s:.1f} s")
 
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
@@ -1452,7 +1706,7 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 13. result lines: each path kernel instance, with its launches on
+    # 14. result lines: each path kernel instance, with its launches on
     # the paths that run it (``launches``: the first of them)
     rows = []
     for key in dict.fromkeys(k for ks in PATHS.values() for k in ks):

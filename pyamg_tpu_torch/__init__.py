@@ -46,6 +46,18 @@ such an operator there):
     dus = device_unstructured_sa_setup(A, max_coarse=1000)
     x = dus.solve(b, tol=1e-6, accel="cg")
 
+Row-sharded solves over ``torch.distributed`` (one rank per GPU, NCCL;
+gloo on the CPU), the DIA levels through the overlapped halo SpMV:
+
+    from pyamg_tpu_torch import (DeviceMultilevelSolver,
+                                 initialize_distributed, make_solver_mesh,
+                                 shard_hierarchy)
+
+    initialize_distributed()                  # torchrun's env, or a world of 1
+    mesh = make_solver_mesh()
+    x = DeviceMultilevelSolver(shard_hierarchy(dml.hierarchy, mesh)).solve(
+        b, tol=1e-8, accel="cg")
+
 The kernels build with ``nvcc`` at their first launch on a CUDA tensor
 (``_build.py``).  On CPU tensors every kernel entry point runs its plain
 PyTorch twin instead, which is what the CPU tests exercise.
@@ -63,13 +75,17 @@ from .engine import (ComposedWindowed, DeviceHierarchy,
                      device_unstructured_sa_setup)
 from .gallery import gradgradform, poisson, regular_triangle_mesh
 from .multilevel import MultilevelSolver
+from .parallel import (halo_width, initialize_distributed, make_halo_dia_spmv,
+                       make_solver_mesh, shard_hierarchy, shard_vector)
 from .sparse import dia_from_stencil
 
 __all__ = ["ComposedWindowed", "DeviceHierarchy", "DeviceMultilevelSolver",
            "MultilevelSolver", "ReorderedSolver", "StructuredDeviceSolver",
            "as_device_solver", "backend", "compile_hierarchy", "detect_grid",
            "device_sa_setup", "device_unstructured_sa_setup",
-           "dia_from_stencil", "gradgradform", "hierarchy_from_jax",
-           "launches", "poisson", "regular_triangle_mesh", "reset_launches",
-           "smoothed_aggregation_solver", "structured_solver_from_jax",
-           "unstructured_solver_from_jax"]
+           "dia_from_stencil", "gradgradform", "halo_width",
+           "hierarchy_from_jax", "initialize_distributed", "launches",
+           "make_halo_dia_spmv", "make_solver_mesh", "poisson",
+           "regular_triangle_mesh", "reset_launches", "shard_hierarchy",
+           "shard_vector", "smoothed_aggregation_solver",
+           "structured_solver_from_jax", "unstructured_solver_from_jax"]

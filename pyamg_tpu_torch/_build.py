@@ -86,20 +86,22 @@ _SIGNATURES = {
                                    _P, ctypes.c_float, _P, _P, _P, _P),
     "pyamg_dia_zero_chain_k_f64": (_P, _P, _I, _P, _P, _I, _L, _I, _P, _P,
                                    _P, ctypes.c_double, _P, _P, _P, _P),
-    # data, idx, starts, k, block, w2, n_rows, x|r, y, stream
+    # data, idx, starts, k, block, w2, n_rows, x, y, stream
     "pyamg_windowed_matvec_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_matvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
-    "pyamg_windowed_rmatvec_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
-    "pyamg_windowed_rmatvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
-    # data, idx, starts, k, block, w2, n_rows, m, lanes, x|r, y, stream
+    # data, perm, colptr, k, block, m, r, y, stream
+    "pyamg_windowed_rmatvec_f32": (_P, _P, _P, _I, _I, _L, _P, _P, _P),
+    "pyamg_windowed_rmatvec_f64": (_P, _P, _P, _I, _I, _L, _P, _P, _P),
+    # data, idx, starts, k, block, w2, n_rows, m, lanes, x, y, stream
     "pyamg_windowed_matmat_k_f32": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
                                     _P, _P),
     "pyamg_windowed_matmat_k_f64": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
                                     _P, _P),
-    "pyamg_windowed_rmatmat_k_f32": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
-                                     _P, _P),
-    "pyamg_windowed_rmatmat_k_f64": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
-                                     _P, _P),
+    # data, perm, colptr, k, block, n_rows, m, lanes, r, y, stream
+    "pyamg_windowed_rmatmat_k_f32": (_P, _P, _P, _I, _I, _L, _L, _I, _P, _P,
+                                     _P),
+    "pyamg_windowed_rmatmat_k_f64": (_P, _P, _P, _I, _I, _L, _L, _I, _P, _P,
+                                     _P),
     # idx, starts, k, block, w2, n_rows, x, out, stream
     "pyamg_windowed_select_f32": (_P, _P, _I, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_select_f64": (_P, _P, _I, _I, _I, _L, _P, _P, _P),
@@ -107,6 +109,12 @@ _SIGNATURES = {
     # mode, stream
     "pyamg_interleaved_f32": (_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,
                               _I, _P),
+    # data, ld, offsets, nd, n_local, halo, left, x, right, a0, a1, b0, b1,
+    # y, stream
+    "pyamg_halo_spmv_f32": (_P, _L, _P, _I, _L, _I, _P, _P, _P, _L, _L, _L,
+                            _L, _P, _P),
+    "pyamg_halo_spmv_f64": (_P, _L, _P, _I, _L, _I, _P, _P, _P, _L, _L, _L,
+                            _L, _P, _P),
 }
 
 

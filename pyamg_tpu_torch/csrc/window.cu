@@ -19,43 +19,52 @@
 //
 // The TPU resolved each index with one-hot products on the MXU because it
 // cannot gather; Hopper can, so the forward apply is a direct indexed load
-// and the transpose a scatter with atomics.
+// and the transpose an indexed gather through a column plan.
 //
-// Bound: device-memory bandwidth and, for the transpose, atomic
-// throughput.  The forward pass reads data and idx (k * n * (sizeof(T) + 4)
-// bytes), the starts and the window of x, and writes n values.  The
-// slot-major layout makes each slot's data/idx loads coalesced across a
-// warp, and the window of x a warp touches is narrow (rows of one block
-// map into 2 * w2 contiguous source entries), so its gathers mostly hit
-// L1/L2.
+// Bound: device-memory bandwidth.  The forward pass reads data and idx
+// (k * n * (sizeof(T) + 4) bytes), the starts and the window of x, and
+// writes n values.  The slot-major layout makes each slot's data/idx loads
+// coalesced across a warp, and the window of x a warp touches is narrow
+// (rows of one block map into 2 * w2 contiguous source entries), so its
+// gathers mostly hit L1/L2.
 //
-// The transpose runs one thread per (row, slot) and atomicAdds
-// data * r into y[starts[b] * w2 + idx] on an output the wrapper zeroed.
-// This replaces the TPU's VMEM-resident output accumulated over a
-// sequential grid (window.py:253-293): blocks here run in no order, so
-// overlapping windows meet in atomics.  Consequence: the float32 summation
-// order changes from run to run.  Each output sums the entries of one
-// column (for the SA tentative operator, one aggregate: about 9 terms at
-// level 0), so the run-to-run spread is a few ulp of the sum of |terms|;
-// tests hold the result against the ordered plain version to 1e-5 of
-// max|y| in float32 (1e-12 in float64).  Structural zeros (data == 0,
-// the padding rows) are skipped: they add nothing and would otherwise
-// pile atomics onto one address.  A deterministic transpose is left for
-// later.
+// The transpose (K7) replaces the TPU's VMEM-resident output accumulated
+// over a sequential grid (window.py:253-293).  Blocks here run in no
+// order, so a scatter from the entries would meet in atomics and sum in an
+// order that changes from run to run; with theta = 0 an entry that
+// cancels to a few ulp then moves the unstructured setup's strength graph
+// and its deep levels.  So the transpose gathers instead: the wrapper
+// builds a column plan once per operator (sparse/window.py::
+// WindowedELL.column_plan: every entry keyed by its global column
+// starts[b] * w2 + idx, a dead one (data == 0) by the sentinel m =
+// m_chunks * w2, sorted stably on the device into an int32 permutation
+// `perm`, with int32 column pointers `colptr` of length m + 1; no count is
+// read back to the host), and one thread per output column sums that
+// column's entries in ascending entry order and writes the column once.
+// That is the order of the plain version's index_add_ on the CPU, and the
+// products and sums are rounded separately (__fmul_rn / __fadd_rn, no FMA
+// contraction), so the result is the same bit for bit from launch to
+// launch, from run to run, and as the CPU plain version's.  Structural
+// zeros (data == 0, the padding rows) sort past colptr[m], where no column
+// reads: they add nothing.  No output is zeroed first: every column is
+// written, an empty one with 0.  Bound: device-memory bandwidth, the live
+// entries' data, perm and the r values they read (nnz * (2 * sizeof(T) +
+// 4) bytes), colptr and y; the gathers of data and r through perm are the
+// price of the fixed order.
 //
 // The K-lane forms take K-major lane stacks (the batched solve's layout):
 // X (lanes, m_chunks * w2) -> Y (lanes, n_pad) forward, R (lanes, n_pad)
-// -> Y (lanes, m_chunks * w2) transposed.  Each entry's data and idx are
-// read once for all lanes of a launch (the point of the TPU kernels: the
-// operator's bytes are paid once per batch instead of once per lane),
-// the lanes loop inside the thread with a register accumulator of
-// kMaxLanes (indexed only by unrolled constants), and a launch covers at
-// most kMaxLanes lanes (the wrapper launches larger K in chunks).  The
-// forward form keeps K6's indexed load; the transpose K7's atomicAdd
-// scatter, one atomic per lane and entry, so its float32 sum order varies
-// from run to run exactly as K7's does.  Bound: device-memory bandwidth,
-// data and idx once (k * n * (sizeof(T) + 4) bytes) plus the K input and
-// output rows.
+// -> Y (lanes, m_chunks * w2) transposed.  Each entry's data and idx (or
+// plan slot) are read once for all lanes of a launch (the point of the
+// TPU kernels: the operator's bytes are paid once per batch instead of
+// once per lane), the lanes loop inside the thread with a register
+// accumulator of kMaxLanes (indexed only by unrolled constants), and a
+// launch covers at most kMaxLanes lanes (the wrapper launches larger K in
+// chunks).  The forward form (K12) keeps K6's indexed load; the transpose
+// (K13) K7's column plan, one thread per column summing each lane in
+// ascending entry order, so it too is the same on every run and equals
+// the CPU plain version lane by lane.  Bound: device-memory bandwidth,
+// the operator's bytes once plus the K input and output rows.
 //
 // The select (K14) reads x at every entry's column and writes it to that
 // entry's slot: out[b, s, row] = x[starts[b] * w2 + idx[b, s, row]], one
@@ -75,6 +84,15 @@
 namespace {
 
 constexpr int kMaxLanes = 16;
+
+// a * b + c with the product and the sum each rounded (no FMA), the
+// plain version's arithmetic
+__device__ __forceinline__ float mul_add_rn(float a, float b, float c) {
+  return __fadd_rn(c, __fmul_rn(a, b));
+}
+__device__ __forceinline__ double mul_add_rn(double a, double b, double c) {
+  return __dadd_rn(c, __dmul_rn(a, b));
+}
 
 template <typename T>
 __global__ void windowed_matvec_kernel(const T* __restrict__ data,
@@ -97,22 +115,28 @@ __global__ void windowed_matvec_kernel(const T* __restrict__ data,
   y[g] = acc;
 }
 
+// the row of entry e of the slot-major (n_blocks, k, block) layout
+__device__ __forceinline__ int64_t entry_row(int64_t e, int64_t per_block,
+                                             int block) {
+  return (e / per_block) * block + e % block;
+}
+
 template <typename T>
 __global__ void windowed_rmatvec_kernel(const T* __restrict__ data,
-                                        const int* __restrict__ idx,
-                                        const int* __restrict__ starts, int k,
-                                        int block, int w2, int64_t n_entries,
+                                        const int* __restrict__ perm,
+                                        const int* __restrict__ colptr, int k,
+                                        int block, int64_t m,
                                         const T* __restrict__ r,
                                         T* __restrict__ y) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n_entries) return;
-  const T a = data[e];
-  if (a == T(0)) return;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (c >= m) return;
   const int64_t per_block = static_cast<int64_t>(k) * block;
-  const int64_t blk = e / per_block;
-  const int64_t row = e % block;
-  atomicAdd(&y[static_cast<int64_t>(starts[blk]) * w2 + idx[e]],
-            a * r[blk * block + row]);
+  T acc = T(0);
+  for (int j = colptr[c], j1 = colptr[c + 1]; j < j1; ++j) {
+    const int64_t e = perm[j];
+    acc = mul_add_rn(data[e], r[entry_row(e, per_block, block)], acc);
+  }
+  y[c] = acc;
 }
 
 template <typename T>
@@ -149,26 +173,32 @@ __global__ void windowed_matmat_k_kernel(const T* __restrict__ data,
 
 template <typename T>
 __global__ void windowed_rmatmat_k_kernel(const T* __restrict__ data,
-                                          const int* __restrict__ idx,
-                                          const int* __restrict__ starts,
-                                          int k, int block, int w2,
-                                          int64_t n_rows, int64_t m,
-                                          int lanes,
+                                          const int* __restrict__ perm,
+                                          const int* __restrict__ colptr,
+                                          int k, int block, int64_t n_rows,
+                                          int64_t m, int lanes,
                                           const T* __restrict__ r,
                                           T* __restrict__ y) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n_rows * k) return;
-  const T a = data[e];
-  if (a == T(0)) return;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (c >= m) return;
   const int64_t per_block = static_cast<int64_t>(k) * block;
-  const int64_t blk = e / per_block;
-  const int64_t g = blk * block + e % block;
-  const int64_t col = static_cast<int64_t>(starts[blk]) * w2 + idx[e];
+  T acc[kMaxLanes];
+#pragma unroll
+  for (int l = 0; l < kMaxLanes; ++l) acc[l] = T(0);
+  for (int j = colptr[c], j1 = colptr[c + 1]; j < j1; ++j) {
+    const int64_t e = perm[j];
+    const T a = data[e];
+    const int64_t g = entry_row(e, per_block, block);
+#pragma unroll
+    for (int l = 0; l < kMaxLanes; ++l) {
+      if (l < lanes)
+        acc[l] = mul_add_rn(a, r[static_cast<int64_t>(l) * n_rows + g],
+                            acc[l]);
+    }
+  }
 #pragma unroll
   for (int l = 0; l < kMaxLanes; ++l) {
-    if (l < lanes)
-      atomicAdd(&y[static_cast<int64_t>(l) * m + col],
-                a * r[static_cast<int64_t>(l) * n_rows + g]);
+    if (l < lanes) y[static_cast<int64_t>(l) * m + c] = acc[l];
   }
 }
 
@@ -203,23 +233,23 @@ int launch_matvec(const void* data, const void* idx, const void* starts, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The transposes: one thread per output column c < m, the column's live
+// entries perm[colptr[c] .. colptr[c + 1]) in ascending entry order.
 template <typename T>
-int launch_rmatvec(const void* data, const void* idx, const void* starts,
-                   int k, int block, int w2, long long n_rows, const void* r,
-                   void* y, void* stream) {
-  const long long n_entries = n_rows * k;
-  if (n_entries <= 0) return static_cast<int>(cudaSuccess);
-  windowed_rmatvec_kernel<T><<<grid_for(n_entries), kThreads, 0,
+int launch_rmatvec(const void* data, const void* perm, const void* colptr,
+                   int k, int block, long long m, const void* r, void* y,
+                   void* stream) {
+  if (m <= 0) return static_cast<int>(cudaSuccess);
+  windowed_rmatvec_kernel<T><<<grid_for(m), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int*>(idx),
-      static_cast<const int*>(starts), k, block, w2, n_entries,
-      static_cast<const T*>(r), static_cast<T*>(y));
+      static_cast<const T*>(data), static_cast<const int*>(perm),
+      static_cast<const int*>(colptr), k, block, m, static_cast<const T*>(r),
+      static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The K-lane launches: x (lanes, m) in, y (lanes, n_rows) out for the
-// forward form; r (lanes, n_rows) in, y (lanes, m) accumulated (zeroed by
-// the caller) for the transpose.
+// forward form; r (lanes, n_rows) in, y (lanes, m) out for the transpose.
 template <typename T>
 int launch_matmat_k(const void* data, const void* idx, const void* starts,
                     int k, int block, int w2, long long n_rows, long long m,
@@ -237,18 +267,17 @@ int launch_matmat_k(const void* data, const void* idx, const void* starts,
 }
 
 template <typename T>
-int launch_rmatmat_k(const void* data, const void* idx, const void* starts,
-                     int k, int block, int w2, long long n_rows, long long m,
+int launch_rmatmat_k(const void* data, const void* perm, const void* colptr,
+                     int k, int block, long long n_rows, long long m,
                      int lanes, const void* r, void* y, void* stream) {
   if (lanes < 1 || lanes > kMaxLanes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n_entries = n_rows * k;
-  if (n_entries <= 0) return static_cast<int>(cudaSuccess);
-  windowed_rmatmat_k_kernel<T><<<grid_for(n_entries), kThreads, 0,
+  if (m <= 0) return static_cast<int>(cudaSuccess);
+  windowed_rmatmat_k_kernel<T><<<grid_for(m), kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int*>(idx),
-      static_cast<const int*>(starts), k, block, w2, n_rows, m, lanes,
+      static_cast<const T*>(data), static_cast<const int*>(perm),
+      static_cast<const int*>(colptr), k, block, n_rows, m, lanes,
       static_cast<const T*>(r), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
@@ -286,23 +315,23 @@ int pyamg_windowed_matvec_f64(const void* data, const void* idx,
                                stream);
 }
 
-int pyamg_windowed_rmatvec_f32(const void* data, const void* idx,
-                               const void* starts, int k, int block, int w2,
-                               long long n_rows, const void* r, void* y,
+// data, perm, colptr, k, block, m, r, y, stream
+int pyamg_windowed_rmatvec_f32(const void* data, const void* perm,
+                               const void* colptr, int k, int block,
+                               long long m, const void* r, void* y,
                                void* stream) {
-  return launch_rmatvec<float>(data, idx, starts, k, block, w2, n_rows, r, y,
-                               stream);
+  return launch_rmatvec<float>(data, perm, colptr, k, block, m, r, y, stream);
 }
 
-int pyamg_windowed_rmatvec_f64(const void* data, const void* idx,
-                               const void* starts, int k, int block, int w2,
-                               long long n_rows, const void* r, void* y,
+int pyamg_windowed_rmatvec_f64(const void* data, const void* perm,
+                               const void* colptr, int k, int block,
+                               long long m, const void* r, void* y,
                                void* stream) {
-  return launch_rmatvec<double>(data, idx, starts, k, block, w2, n_rows, r, y,
+  return launch_rmatvec<double>(data, perm, colptr, k, block, m, r, y,
                                 stream);
 }
 
-// data, idx, starts, k, block, w2, n_rows, m, lanes, x|r, y, stream
+// data, idx, starts, k, block, w2, n_rows, m, lanes, x, y, stream
 int pyamg_windowed_matmat_k_f32(const void* data, const void* idx,
                                 const void* starts, int k, int block, int w2,
                                 long long n_rows, long long m, int lanes,
@@ -319,22 +348,21 @@ int pyamg_windowed_matmat_k_f64(const void* data, const void* idx,
                                  lanes, x, y, stream);
 }
 
-int pyamg_windowed_rmatmat_k_f32(const void* data, const void* idx,
-                                 const void* starts, int k, int block,
-                                 int w2, long long n_rows, long long m,
-                                 int lanes, const void* r, void* y,
-                                 void* stream) {
-  return launch_rmatmat_k<float>(data, idx, starts, k, block, w2, n_rows, m,
+// data, perm, colptr, k, block, n_rows, m, lanes, r, y, stream
+int pyamg_windowed_rmatmat_k_f32(const void* data, const void* perm,
+                                 const void* colptr, int k, int block,
+                                 long long n_rows, long long m, int lanes,
+                                 const void* r, void* y, void* stream) {
+  return launch_rmatmat_k<float>(data, perm, colptr, k, block, n_rows, m,
                                  lanes, r, y, stream);
 }
 
-int pyamg_windowed_rmatmat_k_f64(const void* data, const void* idx,
-                                 const void* starts, int k, int block,
-                                 int w2, long long n_rows, long long m,
-                                 int lanes, const void* r, void* y,
-                                 void* stream) {
-  return launch_rmatmat_k<double>(data, idx, starts, k, block, w2, n_rows,
-                                  m, lanes, r, y, stream);
+int pyamg_windowed_rmatmat_k_f64(const void* data, const void* perm,
+                                 const void* colptr, int k, int block,
+                                 long long n_rows, long long m, int lanes,
+                                 const void* r, void* y, void* stream) {
+  return launch_rmatmat_k<double>(data, perm, colptr, k, block, n_rows, m,
+                                  lanes, r, y, stream);
 }
 
 // idx, starts, k, block, w2, n_rows, x, out, stream

@@ -12,6 +12,11 @@ tensors, the history is (maxiter + 1, K), and a lane that has converged
 keeps its state (``_freeze``, the reference's per-lane freeze) while the
 others iterate; the loop still reads one scalar per iteration
 (``active.any()``).
+
+On a row-sharded hierarchy every rank runs the same loop on its block of
+the vectors; ``reduce`` sums each local partial dot over the shards (an
+``all_reduce``), so every rank sees the same scalars and takes the same
+branches.  Without it (``reduce=None``) the arithmetic is unchanged.
 """
 
 from __future__ import annotations
@@ -21,18 +26,20 @@ import torch
 __all__ = ["device_cg"]
 
 
-def _vdot(a, b):
+def _vdot(a, b, reduce=None):
     """Inner product as elementwise multiply + sum, as the reference forms
-    it (real vectors); per lane for a (K, n) stack."""
-    return torch.sum(a * b, dim=-1)
+    it (real vectors); per lane for a (K, n) stack.  ``reduce`` sums the
+    local partial over the shards of a row-sharded vector."""
+    s = torch.sum(a * b, dim=-1)
+    return s if reduce is None else reduce(s)
 
 
-def _norm(a):
-    return torch.sqrt(torch.sum(a * a, dim=-1))
+def _norm(a, reduce=None):
+    return torch.sqrt(_vdot(a, a, reduce))
 
 
-def _rtol_of(b, tol):
-    normb = _norm(b)
+def _rtol_of(b, tol, reduce=None):
+    normb = _norm(b, reduce)
     return tol * torch.where(normb == 0, torch.ones_like(normb), normb)
 
 
@@ -58,9 +65,11 @@ def _freeze(lanes, active, new, old):
     return torch.where(_lane(active) if new.ndim == 2 else active, new, old)
 
 
-def device_cg(matvec, b, x0, tol=1e-8, maxiter=100, M=None):
+def device_cg(matvec, b, x0, tol=1e-8, maxiter=100, M=None, reduce=None):
     """Preconditioned CG on a vector or a K-major (K, n) stack; returns
-    ``(x, history, iterations)`` (per-lane iterations for a stack)."""
+    ``(x, history, iterations)`` (per-lane iterations for a stack).
+    ``reduce``: the shard sum of the dots' local partials, for a
+    row-sharded ``b`` (None: b is held whole)."""
     maxiter = int(maxiter)
     precond = M if M is not None else (lambda v: v)
     lanes = b.ndim == 2
@@ -69,9 +78,9 @@ def device_cg(matvec, b, x0, tol=1e-8, maxiter=100, M=None):
     r = b - matvec(x0)
     z = precond(r)
     p = z
-    rz = _vdot(r, z)
-    normr = _norm(r)
-    rtol = _rtol_of(b, tol)
+    rz = _vdot(r, z, reduce)
+    normr = _norm(r, reduce)
+    rtol = _rtol_of(b, tol, reduce)
     history = torch.full((maxiter + 1,) + tuple(normr.shape), float("nan"),
                          dtype=b.dtype, device=b.device)
     history[0] = normr
@@ -81,10 +90,10 @@ def device_cg(matvec, b, x0, tol=1e-8, maxiter=100, M=None):
     go = bool(active.any())             # one host read per iteration
     while go and it < maxiter:
         Ap = matvec(p)
-        alpha = _lane(_safe_div(rz, _vdot(p, Ap)))
+        alpha = _lane(_safe_div(rz, _vdot(p, Ap, reduce)))
         x = _freeze(lanes, active, x + alpha * p, x)
         r2 = r - alpha * Ap
-        normr2 = _norm(r2)
+        normr2 = _norm(r2, reduce)
         r = _freeze(lanes, active, r2, r)
         normr = _freeze(lanes, active, normr2, normr)
         history[it + 1] = _freeze(lanes, active, normr2, history[it + 1])
@@ -98,7 +107,7 @@ def device_cg(matvec, b, x0, tol=1e-8, maxiter=100, M=None):
             # returned depends on: skip that preconditioner application
             break
         z = precond(r)
-        rz2 = _vdot(r, z)
+        rz2 = _vdot(r, z, reduce)
         p = _freeze(lanes, active, z + _lane(_safe_div(rz2, rz)) * p, p)
         rz = _freeze(lanes, active, rz2, rz)
         active = active_next

@@ -19,6 +19,12 @@ batched native float32 V-cycle CG from x0 = 0 on a hierarchy that
 instead (:func:`~pyamg_tpu_torch.engine.batched_cycle.interleaved_batched_cg`,
 K15; ``pyamg_tpu/engine/solver.py:355-385``).  W/F/AMLI cycles and the
 other Krylov methods are ROADMAP.md Queue 1 item 7.
+
+A row-sharded hierarchy (:func:`~pyamg_tpu_torch.parallel.shard_hierarchy`)
+solves on every rank at once: each rank stages its block of ``b``, the
+cycle runs on the blocks (each sharded operator communicates, the Jacobi
+sweeps compose through ``A @ x``), and the Krylov dots sum over the
+shards.  Batched and mixed-precision sharded solves are not ported.
 """
 
 from __future__ import annotations
@@ -160,6 +166,11 @@ class DeviceMultilevelSolver:
         tensors; x comes back as a numpy array for a numpy ``b`` and as a
         tensor on the hierarchy's device for a tensor ``b``.
 
+        On a row-sharded hierarchy every rank calls this with the full
+        ``b`` (and ``x0``) and stages its own block: a numpy ``b`` gives
+        the full x, gathered, on every rank; a tensor ``b`` gives this
+        rank's padded block of x (``hierarchy.gather`` assembles it).
+
         precision='native' runs entirely in the hierarchy dtype; 'mixed'
         runs the outer loop in float64 with the cycle as preconditioner
         (requires compile_hierarchy(mixed_precision=True)).
@@ -186,12 +197,23 @@ class DeviceMultilevelSolver:
         if np.ndim(b) not in (1, 2):
             raise ValueError(f"b must be a vector or an (n, K) stack, got "
                              f"{np.ndim(b)} dimensions")
+        sharded = getattr(h, "mesh", None) is not None
+        if sharded and lanes:
+            raise NotImplementedError(
+                "a batched (n, K) solve on a sharded hierarchy is not ported "
+                "yet (ROADMAP.md Queue 1 item 14)")
         n = h.levels[0].n
         n_pad = h.levels[0].n_pad
         dtype = torch.float64 if mixed else h.dtype
         tensor_out = isinstance(b, torch.Tensor)
-        stage = _stage_lanes if lanes else pad_vector
-        b_dev = stage(b, n_pad, dtype=dtype, device=h.device)
+
+        def stage(v):
+            if sharded:
+                return h.stage(v, dtype)
+            return (_stage_lanes if lanes else pad_vector)(
+                v, n_pad, dtype=dtype, device=h.device)
+
+        b_dev = stage(b)
         if (lanes and accel == "cg" and not mixed and x0 is None
                 and str(cycle).upper() == "V" and dtype == torch.float32):
             # imported here: batched_cycle builds on this module
@@ -203,29 +225,36 @@ class DeviceMultilevelSolver:
                 return self._finish(x, history, b_dev, n, tol, tensor_out,
                                     True, residuals, return_info,
                                     int(maxiter))
-        x0_dev = (torch.zeros_like(b_dev) if x0 is None
-                  else stage(x0, n_pad, dtype=dtype, device=h.device))
+        x0_dev = torch.zeros_like(b_dev) if x0 is None else stage(x0)
         one_cycle, matvec, precond = self._ops(cycle, mixed)
+        reduce = h.reduce if sharded else None
 
         if accel is None:
             x, history, it = self._stationary(one_cycle, matvec, b_dev,
                                               x0_dev, tol, int(maxiter),
-                                              mixed)
+                                              mixed, reduce)
         else:
             x, history, it = device_cg(matvec, b_dev, x0_dev, tol=tol,
-                                       maxiter=int(maxiter), M=precond)
+                                       maxiter=int(maxiter), M=precond,
+                                       reduce=reduce)
+        if sharded and not tensor_out:
+            x = h.gather(x)
         return self._finish(x, history, b_dev, n, tol, tensor_out, lanes,
                             residuals, return_info,
-                            int(torch.as_tensor(it).max()))
+                            int(torch.as_tensor(it).max()), reduce,
+                            sharded and tensor_out)
 
     @staticmethod
     def _finish(x, history, b_dev, n, tol, tensor_out, lanes, residuals,
-                return_info, it):
+                return_info, it, reduce=None, block=False):
         """Unpad x (and turn a (K, n_pad) stack into (n, K) columns), fill
         ``residuals`` with the NaN-free history (one array per lane), and
         give the info: 0 when every lane's last residual is below
-        tol * ||b||, else ``it``."""
-        x = x[..., :n]
+        tol * ||b||, else ``it``.  ``block``: x is a rank's block of a
+        sharded solution, returned padded as it is; ``reduce`` sums the
+        norm of such a block's ``b`` over the shards."""
+        if not block:
+            x = x[..., :n]
         if lanes:
             x = x.T
         if not tensor_out:
@@ -236,25 +265,27 @@ class DeviceMultilevelSolver:
         if residuals is not None:
             residuals[:] = hists if lanes else list(hists[0])
         if return_info:
-            normb = torch.linalg.vector_norm(b_dev, dim=-1).reshape(-1)
+            normb = (torch.linalg.vector_norm(b_dev, dim=-1) if reduce is None
+                     else _norm(b_dev, reduce)).reshape(-1)
             converged = all(
                 len(hl) >= 1 and hl[-1] < tol * max(float(nb), 1e-300)
                 for hl, nb in zip(hists, normb.cpu().numpy()))
             return x, (0 if converged else it)
         return x
 
-    def _stationary(self, one_cycle, matvec, b, x0, tol, maxiter, mixed):
+    def _stationary(self, one_cycle, matvec, b, x0, tol, maxiter, mixed,
+                    reduce=None):
         """accel=None: repeated cycles until the residual drops below
         tol * ||b||.  On a (K, n_pad) stack every lane runs the cycle in
         lock-step and a converged lane keeps its iterate, residual and
         history (the reference's freeze under vmap); one host read per
         cycle.  Returns (x, history, iterations) with per-lane counts for
-        a stack."""
+        a stack.  ``reduce``: the shard sum of a sharded solve's norms."""
         h = self.hierarchy
         lanes = b.ndim == 2
-        rtol = _rtol_of(b, tol)
+        rtol = _rtol_of(b, tol, reduce)
         x = x0
-        normr = _norm(b - matvec(x))
+        normr = _norm(b - matvec(x), reduce)
         history = torch.full((maxiter + 1,) + tuple(normr.shape),
                              float("nan"), dtype=b.dtype, device=b.device)
         history[0] = normr
@@ -267,7 +298,7 @@ class DeviceMultilevelSolver:
                 x2 = x + corr.to(x.dtype)
             else:
                 x2 = one_cycle(h, x, b)
-            normr2 = _norm(b - matvec(x2))
+            normr2 = _norm(b - matvec(x2), reduce)
             history[it + 1] = _freeze(lanes, active, normr2, history[it + 1])
             x = _freeze(lanes, active, x2, x)
             normr = _freeze(lanes, active, normr2, normr)

@@ -63,7 +63,7 @@ def select_operator(A, dtype=torch.float32, device=None, row_pad=8,
     - otherwise WindowedELL.
 
     The reference's last resort, gather ELL, is not ported yet (ROADMAP.md
-    Queue 1 item 13) and raises."""
+    Queue 1 item 1) and raises."""
     if device is None:
         raise ValueError("pass device= explicitly")
     if np.iscomplexobj(getattr(A, "data", np.zeros(0))) or dtype.is_complex:
@@ -83,4 +83,4 @@ def select_operator(A, dtype=torch.float32, device=None, row_pad=8,
         return win
     raise NotImplementedError(
         f"operator {A.shape} is neither DIA nor windowable; its gather-ELL "
-        "form is not ported yet (ROADMAP.md Queue 1 item 13)")
+        "form is not ported yet (ROADMAP.md Queue 1 item 1)")

@@ -25,11 +25,18 @@ not carry over: any K runs, in launches of at most 16 lanes.
 Each has a plain PyTorch twin (gather / scatter-add, ``*_ref``).  A
 wrapper runs the twin only when its operands lie on the CPU; on CUDA
 tensors it launches the kernel or raises.
+
+The transposes sum without atomics: each operator builds a column plan
+once, at its first transpose apply on the card
+(:attr:`WindowedELL.column_plan`), and K7/K13 sum each output column's
+entries in ascending entry order, the order of the twins' ``index_add_``
+on the CPU, so a transpose gives the same bits on every launch and run.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Tuple
 
 import numpy as np
@@ -81,6 +88,28 @@ class WindowedELL:
     @property
     def device(self):
         return self.data.device
+
+    @cached_property
+    def column_plan(self):
+        """(perm, colptr), the transpose kernels' column plan, built once
+        at the first transpose apply and kept on the operator (as
+        ``DIAMatrix.offsets_t`` is): every entry keyed by its global
+        column, a dead one (data == 0) by the sentinel column m =
+        m_chunks * w2, and sorted stably; ``perm`` (int32, one per entry)
+        holds the flat indices into ``data`` in that order, ``colptr``
+        (int32, m + 1) each column's range of ``perm``.  The kernels stop
+        at ``colptr[m]``, so the dead entries past it are never read.
+        4 * (entries + m + 1) bytes on the operator's device; the build
+        sorts once and reads nothing back to the host."""
+        m = self.m_chunks * self.w2
+        keys = torch.where(self.data != 0,
+                           self.starts[:, None, None] * self.w2 + self.idx,
+                           m)                       # int32: m < 2**31
+        keys, perm = torch.sort(keys.reshape(-1), stable=True)
+        colptr = torch.searchsorted(
+            keys, torch.arange(m + 1, dtype=keys.dtype, device=self.device),
+            out_int32=True)
+        return perm.to(torch.int32).contiguous(), colptr.contiguous()
 
     def _x_padded(self, x):
         """x (or each lane of a (K, m) stack) fitted to the source length
@@ -313,16 +342,6 @@ def _check_operator(W):
             raise ValueError(f"windowed {name}: expected contiguous {dt}")
 
 
-def _launch_windowed(kind, W, v, y):
-    _check_operator(W)
-    fn_name = f"pyamg_windowed_{kind}_{_KERNEL_SUFFIX[W.dtype]}"
-    err = getattr(_build.library(), fn_name)(
-        W.data.data_ptr(), W.idx.data_ptr(), W.starts.data_ptr(), W.k,
-        W.block, W.w2, W.n_pad, v.data_ptr(), y.data_ptr(),
-        torch.cuda.current_stream(W.device).cuda_stream)
-    _build.check(fn_name, err)
-
-
 def _launch_windowed_k(kind, W, V, Y):
     """Launch a K-lane windowed kernel over the stacks V -> Y in lane
     chunks, counting each launch."""
@@ -331,10 +350,16 @@ def _launch_windowed_k(kind, W, V, Y):
     fn = getattr(_build.library(), fn_name)
     stream = torch.cuda.current_stream(W.device).cuda_stream
     m = W.m_chunks * W.w2
+    if kind == "rmatmat_k":
+        perm, colptr = W.column_plan
+        head = (W.data.data_ptr(), perm.data_ptr(), colptr.data_ptr(), W.k,
+                W.block)
+    else:
+        head = (W.data.data_ptr(), W.idx.data_ptr(), W.starts.data_ptr(),
+                W.k, W.block, W.w2)
     for k0, k1 in _build.lane_chunks(V.shape[0]):
-        err = fn(W.data.data_ptr(), W.idx.data_ptr(), W.starts.data_ptr(),
-                 W.k, W.block, W.w2, W.n_pad, m, k1 - k0,
-                 V[k0:k1].data_ptr(), Y[k0:k1].data_ptr(), stream)
+        err = fn(*head, W.n_pad, m, k1 - k0, V[k0:k1].data_ptr(),
+                 Y[k0:k1].data_ptr(), stream)
         _build.check(fn_name, err)
         _build.count_launch(f"windowed_{kind}.{_build.dtype_name(W.dtype)}")
 
@@ -344,21 +369,36 @@ def windowed_matvec(W: WindowedELL, x):
     if _build.on_cpu(W.data, x):
         return windowed_matvec_ref(W, x)
     _build.check_vector("x", x, W.m_chunks * W.w2, W.dtype)
+    _check_operator(W)
     y = torch.empty(W.n_pad, dtype=W.dtype, device=x.device)
-    _launch_windowed("matvec", W, x, y)
+    fn_name = f"pyamg_windowed_matvec_{_KERNEL_SUFFIX[W.dtype]}"
+    err = getattr(_build.library(), fn_name)(
+        W.data.data_ptr(), W.idx.data_ptr(), W.starts.data_ptr(), W.k,
+        W.block, W.w2, W.n_pad, x.data_ptr(), y.data_ptr(),
+        torch.cuda.current_stream(W.device).cuda_stream)
+    _build.check(fn_name, err)
     _build.count_launch(f"windowed_matvec.{_build.dtype_name(W.dtype)}")
     return y
 
 
 def windowed_rmatvec(W: WindowedELL, r):
     """y = A^T @ r, with r of length ``n_pad``; y has ``m_chunks * w2``.
-    On the card the float summation order varies between runs (atomics,
-    see csrc/window.cu)."""
+    On the card each column sums its entries in ascending entry order
+    through the operator's column plan (built at the first call), so the
+    result is the same on every run and equals the CPU twin's."""
     if _build.on_cpu(W.data, r):
         return windowed_rmatvec_ref(W, r)
     _build.check_vector("r", r, W.n_pad, W.dtype)
-    y = torch.zeros(W.m_chunks * W.w2, dtype=W.dtype, device=r.device)
-    _launch_windowed("rmatvec", W, r, y)
+    _check_operator(W)
+    perm, colptr = W.column_plan
+    m = W.m_chunks * W.w2
+    y = torch.empty(m, dtype=W.dtype, device=r.device)
+    fn_name = f"pyamg_windowed_rmatvec_{_KERNEL_SUFFIX[W.dtype]}"
+    err = getattr(_build.library(), fn_name)(
+        W.data.data_ptr(), perm.data_ptr(), colptr.data_ptr(), W.k, W.block,
+        m, r.data_ptr(), y.data_ptr(),
+        torch.cuda.current_stream(W.device).cuda_stream)
+    _build.check(fn_name, err)
     _build.count_launch(f"windowed_rmatvec.{_build.dtype_name(W.dtype)}")
     return y
 
@@ -400,13 +440,13 @@ def windowed_matmat_k(W: WindowedELL, Xk):
 
 def windowed_rmatmat_k(W: WindowedELL, Rk):
     """Y = A^T @ R lane by lane for a K-major stack Rk (K, n_pad); Y is
-    (K, m_chunks * w2) (K13: one atomicAdd per lane and entry into a
-    zeroed output, so on the card the float summation order varies from
-    run to run, as K7's does)."""
+    (K, m_chunks * w2) (K13: K7's column plan, every lane of a column
+    summed in ascending entry order, so each lane equals K7's result and
+    the CPU twin's on every run)."""
     if _build.on_cpu(W.data, Rk):
         return windowed_rmatmat_k_ref(W, Rk)
     _build.check_stack("Rk", Rk, W.n_pad, W.dtype)
-    Y = torch.zeros(Rk.shape[0], W.m_chunks * W.w2, dtype=W.dtype,
+    Y = torch.empty(Rk.shape[0], W.m_chunks * W.w2, dtype=W.dtype,
                     device=Rk.device)
     _launch_windowed_k("rmatmat_k", W, Rk, Y)
     return Y

@@ -24,7 +24,8 @@ from pyamg_tpu_torch.sparse import (dia, dia_from_scipy, window,  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-# f32: FMA contraction and the transpose's atomics order; f64 likewise
+# f32: FMA contraction (and, for the transposes' twins on the card,
+# index_add_'s atomics order); f64 likewise
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 DTYPES = [torch.float32, torch.float64]
 
@@ -148,6 +149,34 @@ def test_windowed_kernels_match_twins(cuda, dtype):
                     window.windowed_matvec_ref(W, x)) <= TOL[dtype]
     assert _rel_err(window.windowed_rmatvec(W, r),
                     window.windowed_rmatvec_ref(W, r)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_transposes_are_deterministic(cuda, dtype):
+    """K7 and K13 sum each column in a fixed order (the column plan): two
+    launches give the same bits, within 1e-5 (f32) / 1e-12 (f64) of the
+    card's twin, and equal to the ordered CPU twin bit for bit."""
+    P = _random_rect(8192, 2600, per_row=9, spread=60, seed=4)
+    W = windowed_from_scipy(P, dtype=dtype, device=cuda)
+    r = _rand(W.n_pad, dtype, cuda, 5)
+    R = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (19, W.n_pad)), dtype=dtype, device=cuda)
+    W_cpu = dataclasses.replace(W, data=W.data.cpu(), idx=W.idx.cpu(),
+                                starts=W.starts.cpu())
+    for launch, ref, v in ((window.windowed_rmatvec,
+                            window.windowed_rmatvec_ref, r),
+                           (window.windowed_rmatmat_k,
+                            window.windowed_rmatmat_k_ref, R)):
+        first, second = launch(W, v), launch(W, v)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        assert _rel_err(first, ref(W, v)) <= TOL[dtype]
+        assert torch.equal(first.cpu(), ref(W_cpu, v.cpu()))
+    perm, colptr = W.column_plan
+    assert perm.dtype == colptr.dtype == torch.int32
+    assert colptr.shape == (W.m_chunks * W.w2 + 1,)
+    assert perm.numel() == W.data.numel()
+    assert int(colptr[-1]) == int((W.data != 0).sum())
 
 
 def test_kernel_wrapper_rejects_bad_operands(cuda):
@@ -294,7 +323,7 @@ def test_k10_zero_res_k_matches_twin(cuda, dtype, K):
 @pytest.mark.parametrize("K", [3, 8, 19])
 def test_k12_k13_windowed_lane_kernels_match_twins(cuda, dtype, K):
     """K12 and K13 against their twins (the gather and scatter-add forms
-    lane by lane); K13's float32 sum order varies run to run (atomics)."""
+    lane by lane)."""
     P = _random_rect(8192, 2600, per_row=4, spread=60, seed=4)
     W = windowed_from_scipy(P, dtype=dtype, device=cuda)
     rng = np.random.default_rng(K)
@@ -461,3 +490,72 @@ def test_unstructured_setup_on_card_matches_cpu(cuda):
         b, tol=1e-6, accel="cg", residuals=res_c)
     assert abs(len(res_g) - len(res_c)) <= 1
     assert res_g[-1] <= 1e-6 * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k16_ring_of_one_and_shards_match_k1(cuda, dtype):
+    """K16 on the card: the ring of one (halos are x's own tail and head)
+    and P = 4 in-process shards (halos copied on a side stream) equal K1
+    bit for bit; two launches per ring apply, eight for the shards."""
+    from pyamg_tpu_torch.parallel import halo_width
+    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv, halo_spmv_shards
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+
+    A = dia_from_scipy(poisson((96, 128), format="csr"), dtype=dtype,
+                       device=cuda, row_pad=1024)
+    x = _rand(A.n_pad, dtype, cuda, 7)
+    want = dia.dia_spmv(A, x)
+    one = SolverMesh(rank=0, world=1, device=cuda)
+    _build.reset_launches()
+    ring = halo_spmv(A.data, A.offsets, A.offsets_t, x, halo_width(A), one,
+                     1)
+    shards = halo_spmv_shards(A, x, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(ring, want) and torch.equal(shards, want)
+    name = str(dtype).removeprefix("torch.")
+    assert _build.launches == {f"dia_halo_spmv.{name}": 2 + 2 * 4}
+
+
+def test_sharded_solve_world_of_one_on_card(cuda, tmp_path):
+    """A world-of-one NCCL process group (file:// rendezvous): all_reduce
+    and all_gather of card tensors (the solve itself sends nothing: every
+    level is a ring of one), then the 128^2 host-built float64 hierarchy
+    sharded solves as the unsharded one does, through K16 on its DIA
+    levels."""
+    import torch.distributed as dist
+
+    from pyamg_tpu_torch import DeviceMultilevelSolver
+    from pyamg_tpu_torch.parallel import (initialize_distributed,
+                                          make_solver_mesh, shard_hierarchy)
+
+    A = poisson((128, 128), format="csr")
+    ml = smoothed_aggregation_solver(
+        A, presmoother=("jacobi", {"omega": 4.0 / 3.0}),
+        postsmoother=("jacobi", {"omega": 4.0 / 3.0}))
+    dml = as_device_solver(ml, dtype=torch.float64, device=cuda)
+    b = np.random.default_rng(2).random(A.shape[0])
+    kw = dict(tol=1e-10, maxiter=30, accel="cg")
+    res0, res1 = [], []
+    x0 = dml.solve(b, residuals=res0, **kw)
+    assert not dist.is_initialized()
+    initialize_distributed(init_method=f"file://{tmp_path / 'rdzv'}",
+                           world_size=1, rank=0, device=cuda)
+    try:
+        mesh = make_solver_mesh(device=cuda)
+        v = torch.arange(5.0, device=cuda)
+        parts = [torch.empty_like(v)]
+        dist.all_gather(parts, v)
+        s = v.clone()
+        dist.all_reduce(s)
+        assert torch.equal(parts[0], v) and torch.equal(s, v)
+        sharded = DeviceMultilevelSolver(shard_hierarchy(dml.hierarchy, mesh))
+        _build.reset_launches()
+        x1 = sharded.solve(b, residuals=res1, **kw)
+        counts = dict(_build.launches)
+    finally:
+        dist.destroy_process_group()
+    assert len(res1) == len(res0)
+    np.testing.assert_allclose(res1, res0, rtol=1e-8)
+    np.testing.assert_allclose(x1, x0, atol=1e-10)
+    assert counts.get("dia_halo_spmv.float64", 0) > 0, counts
+    assert counts.get("windowed_rmatvec.float64", 0) > 0, counts

@@ -57,8 +57,9 @@ def test_scan_sees_a_forbidden_import(tmp_path):
 def test_import_loads_no_jax():
     """Importing the port, running its host SA setup with the compile to
     the (CPU) device and a batched solve on it, its device-built setup
-    with a batched solve, lane-aligned too (the interleaved route), and
-    an unstructured setup with a solve, in a fresh interpreter, leaves
+    with a batched solve, lane-aligned too (the interleaved route), a
+    world-of-one gloo sharded solve of the host-built hierarchy, and an
+    unstructured setup with a solve, in a fresh interpreter, leaves
     every ``jax*`` and ``pyamg_tpu*`` module (but the port's own) out of
     sys.modules."""
     code = ("import sys, numpy as np, pyamg_tpu_torch as pt, "
@@ -71,6 +72,10 @@ def test_import_loads_no_jax():
             "b = np.random.default_rng(0).random((A.shape[0], 2))\n"
             "dml = pt.as_device_solver(ml, device='cpu')\n"
             "dml.solve(b[:, 0], accel='cg'); dml.solve(b, accel='cg')\n"
+            "pt.initialize_distributed(device='cpu')\n"
+            "mesh = pt.make_solver_mesh(device='cpu')\n"
+            "pt.DeviceMultilevelSolver(pt.shard_hierarchy(dml.hierarchy, "
+            "mesh)).solve(b[:, 0], accel='cg')\n"
             "pt.device_sa_setup(A, grid=(40, 40), device='cpu', "
             "max_coarse=100).solve(b, accel='cg')\n"
             "A2 = pt.poisson((24, 512), format='csr')\n"
