@@ -31,8 +31,9 @@ result lines):
    CUDA-event times of both, the bound from the bytes and operations the
    call needs, and one PyTorch library call as a yardstick where one
    computes the same function (never on the path); the transposes (K7,
-   K13) launched twice, bit-identical, equal to the CPU twins bit for bit,
-   with their column plan's build time and size;
+   K13) and K12 launched twice, bit-identical, the transposes equal to the
+   CPU twins bit for bit, with their column plan's build time and size;
+   K12 and K13 one launch per call;
 5b. K16 (dia_halo_spmv) at host level 0, float32 and float64: the ring of
    one against its twin and bit for bit against K1, four in-process row
    blocks (halos copied on a side stream) against K1, and the interior
@@ -70,7 +71,9 @@ result lines):
     zeroed before the first; K14 (windowed_select, float32 and float64
     payloads, bit-exact; torch.take as the yardstick) on level 0's and
     level 1's A, and K6/K7 (level 0's A and P, level 1's A) and K12/K13
-    (K = 64, level 0's A and P) at this hierarchy's shapes; float32 CG to
+    (K = 64, level 0's A and P; one launch per call; their launches in
+    the first setup beside the 16-lane kernels') at this hierarchy's
+    shapes; float32 CG to
     1e-6 with b = default_rng(0).standard_normal(n) (counters around the
     solve; the reference's 7 +- 1 iterations); a V-cycle under sync-debug
     "error"; then a 200^2 jittered mesh, scrambled, routed by
@@ -80,7 +83,9 @@ result lines):
     each solved to 1e-6 through the ReorderedSolver; the two 640k setups
     must give identical levels and f32 CG histories, the two float32
     aggressive runs identical true residuals (the transposes sum in a
-    fixed order);
+    fixed order), and levels 3+ and that true relres must be the ones
+    recorded since the transposes sum in that order (every kernel keeps
+    its arithmetic, so the hierarchy keeps its bits);
 13. row-sharded solves (pyamg_tpu_torch.parallel) in a world of one NCCL
     rank: host-built config 1 (native f32 CG to 1e-5, K16 on its DIA
     levels) and the 640k unstructured hierarchy (f32 CG to 1e-6), each at
@@ -96,8 +101,9 @@ import subprocess
 import sys
 import time
 
-F32_REL_TOL = 1e-5     # f32 kernels vs twin: FMA contraction, atomics order
-                       # of the transposes' twins (index_add_) on the card
+F32_REL_TOL = 1e-5     # f32 kernels vs twin: FMA contraction and other
+                       # summation orders (the windowed transposes K7, K13
+                       # sum in their CPU twins' order: held bit for bit)
 F64_REL_TOL = 1e-12    # f64 kernels vs twin
 STATIONARY_RTOL = 1e-4  # f32 card vs f32 CPU twins over 5 cycles
 DEVICE = "cuda:0"
@@ -364,6 +370,20 @@ def transpose_checks(check, label, W, r, Rk):
           f"sync in {build_ms:.2f} ms; "
           f"K7{' and K13' if Rk is not None else ''} equal the CPU twins "
           "bit for bit")
+
+
+def lane_launches(check, label, key, fn):
+    """Launches of the K-lane kernel instance ``key`` in one call of
+    ``fn`` (K12, K13: one per call, every lane in one launch)."""
+    import torch
+
+    from pyamg_tpu_torch import _build
+
+    before = _build.launches.get(key, 0)
+    fn()
+    torch.cuda.synchronize()
+    n = _build.launches.get(key, 0) - before
+    check(n == 1, f"{label}: {n} launch(es) per call (one expected)")
 
 
 def dia_cost(A, vectors, lanes=1, stacks=0, extra_ops=0):
@@ -940,6 +960,11 @@ UNSTR_NX = 800
 UNSTR_MAX_COARSE = 1000
 UNSTR_LEVELS = (640000, 207874, 24773)   # levels 0-2, JAX on the CPU and TPU
 UNSTR_DEEP_CPU = (1700, 118)             # levels 3+, JAX on the CPU
+# levels 3+ and the routed float32 aggressive run's true relres on the
+# card on every run since the transposes sum in a fixed order (PERF.md
+# §6); a change that keeps every kernel's arithmetic keeps them
+UNSTR_DEEP_FIXED = (1698, 114)
+ROUTED_F32_TRUE_FIXED = "4.458e-04"
 UNSTR_REF_ITERS = 7                      # f32 CG to 1e-6, JAX CPU and TPU
 PROBE_LANES = 64                         # the setup's probe chunk width
 ROUTED_NX = 200
@@ -1046,13 +1071,19 @@ def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
                 lambda: window.windowed_matmat_k(W, Xk),
                 lambda: window.windowed_matmat_k_ref(W, Xk), results,
                 meta + K * (m + W.n_pad) * sz, flops * K,
-                library_fn=lambda: torch.sparse.mm(W_csr, Xc), path=path)
+                library_fn=lambda: torch.sparse.mm(W_csr, Xc), path=path,
+                repeat_exact=True)
         compare(check, f"windowed_rmatmat_k.{dt} [{ktag}]", dtype,
                 lambda: window.windowed_rmatmat_k(W, Rk),
                 lambda: window.windowed_rmatmat_k_ref(W, Rk), results,
                 meta + K * (m + W.n_pad) * sz, flops * K,
                 library_fn=lambda: torch.sparse.mm(Wt_csr, Rc), path=path,
                 repeat_exact=True)
+        for kind, fn in (("matmat_k", lambda: window.windowed_matmat_k(W, Xk)),
+                         ("rmatmat_k",
+                          lambda: window.windowed_rmatmat_k(W, Rk))):
+            lane_launches(check, f"windowed_{kind}.{dt} [{ktag}]",
+                          f"windowed_{kind}.{dt}", fn)
         transpose_checks(check, f"{where} {label} {dt}", W, r, Rk)
 
 
@@ -1153,9 +1184,16 @@ def unstructured_phase(check, dev, rand, results, launches):
     check(tuple(sizes[:3]) == UNSTR_LEVELS, f"unstructured setup: levels "
           f"0-2 {sizes[:3]} (the reference's {list(UNSTR_LEVELS)}); levels "
           f"3+ {sizes[3:]} (JAX on the CPU: {list(UNSTR_DEEP_CPU)})")
+    check(tuple(sizes[3:]) == UNSTR_DEEP_FIXED, f"unstructured setup: levels "
+          f"3+ {sizes[3:]} (recorded {list(UNSTR_DEEP_FIXED)}: the same "
+          "hierarchy bit for bit)")
     for k in PATHS["unstructured setup"]:
         c = launches["unstructured setup"].get(k, 0)
         check(c > 0, f"unstructured setup: {k} launched ({c} launches)")
+    log("  K12 / K13 launches in the first setup: "
+        f"{launches['unstructured setup'].get('windowed_matmat_k.float32')} /"
+        f" {launches['unstructured setup'].get('windowed_rmatmat_k.float32')}"
+        " (508 / 508 with the 16-lane kernels: four per K = 64 call)")
 
     # (b) the kernels at this hierarchy's shapes
     unstructured_kernel_checks(check, dus.hierarchy, rand, results)
@@ -1274,6 +1312,9 @@ def unstructured_phase(check, dev, rand, results, launches):
     check(true_rels[-1] == true_rels[-2], f"routed aggressive float32: true "
           f"relres identical in two runs ({true_rels[-2]!r} / "
           f"{true_rels[-1]!r})")
+    check(f"{true_rels[-1]:.3e}" == ROUTED_F32_TRUE_FIXED, f"routed "
+          f"aggressive float32: true relres {true_rels[-1]:.3e} (recorded "
+          f"{ROUTED_F32_TRUE_FIXED})")
     return dus, A
 
 
@@ -1486,13 +1527,18 @@ def main():
                     lambda: window.windowed_matmat_k(T, Xk),
                     lambda: window.windowed_matmat_k_ref(T, Xk), results,
                     meta + (Xk.numel() + LANES * T.n_pad) * sz,
-                    ops * LANES, library_fn=lib_mm)
+                    ops * LANES, library_fn=lib_mm, repeat_exact=True)
             compare(check, f"windowed_rmatmat_k.{dt} [{ktag}]", dtype,
                     lambda: window.windowed_rmatmat_k(T, Rk),
                     lambda: window.windowed_rmatmat_k_ref(T, Rk), results,
                     meta + (Rk.numel() + LANES * T.m_chunks * T.w2) * sz,
                     ops * LANES, library_fn=lib_rmm,
                     repeat_exact=True)
+            for kind, fn in (
+                    ("matmat_k", lambda: window.windowed_matmat_k(T, Xk)),
+                    ("rmatmat_k", lambda: window.windowed_rmatmat_k(T, Rk))):
+                lane_launches(check, f"windowed_{kind}.{dt} [{ktag}]",
+                              f"windowed_{kind}.{dt}", fn)
             transpose_checks(check, f"host {label} T {dt}", T, r, Rk)
     # the device-built path's kernels: K5 on levels 0 and 1, K4 and the
     # two K1 epilogues on level 0; the K-lane kernels (K8 in three modes,

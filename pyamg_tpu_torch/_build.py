@@ -49,8 +49,9 @@ _REPORT_FLAGS = ("-Xptxas", "-v")
 
 launches: dict[str, int] = {}
 
-# lanes per launch of every K-lane kernel: each holds its lanes' sums in a
-# register array of this size (kMaxLanes in csrc/*.cu)
+# lanes per launch of the K-lane DIA and interleaved kernels (K8-K11,
+# K15): each holds its lanes' sums in a register array of this size
+# (kMaxLanes in csrc/dia_k.cu, csrc/interleaved.cu)
 MAX_LANES = 16
 
 _lock = threading.Lock()
@@ -92,16 +93,17 @@ _SIGNATURES = {
     # data, perm, colptr, k, block, m, r, y, stream
     "pyamg_windowed_rmatvec_f32": (_P, _P, _P, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_rmatvec_f64": (_P, _P, _P, _I, _I, _L, _P, _P, _P),
-    # data, idx, starts, k, block, w2, n_rows, m, lanes, x, y, stream
-    "pyamg_windowed_matmat_k_f32": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
-                                    _P, _P),
-    "pyamg_windowed_matmat_k_f64": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _P,
-                                    _P, _P),
-    # data, perm, colptr, k, block, n_rows, m, lanes, r, y, stream
-    "pyamg_windowed_rmatmat_k_f32": (_P, _P, _P, _I, _I, _L, _L, _I, _P, _P,
-                                     _P),
-    "pyamg_windowed_rmatmat_k_f64": (_P, _P, _P, _I, _I, _L, _L, _I, _P, _P,
-                                     _P),
+    # data, idx, starts, k, block, w2, n_rows, m, lanes, rows, x, y, stream
+    "pyamg_windowed_matmat_k_f32": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _I,
+                                    _P, _P, _P),
+    "pyamg_windowed_matmat_k_f64": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _I,
+                                    _P, _P, _P),
+    # data, perm, colptr, tiles, n_tiles, budget, max_cols, k, block,
+    # n_rows, m, lanes, lt, r, y, stream
+    "pyamg_windowed_rmatmat_k_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
+                                     _L, _I, _I, _P, _P, _P),
+    "pyamg_windowed_rmatmat_k_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
+                                     _L, _I, _I, _P, _P, _P),
     # idx, starts, k, block, w2, n_rows, x, out, stream
     "pyamg_windowed_select_f32": (_P, _P, _I, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_select_f64": (_P, _P, _I, _I, _I, _L, _P, _P, _P),

@@ -53,18 +53,46 @@
 // price of the fixed order.
 //
 // The K-lane forms take K-major lane stacks (the batched solve's layout):
-// X (lanes, m_chunks * w2) -> Y (lanes, n_pad) forward, R (lanes, n_pad)
-// -> Y (lanes, m_chunks * w2) transposed.  Each entry's data and idx (or
-// plan slot) are read once for all lanes of a launch (the point of the
-// TPU kernels: the operator's bytes are paid once per batch instead of
-// once per lane), the lanes loop inside the thread with a register
-// accumulator of kMaxLanes (indexed only by unrolled constants), and a
-// launch covers at most kMaxLanes lanes (the wrapper launches larger K in
-// chunks).  The forward form (K12) keeps K6's indexed load; the transpose
-// (K13) K7's column plan, one thread per column summing each lane in
-// ascending entry order, so it too is the same on every run and equals
-// the CPU plain version lane by lane.  Bound: device-memory bandwidth,
-// the operator's bytes once plus the K input and output rows.
+// X (lanes, m_chunks * w2) -> Y (lanes, n_pad) forward (K12), R (lanes,
+// n_pad) -> Y (lanes, m_chunks * w2) transposed (K13).  The point of the
+// TPU kernels is that the operator's bytes are paid once per batch, not
+// once per lane, so every lane of a call (up to kLaneTile = 64, the
+// setup's probe width; more tile over gridDim.y) runs in ONE launch, and
+// each CTA stages its share of the operator in shared memory once for all
+// its lanes.  Threads own (output, lane group) pairs, LT lanes to a
+// group, so the parallelism is outputs x lanes / LT, not outputs alone,
+// and a thread keeps LT gathers in flight per entry:
+//
+// - K12: a CTA takes `rows` consecutive rows of one row block (one window
+//   start) and stages their k slots' data and idx (slot-major, so the
+//   loads are coalesced); a thread takes (row, lane group) pairs of
+//   kK12Lanes = 4 lanes, rows fastest within a warp (neighbouring rows
+//   gather neighbouring x and write neighbouring y), and sums its row's
+//   slots for each of its lanes in ascending slot order with one explicit
+//   fma per slot from 0, the arithmetic the 16-lane loop of earlier
+//   versions got from nvcc's contraction of acc += a * x (same bits).
+//   The x window is not staged: 2 * w2 entries per lane, 1 MB for 64
+//   float32 lanes at w2 = 2048, exceeds a CTA's shared memory.
+// - K13: K7's column plan, cut into tiles of consecutive columns by a
+//   tile table (sparse/window.py::WindowedELL.column_tiles, built once per
+//   column cap on the device): a tile holds at most `budget` live entries
+//   and `max_cols` columns, or a single longer column (the launch sizes
+//   shared memory by those caps, so it takes them from the table's own
+//   record).  A CTA stages its tile's entries (row and value, through perm, four
+//   entries per thread in flight; the entry_row division done once per
+//   entry) in shared memory, then threads take (column, lane group) pairs
+//   of LT lanes (a template parameter, 1 to 16, set per call by the
+//   wrapper from the operator's column length), consecutive columns of
+//   one lane group fastest within a warp, and walk their column's staged
+//   entries in ascending plan order with separately rounded products and
+//   sums (mul_add_rn), writing each output once.  A column is never split,
+//   so each (column, lane) sums in K7's order: the same bits on every
+//   launch and as the CPU twin's index_add_.  A single column longer than
+//   the budget is summed from device memory, its lanes over the threads.
+//
+// Bound: device-memory bandwidth, the operator's bytes once plus the K
+// input and output rows; the gathers of x (K12) and r (K13) through the
+// entries' columns and rows are the price of the K-major layout.
 //
 // The select (K14) reads x at every entry's column and writes it to that
 // entry's slot: out[b, s, row] = x[starts[b] * w2 + idx[b, s, row]], one
@@ -83,7 +111,10 @@
 
 namespace {
 
-constexpr int kMaxLanes = 16;
+// lanes per CTA of the K-lane kernels; more lanes tile over gridDim.y
+constexpr int kLaneTile = 64;
+// lanes per K12 thread: LT gathers of a slot in flight together
+constexpr int kK12Lanes = 4;
 
 // a * b + c with the product and the sum each rounded (no FMA), the
 // plain version's arithmetic
@@ -92,6 +123,14 @@ __device__ __forceinline__ float mul_add_rn(float a, float b, float c) {
 }
 __device__ __forceinline__ double mul_add_rn(double a, double b, double c) {
   return __dadd_rn(c, __dmul_rn(a, b));
+}
+
+// a * b + c rounded once (an explicit FMA)
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
 }
 
 template <typename T>
@@ -139,66 +178,158 @@ __global__ void windowed_rmatvec_kernel(const T* __restrict__ data,
   y[c] = acc;
 }
 
+// K12: CTA (blockIdx.x, blockIdx.y) = `rows` consecutive rows of one row
+// block x lanes [64 * blockIdx.y, +64); shared memory holds the rows' k
+// slots, data then idx, slot-major (k * rows each).
 template <typename T>
 __global__ void windowed_matmat_k_kernel(const T* __restrict__ data,
                                          const int* __restrict__ idx,
                                          const int* __restrict__ starts,
                                          int k, int block, int w2,
                                          int64_t n_rows, int64_t m,
-                                         int lanes, const T* __restrict__ x,
+                                         int lanes, int rows,
+                                         const T* __restrict__ x,
                                          T* __restrict__ y) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= n_rows) return;
-  const int64_t blk = g / block;
-  const int64_t row = g - blk * block;
-  const int64_t base = static_cast<int64_t>(starts[blk]) * w2;
-  const int64_t e0 = blk * k * block + row;
-  T acc[kMaxLanes];
-#pragma unroll
-  for (int l = 0; l < kMaxLanes; ++l) acc[l] = T(0);
-  for (int s = 0; s < k; ++s) {
-    const int64_t e = e0 + static_cast<int64_t>(s) * block;
-    const T a = data[e];
-    const int64_t col = base + idx[e];
-#pragma unroll
-    for (int l = 0; l < kMaxLanes; ++l) {
-      if (l < lanes) acc[l] += a * x[static_cast<int64_t>(l) * m + col];
-    }
+  constexpr int LT = kK12Lanes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sdata = reinterpret_cast<T*>(smem);
+  int* sidx = reinterpret_cast<int*>(sdata + k * rows);
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int64_t blk = g0 / block;
+  const int64_t e0 = blk * k * block + (g0 - blk * block);
+  for (int i = threadIdx.x; i < k * rows; i += blockDim.x) {
+    const int s = i / rows;
+    const int64_t e = e0 + static_cast<int64_t>(s) * block + (i - s * rows);
+    sdata[i] = data[e];
+    sidx[i] = idx[e];
   }
+  __syncthreads();
+  const int l0 = blockIdx.y * kLaneTile;
+  const int kl = min(kLaneTile, lanes - l0);
+  const int n_pairs = rows * ((kl + LT - 1) / LT);
+  const int64_t base = static_cast<int64_t>(starts[blk]) * w2;
+  // pair p: row p % rows (rows fastest in a warp) and LT lanes from
+  // l0 + LT * (p / rows); the LT gathers of a slot are in flight together
+  for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
+    const int rr = p % rows;
+    const int la = LT * (p / rows);
+    const int nl = kl - la;
+    const T* xl = x + static_cast<int64_t>(l0 + la) * m + base;
+    T acc[LT];
 #pragma unroll
-  for (int l = 0; l < kMaxLanes; ++l) {
-    if (l < lanes) y[static_cast<int64_t>(l) * n_rows + g] = acc[l];
+    for (int j = 0; j < LT; ++j) acc[j] = T(0);
+    for (int i = rr; i < k * rows; i += rows) {
+      const T a = sdata[i];
+      const int col = sidx[i];
+#pragma unroll
+      for (int j = 0; j < LT; ++j) {
+        if (j < nl) acc[j] = fma_rn(a, xl[j * m + col], acc[j]);
+      }
+    }
+    T* yl = y + static_cast<int64_t>(l0 + la) * n_rows + g0 + rr;
+#pragma unroll
+    for (int j = 0; j < LT; ++j) {
+      if (j < nl) yl[j * n_rows] = acc[j];
+    }
   }
 }
 
-template <typename T>
+// K13: CTA (blockIdx.x, blockIdx.y) = tile blockIdx.x of the tile table
+// (columns [tiles[t], tiles[t + 1]); an empty tile's CTA exits at once) x
+// lanes [64 * blockIdx.y, +64); shared memory holds the tile's live
+// entries' values and rows (at most `budget` each) and its column
+// pointers (at most max_cols + 1).
+template <typename T, int LT>
 __global__ void windowed_rmatmat_k_kernel(const T* __restrict__ data,
                                           const int* __restrict__ perm,
                                           const int* __restrict__ colptr,
-                                          int k, int block, int64_t n_rows,
-                                          int64_t m, int lanes,
+                                          const int* __restrict__ tiles,
+                                          int budget, int k, int block,
+                                          int64_t n_rows, int64_t m,
+                                          int lanes,
                                           const T* __restrict__ r,
                                           T* __restrict__ y) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (c >= m) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sdata = reinterpret_cast<T*>(smem);
+  int* srow = reinterpret_cast<int*>(sdata + budget);
+  int* sptr = srow + budget;
+  const int c0 = tiles[blockIdx.x];
+  const int n_cols = tiles[blockIdx.x + 1] - c0;
+  if (n_cols == 0) return;
+  const int j0 = colptr[c0];
+  const int n_ent = colptr[c0 + n_cols] - j0;
+  const int l0 = blockIdx.y * kLaneTile;
+  const int kl = min(kLaneTile, lanes - l0);
   const int64_t per_block = static_cast<int64_t>(k) * block;
-  T acc[kMaxLanes];
+  r += static_cast<int64_t>(l0) * n_rows;
+  y += static_cast<int64_t>(l0) * m + c0;
+  if (n_ent > budget) {
+    // a single column longer than the budget: its lanes over the threads,
+    // its entries read from device memory in plan order
+    for (int l = threadIdx.x; l < kl; l += blockDim.x) {
+      const T* rl = r + l * n_rows;
+      T acc = T(0);
+      for (int j = j0; j < j0 + n_ent; ++j) {
+        const int64_t e = perm[j];
+        acc = mul_add_rn(data[e], rl[entry_row(e, per_block, block)], acc);
+      }
+      y[l * m] = acc;
+    }
+    return;
+  }
+  // four entries per thread and pass: their perm loads, then their data
+  // loads, in flight together
+  for (int i0 = threadIdx.x; i0 < n_ent; i0 += 4 * blockDim.x) {
+    int64_t e[4];
 #pragma unroll
-  for (int l = 0; l < kMaxLanes; ++l) acc[l] = T(0);
-  for (int j = colptr[c], j1 = colptr[c + 1]; j < j1; ++j) {
-    const int64_t e = perm[j];
-    const T a = data[e];
-    const int64_t g = entry_row(e, per_block, block);
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * blockDim.x;
+      e[u] = i < n_ent ? perm[j0 + i] : 0;
+    }
 #pragma unroll
-    for (int l = 0; l < kMaxLanes; ++l) {
-      if (l < lanes)
-        acc[l] = mul_add_rn(a, r[static_cast<int64_t>(l) * n_rows + g],
-                            acc[l]);
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n_ent) {
+        sdata[i] = data[e[u]];
+        srow[i] = static_cast<int>(entry_row(e[u], per_block, block));
+      }
     }
   }
+  for (int c = threadIdx.x; c <= n_cols; c += blockDim.x) {
+    sptr[c] = colptr[c0 + c] - j0;
+  }
+  __syncthreads();
+  // pair p: column p % n_cols (consecutive columns of one lane group in
+  // a warp) and LT lanes from LT * (p / n_cols)
+  const int n_lg = (kl + LT - 1) / LT;
+  const int n_pairs = n_cols * n_lg;
+  for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
+    const int c = p % n_cols;
+    const int lg = p / n_cols;
+    // never taken (p < n_pairs); with it nvcc's code for the lane loop
+    // runs LT = 4 about 20 % faster on the H100 (PERF.md §6)
+    if (lg >= n_lg) continue;
+    const int nl = kl - LT * lg;
+    const T* rl = r + static_cast<int64_t>(LT * lg) * n_rows;
+    T acc[LT];
 #pragma unroll
-  for (int l = 0; l < kMaxLanes; ++l) {
-    if (l < lanes) y[static_cast<int64_t>(l) * m + c] = acc[l];
+    for (int jj = 0; jj < LT; ++jj) acc[jj] = T(0);
+    // the column's entries in plan order; the LT gathers of an entry (and
+    // of the next, unrolled) are in flight together
+#pragma unroll 2
+    for (int j = sptr[c], j1 = sptr[c + 1]; j < j1; ++j) {
+      const T d = sdata[j];
+      const int g = srow[j];
+#pragma unroll
+      for (int jj = 0; jj < LT; ++jj) {
+        if (jj < nl) acc[jj] = mul_add_rn(d, rl[jj * n_rows + g], acc[jj]);
+      }
+    }
+    T* yl = y + static_cast<int64_t>(LT * lg) * m + c;
+#pragma unroll
+    for (int jj = 0; jj < LT; ++jj) {
+      if (jj < nl) yl[jj * m] = acc[jj];
+    }
   }
 }
 
@@ -248,38 +379,89 @@ int launch_rmatvec(const void* data, const void* perm, const void* colptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The K-lane launches: x (lanes, m) in, y (lanes, n_rows) out for the
-// forward form; r (lanes, n_rows) in, y (lanes, m) out for the transpose.
+// Dynamic shared memory above the default 48 KB needs the kernel's
+// attribute raised first.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+inline unsigned int lane_tiles(int lanes) {
+  return static_cast<unsigned int>((lanes + kLaneTile - 1) / kLaneTile);
+}
+
+// The K-lane launches, one per call: x (lanes, m) in, y (lanes, n_rows)
+// out for the forward form, `rows` rows per CTA (a divisor of block);
+// r (lanes, n_rows) in, y (lanes, m) out for the transpose, one CTA per
+// tile of the n_tiles + 1 boundaries in `tiles` (at most `budget`
+// entries and `max_cols` columns each, or one longer column).  `lt`
+// lanes per K13 thread: 1, 2, 4, 8 or 16.
 template <typename T>
 int launch_matmat_k(const void* data, const void* idx, const void* starts,
                     int k, int block, int w2, long long n_rows, long long m,
-                    int lanes, const void* x, void* y, void* stream) {
-  if (lanes < 1 || lanes > kMaxLanes) {
+                    int lanes, int rows, const void* x, void* y,
+                    void* stream) {
+  if (lanes < 1 || rows < 1 || block % rows != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  windowed_matmat_k_kernel<T><<<grid_for(n_rows), kThreads, 0,
+  const size_t smem = static_cast<size_t>(k) * rows * (sizeof(T) + sizeof(int));
+  cudaError_t err = allow_smem(windowed_matmat_k_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>(n_rows / rows), lane_tiles(lanes));
+  windowed_matmat_k_kernel<T><<<grid, kThreads, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int*>(idx),
-      static_cast<const int*>(starts), k, block, w2, n_rows, m, lanes,
+      static_cast<const int*>(starts), k, block, w2, n_rows, m, lanes, rows,
       static_cast<const T*>(x), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int LT>
+int launch_rmatmat_k_lt(const void* data, const void* perm,
+                        const void* colptr, const void* tiles, int n_tiles,
+                        int budget, int max_cols, int k, int block,
+                        long long n_rows, long long m, int lanes,
+                        const void* r, void* y, void* stream) {
+  const size_t smem = static_cast<size_t>(budget) * (sizeof(T) + sizeof(int))
+                      + static_cast<size_t>(max_cols + 1) * sizeof(int);
+  cudaError_t err = allow_smem(windowed_rmatmat_k_kernel<T, LT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>(n_tiles), lane_tiles(lanes));
+  windowed_rmatmat_k_kernel<T, LT><<<grid, kThreads, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int*>(perm),
+      static_cast<const int*>(colptr), static_cast<const int*>(tiles),
+      budget, k, block, n_rows, m, lanes, static_cast<const T*>(r),
+      static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_rmatmat_k(const void* data, const void* perm, const void* colptr,
+                     const void* tiles, int n_tiles, int budget, int max_cols,
                      int k, int block, long long n_rows, long long m,
-                     int lanes, const void* r, void* y, void* stream) {
-  if (lanes < 1 || lanes > kMaxLanes) {
+                     int lanes, int lt, const void* r, void* y,
+                     void* stream) {
+  if (lanes < 1 || budget < 1 || max_cols < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (m <= 0) return static_cast<int>(cudaSuccess);
-  windowed_rmatmat_k_kernel<T><<<grid_for(m), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int*>(perm),
-      static_cast<const int*>(colptr), k, block, n_rows, m, lanes,
-      static_cast<const T*>(r), static_cast<T*>(y));
-  return static_cast<int>(cudaGetLastError());
+  if (n_tiles <= 0) return static_cast<int>(cudaSuccess);
+  switch (lt) {
+#define PYAMG_K13_LT(L)                                                     \
+    case L:                                                                 \
+      return launch_rmatmat_k_lt<T, L>(data, perm, colptr, tiles, n_tiles,  \
+                                       budget, max_cols, k, block, n_rows,  \
+                                       m, lanes, r, y, stream);
+    PYAMG_K13_LT(1) PYAMG_K13_LT(2) PYAMG_K13_LT(4) PYAMG_K13_LT(8)
+    PYAMG_K13_LT(16)
+#undef PYAMG_K13_LT
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
@@ -331,38 +513,47 @@ int pyamg_windowed_rmatvec_f64(const void* data, const void* perm,
                                 stream);
 }
 
-// data, idx, starts, k, block, w2, n_rows, m, lanes, x, y, stream
+// data, idx, starts, k, block, w2, n_rows, m, lanes, rows, x, y, stream
 int pyamg_windowed_matmat_k_f32(const void* data, const void* idx,
                                 const void* starts, int k, int block, int w2,
                                 long long n_rows, long long m, int lanes,
-                                const void* x, void* y, void* stream) {
+                                int rows, const void* x, void* y,
+                                void* stream) {
   return launch_matmat_k<float>(data, idx, starts, k, block, w2, n_rows, m,
-                                lanes, x, y, stream);
+                                lanes, rows, x, y, stream);
 }
 
 int pyamg_windowed_matmat_k_f64(const void* data, const void* idx,
                                 const void* starts, int k, int block, int w2,
                                 long long n_rows, long long m, int lanes,
-                                const void* x, void* y, void* stream) {
+                                int rows, const void* x, void* y,
+                                void* stream) {
   return launch_matmat_k<double>(data, idx, starts, k, block, w2, n_rows, m,
-                                 lanes, x, y, stream);
+                                 lanes, rows, x, y, stream);
 }
 
-// data, perm, colptr, k, block, n_rows, m, lanes, r, y, stream
+// data, perm, colptr, tiles, n_tiles, budget, max_cols, k, block, n_rows,
+// m, lanes, lt, r, y, stream
 int pyamg_windowed_rmatmat_k_f32(const void* data, const void* perm,
-                                 const void* colptr, int k, int block,
-                                 long long n_rows, long long m, int lanes,
-                                 const void* r, void* y, void* stream) {
-  return launch_rmatmat_k<float>(data, perm, colptr, k, block, n_rows, m,
-                                 lanes, r, y, stream);
+                                 const void* colptr, const void* tiles,
+                                 int n_tiles, int budget, int max_cols, int k,
+                                 int block, long long n_rows, long long m,
+                                 int lanes, int lt, const void* r, void* y,
+                                 void* stream) {
+  return launch_rmatmat_k<float>(data, perm, colptr, tiles, n_tiles, budget,
+                                 max_cols, k, block, n_rows, m, lanes, lt, r,
+                                 y, stream);
 }
 
 int pyamg_windowed_rmatmat_k_f64(const void* data, const void* perm,
-                                 const void* colptr, int k, int block,
-                                 long long n_rows, long long m, int lanes,
-                                 const void* r, void* y, void* stream) {
-  return launch_rmatmat_k<double>(data, perm, colptr, k, block, n_rows, m,
-                                  lanes, r, y, stream);
+                                 const void* colptr, const void* tiles,
+                                 int n_tiles, int budget, int max_cols, int k,
+                                 int block, long long n_rows, long long m,
+                                 int lanes, int lt, const void* r, void* y,
+                                 void* stream) {
+  return launch_rmatmat_k<double>(data, perm, colptr, tiles, n_tiles, budget,
+                                  max_cols, k, block, n_rows, m, lanes, lt, r,
+                                  y, stream);
 }
 
 // idx, starts, k, block, w2, n_rows, x, out, stream

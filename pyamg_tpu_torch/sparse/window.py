@@ -20,7 +20,8 @@ Kernel entry points (``csrc/window.cu``):
 The K-lane forms take K-major (K, m) lane stacks, the batched solve's
 layout; the operators' ``@`` takes a vector or such a stack, padding and
 slicing along the last axis.  The TPU forms' lane caps (VMEM budgets) do
-not carry over: any K runs, in launches of at most 16 lanes.
+not carry over: any K runs in one launch, each CTA staging its rows (K12)
+or its tile of columns (K13) once for up to 64 lanes.
 
 Each has a plain PyTorch twin (gather / scatter-add, ``*_ref``).  A
 wrapper runs the twin only when its operands lie on the CPU; on CUDA
@@ -31,10 +32,13 @@ once, at its first transpose apply on the card
 (:attr:`WindowedELL.column_plan`), and K7/K13 sum each output column's
 entries in ascending entry order, the order of the twins' ``index_add_``
 on the CPU, so a transpose gives the same bits on every launch and run.
+K13 walks the plan in tiles of whole columns balanced by entries
+(:meth:`WindowedELL.column_tiles`), also built once, on the device.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Tuple
@@ -58,6 +62,26 @@ _LANES = 128
 # the transpose gate below decides as the reference does
 _PALLAS_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 _KERNEL_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+# lanes per CTA of K12 and K13 (kLaneTile in csrc/window.cu); a call with
+# more lanes tiles them over the grid's second dimension, in one launch
+_LANE_TILE = 64
+# lanes per K12 thread (kK12Lanes in csrc/window.cu)
+_K12_LANES_PER_THREAD = 4
+# K13's lanes per thread (1, 2, 4, 8 or 16) aim at this many bytes of
+# gathers per (column, lane group) pair, so that long columns spread their
+# lanes over more threads; chosen on the card (PERF.md §6, from
+# scripts/measure_windowed_k.py)
+_K13_PAIR_BYTES = 128
+# the (row or column, lane group) pairs a CTA aims at, which set K12's
+# rows per CTA and K13's columns per tile
+_K12_PAIRS = 1024
+_K13_PAIRS = 1024
+# shared memory a CTA may take without raising its kernel's limit
+_SMEM_DEFAULT = 48 * 1024
+# streaming multiprocessors a CPU operator's tile budget assumes (an
+# H100's); an operator on the card takes its device's count
+_CPU_SMS = 132
 
 
 @dataclass(frozen=True)
@@ -110,6 +134,25 @@ class WindowedELL:
             keys, torch.arange(m + 1, dtype=keys.dtype, device=self.device),
             out_int32=True)
         return perm.to(torch.int32).contiguous(), colptr.contiguous()
+
+    @cached_property
+    def _tile_tables(self):
+        return {}
+
+    def column_tiles(self, max_cols):
+        """(budget, tiles), a K13 tile table over :attr:`column_plan`,
+        built once per ``max_cols`` at the first K-lane transpose on the
+        card that asks for it: tile t is the columns ``[tiles[t], tiles[t
+        + 1])`` (int32 boundaries from 0 to m), at most ``max_cols``
+        columns with at most ``budget`` live entries between them, or a
+        single longer column.  See :func:`column_tile_table`."""
+        tables = self._tile_tables
+        if max_cols not in tables:
+            perm, colptr = self.column_plan
+            budget = tile_budget(self.nnz, _sm_count(self.device))
+            tables[max_cols] = (budget, column_tile_table(
+                colptr, perm.numel(), budget, max_cols))
+        return tables[max_cols]
 
     def _x_padded(self, x):
         """x (or each lane of a (K, m) stack) fitted to the source length
@@ -290,6 +333,49 @@ def windowed_from_scipy(A, dtype=torch.float32, device=None, block=None,
     )
 
 
+def _sm_count(device):
+    """The streaming multiprocessors of ``device`` (``_CPU_SMS`` for the
+    CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return _CPU_SMS
+
+
+def tile_budget(nnz, sms):
+    """Live entries per K13 tile: a power of two that gives each of the
+    card's ``sms`` SMs about 8 tiles, from 128 to 2048 (16 KB of float32
+    or 24 KB of float64 staged per CTA)."""
+    per_tile = max(int(nnz) // (sms * 8), 1)
+    return min(max(1 << (per_tile.bit_length() - 1), 128), 2048)
+
+
+def column_tile_table(colptr, n_entries, budget, max_cols):
+    """Cut the columns ``0 .. m`` of a column plan (``colptr``, int32, m +
+    1) into K13's tiles, on ``colptr``'s device with no read back to the
+    host: the int32 boundaries (0, ..., m) of 2 * n_keys tiles, where
+    n_keys depends only on ``n_entries`` (an upper bound of colptr[m]),
+    ``budget``, ``max_cols`` and m, so the table's size is known without a
+    sync.  Column c's key colptr[c] // budget + c // max_cols is
+    nondecreasing; the columns of one key (their starts in one window of
+    ``budget`` entries, at most ``max_cols`` of them) make a run, and a
+    run holding more than ``budget`` entries gives its last column a tile
+    of its own: the rest start and end inside the window.  Empty tiles
+    (keys no column has) cost a CTA that exits at once."""
+    m = colptr.numel() - 1
+    dev = colptr.device
+    key = (colptr[:-1] // budget
+           + torch.arange(m, dtype=colptr.dtype, device=dev) // max_cols)
+    n_keys = n_entries // budget + max(m - 1, 0) // max_cols + 1
+    start = torch.searchsorted(
+        key, torch.arange(n_keys + 1, dtype=key.dtype, device=dev),
+        out_int32=True)                   # run t = [start[t], start[t + 1])
+    lo, hi = start[:-1], start[1:]
+    cp = colptr.long()
+    mid = torch.where((hi > lo) & (cp[hi] - cp[lo] > budget), hi - 1, hi)
+    tiles = torch.stack([lo, mid], dim=1).reshape(-1)
+    return torch.cat([tiles, tiles.new_full((1,), m)]).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch twins (pyamg_tpu/sparse/window.py, _matvec_reference and
 # _rmatvec_reference)
@@ -342,26 +428,65 @@ def _check_operator(W):
             raise ValueError(f"windowed {name}: expected contiguous {dt}")
 
 
-def _launch_windowed_k(kind, W, V, Y):
-    """Launch a K-lane windowed kernel over the stacks V -> Y in lane
-    chunks, counting each launch."""
+def _lib_fn(kind, W):
     _check_operator(W)
     fn_name = f"pyamg_windowed_{kind}_{_KERNEL_SUFFIX[W.dtype]}"
-    fn = getattr(_build.library(), fn_name)
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    m = W.m_chunks * W.w2
-    if kind == "rmatmat_k":
-        perm, colptr = W.column_plan
-        head = (W.data.data_ptr(), perm.data_ptr(), colptr.data_ptr(), W.k,
-                W.block)
-    else:
-        head = (W.data.data_ptr(), W.idx.data_ptr(), W.starts.data_ptr(),
-                W.k, W.block, W.w2)
-    for k0, k1 in _build.lane_chunks(V.shape[0]):
-        err = fn(*head, W.n_pad, m, k1 - k0, V[k0:k1].data_ptr(),
-                 Y[k0:k1].data_ptr(), stream)
-        _build.check(fn_name, err)
-        _build.count_launch(f"windowed_{kind}.{_build.dtype_name(W.dtype)}")
+    return fn_name, getattr(_build.library(), fn_name)
+
+
+def _k12_rows(W, K):
+    """Rows per K12 CTA: a power of two dividing the block, near
+    ``_K12_PAIRS`` (row, lane group) pairs, its staged slots within the
+    default shared memory."""
+    groups = -(-min(K, _LANE_TILE) // _K12_LANES_PER_THREAD)
+    rows = max(_K12_PAIRS // groups, 1)
+    rows = min(rows, max(_SMEM_DEFAULT // (W.k * (W.data.element_size()
+                                                  + 4)), 1))
+    return math.gcd(1 << (rows.bit_length() - 1), W.block)
+
+
+def _launch_matmat_k(W, Xk, Y):
+    """K12 over the stack Xk -> Y, every lane in one launch."""
+    fn_name, fn = _lib_fn("matmat_k", W)
+    K = Xk.shape[0]
+    err = fn(W.data.data_ptr(), W.idx.data_ptr(), W.starts.data_ptr(), W.k,
+             W.block, W.w2, W.n_pad, W.m_chunks * W.w2, K, _k12_rows(W, K),
+             Xk.data_ptr(), Y.data_ptr(),
+             torch.cuda.current_stream(W.device).cuda_stream)
+    _build.check(fn_name, err)
+    _build.count_launch(f"windowed_matmat_k.{_build.dtype_name(W.dtype)}")
+
+
+def _k13_mapping(W, K):
+    """K13's (lanes per thread, columns per tile).  Lanes per thread: the
+    power of two nearest ``_K13_PAIR_BYTES`` over the bytes of one lane's
+    gathers down a column (entries per column taken as the stored slots
+    over the columns, a bound known on the host), 1 to 16 and at most K.
+    Columns per tile: about ``_K13_PAIRS`` (column, lane group) pairs, 32
+    to 512 (a power of two)."""
+    per_col = W.data.numel() / max(W.m_chunks * W.w2, 1)
+    want = _K13_PAIR_BYTES / max(per_col * W.data.element_size(), 1e-9)
+    lt = 1 << min(max(round(math.log2(max(want, 1.0))), 0), 4)
+    while lt > K:
+        lt //= 2
+    cols = min(max(_K13_PAIRS // -(-min(K, _LANE_TILE) // lt), 32), 512)
+    return lt, 1 << (cols.bit_length() - 1)
+
+
+def _launch_rmatmat_k(W, Rk, Y):
+    """K13 over the stack Rk -> Y, every lane in one launch, through the
+    operator's column plan and tile table."""
+    fn_name, fn = _lib_fn("rmatmat_k", W)
+    perm, colptr = W.column_plan
+    lt, cols = _k13_mapping(W, Rk.shape[0])
+    budget, tiles = W.column_tiles(cols)
+    err = fn(W.data.data_ptr(), perm.data_ptr(), colptr.data_ptr(),
+             tiles.data_ptr(), tiles.numel() - 1, budget, cols, W.k,
+             W.block, W.n_pad, W.m_chunks * W.w2, Rk.shape[0], lt,
+             Rk.data_ptr(), Y.data_ptr(),
+             torch.cuda.current_stream(W.device).cuda_stream)
+    _build.check(fn_name, err)
+    _build.count_launch(f"windowed_rmatmat_k.{_build.dtype_name(W.dtype)}")
 
 
 def windowed_matvec(W: WindowedELL, x):
@@ -429,24 +554,27 @@ def windowed_select(W: WindowedELL, x):
 
 def windowed_matmat_k(W: WindowedELL, Xk):
     """Y = A @ X lane by lane for a K-major stack Xk (K, m_chunks * w2); Y
-    is (K, n_pad) (K12: data and idx read once for all lanes)."""
+    is (K, n_pad) (K12: one launch; each CTA stages its rows' data and idx
+    once for up to 64 lanes, and each (row, lane) sums its slots in
+    ascending order with one FMA each)."""
     if _build.on_cpu(W.data, Xk):
         return windowed_matmat_k_ref(W, Xk)
     _build.check_stack("Xk", Xk, W.m_chunks * W.w2, W.dtype)
     Y = torch.empty(Xk.shape[0], W.n_pad, dtype=W.dtype, device=Xk.device)
-    _launch_windowed_k("matmat_k", W, Xk, Y)
+    _launch_matmat_k(W, Xk, Y)
     return Y
 
 
 def windowed_rmatmat_k(W: WindowedELL, Rk):
     """Y = A^T @ R lane by lane for a K-major stack Rk (K, n_pad); Y is
-    (K, m_chunks * w2) (K13: K7's column plan, every lane of a column
-    summed in ascending entry order, so each lane equals K7's result and
-    the CPU twin's on every run)."""
+    (K, m_chunks * w2) (K13: one launch over the operator's tile table;
+    K7's column plan, every lane of a column summed in ascending entry
+    order, so each lane equals K7's result and the CPU twin's on every
+    run)."""
     if _build.on_cpu(W.data, Rk):
         return windowed_rmatmat_k_ref(W, Rk)
     _build.check_stack("Rk", Rk, W.n_pad, W.dtype)
     Y = torch.empty(Rk.shape[0], W.m_chunks * W.w2, dtype=W.dtype,
                     device=Rk.device)
-    _launch_windowed_k("rmatmat_k", W, Rk, Y)
+    _launch_rmatmat_k(W, Rk, Y)
     return Y

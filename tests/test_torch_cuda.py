@@ -24,8 +24,9 @@ from pyamg_tpu_torch.sparse import (dia, dia_from_scipy, window,  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-# f32: FMA contraction (and, for the transposes' twins on the card,
-# index_add_'s atomics order); f64 likewise
+# f32: FMA contraction and other summation orders than the twins'; f64
+# likewise.  The windowed transposes (K7, K13) sum in the CPU twins' order
+# and are held to them bit for bit.
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 DTYPES = [torch.float32, torch.float64]
 
@@ -320,10 +321,12 @@ def test_k10_zero_res_k_matches_twin(cuda, dtype, K):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("K", [3, 8, 19])
+@pytest.mark.parametrize("K", [3, 8, 19, 64, 65])
 def test_k12_k13_windowed_lane_kernels_match_twins(cuda, dtype, K):
     """K12 and K13 against their twins (the gather and scatter-add forms
-    lane by lane)."""
+    lane by lane): one launch per call (K=65 tiles its lanes over the
+    grid), two launches bit-identical, and K13 equal to the CPU twin bit
+    for bit (it sums each column in the twin's order)."""
     P = _random_rect(8192, 2600, per_row=4, spread=60, seed=4)
     W = windowed_from_scipy(P, dtype=dtype, device=cuda)
     rng = np.random.default_rng(K)
@@ -333,12 +336,90 @@ def test_k12_k13_windowed_lane_kernels_match_twins(cuda, dtype, K):
     _build.reset_launches()
     Y = window.windowed_matmat_k(W, X)
     Z = window.windowed_rmatmat_k(W, R)
+    name = str(dtype).removeprefix("torch.")
+    assert _build.launches == {f"windowed_matmat_k.{name}": 1,
+                               f"windowed_rmatmat_k.{name}": 1}
     assert Y.shape == (K, W.n_pad) and Z.shape == (K, W.m_chunks * W.w2)
     assert _rel_err(Y, window.windowed_matmat_k_ref(W, X)) <= TOL[dtype]
-    assert _rel_err(Z, window.windowed_rmatmat_k_ref(W, R)) <= TOL[dtype]
+    W_cpu = dataclasses.replace(W, data=W.data.cpu(), idx=W.idx.cpu(),
+                                starts=W.starts.cpu())
+    assert torch.equal(Z.cpu(), window.windowed_rmatmat_k_ref(W_cpu,
+                                                              R.cpu()))
+    assert torch.equal(window.windowed_matmat_k(W, X), Y)
+    assert torch.equal(window.windowed_rmatmat_k(W, R), Z)
+
+
+def _dense_column_rect():
+    """2048 x 700, ~5 entries per row, plus column 350 with 1024 entries:
+    longer than the tile budget (128 at this size), so it gets a tile of
+    its own and K13 sums it from device memory."""
+    P = _random_rect(2048, 700, per_row=5, spread=30, seed=2)
+    rng = np.random.default_rng(3)
+    rows = np.arange(0, 2048, 2)
+    return (P + sp.csr_matrix((rng.standard_normal(rows.size),
+                               (rows, np.full(rows.size, 350))),
+                              shape=P.shape)).tocsr()
+
+
+def _caps_rect():
+    """2**19 x 2**18 with ~2.6M entries, for K13's tiles at their caps:
+    the first half of the rows put 10 entries each into the first half of
+    the columns (~20 per column: tiles fill the 2048-entry budget), the
+    second half one entry each into the rest (2 per column: tiles fill
+    the 512-column cap at K = 2)."""
+    n, m = 2 ** 19, 2 ** 18
+    rng = np.random.default_rng(6)
+    dense = np.repeat(np.arange(n // 2), 10)
+    sparse = np.arange(n // 2, n)
+    rows = np.concatenate([dense, sparse])
+    cols = np.concatenate([
+        np.clip(dense // 2 + rng.integers(-16, 17, dense.size), 0,
+                m // 2 - 1),
+        sparse // 2])
+    return sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                         shape=(n, m))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case,K", [("dense column", 8),
+                                    ("dense column", 64),
+                                    ("dense column", 65), ("caps", 2),
+                                    ("caps", 64)])
+def test_k13_tiles_at_their_limits_match_twin(cuda, dtype, case, K):
+    """K13 on tiles at the edges of its shared memory: a column longer
+    than the tile budget (summed from device memory, its lanes over the
+    threads), and tiles that fill the 2048-entry budget and the 512-column
+    cap.  Equal to the CPU twin bit for bit and across two launches; K12
+    on the same operator within tolerance."""
+    P = _dense_column_rect() if case == "dense column" else _caps_rect()
+    W = windowed_from_scipy(P, dtype=dtype, device=cuda)
+    lt, cols = window._k13_mapping(W, K)
+    budget, tiles = W.column_tiles(cols)
+    colptr = W.column_plan[1].long()
+    t = tiles.long()
+    n_cols, n_ent = t[1:] - t[:-1], colptr[t[1:]] - colptr[t[:-1]]
+    if case == "dense column":
+        assert budget == 128 and int(n_ent.max()) > budget
+    elif K == 2:
+        assert (budget, cols) == (2048, 512)
+        assert int(n_cols.max()) == 512
+        assert int(n_ent[n_cols > 1].max()) > 3 * budget // 4
+    rng = np.random.default_rng(K)
+    X = torch.as_tensor(rng.random((K, W.m_chunks * W.w2)), dtype=dtype,
+                        device=cuda)
+    R = torch.as_tensor(rng.random((K, W.n_pad)), dtype=dtype, device=cuda)
+    _build.reset_launches()
+    Z = window.windowed_rmatmat_k(W, R)
+    Y = window.windowed_matmat_k(W, X)
     name = str(dtype).removeprefix("torch.")
-    assert _build.launches == {f"windowed_matmat_k.{name}": -(-K // 16),
-                               f"windowed_rmatmat_k.{name}": -(-K // 16)}
+    assert _build.launches == {f"windowed_matmat_k.{name}": 1,
+                               f"windowed_rmatmat_k.{name}": 1}
+    W_cpu = dataclasses.replace(W, data=W.data.cpu(), idx=W.idx.cpu(),
+                                starts=W.starts.cpu())
+    assert torch.equal(Z.cpu(), window.windowed_rmatmat_k_ref(W_cpu,
+                                                              R.cpu()))
+    assert torch.equal(window.windowed_rmatmat_k(W, R), Z)
+    assert _rel_err(Y, window.windowed_matmat_k_ref(W, X)) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("K", [3, 8, 19])

@@ -100,10 +100,11 @@ def test_dia_jacobi_zero_res_k10_matches_pallas_interpret(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
-@pytest.mark.parametrize("K", [2, 8])
+@pytest.mark.parametrize("K", [2, 8, 17, 64])
 def test_windowed_matmat_k12_matches_pallas_interpret(K, dtype):
     """K12 against WindowedELL._matmat_pallas_k on the reference test's
-    4096 x 1500 operator, block=256."""
+    4096 x 1500 operator, block=256; K=64 is the unstructured setup's
+    probe width, K=17 one lane past the DIA kernels' 16-lane chunk."""
     P = _random_rect(4096, 1500, per_row=3, spread=40, seed=7)
     jw, tw = _windowed_pair(P, dtype)
     Xk = np.random.default_rng(8).random((K, tw.m_chunks * tw.w2)).astype(
@@ -115,11 +116,11 @@ def test_windowed_matmat_k12_matches_pallas_interpret(K, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
-@pytest.mark.parametrize("K", [2, 8])
+@pytest.mark.parametrize("K", [2, 8, 17, 64])
 def test_windowed_rmatmat_k13_matches_pallas_interpret(K, dtype):
     """K13 against WindowedELL._rmatmat_pallas_k (the K transposed outputs
     accumulated across overlapping windows) on the reference test's
-    operator, block=256."""
+    operator, block=256; K as for K12."""
     P = _random_rect(4096, 1500, per_row=3, spread=40, seed=11)
     jw, tw = _windowed_pair(P, dtype)
     Rk = np.random.default_rng(12).random((K, tw.n_pad)).astype(dtype)
