@@ -33,7 +33,13 @@ result lines):
    computes the same function (never on the path); the transposes (K7,
    K13) and K12 launched twice, bit-identical, the transposes equal to the
    CPU twins bit for bit, with their column plan's build time and size;
-   K12 and K13 one launch per call;
+   K12 and K13 one launch per call; K11's branch at each shape (the strip
+   march's plan, or the per-row kernel), the strip march equal to the
+   per-row kernel bit for bit and two launches bit-identical, its composed
+   alternative (K10, then K8's scale epilogue) timed beside it, at K = 16
+   in float64 (lane groups) and on a 3-D 7-point pattern whose +-n^2
+   offset takes the per-row kernel; K7's tile form on columns longer than
+   a warp and one longer than its tile budget, the CPU twin's bits;
 5b. K16 (dia_halo_spmv) at host level 0, float32 and float64: the ring of
    one against its twin and bit for bit against K1, four in-process row
    blocks (halos copied on a side stream) against K1, and the interior
@@ -370,6 +376,122 @@ def transpose_checks(check, label, W, r, Rk):
           f"sync in {build_ms:.2f} ms; "
           f"K7{' and K13' if Rk is not None else ''} equal the CPU twins "
           "bit for bit")
+
+
+def k11_checks(check, name, A, St, Bk, dinv, tv, omega, results):
+    """K11 against its twin at a path shape, with its branch (the strip
+    march's plan, or the per-row kernel), the strip march equal to the
+    per-row kernel bit for bit, and its composed alternative timed beside
+    it (K10, then K8's scale epilogue: the (K, n) residual stored and read
+    back)."""
+    import torch
+
+    from pyamg_tpu_torch import _build
+    from pyamg_tpu_torch.sparse import dia
+
+    K, m = Bk.shape
+    nd, nds, sz = A.ndiags, St.ndiags, A.data.element_size()
+    plan = dia.k11_plan(A.offsets, St.offsets, m, K, A.dtype,
+                        _build.sm_count(A.device))
+    if plan is None:
+        log(f"  {name}: per-row kernel (St reach {min(St.offsets)}.."
+            f"{max(St.offsets)} too far for one lane's ring), "
+            f"{-(-K // _build.MAX_LANES)} launch(es) per call")
+    else:
+        log(f"  {name}: strip march, {plan.strips} strips of {plan.strip} "
+            f"rows x {plan.groups} lane group(s) of {plan.group}, steps of "
+            f"{plan.step} rows, ring {plan.ring} rows ({plan.smem(sz)} B of "
+            "shared memory), one launch per call")
+    compare(check, name, A.dtype,
+            lambda: dia.dia_zero_chain_k(A, St, Bk, dinv, tv, omega),
+            lambda: dia.dia_zero_chain_k_ref(A, St, Bk, dinv, tv, omega),
+            results, (nd + nds + 2 + 3 * K) * m * sz,
+            (2 * nd + 2 * nds + 4) * m * K, repeat_exact=True)
+    if plan is not None:
+        got = dia.dia_zero_chain_k(A, St, Bk, dinv, tv, omega)
+        rows = (torch.empty_like(Bk), torch.empty_like(Bk))
+        dia._zero_chain_k_rows(A, St, Bk, dinv, tv, omega, *rows)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, r) for g, r in zip(got, rows)),
+              f"{name}: the strip march equals the per-row kernel bit for "
+              "bit")
+
+    def composed():
+        X, R = dia.dia_jacobi_zero_res_k(A, Bk, dinv, omega)
+        return X, dia.dia_spmm_scaled(St, R, tv)
+    log(f"  composed alternative of {name}: "
+        f"{min(time_ms(composed), time_ms(composed)):.4f} ms (K10, then K8 "
+        "scale)")
+
+
+def k11_per_row_checks(check, rand, results):
+    """K11's per-row branch in float32 and float64, K = 8, on random
+    diagonals of a 100 x 180 x 180 grid's 7-point pattern (A = St's
+    pattern; its +-32 400 offset exceeds one lane's ring)."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch.sparse import DIAMatrix
+
+    n = 100 * 180 * 180
+    offsets = (-32400, -180, -1, 0, 1, 180, 32400)
+    i = torch.arange(n, device=DEVICE)
+    for dtype in (torch.float32, torch.float64):
+        ops = []
+        for _ in range(2):
+            data = rand((len(offsets), n), dtype)
+            for d, off in enumerate(offsets):
+                data[d][(i + off < 0) | (i + off >= n)] = 0
+            ops.append(DIAMatrix(data=data, offsets=offsets, shape=(n, n),
+                                 nnz=int(np.count_nonzero(
+                                     data.cpu().numpy()))))
+        dinv, tv = rand(n, dtype), rand(n, dtype)
+        Bk = rand((LANES, n), dtype)
+        k11_checks(check, f"dia_zero_chain_k.{str(dtype)[6:]} [3-D 7-point "
+                   f"100x180x180 nd=7 K={LANES}, per-row]", *ops, Bk, dinv,
+                   tv, 0.8, results)
+
+
+def k7_long_column_checks(check, rand, results):
+    """K7's tile form on a 2**19 x 2**12 operator with ~128 entries per
+    column (longer than a warp) and one column of 2**17 entries (longer
+    than the tile budget), float32 and float64: the CPU twin's bits,
+    twice."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from pyamg_tpu_torch.sparse import window, windowed_from_scipy
+
+    n, m = 2 ** 19, 2 ** 12
+    rng = np.random.default_rng(8)
+    rows = np.arange(n)
+    cols = np.clip(rows * m // n + rng.integers(-8, 9, n), 0, m - 1)
+    extra = np.arange(0, n, 4)
+    P = sp.csr_matrix((rng.standard_normal(n + extra.size),
+                       (np.concatenate([rows, extra]),
+                        np.concatenate([cols, np.full(extra.size,
+                                                      m // 2)]))),
+                      shape=(n, m))
+    for dtype in (torch.float32, torch.float64):
+        W = windowed_from_scipy(P, dtype=dtype, device=DEVICE)
+        r = rand(W.n_pad, dtype)
+        budget, _ = W.column_tiles(window._K7_COLS, window._K7_MIN_BUDGET)
+        check(W.data.numel() >= window._K7_TILE_SLOTS * W.m_chunks * W.w2,
+              f"long columns {str(dtype)[6:]}: K7 takes its tile form")
+        lens = W.column_plan[1].diff()
+        sz = W.data.element_size()
+        meta = W.data.numel() * sz + (W.idx.numel() + W.starts.numel()) * 4
+        mm = W.m_chunks * W.w2
+        Wt_csr = windowed_to_csr(W, transpose=True)
+        compare(check, f"windowed_rmatvec.{str(dtype)[6:]} [{n}x{m}, "
+                f"columns of {float(lens.float().mean()):.0f} entries on "
+                f"average, longest {int(lens.max())}, tile budget {budget}]",
+                dtype, lambda: window.windowed_rmatvec(W, r),
+                lambda: window.windowed_rmatvec_ref(W, r), results,
+                meta + (mm + W.n_pad) * sz, 2 * int((W.data != 0).sum()),
+                library_fn=lambda: torch.mv(Wt_csr, r), repeat_exact=True)
+        transpose_checks(check, f"long columns {str(dtype)[6:]}", W, r, None)
 
 
 def lane_launches(check, label, key, fn):
@@ -1563,24 +1685,15 @@ def main():
                     (2 * nd + 2 * nds + 4) * m)
             Xk, Bk, Vk = (rand((LANES, m), dtype) for _ in range(3))
             ktag = f"{tag} K={LANES}"
-            compare(check, f"dia_zero_chain_k.{dt} [{ktag}]", dtype,
-                    lambda: dia.dia_zero_chain_k(Ad, St, Bk, dinv, tv,
-                                                 omega),
-                    lambda: dia.dia_zero_chain_k_ref(Ad, St, Bk, dinv, tv,
-                                                     omega),
-                    results, (nd + nds + 2 + 3 * LANES) * m * sz,
-                    (2 * nd + 2 * nds + 4) * m * LANES)
-            if dtype == torch.float32:
-                # K11's unfused alternative: the zero-guess sweep, the
-                # residual through K8 and K8's scale epilogue (three
-                # passes, the (K, n) residual stored and read back)
-                def composed():
-                    Xc = omega * (dinv * Bk)
-                    Rc = Bk - dia.dia_spmm(Ad, Xc)
-                    return Xc, dia.dia_spmm_scaled(St, Rc, tv)
-                log(f"  composed alternative of dia_zero_chain_k.{dt} "
-                    f"[{ktag}]: {min(time_ms(composed), time_ms(composed)):.4f}"
-                    " ms (sweep + K8 residual + K8 scale)")
+            k11_checks(check, f"dia_zero_chain_k.{dt} [{ktag}]", Ad, St,
+                       Bk, dinv, tv, omega, results)
+            if label == "level0" and dtype == torch.float64:
+                # lane groups: 16 float64 lanes, four rings of 4 lanes
+                B16 = rand((2 * LANES, m), dtype)
+                k11_checks(check, f"dia_zero_chain_k.{dt} [{tag} "
+                           f"K={2 * LANES}]", Ad, St, B16, dinv, tv, omega,
+                           results)
+                del B16
             compare(check, f"dia_jacobi_k.{dt} [{ktag}]", dtype,
                     lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv, omega),
                     lambda: dia.dia_jacobi_k_ref(Ad, Xk, Bk, dinv, omega),
@@ -1624,6 +1737,12 @@ def main():
                     lambda: dia.dia_spmv_scaled(St, x, tv),
                     lambda: dia.dia_spmv_scaled_ref(St, x, tv),
                     results, *dia_cost(St, 3, extra_ops=1))
+
+    # K11's per-row branch: a 3-D 7-point pattern whose +-n^2 offset is
+    # too far for one lane's ring (100 x 180 x 180, reach 32 400 rows)
+    k11_per_row_checks(check, rand, results)
+    # K7 on columns longer than a warp and than its tile budget
+    k7_long_column_checks(check, rand, results)
 
     # K15's five modes on the lane-aligned level-0 operators, K = 8, f32
     # (library: torch.sparse.mm of A and torch.addmm of S in CSR against

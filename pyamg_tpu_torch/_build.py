@@ -32,10 +32,12 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 __all__ = ["library", "build", "check", "launches", "reset_launches",
            "count_launch", "on_cpu", "check_vector", "check_stack",
-           "dtype_name", "lane_chunks",
-           "NVCC_FLAGS", "MAX_LANES"]
+           "dtype_name", "lane_chunks", "sm_count",
+           "NVCC_FLAGS", "MAX_LANES", "CPU_SMS"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -53,6 +55,10 @@ launches: dict[str, int] = {}
 # K15): each holds its lanes' sums in a register array of this size
 # (kMaxLanes in csrc/dia_k.cu, csrc/interleaved.cu)
 MAX_LANES = 16
+
+# streaming multiprocessors that a plan for a CPU tensor assumes (an
+# H100's); a tensor on the card takes its device's count
+CPU_SMS = 132
 
 _lock = threading.Lock()
 _lib = None
@@ -87,12 +93,26 @@ _SIGNATURES = {
                                    _P, ctypes.c_float, _P, _P, _P, _P),
     "pyamg_dia_zero_chain_k_f64": (_P, _P, _I, _P, _P, _I, _L, _I, _P, _P,
                                    _P, ctypes.c_double, _P, _P, _P, _P),
+    # data, offsets, nd, sdata, soffsets, nds, n_pad, lanes, group, strip,
+    # al, ar, hl, hr, b, dinv, tv, omega, omega_dev, x_out, y_out, stream
+    "pyamg_dia_zero_chain_k_ring_f32": (_P, _P, _I, _P, _P, _I, _L, _I, _I,
+                                        _L, _I, _I, _I, _I, _P, _P, _P,
+                                        ctypes.c_float, _P, _P, _P, _P),
+    "pyamg_dia_zero_chain_k_ring_f64": (_P, _P, _I, _P, _P, _I, _L, _I, _I,
+                                        _L, _I, _I, _I, _I, _P, _P, _P,
+                                        ctypes.c_double, _P, _P, _P, _P),
     # data, idx, starts, k, block, w2, n_rows, x, y, stream
     "pyamg_windowed_matvec_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_matvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
     # data, perm, colptr, k, block, m, r, y, stream
     "pyamg_windowed_rmatvec_f32": (_P, _P, _P, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_rmatvec_f64": (_P, _P, _P, _I, _I, _L, _P, _P, _P),
+    # data, perm, colptr, tiles, n_tiles, budget, max_cols, k, block, r, y,
+    # stream
+    "pyamg_windowed_rmatvec_tiles_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _P, _P, _P),
+    "pyamg_windowed_rmatvec_tiles_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _P, _P, _P),
     # data, idx, starts, k, block, w2, n_rows, m, lanes, rows, x, y, stream
     "pyamg_windowed_matmat_k_f32": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _I,
                                     _P, _P, _P),
@@ -166,6 +186,14 @@ def check_stack(name, v, n, dtype, lanes=None):
 def lane_chunks(K):
     """(k0, k1) lane ranges of at most MAX_LANES lanes, one launch each."""
     return [(k0, min(K, k0 + MAX_LANES)) for k0 in range(0, K, MAX_LANES)]
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of ``device`` (``CPU_SMS`` for the
+    CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return CPU_SMS
 
 
 def dtype_name(dtype) -> str:

@@ -14,7 +14,7 @@
 //   and K10:
 //     ZERO_RES_K   Y = w * dinv * B,  R = B - A Y
 //                                           pyamg_tpu/sparse/dia.py::dia_pallas_jacobi_zero_res_km
-//   zero_chain_k_kernel<T>, K11:
+//   zero_chain_k_ring_kernel<T, ND, NDS> and zero_chain_k_kernel<T>, K11:
 //     X = w * dinv * B,  Y = tv * (St (B - A X)); the residual is never
 //     stored                                pyamg_tpu/sparse/dia.py::dia_pallas_zero_chain_km
 //
@@ -40,12 +40,37 @@
 // about one flop per byte in f32, far below the card's ~20 flops per
 // byte.  The shifted re-reads of X across diagonals hit L1/L2.
 //
-// K11 recomputes each inner residual value r_j it needs for every St
-// neighbour j of row i, per lane (as K5 does for one lane,
-// csrc/dia_chain.cu): nd * nds inner terms per row and lane instead of a
-// stored (K, n_pad) residual.  That keeps r out of device memory at the
-// price of instructions and L1 traffic that grow with K; a shared-memory
-// tile of rows plus halo that computes each r_j once is the redesign.
+// K11 keeps the residual r = B - A X out of device memory, as the TPU
+// kernel does, but computes each r_j once: zero_chain_k_ring_kernel is a
+// strip march.  A CTA owns a contiguous strip of rows and one group of up
+// to kRingLanes lanes (blockIdx.y), and walks its strip in steps of 1024
+// rows, one per thread.  Shared memory holds a ring of r for the rows
+// [i - hl, i + 2048 + hr) (hl and hr the reach of St's offsets below and
+// above the diagonal): before the march the first step's window, then in
+// each step's one pass the next step's new r rows (their reads of B at
+// A's offsets mostly hit L2) and this step's X and Y rows, X from B and Y
+// from the ring, with one barrier per step.  Only the hl + hr rows at each
+// strip's start are computed twice (by this strip and the one before).
+// The wrapper's plan (sparse/dia.py::k11_plan) sizes the ring to the
+// card's 227 KB of shared memory per block: lanes go in groups that fit,
+// and the operator's diagonals are read once per group.  The ring allows
+// one CTA per SM (32 warps, 64 registers a thread), so the kernel hides
+// latency by the loads it keeps in flight: the term loops unroll for the
+// 5- and 9-diagonal operators of 2-D grids (float32), an out-of-range
+// neighbour selects the sum it had instead of branching around its term
+// (only in passes that reach past either end), and the streamed arrays
+// leave L2 first, so that it keeps the rows of B and dinv read again
+// within the reach.  Every value keeps the per-row kernel's arithmetic:
+// e ascending with the out-of-range skip, one FMA per term (what nvcc's
+// contraction made of acc += a * (w * (dm * b)) and acc2 += sv * (b_j -
+// acc1)), r_j = b_j - acc1 rounded to T, then s ascending; so the ring
+// kernel gives the per-row kernel's bits.
+//
+// zero_chain_k_kernel, one thread per row, stays for an St whose reach
+// is too large for one lane's ring (2048 + hl + hr rows beyond 227 KB,
+// as with a 3-D grid's +-n^2 offset): it recomputes each r_j it needs for
+// every St neighbour j of row i, per lane (as K5 does for one lane,
+// csrc/dia_chain.cu), nd * nds inner terms per row and lane.
 //
 // ZERO_RES_K forms each neighbour's iterate w * dinv_j * b_j from b as it
 // goes (the zero-guess sweep needs no x input), so Y and R leave in one
@@ -64,6 +89,20 @@ namespace {
 
 constexpr int kMaxLanes = 16;
 constexpr int kThreads = 256;
+// K11's strip march: threads per CTA and rows per step, and lanes per
+// group (its register arrays); the ring's shared memory per block at most
+// kMaxSmem (an H100's 227 KB)
+constexpr int kRingThreads = 1024;
+constexpr int kRingLanes = 8;
+constexpr int kMaxSmem = 232448;
+
+// a * b + c rounded once (an explicit FMA)
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
 
 enum DiaKMode : int {
   SPMM = 0, SPMM_SCALED = 1, SPMM_ADD = 2, JACOBI_K = 3, ZERO_RES_K = 4
@@ -191,6 +230,176 @@ zero_chain_k_kernel(const T* __restrict__ data,
   }
 }
 
+// K11's strip march, one row of a pass per thread.  The operators'
+// diagonals, tv and the outputs stream through L2 evict-first (__ldcs,
+// __stcs), so that L2 keeps the rows of B and dinv that a strip reads
+// again within its reach: 132 strips at once each hold 2 * step + 2 *
+// reach rows of them.  r_j for lanes [0, gl) of the group into ring slot
+// `slot` (lane-major, ring stride cap); CHECK false when every neighbour
+// of the row lies in [0, n_pad), true to skip the terms whose neighbour
+// does not (a select keeps the sum as it was, so no branch holds the
+// loads back).
+template <typename T, int ND, bool CHECK>
+__device__ __forceinline__ void ring_fill_row(
+    const T* __restrict__ data, const int* __restrict__ offsets, int nd,
+    int n_pad, int gl, int j, const T* __restrict__ b,
+    const T* __restrict__ dinv, T w, T* ring, int cap, int slot) {
+  T acc[kRingLanes];
+#pragma unroll
+  for (int k = 0; k < kRingLanes; ++k) acc[k] = T(0);
+  const int n_e = ND > 0 ? ND : nd;
+#pragma unroll
+  for (int e = 0; e < n_e; ++e) {
+    const int m = j + offsets[e];
+    const bool in = !CHECK || (m >= 0 && m < n_pad);
+    const int mc = in ? m : j;
+    const T a = __ldcs(data + static_cast<int64_t>(e) * n_pad + j);
+    const T dm = dinv[mc];
+#pragma unroll
+    for (int k = 0; k < kRingLanes; ++k) {
+      if (k < gl) {
+        const T v = fma_rn(a, w * (dm * b[static_cast<int64_t>(k) * n_pad
+                                          + mc]), acc[k]);
+        acc[k] = in ? v : acc[k];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRingLanes; ++k) {
+    if (k < gl)
+      ring[k * cap + slot] = b[static_cast<int64_t>(k) * n_pad + j] - acc[k];
+  }
+}
+
+// X and Y of row `row` from the ring (its slot `base`); CHECK as above.
+template <typename T, int NDS, bool CHECK>
+__device__ __forceinline__ void ring_out_row(
+    const T* __restrict__ sdata, const int* __restrict__ soffsets, int nds,
+    int n_pad, int gl, int row, const T* __restrict__ b,
+    const T* __restrict__ dinv, const T* __restrict__ tv, T w,
+    const T* ring, int cap, int base, T* __restrict__ x_out,
+    T* __restrict__ y_out) {
+  T acc[kRingLanes];
+#pragma unroll
+  for (int k = 0; k < kRingLanes; ++k) acc[k] = T(0);
+  const int n_s = NDS > 0 ? NDS : nds;
+#pragma unroll
+  for (int s = 0; s < n_s; ++s) {
+    const int so = soffsets[s];
+    const bool in = !CHECK || (row + so >= 0 && row + so < n_pad);
+    const T sv = __ldcs(sdata + static_cast<int64_t>(s) * n_pad + row);
+    int sl = base + so;
+    if (sl < 0) sl += cap;
+    else if (sl >= cap) sl -= cap;
+#pragma unroll
+    for (int k = 0; k < kRingLanes; ++k) {
+      if (k < gl) {
+        const T v = fma_rn(sv, ring[k * cap + sl], acc[k]);
+        acc[k] = in ? v : acc[k];
+      }
+    }
+  }
+  const T di = dinv[row];
+  const T t = __ldcs(tv + row);
+#pragma unroll
+  for (int k = 0; k < kRingLanes; ++k) {
+    if (k < gl) {
+      const int64_t o = static_cast<int64_t>(k) * n_pad + row;
+      __stcs(x_out + o, w * (di * b[o]));
+      __stcs(y_out + o, t * acc[k]);
+    }
+  }
+}
+
+// r for the rows [f0, f1) of a strip whose ring starts at row lo, one
+// row per thread and pass; the neighbours are checked only where a pass
+// reaches outside [0, n_pad) (al, ar: A's reach)
+template <typename T, int ND>
+__device__ __forceinline__ void ring_fill(
+    const T* __restrict__ data, const int* __restrict__ offsets, int nd,
+    int n_pad, int gl, int al, int ar, int f0, int f1,
+    const T* __restrict__ b, const T* __restrict__ dinv, T w, T* ring,
+    int cap, int lo) {
+  for (int p0 = f0; p0 < f1; p0 += kRingThreads) {
+    const int j = p0 + static_cast<int>(threadIdx.x);
+    if (j >= f1 || j < 0 || j >= n_pad) continue;
+    const int slot = static_cast<int>(static_cast<unsigned>(j - lo) %
+                                      static_cast<unsigned>(cap));
+    if (p0 - al >= 0 && p0 + kRingThreads + ar <= n_pad) {
+      ring_fill_row<T, ND, false>(data, offsets, nd, n_pad, gl, j, b, dinv,
+                                  w, ring, cap, slot);
+    } else {
+      ring_fill_row<T, ND, true>(data, offsets, nd, n_pad, gl, j, b, dinv,
+                                 w, ring, cap, slot);
+    }
+  }
+}
+
+// K11's strip march (see the header): CTA (blockIdx.x, blockIdx.y) =
+// rows [blockIdx.x * strip, +strip) x lanes [blockIdx.y * group, +group).
+// The ring holds 2 * kRingThreads + hl + hr rows of r per lane, row j at
+// slot (j - (s0 - hl)) mod cap, so a step's pass can form the next step's
+// r rows while it forms its own Y rows: one barrier per step.  ND and NDS,
+// when not 0, fix A's and St's diagonal counts at compile time, so the
+// term loops unroll.  Rows are int: n_pad < 2^31.
+template <typename T, int ND, int NDS>
+__global__ void __launch_bounds__(kRingThreads, 1)
+zero_chain_k_ring_kernel(const T* __restrict__ data,
+                         const int* __restrict__ offsets, int nd,
+                         const T* __restrict__ sdata,
+                         const int* __restrict__ soffsets, int nds,
+                         int n_pad, int lanes, int group, int strip, int al,
+                         int ar, int hl, int hr, const T* __restrict__ b,
+                         const T* __restrict__ dinv,
+                         const T* __restrict__ tv, T omega,
+                         const T* __restrict__ omega_dev,
+                         T* __restrict__ x_out, T* __restrict__ y_out) {
+  constexpr int kStep = kRingThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  const int cap = 2 * kStep + hl + hr;
+  const int s0 = blockIdx.x * strip;
+  if (s0 >= n_pad) return;
+  const int s1 = min(s0 + strip, n_pad);
+  const int k0 = blockIdx.y * group;
+  const int gl = min(group, lanes - k0);
+  b += static_cast<int64_t>(k0) * n_pad;
+  x_out += static_cast<int64_t>(k0) * n_pad;
+  y_out += static_cast<int64_t>(k0) * n_pad;
+  const T w = omega_dev != nullptr ? *omega_dev : omega;
+  const int lo = s0 - hl;                 // the row in ring slot 0
+  // the first step's window
+  int filled = min(s0 + kStep, s1) + hr;
+  ring_fill<T, ND>(data, offsets, nd, n_pad, gl, al, ar, lo, filled, b,
+                   dinv, w, ring, cap, lo);
+  __syncthreads();
+  for (int i = s0; i < s1; i += kStep) {
+    // the next step's new r rows (their slots held rows no longer read),
+    // then this step's X and Y rows
+    const int next = min(i + 2 * kStep, s1) + hr;
+    if (i + kStep < s1) {
+      ring_fill<T, ND>(data, offsets, nd, n_pad, gl, al, ar, filled, next,
+                       b, dinv, w, ring, cap, lo);
+    }
+    filled = next;
+    const int row = i + static_cast<int>(threadIdx.x);
+    if (row < s1) {
+      const int base = static_cast<int>(static_cast<unsigned>(row - lo) %
+                                        static_cast<unsigned>(cap));
+      if (i - hl >= 0 && i + kStep + hr <= n_pad) {
+        ring_out_row<T, NDS, false>(sdata, soffsets, nds, n_pad, gl, row, b,
+                                    dinv, tv, w, ring, cap, base, x_out,
+                                    y_out);
+      } else {
+        ring_out_row<T, NDS, true>(sdata, soffsets, nds, n_pad, gl, row, b,
+                                   dinv, tv, w, ring, cap, base, x_out,
+                                   y_out);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 unsigned int blocks_for(long long n_pad) {
   return static_cast<unsigned int>((n_pad + kThreads - 1) / kThreads);
 }
@@ -265,6 +474,68 @@ int launch_zero_chain_k(const void* data, const void* offsets, int nd,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int ND, int NDS>
+int launch_ring(const void* data, const void* offsets, int nd,
+                const void* sdata, const void* soffsets, int nds, int n_pad,
+                int lanes, int group, int strip, int al, int ar, int hl,
+                int hr, const void* b, const void* dinv, const void* tv,
+                T omega, const void* omega_dev, void* x_out, void* y_out,
+                cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(2 * kRingThreads + hl + hr) *
+                      group * sizeof(T);
+  if (smem > static_cast<size_t>(kMaxSmem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        zero_chain_k_ring_kernel<T, ND, NDS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned int>((n_pad + strip - 1) / strip),
+                  static_cast<unsigned int>((lanes + group - 1) / group));
+  zero_chain_k_ring_kernel<T, ND, NDS><<<grid, kRingThreads, smem,
+                                         stream>>>(
+      static_cast<const T*>(data), static_cast<const int*>(offsets), nd,
+      static_cast<const T*>(sdata), static_cast<const int*>(soffsets), nds,
+      n_pad, lanes, group, strip, al, ar, hl, hr, static_cast<const T*>(b),
+      static_cast<const T*>(dinv), static_cast<const T*>(tv), omega,
+      static_cast<const T*>(omega_dev), static_cast<T*>(x_out),
+      static_cast<T*>(y_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the term loops unroll for the 5- and 9-diagonal operators of 2-D grids
+// (A and St alike) in float32, else run to nd and nds
+template <typename T>
+int launch_zero_chain_k_ring(const void* data, const void* offsets, int nd,
+                             const void* sdata, const void* soffsets,
+                             int nds, long long n_pad, int lanes, int group,
+                             long long strip, int al, int ar, int hl, int hr,
+                             const void* b, const void* dinv, const void* tv,
+                             T omega, const void* omega_dev, void* x_out,
+                             void* y_out, void* stream) {
+  if (lanes < 1 || group < 1 || group > kRingLanes || strip < 1 ||
+      al < 0 || ar < 0 || hl < 0 || hr < 0 || n_pad >= (1LL << 31) ||
+      strip > n_pad + kRingThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_pad <= 0) return static_cast<int>(cudaSuccess);
+  const int n = static_cast<int>(n_pad);
+  const int st = static_cast<int>(strip);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PYAMG_K11_RING(ND, NDS)                                             \
+  return launch_ring<T, ND, NDS>(data, offsets, nd, sdata, soffsets, nds, n, \
+                                 lanes, group, st, al, ar, hl, hr, b, dinv,  \
+                                 tv, omega, omega_dev, x_out, y_out, s)
+  // unrolled in float32 only: the float64 forms spill at 64 registers
+  // and ran faster as loops (PERF.md §6, PR 8)
+  if (sizeof(T) == 4 && nd == 5 && nds == 5) PYAMG_K11_RING(5, 5);
+  if (sizeof(T) == 4 && nd == 9 && nds == 9) PYAMG_K11_RING(9, 9);
+  PYAMG_K11_RING(0, 0);
+#undef PYAMG_K11_RING
+}
+
 }  // namespace
 
 extern "C" {
@@ -314,6 +585,34 @@ int pyamg_dia_zero_chain_k_f64(const void* data, const void* offsets, int nd,
   return launch_zero_chain_k<double>(data, offsets, nd, sdata, soffsets, nds,
                                      n_pad, lanes, b, dinv, tv, omega,
                                      omega_dev, x_out, y_out, stream);
+}
+
+// K11's strip march: data, offsets, nd, sdata, soffsets, nds, n_pad,
+// lanes, group, strip, al, ar, hl, hr, b, dinv, tv, omega, omega_dev,
+// x_out, y_out, stream; b, x_out, y_out (lanes, n_pad), n_pad < 2^31,
+// every lane in one launch (groups of `group` lanes over gridDim.y, strips
+// of `strip` rows over gridDim.x); al, ar and hl, hr the reaches of A's
+// and St's offsets; shared memory (2048 + hl + hr) * group values.
+int pyamg_dia_zero_chain_k_ring_f32(
+    const void* data, const void* offsets, int nd, const void* sdata,
+    const void* soffsets, int nds, long long n_pad, int lanes, int group,
+    long long strip, int al, int ar, int hl, int hr, const void* b,
+    const void* dinv, const void* tv, float omega, const void* omega_dev,
+    void* x_out, void* y_out, void* stream) {
+  return launch_zero_chain_k_ring<float>(
+      data, offsets, nd, sdata, soffsets, nds, n_pad, lanes, group, strip,
+      al, ar, hl, hr, b, dinv, tv, omega, omega_dev, x_out, y_out, stream);
+}
+
+int pyamg_dia_zero_chain_k_ring_f64(
+    const void* data, const void* offsets, int nd, const void* sdata,
+    const void* soffsets, int nds, long long n_pad, int lanes, int group,
+    long long strip, int al, int ar, int hl, int hr, const void* b,
+    const void* dinv, const void* tv, double omega, const void* omega_dev,
+    void* x_out, void* y_out, void* stream) {
+  return launch_zero_chain_k_ring<double>(
+      data, offsets, nd, sdata, soffsets, nds, n_pad, lanes, group, strip,
+      al, ar, hl, hr, b, dinv, tv, omega, omega_dev, x_out, y_out, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 // (sm_90a).
 //
 //   windowed_matvec_kernel   replaces pyamg_tpu/sparse/window.py::WindowedELL._matvec_pallas
-//   windowed_rmatvec_kernel  replaces pyamg_tpu/sparse/window.py::WindowedELL._rmatvec_pallas
+//   windowed_rmatvec_kernel, windowed_rmatvec_tiles_kernel (K7)
+//                            replace pyamg_tpu/sparse/window.py::WindowedELL._rmatvec_pallas
 //   windowed_matmat_k_kernel (K12)
 //                            replaces pyamg_tpu/sparse/window.py::WindowedELL._matmat_pallas_k
 //   windowed_rmatmat_k_kernel (K13)
@@ -39,18 +40,34 @@
 // starts[b] * w2 + idx, a dead one (data == 0) by the sentinel m =
 // m_chunks * w2, sorted stably on the device into an int32 permutation
 // `perm`, with int32 column pointers `colptr` of length m + 1; no count is
-// read back to the host), and one thread per output column sums that
-// column's entries in ascending entry order and writes the column once.
-// That is the order of the plain version's index_add_ on the CPU, and the
-// products and sums are rounded separately (__fmul_rn / __fadd_rn, no FMA
-// contraction), so the result is the same bit for bit from launch to
-// launch, from run to run, and as the CPU plain version's.  Structural
-// zeros (data == 0, the padding rows) sort past colptr[m], where no column
-// reads: they add nothing.  No output is zeroed first: every column is
-// written, an empty one with 0.  Bound: device-memory bandwidth, the live
-// entries' data, perm and the r values they read (nnz * (2 * sizeof(T) +
-// 4) bytes), colptr and y; the gathers of data and r through perm are the
-// price of the fixed order.
+// read back to the host), and each output column is summed over its
+// entries in ascending entry order and written once.  That is the order
+// of the plain version's index_add_ on the CPU, and the products and sums
+// are rounded separately (__fmul_rn / __fadd_rn, no FMA contraction), so
+// the result is the same bit for bit from launch to launch, from run to
+// run, and as the CPU plain version's.  Structural zeros (data == 0, the
+// padding rows) sort past colptr[m], where no column reads: they add
+// nothing.  No output is zeroed first: every column is written, an empty
+// one with 0.
+//
+// K7 has two forms, chosen by the wrapper from the operator's stored
+// slots per column (sparse/window.py::windowed_rmatvec).  For short
+// columns (under 16 slots each, as in the host-built T and the 640k A
+// and P),
+// one thread per column walks its entries through perm, the row's
+// division done in 32 bits (the plan's int32 perm bounds e).  For longer
+// ones the tile form walks the plan in K13's tiles of whole columns
+// (below; a table built once per operator): a CTA first forms its tile's
+// products data[e] * r[row(e)], every entry of the tile in parallel (four
+// per thread in flight), and stages them rounded in shared memory; then a
+// thread per column adds its column's products in plan order.  So a long
+// column's loads are spread over the CTA instead of one thread's serial
+// chain, and the serial part is one add per entry from shared memory.  A
+// column longer than the tile budget is staged in budget-sized pieces and
+// summed by one thread.  Both forms give the same bits.  Bound:
+// device-memory bandwidth, the live entries' data, perm and the r values
+// they read (nnz * (2 * sizeof(T) + 4) bytes), colptr and y; the gathers
+// of data and r through perm are the price of the fixed order.
 //
 // The K-lane forms take K-major lane stacks (the batched solve's layout):
 // X (lanes, m_chunks * w2) -> Y (lanes, n_pad) forward (K12), R (lanes,
@@ -125,6 +142,20 @@ __device__ __forceinline__ double mul_add_rn(double a, double b, double c) {
   return __dadd_rn(c, __dmul_rn(a, b));
 }
 
+// a * b and a + b, each rounded (never contracted into an FMA)
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
 // a * b + c rounded once (an explicit FMA)
 __device__ __forceinline__ float fma_rn(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
@@ -160,22 +191,114 @@ __device__ __forceinline__ int64_t entry_row(int64_t e, int64_t per_block,
   return (e / per_block) * block + e % block;
 }
 
+// the row of entry e, in 32 bits (the plan's int32 perm bounds e)
+__device__ __forceinline__ int entry_row32(int e, unsigned per_block,
+                                           unsigned block) {
+  const unsigned u = static_cast<unsigned>(e);
+  return static_cast<int>((u / per_block) * block + u % block);
+}
+
+// K7's products data[e] * r[row(e)] of the plan entries [j0, j0 + cnt),
+// rounded, into sprod[0, cnt): four entries per thread and pass, their
+// perm loads, then their data and r gathers, in flight together
+template <typename T>
+__device__ __forceinline__ void stage_products(
+    const T* __restrict__ data, const int* __restrict__ perm,
+    const T* __restrict__ r, int j0, int cnt, unsigned per_block,
+    unsigned block, T* sprod) {
+  for (int i0 = threadIdx.x; i0 < cnt; i0 += 4 * blockDim.x) {
+    int e[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * blockDim.x;
+      e[u] = i < cnt ? perm[j0 + i] : 0;
+    }
+    T d[4], x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < cnt) {
+        d[u] = data[e[u]];
+        x[u] = r[entry_row32(e[u], per_block, block)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < cnt) sprod[i] = mul_rn(d[u], x[u]);
+    }
+  }
+}
+
+// K7 by column: one thread per output column c < m walks the column's
+// live entries perm[colptr[c] .. colptr[c + 1]) in plan order.
 template <typename T>
 __global__ void windowed_rmatvec_kernel(const T* __restrict__ data,
                                         const int* __restrict__ perm,
-                                        const int* __restrict__ colptr, int k,
-                                        int block, int64_t m,
+                                        const int* __restrict__ colptr,
+                                        int k, int block, int64_t m,
                                         const T* __restrict__ r,
                                         T* __restrict__ y) {
   const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (c >= m) return;
-  const int64_t per_block = static_cast<int64_t>(k) * block;
+  const unsigned per_block = static_cast<unsigned>(k) * block;
   T acc = T(0);
   for (int j = colptr[c], j1 = colptr[c + 1]; j < j1; ++j) {
-    const int64_t e = perm[j];
-    acc = mul_add_rn(data[e], r[entry_row(e, per_block, block)], acc);
+    const int e = perm[j];
+    acc = mul_add_rn(data[e], r[entry_row32(e, per_block, block)], acc);
   }
   y[c] = acc;
+}
+
+// K7 by tile: CTA blockIdx.x = tile blockIdx.x of the tile table (columns
+// [tiles[t], tiles[t + 1]); an empty tile's CTA exits at once).  Shared
+// memory holds the tile's rounded products (at most `budget`) and its
+// column pointers (at most max_cols + 1); a thread per column then adds
+// its column's products in plan order.  A single column longer than the
+// budget is staged `budget` products at a time and summed by thread 0.
+template <typename T>
+__global__ void windowed_rmatvec_tiles_kernel(const T* __restrict__ data,
+                                        const int* __restrict__ perm,
+                                        const int* __restrict__ colptr,
+                                        const int* __restrict__ tiles,
+                                        int budget, int k, int block,
+                                        const T* __restrict__ r,
+                                        T* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sprod = reinterpret_cast<T*>(smem);
+  int* sptr = reinterpret_cast<int*>(sprod + budget);
+  const int c0 = tiles[blockIdx.x];
+  const int n_cols = tiles[blockIdx.x + 1] - c0;
+  if (n_cols == 0) return;
+  const int j0 = colptr[c0];
+  const int n_ent = colptr[c0 + n_cols] - j0;
+  const unsigned per_block = static_cast<unsigned>(k) * block;
+  if (n_ent > budget) {
+    T acc = T(0);
+    for (int done = 0; done < n_ent; done += budget) {
+      const int cnt = min(budget, n_ent - done);
+      stage_products(data, perm, r, j0 + done, cnt, per_block, block, sprod);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        for (int j = 0; j < cnt; ++j) acc = add_rn(acc, sprod[j]);
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) y[c0] = acc;
+    return;
+  }
+  stage_products(data, perm, r, j0, n_ent, per_block, block, sprod);
+  for (int c = threadIdx.x; c <= n_cols; c += blockDim.x) {
+    sptr[c] = colptr[c0 + c] - j0;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < n_cols; c += blockDim.x) {
+    T acc = T(0);
+    for (int j = sptr[c], j1 = sptr[c + 1]; j < j1; ++j) {
+      acc = add_rn(acc, sprod[j]);
+    }
+    y[c0 + c] = acc;
+  }
 }
 
 // K12: CTA (blockIdx.x, blockIdx.y) = `rows` consecutive rows of one row
@@ -364,21 +487,6 @@ int launch_matvec(const void* data, const void* idx, const void* starts, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The transposes: one thread per output column c < m, the column's live
-// entries perm[colptr[c] .. colptr[c + 1]) in ascending entry order.
-template <typename T>
-int launch_rmatvec(const void* data, const void* perm, const void* colptr,
-                   int k, int block, long long m, const void* r, void* y,
-                   void* stream) {
-  if (m <= 0) return static_cast<int>(cudaSuccess);
-  windowed_rmatvec_kernel<T><<<grid_for(m), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int*>(perm),
-      static_cast<const int*>(colptr), k, block, m, static_cast<const T*>(r),
-      static_cast<T*>(y));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Dynamic shared memory above the default 48 KB needs the kernel's
 // attribute raised first.
 template <typename Kernel>
@@ -417,6 +525,45 @@ int launch_matmat_k(const void* data, const void* idx, const void* starts,
       static_cast<const T*>(data), static_cast<const int*>(idx),
       static_cast<const int*>(starts), k, block, w2, n_rows, m, lanes, rows,
       static_cast<const T*>(x), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7 by column: one thread per column c < m; r (n_rows) in, y (m) out.
+template <typename T>
+int launch_rmatvec(const void* data, const void* perm, const void* colptr,
+                   int k, int block, long long m, const void* r, void* y,
+                   void* stream) {
+  if (m <= 0) return static_cast<int>(cudaSuccess);
+  windowed_rmatvec_kernel<T><<<grid_for(m), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int*>(perm),
+      static_cast<const int*>(colptr), k, block, m, static_cast<const T*>(r),
+      static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7 by tile: one CTA per tile of the n_tiles + 1 boundaries in `tiles`
+// (at most `budget` entries and `max_cols` columns each, or one longer
+// column); r (n_rows) in, y (m) out.
+template <typename T>
+int launch_rmatvec_tiles(const void* data, const void* perm,
+                         const void* colptr, const void* tiles, int n_tiles,
+                         int budget, int max_cols, int k, int block,
+                         const void* r, void* y, void* stream) {
+  if (budget < 1 || max_cols < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_tiles <= 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = static_cast<size_t>(budget) * sizeof(T)
+                      + static_cast<size_t>(max_cols + 1) * sizeof(int);
+  cudaError_t err = allow_smem(windowed_rmatvec_tiles_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  windowed_rmatvec_tiles_kernel<T><<<static_cast<unsigned int>(n_tiles),
+                                     kThreads, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int*>(perm),
+      static_cast<const int*>(colptr), static_cast<const int*>(tiles),
+      budget, k, block, static_cast<const T*>(r), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -497,7 +644,7 @@ int pyamg_windowed_matvec_f64(const void* data, const void* idx,
                                stream);
 }
 
-// data, perm, colptr, k, block, m, r, y, stream
+// K7 by column: data, perm, colptr, k, block, m, r, y, stream
 int pyamg_windowed_rmatvec_f32(const void* data, const void* perm,
                                const void* colptr, int k, int block,
                                long long m, const void* r, void* y,
@@ -511,6 +658,28 @@ int pyamg_windowed_rmatvec_f64(const void* data, const void* perm,
                                void* stream) {
   return launch_rmatvec<double>(data, perm, colptr, k, block, m, r, y,
                                 stream);
+}
+
+// K7 by tile: data, perm, colptr, tiles, n_tiles, budget, max_cols, k,
+// block, r, y, stream
+int pyamg_windowed_rmatvec_tiles_f32(const void* data, const void* perm,
+                                     const void* colptr, const void* tiles,
+                                     int n_tiles, int budget, int max_cols,
+                                     int k, int block, const void* r, void* y,
+                                     void* stream) {
+  return launch_rmatvec_tiles<float>(data, perm, colptr, tiles, n_tiles,
+                                     budget, max_cols, k, block, r, y,
+                                     stream);
+}
+
+int pyamg_windowed_rmatvec_tiles_f64(const void* data, const void* perm,
+                                     const void* colptr, const void* tiles,
+                                     int n_tiles, int budget, int max_cols,
+                                     int k, int block, const void* r, void* y,
+                                     void* stream) {
+  return launch_rmatvec_tiles<double>(data, perm, colptr, tiles, n_tiles,
+                                      budget, max_cols, k, block, r, y,
+                                      stream);
 }
 
 // data, idx, starts, k, block, w2, n_rows, m, lanes, rows, x, y, stream

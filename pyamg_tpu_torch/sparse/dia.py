@@ -29,8 +29,12 @@ stacks, the batched solve's layout:
 - :func:`dia_zero_chain_k`    (X, tv (St (B - A X))), X = w dinv B
                                                              (TPU: ``dia_pallas_zero_chain_km``)
 
-and :func:`dia_jacobi_res_k`, the batched Jacobi-plus-residual composed
-as the reference's batch rule composes it: K9, then B - A Y through K8.
+:func:`dia_zero_chain_k` marches strips of rows with a ring of the
+residual in shared memory, every lane in one launch, by the plan of
+:func:`k11_plan`; an St whose reach is too large for the ring takes the
+per-row kernel.  And :func:`dia_jacobi_res_k`, the batched
+Jacobi-plus-residual composed as the reference's batch rule composes it:
+K9, then B - A Y through K8.
 
 Each has a plain PyTorch twin (``*_ref``) in this module.  A wrapper runs
 the twin only when its operands lie on the CPU; on CUDA tensors it
@@ -45,6 +49,7 @@ plain PyTorch (rolls and masks), as the JAX package leaves them to XLA.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Tuple
@@ -69,13 +74,21 @@ __all__ = ["DIAMatrix", "dia_from_scipy", "dia_from_stencil", "dia_spgemm",
            "dia_spmm_add", "dia_jacobi_k", "dia_zero_chain_k",
            "dia_jacobi_res_k", "dia_jacobi_zero_res_k", "dia_spmm_ref",
            "dia_spmm_scaled_ref", "dia_spmm_add_ref", "dia_jacobi_k_ref",
-           "dia_jacobi_zero_res_k_ref", "dia_zero_chain_k_ref"]
+           "dia_jacobi_zero_res_k_ref", "dia_zero_chain_k_ref", "K11Plan",
+           "k11_plan"]
 
 # modes of csrc/dia.cu::dia_kernel and csrc/dia_chain.cu
 _SPMV, _JACOBI, _JACOBI_ZERO_RES, _SPMV_SCALED, _SPMV_ADD = 0, 1, 2, 3, 4
 _ZERO_CHAIN, _JACOBI_RES = 0, 1
 # modes of csrc/dia_k.cu::dia_k_kernel
 _SPMM, _SPMM_SCALED, _SPMM_ADD, _JACOBI_K, _ZERO_RES_K = 0, 1, 2, 3, 4
+# K11's strip march (csrc/dia_k.cu::zero_chain_k_ring_kernel): threads
+# per CTA and rows per step (kRingThreads), lanes per group at most
+# (kRingLanes); the shared memory a block may hold (an H100's 227 KB,
+# kMaxSmem)
+_K11_THREADS = 1024
+_K11_MAX_GROUP = 8
+_SMEM_BLOCK = 232448
 
 
 @dataclass(frozen=True)
@@ -292,6 +305,61 @@ def dia_jacobi_zero_res_k_ref(A: DIAMatrix, Bk, dinv, omega):
 def dia_zero_chain_k_ref(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
     Xk = omega * (dinv * Bk)
     return Xk, tv * dia_spmm_ref(St, Bk - dia_spmm_ref(A, Xk))
+
+
+@dataclass(frozen=True)
+class K11Plan:
+    """A launch of K11's strip march: lanes in ``groups`` groups of at most
+    ``group`` (gridDim.y), rows in ``strips`` strips of ``strip``
+    (gridDim.x), each walked in steps of ``step`` (the kernel's 1024) rows
+    with a ring of ``ring`` = 2 step + hl + hr rows of r per lane in shared
+    memory (a step's rows with St's reach, and the next step's)."""
+
+    al: int          # A's reach below the diagonal (rows)
+    ar: int          # and above it
+    hl: int          # St's reach below the diagonal
+    hr: int          # and above it
+    group: int
+    groups: int
+    strip: int
+    strips: int
+
+    step = _K11_THREADS
+
+    @property
+    def ring(self):
+        return 2 * self.step + self.hl + self.hr
+
+    def smem(self, itemsize):
+        return self.ring * self.group * itemsize
+
+
+def _reach(offsets):
+    return max(0, -min(offsets)), max(0, max(offsets))
+
+
+@functools.lru_cache(maxsize=256)
+def k11_plan(offsets, soffsets, n_pad, K, dtype, sms):
+    """K11's launch for A's ``offsets`` and St's ``soffsets`` on ``n_pad``
+    rows and K lanes of ``dtype`` on a card of ``sms`` SMs, or None when
+    one lane's ring of 2048 + hl + hr rows exceeds a block's shared memory
+    or n_pad needs 64 bits (then the per-row kernel runs).  Lanes go in
+    the fewest groups whose rings fit (at most 8 lanes each, split
+    evenly); a step is 1024 rows; one CTA per SM (its 1024 threads fill
+    the register file), so sms // groups strips, but no strip shorter than
+    max(step, 2 (hl + hr)) rows, which keeps the rows computed twice under
+    half."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    (al, ar), (hl, hr) = _reach(offsets), _reach(soffsets)
+    step = K11Plan.step
+    fit = _SMEM_BLOCK // ((2 * step + hl + hr) * itemsize)
+    if fit < 1 or n_pad >= 2 ** 31:
+        return None
+    groups = -(-K // min(fit, _K11_MAX_GROUP, K))
+    strips = max(1, min(sms // groups, -(-n_pad // max(step, 2 * (hl + hr)))))
+    strip = -(-n_pad // strips)
+    return K11Plan(al=al, ar=ar, hl=hl, hr=hr, group=-(-K // groups),
+                   groups=groups, strip=strip, strips=-(-n_pad // strip))
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +621,9 @@ def dia_jacobi_res_k(A: DIAMatrix, Xk, Bk, dinv, omega):
 def dia_zero_chain_k(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
     """The zero-entry level front-end per lane in one pass: (X, Y) =
     (omega * dinv * B, tv * (St @ (B - A @ X))); the residual is never
-    stored (K11)."""
+    stored (K11: one launch of the strip march, or the per-row kernel in
+    16-lane chunks for an St whose reach is too large for its ring; both
+    give the same bits)."""
     if _build.on_cpu(A.data, St.data, Bk, dinv, tv):
         return dia_zero_chain_k_ref(A, St, Bk, dinv, tv, omega)
     _kernel_operand(A)
@@ -563,13 +633,40 @@ def dia_zero_chain_k(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
                          f"got {St.dtype} with n_pad {St.n_pad}")
     _check_stacks(A, None, Bk=Bk)
     _check_vectors(A, dinv=dinv, tv=tv)
+    Xk = torch.empty_like(Bk)
+    Yk = torch.empty_like(Bk)
+    plan = k11_plan(tuple(A.offsets), tuple(St.offsets), A.n_pad,
+                    Bk.shape[0], A.dtype, _build.sm_count(A.device))
+    if plan is None:
+        _zero_chain_k_rows(A, St, Bk, dinv, tv, omega, Xk, Yk)
+    else:
+        _zero_chain_k_ring(A, St, Bk, dinv, tv, omega, Xk, Yk, plan)
+    return Xk, Yk
+
+
+def _zero_chain_k_ring(A, St, Bk, dinv, tv, omega, Xk, Yk, plan):
+    """K11's strip march by ``plan``, every lane in one launch."""
+    suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
+    fn_name = f"pyamg_dia_zero_chain_k_ring_{suffix}"
+    w, w_dev = _omega_args(omega, A, c_scalar)
+    err = getattr(_build.library(), fn_name)(
+        A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags,
+        St.data.data_ptr(), St.offsets_t.data_ptr(), St.ndiags, A.n_pad,
+        Bk.shape[0], plan.group, plan.strip, plan.al, plan.ar, plan.hl,
+        plan.hr, Bk.data_ptr(), dinv.data_ptr(), tv.data_ptr(), w, w_dev,
+        Xk.data_ptr(), Yk.data_ptr(),
+        torch.cuda.current_stream(A.device).cuda_stream)
+    _build.check(fn_name, err)
+    _count("dia_zero_chain_k", A)
+
+
+def _zero_chain_k_rows(A, St, Bk, dinv, tv, omega, Xk, Yk):
+    """K11's per-row kernel, one thread per row, in 16-lane chunks."""
     suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
     fn_name = f"pyamg_dia_zero_chain_k_{suffix}"
     fn = getattr(_build.library(), fn_name)
     w, w_dev = _omega_args(omega, A, c_scalar)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    Xk = torch.empty_like(Bk)
-    Yk = torch.empty_like(Bk)
     for k0, k1 in _build.lane_chunks(Bk.shape[0]):
         err = fn(A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags,
                  St.data.data_ptr(), St.offsets_t.data_ptr(), St.ndiags,
@@ -578,7 +675,6 @@ def dia_zero_chain_k(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
                  Yk[k0:k1].data_ptr(), stream)
         _build.check(fn_name, err)
         _count("dia_zero_chain_k", A)
-    return Xk, Yk
 
 
 # ---------------------------------------------------------------------------

@@ -32,8 +32,9 @@ once, at its first transpose apply on the card
 (:attr:`WindowedELL.column_plan`), and K7/K13 sum each output column's
 entries in ascending entry order, the order of the twins' ``index_add_``
 on the CPU, so a transpose gives the same bits on every launch and run.
-K13 walks the plan in tiles of whole columns balanced by entries
-(:meth:`WindowedELL.column_tiles`), also built once, on the device.
+K13, and K7 on long columns, walk the plan in tiles of whole columns
+balanced by entries (:meth:`WindowedELL.column_tiles`), also built once,
+on the device.
 """
 
 from __future__ import annotations
@@ -81,7 +82,15 @@ _K13_PAIRS = 1024
 _SMEM_DEFAULT = 48 * 1024
 # streaming multiprocessors a CPU operator's tile budget assumes (an
 # H100's); an operator on the card takes its device's count
-_CPU_SMS = 132
+_CPU_SMS = _build.CPU_SMS
+# K7's tile form takes operators with at least this many stored slots
+# per column, the rest its one-thread-per-column form; a tile holds at
+# most _K7_COLS columns (one per thread of its 256-thread CTA) and at
+# least _K7_MIN_BUDGET live entries' worth of budget (chosen on the card,
+# PERF.md §6, from scripts/measure_k7_k11.py)
+_K7_TILE_SLOTS = 16
+_K7_COLS = 256
+_K7_MIN_BUDGET = 512
 
 
 @dataclass(frozen=True)
@@ -139,20 +148,24 @@ class WindowedELL:
     def _tile_tables(self):
         return {}
 
-    def column_tiles(self, max_cols):
-        """(budget, tiles), a K13 tile table over :attr:`column_plan`,
-        built once per ``max_cols`` at the first K-lane transpose on the
-        card that asks for it: tile t is the columns ``[tiles[t], tiles[t
-        + 1])`` (int32 boundaries from 0 to m), at most ``max_cols``
-        columns with at most ``budget`` live entries between them, or a
-        single longer column.  See :func:`column_tile_table`."""
+    def column_tiles(self, max_cols, min_budget=0):
+        """(budget, tiles), a K7 / K13 tile table over :attr:`column_plan`,
+        built once per ``max_cols`` and ``min_budget`` at the first
+        transpose on the card that asks for it: tile t is the columns
+        ``[tiles[t], tiles[t + 1])`` (int32 boundaries from 0 to m), at
+        most ``max_cols`` columns with at most ``budget`` live entries
+        between them, or a single longer column; ``budget`` is
+        :func:`tile_budget`'s, at least ``min_budget``.  See
+        :func:`column_tile_table`."""
         tables = self._tile_tables
-        if max_cols not in tables:
+        key = (max_cols, min_budget)
+        if key not in tables:
             perm, colptr = self.column_plan
-            budget = tile_budget(self.nnz, _sm_count(self.device))
-            tables[max_cols] = (budget, column_tile_table(
+            budget = max(tile_budget(self.nnz, _build.sm_count(self.device)),
+                         min_budget)
+            tables[key] = (budget, column_tile_table(
                 colptr, perm.numel(), budget, max_cols))
-        return tables[max_cols]
+        return tables[key]
 
     def _x_padded(self, x):
         """x (or each lane of a (K, m) stack) fitted to the source length
@@ -333,16 +346,8 @@ def windowed_from_scipy(A, dtype=torch.float32, device=None, block=None,
     )
 
 
-def _sm_count(device):
-    """The streaming multiprocessors of ``device`` (``_CPU_SMS`` for the
-    CPU)."""
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).multi_processor_count
-    return _CPU_SMS
-
-
 def tile_budget(nnz, sms):
-    """Live entries per K13 tile: a power of two that gives each of the
+    """Live entries per K7 / K13 tile: a power of two that gives each of the
     card's ``sms`` SMs about 8 tiles, from 128 to 2048 (16 KB of float32
     or 24 KB of float64 staged per CTA)."""
     per_tile = max(int(nnz) // (sms * 8), 1)
@@ -510,7 +515,11 @@ def windowed_rmatvec(W: WindowedELL, r):
     """y = A^T @ r, with r of length ``n_pad``; y has ``m_chunks * w2``.
     On the card each column sums its entries in ascending entry order
     through the operator's column plan (built at the first call), so the
-    result is the same on every run and equals the CPU twin's."""
+    result is the same on every run and equals the CPU twin's (K7: one
+    thread per column where columns hold under ``_K7_TILE_SLOTS`` stored
+    slots on average; else one CTA per tile of whole columns forms the
+    tile's products in parallel and a thread per column adds them in plan
+    order)."""
     if _build.on_cpu(W.data, r):
         return windowed_rmatvec_ref(W, r)
     _build.check_vector("r", r, W.n_pad, W.dtype)
@@ -518,11 +527,19 @@ def windowed_rmatvec(W: WindowedELL, r):
     perm, colptr = W.column_plan
     m = W.m_chunks * W.w2
     y = torch.empty(m, dtype=W.dtype, device=r.device)
-    fn_name = f"pyamg_windowed_rmatvec_{_KERNEL_SUFFIX[W.dtype]}"
-    err = getattr(_build.library(), fn_name)(
-        W.data.data_ptr(), perm.data_ptr(), colptr.data_ptr(), W.k, W.block,
-        m, r.data_ptr(), y.data_ptr(),
-        torch.cuda.current_stream(W.device).cuda_stream)
+    stream = torch.cuda.current_stream(W.device).cuda_stream
+    if W.data.numel() < _K7_TILE_SLOTS * m:
+        fn_name = f"pyamg_windowed_rmatvec_{_KERNEL_SUFFIX[W.dtype]}"
+        err = getattr(_build.library(), fn_name)(
+            W.data.data_ptr(), perm.data_ptr(), colptr.data_ptr(), W.k,
+            W.block, m, r.data_ptr(), y.data_ptr(), stream)
+    else:
+        budget, tiles = W.column_tiles(_K7_COLS, _K7_MIN_BUDGET)
+        fn_name = f"pyamg_windowed_rmatvec_tiles_{_KERNEL_SUFFIX[W.dtype]}"
+        err = getattr(_build.library(), fn_name)(
+            W.data.data_ptr(), perm.data_ptr(), colptr.data_ptr(),
+            tiles.data_ptr(), tiles.numel() - 1, budget, _K7_COLS, W.k,
+            W.block, r.data_ptr(), y.data_ptr(), stream)
     _build.check(fn_name, err)
     _build.count_launch(f"windowed_rmatvec.{_build.dtype_name(W.dtype)}")
     return y

@@ -216,8 +216,8 @@ def test_mixed_solve_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("K", [3, 8, 19])
 def test_k_lane_kernels_match_twins(cuda, dtype, K):
     """K8 in its three modes, K9 and K11 against their twins on K-major
-    stacks; K=19 takes two launches (16 lanes, then 3) per call; omega by
-    value and as a 0-d device tensor."""
+    stacks; K=19 takes two launches (16 lanes, then 3) per call, K11's
+    strip march one; omega by value and as a 0-d device tensor."""
     grid = (48, 70)
     A = poisson(grid, format="csr")
     D = dia_from_scipy(A, dtype=dtype, device=cuda, row_pad=1024)
@@ -252,7 +252,125 @@ def test_k_lane_kernels_match_twins(cuda, dtype, K):
                                f"dia_spmm_scaled.{name}": per_call,
                                f"dia_spmm_add.{name}": per_call,
                                f"dia_jacobi_k.{name}": 2 * per_call,
-                               f"dia_zero_chain_k.{name}": 2 * per_call}
+                               f"dia_zero_chain_k.{name}": 2}
+
+
+def _random_dia(n_pad, offsets, dtype, dev, seed):
+    """Random diagonals at ``offsets``, zero where the column falls outside
+    [0, n_pad) (the layout's structural zeros)."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((len(offsets), n_pad))
+    i = np.arange(n_pad)
+    for d, off in enumerate(offsets):
+        data[d, (i + off < 0) | (i + off >= n_pad)] = 0.0
+    return dia.DIAMatrix(data=torch.as_tensor(data, dtype=dtype, device=dev),
+                         offsets=tuple(offsets), shape=(n_pad, n_pad),
+                         nnz=int((data != 0).sum()))
+
+
+# name -> (n_pad, A's offsets, St's offsets, K): n_pad no multiple of the
+# strip march's step, out-of-range neighbours at both ends
+K11_CASES = {
+    "ring, 5-point": (50_001, (-300, -1, 0, 1, 300), (-300, -1, 0, 1, 300),
+                      8),
+    "ring, asymmetric reach": (100_003, (-317, -1, 1, 317),
+                               (-4000, -317, 0, 317, 2999), 8),
+    "ring, lane groups": (60_001, (-1, 0, 1), (-3000, -1, 0, 1, 3000), 16),
+    "per-row": (140_000, (-2, 0, 2), (-30_001, 0, 30_001), 19),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(K11_CASES))
+def test_k11_strip_march_and_per_row_match_twin(cuda, dtype, case):
+    """K11 in both branches: the strip march (several strips and steps;
+    the unrolled 5-diagonal form; the generic form with an A that has no
+    diagonal and St's reach 4000 rows below and 2999 above; lane groups of
+    unequal sizes, K = 16 in three groups (f32) or six (f64)) in one
+    launch per call, and the per-row kernel in 16-lane chunks for a reach
+    (60 002 rows) that no ring holds.  Within TOL of the twin, two
+    launches bit-identical, and the strip march equal to the per-row
+    kernel bit for bit, under its plan and under another strip count."""
+    n, offs, soffs, K = K11_CASES[case]
+    A = _random_dia(n, offs, dtype, cuda, 0)
+    St = _random_dia(n, soffs, dtype, cuda, 1)
+    rng = np.random.default_rng(K)
+    B = torch.as_tensor(rng.random((K, n)), dtype=dtype, device=cuda)
+    dinv, tv = (_rand(n, dtype, cuda, s) for s in (2, 3))
+    omega = torch.tensor(0.85, dtype=dtype, device=cuda)
+    plan = dia.k11_plan(A.offsets, St.offsets, n, K, dtype,
+                        _build.sm_count(cuda))
+    assert (plan is None) == (case == "per-row")
+    if plan is not None:
+        assert plan.strips >= 2 and plan.strip > plan.step
+        assert plan.groups >= (2 if case == "ring, lane groups" else 1)
+    _build.reset_launches()
+    got = dia.dia_zero_chain_k(A, St, B, dinv, tv, omega)
+    again = dia.dia_zero_chain_k(A, St, B, dinv, tv, omega)
+    torch.cuda.synchronize()
+    name = str(dtype).removeprefix("torch.")
+    per_call = 1 if plan is not None else -(-K // 16)
+    assert _build.launches == {f"dia_zero_chain_k.{name}": 2 * per_call}
+    want = dia.dia_zero_chain_k_ref(A, St, B, dinv, tv, omega)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _rel_err(g, w) <= TOL[dtype]
+    if plan is None:
+        return
+    rows = tuple(torch.empty_like(B) for _ in range(2))
+    dia._zero_chain_k_rows(A, St, B, dinv, tv, omega, *rows)
+    other = dataclasses.replace(plan, strip=-(-n // 3), strips=3)
+    alt = tuple(torch.empty_like(B) for _ in range(2))
+    dia._zero_chain_k_ring(A, St, B, dinv, tv, omega, *alt, other)
+    torch.cuda.synchronize()
+    for g, r_, a in zip(got, rows, alt):
+        assert torch.equal(g, r_) and torch.equal(g, a)
+
+
+def _long_column_rect():
+    """16384 x 300, 3 entries per row (~164 per column: K7's tile form),
+    plus column 150 with 8192 entries, longer than the tile budget."""
+    P = _random_rect(16384, 300, per_row=3, spread=10, seed=7)
+    rows = np.arange(0, 16384, 2)
+    extra = sp.csr_matrix((np.random.default_rng(8).standard_normal(
+        rows.size), (rows, np.full(rows.size, 150))), shape=P.shape)
+    return (P + extra).tocsr()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["dense column", "long columns", "caps"])
+def test_k7_tiles_match_cpu_twin(cuda, dtype, case):
+    """K7 in both forms: one thread per column (short columns, with one of
+    1024 entries) and tiles (~164 entries per column, longer than a warp,
+    with one of 8192 entries, longer than the budget and staged in pieces;
+    tiles at the 2048-entry budget); the empty columns past m.  Equal to
+    the CPU twin bit for bit and across two launches, one launch per
+    call."""
+    P = {"dense column": _dense_column_rect,
+         "long columns": _long_column_rect, "caps": _caps_rect}[case]()
+    W = windowed_from_scipy(P, dtype=dtype, device=cuda)
+    m = W.m_chunks * W.w2
+    tiles_form = W.data.numel() >= window._K7_TILE_SLOTS * m
+    assert tiles_form == (case != "dense column")
+    r = _rand(W.n_pad, dtype, cuda, 5)
+    _build.reset_launches()
+    y = window.windowed_rmatvec(W, r)
+    again = window.windowed_rmatvec(W, r)
+    torch.cuda.synchronize()
+    name = str(dtype).removeprefix("torch.")
+    assert _build.launches == {f"windowed_rmatvec.{name}": 2}
+    lens = W.column_plan[1].diff()
+    assert int(lens.max()) > 32 and int((lens == 0).sum()) > 0
+    if tiles_form:
+        budget, _ = W.column_tiles(window._K7_COLS, window._K7_MIN_BUDGET)
+        if case == "caps":
+            assert budget == 2048
+        else:
+            assert int(lens.max()) > budget
+    W_cpu = dataclasses.replace(W, data=W.data.cpu(), idx=W.idx.cpu(),
+                                starts=W.starts.cpu())
+    assert torch.equal(y, again)
+    assert torch.equal(y.cpu(), window.windowed_rmatvec_ref(W_cpu, r.cpu()))
 
 
 def test_batched_device_built_solve_on_card_matches_cpu(cuda):
