@@ -25,7 +25,9 @@ result lines):
    the device-built level-0 and level-1 zero-entry chain (K5), level 0's
    Jacobi-plus-residual (K4) and the two SpMV epilogues on level 0's S
    and S^T; the K-lane kernels at K = 8 on the device-built level-0 and
-   level-1 operators (K8 in its three modes, K9, K11); K10 at host level 0
+   level-1 operators (K8 in its three modes, K9, K11) and K9 and K8 plain
+   at host level 0, K8 and K9 also bit for bit against their
+   thread-per-row form; K10 at host level 0
    and K12, K13 on the host-built T at K = 8; K15's five modes on the
    lane-aligned level-0 operators at K = 8: max error,
    CUDA-event times of both, the bound from the bytes and operations the
@@ -58,7 +60,8 @@ result lines):
    on the device-built hierarchy (K8, K9, K11), on the host-built one
    (K10, K12, K13), then on the lane-aligned device-built hierarchy the
    interleaved route (native, K15's five modes) and the K-major mixed
-   solve;
+   solve; on every batched path K8 and K9 through their lane kernel only
+   (no thread-per-row launch);
 10. a stationary phase (accel=None, native float32, 5 V-cycles) on a
     256^2 device-built hierarchy, one right-hand side and then K = 4,
     each against the same run on a CPU copy of that hierarchy (the plain
@@ -217,6 +220,9 @@ PATHS = {
     "sharded unstructured": (
         "windowed_matvec.float32", "windowed_rmatvec.float32"),
 }
+# K8 and K9's thread-per-row form (the wrapper counts it apart)
+K8_ROWS = ("dia_spmm_rows", "dia_spmm_scaled_rows", "dia_spmm_add_rows",
+           "dia_jacobi_k_rows")
 # the lane-aligned 2048^2 fine grid and its solve padding (the reference's)
 LANE_GRID_P = (2064, 2304)
 LANE_N_PAD = 4784128
@@ -508,6 +514,37 @@ def lane_launches(check, label, key, fn):
     check(n == 1, f"{label}: {n} launch(es) per call (one expected)")
 
 
+def path_launches(check, label, counts):
+    """Every kernel instance of PATHS[label] launched in ``counts``, and K8
+    and K9 only in their lane kernel (the thread-per-row form, counted as
+    ``<kernel>_rows``, is for the shapes the lane kernel refuses)."""
+    for k in PATHS[label]:
+        check(counts.get(k, 0) > 0, f"{label}: {k} launched "
+              f"({counts.get(k, 0)} launches)")
+    rows = {k: c for k, c in counts.items() if k.split(".")[0] in K8_ROWS}
+    check(not rows, f"{label}: K8 / K9 through the lane kernel only "
+          f"(thread-per-row launches {rows or 'none'})")
+
+
+def k8_rows_check(check, name, kernel, mode, A, X, b, dinv, omega, lane_fn):
+    """K8 / K9's lane kernel equal to its thread-per-row form bit for bit
+    on the same inputs (the wrapper's plan taken and printed)."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import dia
+
+    plan = dia.k8_plan(A.offsets, A.n_pad, X.shape[0], A.dtype)
+    got = lane_fn()
+    rows = dia._dia_k_rows(kernel, mode, A, X, b, dinv, omega)
+    torch.cuda.synchronize()
+    form = (f"{plan.blocks} blocks of {plan.rows} rows, {plan.vec} a "
+            f"thread, row blocks [{plan.lo}, {plan.hi}) unchecked"
+            if plan is not None else "not taken")
+    check(plan is not None and torch.equal(got, rows),
+          f"{name}: the lane kernel ({form}) equals the thread-per-row "
+          "kernel bit for bit")
+
+
 def dia_cost(A, vectors, lanes=1, stacks=0, extra_ops=0):
     """(bytes, operations) of a DIA pass: A's diagonals, ``vectors``
     shared (n_pad,) vectors and ``stacks`` (lanes, n_pad) stacks, each
@@ -621,9 +658,7 @@ def solve_phase(check, label, solver, A, b, ref_iters, launches):
     check(abs(iters - ref_iters) <= 1,
           f"{label}: {iters} CG iterations within {ref_iters} +- 1 "
           "(reference)")
-    for k in PATHS[label]:
-        check(counts.get(k, 0) > 0, f"{label}: {k} launched "
-              f"({counts.get(k, 0)} launches)")
+    path_launches(check, label, counts)
     launches[label] = counts
 
 
@@ -657,9 +692,7 @@ def stationary_phase(check, label, solver, b, launches):
           f"{label}: history vs the CPU copy (twins) rel diff {st_err:.2e} "
           f"(tol {STATIONARY_RTOL:g}); factor lane 0 "
           f"{(res_g[0][-1] / res_g[0][0]) ** 0.2:.4f}")
-    for k in PATHS[label]:
-        check(launches[label].get(k, 0) > 0, f"{label}: {k} launched "
-              f"({launches[label].get(k, 0)} launches)")
+    path_launches(check, label, launches[label])
 
 
 def batched_phase(check, label, solver, A, launches, ref_native,
@@ -745,9 +778,7 @@ def batched_phase(check, label, solver, A, launches, ref_native,
           "(reference) to 1e-8")
     check(bool(hist_m.max() <= 1e-8 and true_m.max() <= 1e-8),
           f"{label}: every lane's true relres <= 1e-8 ({true_m.max():.3e})")
-    for k in PATHS[label]:
-        check(counts.get(k, 0) > 0, f"{label}: {k} launched "
-              f"({counts.get(k, 0)} launches)")
+    path_launches(check, label, counts)
 
 
 def interleaved_phase(check, dla, A, launches):
@@ -824,9 +855,7 @@ def interleaved_phase(check, dla, A, launches):
           f"{label_m}: lanes {it_m} converged to true relres "
           f"{true_m.max():.3e} <= 1e-8 on the K-major path")
     for lab, counts in ((label, counts_n), (label_m, counts_m)):
-        for k in PATHS[lab]:
-            check(counts.get(k, 0) > 0, f"{lab}: {k} launched "
-                  f"({counts.get(k, 0)} launches)")
+        path_launches(check, lab, counts)
 
 
 def profile_phase(title, runs):
@@ -1596,6 +1625,34 @@ def main():
                     lambda: dia.dia_jacobi_zero_res_k_ref(Ad, Bk, dinv,
                                                           omega0),
                     results, *dia_cost(Ad, 1, LANES, 3, extra_ops=3))
+            if label != "level0" or dtype != torch.float32:
+                continue
+            # K9 and K8 plain at the host-built level 0 (the host-built
+            # batched path's sweeps and residuals); X from a generator of
+            # its own, so the later checks keep their inputs
+            Xk = torch.as_tensor(np.random.default_rng(9).random(
+                (LANES, Ad.n_pad)), dtype=dtype, device=dev)
+            Xcols = Xk.T.contiguous()
+            ktag = f"{tag} K={LANES}"
+            path = "host-built batched config 1"
+            compare(check, f"dia_jacobi_k.{dt} [{ktag}]", dtype,
+                    lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv, omega0),
+                    lambda: dia.dia_jacobi_k_ref(Ad, Xk, Bk, dinv, omega0),
+                    results, *dia_cost(Ad, 1, LANES, 3, extra_ops=4),
+                    path=path)
+            k8_rows_check(check, f"dia_jacobi_k.{dt} [{ktag}]",
+                          "dia_jacobi_k", dia._JACOBI_K, Ad, Xk, Bk, dinv,
+                          omega0, lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv,
+                                                           omega0))
+            compare(check, f"dia_spmm.{dt} [{ktag}]", dtype,
+                    lambda: dia.dia_spmm(Ad, Xk),
+                    lambda: dia.dia_spmm_ref(Ad, Xk), results,
+                    *dia_cost(Ad, 0, LANES, 2), path=path,
+                    library_fn=lambda: torch.sparse.mm(A_csr, Xcols))
+            k8_rows_check(check, f"dia_spmm.{dt} [{ktag}]", "dia_spmm",
+                          dia._SPMM, Ad, Xk, None, None, 0.0,
+                          lambda: dia.dia_spmm(Ad, Xk))
+            del Xk, Xcols
     for label, hlvl, host_lvl in (("level0", lv0, ml.levels[0]),
                                   ("level1", lv1, ml.levels[1])):
         Tf = hlvl.P.ops[-1]
@@ -1697,7 +1754,12 @@ def main():
             compare(check, f"dia_jacobi_k.{dt} [{ktag}]", dtype,
                     lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv, omega),
                     lambda: dia.dia_jacobi_k_ref(Ad, Xk, Bk, dinv, omega),
-                    results, *dia_cost(Ad, 1, LANES, 3, extra_ops=4))
+                    results, *dia_cost(Ad, 1, LANES, 3, extra_ops=4),
+                    path="device-built batched config 1")
+            k8_rows_check(check, f"dia_jacobi_k.{dt} [{ktag}]",
+                          "dia_jacobi_k", dia._JACOBI_K, Ad, Xk, Bk, dinv,
+                          omega, lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv,
+                                                          omega))
             lib = lib_add = None
             if label == "level0":
                 A_csr, S_csr = dia_to_csr(Ad), dia_to_csr(S)
@@ -1708,18 +1770,29 @@ def main():
             compare(check, f"dia_spmm.{dt} [{ktag}]", dtype,
                     lambda: dia.dia_spmm(Ad, Xk),
                     lambda: dia.dia_spmm_ref(Ad, Xk), results,
-                    *dia_cost(Ad, 0, LANES, 2), library_fn=lib)
-            compare(check, f"dia_spmm_scaled.{dt} [device {label} St nd="
-                    f"{nds} n_pad={m} K={LANES}]", dtype,
+                    *dia_cost(Ad, 0, LANES, 2), library_fn=lib,
+                    path="device-built batched config 1")
+            k8_rows_check(check, f"dia_spmm.{dt} [{ktag}]", "dia_spmm",
+                          dia._SPMM, Ad, Xk, None, None, 0.0,
+                          lambda: dia.dia_spmm(Ad, Xk))
+            stag = f"device {label} St nd={nds} n_pad={m} K={LANES}"
+            compare(check, f"dia_spmm_scaled.{dt} [{stag}]", dtype,
                     lambda: dia.dia_spmm_scaled(St, Xk, tv),
                     lambda: dia.dia_spmm_scaled_ref(St, Xk, tv), results,
-                    *dia_cost(St, 1, LANES, 2, extra_ops=1))
-            compare(check, f"dia_spmm_add.{dt} [device {label} S nd="
-                    f"{S.ndiags} n_pad={m} K={LANES}]", dtype,
+                    *dia_cost(St, 1, LANES, 2, extra_ops=1),
+                    path="device-built batched stationary")
+            k8_rows_check(check, f"dia_spmm_scaled.{dt} [{stag}]",
+                          "dia_spmm_scaled", dia._SPMM_SCALED, St, Xk, tv,
+                          None, 0.0, lambda: dia.dia_spmm_scaled(St, Xk, tv))
+            atag = f"device {label} S nd={S.ndiags} n_pad={m} K={LANES}"
+            compare(check, f"dia_spmm_add.{dt} [{atag}]", dtype,
                     lambda: dia.dia_spmm_add(S, Xk, Vk),
                     lambda: dia.dia_spmm_add_ref(S, Xk, Vk), results,
                     *dia_cost(S, 0, LANES, 3, extra_ops=1),
-                    library_fn=lib_add)
+                    library_fn=lib_add, path="device-built batched config 1")
+            k8_rows_check(check, f"dia_spmm_add.{dt} [{atag}]",
+                          "dia_spmm_add", dia._SPMM_ADD, S, Xk, Vk, None,
+                          0.0, lambda: dia.dia_spmm_add(S, Xk, Vk))
             if label != "level0":
                 continue
             compare(check, f"dia_jacobi_res.{dt} [{tag}]", dtype,

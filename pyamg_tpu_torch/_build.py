@@ -67,6 +67,7 @@ build_info: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # name -> argtypes; every function returns the cudaError_t as int
 _SIGNATURES = {
     # data, offsets, nd, n_pad, x, b, dinv, omega, omega_dev, y, r, mode,
@@ -87,6 +88,12 @@ _SIGNATURES = {
                         _P, _P, _I, _P),
     "pyamg_dia_k_f64": (_P, _P, _I, _L, _I, _P, _P, _P, ctypes.c_double,
                         _P, _P, _P, _I, _P),
+    # data, offsets (host ints), nd, n_pad, lanes, vec, lo_int, hi_int, x,
+    # b, dinv, omega, omega_dev, y, mode, stream
+    "pyamg_dia_k_lanes_f32": (_P, _IP, _I, _L, _I, _I, _I, _I, _P, _P, _P,
+                              ctypes.c_float, _P, _P, _I, _P),
+    "pyamg_dia_k_lanes_f64": (_P, _IP, _I, _L, _I, _I, _I, _I, _P, _P, _P,
+                              ctypes.c_double, _P, _P, _I, _P),
     # data, offsets, nd, sdata, soffsets, nds, n_pad, lanes, b, dinv, tv,
     # omega, omega_dev, x_out, y_out, stream
     "pyamg_dia_zero_chain_k_f32": (_P, _P, _I, _P, _P, _I, _L, _I, _P, _P,

@@ -3,7 +3,8 @@
 // ((K, n_pad) stacks, lane k's row contiguous), as the batched solve
 // carries them.
 //
-//   dia_k_kernel<T, Mode>, K8 and K9:
+//   dia_k_lane_kernel<T, Mode, ND> (and, for the shapes it refuses,
+//   dia_k_kernel<T, Mode>), K8 and K9:
 //     SPMM         Y = A X                  pyamg_tpu/sparse/dia.py::_dia_pallas_matmat_k (plain)
 //     SPMM_SCALED  Y = s * (A X), s (n_pad,) shared by the lanes
 //                                           pyamg_tpu/sparse/dia.py::_dia_pallas_matmat_k (scale=)
@@ -11,7 +12,7 @@
 //                                           pyamg_tpu/sparse/dia.py::_dia_pallas_matmat_k (addk=)
 //     JACOBI_K     Y = X + w * dinv * (B - A X)
 //                                           pyamg_tpu/sparse/dia.py::dia_pallas_jacobi_km
-//   and K10:
+//   dia_k_kernel<T, ZERO_RES_K>, K10:
 //     ZERO_RES_K   Y = w * dinv * B,  R = B - A Y
 //                                           pyamg_tpu/sparse/dia.py::dia_pallas_jacobi_zero_res_km
 //   zero_chain_k_ring_kernel<T, ND, NDS> and zero_chain_k_kernel<T>, K11:
@@ -20,25 +21,57 @@
 //
 // Layout: data (nd, n_pad) row-major, data[d, i] = A[i, i + offsets[d]],
 // zero where A has no entry or the column falls outside [0, n_pad).
-// Stacks are (lanes, n_pad) row-major; a launch covers at most kMaxLanes
-// lanes (the wrapper launches larger K in chunks on slices of the stack).
-//
-// Design: one thread per row i, looping over the lanes inside.  data[d, i],
-// dinv[i], tv[i] and the offsets are loaded once per row for all lanes,
-// which is the point of the TPU kernels (the diagonal data read once for
-// K lanes instead of K times).  For a fixed lane and diagonal,
-// neighbouring threads read neighbouring addresses of X[k, :], so every
-// load is coalesced.  Each lane's sum runs over the diagonals in offset
-// order, then the epilogue, as the reference's composed form and the
-// single-lane kernels (csrc/dia.cu) do; nvcc contracts to FMAs, so results
-// agree with the plain PyTorch twins to rounding.  The per-lane sums live
-// in a register array of kMaxLanes, indexed only by unrolled constants.
+// Stacks are (lanes, n_pad) row-major; dia_k_kernel covers at most
+// kMaxLanes lanes a launch (the wrapper launches larger K in chunks on
+// slices of the stack), dia_k_lane_kernel every lane in one launch.
 //
 // Bound: device-memory bandwidth.  Unique traffic per row is nd diagonals
 // plus 2K (SPMM), 2K + 1 (SPMM_SCALED), 3K (SPMM_ADD), 3K + 1 (JACOBI_K)
 // or 3K + 1 (ZERO_RES_K) values, against 2 nd K flops: at K = 8, nd = 5
 // about one flop per byte in f32, far below the card's ~20 flops per
-// byte.  The shifted re-reads of X across diagonals hit L1/L2.
+// byte.
+//
+// K8 and K9, dia_k_lane_kernel: the lane on the grid.  A CTA of 256
+// threads streams one lane's contiguous rows, as the single-lane K1 does:
+// 4 float32 rows a thread in 16-byte loads and stores (the row's
+// diagonals, V, B, X, dinv and Y; X at an offset that is no multiple of 4
+// from the two aligned 16-byte runs around it), or 1 row a thread in
+// float64 and where a float32 n_pad is no multiple of 4 or an operand not
+// 16-byte aligned (the coarse levels' odd n_pad).
+// The blocks walk super tiles of row blocks (128 in float32, 1 in
+// float64: each the faster of the two in its type, PERF.md §6), the lanes
+// of a tile one after another, so the diagonals, dinv
+// and s come from device memory once and from L2 for the other K - 1
+// lanes, and few of the lanes' streams are open at once; the stacks
+// stream through evict-first (__ldcs/__stcs: V, B and Y are touched
+// once).  What held the thread-per-row form (dia_k_kernel) at half its
+// bound is the layout of its loads, not its loop: for each diagonal, a
+// warp of it issued one load per lane, K runs of 128 bytes n_pad values
+// apart, and the form with the loop unrolled, the offsets as arguments and
+// no interior checks ran no faster (scripts/dia_k_variants.cu, PERF.md
+// §6).  ND, when not 0, fixes the diagonal count at compile time (5 and
+// 9, the 2-D grids' levels), so the term loop unrolls and all of a row's
+// loads issue together; the offsets arrive as a kernel argument (copied to
+// shared memory for the run-time loop), not as a load per thread and
+// diagonal; the row blocks whose neighbours all lie in [0, n_pad), with 3
+// rows to spare on either side for the aligned runs (the wrapper's plan,
+// sparse/dia.py::k8_plan), carry no bounds checks, the others select the
+// sum they had for an out-of-range term.  Each value is
+// the thread-per-row form's: the diagonals in offset order, one FMA a term
+// (what nvcc's contraction made of acc += a * x), an out-of-range
+// neighbour's term left out, then the epilogue with that form's
+// contraction (JACOBI_K: fma(w, dinv * (b - acc), x)); so both forms give
+// the same bits.  Rows are int: n_pad < 2^31.
+//
+// dia_k_kernel, one thread per row, looping over the lanes inside:
+// data[d, i], dinv[i] and the offsets are loaded once per row for all
+// lanes.  K8 and K9 take it where the lane kernel does not take the shape
+// (rows past 2^31, more than kMaxArgDiags diagonals), K10 always.
+// Each lane's sum runs over the diagonals in offset order, then the
+// epilogue, as the reference's composed form and the single-lane kernels
+// (csrc/dia.cu) do; nvcc contracts to FMAs, so results agree with the
+// plain PyTorch twins to rounding.  The per-lane sums live in a register
+// array of kMaxLanes, indexed only by unrolled constants.
 //
 // K11 keeps the residual r = B - A X out of device memory, as the TPU
 // kernel does, but computes each r_j once: zero_chain_k_ring_kernel is a
@@ -84,11 +117,15 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kMaxLanes = 16;
 constexpr int kThreads = 256;
+// K8 and K9's lane kernel: the offsets it takes as a kernel argument at
+// most
+constexpr int kMaxArgDiags = 32;
 // K11's strip march: threads per CTA and rows per step, and lanes per
 // group (its register arrays); the ring's shared memory per block at most
 // kMaxSmem (an H100's 227 KB)
@@ -174,6 +211,201 @@ dia_k_kernel(const T* __restrict__ data, const int* __restrict__ offsets,
         y[o] = Mode == SPMM_ADD ? acc[k] + b[o] : acc[k];
       }
     }
+  }
+}
+
+struct DiaOffsets {
+  int o[kMaxArgDiags];
+};
+
+// K8 / K9's lane kernel: rows a thread (VEC: 4 in 16-byte loads and
+// stores, float32 only, or 1), rows a block, and row blocks a super tile
+// (per value type)
+template <typename T, int VEC>
+struct LaneShape {
+  static_assert(VEC == 1 || (VEC == 4 && sizeof(T) == 4),
+                "4 rows a thread in float32, else 1");
+  static constexpr int ROWS = kThreads * VEC;
+  static constexpr int SUPER = sizeof(T) == 4 ? 128 : 1;
+};
+
+// VEC values at p (VEC * sizeof(T) bytes aligned); CS: evict-first
+template <typename T, int VEC, bool CS>
+__device__ __forceinline__ void ld_vec(T (&v)[VEC], const T* p) {
+  if constexpr (VEC == 1) {
+    v[0] = CS ? __ldcs(p) : *p;
+  } else {
+    static_assert(std::is_same<T, float>::value && VEC == 4,
+                  "4 float32 values a load");
+    const float4* q = reinterpret_cast<const float4*>(p);
+    const float4 u = CS ? __ldcs(q) : *q;
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void st_vec_cs(T* p, const T (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    __stcs(p, v[0]);
+  } else {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+}
+
+// X at rows [j, j + VEC), j = i0 + o (i0 a multiple of VEC): with 4 rows
+// a thread, one 16-byte load where o is a multiple of 4, else the two
+// aligned 16-byte runs around the rows (up to 3 rows past them on either
+// side), picked by o's remainder, the same for every thread
+template <int R>
+__device__ __forceinline__ void pick4(float (&v)[4], const float4& p,
+                                      const float4& q) {
+  const float a[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) v[t] = a[t + R];
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void ld_x(T (&v)[VEC], const T* p, int o) {
+  if constexpr (VEC == 1) {
+    v[0] = *p;
+  } else {
+    const int r = o & 3;
+    if (r == 0) {
+      ld_vec<T, VEC, false>(v, p);
+      return;
+    }
+    const float4* q = reinterpret_cast<const float4*>(p - r);
+    const float4 lo = q[0], hi = q[1];
+    if (r == 1) pick4<1>(v, lo, hi);
+    else if (r == 2) pick4<2>(v, lo, hi);
+    else pick4<3>(v, lo, hi);
+  }
+}
+
+// rows [i0, i0 + VEC) of the lane at xl, bl, yl (bl: s for SPMM_SCALED,
+// shared by the lanes); offs the offsets (a kernel argument when ND fixes
+// their count, else shared memory); CHECK true where a neighbour may fall
+// outside [0, n_pad) (its term left out by a select) or the rows past
+// n_pad
+template <typename T, int Mode, int ND, int VEC, bool CHECK>
+__device__ __forceinline__ void lane_rows(const T* __restrict__ data,
+                                          const int* offs, int nd, int n_pad,
+                                          int i0, const T* __restrict__ xl,
+                                          const T* __restrict__ bl,
+                                          const T* __restrict__ dinv, T w,
+                                          T* __restrict__ yl) {
+  if (CHECK && i0 >= n_pad) return;
+  T acc[VEC];
+#pragma unroll
+  for (int t = 0; t < VEC; ++t) acc[t] = T(0);
+  const int n_d = ND > 0 ? ND : nd;
+#pragma unroll
+  for (int d = 0; d < n_d; ++d) {
+    const int o = offs[d];
+    T a[VEC];
+    ld_vec<T, VEC, false>(a, data + static_cast<int64_t>(d) * n_pad + i0);
+    if (!CHECK) {
+      T xv[VEC];
+      ld_x<T, VEC>(xv, xl + i0 + o, o);
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) acc[t] = fma_rn(a[t], xv[t], acc[t]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) {
+        const int j = i0 + t + o;
+        const bool in = !CHECK || (j >= 0 && j < n_pad);
+        const T v = fma_rn(a[t], xl[in ? j : i0], acc[t]);
+        acc[t] = in ? v : acc[t];
+      }
+    }
+  }
+  T out[VEC];
+  if (Mode == SPMM_SCALED) {
+    T s[VEC];
+    ld_vec<T, VEC, false>(s, bl + i0);
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) out[t] = acc[t] * s[t];
+  } else if (Mode == SPMM_ADD) {
+    T v[VEC];
+    ld_vec<T, VEC, true>(v, bl + i0);
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) out[t] = acc[t] + v[t];
+  } else if (Mode == JACOBI_K) {
+    T xv[VEC], bv[VEC], dv[VEC];
+    ld_vec<T, VEC, false>(xv, xl + i0);
+    ld_vec<T, VEC, true>(bv, bl + i0);
+    ld_vec<T, VEC, false>(dv, dinv + i0);
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) {
+      out[t] = fma_rn(w, dv[t] * (bv[t] - acc[t]), xv[t]);
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) out[t] = acc[t];
+  }
+  st_vec_cs<T, VEC>(yl + i0, out);
+}
+
+template <typename T, int Mode, int ND, int VEC>
+__device__ __forceinline__ void lane_block(bool check,
+                                           const T* __restrict__ data,
+                                           const int* offs, int nd,
+                                           int n_pad, int i0,
+                                           const T* __restrict__ xl,
+                                           const T* __restrict__ bl,
+                                           const T* __restrict__ dinv, T w,
+                                           T* __restrict__ yl) {
+  if (check) {
+    lane_rows<T, Mode, ND, VEC, true>(data, offs, nd, n_pad, i0, xl, bl,
+                                      dinv, w, yl);
+  } else {
+    lane_rows<T, Mode, ND, VEC, false>(data, offs, nd, n_pad, i0, xl, bl,
+                                       dinv, w, yl);
+  }
+}
+
+// K8 and K9 with the lane on the grid (see the header): the blocks walk
+// super tiles of SUPER row blocks, the lanes of a super tile one after
+// another (block b of super tile st: lane (b - st * SUPER * lanes) / s,
+// row block st * SUPER + its remainder, s the tile's row blocks); the row
+// blocks [lo_int, hi_int) need no bounds checks.  ND, when not 0, fixes
+// the diagonal count; otherwise the offsets go to shared memory first.
+// VEC rows a thread.
+template <typename T, int Mode, int ND, int VEC>
+__global__ void __launch_bounds__(kThreads)
+dia_k_lane_kernel(const T* __restrict__ data, DiaOffsets offs, int nd,
+                  int n_pad, int lanes, int row_blocks, int lo_int,
+                  int hi_int, const T* __restrict__ x,
+                  const T* __restrict__ b, const T* __restrict__ dinv,
+                  T omega, const T* __restrict__ omega_dev,
+                  T* __restrict__ y) {
+  using S = LaneShape<T, VEC>;
+  const int bid = static_cast<int>(blockIdx.x);
+  const int st = bid / (S::SUPER * lanes);
+  const int base = st * S::SUPER;
+  const int tile = min(S::SUPER, row_blocks - base);
+  const int rem = bid - st * S::SUPER * lanes;
+  const int k = rem / tile;
+  const int rb = base + rem - k * tile;
+  const int64_t lo = static_cast<int64_t>(k) * n_pad;
+  T w = T(0);
+  if (Mode == JACOBI_K) w = omega_dev != nullptr ? *omega_dev : omega;
+  const T* bl = Mode == SPMM_SCALED ? b : (Mode == SPMM ? nullptr : b + lo);
+  const int i0 = rb * S::ROWS + static_cast<int>(threadIdx.x) * VEC;
+  const bool check = rb < lo_int || rb >= hi_int;
+  if constexpr (ND > 0) {
+    lane_block<T, Mode, ND, VEC>(check, data, offs.o, nd, n_pad, i0, x + lo,
+                                 bl, dinv, w, y + lo);
+  } else {
+    // a run-time index into the argument would copy it to local memory
+    __shared__ int s_offs[kMaxArgDiags];
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int d = 0; d < kMaxArgDiags; ++d) s_offs[d] = offs.o[d];
+    }
+    __syncthreads();
+    lane_block<T, Mode, ND, VEC>(check, data, s_offs, nd, n_pad, i0, x + lo,
+                                 bl, dinv, w, y + lo);
   }
 }
 
@@ -453,6 +685,101 @@ int launch_dia_k(const void* data, const void* offsets, int nd,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int Mode, int ND, int VEC>
+int launch_lane(const void* data, const DiaOffsets& offs, int nd, int n_pad,
+                int lanes, int lo_int, int hi_int, const void* x,
+                const void* b, const void* dinv, T omega,
+                const void* omega_dev, void* y, cudaStream_t s) {
+  constexpr int kRows = LaneShape<T, VEC>::ROWS;
+  if (n_pad % VEC != 0 || n_pad >= (1LL << 31) - kRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int row_blocks = (n_pad + kRows - 1) / kRows;
+  const long long blocks = static_cast<long long>(row_blocks) * lanes;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  dia_k_lane_kernel<T, Mode, ND, VEC><<<static_cast<unsigned int>(blocks),
+                                        kThreads, 0, s>>>(
+      static_cast<const T*>(data), offs, nd, n_pad, lanes, row_blocks,
+      lo_int, hi_int, static_cast<const T*>(x), static_cast<const T*>(b),
+      static_cast<const T*>(dinv), omega, static_cast<const T*>(omega_dev),
+      static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the term loop unrolls for the 5- and 9-diagonal operators of 2-D grids
+// (float32 and float64: neither spills), else runs to nd
+template <typename T, int Mode, int VEC>
+int launch_lane_nd(const void* data, const DiaOffsets& offs, int nd,
+                   int n_pad, int lanes, int lo_int, int hi_int,
+                   const void* x, const void* b, const void* dinv, T omega,
+                   const void* omega_dev, void* y, cudaStream_t s) {
+#define PYAMG_K8_LANE(ND)                                                   \
+  return launch_lane<T, Mode, ND, VEC>(data, offs, nd, n_pad, lanes,        \
+                                       lo_int, hi_int, x, b, dinv, omega,   \
+                                       omega_dev, y, s)
+  if (nd == 5) PYAMG_K8_LANE(5);
+  if (nd == 9) PYAMG_K8_LANE(9);
+  PYAMG_K8_LANE(0);
+#undef PYAMG_K8_LANE
+}
+
+// 4 rows a thread for float32 where the caller asks (n_pad a multiple of
+// 4, 16-byte aligned stacks), else 1
+template <typename T, int Mode>
+int launch_lane_vec(int vec, const void* data, const DiaOffsets& offs,
+                    int nd, int n_pad, int lanes, int lo_int, int hi_int,
+                    const void* x, const void* b, const void* dinv, T omega,
+                    const void* omega_dev, void* y, cudaStream_t s) {
+  if constexpr (sizeof(T) == 4) {
+    if (vec == 4) {
+      return launch_lane_nd<T, Mode, 4>(data, offs, nd, n_pad, lanes,
+                                        lo_int, hi_int, x, b, dinv, omega,
+                                        omega_dev, y, s);
+    }
+  }
+  if (vec != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_lane_nd<T, Mode, 1>(data, offs, nd, n_pad, lanes, lo_int,
+                                    hi_int, x, b, dinv, omega, omega_dev, y,
+                                    s);
+}
+
+template <typename T>
+int launch_dia_k_lanes(const void* data, const int* offsets, int nd,
+                       long long n_pad, int lanes, int vec, int lo_int,
+                       int hi_int, const void* x, const void* b,
+                       const void* dinv, T omega, const void* omega_dev,
+                       void* y, int mode, void* stream) {
+  if (lanes < 1 || nd < 1 || nd > kMaxArgDiags || n_pad >= (1LL << 31) ||
+      lo_int < 0 || hi_int < lo_int) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_pad <= 0) return static_cast<int>(cudaSuccess);
+  DiaOffsets offs{};
+  for (int d = 0; d < nd; ++d) offs.o[d] = offsets[d];
+  const int n = static_cast<int>(n_pad);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case SPMM:
+      return launch_lane_vec<T, SPMM>(vec, data, offs, nd, n, lanes, lo_int,
+                                      hi_int, x, b, dinv, omega, omega_dev,
+                                      y, s);
+    case SPMM_SCALED:
+      return launch_lane_vec<T, SPMM_SCALED>(vec, data, offs, nd, n, lanes,
+                                             lo_int, hi_int, x, b, dinv,
+                                             omega, omega_dev, y, s);
+    case SPMM_ADD:
+      return launch_lane_vec<T, SPMM_ADD>(vec, data, offs, nd, n, lanes,
+                                          lo_int, hi_int, x, b, dinv, omega,
+                                          omega_dev, y, s);
+    case JACOBI_K:
+      return launch_lane_vec<T, JACOBI_K>(vec, data, offs, nd, n, lanes,
+                                          lo_int, hi_int, x, b, dinv, omega,
+                                          omega_dev, y, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
 int launch_zero_chain_k(const void* data, const void* offsets, int nd,
                         const void* sdata, const void* soffsets, int nds,
@@ -559,6 +886,35 @@ int pyamg_dia_k_f64(const void* data, const void* offsets, int nd,
                     void* y, void* r, int mode, void* stream) {
   return launch_dia_k<double>(data, offsets, nd, n_pad, lanes, x, b, dinv,
                               omega, omega_dev, y, r, mode, stream);
+}
+
+// K8 and K9 with the lane on the grid, every lane in one launch: data,
+// offsets (a host array of nd ints, passed to the kernel by value), nd,
+// n_pad, lanes, vec (rows a thread: 4, float32 only, with n_pad a multiple
+// of 4 and every pointer 16-byte aligned; or 1), lo_int, hi_int (the row
+// blocks of 256 * vec rows that need no bounds checks), x, b, dinv,
+// omega, omega_dev, y, mode (SPMM, SPMM_SCALED, SPMM_ADD, JACOBI_K; b as
+// for pyamg_dia_k_*), stream.
+int pyamg_dia_k_lanes_f32(const void* data, const int* offsets, int nd,
+                          long long n_pad, int lanes, int vec, int lo_int,
+                          int hi_int, const void* x, const void* b,
+                          const void* dinv, float omega,
+                          const void* omega_dev, void* y, int mode,
+                          void* stream) {
+  return launch_dia_k_lanes<float>(data, offsets, nd, n_pad, lanes, vec,
+                                   lo_int, hi_int, x, b, dinv, omega,
+                                   omega_dev, y, mode, stream);
+}
+
+int pyamg_dia_k_lanes_f64(const void* data, const int* offsets, int nd,
+                          long long n_pad, int lanes, int vec, int lo_int,
+                          int hi_int, const void* x, const void* b,
+                          const void* dinv, double omega,
+                          const void* omega_dev, void* y, int mode,
+                          void* stream) {
+  return launch_dia_k_lanes<double>(data, offsets, nd, n_pad, lanes, vec,
+                                    lo_int, hi_int, x, b, dinv, omega,
+                                    omega_dev, y, mode, stream);
 }
 
 // data, offsets, nd, sdata, soffsets, nds, n_pad, lanes, b, dinv, tv,

@@ -29,12 +29,15 @@ stacks, the batched solve's layout:
 - :func:`dia_zero_chain_k`    (X, tv (St (B - A X))), X = w dinv B
                                                              (TPU: ``dia_pallas_zero_chain_km``)
 
-:func:`dia_zero_chain_k` marches strips of rows with a ring of the
-residual in shared memory, every lane in one launch, by the plan of
-:func:`k11_plan`; an St whose reach is too large for the ring takes the
-per-row kernel.  And :func:`dia_jacobi_res_k`, the batched
-Jacobi-plus-residual composed as the reference's batch rule composes it:
-K9, then B - A Y through K8.
+:func:`dia_spmm` (all three modes) and :func:`dia_jacobi_k` put the lane
+on the grid, every lane in one launch, by the plan of :func:`k8_plan`; a
+shape that plan refuses takes the thread-per-row kernel in 16-lane
+chunks, with the same bits.  :func:`dia_zero_chain_k` marches strips of
+rows with a ring of the residual in shared memory, every lane in one
+launch, by the plan of :func:`k11_plan`; an St whose reach is too large
+for the ring takes the per-row kernel.  And :func:`dia_jacobi_res_k`, the
+batched Jacobi-plus-residual composed as the reference's batch rule
+composes it: K9, then B - A Y through K8.
 
 Each has a plain PyTorch twin (``*_ref``) in this module.  A wrapper runs
 the twin only when its operands lie on the CPU; on CUDA tensors it
@@ -74,14 +77,20 @@ __all__ = ["DIAMatrix", "dia_from_scipy", "dia_from_stencil", "dia_spgemm",
            "dia_spmm_add", "dia_jacobi_k", "dia_zero_chain_k",
            "dia_jacobi_res_k", "dia_jacobi_zero_res_k", "dia_spmm_ref",
            "dia_spmm_scaled_ref", "dia_spmm_add_ref", "dia_jacobi_k_ref",
-           "dia_jacobi_zero_res_k_ref", "dia_zero_chain_k_ref", "K11Plan",
-           "k11_plan"]
+           "dia_jacobi_zero_res_k_ref", "dia_zero_chain_k_ref", "K8Plan",
+           "k8_plan", "K11Plan", "k11_plan"]
 
 # modes of csrc/dia.cu::dia_kernel and csrc/dia_chain.cu
 _SPMV, _JACOBI, _JACOBI_ZERO_RES, _SPMV_SCALED, _SPMV_ADD = 0, 1, 2, 3, 4
 _ZERO_CHAIN, _JACOBI_RES = 0, 1
 # modes of csrc/dia_k.cu::dia_k_kernel
 _SPMM, _SPMM_SCALED, _SPMM_ADD, _JACOBI_K, _ZERO_RES_K = 0, 1, 2, 3, 4
+# K8 and K9's lane kernel (csrc/dia_k.cu::dia_k_lane_kernel): threads per
+# CTA (kThreads), the offsets it takes as a kernel argument at most
+# (kMaxArgDiags), and row blocks a super tile per value type (LaneShape)
+_K8_THREADS = 256
+_K8_MAX_DIAGS = 32
+_K8_SUPER = {torch.float32: 128, torch.float64: 1}
 # K11's strip march (csrc/dia_k.cu::zero_chain_k_ring_kernel): threads
 # per CTA and rows per step (kRingThreads), lanes per group at most
 # (kRingLanes); the shared memory a block may hold (an H100's 227 KB,
@@ -99,6 +108,11 @@ class DIAMatrix:
     offsets: Tuple[int, ...]     # ascending
     shape: Tuple[int, int]       # logical
     nnz: int
+
+    @cached_property
+    def offsets_c(self):
+        """The offsets as a host int array (K8 / K9's kernel argument)."""
+        return (ctypes.c_int * len(self.offsets))(*self.offsets)
 
     @cached_property
     def offsets_t(self) -> torch.Tensor:
@@ -308,6 +322,58 @@ def dia_zero_chain_k_ref(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
 
 
 @dataclass(frozen=True)
+class K8Plan:
+    """A launch of K8 / K9's lane kernel: ``row_blocks`` blocks of ``rows``
+    rows (``vec`` a thread) for each of ``lanes`` lanes.  The blocks walk
+    super tiles of ``super`` row blocks, the lanes of a tile one after
+    another (:meth:`block`); the row blocks [lo, hi) have every neighbour
+    in [0, n_pad), with vec - 1 rows to spare on either side, and carry no
+    bounds checks."""
+
+    vec: int
+    rows: int
+    super: int
+    row_blocks: int
+    lanes: int
+    lo: int
+    hi: int
+
+    @property
+    def blocks(self):
+        return self.row_blocks * self.lanes
+
+    def block(self, b):
+        """(lane, row block) of block ``b``, as the kernel computes them."""
+        st, rem = divmod(b, self.super * self.lanes)
+        tile = min(self.super, self.row_blocks - st * self.super)
+        k, r = divmod(rem, tile)
+        return k, st * self.super + r
+
+
+@functools.lru_cache(maxsize=256)
+def k8_plan(offsets, n_pad, K, dtype, aligned=True):
+    """K8 / K9's lane-kernel launch for ``offsets`` on ``n_pad`` rows and
+    K lanes of ``dtype`` (``aligned``: every operand 16-byte aligned), or
+    None when the kernel does not take the shape (then the thread-per-row
+    kernel runs): rows past 2^31, more than 32 diagonals, or more than
+    2^31 - 1 blocks.  A thread takes 4 float32 rows in 16-byte loads where
+    n_pad is a multiple of 4 and the operands are aligned, else 1 row."""
+    vec = 4 if dtype == torch.float32 and aligned and n_pad % 4 == 0 else 1
+    rows = _K8_THREADS * vec
+    row_blocks = -(-n_pad // rows)
+    if (n_pad >= 2 ** 31 - rows or not 1 <= len(offsets) <= _K8_MAX_DIAGS
+            or row_blocks * K >= 2 ** 31):
+        return None
+    # the aligned 16-byte runs around a neighbour run reach vec - 1 rows
+    # past it
+    below, above = (r + vec - 1 for r in _reach(offsets))
+    lo = -(-below // rows)
+    hi = max(lo, (n_pad - above) // rows)
+    return K8Plan(vec=vec, rows=rows, super=_K8_SUPER[dtype],
+                  row_blocks=row_blocks, lanes=K, lo=lo, hi=hi)
+
+
+@dataclass(frozen=True)
 class K11Plan:
     """A launch of K11's strip march: lanes in ``groups`` groups of at most
     ``group`` (gridDim.y), rows in ``strips`` strips of ``strip``
@@ -430,9 +496,9 @@ def _launch_chain(mode, A, St, x, b, dinv, tv, omega, out0, out1):
 
 
 def _launch_k(kernel, mode, A, Xk, b, dinv, omega, Yk, Rk=None):
-    """Launch csrc/dia_k.cu::dia_k_kernel over (K, n_pad) stacks in lane
-    chunks; ``b`` is a shared (n_pad,) vector or a per-lane stack, ``Rk``
-    the second output stack (K10's residual)."""
+    """Launch csrc/dia_k.cu::dia_k_kernel (one thread per row) over (K,
+    n_pad) stacks in lane chunks; ``b`` is a shared (n_pad,) vector or a
+    per-lane stack, ``Rk`` the second output stack (K10's residual)."""
     _kernel_operand(A)
     suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
     fn_name = f"pyamg_dia_k_{suffix}"
@@ -448,6 +514,43 @@ def _launch_k(kernel, mode, A, Xk, b, dinv, omega, Yk, Rk=None):
                  Yk[k0:k1].data_ptr(), _ptr(rk), mode, stream)
         _build.check(fn_name, err)
         _count(kernel, A)
+
+
+def _aligned(*tensors):
+    """Every operand's storage 16-byte aligned (the lane kernel's 16-byte
+    loads)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _launch_k8(kernel, mode, A, Xk, b, dinv, omega, Yk):
+    """K8 / K9: the lane kernel by :func:`k8_plan`, every lane in one
+    launch, counted as ``kernel``; a shape it refuses takes the
+    thread-per-row kernel in lane chunks, counted as ``kernel + "_rows"``.
+    Both give the same bits."""
+    _kernel_operand(A)
+    plan = k8_plan(A.offsets, A.n_pad, Yk.shape[0], A.dtype,
+                   _aligned(A.data, Xk, b, dinv, Yk))
+    if plan is None:
+        _launch_k(f"{kernel}_rows", mode, A, Xk, b, dinv, omega, Yk)
+        return
+    suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
+    fn_name = f"pyamg_dia_k_lanes_{suffix}"
+    w, w_dev = _omega_args(omega, A, c_scalar)
+    err = getattr(_build.library(), fn_name)(
+        A.data.data_ptr(), A.offsets_c, A.ndiags, A.n_pad, Yk.shape[0],
+        plan.vec, plan.lo, plan.hi, Xk.data_ptr(), _ptr(b), _ptr(dinv), w,
+        w_dev, Yk.data_ptr(), mode,
+        torch.cuda.current_stream(A.device).cuda_stream)
+    _build.check(fn_name, err)
+    _count(kernel, A)
+
+
+def _dia_k_rows(kernel, mode, A, Xk, b, dinv, omega):
+    """K8 / K9 in the thread-per-row form whatever the shape (for checks
+    that hold the lane kernel to it)."""
+    Yk = torch.empty_like(Xk)
+    _launch_k(f"{kernel}_rows", mode, A, Xk, b, dinv, omega, Yk)
+    return Yk
 
 
 def _check_stacks(A, K, **stacks):
@@ -557,7 +660,7 @@ def dia_spmm(A: DIAMatrix, Xk):
         return dia_spmm_ref(A, Xk)
     _check_stacks(A, None, Xk=Xk)
     Yk = torch.empty_like(Xk)
-    _launch_k("dia_spmm", _SPMM, A, Xk, None, None, 0.0, Yk)
+    _launch_k8("dia_spmm", _SPMM, A, Xk, None, None, 0.0, Yk)
     return Yk
 
 
@@ -569,7 +672,7 @@ def dia_spmm_scaled(A: DIAMatrix, Rk, s):
     _check_stacks(A, None, Rk=Rk)
     _check_vectors(A, s=s)
     Yk = torch.empty_like(Rk)
-    _launch_k("dia_spmm_scaled", _SPMM_SCALED, A, Rk, s, None, 0.0, Yk)
+    _launch_k8("dia_spmm_scaled", _SPMM_SCALED, A, Rk, s, None, 0.0, Yk)
     return Yk
 
 
@@ -580,7 +683,7 @@ def dia_spmm_add(A: DIAMatrix, Tk, Xk):
         return dia_spmm_add_ref(A, Tk, Xk)
     _check_stacks(A, Tk.shape[0], Tk=Tk, Xk=Xk)
     Yk = torch.empty_like(Tk)
-    _launch_k("dia_spmm_add", _SPMM_ADD, A, Tk, Xk, None, 0.0, Yk)
+    _launch_k8("dia_spmm_add", _SPMM_ADD, A, Tk, Xk, None, 0.0, Yk)
     return Yk
 
 
@@ -592,7 +695,7 @@ def dia_jacobi_k(A: DIAMatrix, Xk, Bk, dinv, omega):
     _check_stacks(A, Xk.shape[0], Xk=Xk, Bk=Bk)
     _check_vectors(A, dinv=dinv)
     Yk = torch.empty_like(Xk)
-    _launch_k("dia_jacobi_k", _JACOBI_K, A, Xk, Bk, dinv, omega, Yk)
+    _launch_k8("dia_jacobi_k", _JACOBI_K, A, Xk, Bk, dinv, omega, Yk)
     return Yk
 
 

@@ -216,8 +216,9 @@ def test_mixed_solve_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("K", [3, 8, 19])
 def test_k_lane_kernels_match_twins(cuda, dtype, K):
     """K8 in its three modes, K9 and K11 against their twins on K-major
-    stacks; K=19 takes two launches (16 lanes, then 3) per call, K11's
-    strip march one; omega by value and as a 0-d device tensor."""
+    stacks; K8 and K9 (the lane on the grid) and K11's strip march take
+    one launch per call for any K, K = 19 too; omega by value and as a 0-d
+    device tensor."""
     grid = (48, 70)
     A = poisson(grid, format="csr")
     D = dia_from_scipy(A, dtype=dtype, device=cuda, row_pad=1024)
@@ -247,12 +248,104 @@ def test_k_lane_kernels_match_twins(cuda, dtype, K):
         assert got.shape == (K, D.n_pad)
         assert _rel_err(got, want) <= TOL[dtype]
     name = str(dtype).removeprefix("torch.")
-    per_call = -(-K // 16)
-    assert _build.launches == {f"dia_spmm.{name}": per_call,
-                               f"dia_spmm_scaled.{name}": per_call,
-                               f"dia_spmm_add.{name}": per_call,
-                               f"dia_jacobi_k.{name}": 2 * per_call,
+    assert _build.launches == {f"dia_spmm.{name}": 1,
+                               f"dia_spmm_scaled.{name}": 1,
+                               f"dia_spmm_add.{name}": 1,
+                               f"dia_jacobi_k.{name}": 2,
                                f"dia_zero_chain_k.{name}": 2}
+
+
+# name -> (n_pad, offsets, elements the stacks start past an aligned
+# address): the batched paths' offsets (device-built levels 0, 1 and 4,
+# host-built level 0) and a 3-D 7-point pattern (the lane kernel's
+# run-time diagonal loop), each n_pad no multiple of a row block, so the
+# first and last blocks check their neighbours and the last is partial;
+# level 4's odd n_pad and an unaligned stack take one float32 row a
+# thread
+K8_CASES = {
+    "device level0": (50_004, (-2049, -1, 0, 1, 2049), 0),
+    "device level1": (20_012, (-685, -684, -683, -1, 0, 1, 683, 684, 685),
+                      0),
+    "device level4": (729, (-28, -27, -26, -1, 0, 1, 26, 27, 28), 0),
+    "host level0": (30_724, (-2048, -1, 0, 1, 2048), 0),
+    "3-D 7-point": (27_004, (-900, -30, -1, 0, 1, 30, 900), 0),
+    "unaligned stack": (50_004, (-2049, -1, 0, 1, 2049), 1),
+}
+
+
+def _k8_modes(D, X, V, s, dinv, omega):
+    """(kernel name, C mode, lane-kernel call, thread-per-row call, b,
+    dinv, omega) for K8's three modes and K9."""
+    return [
+        ("dia_spmm", dia._SPMM, lambda: dia.dia_spmm(D, X), None, None, 0.0),
+        ("dia_spmm_scaled", dia._SPMM_SCALED,
+         lambda: dia.dia_spmm_scaled(D, X, s), s, None, 0.0),
+        ("dia_spmm_add", dia._SPMM_ADD, lambda: dia.dia_spmm_add(D, X, V), V,
+         None, 0.0),
+        ("dia_jacobi_k", dia._JACOBI_K,
+         lambda: dia.dia_jacobi_k(D, X, V, dinv, omega), V, dinv, omega)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K", [1, 3, 8, 16, 24])
+@pytest.mark.parametrize("case", list(K8_CASES))
+def test_k8_k9_lane_kernel_equals_per_row_kernel(cuda, dtype, K, case):
+    """K8 (three modes) and K9 with the lane on the grid at the paths'
+    offsets, with 4 float32 rows a thread or 1: one launch per call for any
+    K, bit for bit the thread-per-row kernel's result (16-lane chunks), two
+    launches equal, within TOL of the twin; omega as a 0-d device
+    tensor."""
+    n, offsets, shift = K8_CASES[case]
+    D = _random_dia(n, offsets, dtype, cuda, 0)
+    rng = np.random.default_rng(K)
+    big = torch.as_tensor(rng.random(K * n + shift), dtype=dtype,
+                          device=cuda)
+    X = big[shift:].view(K, n)
+    V = torch.as_tensor(rng.random((K, n)), dtype=dtype, device=cuda)
+    s, dinv = (_rand(n, dtype, cuda, k) for k in (2, 3))
+    omega = torch.tensor(0.85, dtype=dtype, device=cuda)
+    aligned = shift == 0
+    plan = dia.k8_plan(D.offsets, n, K, dtype, aligned)
+    assert plan is not None and plan.row_blocks * plan.rows > n
+    assert 0 < plan.lo <= plan.hi < plan.row_blocks
+    assert plan.vec == (4 if dtype == torch.float32 and n % 4 == 0
+                        and aligned else 1)
+    name = str(dtype).removeprefix("torch.")
+    for kernel, mode, lane, b, dv, w in _k8_modes(D, X, V, s, dinv, omega):
+        _build.reset_launches()
+        got, again = lane(), lane()
+        assert _build.launches == {f"{kernel}.{name}": 2}
+        rows = dia._dia_k_rows(kernel, mode, D, X, b, dv, w)
+        torch.cuda.synchronize()
+        assert _build.launches[f"{kernel}_rows.{name}"] == -(-K // 16)
+        assert torch.equal(got, again), kernel
+        assert torch.equal(got, rows), kernel
+        assert got.shape == (K, n)
+    want = dia.dia_jacobi_k_ref(D, X, V, dinv, omega)
+    assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k8_k9_more_diagonals_than_the_lane_kernel_takes_run_per_row(
+        cuda, dtype):
+    """33 diagonals, more than the lane kernel takes as arguments: the
+    thread-per-row kernel runs (counted as ``<kernel>_rows``), within TOL
+    of the twin."""
+    n, offsets = 20_000, tuple(range(-16, 17))
+    name = str(dtype).removeprefix("torch.")
+    D = _random_dia(n, offsets, dtype, cuda, 1)
+    rng = np.random.default_rng(n)
+    X, V = (torch.as_tensor(rng.random((3, n)), dtype=dtype, device=cuda)
+            for _ in range(2))
+    s, dinv = (_rand(n, dtype, cuda, k) for k in (2, 3))
+    assert dia.k8_plan(D.offsets, n, 3, dtype) is None
+    for kernel, mode, lane, b, dv, w in _k8_modes(D, X, V, s, dinv, 0.85):
+        _build.reset_launches()
+        got = lane()
+        torch.cuda.synchronize()
+        assert _build.launches == {f"{kernel}_rows.{name}": 1}
+    assert _rel_err(got, dia.dia_jacobi_k_ref(D, X, V, dinv, 0.85)) \
+        <= TOL[dtype]
 
 
 def _random_dia(n_pad, offsets, dtype, dev, seed):
