@@ -22,13 +22,15 @@ result lines):
 5. each kernel against its plain PyTorch twin on the same inputs, at the
    paths' shapes: the host-built level-0 and level-1 DIA operators in
    float32 and float64 (three DIA modes) and tentative operators T, T^T;
-   the device-built level-0 and level-1 zero-entry chain (K5), level 0's
-   Jacobi-plus-residual (K4) and the two SpMV epilogues on level 0's S
-   and S^T; the K-lane kernels at K = 8 on the device-built level-0 and
-   level-1 operators (K8 in its three modes, K9, K11) and K9 and K8 plain
-   at host level 0, K8 and K9 also bit for bit against their
-   thread-per-row form; K10 at host level 0
-   and K12, K13 on the host-built T at K = 8; K15's five modes on the
+   the device-built level-0 and level-1 zero-entry chain (K5) and level
+   0's Jacobi-plus-residual (K4), each with its strip march's plan, equal
+   to its per-row kernel bit for bit, two launches bit-identical, and its
+   composed alternative timed beside it, and the two SpMV epilogues on
+   level 0's S and S^T; the K-lane kernels at K = 8 on the device-built
+   level-0 and level-1 operators (K8 in its three modes, K9, K11) and K9
+   and K8 plain at host level 0, K8 and K9 also bit for bit against their
+   thread-per-row form; K10 at host level 0 and K12, K13 on the
+   host-built T at K = 8; K15's five modes on the
    lane-aligned level-0 operators at K = 8: max error,
    CUDA-event times of both, the bound from the bytes and operations the
    call needs, and one PyTorch library call as a yardstick where one
@@ -40,8 +42,10 @@ result lines):
    per-row kernel bit for bit and two launches bit-identical, its composed
    alternative (K10, then K8's scale epilogue) timed beside it, at K = 16
    in float64 (lane groups) and on a 3-D 7-point pattern whose +-n^2
-   offset takes the per-row kernel; K7's tile form on columns longer than
-   a warp and one longer than its tile budget, the CPU twin's bits;
+   offset takes the per-row kernel, as K5 and K4 do there; K7's tile form
+   on columns longer than a warp and one longer than its tile budget, the
+   CPU twin's bits (held to the twin run on CPU copies; the twin on the
+   card is timed only);
 5b. K16 (dia_halo_spmv) at host level 0, float32 and float64: the ring of
    one against its twin and bit for bit against K1, four in-process row
    blocks (halos copied on a side stream) against K1, and the interior
@@ -61,7 +65,8 @@ result lines):
    (K10, K12, K13), then on the lane-aligned device-built hierarchy the
    interleaved route (native, K15's five modes) and the K-major mixed
    solve; on every batched path K8 and K9 through their lane kernel only
-   (no thread-per-row launch);
+   (no thread-per-row launch), and on the 1-D paths K5 and K4 through
+   their strip march only;
 10. a stationary phase (accel=None, native float32, 5 V-cycles) on a
     256^2 device-built hierarchy, one right-hand side and then K = 4,
     each against the same run on a CPU copy of that hierarchy (the plain
@@ -223,6 +228,9 @@ PATHS = {
 # K8 and K9's thread-per-row form (the wrapper counts it apart)
 K8_ROWS = ("dia_spmm_rows", "dia_spmm_scaled_rows", "dia_spmm_add_rows",
            "dia_jacobi_k_rows")
+# K5 and K4's per-row kernel (for the shapes the strip march refuses)
+CHAIN_ROWS = {"dia_zero_chain": "dia_zero_chain_rows",
+              "dia_jacobi_res": "dia_jacobi_res_rows"}
 # the lane-aligned 2048^2 fine grid and its solve padding (the reference's)
 LANE_GRID_P = (2064, 2304)
 LANE_N_PAD = 4784128
@@ -295,7 +303,8 @@ class Checks:
 
 
 def compare(check, name, dtype, kernel_fn, plain_fn, results, nbytes, ops,
-            library_fn=None, path=None, exact=False, repeat_exact=False):
+            library_fn=None, path=None, exact=False, repeat_exact=False,
+            want_fn=None):
     """Run a kernel and its plain twin on the same inputs; record errors
     and times (the twin first, then the kernel, twice over).  ``nbytes``
     and ``ops``: the bytes the call must move (each input read once, each
@@ -305,12 +314,14 @@ def compare(check, name, dtype, kernel_fn, plain_fn, results, nbytes, ops,
     these are; the kernels line takes a kernel's numbers from the check
     at its first path's shapes where there is one.  ``exact``: the kernel
     must equal its twin bit for bit.  ``repeat_exact``: a second launch
-    must give the first one's bits (a fixed summation order)."""
+    must give the first one's bits (a fixed summation order).
+    ``want_fn``: the outputs the kernel is held to, where they are not the
+    timed twin's (the twin run on CPU copies, moved to the card)."""
     import torch
 
     got = kernel_fn()
     again = kernel_fn() if repeat_exact else got
-    want = plain_fn()
+    want = (want_fn or plain_fn)()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     again = again if isinstance(again, tuple) else (again,)
@@ -430,10 +441,69 @@ def k11_checks(check, name, A, St, Bk, dinv, tv, omega, results):
         "scale)")
 
 
+def chain_checks(check, name, mode, A, St, x, b, dinv, tv, omega,
+                 results):
+    """K5 (mode "K5": St, b, dinv, tv) or K4 ("K4": x, b, dinv) against its
+    twin at a path shape, with its branch (the strip march's plan, or the
+    per-row kernel), the strip march equal to the per-row kernel bit for
+    bit, two launches bit-identical, and its composed alternative timed
+    beside it (K5: K3, then K1 SPMV_SCALED; K4: K2, then K1 and b - A y)."""
+    import torch
+
+    from pyamg_tpu_torch import _build
+    from pyamg_tpu_torch.sparse import dia
+
+    m, nd, sz = A.n_pad, A.ndiags, A.data.element_size()
+    outer = St if mode == "K5" else A
+    sms = _build.sm_count(A.device)
+    plan = dia.chain_plan(A.offsets, outer.offsets, m, A.dtype, sms)
+    if plan is None:
+        log(f"  {name}: per-row kernel (reach {min(outer.offsets)}.."
+            f"{max(outer.offsets)} too far for the rings)")
+    else:
+        log(f"  {name}: strip march, {plan.strips} strips of {plan.strip} "
+            f"rows, {plan.threads} threads x {plan.vec} row(s), steps of "
+            f"{plan.step} rows, rings {plan.caps[0]} + {plan.caps[1]} rows "
+            f"({plan.smem(sz)} B of shared memory), "
+            f"{-(-plan.strips // sms)} CTA(s) per SM, one launch per call")
+    if mode == "K5":
+        nds = St.ndiags
+        kernel = lambda: dia.dia_zero_chain(A, St, b, dinv, tv, omega)  # noqa
+        plain = lambda: dia.dia_zero_chain_ref(A, St, b, dinv, tv, omega)  # noqa
+        rows = lambda: dia._zero_chain_rows(A, St, b, dinv, tv, omega)  # noqa
+        cost = ((nd + nds + 5) * m * sz, (2 * nd + 2 * nds + 4) * m)
+
+        def composed():
+            _, r = dia.dia_jacobi_zero_res(A, b, dinv, omega)
+            return dia.dia_spmv_scaled(St, r, tv)
+        what = "K3, then K1 SPMV_SCALED"
+    else:
+        kernel = lambda: dia.dia_jacobi_res(A, x, b, dinv, omega)  # noqa
+        plain = lambda: dia.dia_jacobi_res_ref(A, x, b, dinv, omega)  # noqa
+        rows = lambda: dia._jacobi_res_rows(A, x, b, dinv, omega)  # noqa
+        cost = dia_cost(A, 5, extra_ops=6)
+
+        def composed():
+            y = dia.dia_jacobi(A, x, b, dinv, omega)
+            return b - dia.dia_spmv(A, y)
+        what = "K2, then K1 and b - A y"
+    compare(check, name, A.dtype, kernel, plain, results, *cost,
+            repeat_exact=True)
+    if plan is not None:
+        got, want = kernel(), rows()
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{name}: the strip march equals the per-row kernel bit for "
+              "bit")
+    log(f"  composed alternative of {name}: "
+        f"{min(time_ms(composed), time_ms(composed)):.4f} ms ({what})")
+
+
 def k11_per_row_checks(check, rand, results):
     """K11's per-row branch in float32 and float64, K = 8, on random
     diagonals of a 100 x 180 x 180 grid's 7-point pattern (A = St's
-    pattern; its +-32 400 offset exceeds one lane's ring)."""
+    pattern; its +-32 400 offset exceeds one lane's ring), and K5's and
+    K4's per-row branch on lanes 0 and 1 of the same inputs."""
     import numpy as np
     import torch
 
@@ -456,6 +526,13 @@ def k11_per_row_checks(check, rand, results):
         k11_checks(check, f"dia_zero_chain_k.{str(dtype)[6:]} [3-D 7-point "
                    f"100x180x180 nd=7 K={LANES}, per-row]", *ops, Bk, dinv,
                    tv, 0.8, results)
+        # K5 and K4 take their per-row kernel on the same pattern
+        b, x = Bk[0].contiguous(), Bk[1].contiguous()
+        for mode, kname in (("K5", "dia_zero_chain"),
+                            ("K4", "dia_jacobi_res")):
+            chain_checks(check, f"{kname}.{str(dtype)[6:]} [3-D 7-point "
+                         "100x180x180 nd=7, per-row]", mode, ops[0], ops[1],
+                         x, b, dinv, tv, 0.8, results)
 
 
 def k7_long_column_checks(check, rand, results):
@@ -490,13 +567,21 @@ def k7_long_column_checks(check, rand, results):
         meta = W.data.numel() * sz + (W.idx.numel() + W.starts.numel()) * 4
         mm = W.m_chunks * W.w2
         Wt_csr = windowed_to_csr(W, transpose=True)
+        # held to the twin run on CPU copies, bit for bit (the order the
+        # kernel sums in); the twin on the card is timed only
+        W_cpu = dataclasses.replace(W, data=W.data.cpu(), idx=W.idx.cpu(),
+                                    starts=W.starts.cpu())
+        r_cpu = r.cpu()
         compare(check, f"windowed_rmatvec.{str(dtype)[6:]} [{n}x{m}, "
                 f"columns of {float(lens.float().mean()):.0f} entries on "
                 f"average, longest {int(lens.max())}, tile budget {budget}]",
                 dtype, lambda: window.windowed_rmatvec(W, r),
                 lambda: window.windowed_rmatvec_ref(W, r), results,
                 meta + (mm + W.n_pad) * sz, 2 * int((W.data != 0).sum()),
-                library_fn=lambda: torch.mv(Wt_csr, r), repeat_exact=True)
+                library_fn=lambda: torch.mv(Wt_csr, r), exact=True,
+                repeat_exact=True,
+                want_fn=lambda: window.windowed_rmatvec_ref(
+                    W_cpu, r_cpu).to(r.device))
         transpose_checks(check, f"long columns {str(dtype)[6:]}", W, r, None)
 
 
@@ -515,15 +600,23 @@ def lane_launches(check, label, key, fn):
 
 
 def path_launches(check, label, counts):
-    """Every kernel instance of PATHS[label] launched in ``counts``, and K8
-    and K9 only in their lane kernel (the thread-per-row form, counted as
-    ``<kernel>_rows``, is for the shapes the lane kernel refuses)."""
+    """Every kernel instance of PATHS[label] launched in ``counts``, K8
+    and K9 only in their lane kernel and K4 / K5 (where the path runs them)
+    only in their strip march (the thread-per-row forms, counted as
+    ``<kernel>_rows``, are for the shapes those refuse)."""
     for k in PATHS[label]:
         check(counts.get(k, 0) > 0, f"{label}: {k} launched "
               f"({counts.get(k, 0)} launches)")
     rows = {k: c for k, c in counts.items() if k.split(".")[0] in K8_ROWS}
     check(not rows, f"{label}: K8 / K9 through the lane kernel only "
           f"(thread-per-row launches {rows or 'none'})")
+    chain = [CHAIN_ROWS[k.split(".")[0]] for k in PATHS[label]
+             if k.split(".")[0] in CHAIN_ROWS]
+    if chain:
+        per_row = {k: c for k, c in counts.items()
+                   if k.split(".")[0] in chain}
+        check(not per_row, f"{label}: K4 / K5 through the strip march only "
+              f"(per-row launches {per_row or 'none'})")
 
 
 def k8_rows_check(check, name, kernel, mode, A, X, b, dinv, omega, lane_fn):
@@ -1730,16 +1823,11 @@ def main():
             tv = lvl.R.tv.to(dtype)
             m = Ad.n_pad
             b, x, t = (rand(m, dtype) for _ in range(3))
-            nd, nds = Ad.ndiags, St.ndiags
-            sz = Ad.data.element_size()
-            tag = f"device {label} nd={nd} St nd={nds} n_pad={m}"
+            nds = St.ndiags
+            tag = f"device {label} nd={Ad.ndiags} St nd={nds} n_pad={m}"
             dt = str(dtype).removeprefix("torch.")
-            compare(check, f"dia_zero_chain.{dt} [{tag}]", dtype,
-                    lambda: dia.dia_zero_chain(Ad, St, b, dinv, tv, omega),
-                    lambda: dia.dia_zero_chain_ref(Ad, St, b, dinv, tv,
-                                                   omega),
-                    results, (nd + nds + 5) * m * sz,
-                    (2 * nd + 2 * nds + 4) * m)
+            chain_checks(check, f"dia_zero_chain.{dt} [{tag}]", "K5", Ad,
+                         St, None, b, dinv, tv, omega, results)
             Xk, Bk, Vk = (rand((LANES, m), dtype) for _ in range(3))
             ktag = f"{tag} K={LANES}"
             k11_checks(check, f"dia_zero_chain_k.{dt} [{ktag}]", Ad, St,
@@ -1795,10 +1883,8 @@ def main():
                           0.0, lambda: dia.dia_spmm_add(S, Xk, Vk))
             if label != "level0":
                 continue
-            compare(check, f"dia_jacobi_res.{dt} [{tag}]", dtype,
-                    lambda: dia.dia_jacobi_res(Ad, x, b, dinv, omega),
-                    lambda: dia.dia_jacobi_res_ref(Ad, x, b, dinv, omega),
-                    results, *dia_cost(Ad, 5, extra_ops=6))
+            chain_checks(check, f"dia_jacobi_res.{dt} [{tag}]", "K4", Ad,
+                         None, x, b, dinv, None, omega, results)
             compare(check, f"dia_spmv_add.{dt} [device {label} S nd="
                     f"{S.ndiags} n_pad={m}]", dtype,
                     lambda: dia.dia_spmv_add(S, t, x),

@@ -82,6 +82,15 @@ _SIGNATURES = {
                             ctypes.c_float, _P, _P, _P, _I, _P),
     "pyamg_dia_chain_f64": (_P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _P,
                             ctypes.c_double, _P, _P, _P, _I, _P),
+    # data, offsets, nd, sdata, soffsets, nds, n_pad, threads, vec, strip,
+    # al, ar, hl, hr, x, b, dinv, tv, omega, omega_dev, out0, out1, mode,
+    # stream
+    "pyamg_dia_chain_ring_f32": (_P, _P, _I, _P, _P, _I, _L, _I, _I, _L, _I,
+                                 _I, _I, _I, _P, _P, _P, _P, ctypes.c_float,
+                                 _P, _P, _P, _I, _P),
+    "pyamg_dia_chain_ring_f64": (_P, _P, _I, _P, _P, _I, _L, _I, _I, _L, _I,
+                                 _I, _I, _I, _P, _P, _P, _P, ctypes.c_double,
+                                 _P, _P, _P, _I, _P),
     # data, offsets, nd, n_pad, lanes, x, b, dinv, omega, omega_dev, y, r,
     # mode, stream
     "pyamg_dia_k_f32": (_P, _P, _I, _L, _I, _P, _P, _P, ctypes.c_float, _P,

@@ -29,6 +29,11 @@ stacks, the batched solve's layout:
 - :func:`dia_zero_chain_k`    (X, tv (St (B - A X))), X = w dinv B
                                                              (TPU: ``dia_pallas_zero_chain_km``)
 
+:func:`dia_zero_chain` and :func:`dia_jacobi_res` march strips of rows
+through three stages with two rings in shared memory, so each inner value
+is computed once, by the plan of :func:`chain_plan`; a shape that plan
+refuses takes the per-row kernel, with the same bits.
+
 :func:`dia_spmm` (all three modes) and :func:`dia_jacobi_k` put the lane
 on the grid, every lane in one launch, by the plan of :func:`k8_plan`; a
 shape that plan refuses takes the thread-per-row kernel in 16-lane
@@ -52,6 +57,7 @@ plain PyTorch (rolls and masks), as the JAX package leaves them to XLA.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 from functools import cached_property
@@ -78,7 +84,7 @@ __all__ = ["DIAMatrix", "dia_from_scipy", "dia_from_stencil", "dia_spgemm",
            "dia_jacobi_res_k", "dia_jacobi_zero_res_k", "dia_spmm_ref",
            "dia_spmm_scaled_ref", "dia_spmm_add_ref", "dia_jacobi_k_ref",
            "dia_jacobi_zero_res_k_ref", "dia_zero_chain_k_ref", "K8Plan",
-           "k8_plan", "K11Plan", "k11_plan"]
+           "k8_plan", "K11Plan", "k11_plan", "ChainPlan", "chain_plan"]
 
 # modes of csrc/dia.cu::dia_kernel and csrc/dia_chain.cu
 _SPMV, _JACOBI, _JACOBI_ZERO_RES, _SPMV_SCALED, _SPMV_ADD = 0, 1, 2, 3, 4
@@ -98,6 +104,15 @@ _K8_SUPER = {torch.float32: 128, torch.float64: 1}
 _K11_THREADS = 1024
 _K11_MAX_GROUP = 8
 _SMEM_BLOCK = 232448
+# K4 / K5's strip march (csrc/dia_chain.cu::chain_ring_kernel): rows a
+# thread per dtype (16 bytes), threads per CTA in the plan's order of
+# preference (1024 fill an SM's registers: one CTA an SM, the fastest form
+# at levels 0 and 1 of both kernels in both types; smaller CTAs give the
+# coarse levels more strips, PERF.md §6, K4 and K5), and the diagonals per
+# operator at most (kMaxDiags, staged in shared memory)
+_CHAIN_VEC = {torch.float32: 4, torch.float64: 2}
+_CHAIN_THREADS = (1024, 512, 256)
+_CHAIN_MAX_DIAGS = 32
 
 
 @dataclass(frozen=True)
@@ -428,6 +443,103 @@ def k11_plan(offsets, soffsets, n_pad, K, dtype, sms):
                    groups=groups, strip=strip, strips=-(-n_pad // strip))
 
 
+@dataclass(frozen=True)
+class ChainPlan:
+    """A launch of K4 / K5's strip march: ``strips`` CTAs of ``threads``
+    threads, CTA s owning the rows [s strip, (s + 1) strip) and walking
+    them in passes of ``step`` = threads * vec rows, ``vec`` consecutive
+    rows a thread.  In pass p stage k takes the rows from s0 + a_k + p step
+    (:attr:`anchors`); ring 1 holds the first stage's values over A's reach
+    (al below the diagonal, ar above), ring 2 the inner values over the
+    outer operator's (hl, hr: St's for K5, A's for K4); each reach is
+    rounded up to whole vec groups (:attr:`reaches`), as the kernel does."""
+
+    threads: int
+    vec: int
+    strip: int
+    strips: int
+    al: int
+    ar: int
+    hl: int
+    hr: int
+
+    @property
+    def step(self):
+        return self.threads * self.vec
+
+    @property
+    def reaches(self):
+        """(al, ar, hl, hr) rounded up to multiples of vec."""
+        return tuple(-(-r // self.vec) * self.vec
+                     for r in (self.al, self.ar, self.hl, self.hr))
+
+    @property
+    def anchors(self):
+        """(a1, a2, a3), rows relative to a strip's first: stage 2 lags
+        stage 1 by a step and A's reach above, stage 3 stage 2 by a step and
+        the outer reach above."""
+        al, ar, hl, hr = self.reaches
+        a1 = -(hl + al)
+        a2 = a1 - self.step - ar
+        return a1, a2, a2 - self.step - hr
+
+    @property
+    def caps(self):
+        """Rows of ring 1 and ring 2."""
+        al, ar, hl, hr = self.reaches
+        return 2 * self.step + al + ar, 2 * self.step + hl + hr
+
+    def smem(self, itemsize):
+        """Dynamic shared memory of one CTA (both rings), bytes."""
+        return sum(self.caps) * itemsize
+
+    def passes(self, s0, s1):
+        """Passes of the CTA whose strip is [s0, s1)."""
+        return (s1 - 1 - (s0 + self.anchors[2])) // self.step + 1
+
+
+@functools.lru_cache(maxsize=256)
+def chain_plan(offsets, soffsets, n_pad, dtype, sms, aligned=True):
+    """K4 / K5's strip-march launch for A's ``offsets`` and the outer
+    operator's ``soffsets`` (St's for K5, A's again for K4) on ``n_pad``
+    rows of ``dtype`` on a card of ``sms`` SMs (``aligned``: every operand
+    16-byte aligned), or None when the kernel does not take the shape (then
+    the per-row kernel runs): one CTA's two rings beyond a block's shared
+    memory (an outer reach such as a 3-D grid's +-n^2), more than 32
+    diagonals in either operator, or rows whose strips and halos reach
+    2^31, each judged at 1024 threads.  A thread takes 16 bytes of rows (4
+    float32, 2 float64) where n_pad is a multiple of that and the operands
+    are aligned, else 1 row.  Strips: at most one per SM, none shorter than
+    max(step, 2 (hl + hr)), which keeps the inner rows formed twice under
+    half; the CTA has 1024 threads where that leaves at least half the SMs
+    a strip, else 512 where that does, else 256."""
+    vec = _CHAIN_VEC[dtype]
+    if vec > 1 and not (aligned and n_pad % vec == 0):
+        vec = 1
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    (al, ar), (hl, hr) = _reach(offsets), _reach(soffsets)
+
+    def form(threads):
+        p = ChainPlan(threads=threads, vec=vec, strip=vec, strips=1, al=al,
+                      ar=ar, hl=hl, hr=hr)
+        return p, n_pad // max(p.step, 2 * (hl + hr))
+
+    plan, strips = form(_CHAIN_THREADS[0])
+    smem = plan.smem(itemsize) + 2 * _CHAIN_MAX_DIAGS * 4
+    if (smem > _SMEM_BLOCK
+            or max(len(offsets), len(soffsets)) > _CHAIN_MAX_DIAGS
+            or 2 * n_pad + 4 * plan.step + al + ar + hl + hr + 4 * vec
+            >= 2 ** 31):
+        return None
+    for threads in _CHAIN_THREADS[1:]:
+        if strips >= sms // 2:
+            break
+        plan, strips = form(threads)
+    strips = max(1, min(sms, strips))
+    strip = -(-(-(-n_pad // strips)) // vec) * vec
+    return dataclasses.replace(plan, strip=strip, strips=-(-n_pad // strip))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -473,10 +585,13 @@ def _launch_dia(mode, A, x, b, dinv, omega, y, r):
     _build.check(fn_name, err)
 
 
-def _launch_chain(mode, A, St, x, b, dinv, tv, omega, out0, out1):
+def _chain(mode, kernel, plan, A, St, x, b, dinv, tv, omega, out0, out1):
+    """K4 / K5 (csrc/dia_chain.cu): the strip march by ``plan``, counted as
+    ``kernel``, or for plan None the per-row kernel, counted as ``kernel +
+    "_rows"``.  Both give the same bits.  ``St`` is None for K4 (the outer
+    operator is A)."""
     _kernel_operand(A)
     suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
-    fn_name = f"pyamg_dia_chain_{suffix}"
     w, w_dev = _omega_args(omega, A, c_scalar)
     if St is not None:
         _kernel_operand(St, "St")
@@ -487,12 +602,40 @@ def _launch_chain(mode, A, St, x, b, dinv, tv, omega, out0, out1):
             St.ndiags
     else:
         sdata, soffs, nds = None, None, 0
-    err = getattr(_build.library(), fn_name)(
-        A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags, sdata, soffs,
-        nds, A.n_pad, _ptr(x), _ptr(b), _ptr(dinv), _ptr(tv), w, w_dev,
-        out0.data_ptr(), out1.data_ptr(), mode,
-        torch.cuda.current_stream(A.device).cuda_stream)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    operands = (_ptr(x), _ptr(b), _ptr(dinv), _ptr(tv), w, w_dev,
+                out0.data_ptr(), out1.data_ptr(), mode, stream)
+    if plan is None:
+        fn_name = f"pyamg_dia_chain_{suffix}"
+        err = getattr(_build.library(), fn_name)(
+            A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags, sdata,
+            soffs, nds, A.n_pad, *operands)
+        kernel = f"{kernel}_rows"
+    else:
+        fn_name = f"pyamg_dia_chain_ring_{suffix}"
+        err = getattr(_build.library(), fn_name)(
+            A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags, sdata,
+            soffs, nds, A.n_pad, plan.threads, plan.vec, plan.strip,
+            plan.al, plan.ar, plan.hl, plan.hr, *operands)
     _build.check(fn_name, err)
+    _count(kernel, A)
+
+
+def _zero_chain_rows(A, St, b, dinv, tv, omega):
+    """K5 in the per-row form whatever the shape (for checks that hold the
+    strip march to it)."""
+    x, y = torch.empty_like(b), torch.empty_like(b)
+    _chain(_ZERO_CHAIN, "dia_zero_chain", None, A, St, None, b, dinv, tv,
+           omega, x, y)
+    return x, y
+
+
+def _jacobi_res_rows(A, x, b, dinv, omega):
+    """K4 in the per-row form whatever the shape."""
+    y, r = torch.empty_like(x), torch.empty_like(x)
+    _chain(_JACOBI_RES, "dia_jacobi_res", None, A, None, x, b, dinv, None,
+           omega, y, r)
+    return y, r
 
 
 def _launch_k(kernel, mode, A, Xk, b, dinv, omega, Yk, Rk=None):
@@ -629,28 +772,36 @@ def dia_jacobi_zero_res(A: DIAMatrix, b, dinv, omega):
 def dia_jacobi_res(A: DIAMatrix, x, b, dinv, omega):
     """A Jacobi sweep from a nonzero guess and the residual of the updated
     iterate in one pass: (y, r) = (x + omega * dinv * (b - A @ x),
-    b - A @ y)."""
+    b - A @ y) (K4: the strip march by :func:`chain_plan`, y formed once
+    into a ring; the per-row kernel for a shape it refuses)."""
     if _build.on_cpu(A.data, x, b, dinv):
         return dia_jacobi_res_ref(A, x, b, dinv, omega)
     _check_vectors(A, x=x, b=b, dinv=dinv)
     y = torch.empty_like(x)
     r = torch.empty_like(x)
-    _launch_chain(_JACOBI_RES, A, None, x, b, dinv, None, omega, y, r)
-    _count("dia_jacobi_res", A)
+    plan = chain_plan(A.offsets, A.offsets, A.n_pad, A.dtype,
+                      _build.sm_count(A.device),
+                      _aligned(A.data, x, b, dinv, y, r))
+    _chain(_JACOBI_RES, "dia_jacobi_res", plan, A, None, x, b, dinv, None,
+           omega, y, r)
     return y, r
 
 
 def dia_zero_chain(A: DIAMatrix, St: DIAMatrix, b, dinv, tv, omega):
     """The zero-entry level front-end in one pass: (x, y) =
     (omega * dinv * b, tv * (St @ (b - A @ x))); the residual is never
-    stored."""
+    stored (K5: the strip march by :func:`chain_plan`, r formed once into a
+    ring; the per-row kernel for a shape it refuses)."""
     if _build.on_cpu(A.data, St.data, b, dinv, tv):
         return dia_zero_chain_ref(A, St, b, dinv, tv, omega)
     _check_vectors(A, b=b, dinv=dinv, tv=tv)
     x = torch.empty_like(b)
     y = torch.empty_like(b)
-    _launch_chain(_ZERO_CHAIN, A, St, None, b, dinv, tv, omega, x, y)
-    _count("dia_zero_chain", A)
+    plan = chain_plan(A.offsets, St.offsets, A.n_pad, A.dtype,
+                      _build.sm_count(A.device),
+                      _aligned(A.data, St.data, b, dinv, tv, x, y))
+    _chain(_ZERO_CHAIN, "dia_zero_chain", plan, A, St, None, b, dinv, tv,
+           omega, x, y)
     return x, y
 
 

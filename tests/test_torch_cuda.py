@@ -420,6 +420,74 @@ def test_k11_strip_march_and_per_row_match_twin(cuda, dtype, case):
         assert torch.equal(g, r_) and torch.equal(g, a)
 
 
+# name -> (n_pad, A's offsets, St's offsets) for K5 and K4: the
+# device-built 2048^2 levels 0 and 1 (random diagonals at their offsets),
+# an odd n_pad with an asymmetric reach, the coarse levels' n_pad 729 and
+# 990, and a 3-D 7-point pattern whose +-n^2 reach no ring holds
+CHAIN_CASES = {
+    "level0": (4227072, (-2049, -1, 0, 1, 2049), (-2049, -1, 0, 1, 2049)),
+    "level1": (475136, (-685, -684, -683, -1, 0, 1, 683, 684, 685),
+               (-685, -684, -683, -1, 0, 1, 683, 684, 685)),
+    "odd n_pad": (100_003, (-317, -1, 1, 317), (-4000, -317, 0, 317, 2999)),
+    "n_pad 729": (729, (-28, -27, -26, -1, 0, 1, 26, 27, 28),
+                  (-28, -27, -26, -1, 0, 1, 26, 27, 28)),
+    "n_pad 990": (990, (-34, -33, -32, -1, 0, 1, 32, 33, 34),
+                  (-34, -33, -32, -1, 0, 1, 32, 33, 34)),
+    "3-D 7-point": (20 * 120 * 120, (-14400, -120, -1, 0, 1, 120, 14400),
+                    (-14400, -120, -1, 0, 1, 120, 14400)),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_k4_k5_strip_march_equals_per_row_kernel(cuda, dtype, case):
+    """K5 and K4 at the path shapes, omega by value and by device pointer:
+    one launch per call of the strip march (the per-row kernel only for
+    the 3-D reach, counted apart), within TOL of the twin, two launches
+    bit-identical, and equal to the per-row kernel bit for bit, under the
+    plan and under another (128 threads, one row a thread, 3 strips)."""
+    n, offs, soffs = CHAIN_CASES[case]
+    A = _random_dia(n, offs, dtype, cuda, 0)
+    St = _random_dia(n, soffs, dtype, cuda, 1)
+    x, b, dinv, tv = (_rand(n, dtype, cuda, s) for s in (2, 3, 4, 5))
+    sms = _build.sm_count(cuda)
+    name = str(dtype).removeprefix("torch.")
+    for kernel, outer, call, ref, rows in (
+            ("dia_zero_chain", St,
+             lambda w: dia.dia_zero_chain(A, St, b, dinv, tv, w),
+             lambda w: dia.dia_zero_chain_ref(A, St, b, dinv, tv, w),
+             lambda w: dia._zero_chain_rows(A, St, b, dinv, tv, w)),
+            ("dia_jacobi_res", A,
+             lambda w: dia.dia_jacobi_res(A, x, b, dinv, w),
+             lambda w: dia.dia_jacobi_res_ref(A, x, b, dinv, w),
+             lambda w: dia._jacobi_res_rows(A, x, b, dinv, w))):
+        plan = dia.chain_plan(A.offsets, outer.offsets, n, dtype, sms)
+        assert (plan is None) == (case == "3-D 7-point")
+        for omega in (0.85, torch.tensor(0.85, dtype=dtype, device=cuda)):
+            _build.reset_launches()
+            got, again = call(omega), call(omega)
+            torch.cuda.synchronize()
+            key = kernel if plan is not None else f"{kernel}_rows"
+            assert _build.launches == {f"{key}.{name}": 2}
+            for g, a, w in zip(got, again, ref(omega)):
+                assert torch.equal(g, a)
+                assert _rel_err(g, w) <= TOL[dtype]
+            for g, r_ in zip(got, rows(omega)):
+                assert torch.equal(g, r_)
+        if plan is None:
+            continue
+        other = dataclasses.replace(plan, threads=128, vec=1,
+                                    strip=-(-n // 3), strips=3)
+        alt = tuple(torch.empty_like(b) for _ in range(2))
+        mode = dia._ZERO_CHAIN if kernel == "dia_zero_chain" \
+            else dia._JACOBI_RES
+        dia._chain(mode, kernel, other, A, St if outer is St else None,
+                   None if outer is St else x, b, dinv, tv, 0.85, *alt)
+        torch.cuda.synchronize()
+        for g, a in zip(call(0.85), alt):
+            assert torch.equal(g, a)
+
+
 def _long_column_rect():
     """16384 x 300, 3 entries per row (~164 per column: K7's tile form),
     plus column 150 with 8192 entries, longer than the tile budget."""
