@@ -31,7 +31,8 @@ result lines):
    and K8 plain at host level 0, K8 and K9 also bit for bit against their
    thread-per-row form; K10 at host level 0 and K12, K13 on the
    host-built T at K = 8; K15's five modes on the
-   lane-aligned level-0 operators at K = 8: max error,
+   lane-aligned level-0 operators at K = 8; K6 on the host-built T equal
+   to its per-row kernel bit for bit, with its plan printed: max error,
    CUDA-event times of both, the bound from the bytes and operations the
    call needs, and one PyTorch library call as a yardstick where one
    computes the same function (never on the path); the transposes (K7,
@@ -65,8 +66,9 @@ result lines):
    (K10, K12, K13), then on the lane-aligned device-built hierarchy the
    interleaved route (native, K15's five modes) and the K-major mixed
    solve; on every batched path K8 and K9 through their lane kernel only
-   (no thread-per-row launch), and on the 1-D paths K5 and K4 through
-   their strip march only;
+   (no thread-per-row launch), on the 1-D paths K5 and K4 through
+   their strip march only, and on every path K6 and K14 through their
+   gather kernel only;
 10. a stationary phase (accel=None, native float32, 5 V-cycles) on a
     256^2 device-built hierarchy, one right-hand side and then K = 4,
     each against the same run on a CPU copy of that hierarchy (the plain
@@ -84,7 +86,9 @@ result lines):
     seconds, peak memory and levels (0-2 against the reference's), counters
     zeroed before the first; K14 (windowed_select, float32 and float64
     payloads, bit-exact; torch.take as the yardstick) on level 0's and
-    level 1's A, and K6/K7 (level 0's A and P, level 1's A) and K12/K13
+    level 1's A, and K6/K7 (level 0's A and P, level 1's A; K6 and K14
+    with their plans, K6 equal to its per-row kernel bit for bit) and
+    K12/K13
     (K = 64, level 0's A and P; one launch per call; their launches in
     the first setup beside the 16-lane kernels') at this hierarchy's
     shapes; float32 CG to
@@ -92,7 +96,8 @@ result lines):
     solve; the reference's 7 +- 1 iterations); a V-cycle under sync-debug
     "error"; then a 200^2 jittered mesh, scrambled, routed by
     device_sa_setup through RCM (float64; its float64 kernel instances
-    K14, K6/K7 and K12/K13 at K = 64 checked on its level 0's A and P),
+    K14, K6/K7 and K12/K13 at K = 64 checked on its level 0's A and P,
+    K6 and K14 beside an empty kernel launched with their plan's grid),
     and aggressive with smooth_passes=2 in float64 and in float32 (twice),
     each solved to 1e-6 through the ReorderedSolver; the two 640k setups
     must give identical levels and f32 CG histories, the two float32
@@ -231,6 +236,8 @@ K8_ROWS = ("dia_spmm_rows", "dia_spmm_scaled_rows", "dia_spmm_add_rows",
 # K5 and K4's per-row kernel (for the shapes the strip march refuses)
 CHAIN_ROWS = {"dia_zero_chain": "dia_zero_chain_rows",
               "dia_jacobi_res": "dia_jacobi_res_rows"}
+# K6's per-row kernel: its bit reference, which no path launches
+GATHER_ROWS = "windowed_matvec_rows"
 # the lane-aligned 2048^2 fine grid and its solve padding (the reference's)
 LANE_GRID_P = (2064, 2304)
 LANE_N_PAD = 4784128
@@ -617,6 +624,60 @@ def path_launches(check, label, counts):
                    if k.split(".")[0] in chain}
         check(not per_row, f"{label}: K4 / K5 through the strip march only "
               f"(per-row launches {per_row or 'none'})")
+    gather_only(check, label, counts)
+
+
+def gather_only(check, label, counts):
+    """K6 and K14 (where the path runs them) only in the gather kernel."""
+    if not any(k.split(".")[0] in ("windowed_matvec", "windowed_select")
+               for k in counts):
+        return
+    rows = {k: c for k, c in counts.items() if k.split(".")[0] == GATHER_ROWS}
+    check(not rows, f"{label}: K6 / K14 through the gather kernel only "
+          f"(per-row launches {rows or 'none'})")
+
+
+def gather_form(plan):
+    """A K6 / K14 plan in words."""
+    return (f"{plan.grid} CTAs ({plan.ctas_per_block} a row block) of "
+            f"{plan.threads} threads, {plan.items} items of {plan.vec} "
+            "a CTA")
+
+
+def k6_rows_check(check, name, W, x):
+    """K6 by its plan equal to the per-row kernel bit for bit on the same
+    inputs (the plan printed)."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import window
+
+    got = window.windowed_matvec(W, x)
+    rows = window._windowed_matvec_rows(W, x)
+    torch.cuda.synchronize()
+    plan = window._gather_plan_for(W, x, got, False)
+    check(torch.equal(got, rows), f"{name}: the gather kernel "
+          f"({gather_form(plan)}) equals the per-row kernel bit for bit")
+    return plan
+
+
+def empty_floor(W, x, select):
+    """Device ms of an empty kernel launched with the grid of W's K6
+    (``select`` False) or K14 plan: the floor a launch of that grid
+    reaches in ``time_ms``."""
+    import torch
+
+    from pyamg_tpu_torch import _build
+    from pyamg_tpu_torch.sparse import window
+
+    out = torch.empty(W.idx.shape if select else (W.n_pad,), dtype=x.dtype,
+                      device=x.device)
+    plan = window._gather_plan_for(W, x, out, select)
+    lib = _build.library()
+    return time_ms(lambda: _build.check("pyamg_empty_launch",
+                                        lib.pyamg_empty_launch(
+                                            plan.grid, plan.threads,
+                                            torch.cuda.current_stream(
+                                            ).cuda_stream)))
 
 
 def k8_rows_check(check, name, kernel, mode, A, X, b, dinv, omega, lane_fn):
@@ -1283,6 +1344,11 @@ def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
                 lambda: window.windowed_select_ref(W, x), results,
                 nbytes, 0, library_fn=lambda: torch.take(x, gidx),
                 path=path, exact=True)
+        out = torch.empty(W.idx.shape, dtype=dtype, device=x.device)
+        log(f"  windowed_select.{dt} [{tag}]: "
+            f"{gather_form(window._gather_plan_for(W, x, out, True))}"
+            + (f"; an empty launch of that grid {empty_floor(W, x, True):.4f}"
+               " ms" if where == "routed" else ""))
     for label, W in ops:
         assert W.dtype == dtype
         W_csr, Wt_csr = windowed_to_csr(W), windowed_to_csr(W, True)
@@ -1298,6 +1364,10 @@ def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
                 lambda: window.windowed_matvec_ref(W, x), results,
                 meta + (m + W.n_pad) * sz, flops,
                 library_fn=lambda: torch.mv(W_csr, x), path=path)
+        k6_rows_check(check, f"windowed_matvec.{dt} [{tag}]", W, x)
+        if where == "routed":
+            log(f"  windowed_matvec.{dt} [{tag}]: an empty launch of its "
+                f"grid {empty_floor(W, x, False):.4f} ms")
         compare(check, f"windowed_rmatvec.{dt} [{tag}]", dtype,
                 lambda: window.windowed_rmatvec(W, r),
                 lambda: window.windowed_rmatvec_ref(W, r), results,
@@ -1434,6 +1504,7 @@ def unstructured_phase(check, dev, rand, results, launches):
     for k in PATHS["unstructured setup"]:
         c = launches["unstructured setup"].get(k, 0)
         check(c > 0, f"unstructured setup: {k} launched ({c} launches)")
+    gather_only(check, "unstructured setup", launches["unstructured setup"])
     log("  K12 / K13 launches in the first setup: "
         f"{launches['unstructured setup'].get('windowed_matmat_k.float32')} /"
         f" {launches['unstructured setup'].get('windowed_rmatmat_k.float32')}"
@@ -1483,6 +1554,7 @@ def unstructured_phase(check, dev, rand, results, launches):
     for k in PATHS["unstructured solve"]:
         check(counts.get(k, 0) > 0, f"unstructured solve: {k} launched "
               f"({counts.get(k, 0)} launches)")
+    gather_only(check, "unstructured solve", counts)
 
     profile_phase(f"unstructured {UNSTR_NX}^2", (
         ("unstructured setup", lambda: device_unstructured_sa_setup(A, **kw)),
@@ -1548,6 +1620,7 @@ def unstructured_phase(check, dev, rand, results, launches):
         for k in PATHS.get(label, ()):
             check(launches[label].get(k, 0) > 0, f"{label}: {k} launched "
                   f"({launches[label].get(k, 0)} launches)")
+        gather_only(check, label, launches[label])
         if label == "routed unstructured setup":
             routed_kernel_checks(check, rs.hierarchy, rand, results)
         true_rels.append(true_rel)
@@ -1778,6 +1851,7 @@ def main():
                     lambda: window.windowed_matvec_ref(T, x), results,
                     meta + (x.numel() + T.n_pad) * sz, ops,
                     library_fn=lib_mv)
+            k6_rows_check(check, f"windowed_matvec.{dt} [{tag}]", T, x)
             compare(check, f"windowed_rmatvec.{dt} [{tag}]", dtype,
                     lambda: window.windowed_rmatvec(T, r),
                     lambda: window.windowed_rmatvec_ref(T, r), results,

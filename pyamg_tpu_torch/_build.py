@@ -23,6 +23,7 @@ can show that its path really went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -117,9 +118,19 @@ _SIGNATURES = {
     "pyamg_dia_zero_chain_k_ring_f64": (_P, _P, _I, _P, _P, _I, _L, _I, _I,
                                         _L, _I, _I, _I, _I, _P, _P, _P,
                                         ctypes.c_double, _P, _P, _P, _P),
+    # mode, data, idx, starts, k, block, w2, n_blocks, vec, threads,
+    # ctas_per_block, items_per_cta, x, out, stream
+    "pyamg_windowed_gather_f32": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _P, _P, _P),
+    "pyamg_windowed_gather_f64": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _P, _P, _P),
     # data, idx, starts, k, block, w2, n_rows, x, y, stream
-    "pyamg_windowed_matvec_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
-    "pyamg_windowed_matvec_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P, _P),
+    "pyamg_windowed_matvec_rows_f32": (_P, _P, _P, _I, _I, _I, _L, _P, _P,
+                                       _P),
+    "pyamg_windowed_matvec_rows_f64": (_P, _P, _P, _I, _I, _I, _L, _P, _P,
+                                       _P),
+    # grid, threads, stream
+    "pyamg_empty_launch": (_L, _I, _P),
     # data, perm, colptr, k, block, m, r, y, stream
     "pyamg_windowed_rmatvec_f32": (_P, _P, _P, _I, _I, _L, _P, _P, _P),
     "pyamg_windowed_rmatvec_f64": (_P, _P, _P, _I, _I, _L, _P, _P, _P),
@@ -140,9 +151,6 @@ _SIGNATURES = {
                                      _L, _I, _I, _P, _P, _P),
     "pyamg_windowed_rmatmat_k_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
                                      _L, _I, _I, _P, _P, _P),
-    # idx, starts, k, block, w2, n_rows, x, out, stream
-    "pyamg_windowed_select_f32": (_P, _P, _I, _I, _I, _L, _P, _P, _P),
-    "pyamg_windowed_select_f64": (_P, _P, _I, _I, _I, _L, _P, _P, _P),
     # data, offsets, nd, n_pad, K, k0, lanes, in, aux, vec, out0, out1,
     # mode, stream
     "pyamg_interleaved_f32": (_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -204,9 +212,10 @@ def lane_chunks(K):
     return [(k0, min(K, k0 + MAX_LANES)) for k0 in range(0, K, MAX_LANES)]
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
     """The streaming multiprocessors of ``device`` (``CPU_SMS`` for the
-    CPU)."""
+    CPU), read once per device: the launch plans ask on every call."""
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).multi_processor_count
     return CPU_SMS

@@ -1,15 +1,19 @@
 // Windowed-ELL transfer-operator kernels of pyamg_tpu_torch, for Hopper
 // (sm_90a).
 //
-//   windowed_matvec_kernel   replaces pyamg_tpu/sparse/window.py::WindowedELL._matvec_pallas
+//   windowed_gather_kernel<T, V, kGatherSum> (K6)
+//                            replaces pyamg_tpu/sparse/window.py::WindowedELL._matvec_pallas
 //   windowed_rmatvec_kernel, windowed_rmatvec_tiles_kernel (K7)
 //                            replace pyamg_tpu/sparse/window.py::WindowedELL._rmatvec_pallas
 //   windowed_matmat_k_kernel (K12)
 //                            replaces pyamg_tpu/sparse/window.py::WindowedELL._matmat_pallas_k
 //   windowed_rmatmat_k_kernel (K13)
 //                            replaces pyamg_tpu/sparse/window.py::WindowedELL._rmatmat_pallas_k
-//   windowed_select_kernel (K14)
+//   windowed_gather_kernel<T, V, kGatherSelect> (K14)
 //                            replaces pyamg_tpu/sparse/window.py::WindowedELL._select_pallas
+//   windowed_matvec_rows_kernel
+//                            one thread per row: K6's first form, kept as
+//                            its bit reference (no path launches it)
 //
 // Layout (built on the host by windowed_from_scipy, identical to the JAX
 // package's): rows in blocks of `block`; block b reads the source window
@@ -22,12 +26,26 @@
 // cannot gather; Hopper can, so the forward apply is a direct indexed load
 // and the transpose an indexed gather through a column plan.
 //
-// Bound: device-memory bandwidth.  The forward pass reads data and idx
-// (k * n * (sizeof(T) + 4) bytes), the starts and the window of x, and
-// writes n values.  The slot-major layout makes each slot's data/idx loads
-// coalesced across a warp, and the window of x a warp touches is narrow
-// (rows of one block map into 2 * w2 contiguous source entries), so its
-// gathers mostly hit L1/L2.
+// Bound: device-memory bandwidth.  The forward apply (K6) reads data and
+// idx (k * n * (sizeof(T) + 4) bytes), the starts and the window of x, and
+// writes n values; the select (K14) reads idx and writes one value per
+// entry.  Both are one template, windowed_gather_kernel, with a sum
+// epilogue (K6) or a per-slot store (K14), launched by a plan made on the
+// host (sparse/window.py::gather_plan).  A CTA works inside one row block
+// b (blockIdx.x = b * ctas_per_block + chunk), so the window start
+// starts[b] * w2 is one uniform load; the CTA's base pointers into data,
+// idx, out and x are 64-bit, and every offset inside the row block 32-bit
+// (k * block < 2^31, which the launch checks).  A thread moves 16 bytes of
+// each stream at a time: V = 4 float32 or 2 float64 rows (K6: each slot's
+// data and idx, then one store of V sums) or entries (K14: one idx load, V
+// gathers, one store), or V = 1 where the operands are unaligned or, for
+// K6, where 16 bytes a thread would leave the card too few threads; the
+// slot-major layout makes neighbouring threads' accesses neighbouring.  K6 sums a row's slots in ascending order with
+// one explicit FMA each from 0, the arithmetic nvcc's contraction of acc
+// += data * x gave the per-row kernel, so the bits are the per-row
+// kernel's.  The gathers of x go through L1: staging a row block's window
+// (2 * w2 values) in shared memory first gained nothing measurable on the
+// card (PERF.md §6; scripts/window_variants.cu keeps that form).
 //
 // The transpose (K7) replaces the TPU's VMEM-resident output accumulated
 // over a sequential grid (window.py:253-293).  Blocks here run in no
@@ -112,16 +130,18 @@
 // entries' columns and rows are the price of the K-major layout.
 //
 // The select (K14) reads x at every entry's column and writes it to that
-// entry's slot: out[b, s, row] = x[starts[b] * w2 + idx[b, s, row]], one
-// thread per entry, no arithmetic.  The TPU resolved the index by a
-// one-hot product through a three-way bf16 split of x (exact for integers
-// below 2^24, within 2^-26 relative otherwise); here the load is exact for
-// every payload, so the unstructured setup's integer payloads (coarse
-// indices, cumulative root counts riding float32) and its finite sentinels
-// come back unchanged.  x is the payload's own dtype, not the operator's:
-// the setup selects float32 indices from a float64 operator.  Bound:
-// device-memory bandwidth, idx read and out written once (k * n * (4 +
-// sizeof(T)) bytes) plus the starts and the window of x.
+// entry's slot: out[b, s, row] = x[starts[b] * w2 + idx[b, s, row]], no
+// arithmetic; a row block's entries are contiguous, so a K14 thread's V
+// entries are V neighbours of the flat (n_blocks, k, block) array.  The
+// TPU resolved the index by a one-hot product through a three-way bf16
+// split of x (exact for integers below 2^24, within 2^-26 relative
+// otherwise); here the load is exact for every payload, so the
+// unstructured setup's integer payloads (coarse indices, cumulative root
+// counts riding float32) and its finite sentinels come back unchanged.  x
+// is the payload's own dtype, not the operator's: the setup selects
+// float32 indices from a float64 operator.  Bound: device-memory
+// bandwidth, idx read and out written once (k * n * (4 + sizeof(T))
+// bytes) plus the starts and the window of x.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -164,13 +184,16 @@ __device__ __forceinline__ double fma_rn(double a, double b, double c) {
   return __fma_rn(a, b, c);
 }
 
+// K6 by row (the first form, kept as the bit reference): one thread per
+// row, its slots in order.
 template <typename T>
-__global__ void windowed_matvec_kernel(const T* __restrict__ data,
-                                       const int* __restrict__ idx,
-                                       const int* __restrict__ starts, int k,
-                                       int block, int w2, int64_t n_rows,
-                                       const T* __restrict__ x,
-                                       T* __restrict__ y) {
+__global__ void windowed_matvec_rows_kernel(const T* __restrict__ data,
+                                            const int* __restrict__ idx,
+                                            const int* __restrict__ starts,
+                                            int k, int block, int w2,
+                                            int64_t n_rows,
+                                            const T* __restrict__ x,
+                                            T* __restrict__ y) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (g >= n_rows) return;
   const int64_t blk = g / block;
@@ -183,6 +206,83 @@ __global__ void windowed_matvec_kernel(const T* __restrict__ data,
     acc += data[e] * x[base + idx[e]];
   }
   y[g] = acc;
+}
+
+// V consecutive values of T, loaded or stored as one access of V *
+// sizeof(T) bytes (16 for 4 float32 or 2 float64; idx's 4 or 2 ints)
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+template <int V, typename T>
+__device__ __forceinline__ Pack<T, V> load_pack(const T* p) {
+  return *reinterpret_cast<const Pack<T, V>*>(p);
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, V>& v) {
+  *reinterpret_cast<Pack<T, V>*>(p) = v;
+}
+
+enum GatherMode : int { kGatherSum = 0, kGatherSelect = 1 };
+
+// K6 (kGatherSum) and K14 (kGatherSelect).  CTA blockIdx.x = (row block
+// b, chunk c) with b = blockIdx.x / ctas_per_block: the chunk's items are
+// [c * items_per_cta, +items_per_cta) of the block's, an item being V
+// rows (K6: block / V items) or V entries of the block's flat k * block
+// (K14), taken by the CTA's threads in turn.  The block's base pointers
+// are 64-bit; the offsets inside it fit 32 bits (the launch's check).
+template <typename T, int V, int MODE>
+__global__ void windowed_gather_kernel(const T* __restrict__ data,
+                                       const int* __restrict__ idx,
+                                       const int* __restrict__ starts,
+                                       int k, int block, int w2,
+                                       int ctas_per_block, int items_per_cta,
+                                       const T* __restrict__ x,
+                                       T* __restrict__ out) {
+  const int b = blockIdx.x / ctas_per_block;
+  const int i0 = (blockIdx.x - b * ctas_per_block) * items_per_cta;
+  const int i1 = min(i0 + items_per_cta,
+                     (MODE == kGatherSum ? block : k * block) / V);
+  const T* xw = x + static_cast<int64_t>(starts[b]) * w2;
+  const int64_t eb = static_cast<int64_t>(b) * k * block;
+  const int* ib = idx + eb;
+  if constexpr (MODE == kGatherSum) {
+    const T* db = data + eb;
+    T* yb = out + static_cast<int64_t>(b) * block;
+    for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
+      const int r = i * V;
+      T acc[V];
+#pragma unroll
+      for (int u = 0; u < V; ++u) acc[u] = T(0);
+      // the slots' loads of four iterations in flight before their sums
+#pragma unroll 4
+      for (int s = 0; s < k; ++s) {
+        const int e = s * block + r;
+        const Pack<T, V> d = load_pack<V>(db + e);
+        const Pack<int, V> c = load_pack<V>(ib + e);
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          acc[u] = fma_rn(d.v[u], xw[c.v[u]], acc[u]);
+        }
+      }
+      Pack<T, V> y;
+#pragma unroll
+      for (int u = 0; u < V; ++u) y.v[u] = acc[u];
+      store_pack<V>(yb + r, y);
+    }
+  } else {
+    T* ob = out + eb;
+    for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
+      const int e = i * V;
+      const Pack<int, V> c = load_pack<V>(ib + e);
+      Pack<T, V> o;
+#pragma unroll
+      for (int u = 0; u < V; ++u) o.v[u] = xw[c.v[u]];
+      store_pack<V>(ob + e, o);
+    }
+  }
 }
 
 // the row of entry e of the slot-major (n_blocks, k, block) layout
@@ -456,18 +556,6 @@ __global__ void windowed_rmatmat_k_kernel(const T* __restrict__ data,
   }
 }
 
-template <typename T>
-__global__ void windowed_select_kernel(const int* __restrict__ idx,
-                                       const int* __restrict__ starts, int k,
-                                       int block, int w2, int64_t n_entries,
-                                       const T* __restrict__ x,
-                                       T* __restrict__ out) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n_entries) return;
-  const int64_t blk = e / (static_cast<int64_t>(k) * block);
-  out[e] = x[static_cast<int64_t>(starts[blk]) * w2 + idx[e]];
-}
-
 constexpr int kThreads = 256;
 
 inline unsigned int grid_for(long long n) {
@@ -475,12 +563,12 @@ inline unsigned int grid_for(long long n) {
 }
 
 template <typename T>
-int launch_matvec(const void* data, const void* idx, const void* starts, int k,
-                  int block, int w2, long long n_rows, const void* x, void* y,
-                  void* stream) {
+int launch_matvec_rows(const void* data, const void* idx, const void* starts,
+                       int k, int block, int w2, long long n_rows,
+                       const void* x, void* y, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
-  windowed_matvec_kernel<T><<<grid_for(n_rows), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  windowed_matvec_rows_kernel<T><<<grid_for(n_rows), kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int*>(idx),
       static_cast<const int*>(starts), k, block, w2, n_rows,
       static_cast<const T*>(x), static_cast<T*>(y));
@@ -611,37 +699,113 @@ int launch_rmatmat_k(const void* data, const void* perm, const void* colptr,
   }
 }
 
-template <typename T>
-int launch_select(const void* idx, const void* starts, int k, int block,
-                  int w2, long long n_rows, const void* x, void* out,
-                  void* stream) {
-  const long long n_entries = n_rows * k;
-  if (n_entries <= 0) return static_cast<int>(cudaSuccess);
-  windowed_select_kernel<T><<<grid_for(n_entries), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const int*>(starts), k, block,
-      w2, n_entries, static_cast<const T*>(x), static_cast<T*>(out));
+template <typename T, int V, int MODE>
+int launch_gather_form(const void* data, const void* idx, const void* starts,
+                       int k, int block, int w2, unsigned int grid,
+                       int threads, int ctas_per_block, int items_per_cta,
+                       const void* x, void* out, void* stream) {
+  windowed_gather_kernel<T, V, MODE><<<grid, threads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int*>(idx),
+      static_cast<const int*>(starts), k, block, w2, ctas_per_block,
+      items_per_cta, static_cast<const T*>(x), static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+// K6 (mode kGatherSum: y of n_blocks * block rows) or K14 (kGatherSelect:
+// out like idx; data unused) by a plan: `vec` values a thread and item (1
+// or 16 bytes' worth), `threads` a CTA, ctas_per_block CTAs of
+// items_per_cta items for each row block.  The 16-byte alignment of every
+// pack operand (data, idx, out) is the caller's
+// (sparse/window.py::gather_plan); the shape's consistency, and the 32-bit
+// bound on offsets inside a row block (k * block < 2^31), are checked here.
+template <typename T>
+int launch_gather(int mode, const void* data, const void* idx,
+                  const void* starts, int k, int block, int w2, int n_blocks,
+                  int vec, int threads, int ctas_per_block, int items_per_cta,
+                  const void* x, void* out, void* stream) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  if ((mode != kGatherSum && mode != kGatherSelect)
+      || (vec != 1 && vec != kVec) || block % vec != 0 || k < 1
+      || static_cast<long long>(k) * block >= (1LL << 31)
+      || static_cast<long long>(ctas_per_block) * items_per_cta >= (1LL << 31)
+      || threads < 32 || threads > 1024 || threads % 32 != 0
+      || ctas_per_block < 1 || items_per_cta < 1
+      || static_cast<long long>(ctas_per_block) * items_per_cta
+             < (mode == kGatherSum ? block : static_cast<long long>(k) * block)
+                   / vec
+      || static_cast<long long>(n_blocks) * ctas_per_block >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_blocks <= 0) return static_cast<int>(cudaSuccess);
+  const unsigned int grid = static_cast<unsigned int>(n_blocks) * ctas_per_block;
+#define PYAMG_GATHER(V, M)                                                   \
+  return launch_gather_form<T, V, M>(data, idx, starts, k, block, w2, grid,  \
+                                     threads, ctas_per_block, items_per_cta, \
+                                     x, out, stream)
+  if (mode == kGatherSum) {
+    if (vec == 1) PYAMG_GATHER(1, kGatherSum);
+    PYAMG_GATHER(kVec, kGatherSum);
+  }
+  if (vec == 1) PYAMG_GATHER(1, kGatherSelect);
+  PYAMG_GATHER(kVec, kGatherSelect);
+#undef PYAMG_GATHER
+}
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
 extern "C" {
 
-int pyamg_windowed_matvec_f32(const void* data, const void* idx,
+// K6 or K14 by a plan: mode, data, idx, starts, k, block, w2, n_blocks,
+// vec, threads, ctas_per_block, items_per_cta, x, out, stream
+int pyamg_windowed_gather_f32(int mode, const void* data, const void* idx,
                               const void* starts, int k, int block, int w2,
-                              long long n_rows, const void* x, void* y,
-                              void* stream) {
-  return launch_matvec<float>(data, idx, starts, k, block, w2, n_rows, x, y,
-                              stream);
+                              int n_blocks, int vec, int threads,
+                              int ctas_per_block, int items_per_cta,
+                              const void* x, void* out, void* stream) {
+  return launch_gather<float>(mode, data, idx, starts, k, block, w2,
+                              n_blocks, vec, threads, ctas_per_block,
+                              items_per_cta, x, out, stream);
 }
 
-int pyamg_windowed_matvec_f64(const void* data, const void* idx,
+int pyamg_windowed_gather_f64(int mode, const void* data, const void* idx,
                               const void* starts, int k, int block, int w2,
-                              long long n_rows, const void* x, void* y,
-                              void* stream) {
-  return launch_matvec<double>(data, idx, starts, k, block, w2, n_rows, x, y,
-                               stream);
+                              int n_blocks, int vec, int threads,
+                              int ctas_per_block, int items_per_cta,
+                              const void* x, void* out, void* stream) {
+  return launch_gather<double>(mode, data, idx, starts, k, block, w2,
+                               n_blocks, vec, threads, ctas_per_block,
+                               items_per_cta, x, out, stream);
+}
+
+// K6 by row: data, idx, starts, k, block, w2, n_rows, x, y, stream
+int pyamg_windowed_matvec_rows_f32(const void* data, const void* idx,
+                                   const void* starts, int k, int block,
+                                   int w2, long long n_rows, const void* x,
+                                   void* y, void* stream) {
+  return launch_matvec_rows<float>(data, idx, starts, k, block, w2, n_rows,
+                                   x, y, stream);
+}
+
+int pyamg_windowed_matvec_rows_f64(const void* data, const void* idx,
+                                   const void* starts, int k, int block,
+                                   int w2, long long n_rows, const void* x,
+                                   void* y, void* stream) {
+  return launch_matvec_rows<double>(data, idx, starts, k, block, w2, n_rows,
+                                    x, y, stream);
+}
+
+// an empty kernel on `grid` CTAs of `threads`: the floor a launch of that
+// grid reaches in a timer (a yardstick; no path launches it)
+int pyamg_empty_launch(long long grid, int threads, void* stream) {
+  if (grid <= 0 || grid >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  empty_kernel<<<static_cast<unsigned int>(grid), threads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K7 by column: data, perm, colptr, k, block, m, r, y, stream
@@ -723,21 +887,6 @@ int pyamg_windowed_rmatmat_k_f64(const void* data, const void* perm,
   return launch_rmatmat_k<double>(data, perm, colptr, tiles, n_tiles, budget,
                                   max_cols, k, block, n_rows, m, lanes, lt, r,
                                   y, stream);
-}
-
-// idx, starts, k, block, w2, n_rows, x, out, stream
-int pyamg_windowed_select_f32(const void* idx, const void* starts, int k,
-                              int block, int w2, long long n_rows,
-                              const void* x, void* out, void* stream) {
-  return launch_select<float>(idx, starts, k, block, w2, n_rows, x, out,
-                              stream);
-}
-
-int pyamg_windowed_select_f64(const void* idx, const void* starts, int k,
-                              int block, int w2, long long n_rows,
-                              const void* x, void* out, void* stream) {
-  return launch_select<double>(idx, starts, k, block, w2, n_rows, x, out,
-                               stream);
 }
 
 }  // extern "C"

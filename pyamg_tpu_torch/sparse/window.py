@@ -27,6 +27,12 @@ Each has a plain PyTorch twin (gather / scatter-add, ``*_ref``).  A
 wrapper runs the twin only when its operands lie on the CPU; on CUDA
 tensors it launches the kernel or raises.
 
+The forward apply (K6) and the select (K14) are one kernel template with
+two epilogues, launched by :func:`gather_plan`: a CTA inside one row
+block, 16 bytes of each stream a thread.  K6 keeps the bits of the
+per-row kernel it replaced (:func:`_windowed_matvec_rows`, kept as their
+reference and launched by no path).
+
 The transposes sum without atomics: each operator builds a column plan
 once, at its first transpose apply on the card
 (:attr:`WindowedELL.column_plan`), and K7/K13 sum each output column's
@@ -39,6 +45,7 @@ on the device.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from functools import cached_property
@@ -55,7 +62,8 @@ __all__ = ["WindowedELL", "TransposedWindowed", "windowed_from_scipy",
            "windowed_matvec", "windowed_rmatvec", "windowed_matmat_k",
            "windowed_rmatmat_k", "windowed_select", "windowed_matvec_ref",
            "windowed_rmatvec_ref", "windowed_matmat_k_ref",
-           "windowed_rmatmat_k_ref", "windowed_select_ref"]
+           "windowed_rmatmat_k_ref", "windowed_select_ref", "GatherPlan",
+           "gather_plan"]
 
 _LANES = 128
 
@@ -91,7 +99,26 @@ _CPU_SMS = _build.CPU_SMS
 _K7_TILE_SLOTS = 16
 _K7_COLS = 256
 _K7_MIN_BUDGET = 512
-
+# K6 / K14 (csrc/window.cu::windowed_gather_kernel), chosen on the card
+# (PERF.md §6, from scripts/measure_k6_k14.py):
+# - a K6 thread takes one item: 16 bytes of rows while that leaves at
+#   least _GATHER_FULL threads an SM (each loops over its rows' slots), in
+#   CTAs of _GATHER_THREADS threads; else one row, a CTA taking a whole
+#   row block of up to _GATHER_ROW_THREADS rows, so that the block's
+#   gathers share one SM's L1; the CTA halved down to _GATHER_MIN_THREADS
+#   threads while the grid would not give every SM a CTA;
+# - a K14 thread takes 16 bytes of entries and as many items (1 to
+#   _SELECT_ITEMS) as leave _GATHER_FULL threads an SM, a CTA up to
+#   _SELECT_THREADS threads, a row block as few CTAs as that and one wave
+#   of the card allow (each CTA launched costs, and each reads the block's
+#   window into its SM's L1 again).
+_GATHER_SUM, _GATHER_SELECT = 0, 1
+_GATHER_FULL = 1024
+_GATHER_THREADS = 256
+_GATHER_ROW_THREADS = 1024
+_GATHER_MIN_THREADS = 128
+_SELECT_ITEMS = 8
+_SELECT_THREADS = 512
 
 @dataclass(frozen=True)
 class WindowedELL:
@@ -346,6 +373,69 @@ def windowed_from_scipy(A, dtype=torch.float32, device=None, block=None,
     )
 
 
+@dataclass(frozen=True)
+class GatherPlan:
+    """A launch of K6 / K14 (``csrc/window.cu::windowed_gather_kernel``):
+    ``ctas_per_block`` CTAs of ``threads`` threads for each of the
+    ``n_blocks`` row blocks, CTA c of a block taking its items [c * items,
+    (c + 1) * items), its threads in turn.  An item is ``vec`` rows (K6)
+    or ``vec`` entries of the block's flat k * block (K14, ``select``):
+    16 bytes of each stream, or 1 value."""
+
+    select: bool
+    vec: int
+    threads: int
+    items: int
+    ctas_per_block: int
+    n_blocks: int
+
+    @property
+    def grid(self):
+        return self.n_blocks * self.ctas_per_block
+
+
+@functools.lru_cache(maxsize=256)
+def gather_plan(select, n_pad, k, block, itemsize, sms, aligned=True):
+    """K6's (``select`` False) or K14's launch for an operator of ``n_pad``
+    rows in blocks of ``block`` with ``k`` slots and values of
+    ``itemsize`` bytes, on a card of ``sms`` SMs (``aligned``: every pack
+    operand, data, idx and the output, 16-byte aligned).  The rules are
+    those of the constants above; a vector item needs aligned operands and
+    a block of whole items."""
+    if n_pad % block:
+        raise ValueError(f"{n_pad} rows are not whole blocks of {block}")
+    n_blocks = n_pad // block
+    vec = 16 // itemsize
+    if (not aligned or block % vec
+            or not select and n_pad // vec < _GATHER_FULL * sms):
+        vec = 1
+    per_block = (k * block if select else block) // vec
+    if select:
+        # items a thread: as many as leave _GATHER_FULL threads an SM, 1
+        # to _SELECT_ITEMS; at least one wave of CTAs, the items a CTA
+        # rounded down so that none is empty
+        per_thread = min(max(n_blocks * per_block // (_GATHER_FULL * sms),
+                             1), _SELECT_ITEMS)
+        cpb = max(-(-per_block // (_SELECT_THREADS * per_thread)),
+                  -(-sms // n_blocks))
+        items = max(per_block // cpb, 1)
+        want = -(-items // per_thread)
+        threads = min(max(1 << (want - 1).bit_length(), _GATHER_MIN_THREADS),
+                      _SELECT_THREADS)
+    else:
+        threads = (_GATHER_THREADS if vec > 1 else
+                   min(_GATHER_ROW_THREADS, 1 << (per_block - 1).bit_length()))
+        while True:
+            cpb = -(-per_block // threads)
+            if n_blocks * cpb >= sms or threads <= _GATHER_MIN_THREADS:
+                break
+            threads //= 2
+        items = -(-per_block // cpb)
+    return GatherPlan(select=bool(select), vec=vec, threads=threads,
+                      items=items, ctas_per_block=-(-per_block // items),
+                      n_blocks=n_blocks)
+
+
 def tile_budget(nnz, sms):
     """Live entries per K7 / K13 tile: a power of two that gives each of the
     card's ``sms`` SMs about 8 tiles, from 128 to 2048 (16 KB of float32
@@ -494,20 +584,73 @@ def _launch_rmatmat_k(W, Rk, Y):
     _build.count_launch(f"windowed_rmatmat_k.{_build.dtype_name(W.dtype)}")
 
 
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _gather_plan_for(W, x, out, select):
+    """:func:`gather_plan` for W, the payload x and the output out; the
+    alignment is that of the operands read or written in packs (x is only
+    gathered, one value at a time)."""
+    operands = (W.idx, out) if select else (W.data, W.idx, out)
+    return gather_plan(select, W.n_pad, W.k, W.block, x.element_size(),
+                       _build.sm_count(W.device), _aligned(*operands))
+
+
+def _gather(W, x, out, plan):
+    """K6 / K14 by ``plan`` into ``out`` (x's dtype), counted as
+    ``windowed_matvec`` / ``windowed_select``."""
+    fn_name = f"pyamg_windowed_gather_{_KERNEL_SUFFIX[x.dtype]}"
+    err = getattr(_build.library(), fn_name)(
+        _GATHER_SELECT if plan.select else _GATHER_SUM,
+        None if plan.select else W.data.data_ptr(), W.idx.data_ptr(),
+        W.starts.data_ptr(), W.k, W.block, W.w2, plan.n_blocks, plan.vec,
+        plan.threads, plan.ctas_per_block, plan.items, x.data_ptr(),
+        out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(fn_name, err)
+    kind = "select" if plan.select else "matvec"
+    _build.count_launch(f"windowed_{kind}.{_build.dtype_name(x.dtype)}")
+    return out
+
+
+def _check_select(W, x):
+    if x.dtype not in _KERNEL_SUFFIX:
+        raise TypeError(f"windowed select takes float32 or float64 "
+                        f"payloads, not {x.dtype}")
+    _build.check_vector("x", x, W.m_chunks * W.w2, x.dtype)
+    for name, t in (("idx", W.idx), ("starts", W.starts)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"windowed {name}: expected contiguous int32")
+
+
 def windowed_matvec(W: WindowedELL, x):
-    """y = A @ x, with x of length ``m_chunks * w2``; y has ``n_pad``."""
+    """y = A @ x, with x of length ``m_chunks * w2``; y has ``n_pad``.  On
+    the card K6 by :func:`gather_plan`."""
     if _build.on_cpu(W.data, x):
         return windowed_matvec_ref(W, x)
     _build.check_vector("x", x, W.m_chunks * W.w2, W.dtype)
     _check_operator(W)
     y = torch.empty(W.n_pad, dtype=W.dtype, device=x.device)
-    fn_name = f"pyamg_windowed_matvec_{_KERNEL_SUFFIX[W.dtype]}"
+    return _gather(W, x, y, _gather_plan_for(W, x, y, False))
+
+
+def _windowed_matvec_rows(W: WindowedELL, x):
+    """y = A @ x by the per-row kernel K6 replaced (one thread per row, its
+    slots in order), counted as ``windowed_matvec_rows``: K6's bit
+    reference for checks on the card; it has no CPU form."""
+    if _build.on_cpu(W.data, W.idx, W.starts, x):
+        raise ValueError("the per-row K6 kernel runs on CUDA tensors only")
+    _build.check_vector("x", x, W.m_chunks * W.w2, W.dtype)
+    _check_operator(W)
+    y = torch.empty(W.n_pad, dtype=W.dtype, device=x.device)
+    fn_name = f"pyamg_windowed_matvec_rows_{_KERNEL_SUFFIX[W.dtype]}"
     err = getattr(_build.library(), fn_name)(
         W.data.data_ptr(), W.idx.data_ptr(), W.starts.data_ptr(), W.k,
         W.block, W.w2, W.n_pad, x.data_ptr(), y.data_ptr(),
-        torch.cuda.current_stream(W.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(fn_name, err)
-    _build.count_launch(f"windowed_matvec.{_build.dtype_name(W.dtype)}")
+    _build.count_launch(f"windowed_matvec_rows.{_build.dtype_name(W.dtype)}")
     return y
 
 
@@ -548,25 +691,13 @@ def windowed_rmatvec(W: WindowedELL, r):
 def windowed_select(W: WindowedELL, x):
     """out[b, s, r] = x[starts[b] * w2 + idx[b, s, r]], (n_blocks, k,
     block) in x's dtype (float32 or float64, whatever W's dtype), with x of
-    length ``m_chunks * w2`` (K14: an exact indexed load)."""
+    length ``m_chunks * w2`` (K14: an exact indexed load, by
+    :func:`gather_plan`)."""
     if _build.on_cpu(W.idx, x):
         return windowed_select_ref(W, x)
-    if x.dtype not in _KERNEL_SUFFIX:
-        raise TypeError(f"windowed select takes float32 or float64 "
-                        f"payloads, not {x.dtype}")
-    _build.check_vector("x", x, W.m_chunks * W.w2, x.dtype)
-    for name, t in (("idx", W.idx), ("starts", W.starts)):
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"windowed {name}: expected contiguous int32")
+    _check_select(W, x)
     out = torch.empty(W.idx.shape, dtype=x.dtype, device=x.device)
-    fn_name = f"pyamg_windowed_select_{_KERNEL_SUFFIX[x.dtype]}"
-    err = getattr(_build.library(), fn_name)(
-        W.idx.data_ptr(), W.starts.data_ptr(), W.k, W.block, W.w2, W.n_pad,
-        x.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(fn_name, err)
-    _build.count_launch(f"windowed_select.{_build.dtype_name(x.dtype)}")
-    return out
+    return _gather(W, x, out, _gather_plan_for(W, x, out, True))
 
 
 def windowed_matmat_k(W: WindowedELL, Xk):

@@ -822,6 +822,122 @@ def test_k14_windowed_select_matches_twin(cuda, dtype, payload):
         window.windowed_select(W, x.to(torch.int32))
 
 
+# K6 / K14 operators: (rows = columns, spread, block); square, so the last
+# row block reads the last window (starts at m_chunks - 2)
+GATHER_CASES = {"smallest block": (8192, 70, 256),
+                "largest block": (32768, 1500, 8192),
+                "under one wave": (2048, 40, 1024)}
+
+
+def _gather_by(W, x, plan):
+    """K6 / K14 by ``plan``: the wrappers' launch with another form."""
+    out = torch.empty(W.idx.shape if plan.select else (W.n_pad,),
+                      dtype=x.dtype, device=x.device)
+    return window._gather(W, x, out, plan)
+
+
+def _gather_forms(W, plan, itemsize):
+    """The plan, and each other form it can pick at this operator: 16
+    bytes or one value a thread, one item a thread with the fewest and
+    the most threads, one CTA a row block."""
+    forms = [plan]
+    for vec in sorted({1, 16 // itemsize}):
+        per_block = (W.k * W.block if plan.select else W.block) // vec
+        for threads, cpb in ((128, None), (1024, None), (256, 1)):
+            cpb = cpb or max(1, -(-per_block // threads))
+            forms.append(dataclasses.replace(
+                plan, vec=vec, threads=threads, ctas_per_block=cpb,
+                items=-(-per_block // cpb)))
+    return forms
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [1, 5, 7, 25])
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_k6_gather_equals_per_row_kernel(cuda, dtype, k, case):
+    """K6 by its plan, and in every form the plan can pick, equal to the
+    per-row kernel bit for bit (one FMA a slot, in slot order), one launch
+    a call counted as ``windowed_matvec``; the per-row kernel counted as
+    ``windowed_matvec_rows``, and within the tolerance of the twin."""
+    n, spread, block = GATHER_CASES[case]
+    P = _random_rect(n, n, per_row=k, spread=spread, seed=k)
+    W = windowed_from_scipy(P, dtype=dtype, device=cuda, block=block)
+    assert W.k == k and int(W.starts.max()) == W.m_chunks - 2
+    x = _rand(W.m_chunks * W.w2, dtype, cuda, 3)
+    name = str(dtype).removeprefix("torch.")
+    _build.reset_launches()
+    rows = window._windowed_matvec_rows(W, x)
+    assert _build.launches == {f"windowed_matvec_rows.{name}": 1}
+    assert _rel_err(rows, window.windowed_matvec_ref(W, x)) <= TOL[dtype]
+    plan = window._gather_plan_for(W, x, rows, False)
+    if case == "under one wave":
+        assert plan.grid < _build.sm_count(W.device)
+    for p in _gather_forms(W, plan, x.element_size()):
+        _build.reset_launches()
+        got = _gather_by(W, x, p)
+        torch.cuda.synchronize()
+        assert _build.launches == {f"windowed_matvec.{name}": 1}, p
+        assert torch.equal(got, rows), p
+    assert torch.equal(window.windowed_matvec(W, x), rows)
+
+
+@pytest.mark.parametrize("payload", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_k14_gather_exact_in_every_form(cuda, case, dtype, payload):
+    """K14 by its plan, and in every form the plan can pick, equal to its
+    twin exactly, for a payload of either dtype on an operator of either
+    dtype; one launch a call counted as ``windowed_select``."""
+    n, spread, block = GATHER_CASES[case]
+    P = _random_rect(n, n, per_row=7, spread=spread, seed=5)
+    W = windowed_from_scipy(P, dtype=dtype, device=cuda, block=block)
+    assert int(W.starts.max()) == W.m_chunks - 2
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        W.m_chunks * W.w2), dtype=payload, device=cuda)
+    want = window.windowed_select_ref(W, x)
+    name = str(payload).removeprefix("torch.")
+    out = torch.empty(W.idx.shape, dtype=payload, device=cuda)
+    plan = window._gather_plan_for(W, x, out, True)
+    assert plan.grid >= _build.sm_count(W.device)
+    for p in _gather_forms(W, plan, x.element_size()):
+        _build.reset_launches()
+        got = _gather_by(W, x, p)
+        torch.cuda.synchronize()
+        assert _build.launches == {f"windowed_select.{name}": 1}, p
+        assert got.dtype == payload and torch.equal(got, want), p
+    _build.reset_launches()
+    assert torch.equal(window.windowed_select(W, x), want)
+    assert _build.launches == {f"windowed_select.{name}": 1}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k6_k14_unaligned_payload_keeps_16_byte_packs(cuda, dtype):
+    """A payload view off 16 bytes (x is only gathered) keeps the plan's
+    16-byte packs, with K6 equal to the per-row kernel and K14 to its
+    twin; the per-row kernel raises on CPU operands."""
+    P = _random_rect(32768, 32768, per_row=5, spread=300, seed=1)
+    W = windowed_from_scipy(P, dtype=dtype, device=cuda, block=1024)
+    m = W.m_chunks * W.w2
+    x = _rand(m + 1, dtype, cuda, 2)[1:]
+    assert x.data_ptr() % 16 != 0
+    y = torch.empty(W.n_pad, dtype=dtype, device=cuda)
+    out = torch.empty(W.idx.shape, dtype=dtype, device=cuda)
+    assert window._gather_plan_for(W, x, out, True).vec == 16 // x.itemsize
+    plan = window._gather_plan_for(W, x, y, False)
+    assert plan.vec == window.gather_plan(False, W.n_pad, W.k, W.block,
+                                          x.itemsize,
+                                          _build.sm_count(W.device)).vec
+    name = str(dtype).removeprefix("torch.")
+    _build.reset_launches()
+    got, sel = window.windowed_matvec(W, x), window.windowed_select(W, x)
+    assert _build.launches == {f"windowed_matvec.{name}": 1,
+                               f"windowed_select.{name}": 1}
+    assert torch.equal(got, window._windowed_matvec_rows(W, x))
+    assert torch.equal(sel, window.windowed_select_ref(W, x))
+    with pytest.raises(ValueError):
+        window._windowed_matvec_rows(W, x.cpu())
+
+
 def test_unstructured_setup_on_card_matches_cpu(cuda):
     """A 48^2 P1 mesh operator: the unstructured setup on the card gives
     the CPU's levels (float64), every setup kernel launched, and its f32

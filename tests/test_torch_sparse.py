@@ -318,16 +318,22 @@ def _assert_same_layout(tw, jw):
     assert tw._can_transpose_pallas() == jw._can_transpose_pallas()
 
 
-@pytest.mark.parametrize("block", [256, 1024, 2048])
-def test_windowed_matvec_k6_matches_pallas_interpret(block):
+@pytest.mark.parametrize("block,per_row", [
+    pytest.param(256, 3, id="256"), pytest.param(1024, 3, id="1024"),
+    pytest.param(2048, 3, id="2048"), pytest.param(1024, 1, id="k1"),
+    pytest.param(1024, 25, id="k25")])
+def test_windowed_matvec_k6_matches_pallas_interpret(block, per_row):
     """K6 against WindowedELL._matvec_pallas(interpret=True) on the
-    reference test's operator, to the reference test's rtol 2e-6 and
-    atol 1e-6: the TPU kernel selects through a 3-way bf16 split, exact
-    to 2^-26 of each term, so outputs that cancel to near zero differ by
-    ~1e-7 absolute while their relative difference is unbounded."""
-    P = _random_rect(4096, 1500, per_row=3, spread=40, seed=2)
+    reference test's operator (and with 1 and 25 slots a row, the host T's
+    and the 640k level-1 A's counts), to the reference test's rtol 2e-6
+    and atol 1e-6: the TPU kernel selects through a 3-way bf16 split,
+    exact to 2^-26 of each term, so outputs that cancel to near zero
+    differ by ~1e-7 absolute while their relative difference is
+    unbounded."""
+    P = _random_rect(4096, 1500, per_row=per_row, spread=40, seed=2)
     jw = jax_windowed_from_scipy(P, block=block)
     tw = windowed_from_scipy(P, device=CPU, block=block)
+    assert tw.k == per_row
     xh = np.random.default_rng(3).random(jw.m_chunks * jw.w2).astype(
         np.float32)
     want = np.asarray(jw._matvec_pallas(jnp.asarray(xh), interpret=True))

@@ -125,14 +125,23 @@ def pair48():
 # K14's twin, the diagonal, the gallery and the host planning
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("payload", ["int", "f32", "f64"])
+# (rows, spread, block, w2): the reference test's operator, and one at
+# the 640k level-1 A's window (w2 4096) with 2048-row blocks
+SELECT_SHAPES = {"": (4096, 70, 256, 1024), "-b2048": (8192, 200, 2048, 4096)}
+
+
+@pytest.mark.parametrize("payload", ["int", "f32", "f64", "int-b2048",
+                                     "f32-b2048"])
 def test_select_twin_matches_pallas_interpret(payload):
     """Integer payloads < 2^24 bit-exact against the interpret-mode Pallas
     kernel; arbitrary f32 within its Dekker split's 2e-7 relative tail;
     every payload exact against the reference's gather form."""
-    P = _random_rect(4096, 4096, per_row=5, spread=70, seed=21)
-    JW = jax_windowed(P, block=256)
-    TW = windowed_from_scipy(P, device=CPU, block=256)
+    payload, _, shape = payload.partition("-")
+    n, spread, block, w2 = SELECT_SHAPES["-" + shape if shape else ""]
+    P = _random_rect(n, n, per_row=5, spread=spread, seed=21)
+    JW = jax_windowed(P, block=block)
+    TW = windowed_from_scipy(P, device=CPU, block=block)
+    assert (TW.block, TW.w2, JW.w2) == (block, w2, w2)
     rng = np.random.default_rng(22)
     m = JW.m_chunks * JW.w2
     x = (rng.integers(0, 2 ** 23, m) if payload == "int"
