@@ -110,8 +110,32 @@ result lines):
     levels) and the 640k unstructured hierarchy (f32 CG to 1e-6), each at
     its unsharded solve's iteration count, with counters; the process
     group is destroyed before the result lines;
-14. result lines: the script's seconds, the kernels' JSON, the card's name
-    and power limit, and last {"ok": true, "device": {...}}.
+14. config 2 (bench.py:446-455, :698-712): the device-built hierarchy of
+    3-D 7-point Poisson 64^3 (float32, max_coarse=400, float64 A64), its
+    setup time (a second call) and levels; K5, K4, K1 (plain and both
+    epilogues), K2, and at K = 8 K11, K9 and K8 in its three modes on its
+    levels 0 and 1 in float32 and float64, each against its twin with its
+    branch (strip march or per-row kernel, the march equal to the per-row
+    kernel bit for bit) and composed alternative; mixed W-cycle CG to
+    1e-8 with b = default_rng(1).random(n) (the reference's 20 +- 1
+    iterations, true relres <= 1e-8) and native V-cycle CG to 1e-5 (14),
+    then F and AMLI CG to 1e-8 against the same solves on a CPU copy of
+    the hierarchy, each with counters; the W, F and AMLI cycles under
+    set_sync_debug_mode("error"); each cycle's CUDA-event time and
+    profile, and the W-cycle solve's;
+15. the Krylov methods: BiCGStab, GMRES and FGMRES (restart 30) mixed to
+    1e-8 on the 2048^2 device-built and host-built hierarchies (counters
+    around each; BiCGStab and FGMRES to true relres <= 1e-8, GMRES to its
+    preconditioned 1e-8, its true relres reported), GMRES in float64 on a
+    float64 device-built 2048^2 hierarchy (true relres <= 1e-8), and every
+    accel (V-cycle) and the W, F and AMLI cycles (CG) on a float64 256^2
+    device-built hierarchy against the same solve on its CPU copy;
+16. lanes: the 64^3 W-cycle CG native float32 to 1e-5 at K = 8 and GMRES
+    (restart 4) at K = 4 on 256^2, each lane within one iteration of its
+    1-D solve, K8 / K9 through their lane kernel only;
+17. result lines: the script's seconds, the kernels' JSON (with the 64^3
+    checks of config 2's paths under ``at_paths``), the card's name and
+    power limit, and last {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -136,6 +160,18 @@ REF_ITERS_BATCHED_1E5 = 13
 LANES = 8
 STATIONARY_GRID = (256, 256)
 STATIONARY_LANES = 4
+# config 2 (bench.py:446-455, :698-712): 3-D 7-point Poisson 64^3, the
+# device-built hierarchy, b = default_rng(1).random(n)
+GRID3 = (64, 64, 64)
+REF_ITERS_C2 = 20       # bench_detail.json config2.device_setup_iters_to_1e8
+REF_ITERS_C2_1E5 = 14   # config2.device_setup_cg_iters_to_1e-5
+# the Krylov methods timed at 2048^2 (configs 3 and 5 and the blackbox
+# run GMRES, BiCGStab and FGMRES), and every accel of the solve
+KRYLOV_2048 = ("bicgstab", "gmres", "fgmres")
+ACCELS = ("cg", "bicgstab", "gmres", "fgmres", "cgnr", "cgne", "cr",
+          "minimal_residual", "steepest_descent")
+GMRES_LANES = 4
+CYCLE_KINDS = ("V", "W", "F", "AMLI")
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM3
 # bytes/s, and float32 / float64 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -229,7 +265,36 @@ PATHS = {
         "windowed_rmatvec.float32"),
     "sharded unstructured": (
         "windowed_matvec.float32", "windowed_rmatvec.float32"),
+    # config 2 at 64^3: the W and F cycles' second visits enter through K4
+    # and restrict through K1 SPMV_SCALED; AMLI's coarse products are K1
+    "config 2 W-cycle": (
+        "dia_zero_chain.float32", "dia_jacobi_res.float32",
+        "dia_spmv_scaled.float32", "dia_spmv_add.float32",
+        "dia_jacobi.float32", "dia_spmv.float64"),
+    "config 2 V-cycle native": (
+        "dia_zero_chain.float32", "dia_spmv_add.float32",
+        "dia_jacobi.float32", "dia_spmv.float32"),
+    "config 2 F-cycle": (
+        "dia_zero_chain.float32", "dia_jacobi_res.float32",
+        "dia_spmv_scaled.float32", "dia_spmv_add.float32",
+        "dia_jacobi.float32", "dia_spmv.float64"),
+    "config 2 AMLI": (
+        "dia_zero_chain.float32", "dia_spmv.float32", "dia_spmv_add.float32",
+        "dia_jacobi.float32", "dia_spmv.float64"),
+    "config 2 batched W-cycle": (
+        "dia_zero_chain_k.float32", "dia_jacobi_k.float32",
+        "dia_spmm.float32", "dia_spmm_scaled.float32",
+        "dia_spmm_add.float32"),
+    "device-built batched GMRES": (
+        "dia_zero_chain_k.float32", "dia_jacobi_k.float32",
+        "dia_spmm.float32", "dia_spmm_add.float32"),
+    "device-built float64 config 1 gmres": (
+        "dia_zero_chain.float64", "dia_spmv_add.float64",
+        "dia_jacobi.float64", "dia_spmv.float64"),
 }
+# the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
+PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
+              for h in ("device-built", "host-built") for a in KRYLOV_2048})
 # K8 and K9's thread-per-row form (the wrapper counts it apart)
 K8_ROWS = ("dia_spmm_rows", "dia_spmm_scaled_rows", "dia_spmm_add_rows",
            "dia_jacobi_k_rows")
@@ -402,7 +467,7 @@ def transpose_checks(check, label, W, r, Rk):
           "bit for bit")
 
 
-def k11_checks(check, name, A, St, Bk, dinv, tv, omega, results):
+def k11_checks(check, name, A, St, Bk, dinv, tv, omega, results, path=None):
     """K11 against its twin at a path shape, with its branch (the strip
     march's plan, or the per-row kernel), the strip march equal to the
     per-row kernel bit for bit, and its composed alternative timed beside
@@ -430,7 +495,7 @@ def k11_checks(check, name, A, St, Bk, dinv, tv, omega, results):
             lambda: dia.dia_zero_chain_k(A, St, Bk, dinv, tv, omega),
             lambda: dia.dia_zero_chain_k_ref(A, St, Bk, dinv, tv, omega),
             results, (nd + nds + 2 + 3 * K) * m * sz,
-            (2 * nd + 2 * nds + 4) * m * K, repeat_exact=True)
+            (2 * nd + 2 * nds + 4) * m * K, repeat_exact=True, path=path)
     if plan is not None:
         got = dia.dia_zero_chain_k(A, St, Bk, dinv, tv, omega)
         rows = (torch.empty_like(Bk), torch.empty_like(Bk))
@@ -449,7 +514,7 @@ def k11_checks(check, name, A, St, Bk, dinv, tv, omega, results):
 
 
 def chain_checks(check, name, mode, A, St, x, b, dinv, tv, omega,
-                 results):
+                 results, path=None):
     """K5 (mode "K5": St, b, dinv, tv) or K4 ("K4": x, b, dinv) against its
     twin at a path shape, with its branch (the strip march's plan, or the
     per-row kernel), the strip march equal to the per-row kernel bit for
@@ -495,7 +560,7 @@ def chain_checks(check, name, mode, A, St, x, b, dinv, tv, omega,
             return b - dia.dia_spmv(A, y)
         what = "K2, then K1 and b - A y"
     compare(check, name, A.dtype, kernel, plain, results, *cost,
-            repeat_exact=True)
+            repeat_exact=True, path=path)
     if plan is not None:
         got, want = kernel(), rows()
         torch.cuda.synchronize()
@@ -699,6 +764,127 @@ def k8_rows_check(check, name, kernel, mode, A, X, b, dinv, omega, lane_fn):
           "kernel bit for bit")
 
 
+def device_level_checks(check, where, h, rand, results, paths, wide=False):
+    """The device-built hierarchy ``h``'s kernels against their twins on
+    its levels 0 and 1, float32 and float64: K5, the K-lane K11 (its
+    branch and composed alternative), K9 and K8 in its three modes at K =
+    8 (each equal to its thread-per-row form bit for bit), and on level 0
+    K4 with K1's two epilogues.  ``paths``: the paths whose shapes these
+    are, by kind of check ("chain": K5, K4, K2 and K1's epilogues in
+    float32, K1 plain in float64; "lanes": the K-lane kernels; "scale":
+    K8's scale epilogue; "spmv": K1 plain in float32).  ``wide``:
+    also K2 and K1 plain on both levels and K4 and the epilogues on level
+    1 (the 3-D W-cycle runs them there); without it, K11 with 16 float64
+    lanes (lane groups) at level 0."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import DIAMatrix, dia
+
+    def as_dtype(M, dtype):
+        return DIAMatrix(data=M.data.to(dtype), offsets=M.offsets,
+                         shape=M.shape, nnz=M.nnz)
+
+    path_k, path_scale = paths.get("lanes"), paths.get("scale")
+    for label, lvl in (("level0", h.levels[0]), ("level1", h.levels[1])):
+        for dtype in (torch.float32, torch.float64):
+            Ad, St = as_dtype(lvl.A, dtype), as_dtype(lvl.R.St, dtype)
+            S = as_dtype(lvl.P.S, dtype)
+            dinv, omega = (a.to(dtype) for a in lvl.pre.arrays)
+            tv = lvl.R.tv.to(dtype)
+            m = Ad.n_pad
+            b, x, t = (rand(m, dtype) for _ in range(3))
+            nds = St.ndiags
+            tag = f"{where} {label} nd={Ad.ndiags} St nd={nds} n_pad={m}"
+            dt = str(dtype).removeprefix("torch.")
+            p1 = paths.get("chain") if dtype == torch.float32 else None
+            chain_checks(check, f"dia_zero_chain.{dt} [{tag}]", "K5", Ad,
+                         St, None, b, dinv, tv, omega, results, path=p1)
+            Xk, Bk, Vk = (rand((LANES, m), dtype) for _ in range(3))
+            ktag = f"{tag} K={LANES}"
+            k11_checks(check, f"dia_zero_chain_k.{dt} [{ktag}]", Ad, St,
+                       Bk, dinv, tv, omega, results, path=path_k)
+            if label == "level0" and dtype == torch.float64 and not wide:
+                # lane groups: 16 float64 lanes, four rings of 4 lanes
+                B16 = rand((2 * LANES, m), dtype)
+                k11_checks(check, f"dia_zero_chain_k.{dt} [{tag} "
+                           f"K={2 * LANES}]", Ad, St, B16, dinv, tv, omega,
+                           results)
+                del B16
+            compare(check, f"dia_jacobi_k.{dt} [{ktag}]", dtype,
+                    lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv, omega),
+                    lambda: dia.dia_jacobi_k_ref(Ad, Xk, Bk, dinv, omega),
+                    results, *dia_cost(Ad, 1, LANES, 3, extra_ops=4),
+                    path=path_k)
+            k8_rows_check(check, f"dia_jacobi_k.{dt} [{ktag}]",
+                          "dia_jacobi_k", dia._JACOBI_K, Ad, Xk, Bk, dinv,
+                          omega, lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv,
+                                                          omega))
+            lib = lib_add = None
+            A_csr = S_csr = None
+            if label == "level0" or wide:
+                A_csr, S_csr = dia_to_csr(Ad), dia_to_csr(S)
+                Xcols, Vcols = Xk.T.contiguous(), Vk.T.contiguous()
+                lib = lambda: torch.sparse.mm(A_csr, Xcols)   # noqa: E731
+                lib_add = lambda: torch.addmm(               # noqa: E731
+                    Vcols, S_csr, Xcols)
+            compare(check, f"dia_spmm.{dt} [{ktag}]", dtype,
+                    lambda: dia.dia_spmm(Ad, Xk),
+                    lambda: dia.dia_spmm_ref(Ad, Xk), results,
+                    *dia_cost(Ad, 0, LANES, 2), library_fn=lib, path=path_k)
+            k8_rows_check(check, f"dia_spmm.{dt} [{ktag}]", "dia_spmm",
+                          dia._SPMM, Ad, Xk, None, None, 0.0,
+                          lambda: dia.dia_spmm(Ad, Xk))
+            stag = f"{where} {label} St nd={nds} n_pad={m} K={LANES}"
+            compare(check, f"dia_spmm_scaled.{dt} [{stag}]", dtype,
+                    lambda: dia.dia_spmm_scaled(St, Xk, tv),
+                    lambda: dia.dia_spmm_scaled_ref(St, Xk, tv), results,
+                    *dia_cost(St, 1, LANES, 2, extra_ops=1),
+                    path=path_scale)
+            k8_rows_check(check, f"dia_spmm_scaled.{dt} [{stag}]",
+                          "dia_spmm_scaled", dia._SPMM_SCALED, St, Xk, tv,
+                          None, 0.0, lambda: dia.dia_spmm_scaled(St, Xk, tv))
+            atag = f"{where} {label} S nd={S.ndiags} n_pad={m} K={LANES}"
+            compare(check, f"dia_spmm_add.{dt} [{atag}]", dtype,
+                    lambda: dia.dia_spmm_add(S, Xk, Vk),
+                    lambda: dia.dia_spmm_add_ref(S, Xk, Vk), results,
+                    *dia_cost(S, 0, LANES, 3, extra_ops=1),
+                    library_fn=lib_add, path=path_k)
+            k8_rows_check(check, f"dia_spmm_add.{dt} [{atag}]",
+                          "dia_spmm_add", dia._SPMM_ADD, S, Xk, Vk, None,
+                          0.0, lambda: dia.dia_spmm_add(S, Xk, Vk))
+            del Xk, Bk, Vk
+            if label != "level0" and not wide:
+                continue
+            chain_checks(check, f"dia_jacobi_res.{dt} [{tag}]", "K4", Ad,
+                         None, x, b, dinv, None, omega, results, path=p1)
+            compare(check, f"dia_spmv_add.{dt} [{where} {label} S nd="
+                    f"{S.ndiags} n_pad={m}]", dtype,
+                    lambda: dia.dia_spmv_add(S, t, x),
+                    lambda: dia.dia_spmv_add_ref(S, t, x),
+                    results, *dia_cost(S, 3, extra_ops=1),
+                    library_fn=lambda: torch.addmv(x, S_csr, t), path=p1)
+            compare(check, f"dia_spmv_scaled.{dt} [{where} {label} St nd="
+                    f"{nds} n_pad={m}]", dtype,
+                    lambda: dia.dia_spmv_scaled(St, x, tv),
+                    lambda: dia.dia_spmv_scaled_ref(St, x, tv),
+                    results, *dia_cost(St, 3, extra_ops=1), path=p1)
+            if not wide:
+                continue
+            # the outer loop's A64 apply (float64) and AMLI's coarse
+            # products (float32) are K1 plain; every post-smoothing is K2
+            compare(check, f"dia_spmv.{dt} [{tag}]", dtype,
+                    lambda: dia.dia_spmv(Ad, x),
+                    lambda: dia.dia_spmv_ref(Ad, x), results,
+                    *dia_cost(Ad, 2),
+                    path=paths.get("chain" if p1 is None else "spmv"),
+                    library_fn=lambda: torch.mv(A_csr, x))
+            compare(check, f"dia_jacobi.{dt} [{tag}]", dtype,
+                    lambda: dia.dia_jacobi(Ad, x, b, dinv, omega),
+                    lambda: dia.dia_jacobi_ref(Ad, x, b, dinv, omega),
+                    results, *dia_cost(Ad, 4, extra_ops=4), path=p1)
+            del A_csr, S_csr
+
+
 def dia_cost(A, vectors, lanes=1, stacks=0, extra_ops=0):
     """(bytes, operations) of a DIA pass: A's diagonals, ``vectors``
     shared (n_pad,) vectors and ``stacks`` (lanes, n_pad) stacks, each
@@ -829,10 +1015,8 @@ def stationary_phase(check, label, solver, b, launches):
     res_g = []
     solver.solve(b, residuals=res_g, **kw)
     launches[label] = dict(_build.launches)
-    cpu_copy = type(solver)(to_device(solver.hierarchy, "cpu"), solver.grid,
-                            solver.grid_p)
     res_c = []
-    cpu_copy.solve(b, residuals=res_c, **kw)
+    cpu_copy_of(solver).solve(b, residuals=res_c, **kw)
     if np.ndim(b) == 1:
         res_g, res_c = [res_g], [res_c]
     st_err = max(float(np.max(np.abs(np.subtract(g, c)) / np.asarray(c)))
@@ -1046,8 +1230,8 @@ def profile_phase(title, runs):
             log(f"    {t:8.3f} ms {c:5d}x  {name}")
 
 
-def sync_free_cycle(check, cycle, r, what):
-    """One V-cycle ``cycle(r)`` with every host sync an error."""
+def sync_free_cycle(check, cycle, r, what, kind="V"):
+    """One ``kind`` cycle ``cycle(r)`` with every host sync an error."""
     import torch
 
     cycle(r)                                   # warm: cached offsets
@@ -1064,7 +1248,7 @@ def sync_free_cycle(check, cycle, r, what):
     torch.cuda.synchronize()
     check(sync_err is None and y is not None and y.shape == r.shape
           and bool(torch.isfinite(y).all()),
-          f"one V-cycle on {what} under set_sync_debug_mode('error'): "
+          f"one {kind}-cycle on {what} under set_sync_debug_mode('error'): "
           + ("no host sync" if sync_err is None else sync_err))
 
 
@@ -1635,6 +1819,287 @@ def unstructured_phase(check, dev, rand, results, launches):
     return dus, A
 
 
+def levels_log(solver, rho=True):
+    """Each level of a device-built hierarchy: its grid (and its rho(D^-1
+    A) estimate), sizes and forms."""
+    for i, lvl in enumerate(solver.hierarchy.levels):
+        grid = (f"grid_p={lvl.P.fine_grid_p}" if lvl.P is not None
+                else f"dense {lvl.n}x{lvl.n}")
+        if rho and lvl.P is not None:
+            rho = float(solver.setup_info["levels"][i]["rho_D_inv_A"])
+            grid += f" rho={rho:.6f}"
+        log(f"  level {i}: {grid} n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
+
+
+def counted(fn):
+    """``fn()`` with the launch counters zeroed just before and read just
+    after: (its result, the counts, its wall seconds)."""
+    import torch
+
+    from pyamg_tpu_torch import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, dict(_build.launches), wall
+
+
+def cpu_copy_of(solver):
+    """The structured solver with its hierarchy copied to the CPU (the
+    plain twins)."""
+    return type(solver)(to_device(solver.hierarchy, "cpu"), solver.grid,
+                        solver.grid_p)
+
+
+def config2_phase(check, dev, rand, results, launches):
+    """Config 2's device-built hierarchy of 3-D Poisson 64^3 on the card:
+    its setup (a second call after a warm one) and levels; the kernels at
+    its level-0 and level-1 shapes with each branch; the mixed W-cycle CG
+    to 1e-8 and the native V-cycle CG to 1e-5 with the reference's b, with
+    counters; F and AMLI CG to 1e-8 against the same solves on a CPU copy;
+    one W-cycle with every host sync an error, and its CUDA-event time;
+    the W-cycle solve's profile.  Returns (solver, operator)."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import device_sa_setup, poisson
+
+    A3 = poisson(GRID3, format="csr")
+    n3 = A3.shape[0]
+    kw = dict(grid=GRID3, dtype=torch.float32, device=dev, max_coarse=400,
+              mixed_precision=True)
+    t0 = time.perf_counter()
+    d2 = device_sa_setup(A3, **kw)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    del d2
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    d2 = device_sa_setup(A3, **kw)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    log(f"config 2 device SA setup, 3-D Poisson {GRID3} (n={n3}): "
+        f"{t_setup:.4f} s (first call {t_first:.3f} s, CUDA-synchronised, "
+        f"host CSR -> DIA included); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; "
+        f"{len(d2.hierarchy.levels)} levels")
+    levels_log(d2)
+
+    log("config 2 kernels at the 64^3 shapes (kernel vs plain twin):")
+    device_level_checks(check, "config2", d2.hierarchy, rand, results,
+                        {"chain": "config 2 W-cycle",
+                         "lanes": "config 2 batched W-cycle",
+                         "scale": "config 2 batched W-cycle",
+                         "spmv": "config 2 V-cycle native"}, wide=True)
+
+    b = np.random.default_rng(1).random(n3)
+    normb = float(np.linalg.norm(b))
+    mixed = dict(tol=1e-8, maxiter=40, accel="cg", precision="mixed")
+    d2.solve(b, cycle="W", **mixed)             # warm-up
+    res = []
+    x, counts, wall = counted(lambda: d2.solve(b, cycle="W", residuals=res,
+                                               **mixed))
+    launches["config 2 W-cycle"] = counts
+    times = [wall]
+    for _ in range(4):
+        t0 = time.perf_counter()
+        d2.solve(b, cycle="W", **mixed)
+        times.append(time.perf_counter() - t0)
+    iters = len(res) - 1
+    true = float(np.linalg.norm(b - A3 @ x)) / normb
+    log(f"config 2 (64^3 device-built, mixed, W-cycle CG to 1e-8): {iters} "
+        f"iterations, history relres {res[-1] / normb:.3e}, true relres "
+        f"{true:.3e}, solve {times[0]:.4f} s (repeats "
+        f"{', '.join(f'{t:.4f}' for t in times[1:])} s, median "
+        f"{float(np.median(times)):.4f} s)")
+    log(f"  history: {' '.join(f'{r / normb:.3e}' for r in res)}")
+    log(f"  launches in that solve: {json.dumps(counts, sort_keys=True)}")
+    check(x.shape == (n3,) and bool(np.isfinite(x).all()),
+          "config 2 W-cycle: solution finite, shape (n,)")
+    check(abs(iters - REF_ITERS_C2) <= 1 and true <= 1e-8
+          and res[-1] <= 1e-8 * normb,
+          f"config 2 W-cycle: {iters} CG iterations within {REF_ITERS_C2} "
+          f"+- 1 (reference), true relres {true:.3e} <= 1e-8")
+    path_launches(check, "config 2 W-cycle", counts)
+
+    res_v = []
+    x_v, counts, wall = counted(lambda: d2.solve(
+        b, tol=1e-5, maxiter=40, accel="cg", residuals=res_v))
+    launches["config 2 V-cycle native"] = counts
+    log(f"config 2 native f32 V-cycle CG to 1e-5: {len(res_v) - 1} "
+        f"iterations, history relres {res_v[-1] / normb:.3e}, wall "
+        f"{wall:.4f} s")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    check(len(res_v) - 1 == REF_ITERS_C2_1E5,
+          f"config 2 native V-cycle CG: {len(res_v) - 1} iterations to "
+          f"1e-5 (reference {REF_ITERS_C2_1E5})")
+    path_launches(check, "config 2 V-cycle native", counts)
+
+    cpu = cpu_copy_of(d2)
+    for cycle, label in (("F", "config 2 F-cycle"), ("AMLI", "config 2 AMLI")):
+        res_g, res_c = [], []
+        x_g, counts, wall = counted(lambda: d2.solve(
+            b, cycle=cycle, residuals=res_g, **mixed))
+        launches[label] = counts
+        cpu.solve(b, cycle=cycle, residuals=res_c, **mixed)
+        true = float(np.linalg.norm(b - A3 @ x_g)) / normb
+        log(f"{label} CG to 1e-8 (mixed): card {len(res_g) - 1} iterations "
+            f"(wall {wall:.4f} s), its CPU copy {len(res_c) - 1}; true "
+            f"relres {true:.3e}; launches {json.dumps(counts, sort_keys=True)}")
+        check(abs(len(res_g) - len(res_c)) <= 1 and true <= 1e-8,
+              f"{label}: {len(res_g) - 1} iterations, the CPU copy's "
+              f"{len(res_c) - 1} +- 1 (f32), true relres {true:.3e} <= 1e-8")
+        path_launches(check, label, counts)
+
+    # each cycle from zero: sync-free, its device time by CUDA events over
+    # 3 cycles (more would overflow the launch queue behind the sleep
+    # kernel: an AMLI cycle makes ~200 launches), and profiled alone
+    h2 = d2.hierarchy
+    r = rand(h2.levels[0].n_pad, torch.float32)
+    cycles = {kind: d2.cycle_operator(kind) for kind in CYCLE_KINDS}
+    for kind, cyc in cycles.items():
+        if kind != "V":
+            sync_free_cycle(check, cyc, r, "64^3 (config 2)", kind)
+        log(f"  one {kind}-cycle at 64^3, f32: "
+            f"{min(time_ms(lambda: cyc(r), 3), time_ms(lambda: cyc(r), 3)):.4f}"
+            " ms (CUDA events, 3 cycles, min of 2)")
+    profile_phase("config 2 64^3", (
+        ("mixed W-cycle CG to 1e-8", lambda: d2.solve(b, cycle="W",
+                                                      **mixed)),
+        ("native V-cycle CG to 1e-5", lambda: d2.solve(b, tol=1e-5,
+                                                       maxiter=40,
+                                                       accel="cg")),
+        *((f"one {kind}-cycle", lambda cyc=cyc: cyc(r))
+          for kind, cyc in cycles.items())))
+    return d2, A3
+
+
+def krylov_phase(check, label, solver, A, b, launches):
+    """BiCGStab, GMRES and FGMRES (restart 30) in mixed precision to 1e-8
+    on a 2048^2 hierarchy, counters around each: iterations, residuals,
+    wall.  BiCGStab and FGMRES stop on the true residual's norm and must
+    reach true relres <= 1e-8; GMRES is left preconditioned (the
+    reference's semantics): it stops on ||M r|| <= tol ||M b||, which it
+    must reach, and its true relres, bounded by the float32 cycle's
+    rounding in its Arnoldi relation, is reported."""
+    import numpy as np
+
+    normb = float(np.linalg.norm(b))
+    for accel in KRYLOV_2048:
+        path = f"{label} config 1 {accel}"
+        res = []
+        x, counts, wall = counted(lambda: solver.solve(
+            b, tol=1e-8, maxiter=100, accel=accel, precision="mixed",
+            restart=30, residuals=res))
+        launches[path] = counts
+        iters = len(res) - 1
+        true = float(np.linalg.norm(b - A @ x)) / normb
+        log(f"{path} (2048^2, mixed, to 1e-8): {iters} iterations, history "
+            f"{res[-1] / res[0]:.3e} of its first entry, true relres "
+            f"{true:.3e}, wall {wall:.4f} s")
+        log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+        ok = bool(np.isfinite(x).all()) and res[-1] <= 1e-8 * res[0]
+        if accel == "gmres":
+            check(ok, f"{path}: preconditioned relres {res[-1] / res[0]:.3e}"
+                  f" <= 1e-8 (its stop test) in {iters} iterations; true "
+                  f"relres {true:.3e} (reported)")
+        else:
+            check(ok and true <= 1e-8, f"{path}: {iters} iterations, true "
+                  f"relres {true:.3e} <= 1e-8")
+        path_launches(check, path, counts)
+
+
+def gmres_float64_phase(check, dev, A, launches):
+    """Native float64 GMRES (restart 30) to 1e-8 on the float64
+    device-built 2048^2 hierarchy: with a cycle free of float32 rounding
+    the left-preconditioned GMRES's true relres reaches 1e-8."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import device_sa_setup
+
+    d64 = device_sa_setup(A, grid=GRID, dtype=torch.float64, device=dev,
+                          max_coarse=400)
+    b = np.random.default_rng(0).random(A.shape[0])
+    path = "device-built float64 config 1 gmres"
+    res = []
+    x, counts, wall = counted(lambda: d64.solve(
+        b, tol=1e-8, maxiter=100, accel="gmres", restart=30, residuals=res))
+    launches[path] = counts
+    true = float(np.linalg.norm(b - A @ x)) / float(np.linalg.norm(b))
+    log(f"{path} (native float64, to 1e-8): {len(res) - 1} iterations, "
+        f"history {res[-1] / res[0]:.3e} of its first entry, true relres "
+        f"{true:.3e}, wall {wall:.4f} s")
+    check(res[-1] <= 1e-8 * res[0] and true <= 1e-8,
+          f"{path}: true relres {true:.3e} <= 1e-8")
+    path_launches(check, path, counts)
+
+
+def accel_parity_phase(check, dev, A_st):
+    """Every accel (V-cycle) and the W, F and AMLI cycles (CG) on the
+    float64 256^2 device-built hierarchy against the same solve on its
+    CPU copy (the plain twins): the same count, histories to rtol 1e-8."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import device_sa_setup
+
+    d64 = device_sa_setup(A_st, grid=STATIONARY_GRID, dtype=torch.float64,
+                          device=dev, max_coarse=400)
+    cpu = cpu_copy_of(d64)
+    b = np.random.default_rng(5).random(A_st.shape[0])
+    cases = ([("V", a) for a in ACCELS]
+             + [(c, "cg") for c in ("W", "F", "AMLI")])
+    for cycle, accel in cases:
+        kw = dict(tol=1e-8, maxiter=40, cycle=cycle, accel=accel,
+                  restart=30)
+        res_g, res_c = [], []
+        d64.solve(b, residuals=res_g, **kw)
+        cpu.solve(b, residuals=res_c, **kw)
+        m = min(len(res_g), len(res_c))
+        err = float(np.max(np.abs(np.subtract(res_g[:m], res_c[:m]))
+                           / np.asarray(res_c[:m])))
+        check(len(res_g) == len(res_c) and err <= 1e-8,
+              f"256^2 float64 {cycle}-cycle {accel}: card {len(res_g) - 1} "
+              f"iterations, CPU copy {len(res_c) - 1}, history rel diff "
+              f"{err:.2e} (tol 1e-8), last {res_g[-1] / res_g[0]:.3e} of "
+              "the first")
+
+
+def lane_solves_phase(check, label, solver, B, kw, launches,
+                      need_info=True):
+    """A K-lane solve on the card (B on the card, counters around it),
+    every lane within one iteration of its own 1-D solve; K8 and K9
+    through their lane kernel only.  ``need_info``: the solve's info must
+    be 0 (GMRES's is not: it stops on ||M r|| against ||M b||, its info
+    holds ||M r|| against ||b||, as the reference's does)."""
+    import numpy as np
+    import torch
+
+    Bt = torch.as_tensor(B, device=solver.hierarchy.device)
+    res = []
+    (X, info), counts, wall = counted(lambda: solver.solve(
+        Bt, residuals=res, return_info=True, **kw))
+    launches[label] = counts
+    its = [len(r) - 1 for r in res]
+    its1 = []
+    for j in range(B.shape[1]):
+        res1 = []
+        solver.solve(Bt[:, j].contiguous(), residuals=res1, **kw)
+        its1.append(len(res1) - 1)
+    log(f"{label} (K={B.shape[1]}, {kw}): iterations per lane {its} (info "
+        f"{info}), 1-D solves {its1}, wall {wall:.4f} s")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    check(X.shape == B.shape and bool(torch.isfinite(X).all())
+          and (info == 0 or not need_info)
+          and all(abs(i - i1) <= 1 for i, i1 in zip(its, its1)),
+          f"{label}: lanes {its} within +- 1 of their 1-D solves {its1}")
+    path_launches(check, label, counts)
+
+
 def main():
     import numpy as np
     import torch
@@ -1714,11 +2179,7 @@ def main():
         f"{t_first:.3f} s, CUDA-synchronised, host CSR -> DIA included); "
         f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
         f" GiB; {len(hd.levels)} levels")
-    for i, lvl in enumerate(hd.levels):
-        grid = (f"grid_p={lvl.P.fine_grid_p} "
-                f"rho={float(dsa.setup_info['levels'][i]['rho_D_inv_A']):.6f}"
-                if lvl.P is not None else f"dense {lvl.n}x{lvl.n}")
-        log(f"  level {i}: {grid} n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
+    levels_log(dsa)
     # ... and lane-aligned, the interleaved route's layout
     t0 = time.perf_counter()
     dla = device_sa_setup(A, lane_align=True, **setup_kw)
@@ -1726,10 +2187,7 @@ def main():
     log(f"lane-aligned device SA setup on the card: "
         f"{time.perf_counter() - t0:.3f} s; grid_p {dla.grid_p}; "
         f"supports_interleaved {supports_interleaved(dla.hierarchy)}")
-    for i, lvl in enumerate(dla.hierarchy.levels):
-        grid = (f"grid_p={lvl.P.fine_grid_p}" if lvl.P is not None
-                else f"dense {lvl.n}x{lvl.n}")
-        log(f"  level {i}: {grid} n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
+    levels_log(dla, rho=False)
     check(dla.grid_p == LANE_GRID_P
           and dla.hierarchy.levels[0].n_pad == LANE_N_PAD
           and supports_interleaved(dla.hierarchy),
@@ -1889,87 +2347,9 @@ def main():
     # the device-built path's kernels: K5 on levels 0 and 1, K4 and the
     # two K1 epilogues on level 0; the K-lane kernels (K8 in three modes,
     # K9, K11) at K = 8 on levels 0 and 1; each in float32 and float64
-    for label, lvl in (("level0", hd.levels[0]), ("level1", hd.levels[1])):
-        for dtype in (torch.float32, torch.float64):
-            Ad, St = as_dtype(lvl.A, dtype), as_dtype(lvl.R.St, dtype)
-            S = as_dtype(lvl.P.S, dtype)
-            dinv, omega = (a.to(dtype) for a in lvl.pre.arrays)
-            tv = lvl.R.tv.to(dtype)
-            m = Ad.n_pad
-            b, x, t = (rand(m, dtype) for _ in range(3))
-            nds = St.ndiags
-            tag = f"device {label} nd={Ad.ndiags} St nd={nds} n_pad={m}"
-            dt = str(dtype).removeprefix("torch.")
-            chain_checks(check, f"dia_zero_chain.{dt} [{tag}]", "K5", Ad,
-                         St, None, b, dinv, tv, omega, results)
-            Xk, Bk, Vk = (rand((LANES, m), dtype) for _ in range(3))
-            ktag = f"{tag} K={LANES}"
-            k11_checks(check, f"dia_zero_chain_k.{dt} [{ktag}]", Ad, St,
-                       Bk, dinv, tv, omega, results)
-            if label == "level0" and dtype == torch.float64:
-                # lane groups: 16 float64 lanes, four rings of 4 lanes
-                B16 = rand((2 * LANES, m), dtype)
-                k11_checks(check, f"dia_zero_chain_k.{dt} [{tag} "
-                           f"K={2 * LANES}]", Ad, St, B16, dinv, tv, omega,
-                           results)
-                del B16
-            compare(check, f"dia_jacobi_k.{dt} [{ktag}]", dtype,
-                    lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv, omega),
-                    lambda: dia.dia_jacobi_k_ref(Ad, Xk, Bk, dinv, omega),
-                    results, *dia_cost(Ad, 1, LANES, 3, extra_ops=4),
-                    path="device-built batched config 1")
-            k8_rows_check(check, f"dia_jacobi_k.{dt} [{ktag}]",
-                          "dia_jacobi_k", dia._JACOBI_K, Ad, Xk, Bk, dinv,
-                          omega, lambda: dia.dia_jacobi_k(Ad, Xk, Bk, dinv,
-                                                          omega))
-            lib = lib_add = None
-            if label == "level0":
-                A_csr, S_csr = dia_to_csr(Ad), dia_to_csr(S)
-                Xcols, Vcols = Xk.T.contiguous(), Vk.T.contiguous()
-                lib = lambda: torch.sparse.mm(A_csr, Xcols)   # noqa: E731
-                lib_add = lambda: torch.addmm(               # noqa: E731
-                    Vcols, S_csr, Xcols)
-            compare(check, f"dia_spmm.{dt} [{ktag}]", dtype,
-                    lambda: dia.dia_spmm(Ad, Xk),
-                    lambda: dia.dia_spmm_ref(Ad, Xk), results,
-                    *dia_cost(Ad, 0, LANES, 2), library_fn=lib,
-                    path="device-built batched config 1")
-            k8_rows_check(check, f"dia_spmm.{dt} [{ktag}]", "dia_spmm",
-                          dia._SPMM, Ad, Xk, None, None, 0.0,
-                          lambda: dia.dia_spmm(Ad, Xk))
-            stag = f"device {label} St nd={nds} n_pad={m} K={LANES}"
-            compare(check, f"dia_spmm_scaled.{dt} [{stag}]", dtype,
-                    lambda: dia.dia_spmm_scaled(St, Xk, tv),
-                    lambda: dia.dia_spmm_scaled_ref(St, Xk, tv), results,
-                    *dia_cost(St, 1, LANES, 2, extra_ops=1),
-                    path="device-built batched stationary")
-            k8_rows_check(check, f"dia_spmm_scaled.{dt} [{stag}]",
-                          "dia_spmm_scaled", dia._SPMM_SCALED, St, Xk, tv,
-                          None, 0.0, lambda: dia.dia_spmm_scaled(St, Xk, tv))
-            atag = f"device {label} S nd={S.ndiags} n_pad={m} K={LANES}"
-            compare(check, f"dia_spmm_add.{dt} [{atag}]", dtype,
-                    lambda: dia.dia_spmm_add(S, Xk, Vk),
-                    lambda: dia.dia_spmm_add_ref(S, Xk, Vk), results,
-                    *dia_cost(S, 0, LANES, 3, extra_ops=1),
-                    library_fn=lib_add, path="device-built batched config 1")
-            k8_rows_check(check, f"dia_spmm_add.{dt} [{atag}]",
-                          "dia_spmm_add", dia._SPMM_ADD, S, Xk, Vk, None,
-                          0.0, lambda: dia.dia_spmm_add(S, Xk, Vk))
-            if label != "level0":
-                continue
-            chain_checks(check, f"dia_jacobi_res.{dt} [{tag}]", "K4", Ad,
-                         None, x, b, dinv, None, omega, results)
-            compare(check, f"dia_spmv_add.{dt} [device {label} S nd="
-                    f"{S.ndiags} n_pad={m}]", dtype,
-                    lambda: dia.dia_spmv_add(S, t, x),
-                    lambda: dia.dia_spmv_add_ref(S, t, x),
-                    results, *dia_cost(S, 3, extra_ops=1),
-                    library_fn=lambda: torch.addmv(x, S_csr, t))
-            compare(check, f"dia_spmv_scaled.{dt} [device {label} St nd="
-                    f"{nds} n_pad={m}]", dtype,
-                    lambda: dia.dia_spmv_scaled(St, x, tv),
-                    lambda: dia.dia_spmv_scaled_ref(St, x, tv),
-                    results, *dia_cost(St, 3, extra_ops=1))
+    device_level_checks(check, "device", hd, rand, results,
+                        {"lanes": "device-built batched config 1",
+                         "scale": "device-built batched stationary"})
 
     # K11's per-row branch: a 3-D 7-point pattern whose +-n^2 offset is
     # too far for one lane's ring (100 x 180 x 180, reach 32 400 rows)
@@ -2097,6 +2477,35 @@ def main():
     sharded_phase(check, dev, dml, A, dus, A_un, launches)
     log(f"sharded phase: {time.perf_counter() - t_s:.1f} s")
 
+    # 14. config 2: the device-built 64^3 hierarchy, its kernels, and the
+    # W, F and AMLI cycles
+    t_c = time.perf_counter()
+    d2, A3 = config2_phase(check, dev, rand, results, launches)
+    log(f"config 2 phase: {time.perf_counter() - t_c:.1f} s")
+
+    # 15. the Krylov methods: BiCGStab, GMRES and FGMRES at 2048^2 on both
+    # hierarchies, GMRES in float64, every accel and cycle at 256^2
+    t_k = time.perf_counter()
+    krylov_phase(check, "device-built", dsa, A,
+                 np.random.default_rng(0).random(n), launches)
+    krylov_phase(check, "host-built", dml, A,
+                 np.random.default_rng(1).random(n), launches)
+    gmres_float64_phase(check, dev, A, launches)
+    accel_parity_phase(check, dev, A_st)
+    log(f"Krylov phase: {time.perf_counter() - t_k:.1f} s")
+
+    # 16. lanes: the 64^3 W-cycle CG at K = 8, GMRES (restart 4) at K = 4
+    # on 256^2
+    lane_solves_phase(check, "config 2 batched W-cycle", d2,
+                      np.random.default_rng(3).random((A3.shape[0], LANES)),
+                      dict(tol=1e-5, maxiter=40, cycle="W", accel="cg"),
+                      launches)
+    lane_solves_phase(check, "device-built batched GMRES", d_st,
+                      np.random.default_rng(4).random(
+                          (A_st.shape[0], GMRES_LANES)),
+                      dict(tol=1e-5, maxiter=40, accel="gmres", restart=4),
+                      launches, need_info=False)
+
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
               file=sys.stderr)
@@ -2104,8 +2513,10 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 14. result lines: each path kernel instance, with its launches on
-    # the paths that run it (``launches``: the first of them)
+    # 17. result lines: each path kernel instance, with its launches on
+    # the paths that run it (``launches``: the first of them) and, where a
+    # later path's shapes were checked too (config 2's 64^3), those
+    # numbers under ``at_paths``
     rows = []
     for key in dict.fromkeys(k for ks in PATHS.values() for k in ks):
         base, dt = key.split(".")
@@ -2117,6 +2528,14 @@ def main():
         mine = [r for r in results if r["name"].startswith(key + " ")]
         r0 = next((r for r in mine if r["path"] == next(iter(by_path))),
                   mine[0])
+        at_paths = {}
+        for p in list(by_path)[1:]:
+            r = next((r for r in mine if r["path"] == p), None)
+            if r is not None and r is not r0:
+                at_paths[p] = {k: r[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")} | {"shape": r["name"],
+                                      "launches": by_path[p]}
         rows.append({"name": key, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": next(iter(by_path.values())),
@@ -2124,7 +2543,8 @@ def main():
                      "max_abs_err": r0["max_abs_err"], "ms": r0["ms"],
                      "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
                      "bound_by": r0["bound_by"],
-                     "library_ms": r0["library_ms"], "shape": r0["name"]})
+                     "library_ms": r0["library_ms"], "shape": r0["name"],
+                     **({"at_paths": at_paths} if at_paths else {})})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())

@@ -6,7 +6,9 @@ from .batched_cycle import (interleaved_batched_cg, interleaved_zero_vcycle,
 from .device_setup import (StructuredDeviceSolver, detect_grid,
                            device_sa_setup, dia_transpose)
 from .hierarchy import DeviceHierarchy, DeviceLevel, compile_hierarchy
-from .krylov import device_cg
+from .krylov import (device_bicgstab, device_cg, device_cgne, device_cgnr,
+                     device_cr, device_fgmres, device_gmres,
+                     device_minimal_residual, device_steepest_descent)
 from .relaxation import DeviceSmoother
 from .solver import DeviceMultilevelSolver, as_device_solver
 from .unstructured_setup import (ComposedWindowed, ReorderedSolver,
@@ -15,7 +17,10 @@ from .unstructured_setup import (ComposedWindowed, ReorderedSolver,
 __all__ = ["ComposedWindowed", "DeviceHierarchy", "DeviceLevel",
            "DeviceMultilevelSolver", "DeviceSmoother", "ReorderedSolver",
            "StructuredDeviceSolver", "as_device_solver", "compile_hierarchy",
-           "detect_grid", "device_cg", "device_sa_setup",
+           "detect_grid", "device_bicgstab", "device_cg", "device_cgne",
+           "device_cgnr", "device_cr", "device_fgmres", "device_gmres",
+           "device_minimal_residual", "device_sa_setup",
+           "device_steepest_descent",
            "device_unstructured_sa_setup", "dia_from_stencil",
            "dia_transpose", "interleaved_batched_cg",
            "interleaved_zero_vcycle", "supports_interleaved"]

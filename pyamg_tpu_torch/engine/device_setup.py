@@ -789,6 +789,20 @@ class StructuredDeviceSolver(DeviceMultilevelSolver):
             return (self._decode(x[0]),) + x[1:]
         return self._decode(x)
 
+    def aspreconditioner(self, cycle="V"):
+        """The cycle as a scipy ``LinearOperator`` on the unpadded grid's
+        vectors (the reference's ``StructuredDeviceSolver.
+        aspreconditioner``)."""
+        from scipy.sparse.linalg import LinearOperator
+
+        inner = super().aspreconditioner(cycle)
+        n = int(np.prod(self.grid))
+
+        def matvec(r):
+            return self._decode(inner @ self._encode(np.asarray(r).ravel()))
+
+        return LinearOperator((n, n), matvec=matvec, dtype=np.float64)
+
 
 def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
                     omega=4.0 / 3.0, stride=3, max_coarse=400, max_levels=12,

@@ -1,13 +1,13 @@
 """Multilevel solve engine (counterpart of ``pyamg_tpu/engine/solver.py``).
 
-The V-cycle recursion runs over the static level count; CG runs as a
-Python loop bounded by ``maxiter``.  ``precision="mixed"`` runs the outer
-loop in float64 (matvec with the hierarchy's ``A64``) and the cycle in
-the hierarchy's float32.
+The cycle recursion (V, W, F, AMLI) runs over the static level count;
+the Krylov methods run as Python loops bounded by ``maxiter``.
+``precision="mixed"`` runs the outer loop in float64 (matvec with the
+hierarchy's ``A64``) and the cycle in the hierarchy's float32.
 
-Ported so far: the V-cycle (and the single-level direct solve) over both
-the host-built and the device-built hierarchy, with the reference's fused
-level front-ends and correction add, ``accel in (None, "cg")``,
+Over both the host-built and the device-built hierarchy: every cycle of
+the reference, with its fused level front-ends and correction add, and
+every ``accel`` of ``_get_compiled`` (``pyamg_tpu/engine/solver.py:256-298``),
 ``precision in ("native", "mixed")``.  A 2-D ``b`` of shape (n, K) solves
 K right-hand sides at once on either hierarchy: the lanes ride K-major
 (K, n_pad) stacks through the K-lane kernels (K8-K13), each lane stops at
@@ -17,14 +17,15 @@ batched native float32 V-cycle CG from x0 = 0 on a hierarchy that
 :func:`~pyamg_tpu_torch.engine.batched_cycle.supports_interleaved` admits
 (a lane-aligned device-built one) takes the reference's interleaved route
 instead (:func:`~pyamg_tpu_torch.engine.batched_cycle.interleaved_batched_cg`,
-K15; ``pyamg_tpu/engine/solver.py:355-385``).  W/F/AMLI cycles and the
-other Krylov methods are ROADMAP.md Queue 1 item 7.
+K15; ``pyamg_tpu/engine/solver.py:355-385``).
 
 A row-sharded hierarchy (:func:`~pyamg_tpu_torch.parallel.shard_hierarchy`)
 solves on every rank at once: each rank stages its block of ``b``, the
 cycle runs on the blocks (each sharded operator communicates, the Jacobi
 sweeps compose through ``A @ x``), and the Krylov dots sum over the
-shards.  Batched and mixed-precision sharded solves are not ported.
+shards (AMLI's coarse dots over the level's shards).  Batched and
+mixed-precision sharded solves, and CGNR / CGNE there (A^T of a sharded
+operator), are not ported.
 """
 
 from __future__ import annotations
@@ -38,9 +39,18 @@ from ..sparse.dia import DIAMatrix, dia_zero_chain, dia_zero_chain_k
 from ..sparse.formats import fit as _fitv
 from ..sparse.formats import pad_vector
 from .hierarchy import DeviceHierarchy, compile_hierarchy
-from .krylov import _freeze, _norm, _rtol_of, device_cg
+from .krylov import (_freeze, _lane, _norm, _rtol_of, _safe_div, _vdot,
+                     device_bicgstab, device_cg, device_cgne, device_cgnr,
+                     device_cr, device_fgmres, device_gmres,
+                     device_minimal_residual, device_steepest_descent)
 
 __all__ = ["DeviceMultilevelSolver", "as_device_solver"]
+
+# accel -> the Krylov method taking (matvec, b, x0, tol, maxiter, M)
+_KRYLOV = {"cg": device_cg, "bicgstab": device_bicgstab, "cr": device_cr,
+           "minimal_residual": device_minimal_residual,
+           "steepest_descent": device_steepest_descent}
+ACCELS = (None, *_KRYLOV, "gmres", "fgmres", "cgnr", "cgne")
 
 
 def _stage_lanes(b, n_pad, dtype, device):
@@ -84,12 +94,28 @@ def _fused_zero_entry_chain(lvl, b):
     return x, finish(y)
 
 
-def _make_cycle(nlev, cycle):
+CYCLES = ("V", "W", "F", "AMLI")
+
+
+def _level_reduce(h, i):
+    """The shard sum of level ``i``'s local partial dots on a row-sharded
+    hierarchy; None for one held whole."""
+    red = getattr(h, "reduce_level", None)
+    return None if red is None else (lambda s: red(s, i))
+
+
+def _make_cycle(nlev, cycle, amli_depth=2):
     """The cycle recursion over ``nlev`` levels; ``cycle.zero(h, b)`` is
-    the cycle from x = 0 (the preconditioner application)."""
-    if cycle != "V":
-        raise NotImplementedError(
-            f"cycle {cycle!r} is not ported yet (ROADMAP.md Queue 1 item 7)")
+    the cycle from x = 0 (the preconditioner application).  ``cycle``:
+    "V"; "W" (two visits to each coarser level, the second from the
+    first's result); "F" (an F visit from zero, then a V visit); "AMLI"
+    (``amli_depth`` A_c-orthogonalised coarse corrections a visit).  The
+    pair of coarsest levels calls the coarse solve directly for every
+    kind, so W, F and AMLI are V on a hierarchy of two levels.  An unknown
+    kind raises ValueError here, whatever the depth."""
+    if cycle not in CYCLES:
+        raise ValueError(f"unsupported device cycle {cycle!r} (one of "
+                         f"{', '.join(CYCLES)})")
 
     if nlev == 1:
         # single-level hierarchy: the cycle is the direct coarse solve
@@ -99,13 +125,37 @@ def _make_cycle(nlev, cycle):
         direct.zero = lambda h, b: direct(h, None, b)
         return direct
 
-    def visit(h, i, x, b, xz=False):
+    def amli(h, i, rc):
+        """AMLI's coarse correction at level ``i + 1``: ``amli_depth``
+        cycles from zero on the running residual, each A_c-orthogonalised
+        against the one before (the reference's ``denom == 0`` guards as
+        selects, per lane on a stack; no host read)."""
+        Ac = h.levels[i + 1].A
+        reduce = _level_reduce(h, i + 1)
+        xc = torch.zeros_like(rc)
+        p_prev = Ap_prev = None
+        for _ in range(max(int(amli_depth), 1)):
+            p = visit(h, i + 1, None, rc, "AMLI", xz=True)
+            if p_prev is not None:
+                beta = _safe_div(_vdot(p_prev, Ac @ p, reduce),
+                                 _vdot(p_prev, Ap_prev, reduce))
+                p = p - _lane(beta) * p_prev
+            Ap = Ac @ p
+            alpha = _lane(_safe_div(_vdot(p, rc, reduce),
+                                    _vdot(p, Ap, reduce)))
+            xc = xc + alpha * p
+            rc = rc - alpha * Ap
+            p_prev, Ap_prev = p, Ap
+        return xc
+
+    def visit(h, i, x, b, kind, xz=False):
         """One level visit on a vector, or on a K-major (K, n_pad) lane
         stack (every operator and smoother applies lane by lane).
         ``xz``: x is known zero, so the entry smoother takes its
         zero-guess form.  The entry front-end is the deepest fused form
         that applies: sweep + residual + scaled restrict (K5), else sweep
-        + residual (K3 from zero, K4 from a nonzero x), else composed."""
+        + residual (K3 from zero, K4 from a nonzero x: a W or F visit's
+        second), else composed."""
         lvl = h.levels[i]
         chain = _fused_zero_entry_chain(lvl, b) if xz else None
         if chain is not None:
@@ -122,8 +172,13 @@ def _make_cycle(nlev, cycle):
             rc = _fitv(lvl.R @ r, h.levels[i + 1].n_pad)
         if i == nlev - 2:
             xc = h.coarse_solve(rc)
+        elif kind == "AMLI":
+            xc = amli(h, i, rc)
         else:
-            xc = visit(h, i + 1, None, rc, xz=True)
+            xc = visit(h, i + 1, None, rc, kind, xz=True)
+            if kind != "V":
+                # W: the same kind again, F: a V visit, from xc
+                xc = visit(h, i + 1, xc, rc, "W" if kind == "W" else "V")
         if hasattr(lvl.P, "apply_correction"):
             # the correction add in the SpMV's epilogue (K1 SPMV_ADD)
             x = lvl.P.apply_correction(xc, x)
@@ -132,9 +187,9 @@ def _make_cycle(nlev, cycle):
         return lvl.post(lvl.A, x, b)
 
     def one_cycle(h, x, b):
-        return visit(h, 0, x, b)
+        return visit(h, 0, x, b, cycle)
 
-    one_cycle.zero = lambda h, b: visit(h, 0, None, b, xz=True)
+    one_cycle.zero = lambda h, b: visit(h, 0, None, b, cycle, xz=True)
     return one_cycle
 
 
@@ -144,27 +199,41 @@ class DeviceMultilevelSolver:
     def __init__(self, hierarchy: DeviceHierarchy):
         self.hierarchy = hierarchy
 
-    def _ops(self, cycle, mixed):
-        """(cycle, matvec, preconditioner) of the outer loop."""
+    def _ops(self, cycle, mixed, amli_depth=2):
+        """(cycle, matvec, rmatvec, preconditioner) of the outer loop;
+        in the mixed loop the applies of A and A^T run in float64 through
+        ``A64``."""
         h = self.hierarchy
-        one_cycle = _make_cycle(len(h.levels), str(cycle).upper())
+        one_cycle = _make_cycle(len(h.levels), str(cycle).upper(),
+                                amli_depth)
         if mixed:
             # A64's row padding may differ from the level's
             n_pad = h.levels[0].n_pad
             a64_pad = getattr(h.A64, "n_pad", n_pad)
             matvec = lambda v: _fitv(h.A64 @ _fitv(v, a64_pad), n_pad)
+            rmatvec = lambda v: _fitv(h.A64.rmatvec(_fitv(v, a64_pad)),
+                                      n_pad)
             precond = lambda r: one_cycle.zero(h, r.to(h.dtype)).to(r.dtype)
         else:
-            matvec = lambda v: h.levels[0].A @ v
+            A = h.levels[0].A
+            matvec = lambda v: A @ v
+            rmatvec = lambda v: _fitv(A.rmatvec(v), v.shape[-1])
             precond = lambda r: one_cycle.zero(h, r)
-        return one_cycle, matvec, precond
+        return one_cycle, matvec, rmatvec, precond
 
     def solve(self, b, x0=None, tol=1e-8, maxiter=100, cycle="V",
-              accel=None, residuals=None, return_info=False,
-              precision="native"):
+              accel=None, residuals=None, return_info=False, restart=30,
+              precision="native", amli_depth=2):
         """Solve A x = b.  ``b`` (and ``x0``) may be numpy arrays or
         tensors; x comes back as a numpy array for a numpy ``b`` and as a
         tensor on the hierarchy's device for a tensor ``b``.
+
+        ``cycle``: "V", "W", "F" or "AMLI" (``amli_depth`` coarse
+        corrections a visit).  ``accel``: None (repeated cycles), "cg",
+        "bicgstab", "cr", "minimal_residual", "steepest_descent", "gmres"
+        (left preconditioned) or "fgmres" (flexible, right preconditioned),
+        both restarted every ``restart`` steps, or "cgnr" / "cgne" (the
+        normal equations, through A^T).
 
         On a row-sharded hierarchy every rank calls this with the full
         ``b`` (and ``x0``) and stages its own block: a numpy ``b`` gives
@@ -183,10 +252,8 @@ class DeviceMultilevelSolver:
         route (the reference's semantics: convergence checked every 4
         iterations, info ``maxiter`` when a lane did not converge)."""
         h = self.hierarchy
-        if accel not in (None, "cg"):
-            raise NotImplementedError(
-                f"accel {accel!r} is not ported yet (ROADMAP.md Queue 1 "
-                "item 7)")
+        if accel not in ACCELS:
+            raise ValueError(f"unsupported device accelerator {accel!r}")
         if precision not in ("native", "mixed"):
             raise ValueError(f"unknown precision {precision!r}")
         mixed = precision == "mixed"
@@ -202,6 +269,10 @@ class DeviceMultilevelSolver:
             raise NotImplementedError(
                 "a batched (n, K) solve on a sharded hierarchy is not ported "
                 "yet (ROADMAP.md Queue 1 item 14)")
+        if sharded and accel in ("cgnr", "cgne"):
+            raise NotImplementedError(
+                "A^T of a sharded operator (accel 'cgnr' / 'cgne') is not "
+                "ported yet (ROADMAP.md Queue 1 item 14)")
         n = h.levels[0].n
         n_pad = h.levels[0].n_pad
         dtype = torch.float64 if mixed else h.dtype
@@ -226,17 +297,24 @@ class DeviceMultilevelSolver:
                                     True, residuals, return_info,
                                     int(maxiter))
         x0_dev = torch.zeros_like(b_dev) if x0 is None else stage(x0)
-        one_cycle, matvec, precond = self._ops(cycle, mixed)
+        one_cycle, matvec, rmatvec, precond = self._ops(cycle, mixed,
+                                                        amli_depth)
         reduce = h.reduce if sharded else None
+        kw = dict(tol=tol, maxiter=int(maxiter), M=precond, reduce=reduce)
 
         if accel is None:
             x, history, it = self._stationary(one_cycle, matvec, b_dev,
                                               x0_dev, tol, int(maxiter),
                                               mixed, reduce)
+        elif accel in ("gmres", "fgmres"):
+            fn = device_gmres if accel == "gmres" else device_fgmres
+            x, history, it = fn(matvec, b_dev, x0_dev, restart=int(restart),
+                                **kw)
+        elif accel in ("cgnr", "cgne"):
+            fn = device_cgnr if accel == "cgnr" else device_cgne
+            x, history, it = fn(matvec, rmatvec, b_dev, x0_dev, **kw)
         else:
-            x, history, it = device_cg(matvec, b_dev, x0_dev, tol=tol,
-                                       maxiter=int(maxiter), M=precond,
-                                       reduce=reduce)
+            x, history, it = _KRYLOV[accel](matvec, b_dev, x0_dev, **kw)
         if sharded and not tensor_out:
             x = h.gather(x)
         return self._finish(x, history, b_dev, n, tol, tensor_out, lanes,
@@ -308,11 +386,34 @@ class DeviceMultilevelSolver:
             active = normr >= rtol
         return x, history, (its if lanes else it)
 
-    def cycle_operator(self, cycle="V"):
+    def cycle_operator(self, cycle="V", amli_depth=2):
         """One cycle from x = 0: r (padded) -> M r (padded)."""
         one_cycle = _make_cycle(len(self.hierarchy.levels),
-                                str(cycle).upper())
+                                str(cycle).upper(), amli_depth)
         return lambda r: one_cycle.zero(self.hierarchy, r)
+
+    def aspreconditioner(self, cycle="V"):
+        """A scipy ``LinearOperator`` (float64 on the host side) that
+        applies one cycle from zero on the hierarchy's device, in its
+        dtype: the bridge to a host Krylov loop.  On a row-sharded
+        hierarchy every rank applies it to the full vector together."""
+        from scipy.sparse.linalg import LinearOperator
+
+        h = self.hierarchy
+        n = h.levels[0].n
+        cyc = self.cycle_operator(cycle)
+        sharded = getattr(h, "mesh", None) is not None
+
+        def matvec(r):
+            r = np.asarray(r)
+            if sharded:
+                y = h.gather(cyc(h.stage(r.ravel(), h.dtype)))
+            else:
+                y = cyc(pad_vector(r.ravel(), h.levels[0].n_pad,
+                                   dtype=h.dtype, device=h.device))
+            return y[:n].cpu().numpy().astype(r.dtype)
+
+        return LinearOperator((n, n), matvec=matvec, dtype=np.float64)
 
 
 def as_device_solver(ml, dtype=torch.float32, device=None, row_pad=None,

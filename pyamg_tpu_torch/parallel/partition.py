@@ -352,7 +352,12 @@ class ShardedHierarchy(DeviceHierarchy):
     def reduce(self, s):
         """Per-rank partial sums of level-0 blocks summed over the shards
         (the Krylov dots' all_reduce)."""
-        return self.mesh.sum_groups(s, self.groups[0])
+        return self.reduce_level(s, 0)
+
+    def reduce_level(self, s, i):
+        """Per-rank partial sums of level ``i``'s blocks summed over that
+        level's shards (AMLI's coarse dots)."""
+        return self.mesh.sum_groups(s, self.groups[i])
 
 
 def _shard_smoother(sm, mesh, groups):

@@ -1035,3 +1035,86 @@ def test_sharded_solve_world_of_one_on_card(cuda, tmp_path):
     np.testing.assert_allclose(x1, x0, atol=1e-10)
     assert counts.get("dia_halo_spmv.float64", 0) > 0, counts
     assert counts.get("windowed_rmatvec.float64", 0) > 0, counts
+
+
+@pytest.fixture(scope="module")
+def cycles_pair(cuda):
+    """The 128^2 device-built float64 hierarchy (three levels) on the
+    card and its copy on the CPU (the plain twins)."""
+    A = poisson((128, 128), format="csr")
+    kw = dict(grid=(128, 128), dtype=torch.float64, max_coarse=100,
+              mixed_precision=True)
+    return (A, device_sa_setup(A, device=cuda, **kw),
+            device_sa_setup(A, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("cycle,accel", [
+    ("W", None), ("W", "cg"), ("F", "cg"), ("AMLI", "cg"), ("V", "bicgstab"),
+    ("V", "gmres"), ("W", "fgmres"), ("V", "cgnr"), ("V", "cgne"),
+    ("V", "cr"), ("V", "minimal_residual"), ("V", "steepest_descent")])
+def test_cycles_and_krylov_on_card_match_cpu(cycles_pair, cycle, accel):
+    """Every cycle and accel on the card against the same solve of the
+    CPU copy (float64, mixed loop): the same count, histories to rtol
+    1e-8 (entries below 1e-14 of the first, where GMRES's restarts reach
+    the rounding floor, to that); the W and F cycles' second visits launch
+    K4 (``dia_jacobi_res``) on the card, AMLI's coarse products K1."""
+    A, dg, dc = cycles_pair
+    b = np.random.default_rng(0).random(A.shape[0])
+    kw = dict(tol=1e-10, maxiter=10 if accel is None else 40, cycle=cycle,
+              accel=accel, precision="mixed", restart=12)
+    res_g, res_c = [], []
+    _build.reset_launches()
+    dg.solve(b, residuals=res_g, **kw)
+    counts = dict(_build.launches)
+    dc.solve(b, residuals=res_c, **kw)
+    assert len(res_g) == len(res_c)
+    np.testing.assert_allclose(res_g, res_c, rtol=1e-8, atol=1e-14 * res_c[0])
+    for k in ("dia_zero_chain", "dia_spmv_add", "dia_jacobi"):
+        assert counts.get(f"{k}.float64", 0) > 0, (k, counts)
+    if cycle in ("W", "F"):
+        assert counts.get("dia_jacobi_res.float64", 0) > 0, counts
+    assert not any(k.startswith("dia_jacobi_res_rows") for k in counts)
+
+
+@pytest.mark.parametrize("cycle", ["W", "F", "AMLI"])
+def test_cycles_make_no_host_sync(cycles_pair, cycle):
+    """One cycle from zero with every host sync an error, on a vector and
+    on a K = 3 stack (AMLI's per-lane guards are selects)."""
+    _, dg, _ = cycles_pair
+    cyc = dg.cycle_operator(cycle)
+    n_pad = dg.hierarchy.levels[0].n_pad
+    for shape in ((n_pad,), (3, n_pad)):
+        r = torch.ones(shape, dtype=torch.float64,
+                       device=dg.hierarchy.device)
+        cyc(r)
+        torch.cuda.synchronize()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            y = cyc(r)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert bool(torch.isfinite(y).all())
+
+
+def test_batched_w_gmres_on_card_matches_cpu(cycles_pair):
+    """K = 3 lanes (one zero) of W-cycle GMRES (restart 4) on the card
+    against the CPU copy: per-lane counts equal, histories to rtol 1e-8
+    (to 1e-14 of the first entry at the rounding floor), the zero lane
+    frozen at entry; K8 / K9 through the lane kernel only."""
+    A, dg, dc = cycles_pair
+    B = np.random.default_rng(1).random((A.shape[0], 3))
+    B[:, 1] = 0.0
+    kw = dict(tol=1e-8, maxiter=24, cycle="W", accel="gmres", restart=4,
+              precision="mixed")
+    res_g, res_c = [], []
+    _build.reset_launches()
+    dg.solve(B, residuals=res_g, **kw)
+    counts = dict(_build.launches)
+    dc.solve(B, residuals=res_c, **kw)
+    assert [len(r) for r in res_g] == [len(r) for r in res_c]
+    assert len(res_g[1]) == 1
+    for g, c in zip(res_g, res_c):
+        np.testing.assert_allclose(g, c, rtol=1e-8, atol=1e-14 * c[0])
+    for k in ("dia_zero_chain_k", "dia_jacobi_k", "dia_spmm", "dia_spmm_add"):
+        assert counts.get(f"{k}.float64", 0) > 0, (k, counts)
+    assert not any("_rows" in k for k in counts), counts

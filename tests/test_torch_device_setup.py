@@ -178,6 +178,51 @@ def test_stationary_float64_matches_reference(pair2d, b2d):
     _assert_close(res_t, res_j, 1e-8)
 
 
+@pytest.mark.parametrize("cycle", ["V", "W", "F", "AMLI"])
+@pytest.mark.parametrize("which", ["pair2d", "pair3d"])
+def test_cycle_operator_matches_reference(which, cycle, request):
+    """One cycle from zero on the device-built hierarchies, float64: rtol
+    1e-12 against the JAX cycle.  The 3-D pair has two levels, where W, F
+    and AMLI are the V-cycle (the coarsest pair calls the coarse solve)."""
+    _, J, T = request.getfixturevalue(which)
+    n_pad = T.hierarchy.levels[0].n_pad
+    r = np.random.default_rng(4).random(n_pad)
+    want = np.asarray(J.cycle_operator(cycle)(jnp.asarray(r)))
+    got = T.cycle_operator(cycle)(torch.as_tensor(r)).numpy()
+    _assert_close(got, want, 1e-12, 1e-12 * np.abs(want).max())
+    if which == "pair3d":
+        np.testing.assert_array_equal(
+            got, T.cycle_operator("V")(torch.as_tensor(r)).numpy())
+
+
+@pytest.mark.parametrize("cycle", ["W", "F", "AMLI"])
+@pytest.mark.parametrize("accel", [None, "cg"])
+def test_cycles_solve_float64_matches_reference(pair2d, b2d, cycle, accel):
+    """The W, F and AMLI cycles on the 2-D device-built hierarchy (three
+    levels: level 1 is visited twice, its second entry through K4's twin),
+    ten stationary cycles or CG to 1e-10: the same count, histories to
+    rtol 1e-10."""
+    _, J, T = pair2d
+    kw = dict(tol=1e-10, maxiter=10 if accel is None else 40, cycle=cycle,
+              accel=accel)
+    res_j, res_t = [], []
+    J.solve(b2d, residuals=res_j, **kw)
+    T.solve(b2d, residuals=res_t, **kw)
+    assert len(res_t) == len(res_j)
+    _assert_close(res_t, res_j, 1e-10)
+
+
+def test_aspreconditioner_on_the_grid(pair2d, b2d):
+    """``StructuredDeviceSolver.aspreconditioner`` takes and gives vectors
+    of the unpadded grid (the reference's encode / decode around the
+    cycle): the JAX one's vector to rtol 1e-12."""
+    _, J, T = pair2d
+    Mj, Mt = J.aspreconditioner("W"), T.aspreconditioner("W")
+    assert Mt.shape == Mj.shape == (b2d.size, b2d.size)
+    want = Mj @ b2d
+    _assert_close(Mt @ b2d, want, 1e-12, 1e-12 * np.abs(want).max())
+
+
 def test_mixed_float32_counts_within_one(pair2d, b2d):
     """The port's float32 hierarchy under the mixed float64 outer loop
     (the main path's precision) against the reference's float64 solve:

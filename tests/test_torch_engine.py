@@ -272,13 +272,29 @@ def test_jacobi_dyn_equals_jacobi():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(cycle="W"), dict(accel="gmres"), dict(precision="double")])
+    dict(cycle="X"), dict(accel="gmres2"), dict(precision="double"),
+    dict(sharded=True)])
 def test_unported_solve_options_raise(pair32, b, kwargs):
+    """Options that still raise: an unknown cycle or accel, an unknown
+    precision, and an (n, K) solve on a row-sharded hierarchy (ROADMAP.md
+    Queue 1 item 14; a world of one, the raise comes before any
+    collective)."""
+    from pyamg_tpu_torch.parallel import shard_hierarchy
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+
     _, ht = pair32
     kw = dict(tol=1e-8, precision="mixed")
     kw.update(kwargs)
-    with pytest.raises((NotImplementedError, ValueError)):
-        DeviceMultilevelSolver(ht).solve(b, **kw)
+    rhs = b
+    if kw.pop("sharded", False):
+        ht = shard_hierarchy(ht, SolverMesh(rank=0, world=1,
+                                            device=torch.device(CPU)))
+        kw["precision"] = "native"
+        rhs = np.stack([b, b], axis=1)
+    match = {"cycle": "cycle", "accel": "accelerator",
+             "precision": "precision"}.get(next(iter(kwargs)), "item 14")
+    with pytest.raises((NotImplementedError, ValueError), match=match):
+        DeviceMultilevelSolver(ht).solve(rhs, **kw)
 
 
 def test_batched_rhs_raises(pair32, b):
