@@ -133,7 +133,28 @@ result lines):
 16. lanes: the 64^3 W-cycle CG native float32 to 1e-5 at K = 8 and GMRES
     (restart 4) at K = 4 on 256^2, each lane within one iteration of its
     1-D solve, K8 / K9 through their lane kernel only;
-17. result lines: the script's seconds, the kernels' JSON (with the 64^3
+17. the other smoothers: config 2's host-built column (bench.py:423-429,
+    :479-480): the port's SA setup of 64^3 with symmetric Gauss-Seidel,
+    the JP colourings of levels 0 and 1 and the compile (float32, float64
+    A64, cut at 1024 rows), each timed; multicolour GS with 6 colours at
+    level 0 and the Chebyshev fallback at level 1; K2 with one colour's
+    inverse diagonal and K9 at K = 8 at level 0, K1 there in both types,
+    K6 / K7 / K12 / K13 (K = 8) on level 0's T and level 1's windowed
+    operators; the mixed stationary W-cycle to 1e-8 with b =
+    default_rng(1).random(n) (the reference's 14 +- 1 iterations, true
+    relres <= 1e-8, its factor beside the reference's 0.2427), native
+    W-cycle CG to 1e-5 and K = 8 lanes of it (each lane its 1-D count),
+    with counters; one W-cycle under set_sync_debug_mode("error"), its
+    time and profile; the device-built 64^3 hierarchy with Chebyshev
+    smoothers, mixed CG to 1e-8 at its CPU copy's count, K1 SPMV_ADD at
+    its level 0, its W-cycle with no host read; the host-built hierarchy
+    sharded in a world of one (K16), its native stationary W-cycle to 1e-4
+    against the unsharded history, and K16 at its level 0 (7 diagonals)
+    against its twin and bit for bit against K1; and Richardson, SOR,
+    Cimmino NE and NR, windowed Schwarz, polynomial and Chebyshev on a
+    float64 256^2 host-built hierarchy, each CG solve at its CPU copy's
+    count;
+18. result lines: the script's seconds, the kernels' JSON (with the 64^3
     checks of config 2's paths under ``at_paths``), the card's name and
     power limit, and last {"ok": true, "device": {...}}.
 """
@@ -172,6 +193,18 @@ ACCELS = ("cg", "bicgstab", "gmres", "fgmres", "cgnr", "cgne", "cr",
           "minimal_residual", "steepest_descent")
 GMRES_LANES = 4
 CYCLE_KINDS = ("V", "W", "F", "AMLI")
+# config 2's host-built column (bench.py:423-429, :479-480, :737-747): the
+# port's SA setup of 64^3 with symmetric Gauss-Seidel, compiled f32 with
+# the f64 A64 and cut at 1024 rows, the stationary W-cycle in mixed
+# precision to 1e-8; bench_detail.json config2.iters_to_1e8, conv_factor
+C2_GS = ("gauss_seidel", {"sweep": "symmetric"})
+REF_ITERS_C2_HOST = 14
+REF_FACTOR_C2_HOST = 0.2427
+C2_CHEBYSHEV = ("chebyshev", {"degree": 3})
+# the other smoother kinds at 256^2, host-built, float64 (each against its
+# CPU copy); the polynomial spec on level 0 only, Chebyshev below it
+SMOOTHER_KINDS = ("richardson", "sor", "jacobi_ne", "gauss_seidel_nr",
+                  "schwarz", "polynomial", "chebyshev")
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM3
 # bytes/s, and float32 / float64 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -291,6 +324,31 @@ PATHS = {
     "device-built float64 config 1 gmres": (
         "dia_zero_chain.float64", "dia_spmv_add.float64",
         "dia_jacobi.float64", "dia_spmv.float64"),
+    # config 2 host-built: every multicolour GS colour step at level 0 is
+    # K2 (K9 on lanes); level 1 (windowed) smooths by Chebyshev through K6
+    # (K12); R = T^T S^T and level 1's R through K7 (K13)
+    "config 2 host-built W-cycle": (
+        "dia_jacobi.float32", "dia_spmv.float32", "dia_spmv.float64",
+        "windowed_matvec.float32", "windowed_rmatvec.float32"),
+    "config 2 host-built W-cycle CG native": (
+        "dia_jacobi.float32", "dia_spmv.float32", "windowed_matvec.float32",
+        "windowed_rmatvec.float32"),
+    "config 2 host-built batched W-cycle": (
+        "dia_jacobi_k.float32", "dia_spmm.float32",
+        "windowed_matmat_k.float32", "windowed_rmatmat_k.float32"),
+    "sharded config 2 host-built W-cycle": (
+        "dia_halo_spmv.float32", "windowed_matvec.float32",
+        "windowed_rmatvec.float32"),
+    # the device-built Chebyshev solve: Horner steps and the correction
+    # add through K1 SPMV_ADD, the restriction through SPMV_SCALED
+    "config 2 device-built Chebyshev": (
+        "dia_spmv_add.float32", "dia_spmv_scaled.float32",
+        "dia_spmv.float32", "dia_spmv.float64"),
+    **{f"256^2 float64 {kind}": (
+        ("dia_jacobi.float64", "dia_spmv.float64") if kind == "sor" else
+        ("dia_spmv_add.float64", "dia_spmv.float64")
+        if kind in ("polynomial", "chebyshev") else ("dia_spmv.float64",))
+       for kind in SMOOTHER_KINDS},
 }
 # the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
 PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
@@ -1285,6 +1343,45 @@ def lane_cycle_times(check, dla, rand):
     sync_free_cycle(check, lambda r: interleaved_zero_vcycle(h, r), Bi,
                     f"a K={LANES} interleaved stack (lane-aligned)")
 
+def halo_ring_check(check, A, rand, results, tag, path):
+    """K16 as a ring of one on the DIA operator A: against its plain twin
+    (the rolled sum over [tail, x, head]) at the kernel tolerance, a second
+    launch with the first one's bits, and bit for bit against K1.  Returns
+    (x, K1's y, the bytes of one SpMV)."""
+    import torch
+
+    from pyamg_tpu_torch.parallel import halo_width
+    from pyamg_tpu_torch.parallel.dist_spmv import dia_halo_rows_ref
+    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+    from pyamg_tpu_torch.sparse import dia
+
+    one = SolverMesh(rank=0, world=1, device=A.device)
+    dtype, n, halo = A.dtype, A.n_pad, halo_width(A)
+    dt = str(dtype).removeprefix("torch.")
+    x = rand(n, dtype)
+    A_csr = dia_to_csr(A)
+
+    def ring():
+        return halo_spmv(A.data, A.offsets, A.offsets_t, x, halo, one, 1)
+
+    def plain():
+        return dia_halo_rows_ref(A.data, A.offsets, x[n - halo:], x,
+                                 x[:halo], halo, ((0, n),),
+                                 torch.empty_like(x))
+
+    nbytes, ops = dia_cost(A, 2)
+    compare(check, f"dia_halo_spmv.{dt} [{tag} ring of one]", dtype, ring,
+            plain, results, nbytes, ops,
+            library_fn=lambda: torch.mv(A_csr, x), path=path,
+            repeat_exact=True)
+    k1 = dia.dia_spmv(A, x)
+    torch.cuda.synchronize()
+    check(torch.equal(ring(), k1), f"dia_halo_spmv.{dt} [{tag}]: the ring "
+          "of one equals K1 (dia_spmv) bit for bit")
+    return x, k1, nbytes
+
+
 def halo_phase(check, h, rand, results):
     """K16 at host level 0 of 2048^2 (nd = 5, n = 4.19M, halo 2048), in
     float32 (the level's operator) and float64 (A64): the ring of one
@@ -1296,41 +1393,23 @@ def halo_phase(check, h, rand, results):
     import torch
 
     from pyamg_tpu_torch.parallel import halo_width
-    from pyamg_tpu_torch.parallel.dist_spmv import dia_halo_rows_ref
-    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv, halo_spmv_shards
-    from pyamg_tpu_torch.parallel.partition import SolverMesh
+    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv_shards
     from pyamg_tpu_torch.sparse import dia
 
     shards = 4
     side = torch.cuda.Stream()
     for A in (h.levels[0].A, h.A64):
-        one = SolverMesh(rank=0, world=1, device=A.device)
-        dtype, n, halo = A.dtype, A.n_pad, halo_width(A)
-        dt = str(dtype).removeprefix("torch.")
-        x = rand(n, dtype)
-        A_csr = dia_to_csr(A)
-        tag = f"host level0 nd={A.ndiags} n_pad={n} halo={halo}"
-
-        def ring():
-            return halo_spmv(A.data, A.offsets, A.offsets_t, x, halo, one, 1)
-
-        def plain():
-            return dia_halo_rows_ref(A.data, A.offsets, x[n - halo:], x,
-                                     x[:halo], halo, ((0, n),),
-                                     torch.empty_like(x))
-
-        nbytes, ops = dia_cost(A, 2)
-        compare(check, f"dia_halo_spmv.{dt} [{tag} ring of one]", dtype,
-                ring, plain, results, nbytes, ops,
-                library_fn=lambda: torch.mv(A_csr, x),
-                path="sharded host-built config 1"
-                if dtype == torch.float32 else None, repeat_exact=True)
-        k1 = dia.dia_spmv(A, x)
+        dt = str(A.dtype).removeprefix("torch.")
+        tag = (f"host level0 nd={A.ndiags} n_pad={A.n_pad} "
+               f"halo={halo_width(A)}")
+        x, k1, nbytes = halo_ring_check(
+            check, A, rand, results, tag, "sharded host-built config 1"
+            if A.dtype == torch.float32 else None)
         split = halo_spmv_shards(A, x, shards, side)
         torch.cuda.synchronize()
-        check(torch.equal(ring(), k1) and torch.equal(split, k1),
-              f"dia_halo_spmv.{dt} [{tag}]: the ring of one and {shards} "
-              "in-process shards equal K1 (dia_spmv) bit for bit")
+        check(torch.equal(split, k1),
+              f"dia_halo_spmv.{dt} [{tag}]: {shards} in-process shards "
+              "equal K1 (dia_spmv) bit for bit")
         t = {}
         for label, phases in (("interior", ("interior",)),
                               ("halo copies", ("halos",)),
@@ -1503,13 +1582,14 @@ def windowed_to_csr(W, transpose=False):
 
 
 def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
-                           results, path):
-    """The unstructured path's windowed kernels at its hierarchy's shapes,
-    in ``dtype`` (the operators' dtype), results tagged with ``path``:
-    K14 on each (label, W) of ``selects`` (bit-exact against its twin;
-    torch.take on the precomputed int64 index as the yardstick), K6/K7 on
-    each of ``ops``, and K12/K13 at the probe width on those of ``ops``
-    whose labels are in ``probes``."""
+                           results, path, lanes=None, lane_path=None):
+    """The windowed kernels at a hierarchy's shapes, in ``dtype`` (the
+    operators' dtype), results tagged with ``path``: K14 on each (label,
+    W) of ``selects`` (bit-exact against its twin; torch.take on the
+    precomputed int64 index as the yardstick), K6/K7 on each of ``ops``,
+    and K12/K13 at ``lanes`` lanes (the unstructured setup's probe width
+    by default), tagged with ``lane_path`` (default ``path``), on those of
+    ``ops`` whose labels are in ``probes``."""
     import torch
 
     from pyamg_tpu_torch.sparse import window
@@ -1561,7 +1641,8 @@ def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
         if label not in probes:
             transpose_checks(check, f"{where} {label} {dt}", W, r, None)
             continue
-        K = PROBE_LANES
+        K = lanes or PROBE_LANES
+        lpath = lane_path or path
         Xk, Rk = rand((K, m), dtype), rand((K, W.n_pad), dtype)
         Xc, Rc = Xk.T.contiguous(), Rk.T.contiguous()
         ktag = f"{tag} K={K}"
@@ -1569,13 +1650,13 @@ def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
                 lambda: window.windowed_matmat_k(W, Xk),
                 lambda: window.windowed_matmat_k_ref(W, Xk), results,
                 meta + K * (m + W.n_pad) * sz, flops * K,
-                library_fn=lambda: torch.sparse.mm(W_csr, Xc), path=path,
+                library_fn=lambda: torch.sparse.mm(W_csr, Xc), path=lpath,
                 repeat_exact=True)
         compare(check, f"windowed_rmatmat_k.{dt} [{ktag}]", dtype,
                 lambda: window.windowed_rmatmat_k(W, Rk),
                 lambda: window.windowed_rmatmat_k_ref(W, Rk), results,
                 meta + K * (m + W.n_pad) * sz, flops * K,
-                library_fn=lambda: torch.sparse.mm(Wt_csr, Rc), path=path,
+                library_fn=lambda: torch.sparse.mm(Wt_csr, Rc), path=lpath,
                 repeat_exact=True)
         for kind, fn in (("matmat_k", lambda: window.windowed_matmat_k(W, Xk)),
                          ("rmatmat_k",
@@ -2100,6 +2181,319 @@ def lane_solves_phase(check, label, solver, B, kw, launches,
     path_launches(check, label, counts)
 
 
+def config2_host_phase(check, dev, rand, results, launches):
+    """Config 2's host-built column on the card: the port's SA setup of 3-D
+    Poisson 64^3 with symmetric Gauss-Seidel, the JP colourings of levels
+    0 and 1, and the compile (float32, float64 A64, cut at 1024 rows), each
+    timed on its own; K2 with a colour's inverse diagonal and K9 at K = 8
+    at level 0, K1 there in both types, and K6 / K7 / K12 / K13 at the
+    windowed shapes (level 0's T, level 1's A and P); the mixed stationary
+    W-cycle to 1e-8 with the reference's b (its 14 +- 1 iterations and
+    factor), native W-cycle CG to 1e-5 and K = 8 lanes of it, each lane its
+    1-D count, with counters; one W-cycle with every host sync an error,
+    and its time; then, on the device-built hierarchy ``d2``'s setup with
+    Chebyshev smoothers, mixed CG to 1e-8 against the same solve on its CPU
+    copy, and its W-cycle with every host sync an error.  Returns the
+    host-built solver and its b."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import (DeviceMultilevelSolver, compile_hierarchy,
+                                 device_sa_setup, poisson,
+                                 smoothed_aggregation_solver)
+    from pyamg_tpu_torch.graph import vertex_coloring
+    from pyamg_tpu_torch.sparse import (ComposedOperator, DIAMatrix,
+                                        TransposedWindowed, WindowedELL, dia)
+
+    A3 = poisson(GRID3, format="csr")
+    n3 = A3.shape[0]
+    t0 = time.perf_counter()
+    ml2 = smoothed_aggregation_solver(A3, presmoother=C2_GS,
+                                      postsmoother=C2_GS)
+    t_setup = time.perf_counter() - t0
+    t_col, ncol = [], []
+    for lvl in ml2.levels[:2]:
+        t0 = time.perf_counter()
+        ncol.append(int(vertex_coloring(lvl.A, method="JP").max()) + 1)
+        t_col.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    h2 = compile_hierarchy(ml2, dtype=torch.float32, device=dev,
+                           mixed_precision=True, coarse_cutoff=1024)
+    torch.cuda.synchronize()
+    t_compile = time.perf_counter() - t0
+    dml2 = DeviceMultilevelSolver(h2)
+    log(f"config 2 host-built, 3-D Poisson {GRID3}: the port's SA setup "
+        f"(symmetric GS) {t_setup:.3f} s, levels "
+        f"{[lvl.A.shape[0] for lvl in ml2.levels]}; JP colourings "
+        f"{ncol} colours in {', '.join(f'{t:.3f}' for t in t_col)} s "
+        f"(levels 0, 1); compile to the card {t_compile:.3f} s "
+        "(colouring and rho included)")
+    for i, lvl in enumerate(h2.levels):
+        cfg = lvl.pre.config
+        sm = (f"mcgs {cfg[1]} colours {cfg[2]}" if cfg[0] == "mcgs"
+              else f"{cfg[0]} degree {len(cfg[1])}" if cfg[0] == "poly"
+              else cfg[0])
+        log(f"  level {i}: n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}; "
+            f"smoother {sm}")
+    lv0, lv1 = h2.levels[0], h2.levels[1]
+    check(lv0.pre.config[:2] == ("mcgs", 6) and lv1.pre.config[0] == "poly"
+          and len(h2.levels) == 3,
+          f"config 2 host-built smoothers: multicolour GS with "
+          f"{lv0.pre.config[1]} colours at level 0, {lv1.pre.config[0]} at "
+          "level 1 (the reference's: 6 colours, then Chebyshev for 19)")
+
+    log("config 2 host-built kernels at the 64^3 shapes (kernel vs plain "
+        "twin):")
+    A0 = lv0.A
+    assert isinstance(A0, DIAMatrix)
+    path, lpath = "config 2 host-built W-cycle", \
+        "config 2 host-built batched W-cycle"
+    f32 = torch.float32
+    x, b = rand(A0.n_pad, f32), rand(A0.n_pad, f32)
+    dinv_c = lv0.pre.color_dinv[0]
+    tag = f"config2 host level0 nd={A0.ndiags} n_pad={A0.n_pad}"
+    A0_csr = dia_to_csr(A0)
+    compare(check, f"dia_jacobi.float32 [{tag} colour 0 of "
+            f"{lv0.pre.config[1]}]", f32,
+            lambda: dia.dia_jacobi(A0, x, b, dinv_c, 1.0),
+            lambda: dia.dia_jacobi_ref(A0, x, b, dinv_c, 1.0), results,
+            *dia_cost(A0, 4, extra_ops=4), path=path)
+    compare(check, f"dia_spmv.float32 [{tag}]", f32,
+            lambda: dia.dia_spmv(A0, x), lambda: dia.dia_spmv_ref(A0, x),
+            results, *dia_cost(A0, 2),
+            library_fn=lambda: torch.mv(A0_csr, x), path=path)
+    A64 = h2.A64
+    x64 = x.double()
+    A64_csr = dia_to_csr(A64)
+    compare(check, f"dia_spmv.float64 [config2 host A64 nd={A64.ndiags} "
+            f"n_pad={A64.n_pad}]", torch.float64,
+            lambda: dia.dia_spmv(A64, x64), lambda: dia.dia_spmv_ref(A64, x64),
+            results, *dia_cost(A64, 2),
+            library_fn=lambda: torch.mv(A64_csr, x64), path=path)
+    Xk, Bk = rand((LANES, A0.n_pad), f32), rand((LANES, A0.n_pad), f32)
+    Xcols = Xk.T.contiguous()
+    ktag = f"{tag} K={LANES}"
+    compare(check, f"dia_jacobi_k.float32 [{ktag} colour 0]", f32,
+            lambda: dia.dia_jacobi_k(A0, Xk, Bk, dinv_c, 1.0),
+            lambda: dia.dia_jacobi_k_ref(A0, Xk, Bk, dinv_c, 1.0), results,
+            *dia_cost(A0, 1, LANES, 3, extra_ops=4), path=lpath)
+    compare(check, f"dia_spmm.float32 [{ktag}]", f32,
+            lambda: dia.dia_spmm(A0, Xk), lambda: dia.dia_spmm_ref(A0, Xk),
+            results, *dia_cost(A0, 0, LANES, 2),
+            library_fn=lambda: torch.sparse.mm(A0_csr, Xcols), path=lpath)
+    del Xk, Bk, Xcols, A0_csr, A64_csr
+    T0 = lv0.P.ops[-1]
+    assert (isinstance(lv0.P, ComposedOperator) and isinstance(T0, WindowedELL)
+            and lv0.R.ops[0].base is T0)
+    ops = [("level0 T", T0)] + [(f"level1 {name}", op) for name, op in (
+        ("A", lv1.A), ("P", lv1.P)) if isinstance(op, WindowedELL)]
+    check(isinstance(lv1.R, TransposedWindowed) and lv1.R.base is lv1.P,
+          f"config 2 host-built level 1: A {type(lv1.A).__name__}, P "
+          f"{type(lv1.P).__name__}, R {type(lv1.R).__name__} (P's arrays)")
+    windowed_kernel_checks(check, "config2 host", (), ops,
+                           tuple(label for label, _ in ops), f32, rand,
+                           results, path, lanes=LANES, lane_path=lpath)
+
+    b2 = np.random.default_rng(1).random(n3)
+    normb = float(np.linalg.norm(b2))
+    kw = dict(tol=1e-8, maxiter=30, cycle="W", accel=None, precision="mixed")
+    dml2.solve(b2, **kw)                       # warm-up
+    res = []
+    x2, counts, wall = counted(lambda: dml2.solve(b2, residuals=res, **kw))
+    launches[path] = counts
+    times = [wall]
+    for _ in range(4):
+        t0 = time.perf_counter()
+        dml2.solve(b2, **kw)
+        times.append(time.perf_counter() - t0)
+    iters = len(res) - 1
+    true = float(np.linalg.norm(b2 - A3 @ x2)) / normb
+    factor = (res[-1] / res[0]) ** (1.0 / iters)
+    log(f"config 2 host-built (64^3, mixed, stationary W-cycle to 1e-8): "
+        f"{iters} iterations, history relres {res[-1] / normb:.3e}, true "
+        f"relres {true:.3e}, convergence factor {factor:.4f} (reference "
+        f"{REF_FACTOR_C2_HOST}), solve {times[0]:.4f} s (repeats "
+        f"{', '.join(f'{t:.4f}' for t in times[1:])} s, median "
+        f"{float(np.median(times)):.4f} s)")
+    log(f"  history: {' '.join(f'{r / normb:.3e}' for r in res)}")
+    log(f"  launches in that solve: {json.dumps(counts, sort_keys=True)}")
+    check(x2.shape == (n3,) and bool(np.isfinite(x2).all())
+          and abs(iters - REF_ITERS_C2_HOST) <= 1 and true <= 1e-8
+          and res[-1] <= 1e-8 * normb,
+          f"config 2 host-built W-cycle: {iters} iterations within "
+          f"{REF_ITERS_C2_HOST} +- 1 (reference), true relres {true:.3e} "
+          "<= 1e-8")
+    path_launches(check, path, counts)
+
+    label = "config 2 host-built W-cycle CG native"
+    res_n = []
+    _, counts, wall = counted(lambda: dml2.solve(
+        b2, tol=1e-5, maxiter=40, cycle="W", accel="cg", residuals=res_n))
+    launches[label] = counts
+    log(f"{label} to 1e-5: {len(res_n) - 1} iterations, history relres "
+        f"{res_n[-1] / normb:.3e}, wall {wall:.4f} s")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    check(res_n[-1] <= 1e-5 * normb, f"{label}: relres <= 1e-5 in "
+          f"{len(res_n) - 1} iterations")
+    path_launches(check, label, counts)
+    lane_solves_phase(check, lpath, dml2,
+                      np.random.default_rng(3).random((n3, LANES)),
+                      dict(tol=1e-5, maxiter=40, cycle="W", accel="cg"),
+                      launches)
+
+    r = rand(lv0.n_pad, f32)
+    cyc = dml2.cycle_operator("W")
+    sync_free_cycle(check, cyc, r, "64^3 host-built (multicolour GS and "
+                    "Chebyshev)", "W")
+    log(f"  one W-cycle at 64^3 host-built, f32: "
+        f"{min(time_ms(lambda: cyc(r), 3), time_ms(lambda: cyc(r), 3)):.4f}"
+        " ms (CUDA events, 3 cycles, min of 2)")
+    profile_phase("config 2 host-built 64^3", (
+        ("mixed stationary W-cycle to 1e-8", lambda: dml2.solve(b2, **kw)),
+        ("one W-cycle", lambda: cyc(r))))
+
+    # the device-built hierarchy with Chebyshev smoothers (poly_dyn)
+    label = "config 2 device-built Chebyshev"
+    t0 = time.perf_counter()
+    dc = device_sa_setup(A3, grid=GRID3, dtype=f32, device=dev,
+                         max_coarse=400, mixed_precision=True,
+                         presmoother=C2_CHEBYSHEV, postsmoother=C2_CHEBYSHEV)
+    torch.cuda.synchronize()
+    log(f"{label}: device SA setup {time.perf_counter() - t0:.3f} s, "
+        f"smoothers {[lvl.pre.config for lvl in dc.hierarchy.levels]}")
+    lv = dc.hierarchy.levels[0]
+    h_, c_r = rand(lv.A.n_pad, f32), rand(lv.A.n_pad, f32)
+    Ac_csr = dia_to_csr(lv.A)
+    compare(check, f"dia_spmv_add.float32 [config2 device level0 A nd="
+            f"{lv.A.ndiags} n_pad={lv.A.n_pad}]", f32,
+            lambda: dia.dia_spmv_add(lv.A, h_, c_r),
+            lambda: dia.dia_spmv_add_ref(lv.A, h_, c_r), results,
+            *dia_cost(lv.A, 3, extra_ops=1),
+            library_fn=lambda: torch.addmv(c_r, Ac_csr, h_), path=label)
+    del Ac_csr
+    mixed = dict(tol=1e-8, maxiter=40, accel="cg", precision="mixed")
+    dc.solve(b2, **mixed)                      # warm-up
+    res_g, res_c = [], []
+    xg, counts, wall = counted(lambda: dc.solve(b2, residuals=res_g, **mixed))
+    launches[label] = counts
+    cpu_copy_of(dc).solve(b2, residuals=res_c, **mixed)
+    true = float(np.linalg.norm(b2 - A3 @ xg)) / normb
+    log(f"{label} mixed CG to 1e-8: card {len(res_g) - 1} iterations (wall "
+        f"{wall:.4f} s), its CPU copy {len(res_c) - 1}; true relres "
+        f"{true:.3e}; launches {json.dumps(counts, sort_keys=True)}")
+    check(len(res_g) == len(res_c) and true <= 1e-8,
+          f"{label}: {len(res_g) - 1} iterations, the CPU copy's "
+          f"{len(res_c) - 1}, true relres {true:.3e} <= 1e-8")
+    path_launches(check, label, counts)
+    sync_free_cycle(check, dc.cycle_operator("W"), rand(lv.n_pad, f32),
+                    "64^3 device-built Chebyshev", "W")
+    return dml2, b2
+
+
+def sharded_config2_phase(check, dev, dml2, b2, rand, results, launches):
+    """The host-built config 2 hierarchy row-sharded in a world of one NCCL
+    rank (every level a ring of one, its DIA level through K16): the
+    native float32 stationary W-cycle to 1e-4 (its float32 floor at 64^3
+    is 2.1e-5 of ||b||) against the unsharded one, counters around the
+    sharded solve; then K16 at that level's shape (7 diagonals, a reach of
+    64^2 rows) against its plain twin and K1.  The process group is
+    destroyed before returning."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pyamg_tpu_torch import DeviceMultilevelSolver
+    from pyamg_tpu_torch.parallel import (halo_width, initialize_distributed,
+                                          make_solver_mesh, shard_hierarchy)
+
+    label = "sharded config 2 host-built W-cycle"
+    kw = dict(tol=1e-4, maxiter=30, cycle="W", accel=None)
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(init_method=f"file://{tmp}/rendezvous",
+                               world_size=1, rank=0, device=dev)
+        try:
+            sharded = DeviceMultilevelSolver(shard_hierarchy(
+                dml2.hierarchy, make_solver_mesh(device=dev)))
+            res0, res1 = [], []
+            dml2.solve(b2, residuals=res0, **kw)
+            x, counts, wall = counted(lambda: sharded.solve(
+                b2, residuals=res1, **kw))
+            launches[label] = counts
+        finally:
+            dist.destroy_process_group()
+    m = min(len(res0), len(res1))
+    diff = float(np.max(np.abs(np.subtract(res1[:m], res0[:m]))
+                        / np.asarray(res0[:m])))
+    normb = float(np.linalg.norm(b2))
+    log(f"{label} (world of one, native f32, stationary to 1e-4): "
+        f"{len(res1) - 1} iterations (unsharded {len(res0) - 1}), history "
+        f"relres {res1[-1] / normb:.3e}, vs unsharded max rel diff "
+        f"{diff:.2e}, wall {wall:.4f} s")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    check(len(res1) == len(res0) and diff <= STATIONARY_RTOL
+          and bool(np.isfinite(x).all()) and res1[-1] <= 1e-4 * normb,
+          f"{label}: relres <= 1e-4 in the unsharded count, its history "
+          f"to rtol {STATIONARY_RTOL:g}")
+    path_launches(check, label, counts)
+    A = dml2.hierarchy.levels[0].A
+    halo_ring_check(check, A, rand, results, f"host config2 level0 "
+                    f"nd={A.ndiags} n_pad={A.n_pad} halo={halo_width(A)}",
+                    label)
+
+
+def smoother_kinds_phase(check, dev, launches):
+    """Every other smoother kind on a host-built float64 256^2 hierarchy:
+    V-cycle CG to 1e-8 (maxiter 40) on the card, counters around it,
+    against the same solve on the hierarchy's CPU copy (the plain twins):
+    the same count, histories to rtol 1e-8."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import (DeviceMultilevelSolver, compile_hierarchy,
+                                 poisson, smoothed_aggregation_solver)
+    from pyamg_tpu_torch.relaxation import chebyshev_polynomial_coefficients
+
+    A = poisson(STATIONARY_GRID, format="csr")
+    b = np.random.default_rng(5).random(A.shape[0])
+    rho = 8.0                     # rho(A) of the 5-point Laplacian, < 8
+    specs = {
+        "richardson": ("richardson", {"omega": 1.0}),
+        "sor": ("sor", {"omega": 1.0, "sweep": "symmetric"}),
+        "jacobi_ne": ("jacobi_ne", {"omega": 0.5}),
+        "gauss_seidel_nr": ("gauss_seidel_nr", {"sweep": "symmetric"}),
+        "schwarz": ("schwarz", {}),
+        "polynomial": [("polynomial", {"coefficients": list(
+            chebyshev_polynomial_coefficients(rho / 30, 1.1 * rho, 3))}),
+            C2_CHEBYSHEV],
+        "chebyshev": C2_CHEBYSHEV}
+    for kind in SMOOTHER_KINDS:
+        label = f"256^2 float64 {kind}"
+        ml = smoothed_aggregation_solver(A, presmoother=specs[kind],
+                                         postsmoother=specs[kind])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the substitution notices
+            h = compile_hierarchy(ml, dtype=torch.float64, device=dev)
+        kw = dict(tol=1e-8, maxiter=40, accel="cg")
+        res_g, res_c = [], []
+        _, counts, wall = counted(lambda: DeviceMultilevelSolver(h).solve(
+            b, residuals=res_g, **kw))
+        launches[label] = counts
+        DeviceMultilevelSolver(to_device(h, "cpu")).solve(
+            b, residuals=res_c, **kw)
+        m = min(len(res_g), len(res_c))
+        err = float(np.max(np.abs(np.subtract(res_g[:m], res_c[:m]))
+                           / np.asarray(res_c[:m])))
+        check(len(res_g) == len(res_c) and err <= 1e-8,
+              f"{label} ({h.levels[0].pre.config[0]} at level 0): card "
+              f"{len(res_g) - 1} iterations, CPU copy {len(res_c) - 1}, "
+              f"history rel diff {err:.2e} (tol 1e-8), last "
+              f"{res_g[-1] / res_g[0]:.3e} of the first, wall {wall:.4f} s")
+        path_launches(check, label, counts)
+
+
 def main():
     import numpy as np
     import torch
@@ -2506,6 +2900,15 @@ def main():
                       dict(tol=1e-5, maxiter=40, accel="gmres", restart=4),
                       launches, need_info=False)
 
+    # 17. the other smoothers: config 2's host-built column (multicolour
+    # GS and the Chebyshev fallback), its lanes and its sharded W-cycle;
+    # the device-built Chebyshev 64^3 solve; every other kind at 256^2
+    t_m = time.perf_counter()
+    dml2, b2 = config2_host_phase(check, dev, rand, results, launches)
+    sharded_config2_phase(check, dev, dml2, b2, rand, results, launches)
+    smoother_kinds_phase(check, dev, launches)
+    log(f"smoother phase: {time.perf_counter() - t_m:.1f} s")
+
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
               file=sys.stderr)
@@ -2513,7 +2916,7 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 17. result lines: each path kernel instance, with its launches on
+    # 18. result lines: each path kernel instance, with its launches on
     # the paths that run it (``launches``: the first of them) and, where a
     # later path's shapes were checked too (config 2's 64^3), those
     # numbers under ``at_paths``

@@ -30,6 +30,9 @@ from .tentative import fit_candidates
 __all__ = ["smoothed_aggregation_solver"]
 
 CONFIG1_SMOOTHER = ("jacobi", {"omega": 4.0 / 3.0})
+# the reference's default pre/post smoother (multicolor Gauss-Seidel on the
+# device, or Chebyshev on a level with more than 16 colours)
+DEFAULT_SMOOTHER = ("block_gauss_seidel", {"sweep": "symmetric"})
 
 # the reference's setup options the copy runs, each with the values it
 # takes (the reference's defaults)
@@ -61,16 +64,16 @@ def _check_options(options):
             raise _not_ported(f"the setup option {key}={value!r}")
 
 
-def smoothed_aggregation_solver(A, B=None, presmoother=CONFIG1_SMOOTHER,
-                                postsmoother=CONFIG1_SMOOTHER, max_levels=10,
+def smoothed_aggregation_solver(A, B=None, presmoother=DEFAULT_SMOOTHER,
+                                postsmoother=DEFAULT_SMOOTHER, max_levels=10,
                                 max_coarse=10, **options):
     """A smoothed-aggregation hierarchy (:class:`MultilevelSolver`) of the
     real symmetric operator ``A`` with the reference's setup.  The pre/post
-    smoothers default to config 1's Jacobi (omega 4/3), the one smoother
-    the device compile takes; the reference's default, block Gauss-Seidel,
-    raises (ROADMAP.md Queue 1 item 8).  ``options`` are the reference's
-    other setup options (``symmetry``, ``BH``, ``strength``,
-    ``aggregate``, ``smooth``, ``improve_candidates``,
+    smoothers default to the reference's, symmetric block Gauss-Seidel
+    (scalar here: the device compile's multicolor Gauss-Seidel); config 1
+    passes ``CONFIG1_SMOOTHER``, Jacobi with omega 4/3.  ``options`` are
+    the reference's other setup options (``symmetry``, ``BH``,
+    ``strength``, ``aggregate``, ``smooth``, ``improve_candidates``,
     ``diagonal_dominance``, ``keep``), accepted at their default value
     only."""
     if sp.issparse(A) and A.format == "bsr":

@@ -4,10 +4,12 @@
 ``pyamg_tpu.engine.DeviceHierarchy`` with ``np.asarray`` (no ``jax``
 import) and builds the port's hierarchy from exactly those arrays: the
 counterpart of loading weights.  Operators shared inside the JAX
-hierarchy (R's transposed tentative operator is P's) stay shared.  The
-device-built hierarchy's structured transfers and ``jacobi_dyn``
-smoothers carry across too; :func:`structured_solver_from_jax` wraps such
-a hierarchy with the JAX solver's grid layout.  The unstructured setup's
+hierarchy (R's transposed tentative operator is P's) stay shared.  Every
+scalar smoother kind carries across (Jacobi, Richardson, multicolour
+Gauss-Seidel, polynomial, Cimmino, windowed Schwarz, with static or
+device weights), and so do the device-built hierarchy's structured
+transfers; :func:`structured_solver_from_jax` wraps such a hierarchy with
+the JAX solver's grid layout.  The unstructured setup's
 composed prolongators carry across as well, and
 :func:`unstructured_solver_from_jax` wraps its hierarchy (in the JAX
 ``ReorderedSolver``'s permutation when it has one).
@@ -95,13 +97,14 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
             "(ROADMAP.md Queue 1)")
 
     def smoother(s):
-        kind = s.config[0]
-        if kind not in ("identity", "jacobi", "jacobi_dyn"):
-            raise NotImplementedError(
-                f"smoother {kind!r} is not ported yet (ROADMAP.md Queue 1 "
-                "item 8)")
-        return DeviceSmoother(config=tuple(s.config),
-                              arrays=tuple(tensor(a) for a in s.arrays))
+        # a kind the port lacks (the block and masked forms) raises in
+        # DeviceSmoother; int32 colours stay int32; every float leaf (0-d
+        # weights, 1-d coefficient stacks, per-row vectors, Schwarz
+        # blocks) keeps its dtype; a static coefficient tuple rides in the
+        # config
+        return DeviceSmoother(config=tuple(s.config), arrays=tuple(
+            tensor(a, torch.int32 if np.dtype(a.dtype).kind in "iu"
+                   else None) for a in s.arrays))
 
     levels = tuple(DeviceLevel(A=op(lvl.A), P=op(lvl.P), R=op(lvl.R),
                                pre=smoother(lvl.pre),

@@ -9,14 +9,16 @@ from .hierarchy import DeviceHierarchy, DeviceLevel, compile_hierarchy
 from .krylov import (device_bicgstab, device_cg, device_cgne, device_cgnr,
                      device_cr, device_fgmres, device_gmres,
                      device_minimal_residual, device_steepest_descent)
-from .relaxation import DeviceSmoother
+from .relaxation import (DeviceSmoother, apply_smoother,
+                         apply_smoother_zero)
 from .solver import DeviceMultilevelSolver, as_device_solver
 from .unstructured_setup import (ComposedWindowed, ReorderedSolver,
                                  device_unstructured_sa_setup)
 
 __all__ = ["ComposedWindowed", "DeviceHierarchy", "DeviceLevel",
            "DeviceMultilevelSolver", "DeviceSmoother", "ReorderedSolver",
-           "StructuredDeviceSolver", "as_device_solver", "compile_hierarchy",
+           "StructuredDeviceSolver", "apply_smoother", "apply_smoother_zero",
+           "as_device_solver", "compile_hierarchy",
            "detect_grid", "device_bicgstab", "device_cg", "device_cgne",
            "device_cgnr", "device_cr", "device_fgmres", "device_gmres",
            "device_minimal_residual", "device_sa_setup",

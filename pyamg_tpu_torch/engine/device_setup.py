@@ -11,7 +11,9 @@ embedding.  Every step runs eagerly in plain PyTorch (rolls, elementwise
 products, reshape-sums, a 40-step power iteration whose SpMV is the K1
 kernel, and a Newton-Schulz pseudo-inverse of the dense coarsest
 operator by ``torch.matmul`` with TF32 off).  Nothing is read back to the
-host: the smoother weights stay 0-d device tensors (``jacobi_dyn``).
+host: the smoother weights stay 0-d device tensors (``jacobi_dyn``,
+``richardson_dyn``) and the Chebyshev coefficients a 1-d one
+(``poly_dyn``), each scaled by a power-iteration estimate on the device.
 
 The level loop, the padded-grid layout and the solve padding
 (``_solve_pad``) are the reference's, so the port's hierarchy equals the
@@ -31,9 +33,8 @@ hierarchy runs the interleaved route (``engine/batched_cycle.py``, K15).
 An operator that is not a grid stencil (``detect_grid`` finds no grid)
 goes to the unstructured device setup
 (:func:`~pyamg_tpu_torch.engine.unstructured_setup.device_unstructured_sa_setup`)
-with the arguments the reference passes.  Not ported (each raises
-``NotImplementedError``): the ``richardson`` and ``chebyshev`` smoothers
-(ROADMAP.md Queue 1 item 8).
+with the arguments the reference passes.  Smoothers: ``jacobi``,
+``richardson`` and ``chebyshev`` specs, as the reference's.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..backend import resolve_device
+from ..relaxation.chebyshev import chebyshev_polynomial_coefficients
 from ..sparse.dia import (DenseOperator, DIAMatrix, dia_from_scipy,
                           dia_spgemm, dia_spmm_add, dia_spmm_scaled,
                           dia_spmv_add, dia_spmv_scaled, dia_transpose)
@@ -583,34 +585,69 @@ def _hashable(v):
     return v
 
 
+_DEVICE_SMOOTHERS = ("jacobi", "richardson", "chebyshev")
+
+
 def _check_smoother(key):
-    """Admit Jacobi specs only; the other device smoothers raise."""
-    if key is not None and key[0] != "jacobi":
-        if key[0] in ("richardson", "chebyshev"):
-            raise _not_ported(f"the device-built {key[0]!r} smoother", 8)
-        raise ValueError(f"device setup supports jacobi, got {key[0]!r}")
+    """Admit the specs the device-built setups take (the reference's)."""
+    if key is not None and key[0] not in _DEVICE_SMOOTHERS:
+        raise ValueError("device setup supports jacobi/richardson/chebyshev,"
+                         f" got {key[0]!r}")
 
 
 def _smoother_device_arrays(key, A_p, dinv, rho_dinv, dtype):
-    """The smoother's device tensors: (dinv, omega) for Jacobi (the only
-    spec :func:`device_sa_setup` admits), with omega a 0-d tensor scaled by
-    the device estimate of rho(D^-1 A)."""
+    """The smoother's device tensors, every scalar a device tensor (no host
+    read): (dinv, omega) for Jacobi, omega scaled by the estimate of
+    rho(D^-1 A); (omega,) for Richardson, scaled by a power-iteration
+    estimate of rho(A); (coefficients,) for Chebyshev, the unit interval's
+    coefficients scaled by that estimate."""
     if key is None:
         return ()
-    kw = dict(key[1])
-    omega = torch.tensor(float(kw.get("omega", 1.0)), dtype=dtype,
-                         device=dinv.device)
-    if kw.get("withrho", True):
-        omega = omega / torch.clamp_min(rho_dinv, 1e-30)
-    return (dinv, omega)
+    name, kw = key
+    kw = dict(kw)
+    dev = A_p.device
+    if name == "jacobi":
+        omega = torch.tensor(float(kw.get("omega", 1.0)), dtype=dtype,
+                             device=dev)
+        if kw.get("withrho", True):
+            omega = omega / torch.clamp_min(rho_dinv, 1e-30)
+        return (dinv, omega)
+    if name == "richardson":
+        rho_A = _power_rho(A_p)
+        omega = torch.tensor(float(kw.get("omega", 1.0)), dtype=dtype,
+                             device=dev) / torch.clamp_min(rho_A, 1e-30)
+        return (omega,)
+    if name == "chebyshev":
+        lower = float(kw.get("lower_bound", 1.0 / 30.0))
+        upper = float(kw.get("upper_bound", 1.1))
+        degree = int(kw.get("degree", 3))
+        # coefficients on the unit interval [lower, upper]; scaling the
+        # interval by rho scales the coefficient of t^(degree-1-j) by
+        # rho^-(degree-j) (p_rho(t) = p_unit(t / rho) / rho)
+        c_unit = np.asarray(chebyshev_polynomial_coefficients(lower, upper,
+                                                              degree))
+        rho_A = _power_rho(A_p)
+        exps = degree - np.arange(degree)
+        return (torch.as_tensor(c_unit, dtype=dtype, device=dev)
+                * torch.clamp_min(rho_A, 1e-30) ** torch.as_tensor(
+                    -exps, dtype=dtype, device=dev),)
+    raise ValueError(
+        f"device setup supports jacobi/richardson/chebyshev, got {name!r}")
 
 
 def _smoother_wrap(key, arrays):
     """Bind the device tensors into a DeviceSmoother."""
     if key is None:
         return device_relaxation.identity()
-    iterations = int(dict(key[1]).get("iterations", 1))
-    return device_relaxation.jacobi_dyn(arrays[0], arrays[1], iterations)
+    name, kw = key
+    iterations = int(dict(kw).get("iterations", 1))
+    if name == "jacobi":
+        return device_relaxation.jacobi_dyn(arrays[0], arrays[1], iterations)
+    if name == "richardson":
+        return device_relaxation.richardson_dyn(arrays[0], iterations)
+    if name == "chebyshev":
+        return device_relaxation.polynomial_dyn(arrays[0], iterations)
+    raise ValueError(name)
 
 
 def _solve_pad(n):
@@ -652,10 +689,19 @@ def _pad_solve_items(n_old, items):
 
 def _smoother_pad_mask(key):
     """Per-entry roles of the smoother arrays: True = per-row vector
-    (zero-padded), False = left as is (the 0-d omega)."""
+    (zero-padded), False = left as is (a 0-d omega, the coefficient stack
+    of length degree).  Keyed by name, so a smoother with no entry here
+    raises rather than be padded by the length of its arrays."""
     if key is None:
         return ()
-    return (True, False)           # (dinv per-row, omega scalar)
+    name = key[0]
+    if name == "jacobi":
+        return (True, False)       # (dinv per row, omega)
+    if name == "richardson":
+        return (False,)            # (omega,)
+    if name == "chebyshev":
+        return (False,)            # (coefficients,)
+    raise ValueError(f"no pad-role entry for smoother {name!r}")
 
 
 def _pad_smoother_arrays(key, arrays, n_old):
@@ -827,7 +873,8 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
     mixed-precision outer loop.  ``lane_align=True`` lays each level on
     the lane-aligned padded grid (:func:`_padded_grid`), so that batched
     native float32 CG solves take the interleaved route.  Smoothers:
-    ``jacobi`` specs."""
+    ``jacobi``, ``richardson`` or ``chebyshev`` specs (their spectral
+    radii estimated on the device by power iteration)."""
     device = resolve_device(device)
     if dtype not in (torch.float32, torch.float64):
         raise _not_ported(f"dtype {dtype}", 4)

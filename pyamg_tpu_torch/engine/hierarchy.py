@@ -10,13 +10,20 @@ JAX package's rules (row padding 1024, the 2048 dense threshold, the
 factored transfers, the windowed block/w2 choice, the transpose gate), so
 the port's hierarchy is the reference's, level by level.
 
-Not ported yet (each raises ``NotImplementedError``): smoothers other
-than Jacobi (ROADMAP.md Queue 1 item 8), BSR block-DIA levels (item 8),
-complex hierarchies, and bf16 DIA storage.
+The smoother specs compile as the reference's: Gauss-Seidel and SOR to
+multicolour Gauss-Seidel on a Jones-Plassmann colouring (Chebyshev of
+degree 4 where a level needs more than 16 colours), the Kaczmarz forms to
+the Cimmino sweeps, Schwarz to windowed Schwarz, and an unknown name to
+multicolour Gauss-Seidel, each substitution announced by the reference's
+warning.  Not ported yet (each raises ``NotImplementedError``): the block
+smoothers with a blocksize above 1 and BSR block-DIA levels (ROADMAP.md
+Queue 1 item 9), the masked C/F Jacobi (item 10), complex hierarchies,
+and bf16 DIA storage.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
@@ -25,17 +32,21 @@ import scipy.sparse as sp
 import torch
 
 from ..backend import resolve_device
-from ..relaxation.smoothing import rho_D_inv_A
+from ..graph import vertex_coloring
+from ..relaxation.chebyshev import chebyshev_polynomial_coefficients
+from ..relaxation.smoothing import _blocksize, rho_D_inv_A
 from ..sparse import (ComposedOperator, DIAMatrix, TransposedWindowed,
                       WindowedELL, dense_from_scipy, dia_from_scipy, pad_to,
                       select_operator, windowed_from_scipy)
 from ..sparse.dia import dia_transpose
+from ..util.linalg import approximate_spectral_radius
 from ..util.utils import scale_rows
 from . import relaxation as device_relaxation
 
 __all__ = ["DeviceLevel", "DeviceHierarchy", "compile_hierarchy"]
 
 _ROW_PAD = 1024
+_MAX_GS_COLORS = 16
 
 
 @dataclass(frozen=True)
@@ -84,34 +95,180 @@ def _not_ported(what, item):
         f"(ROADMAP.md Queue 1 item {item})")
 
 
+def _device_vector(values, n_pad, dtype, device):
+    out = np.zeros(n_pad, dtype=np.float64)
+    out[: len(values)] = values
+    return torch.as_tensor(out, dtype=dtype, device=device)
+
+
 def _device_dinv(A_scipy, n_pad, dtype, device):
     d = A_scipy.diagonal()
     with np.errstate(divide="ignore", invalid="ignore"):
         dinv = np.where(d != 0, 1.0 / np.where(d != 0, d, 1), 0.0)
-    out = np.zeros(n_pad, dtype=dinv.dtype)
-    out[: len(dinv)] = dinv
-    return torch.as_tensor(out, dtype=dtype, device=device)
+    return _device_vector(dinv, n_pad, dtype, device)
+
+
+def _colors_for(A_scipy, n_pad, device):
+    """JP colouring of the scalar connectivity graph, padded with -1:
+    (int32 colours on ``device``, the colour count)."""
+    colors = vertex_coloring(sp.csr_matrix(A_scipy), method="JP")
+    out = np.full(n_pad, -1, dtype=np.int64)
+    out[: len(colors)] = colors
+    return (torch.as_tensor(out, dtype=torch.int32, device=device),
+            int(colors.max()) + 1)
 
 
 def _compile_smoother(lvl, spec, dtype, n_pad, device):
-    """Map a resolved host smoother spec onto its device form."""
+    """Map a resolved host smoother spec onto its device form (the
+    reference's rules; sequential smoothers become their multicolour or
+    Cimmino counterparts)."""
     A = lvl.A
-    # keep the SAME object when already CSR so the spectral-radius cache
-    # computed during host setup is reused
+    # keep the SAME object when already CSR so the spectral-radius caches
+    # (_rho, _rho_D_inv) computed during host setup are reused
     Acsr = A if (sp.issparse(A) and A.format == "csr") else sp.csr_matrix(A)
     name, kwargs = spec if spec is not None else (None, {})
     kwargs = dict(kwargs or {})
 
     if name is None or name == "none":
         return device_relaxation.identity()
-    if name != "jacobi":
-        raise _not_ported(f"smoother {name!r}", 8)
+
     iterations = int(kwargs.get("iterations", 1))
-    omega = float(kwargs.get("omega", 1.0))
-    if kwargs.get("withrho", True):
-        omega = omega / rho_D_inv_A(Acsr)
-    dinv = _device_dinv(Acsr, n_pad, dtype, device)
-    return device_relaxation.jacobi(dinv, omega, iterations)
+
+    def jacobi():
+        omega = float(kwargs.get("omega", 1.0))
+        if kwargs.get("withrho", True):
+            omega = omega / rho_D_inv_A(Acsr)
+        dinv = _device_dinv(Acsr, n_pad, dtype, device)
+        return device_relaxation.jacobi(dinv, omega, iterations)
+
+    def mcgs_or_chebyshev(sweep):
+        """Multicolour GS, unless the level needs more than
+        ``_MAX_GS_COLORS`` colours (each costs one SpMV): then Chebyshev
+        of degree 4 on [rho / 30, 1.1 rho]."""
+        colors, ncolors = _colors_for(Acsr, n_pad, device)
+        if ncolors <= _MAX_GS_COLORS:
+            dinv = _device_dinv(Acsr, n_pad, dtype, device)
+            return device_relaxation.multicolor_gs(
+                dinv, colors, ncolors, sweep=sweep, iterations=iterations)
+        rho = approximate_spectral_radius(Acsr)
+        coefficients = chebyshev_polynomial_coefficients(
+            rho / 30.0, 1.1 * rho, 4)
+        return device_relaxation.polynomial(coefficients, iterations)
+
+    if name == "jacobi":
+        return jacobi()
+
+    if name in ("jacobi_ne", "gauss_seidel_ne", "gauss_seidel_nr"):
+        # the Cimmino form: x += omega * A^T Dinv (b - A x) targets the
+        # normal equations of the reference's sequential Kaczmarz sweeps
+        if name != "jacobi_ne":
+            warnings.warn(
+                f"smoother '{name}' (sequential Kaczmarz) has no device "
+                "form; substituting the parallel Jacobi normal-equation "
+                "sweep (Cimmino) targeting the same normal equations")
+        omega = float(kwargs.get("omega", 1.0))
+        sq = Acsr.copy()
+        sq.data = np.abs(sq.data) ** 2
+        axis = 0 if name == "gauss_seidel_nr" else 1
+        norm2 = np.asarray(sq.sum(axis=axis)).ravel()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            dvals = np.where(norm2 != 0, 1.0 / norm2, 0.0)
+        if name != "jacobi_ne":
+            # Cimmino needs omega < 2 / rho(A^H D^-1 A): scale as withrho
+            # Jacobi does, rho(A^H D^-1 A) = ||D^-1/2 A||_2^2
+            scale = np.sqrt(np.where(dvals > 0, dvals, 0.0))
+            B = (sp.diags(scale) @ Acsr if name == "gauss_seidel_ne"
+                 else Acsr @ sp.diags(scale))
+            rho_ne = approximate_spectral_radius((B.conj().T @ B).tocsr())
+            omega = omega / max(rho_ne, 1e-300)
+            if kwargs.get("sweep", "forward") == "symmetric":
+                # a symmetric Kaczmarz sweep updates 2n rows, one Cimmino
+                # pass n: doubling keeps the row-update budget
+                iterations *= 2
+        dinv = _device_vector(dvals, n_pad, dtype, device)
+        if name == "gauss_seidel_nr":
+            return device_relaxation.jacobi_nr(dinv, omega, iterations)
+        return device_relaxation.jacobi_ne(dinv, omega, iterations)
+
+    if name == "richardson":
+        omega = float(kwargs.get("omega", 1.0))
+        omega = omega / max(approximate_spectral_radius(Acsr), 1e-300)
+        return device_relaxation.richardson(omega, iterations)
+
+    if name in ("gauss_seidel", "sor"):
+        return mcgs_or_chebyshev(kwargs.get("sweep", "forward"))
+
+    if name in ("block_gauss_seidel", "block_jacobi"):
+        bs = _blocksize(A, kwargs.get("blocksize"))
+        if bs != 1 and n_pad % bs == 0:
+            raise _not_ported(f"the {name!r} smoother with blocksize {bs}",
+                              9)
+        if name == "block_jacobi":
+            return jacobi()
+        return mcgs_or_chebyshev(kwargs.get("sweep", "forward"))
+
+    if name == "chebyshev":
+        rho = approximate_spectral_radius(Acsr)
+        lower = kwargs.get("lower_bound", 1.0 / 30.0)
+        upper = kwargs.get("upper_bound", 1.1)
+        degree = int(kwargs.get("degree", 3))
+        coefficients = chebyshev_polynomial_coefficients(
+            rho * lower, rho * upper, degree)
+        return device_relaxation.polynomial(coefficients, iterations)
+
+    if name == "polynomial":
+        return device_relaxation.polynomial(kwargs["coefficients"],
+                                            iterations)
+
+    if name in ("cf_jacobi", "fc_jacobi", "cf_block_jacobi",
+                "fc_block_jacobi"):
+        if getattr(lvl, "splitting", None) is None:
+            raise ValueError(f"{name} requires lvl.splitting")
+        raise _not_ported(f"the masked {name!r} smoother", 10)
+
+    if name in ("schwarz", "strength_based_schwarz"):
+        # contiguous sliding windows instead of the reference's
+        # strength-based per-node subdomains (gather-free)
+        warnings.warn(
+            f"'{name}': substituting windowed overlapping Schwarz "
+            "(contiguous sliding subdomains — the gather-free TPU form)")
+        w = int(kwargs.get("window", 16))
+        s = int(kwargs.get("stride", 8))
+        if w % s != 0:
+            raise ValueError("schwarz window must be a multiple of stride")
+        if n_pad % s != 0:
+            return mcgs_or_chebyshev(kwargs.get("sweep", "symmetric"))
+        inv_blocks = _windowed_schwarz_blocks(Acsr, n_pad, w, s)
+        return device_relaxation.windowed_schwarz(
+            torch.as_tensor(inv_blocks, dtype=dtype, device=device), w, s,
+            omega=float(kwargs.get("omega", 1.0)), iterations=iterations)
+
+    warnings.warn(
+        f"smoother '{name}' has no device form; substituting hybrid "
+        "multicolor Gauss-Seidel (convergence-equivalent TPU smoother)")
+    return mcgs_or_chebyshev(kwargs.get("sweep", "symmetric"))
+
+
+def _windowed_schwarz_blocks(Acsr, n_pad, w, s):
+    """Batched pseudo-inverses of the circular sliding-window subblocks
+    A[i*s : i*s+w, i*s : i*s+w], built from the matrix diagonals."""
+    n = Acsr.shape[0]
+    nwin = n_pad // s
+    blocks = np.zeros((nwin, w, w))
+    for k in range(-(w - 1), w):
+        dk = np.asarray(Acsr.diagonal(k)).ravel()
+        if dk.size == 0:
+            continue
+        val = np.zeros(n_pad)
+        if k >= 0:
+            val[: n - k] = dk          # val[r] = A[r, r+k]
+        else:
+            val[-k: n] = dk            # val[r] = A[r, r+k], r >= |k|
+        ext = np.concatenate([val, val[: w]])   # circular windows
+        V = np.lib.stride_tricks.sliding_window_view(ext, w)[::s][:nwin]
+        ps = np.arange(max(0, -k), min(w, w - k))
+        blocks[:, ps, ps + k] = V[:, ps]
+    return np.linalg.pinv(blocks)
 
 
 def _smoothing_factor_dia(A_dev, A_host, fac, dtype):
@@ -261,7 +418,7 @@ def compile_hierarchy(ml, dtype=torch.float32, device=None,
                 and lvl.A.blocksize[0] == lvl.A.blocksize[1]
                 and lvl.A.blocksize[0] > 1 and n > 2048
                 and n_pad % lvl.A.blocksize[0] == 0):
-            raise _not_ported("the block-DIA form of a BSR level", 8)
+            raise _not_ported("the block-DIA form of a BSR level", 9)
         A_dev = select_operator(A, dtype=dtype, device=device,
                                 row_pad=row_pad)
         # the level's vector length follows the compiled operator's row

@@ -1,45 +1,98 @@
 """Device smoothers (counterpart of ``pyamg_tpu/engine/relaxation.py``).
 
-Ported so far: ``identity``, weighted ``jacobi`` and ``jacobi_dyn`` (the
-same sweep with its weight held as a 0-d tensor on the device, as the
-device-built hierarchy stores it).  On a DIA operator a Jacobi sweep is
-one :func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi` kernel pass, the
-zero-guess sweep plus its residual one
-:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_zero_res` pass, and a sweep
-from a nonzero guess plus the residual of its result one
-:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_res` pass.
+A :class:`DeviceSmoother` is a kind with its static scalars (``config``)
+and its device tensors (``arrays``), applied by :func:`apply_smoother`
+and, from a known-zero guess, :func:`apply_smoother_zero`, as the
+reference's.  The kinds: ``identity``; weighted ``jacobi`` and
+``jacobi_dyn`` (its weight a 0-d tensor on the device, as the
+device-built hierarchy stores it); ``richardson`` and ``richardson_dyn``;
+multicolour Gauss-Seidel ``mcgs`` (the parallel form of Gauss-Seidel and
+SOR: the colours of a Jones-Plassmann colouring swept in order, every row
+of one colour updated at once); the polynomial (Chebyshev) smoothers
+``poly`` and ``poly_dyn`` (Horner on the residual); the Cimmino
+normal-equation sweeps ``jacobi_ne`` and ``jacobi_nr`` (the parallel form
+of the Kaczmarz smoothers); and ``win_schwarz``, additive overlapping
+Schwarz over contiguous sliding windows.
 
-Every entry form also takes K-major (K, n_pad) lane stacks for x and b
-(the batched solve): a sweep is one K9 pass
-(:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_k`), a sweep plus the
-residual of its result is K9 then the residual through K8
-(:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_res_k`, the reference's
-batch rule), and the zero-guess sweep plus residual one K10 pass
-(:func:`~pyamg_tpu_torch.sparse.dia.dia_jacobi_zero_res_k`).  On an
-operator that is not DIA the sweep composes through ``A @ X``.  The
-other smoothers are ROADMAP.md Queue 1 item 8.
+Every entry form takes one vector or a K-major (K, n_pad) lane stack for
+x and b (the batched solve).  The kernels they run on a DIA operator:
+
+- a Jacobi sweep is one K2 pass (:func:`~pyamg_tpu_torch.sparse.dia.
+  dia_jacobi`; K9 for lanes), the zero-guess sweep plus its residual one
+  K3 pass (K10), a sweep from a nonzero guess plus the residual of its
+  result one K4 pass (K9 then K8 for lanes);
+- a multicolour Gauss-Seidel colour step is one K2 pass (K9) with omega 1
+  and that colour's inverse diagonal, ``where(colors == c, dinv, 0)``:
+  inside the colour ``x + 1 * (dinv * r)`` is the reference's
+  ``x + dinv * r``, outside it ``x + 0`` is ``x``.  The smoother builds
+  the (ncolors, n_pad) stack of those diagonals on the device at its
+  first step on a DIA operator, and keeps it;
+- a Horner step ``h = c * r + A @ h`` is one K1 ``SPMV_ADD`` pass (K8
+  ``add`` for lanes).
+
+On any other operator (windowed, dense, row-sharded) the steps compose
+through ``A @ x`` and a select, as the reference's.  Richardson's and the
+Cimmino sweeps' updates compose through ``A @ x`` and ``A.rmatvec`` (the
+roll form on a DIA operator, K7 or K13 on a windowed one), and windowed
+Schwarz rolls, reshapes and one batched (nwin, w, w) product.  The block
+forms and the masked C/F Jacobi raise (ROADMAP.md Queue 1 items 9 and 10).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..sparse.dia import (DIAMatrix, dia_jacobi, dia_jacobi_k,
                           dia_jacobi_res, dia_jacobi_res_k,
-                          dia_jacobi_zero_res, dia_jacobi_zero_res_k)
+                          dia_jacobi_zero_res, dia_jacobi_zero_res_k,
+                          dia_spmm_add, dia_spmv_add)
+from ..sparse.formats import fit as _fit_len
 
-__all__ = ["DeviceSmoother", "identity", "jacobi", "jacobi_dyn"]
+__all__ = ["DeviceSmoother", "apply_smoother", "apply_smoother_zero",
+           "identity", "jacobi", "jacobi_dyn", "jacobi_ne", "jacobi_nr",
+           "multicolor_gs", "polynomial", "polynomial_dyn", "richardson",
+           "richardson_dyn", "windowed_schwarz"]
 
 
 @dataclass(frozen=True)
 class DeviceSmoother:
-    """kind + static scalars (``config``) and device tensors (``arrays``)."""
+    """kind + static scalars (``config``) and device tensors (``arrays``).
+
+    A multicolour Gauss-Seidel smoother also holds ``color_dinv``, its
+    (ncolors, n_pad) per-colour inverse diagonals, built from ``arrays``
+    on the device when first read (its first step on a DIA operator)."""
 
     config: Tuple
     arrays: Tuple
+
+    def __post_init__(self):
+        kind = self.config[0]
+        if kind in _UNPORTED:
+            raise _not_ported(kind, _UNPORTED[kind])
+
+    @cached_property
+    def color_dinv(self):
+        """A multicolour smoother's per-colour inverse diagonals, else
+        None."""
+        if self.config[0] != "mcgs":
+            return None
+        dinv, colors = self.arrays
+        cs = torch.arange(self.config[1], dtype=colors.dtype,
+                          device=colors.device)
+        return torch.where(colors[None, :] == cs[:, None], dinv[None, :],
+                           torch.zeros((), dtype=dinv.dtype,
+                                       device=dinv.device)).contiguous()
+
+    def _stack(self, A):
+        """The per-colour stack where a colour step is one K2 / K9 pass."""
+        if self.config[0] == "mcgs" and isinstance(A, DIAMatrix):
+            return self.color_dinv
+        return None
 
     def _jacobi(self):
         """(dinv, omega, iterations) of a Jacobi smoother, else None."""
@@ -55,23 +108,15 @@ class DeviceSmoother:
         return dinv, omega, iterations
 
     def __call__(self, A, x, b):
-        if self.config[0] == "identity":
-            return x
-        dinv, omega, iterations = self._jacobi()
-        for _ in range(iterations):
-            x = _jacobi_step(A, x, b, dinv, omega)
-        return x
+        return apply_smoother(self.config, self.arrays, A, x, b,
+                              color_dinv=self._stack(A))
 
     def zero_call(self, A, b):
-        """Apply with a known-zero initial guess: the first Jacobi sweep
-        collapses to omega * dinv * b."""
-        if self.config[0] == "identity":
-            return torch.zeros_like(b)
-        dinv, omega, iterations = self._jacobi()
-        x = omega * (dinv * b)
-        for _ in range(iterations - 1):
-            x = _jacobi_step(A, x, b, dinv, omega)
-        return x
+        """Apply with a known-zero initial guess: the first Jacobi or
+        Richardson sweep collapses to a scaling of b, the first polynomial
+        residual is b."""
+        return apply_smoother_zero(self.config, self.arrays, A, b,
+                                   color_dinv=self._stack(A))
 
     def zero_call_residual(self, A, b):
         """(x, r) = (zero_call(A, b), b - A @ x) in one kernel pass when
@@ -90,7 +135,7 @@ class DeviceSmoother:
 
     def call_residual(self, A, x, b):
         """(y, r) = (self(A, x, b), b - A @ y) in one kernel pass when the
-        smoother is a single Jacobi sweep on a DIA operator (for lane
+        smoother is a single Jacobi sweep on a DIA operator (for lanes
         stacks, K9 then K8); None otherwise (the caller composes)."""
         jac = self._jacobi()
         if not isinstance(A, DIAMatrix) or jac is None:
@@ -104,6 +149,17 @@ class DeviceSmoother:
         return dia_jacobi_res(A, x, b, dinv, omega)
 
 
+# the reference's kinds still to port, with their ROADMAP.md Queue 1 item
+_UNPORTED = {"block_jacobi": 9, "block_jacobi_dyn": 9, "block_mcgs": 9,
+             "masked_jacobi": 10}
+
+
+def _not_ported(kind, item):
+    return NotImplementedError(
+        f"the device smoother {kind!r} is not ported to pyamg_tpu_torch yet "
+        f"(ROADMAP.md Queue 1 item {item})")
+
+
 def identity():
     return DeviceSmoother(config=("identity",), arrays=())
 
@@ -111,6 +167,37 @@ def identity():
 def jacobi(dinv, omega, iterations=1):
     return DeviceSmoother(config=("jacobi", float(omega), int(iterations)),
                           arrays=(dinv,))
+
+
+def richardson(omega, iterations=1):
+    return DeviceSmoother(config=("richardson", float(omega),
+                                  int(iterations)), arrays=())
+
+
+def block_jacobi(Dinv, omega, iterations=1):
+    return DeviceSmoother(config=("block_jacobi", float(omega),
+                                  int(iterations)), arrays=(Dinv,))
+
+
+def multicolor_gs(dinv, colors, ncolors, sweep="forward", iterations=1):
+    """Multicolour Gauss-Seidel: ``colors`` int32 (n_pad,), -1 on padded
+    rows, colours 0 .. ncolors - 1 swept forward, backward or both."""
+    return DeviceSmoother(
+        config=("mcgs", int(ncolors), str(sweep), int(iterations)),
+        arrays=(dinv, colors))
+
+
+def block_multicolor_gs(Dinv, colors, ncolors, sweep="forward",
+                        iterations=1):
+    return DeviceSmoother(
+        config=("block_mcgs", int(ncolors), str(sweep), int(iterations)),
+        arrays=(Dinv, colors))
+
+
+def polynomial(coefficients, iterations=1):
+    coefficients = tuple(float(c) for c in np.asarray(coefficients))
+    return DeviceSmoother(config=("poly", coefficients, int(iterations)),
+                          arrays=())
 
 
 def jacobi_dyn(dinv, omega, iterations=1):
@@ -121,9 +208,224 @@ def jacobi_dyn(dinv, omega, iterations=1):
                           arrays=(dinv, omega))
 
 
+def richardson_dyn(omega, iterations=1):
+    """Richardson with its weight a 0-d tensor on the device."""
+    return DeviceSmoother(config=("richardson_dyn", int(iterations)),
+                          arrays=(omega,))
+
+
+def polynomial_dyn(coefficients, iterations=1):
+    """Polynomial (Chebyshev) smoother whose coefficients are a 1-d
+    tensor on the device (its length, the degree, is static)."""
+    return DeviceSmoother(config=("poly_dyn", int(iterations)),
+                          arrays=(coefficients,))
+
+
+def jacobi_ne(dinv_ne, omega, iterations=1):
+    """Cimmino form of the NE (Kaczmarz) smoothers, Jacobi on A A^T y = b,
+    x = A^T y: ``x += omega * A^T (dinv_ne * (b - A x))``, ``dinv_ne[i] =
+    1 / ||A_i,:||^2`` (zero on padded rows)."""
+    return DeviceSmoother(config=("jacobi_ne", float(omega),
+                                  int(iterations)), arrays=(dinv_ne,))
+
+
+def jacobi_nr(dinv_nr, omega, iterations=1):
+    """Jacobi on the normal residual equations A^T A x = A^T b:
+    ``x += omega * dinv_nr * (A^T (b - A x))``, ``dinv_nr[j] = 1 /
+    ||A_:,j||^2`` (zero on padded columns)."""
+    return DeviceSmoother(config=("jacobi_nr", float(omega),
+                                  int(iterations)), arrays=(dinv_nr,))
+
+
+def windowed_schwarz(inv_blocks, window, stride, omega=1.0, iterations=1):
+    """Damped additive overlapping Schwarz over the circular sliding
+    windows [i * stride, i * stride + window): ``inv_blocks`` (nwin,
+    window, window) holds the windows' pseudo-inverses.  Each point lies
+    in window / stride windows, so the update is damped by stride /
+    window."""
+    return DeviceSmoother(
+        config=("win_schwarz", int(window), int(stride), float(omega),
+                int(iterations)),
+        arrays=(inv_blocks,))
+
+
+def masked_jacobi(dinv, masks, iters_per_mask, omega=1.0, iterations=1):
+    return DeviceSmoother(
+        config=("masked_jacobi", tuple(int(i) for i in iters_per_mask),
+                float(omega), int(iterations)),
+        arrays=(dinv,) + tuple(masks))
+
+
 def _jacobi_step(A, x, b, dinv, omega):
     if isinstance(A, DIAMatrix):
         if x.ndim == 2:
             return dia_jacobi_k(A, x, b, dinv, omega)
         return dia_jacobi(A, x, b, dinv, omega)
     return x + omega * (dinv * (b - (A @ x)))
+
+
+def _horner_step(A, h, r, c):
+    """c * r + A @ h (K1 ``SPMV_ADD`` or K8 ``add`` on a DIA operator)."""
+    if isinstance(A, DIAMatrix):
+        if h.ndim == 2:
+            return dia_spmm_add(A, h, c * r)
+        return dia_spmv_add(A, h, c * r)
+    return c * r + (A @ h)
+
+
+def _coefficient_list(config, arrays):
+    """A polynomial smoother's coefficients: floats, or 0-d tensors."""
+    if config[0] == "poly":
+        return list(config[1])
+    (coefficients,) = arrays
+    return [coefficients[c] for c in range(coefficients.shape[0])]
+
+
+def _sweeps(ncolors, sweep):
+    order = []
+    if sweep in ("forward", "symmetric"):
+        order += list(range(ncolors))
+    if sweep in ("backward", "symmetric"):
+        order += list(range(ncolors - 1, -1, -1))
+    return order
+
+
+def apply_smoother_zero(config, arrays, A, b, color_dinv=None):
+    """apply_smoother with x = 0: the first sweep collapses (a Jacobi or
+    Richardson sweep to a scaling of b, the first polynomial residual to
+    b); the remaining sweeps run the general form."""
+    kind = config[0]
+
+    if kind == "identity":
+        return torch.zeros_like(b)
+
+    if kind in ("jacobi", "jacobi_dyn"):
+        if kind == "jacobi":
+            _, omega, iterations = config
+            (dinv,) = arrays
+        else:
+            _, iterations = config
+            dinv, omega = arrays
+        x = omega * (dinv * b)
+        for _ in range(iterations - 1):
+            x = _jacobi_step(A, x, b, dinv, omega)
+        return x
+
+    if kind in ("richardson", "richardson_dyn"):
+        if kind == "richardson":
+            _, omega, iterations = config
+        else:
+            _, iterations = config
+            (omega,) = arrays
+        x = omega * b
+        for _ in range(iterations - 1):
+            x = x + omega * (b - (A @ x))
+        return x
+
+    if kind in ("poly", "poly_dyn"):
+        coefficients = _coefficient_list(config, arrays)
+        h = coefficients[0] * b
+        for c in coefficients[1:]:
+            h = _horner_step(A, h, b, c)
+        iterations = config[-1]
+        if iterations > 1:
+            rest = config[:-1] + (iterations - 1,)
+            h = apply_smoother(rest, arrays, A, h, b)
+        return h
+
+    return apply_smoother(config, arrays, A, torch.zeros_like(b), b,
+                          color_dinv=color_dinv)
+
+
+def apply_smoother(config, arrays, A, x, b, color_dinv=None):
+    """The smoother ``config``/``arrays`` applied to (A, x, b); x and b
+    are vectors or K-major (K, n_pad) lane stacks.  ``color_dinv``: a
+    multicolour smoother's per-colour stack (``DeviceSmoother.color_dinv``)
+    on a DIA operator, where each colour step is then one K2 / K9 pass;
+    without it the steps compose, as the reference's."""
+    kind = config[0]
+
+    if kind == "identity":
+        return x
+
+    if kind in ("jacobi", "jacobi_dyn"):
+        if kind == "jacobi":
+            _, omega, iterations = config
+            (dinv,) = arrays
+        else:
+            _, iterations = config
+            dinv, omega = arrays
+        for _ in range(iterations):
+            x = _jacobi_step(A, x, b, dinv, omega)
+        return x
+
+    if kind in ("richardson", "richardson_dyn"):
+        if kind == "richardson":
+            _, omega, iterations = config
+        else:
+            _, iterations = config
+            (omega,) = arrays
+        for _ in range(iterations):
+            x = x + omega * (b - (A @ x))
+        return x
+
+    if kind == "mcgs":
+        _, ncolors, sweep, iterations = config
+        dinv, colors = arrays
+        if color_dinv is not None:
+            for _ in range(iterations):
+                for c in _sweeps(ncolors, sweep):
+                    x = _jacobi_step(A, x, b, color_dinv[c], 1.0)
+            return x
+        for _ in range(iterations):
+            for c in _sweeps(ncolors, sweep):
+                r = b - (A @ x)
+                x = torch.where(colors == c, x + dinv * r, x)
+        return x
+
+    if kind in ("poly", "poly_dyn"):
+        coefficients = _coefficient_list(config, arrays)
+        for _ in range(config[-1]):
+            r = b - (A @ x)
+            h = coefficients[0] * r
+            for c in coefficients[1:]:
+                h = _horner_step(A, h, r, c)
+            x = x + h
+        return x
+
+    if kind == "jacobi_ne":
+        _, omega, iterations = config
+        (dinv,) = arrays
+        for _ in range(iterations):
+            upd = A.rmatvec(dinv * (b - (A @ x)))
+            x = x + omega * _fit_len(upd, x.shape[-1])
+        return x
+
+    if kind == "jacobi_nr":
+        _, omega, iterations = config
+        (dinv,) = arrays
+        for _ in range(iterations):
+            upd = A.rmatvec(b - (A @ x))
+            x = x + omega * (dinv * _fit_len(upd, x.shape[-1]))
+        return x
+
+    if kind == "win_schwarz":
+        _, w, s, omega, iterations = config
+        (inv_blocks,) = arrays
+        q = w // s
+        nwin = inv_blocks.shape[0]
+        lead = x.shape[:-1]
+        for _ in range(iterations):
+            r = b - (A @ x)
+            Wn = torch.cat([torch.roll(r, -c * s, dims=-1).reshape(
+                lead + (nwin, s)) for c in range(q)], dim=-1)
+            u = torch.einsum("nij,...nj->...ni", inv_blocks, Wn)
+            upd = torch.zeros_like(r)
+            for c in range(q):
+                upd = upd + torch.roll(
+                    u[..., c * s:(c + 1) * s].reshape(lead + (-1,)), c * s,
+                    dims=-1)
+            x = x + (omega / q) * upd
+        return x
+
+    raise ValueError(f"unknown device smoother kind {kind!r}")

@@ -32,8 +32,10 @@ that read one flag per round, with the reference's caps.  Host reads per
 level: one per MIS round and assignment round, the root mask, the
 distinct-column count, the band's row-nnz bound and the column bounds.
 
-Smoothers: Jacobi (``richardson`` and ``chebyshev`` raise, ROADMAP.md
-Queue 1 item 8).  ``mixed_precision=True`` raises, as in the reference.
+Smoothers: ``jacobi``, ``richardson`` and ``chebyshev`` specs, as the
+reference's (their spectral radii estimated on the device by power
+iteration through K6).  ``mixed_precision=True`` raises, as in the
+reference.
 """
 
 from __future__ import annotations

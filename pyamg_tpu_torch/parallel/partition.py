@@ -360,10 +360,42 @@ class ShardedHierarchy(DeviceHierarchy):
         return self.mesh.sum_groups(s, self.groups[i])
 
 
+# per smoother kind, the role of each array: True = one entry per row (a
+# rank keeps its row block), False = whole on every rank (a 0-d weight, a
+# polynomial's coefficient stack)
+_SMOOTHER_ROWS = {
+    "identity": (),
+    "jacobi": (True,),
+    "jacobi_dyn": (True, False),
+    "richardson": (),
+    "richardson_dyn": (False,),
+    "mcgs": (True, True),           # (dinv, colors)
+    "poly": (),
+    "poly_dyn": (False,),
+}
+# kinds whose sweep needs A^T of the sharded operator, or rolls vectors
+# across shards
+_SMOOTHER_UNSHARDED = {
+    "jacobi_ne": "the Cimmino smoother 'jacobi_ne' (A^T of a sharded "
+                 "operator)",
+    "jacobi_nr": "the Cimmino smoother 'jacobi_nr' (A^T of a sharded "
+                 "operator)",
+    "win_schwarz": "windowed Schwarz (its windows roll across shards)",
+}
+
+
 def _shard_smoother(sm, mesh, groups):
+    """This rank's copy of a smoother: its per-row arrays cut to the
+    rank's row block, by each kind's explicit roles."""
+    kind = sm.config[0]
+    if kind in _SMOOTHER_UNSHARDED:
+        raise _not_ported(f"a sharded {_SMOOTHER_UNSHARDED[kind]}", 14)
+    if kind not in _SMOOTHER_ROWS:
+        raise ValueError(f"no sharding roles for smoother {kind!r}")
+    rows = _SMOOTHER_ROWS[kind]
     return DeviceSmoother(config=sm.config, arrays=tuple(
-        mesh.local(a, groups).contiguous() if a.ndim == 1 else a
-        for a in sm.arrays))
+        mesh.local(a, groups).contiguous() if row else a
+        for row, a in zip(rows, sm.arrays, strict=True)))
 
 
 def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):

@@ -1,10 +1,14 @@
 """Smoother specs of the port's host SA setup (a copy of
 ``pyamg_tpu/relaxation/smoothing.py::rho_D_inv_A`` and the spec half of
 ``change_smoothers``).  The port's hierarchy has no host solve: a level
-keeps its resolved ``('name', kwargs)`` specs for the device compile,
-and a Jacobi spec's spectral radius is computed (and cached on A) here,
-as the reference's smoother setup does.  Smoothers other than Jacobi are
-ROADMAP.md Queue 1 item 8."""
+keeps its resolved ``('name', kwargs)`` specs for the device compile, and
+the setup computes the host caches the reference's ``_setup_*`` compute,
+so the compile reads the same spectral radii: rho(D^-1 A) for a
+``withrho`` Jacobi (cached on A as ``_rho_D_inv``) and rho(A) for
+Richardson and Chebyshev (``A._rho``).  Every name of the reference's
+table resolves; the block forms with a blocksize above 1 raise
+(ROADMAP.md Queue 1 item 9), and the C/F forms raise the reference's
+ValueError on a level with no C/F splitting."""
 
 from __future__ import annotations
 
@@ -42,23 +46,97 @@ def _unpack_spec(spec):
     if isinstance(spec, tuple):
         name, kwargs = spec
         return name, dict(kwargs)
+    if callable(spec):
+        return spec, {}
     raise ValueError(f"invalid smoother spec: {spec!r}")
 
 
+def _blocksize(A, blocksize):
+    if blocksize is None:
+        return A.blocksize[0] if sp.issparse(A) and A.format == "bsr" else 1
+    return int(blocksize)
+
+
+def _block_not_ported(name):
+    return NotImplementedError(
+        f"the {name!r} smoother with a blocksize above 1 is not ported to "
+        "pyamg_tpu_torch yet (ROADMAP.md Queue 1 item 9)")
+
+
+def _setup_jacobi(lvl, withrho=True, **_):
+    if withrho:
+        rho_D_inv_A(lvl.A)
+
+
+def _setup_rho(lvl, **_):
+    approximate_spectral_radius(lvl.A)
+
+
+def _setup_polynomial(lvl, coefficients=None, **_):
+    if coefficients is None:
+        raise ValueError("polynomial smoother requires coefficients")
+
+
+def _setup_block_jacobi(lvl, blocksize=None, withrho=True, **_):
+    if _blocksize(lvl.A, blocksize) != 1:
+        raise _block_not_ported("block_jacobi")
+    _setup_jacobi(lvl, withrho=withrho)
+
+
+def _setup_block_gauss_seidel(lvl, blocksize=None, **_):
+    if _blocksize(lvl.A, blocksize) != 1:
+        raise _block_not_ported("block_gauss_seidel")
+
+
+def _setup_cf(lvl, **_):
+    if getattr(lvl, "splitting", None) is None:
+        raise ValueError("cf/fc smoothers need lvl.splitting (run a "
+                         "classical/AIR setup with keep of splitting)")
+
+
+def _setup_nothing(lvl, **_):
+    pass
+
+
+# the reference's table of smoother names, each with the host cache its
+# setup computes (the host closures themselves have no use here)
+_SETUP = {
+    "gauss_seidel": _setup_nothing,
+    "jacobi": _setup_jacobi,
+    "richardson": _setup_rho,
+    "sor": _setup_nothing,
+    "chebyshev": _setup_rho,
+    "polynomial": _setup_polynomial,
+    "block_jacobi": _setup_block_jacobi,
+    "block_gauss_seidel": _setup_block_gauss_seidel,
+    "jacobi_ne": _setup_nothing,
+    "gauss_seidel_ne": _setup_nothing,
+    "gauss_seidel_nr": _setup_nothing,
+    "schwarz": _setup_nothing,
+    "strength_based_schwarz": _setup_nothing,
+    "cf_jacobi": _setup_cf,
+    "fc_jacobi": _setup_cf,
+    "cf_block_jacobi": _setup_cf,
+    "fc_block_jacobi": _setup_cf,
+    "gmres": _setup_nothing,
+    "cg": _setup_nothing,
+    "cgne": _setup_nothing,
+    "cgnr": _setup_nothing,
+    "none": _setup_nothing,
+}
+
+
 def _resolve(lvl, spec):
-    """The level's ``(name, kwargs)`` record; a Jacobi spec with
-    ``withrho`` computes rho(D^-1 A) now, as the reference's setup does."""
+    """The level's ``(name, kwargs)`` record, after the host caches of the
+    reference's setup of that smoother (see ``_SETUP``)."""
     name, kwargs = _unpack_spec(spec)
     if name is None:
         return (None, {})
-    if name == "none":
+    if callable(name):
         return (name, kwargs)
-    if name != "jacobi":
-        raise NotImplementedError(
-            f"smoother {name!r} is not ported to pyamg_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 8)")
-    if kwargs.get("withrho", True):
-        rho_D_inv_A(lvl.A)
+    if name not in _SETUP:
+        raise ValueError(f"unknown smoother '{name}'")
+    _SETUP[name](lvl, **kwargs)
     return (name, kwargs)
 
 

@@ -1118,3 +1118,115 @@ def test_batched_w_gmres_on_card_matches_cpu(cycles_pair):
     for k in ("dia_zero_chain_k", "dia_jacobi_k", "dia_spmm", "dia_spmm_add"):
         assert counts.get(f"{k}.float64", 0) > 0, (k, counts)
     assert not any("_rows" in k for k in counts), counts
+
+
+# name -> (host spec, the device kind it compiles to)
+SMOOTHER_SPECS = {
+    "mcgs": (("gauss_seidel", {"sweep": "symmetric"}), "mcgs"),
+    "sor": (("sor", {"omega": 1.0, "sweep": "backward"}), "mcgs"),
+    "richardson": (("richardson", {"omega": 1.0, "iterations": 2}),
+                   "richardson"),
+    "chebyshev": (("chebyshev", {"degree": 3}), "poly"),
+    "jacobi_ne": (("jacobi_ne", {"omega": 0.5}), "jacobi_ne"),
+    "jacobi_nr": (("gauss_seidel_nr", {}), "jacobi_nr"),
+    "win_schwarz": (("schwarz", {}), "win_schwarz"),
+}
+
+
+@pytest.mark.parametrize("name", list(SMOOTHER_SPECS))
+def test_smoothers_on_card_match_cpu(cuda, name):
+    """Each smoother kind compiled from a host-built 128^2 float64
+    hierarchy, applied on the card and on the CPU copy (the twins) to the
+    same inputs, on the DIA level 0, from a guess and from zero, to a
+    vector and to K = 3 lanes, to rtol 1e-12; a multicolour colour step
+    launches K2 (K9 on lanes), a Horner step K1 ``SPMV_ADD`` (K8 on
+    lanes)."""
+    import warnings
+
+    from pyamg_tpu_torch import compile_hierarchy
+
+    spec, kind = SMOOTHER_SPECS[name]
+    A = poisson((128, 128), format="csr")
+    ml = smoothed_aggregation_solver(A, presmoother=spec, postsmoother=spec)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        hg = compile_hierarchy(ml, dtype=torch.float64, device=cuda)
+        hc = compile_hierarchy(ml, dtype=torch.float64, device="cpu")
+    lg, lc = hg.levels[0], hc.levels[0]
+    assert lg.pre.config[0] == kind
+    rng = np.random.default_rng(3)
+    for shape in ((lg.n_pad,), (3, lg.n_pad)):
+        x, b = rng.random(shape), rng.random(shape)
+        _build.reset_launches()
+        got = (lg.pre(lg.A, torch.as_tensor(x, device=cuda),
+                      torch.as_tensor(b, device=cuda)),
+               lg.pre.zero_call(lg.A, torch.as_tensor(b, device=cuda)))
+        counts = dict(_build.launches)
+        want = (lc.pre(lc.A, torch.as_tensor(x), torch.as_tensor(b)),
+                lc.pre.zero_call(lc.A, torch.as_tensor(b)))
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert _rel_err(g.cpu(), w) <= 1e-12
+        k = "_k" if len(shape) == 2 else ""
+        if name in ("mcgs", "sor"):
+            assert counts.get(f"dia_jacobi{k}.float64", 0) > 0, counts
+        if name == "chebyshev":
+            key = "dia_spmm_add" if k else "dia_spmv_add"
+            assert counts.get(f"{key}.float64", 0) > 0, counts
+        assert not any("_rows" in c for c in counts), counts
+
+
+def test_multicolor_and_chebyshev_w_cycle_make_no_host_sync(cuda):
+    """Config 2's host-built form at 24^3 (multicolour GS at level 0, the
+    Chebyshev fallback at level 1): one W-cycle from zero with every host
+    sync an error, on a vector and on K = 3 lanes; its mixed stationary
+    W-cycle takes the CPU copy's count."""
+    from pyamg_tpu_torch import DeviceMultilevelSolver, compile_hierarchy
+
+    A = poisson((24, 24, 24), format="csr")
+    gs = ("gauss_seidel", {"sweep": "symmetric"})
+    ml = smoothed_aggregation_solver(A, presmoother=gs, postsmoother=gs)
+    kw = dict(dtype=torch.float32, mixed_precision=True, coarse_cutoff=1024)
+    dg = DeviceMultilevelSolver(compile_hierarchy(ml, device=cuda, **kw))
+    dc = DeviceMultilevelSolver(compile_hierarchy(ml, device="cpu", **kw))
+    assert [lvl.pre.config[0] for lvl in dg.hierarchy.levels] == [
+        "mcgs", "poly", "identity"]
+    cyc = dg.cycle_operator("W")
+    n_pad = dg.hierarchy.levels[0].n_pad
+    for shape in ((n_pad,), (3, n_pad)):
+        r = torch.ones(shape, device=cuda)
+        cyc(r)
+        torch.cuda.synchronize()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            y = cyc(r)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert bool(torch.isfinite(y).all())
+    b = np.random.default_rng(1).random(A.shape[0])
+    solve = dict(tol=1e-8, maxiter=30, cycle="W", accel=None,
+                 precision="mixed")
+    res_g, res_c = [], []
+    dg.solve(b, residuals=res_g, **solve)
+    dc.solve(b, residuals=res_c, **solve)
+    assert len(res_g) == len(res_c) == 13
+    assert res_g[-1] <= 1e-8 * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("name", ["chebyshev", "richardson"])
+def test_device_setup_smoothers_on_card_match_cpu(cuda, name):
+    """The device-built setup with Chebyshev (``poly_dyn``) or Richardson
+    (``richardson_dyn``) smoothers, float64, on the card and on the CPU:
+    the same count, histories to rtol 1e-8."""
+    spec = (name, {"degree": 3} if name == "chebyshev" else {})
+    A = poisson((64, 64), format="csr")
+    kw = dict(grid=(64, 64), dtype=torch.float64, max_coarse=100,
+              presmoother=spec, postsmoother=spec)
+    dg = device_sa_setup(A, device=cuda, **kw)
+    dc = device_sa_setup(A, device="cpu", **kw)
+    b = np.random.default_rng(0).random(A.shape[0])
+    res_g, res_c = [], []
+    dg.solve(b, tol=1e-8, maxiter=60, accel="cg", residuals=res_g)
+    dc.solve(b, tol=1e-8, maxiter=60, accel="cg", residuals=res_c)
+    assert len(res_g) == len(res_c) and res_g[-1] <= 1e-8 * res_g[0]
+    np.testing.assert_allclose(res_g, res_c, rtol=1e-8)

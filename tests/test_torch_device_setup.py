@@ -362,14 +362,18 @@ def test_candidate_options():
     assert it_exact <= it8, (it_exact, it8)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(dtype=torch.bfloat16), "item 4"),
-    (dict(presmoother=("chebyshev", {"degree": 3})), "item 8"),
-    (dict(postsmoother=("richardson", {})), "item 8"),
+@pytest.mark.parametrize("kwargs,exc,match", [
+    (dict(dtype=torch.bfloat16), NotImplementedError, "item 4"),
+    (dict(presmoother=("gauss_seidel", {})), ValueError,
+     "jacobi/richardson/chebyshev"),
+    (dict(postsmoother=("sor", {})), ValueError,
+     "jacobi/richardson/chebyshev"),
 ])
-def test_unported_options_raise(kwargs, match):
+def test_unported_options_raise(kwargs, exc, match):
+    """The device-built setup takes the reference's smoothers (Jacobi,
+    Richardson, Chebyshev) and raises its ValueError on any other."""
     A = poisson((24, 24), format="csr")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         device_sa_setup(A, grid=(24, 24), device=CPU, max_coarse=20,
                         **kwargs)
 

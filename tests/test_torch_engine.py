@@ -318,9 +318,13 @@ def test_batched_rhs_raises(pair32, b):
 
 
 def test_unported_smoother_raises():
+    """Block Gauss-Seidel with 2x2 blocks (the reference compiles it to
+    block multicolour GS) raises: ROADMAP.md Queue 1 item 9."""
     A = poisson((64, 64), format="csr")
-    ml_gs = pyamg_tpu.smoothed_aggregation_solver(A, max_coarse=100)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    spec = ("block_gauss_seidel", {"sweep": "symmetric", "blocksize": 2})
+    ml_gs = pyamg_tpu.smoothed_aggregation_solver(
+        A, max_coarse=100, presmoother=spec, postsmoother=spec)
+    with pytest.raises(NotImplementedError, match="item 9"):
         compile_hierarchy(ml_gs, device=CPU)
 
 

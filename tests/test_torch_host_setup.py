@@ -113,9 +113,8 @@ def test_compiled_hierarchies_solve_alike(pair):
     (dict(keep=True), "item 16"),
     (dict(symmetry="nonsymmetric"), "item 16"),
     (dict(coarse_solver="splu"), "item 16"),
-    (dict(presmoother=("gauss_seidel", {})), "item 8"),
-    (dict(postsmoother=("block_gauss_seidel", {"sweep": "symmetric"})),
-     "item 8"),
+    (dict(presmoother=("block_gauss_seidel", {"blocksize": 2})), "item 9"),
+    (dict(postsmoother=("block_jacobi", {"blocksize": 2})), "item 9"),
     ("bsr", "item 16"),
 ])
 def test_unported_options_raise(kwargs, match):
@@ -129,15 +128,18 @@ def test_unported_options_raise(kwargs, match):
 
 
 def test_default_smoothers_are_config1():
-    """With no smoother arguments the setup records config 1's Jacobi
-    (omega 4/3) on every level, and builds config 1's hierarchy."""
+    """With no smoother arguments the setup records the reference's
+    default, symmetric block Gauss-Seidel, on every level, and builds
+    config 1's hierarchy (the smoothers do not change it)."""
     A = poisson((20, 20), format="csr")
     got = smoothed_aggregation_solver(A, max_coarse=10)
     want = smoothed_aggregation_solver(A, max_coarse=10, **CONFIG1)
+    ref = pyamg_tpu.smoothed_aggregation_solver(A, max_coarse=10)
     assert len(got.levels) == len(want.levels) >= 2
-    for lg, lw in zip(got.levels[:-1], want.levels[:-1]):
+    for lg, lw, lr in zip(got.levels[:-1], want.levels[:-1], ref.levels):
         assert lg.presmoother_spec == lg.postsmoother_spec == (
-            "jacobi", {"omega": 4.0 / 3.0})
+            "block_gauss_seidel", {"sweep": "symmetric"}) == (
+                lr.presmoother_spec)
         assert (lg.P != lw.P).nnz == 0 and (lg.A != lw.A).nnz == 0
 
 

@@ -56,8 +56,10 @@ def test_scan_sees_a_forbidden_import(tmp_path):
 
 def test_import_loads_no_jax():
     """Importing the port, running its host SA setup with the compile to
-    the (CPU) device, a batched solve and a W-cycle GMRES solve on it, its
-    device-built setup with a batched solve, lane-aligned too (the
+    the (CPU) device, a batched solve and a W-cycle GMRES solve on it, the
+    default smoother's (multicolour Gauss-Seidel) compile and W-cycle
+    solve, its device-built setup with a batched solve, with Chebyshev
+    smoothers, lane-aligned too (the
     interleaved route), a world-of-one gloo sharded solve of the
     host-built hierarchy, and an unstructured setup with a solve, in a
     fresh interpreter, leaves every ``jax*`` and ``pyamg_tpu*`` module
@@ -73,6 +75,12 @@ def test_import_loads_no_jax():
             "dml = pt.as_device_solver(ml, device='cpu')\n"
             "dml.solve(b[:, 0], accel='cg'); dml.solve(b, accel='cg')\n"
             "dml.solve(b[:, 0], accel='gmres', cycle='W', restart=5)\n"
+            "pt.as_device_solver(pt.smoothed_aggregation_solver(A), "
+            "device='cpu').solve(b[:, 0], accel='cg', cycle='W')\n"
+            "cheb = ('chebyshev', {'degree': 3})\n"
+            "pt.device_sa_setup(A, grid=(40, 40), device='cpu', "
+            "max_coarse=100, presmoother=cheb, postsmoother=cheb).solve("
+            "b[:, 0], accel='cg')\n"
             "pt.initialize_distributed(device='cpu')\n"
             "mesh = pt.make_solver_mesh(device='cpu')\n"
             "pt.DeviceMultilevelSolver(pt.shard_hierarchy(dml.hierarchy, "

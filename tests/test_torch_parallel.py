@@ -30,6 +30,7 @@ from pyamg_tpu_torch import (DeviceMultilevelSolver,  # noqa: E402
                              compile_hierarchy, device_unstructured_sa_setup,
                              gradgradform, poisson, regular_triangle_mesh,
                              smoothed_aggregation_solver)
+from pyamg_tpu_torch.relaxation import change_smoothers  # noqa: E402
 from pyamg_tpu_torch.sparse import dia_from_scipy, window  # noqa: E402
 from pyamg_tpu_torch.sparse.dia import dia_spmv_ref  # noqa: E402
 
@@ -43,6 +44,15 @@ CONFIG1 = dict(presmoother=("jacobi", {"omega": 4.0 / 3.0}),
 SHARDED_CYCLES = {"bicgstab_w": dict(accel="bicgstab", cycle="W"),
                   "gmres_amli": dict(accel="gmres", cycle="AMLI",
                                      restart=5)}
+# the other smoothers on sharded hierarchies: multicolour Gauss-Seidel and
+# Chebyshev host-built (every colour step and Horner step a K16 SpMV), and
+# the unstructured setup's Chebyshev (its coefficient stack, length 3,
+# stays whole on every rank); the Cimmino and Schwarz sweeps raise
+CHEB = ("chebyshev", {"degree": 3})
+SHARDED_SMOOTHERS = {"mcgs": ("gauss_seidel", {"sweep": "symmetric"}),
+                     "chebyshev": CHEB}
+UNSHARDED_SMOOTHERS = {"cimmino": ("gauss_seidel_nr", {}),
+                       "schwarz": ("schwarz", {})}
 
 
 def _fem(nx):
@@ -93,6 +103,19 @@ def _rank_main(rank, init_file, inputs_path, out_dir):
             out[key] = (np.asarray(res), x)
         out["asprecond"] = DeviceMultilevelSolver(hs).aspreconditioner(
             "W") @ b
+        for key in list(SHARDED_SMOOTHERS) + ["unstructured_chebyshev"]:
+            h, b, tol, maxiter = inp[key]
+            hs = shard_hierarchy(h, mesh, min_local_rows=128)
+            res = []
+            x = DeviceMultilevelSolver(hs).solve(b, tol=tol, maxiter=maxiter,
+                                                 accel="cg", residuals=res)
+            out[key] = (np.asarray(res), x)
+        for key in UNSHARDED_SMOOTHERS:
+            try:
+                shard_hierarchy(inp[key], mesh, min_local_rows=128)
+                out[key] = None
+            except NotImplementedError as e:
+                out[key] = str(e)
         d = torch.arange(1.0, 513.0, dtype=torch.float32)
         d_loc = shard_vector(mesh, d)
         ones = shard_vector(mesh, torch.ones(512))
@@ -179,6 +202,20 @@ def _spmd(tmp_path_factory):
     ref_cycles["asprecond"] = DeviceMultilevelSolver(h).aspreconditioner(
         "W") @ b_host
 
+    smoothers, ref_smoothers = {}, {}
+    ml_s = smoothed_aggregation_solver(A64, **CONFIG1)
+    for key, spec in (list(SHARDED_SMOOTHERS.items())
+                      + list(UNSHARDED_SMOOTHERS.items())):
+        smoothers[key] = compile_hierarchy(change_smoothers(ml_s, spec, spec),
+                                           dtype=torch.float64, device="cpu",
+                                           row_pad=64)
+    for key in SHARDED_SMOOTHERS:
+        res = []
+        x = DeviceMultilevelSolver(smoothers[key]).solve(
+            b_host, tol=1e-10, maxiter=20, accel="cg", residuals=res)
+        smoothers[key] = (smoothers[key], b_host, 1e-10, 20)
+        ref_smoothers[key] = (res, x)
+
     M = _fem(128)
     dus = device_unstructured_sa_setup(M, dtype=torch.float64, device="cpu",
                                        max_coarse=400)
@@ -187,14 +224,22 @@ def _spmd(tmp_path_factory):
     x_un = dus.solve(b_un, tol=1e-10, maxiter=30, accel="cg",
                      residuals=res_un)
 
+    dus_c = device_unstructured_sa_setup(M, dtype=torch.float64, device="cpu",
+                                         max_coarse=400, presmoother=CHEB,
+                                         postsmoother=CHEB)
+    res = []
+    x = dus_c.solve(b_un, tol=1e-10, maxiter=30, accel="cg", residuals=res)
+    smoothers["unstructured_chebyshev"] = (dus_c.hierarchy, b_un, 1e-10, 30)
+    ref_smoothers["unstructured_chebyshev"] = (res, x)
+
     inputs = {"dia64": (dia64, torch.as_tensor(x64)),
               "dia32": (dia32, torch.as_tensor(x32)),
               "host": (h, b_host, 1e-10, 20),
-              "unstructured": (dus.hierarchy, b_un, 1e-10, 30)}
+              "unstructured": (dus.hierarchy, b_un, 1e-10, 30), **smoothers}
     ranks = _spawn(tmp_path_factory.mktemp("spmd"), inputs)
     return dict(A32=A32, x64=x64, x32=x32, dia32=dia32, ml=ml, A64=A64,
                 b_host=b_host, res_host=res_host, x_host=x_host,
-                ref_cycles=ref_cycles, M=M,
+                ref_cycles=ref_cycles, ref_smoothers=ref_smoothers, M=M,
                 res_un=res_un, x_un=x_un, ranks=ranks)
 
 
@@ -349,6 +394,32 @@ def test_sharded_cycles_and_krylov(spmd, key):
     np.testing.assert_allclose(x, x1, atol=1e-10)
     for out in spmd["ranks"][1:]:
         np.testing.assert_array_equal(out[key][0], res)
+
+
+@pytest.mark.parametrize("key", list(SHARDED_SMOOTHERS)
+                         + ["unstructured_chebyshev"])
+def test_sharded_smoothers(spmd, key):
+    """Multicolour Gauss-Seidel and Chebyshev (host-built), and the
+    unstructured setup's Chebyshev with its coefficient stack on the
+    device, on hierarchies sharded over 8 ranks: CG takes the one-rank
+    solve's count, its history to rtol 1e-10 and its solution within
+    1e-10; every rank holds the same history."""
+    res, x = spmd["ranks"][0][key]
+    res1, x1 = spmd["ref_smoothers"][key]
+    assert len(res) == len(res1) > 3
+    np.testing.assert_allclose(res, res1, rtol=1e-10, atol=1e-14 * res1[0])
+    np.testing.assert_allclose(x, x1, atol=1e-10)
+    for out in spmd["ranks"][1:]:
+        np.testing.assert_array_equal(out[key][0], res)
+
+
+@pytest.mark.parametrize("key", list(UNSHARDED_SMOOTHERS))
+def test_sharded_cimmino_and_schwarz_raise(spmd, key):
+    """The Cimmino sweep needs A^T of a sharded operator and windowed
+    Schwarz rolls across shards: sharding such a hierarchy raises, on
+    every rank (ROADMAP.md Queue 1 item 14)."""
+    for out in spmd["ranks"]:
+        assert out[key] is not None and "item 14" in out[key]
 
 
 def test_sharded_aspreconditioner(spmd):

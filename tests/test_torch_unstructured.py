@@ -600,18 +600,18 @@ def test_candidate_and_improvement_match_reference():
         _assert_same_operator(a.P, b.P, 1e-6)
 
 
-@pytest.mark.parametrize("case", ["mixed", "chebyshev", "windowable",
+@pytest.mark.parametrize("case", ["mixed", "smoother", "windowable",
                                   "aggregate", "passes"])
 def test_unported_and_invalid_options_raise(case):
     A = _fem_matrix(12)
     if case == "mixed":
         with pytest.raises(NotImplementedError, match="mixed precision"):
             device_unstructured_sa_setup(A, device=CPU, mixed_precision=True)
-    elif case == "chebyshev":
-        cheb = ("chebyshev", {"degree": 3})
-        with pytest.raises(NotImplementedError, match="item 8"):
-            device_unstructured_sa_setup(A, device=CPU, presmoother=cheb,
-                                         postsmoother=cheb)
+    elif case == "smoother":
+        gs = ("gauss_seidel", {})
+        with pytest.raises(ValueError, match="jacobi/richardson/chebyshev"):
+            device_unstructured_sa_setup(A, device=CPU, presmoother=gs,
+                                         postsmoother=gs)
     elif case == "windowable":
         # random columns over a span far wider than max_w2 = 16384
         rng = np.random.default_rng(0)
