@@ -154,9 +154,30 @@ result lines):
     Cimmino NE and NR, windowed Schwarz, polynomial and Chebyshev on a
     float64 256^2 host-built hierarchy, each CG solve at its CPU copy's
     count;
-18. result lines: the script's seconds, the kernels' JSON (with the 64^3
-    checks of config 2's paths under ``at_paths``), the card's name and
-    power limit, and last {"ok": true, "device": {...}}.
+18. the classical device setups: config 3's classical column
+    (bench.py:502-520; rotated anisotropic diffusion 512^2,
+    device_rs_setup float32, max_coarse=400): its levels against the JAX
+    package's, levels 0 and 1 against the port's CPU copy of the setup,
+    K1 (A, R_emb), K1 SPMV_ADD (P_emb), K3 and K2 and at K = 8 K10, K9, K8
+    and K8 add at its level 0, CG to 1e-5 with b = default_rng(2).random(n)
+    (the reference's 13 iterations) and K = 8 lanes of it
+    (default_rng(5)), each lane within one of its 1-D count; config 3's
+    device SA column with stride="auto" (its strides, 10 iterations); the
+    setup primitives (Luby MIS, JP colours, PMIS from three seeds,
+    Bellman-Ford from three seed points) on its level-0 DIA against the
+    same calls on the CPU; config 5's classical column (bench.py:612-626,
+    :715-726; recirc_flow 1024^2, mixed): its 7 levels, K1 (A, R_emb,
+    the float64 A64), K1 SPMV_ADD, K3 and K2 at level 0, mixed FGMRES to
+    1e-8 with b = default_rng(4).random(n) (the reference's 43 +- 2
+    iterations, true relres <= 1e-8); AIR (bench.py:633-652; advection
+    256^2): its levels, K2 with the F-masked inverse diagonal against its
+    twin and the composed where-form, 5 stationary cycles (first drop >=
+    1e5); counters around every solve, each solve profiled, the setup and
+    solve walls beside the card's name and power limit;
+19. result lines: the script's seconds, the kernels' JSON (with the 64^3
+    checks of config 2's paths and the classical paths' checks under
+    ``at_paths``), the card's name and power limit, and last {"ok": true,
+    "device": {...}}.
 """
 
 import dataclasses
@@ -205,6 +226,37 @@ C2_CHEBYSHEV = ("chebyshev", {"degree": 3})
 # CPU copy); the polynomial spec on level 0 only, Chebyshev below it
 SMOOTHER_KINDS = ("richardson", "sor", "jacobi_ne", "gauss_seidel_nr",
                   "schwarz", "polynomial", "chebyshev")
+# the classical device setups (phase 18): config 3 (bench.py:482-520),
+# rotated anisotropic diffusion 512^2 (epsilon=1e-3, theta=0, FD), b =
+# default_rng(2).random(n), device_rs_setup and device_sa_setup with
+# stride="auto", CG to 1e-5; config 5 (bench.py:612-626, :715-726),
+# recirc_flow 1024^2 (epsilon=1e-2), b = default_rng(4).random(n),
+# device_rs_setup mixed, FGMRES to 1e-8; AIR (bench.py:633-652), upwind
+# advection 256^2 (theta=pi/4), device_air_setup, stationary cycles.
+# Levels as (n, strides, ndiags), the JAX package's on the CPU;
+# bench_detail.json config3.classical_device_cg_iters_to_1e-5,
+# config3.device_setup_strides and device_setup_cg_iters_to_1e-5,
+# config5.device_setup_iters_to_1e8 and device_setup_final_relres,
+# air.first_cycle_residual_drop (6.09e5)
+C3_GRID = (512, 512)
+C3_LEVELS = [(262144, (1, 2), 5), (131072, (1, 2), 9), (65536, (1, 2), 9),
+             (32768, (1, 2), 9), (16384, (2, 2), 9), (4096, (2, 2), 9),
+             (1024, (2, 2), 9)]
+C3_COARSE = 256
+REF_ITERS_C3_RS = 13
+C3_SA_STRIDES = [(1, 3)] * 3 + [(3, 3)] * 2
+REF_ITERS_C3_SA = 10
+C5_GRID = (1024, 1024)
+C5_LEVELS = [(1048576, (2, 2), 5)] + [(n, (2, 2), 9) for n in (
+    262144, 65536, 16384, 4096, 1024)]
+C5_COARSE = 256
+REF_ITERS_C5 = 43
+REF_RELRES_C5 = 8.59e-9
+AIR_GRID = (256, 256)
+AIR_LEVELS = [65536, 16384, 4096]
+AIR_COARSE = 1024
+AIR_MIN_DROP = 1e5
+PRIMITIVE_SEEDS = (0, 1, 2)
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM3
 # bytes/s, and float32 / float64 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -350,6 +402,27 @@ PATHS = {
         if kind in ("polynomial", "chebyshev") else ("dia_spmv.float64",))
        for kind in SMOOTHER_KINDS},
 }
+# the classical device setups: the embedded R and the CG / outer-loop
+# applies through K1, the correction through K1 SPMV_ADD, the Jacobi
+# pre-smoother's zero-guess sweep and residual through K3, the post-sweep
+# through K2 (K10, K8, K8 add and K9 on lanes); AIR's masked F-then-C
+# sweeps are K2 with the masked inverse diagonal
+PATHS.update({
+    "config 3 classical CG": (
+        "dia_jacobi_zero_res.float32", "dia_spmv.float32",
+        "dia_spmv_add.float32", "dia_jacobi.float32"),
+    "config 3 classical batched CG": (
+        "dia_jacobi_zero_res_k.float32", "dia_spmm.float32",
+        "dia_spmm_add.float32", "dia_jacobi_k.float32"),
+    "config 3 SA stride auto CG": (
+        "dia_zero_chain.float32", "dia_spmv_add.float32",
+        "dia_jacobi.float32", "dia_spmv.float32"),
+    "config 5 classical mixed FGMRES": (
+        "dia_jacobi_zero_res.float32", "dia_spmv.float32",
+        "dia_spmv_add.float32", "dia_jacobi.float32", "dia_spmv.float64"),
+    "AIR stationary": (
+        "dia_spmv.float32", "dia_spmv_add.float32", "dia_jacobi.float32"),
+})
 # the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
 PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
               for h in ("device-built", "host-built") for a in KRYLOV_2048})
@@ -2494,6 +2567,362 @@ def smoother_kinds_phase(check, dev, launches):
         path_launches(check, label, counts)
 
 
+def classical_levels(solver):
+    """(n, strides, ndiags) of each level of a device-built hierarchy, and
+    the dense coarsest level's n."""
+    return ([(i["n"], tuple(i["strides"]), i["ndiags"])
+             for i in solver.setup_info["levels"]],
+            solver.hierarchy.levels[-1].n)
+
+
+def timed_setup(setup, A, kw):
+    """A device setup called twice (the first warms the allocator and
+    builds nothing else): (the second's solver, its seconds, the first's),
+    CUDA-synchronised."""
+    import torch
+
+    t0 = time.perf_counter()
+    setup(A, **kw)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver = setup(A, **kw)
+    torch.cuda.synchronize()
+    return solver, time.perf_counter() - t0, t_first
+
+
+def classical_level_checks(check, where, h, rand, results, path, lane_path,
+                           A64=None):
+    """The classical path's kernels at level 0 of ``h``: K1 plain on A and
+    R_emb, K1 SPMV_ADD on P_emb, K3 and K2 with the level's Jacobi
+    tensors, float32 (and K1 on the float64 ``A64``); with ``lane_path``
+    K10, K9, K8 plain and K8 add at K = 8 instead."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import dia
+
+    lvl = h.levels[0]
+    A, P, R = lvl.A, lvl.P.P_emb, lvl.R.R_emb
+    dinv, omega = lvl.pre.arrays
+    m = A.n_pad
+    f32 = torch.float32
+    tag = f"{where} level0 n_pad={m}"
+    if lane_path is not None:
+        Xk, Bk, Vk = (rand((LANES, m), f32) for _ in range(3))
+        # library: torch.sparse.mm / torch.addmm on CSR, lanes as columns
+        R_csr, P_csr = dia_to_csr(R), dia_to_csr(P)
+        Xcols, Vcols = Xk.T.contiguous(), Vk.T.contiguous()
+        ktag = f"{tag} K={LANES}"
+        for name, op, kern, plain, cost, lib in (
+                ("dia_jacobi_zero_res_k", A,
+                 lambda: dia.dia_jacobi_zero_res_k(A, Bk, dinv, omega),
+                 lambda: dia.dia_jacobi_zero_res_k_ref(A, Bk, dinv, omega),
+                 dia_cost(A, 1, LANES, 3, extra_ops=3), None),
+                ("dia_jacobi_k", A,
+                 lambda: dia.dia_jacobi_k(A, Xk, Bk, dinv, omega),
+                 lambda: dia.dia_jacobi_k_ref(A, Xk, Bk, dinv, omega),
+                 dia_cost(A, 1, LANES, 3, extra_ops=4), None),
+                ("dia_spmm", R, lambda: dia.dia_spmm(R, Xk),
+                 lambda: dia.dia_spmm_ref(R, Xk), dia_cost(R, 0, LANES, 2),
+                 lambda: torch.sparse.mm(R_csr, Xcols)),
+                ("dia_spmm_add", P, lambda: dia.dia_spmm_add(P, Xk, Vk),
+                 lambda: dia.dia_spmm_add_ref(P, Xk, Vk),
+                 dia_cost(P, 0, LANES, 3, extra_ops=1),
+                 lambda: torch.addmm(Vcols, P_csr, Xcols))):
+            compare(check, f"{name}.float32 [{ktag} nd={op.ndiags}]", f32,
+                    kern, plain, results, *cost, library_fn=lib,
+                    path=lane_path)
+        return
+    x, b, t = (rand(m, f32) for _ in range(3))
+    A_csr, P_csr, R_csr = dia_to_csr(A), dia_to_csr(P), dia_to_csr(R)
+    # R_emb first: the kernels line reports a path's first check, and
+    # every cycle restricts through K1 (a mixed outer loop applies A64)
+    compare(check, f"dia_spmv.float32 [{tag} R_emb nd={R.ndiags}]", f32,
+            lambda: dia.dia_spmv(R, x), lambda: dia.dia_spmv_ref(R, x),
+            results, *dia_cost(R, 2), path=path,
+            library_fn=lambda: torch.mv(R_csr, x))
+    compare(check, f"dia_spmv.float32 [{tag} A nd={A.ndiags}]", f32,
+            lambda: dia.dia_spmv(A, x), lambda: dia.dia_spmv_ref(A, x),
+            results, *dia_cost(A, 2), path=path,
+            library_fn=lambda: torch.mv(A_csr, x))
+    compare(check, f"dia_spmv_add.float32 [{tag} P_emb nd={P.ndiags}]", f32,
+            lambda: dia.dia_spmv_add(P, t, x),
+            lambda: dia.dia_spmv_add_ref(P, t, x), results,
+            *dia_cost(P, 3, extra_ops=1), path=path,
+            library_fn=lambda: torch.addmv(x, P_csr, t))
+    compare(check, f"dia_jacobi_zero_res.float32 [{tag} A nd={A.ndiags}]",
+            f32, lambda: dia.dia_jacobi_zero_res(A, b, dinv, omega),
+            lambda: dia.dia_jacobi_zero_res_ref(A, b, dinv, omega), results,
+            *dia_cost(A, 4, extra_ops=3), path=path)
+    compare(check, f"dia_jacobi.float32 [{tag} A nd={A.ndiags}]", f32,
+            lambda: dia.dia_jacobi(A, x, b, dinv, omega),
+            lambda: dia.dia_jacobi_ref(A, x, b, dinv, omega), results,
+            *dia_cost(A, 4, extra_ops=4), path=path)
+    if A64 is not None:
+        x64 = rand(A64.n_pad, torch.float64)
+        A64_csr = dia_to_csr(A64)
+        compare(check, f"dia_spmv.float64 [{tag} A64 nd={A64.ndiags}]",
+                torch.float64, lambda: dia.dia_spmv(A64, x64),
+                lambda: dia.dia_spmv_ref(A64, x64), results,
+                *dia_cost(A64, 2), path=path,
+                library_fn=lambda: torch.mv(A64_csr, x64))
+
+
+def primitive_checks(check, A):
+    """The setup primitives (engine/setup.py) on the DIA ``A`` on the card
+    against the same calls on a CPU copy: Luby MIS, JP colours and PMIS
+    splitting from three seeds array for array, Bellman-Ford from three
+    seed points to float32 rounding; each call's wall.  A round-based call
+    that stops at a state no round changes (undecided neighbours whose
+    hash weights tie: the reference's loop would not end there) must stop
+    on the card at the CPU's round with the CPU's state."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch.engine import setup as dsetup
+    from pyamg_tpu_torch.sparse import DIAMatrix
+
+    Ac = DIAMatrix(data=A.data.cpu(), offsets=A.offsets, shape=A.shape,
+                   nnz=A.nnz)
+    seeds = torch.zeros(A.n_pad, dtype=torch.bool)
+    seeds[[0, A.shape[0] // 2, A.shape[0] - 1]] = True
+    calls = [(f"{name} seed {sd}", lambda M, f=fn, sd=sd: f(M, seed=sd))
+             for name, fn in (("luby_mis", dsetup.device_luby_mis),
+                              ("jp_coloring", dsetup.device_jp_coloring),
+                              ("pmis_splitting",
+                               dsetup.device_pmis_splitting))
+             for sd in PRIMITIVE_SEEDS]
+    calls.append(("bellman_ford 3 seed points",
+                  lambda M: dsetup.device_bellman_ford(
+                      M, seeds.to(M.device))))
+
+    def run(fn, M):
+        try:
+            return fn(M), None
+        except dsetup.UndecidedVertices as e:
+            return e.state, e.rounds
+
+    for label, fn in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, stop = run(fn, A)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want, stop_c = run(fn, Ac)
+        got = got.cpu()
+        if got.dtype.is_floating_point:
+            fin = torch.isfinite(want)
+            ok = (torch.equal(fin, torch.isfinite(got))
+                  and bool(torch.allclose(got[fin], want[fin], rtol=1e-6)))
+            what = (f"distances within float32 rounding of the CPU's, max "
+                    f"{float(want[fin].max()):.4g}")
+        else:
+            ok = torch.equal(got, want) and stop == stop_c
+            what = (f"equal to the CPU's array for array ("
+                    f"{int(np.unique(want.numpy()).size)} distinct values)")
+            if stop_c is not None:
+                what += (f", both stopped after {stop_c} rounds with "
+                         f"{int((want == -1).sum())} vertices undecided "
+                         "(tied hash weights)")
+        check(ok, f"setup primitive {label} on config 3's level 0 "
+              f"(n_pad={A.n_pad}, nd={A.ndiags}): {what}, card wall "
+              f"{wall:.4f} s")
+
+
+def classical_phase(check, dev, rand, results, launches, card):
+    """Phase 18: the classical device setups on the card.  Config 3
+    (512^2 rotated anisotropic diffusion): device_rs_setup with the
+    bench's arguments, its levels, levels 0 and 1 against the port's CPU
+    copy of the same setup, the kernels at its level-0 shapes, CG to 1e-5
+    (the reference's 13 iterations) and K = 8 lanes of it, then
+    device_sa_setup with stride="auto" (its strides, 10 iterations) and
+    the setup primitives on its level-0 DIA; config 5 (1024^2
+    recirculating flow): device_rs_setup mixed, its levels, the kernels at
+    its level 0, mixed FGMRES to 1e-8 (the reference's 43 +- 2
+    iterations, true relres <= 1e-8); AIR (256^2 upwind advection): its
+    levels, the masked K2 sweep against its twin and the composed form,
+    the first stationary cycle's residual drop (>= 1e5).  Counters around
+    every solve, and each solve profiled."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import (advection_2d, device_air_setup,
+                                 device_rs_setup, device_sa_setup,
+                                 diffusion_stencil_2d, recirc_flow,
+                                 stencil_grid)
+    from pyamg_tpu_torch.sparse import dia
+
+    f32 = torch.float32
+    # config 3: the classical column
+    A3 = stencil_grid(diffusion_stencil_2d(epsilon=1e-3, theta=0.0,
+                                           type="FD"), C3_GRID).tocsr()
+    n3 = A3.shape[0]
+    b3 = np.random.default_rng(2).random(n3)
+    kw3 = dict(grid=C3_GRID, dtype=f32, max_coarse=400)
+    drs3, t_setup, t_first = timed_setup(device_rs_setup, A3,
+                                         dict(device=dev, **kw3))
+    lv, nc = classical_levels(drs3)
+    log(f"config 3 device RS setup, {C3_GRID} (n={n3}): {t_setup:.4f} s "
+        f"(first call {t_first:.3f} s, CUDA-synchronised, host CSR -> DIA "
+        f"included; {card}); {len(drs3.hierarchy.levels)} levels")
+    levels_log(drs3)
+    check(lv == C3_LEVELS and nc == C3_COARSE,
+          f"config 3 classical levels {lv} + dense {nc} (the JAX "
+          f"package's {C3_LEVELS} + {C3_COARSE})")
+    t0 = time.perf_counter()
+    crs3 = device_rs_setup(A3, device="cpu", **kw3)
+    t_cpu = time.perf_counter() - t0
+    worst = 0.0
+    for i in (0, 1):
+        lg, lc = drs3.hierarchy.levels[i], crs3.hierarchy.levels[i]
+        for g, c in ((lg.A, lc.A), (lg.P.P_emb, lc.P.P_emb),
+                     (lg.R.R_emb, lc.R.R_emb)):
+            assert g.offsets == c.offsets
+            worst = max(worst, float((g.data.cpu() - c.data).abs().max()
+                                     / c.data.abs().max()))
+        rg = float(drs3.setup_info["levels"][i]["rho_D_inv_A"])
+        rc = float(crs3.setup_info["levels"][i]["rho_D_inv_A"])
+        worst = max(worst, abs(rg - rc) / rc)
+    check(worst <= 1e-5, f"config 3 classical levels 0-1 (A, P_emb, R_emb, "
+          f"rho) on the card vs the port's CPU copy: max rel diff "
+          f"{worst:.2e} (float32 rounding, tol 1e-5; CPU setup {t_cpu:.2f} s)")
+    del crs3
+    log("config 3 classical kernels at level 0 (kernel vs plain twin):")
+    classical_level_checks(check, "config3 classical", drs3.hierarchy, rand,
+                           results, "config 3 classical CG", None)
+    classical_level_checks(check, "config3 classical", drs3.hierarchy, rand,
+                           results, None, "config 3 classical batched CG")
+    cg5 = dict(tol=1e-5, maxiter=60, accel="cg")
+    drs3.solve(b3, **cg5)                           # warm-up
+    res = []
+    x, counts, wall = counted(lambda: drs3.solve(b3, residuals=res, **cg5))
+    launches["config 3 classical CG"] = counts
+    normb = float(np.linalg.norm(b3))
+    true = float(np.linalg.norm(b3 - A3 @ x)) / normb
+    log(f"config 3 classical (512^2, f32, CG to 1e-5): {len(res) - 1} "
+        f"iterations, history relres {res[-1] / normb:.3e}, true relres "
+        f"{true:.3e}, solve {wall:.4f} s ({card})")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    check(len(res) - 1 == REF_ITERS_C3_RS and res[-1] <= 1e-5 * normb,
+          f"config 3 classical CG: {len(res) - 1} iterations to 1e-5 "
+          f"(reference {REF_ITERS_C3_RS})")
+    path_launches(check, "config 3 classical CG", counts)
+    B3 = np.random.default_rng(5).random((n3, LANES))
+    lane_solves_phase(check, "config 3 classical batched CG", drs3, B3, cg5,
+                      launches)
+    # the SA column with stride="auto"
+    dsa3, t_sa, _ = timed_setup(device_sa_setup, A3,
+                                dict(device=dev, stride="auto", **kw3))
+    strides = [tuple(i["strides"]) for i in dsa3.setup_info["levels"]]
+    res_sa = []
+    _, counts, wall_sa = counted(lambda: dsa3.solve(b3, residuals=res_sa,
+                                                    **cg5))
+    launches["config 3 SA stride auto CG"] = counts
+    log(f"config 3 device SA setup (stride='auto'): {t_sa:.4f} s, strides "
+        f"{strides}; CG to 1e-5 {len(res_sa) - 1} iterations, solve "
+        f"{wall_sa:.4f} s")
+    check(strides == C3_SA_STRIDES and len(res_sa) - 1 == REF_ITERS_C3_SA,
+          f"config 3 SA stride='auto': strides {strides} (reference "
+          f"{C3_SA_STRIDES}), {len(res_sa) - 1} CG iterations (reference "
+          f"{REF_ITERS_C3_SA})")
+    path_launches(check, "config 3 SA stride auto CG", counts)
+    primitive_checks(check, drs3.hierarchy.levels[0].A)
+    Bt3 = torch.as_tensor(B3, device=dev)
+    profile_phase("config 3 512^2", (
+        ("classical CG to 1e-5", lambda: drs3.solve(b3, **cg5)),
+        (f"classical CG to 1e-5, K={LANES}", lambda: drs3.solve(Bt3, **cg5)),
+        ("SA stride='auto' CG to 1e-5", lambda: dsa3.solve(b3, **cg5))))
+    del drs3, dsa3, Bt3
+
+    # config 5: the device-built classical column, mixed FGMRES
+    A5 = recirc_flow(C5_GRID, epsilon=1e-2)
+    n5 = A5.shape[0]
+    b5 = np.random.default_rng(4).random(n5)
+    drs5, t_setup, t_first = timed_setup(device_rs_setup, A5, dict(
+        grid=C5_GRID, dtype=f32, device=dev, max_coarse=400,
+        mixed_precision=True))
+    lv, nc = classical_levels(drs5)
+    log(f"config 5 device RS setup, recirc_flow {C5_GRID} (n={n5}, mixed): "
+        f"{t_setup:.4f} s (first call {t_first:.3f} s; {card}); "
+        f"{len(drs5.hierarchy.levels)} levels")
+    levels_log(drs5)
+    check(lv == C5_LEVELS and nc == C5_COARSE,
+          f"config 5 classical levels {lv} + dense {nc} (the JAX "
+          f"package's {C5_LEVELS} + {C5_COARSE})")
+    log("config 5 classical kernels at level 0 (kernel vs plain twin):")
+    classical_level_checks(check, "config5 classical", drs5.hierarchy, rand,
+                           results, "config 5 classical mixed FGMRES", None,
+                           A64=drs5.hierarchy.A64)
+    fg = dict(tol=1e-8, maxiter=150, accel="fgmres", precision="mixed")
+    drs5.solve(b5, **fg)                            # warm-up
+    res = []
+    x, counts, wall = counted(lambda: drs5.solve(b5, residuals=res, **fg))
+    launches["config 5 classical mixed FGMRES"] = counts
+    normb = float(np.linalg.norm(b5))
+    true = float(np.linalg.norm(b5 - A5 @ x)) / normb
+    iters = len(res) - 1
+    log(f"config 5 classical (1024^2, mixed FGMRES to 1e-8): {iters} "
+        f"iterations, history relres {res[-1] / normb:.4e}, true relres "
+        f"{true:.4e} (reference {REF_ITERS_C5} and {REF_RELRES_C5:g}), "
+        f"solve {wall:.4f} s ({card})")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    check(abs(iters - REF_ITERS_C5) <= 2 and true <= 1e-8
+          and res[-1] <= 1e-8 * normb,
+          f"config 5 classical: {iters} FGMRES iterations within "
+          f"{REF_ITERS_C5} +- 2, true relres {true:.3e} <= 1e-8")
+    path_launches(check, "config 5 classical mixed FGMRES", counts)
+    profile_phase("config 5 1024^2", (
+        ("classical mixed FGMRES to 1e-8", lambda: drs5.solve(b5, **fg)),))
+    del drs5
+
+    # AIR on upwind advection 256^2
+    Aa, ba = advection_2d(AIR_GRID, theta=np.pi / 4)
+    dair, t_setup, t_first = timed_setup(device_air_setup, Aa, dict(
+        grid=AIR_GRID, device=dev, max_coarse=400))
+    lv, nc = classical_levels(dair)
+    log(f"AIR device setup, advection {AIR_GRID}: {t_setup:.4f} s (first "
+        f"call {t_first:.3f} s; {card}); levels {lv} + dense {nc}")
+    levels_log(dair, rho=False)
+    check([n for n, _, _ in lv] == AIR_LEVELS and nc == AIR_COARSE,
+          f"AIR levels {[n for n, _, _ in lv]} + dense {nc} (the JAX "
+          f"package's {AIR_LEVELS} + {AIR_COARSE})")
+    lvl = dair.hierarchy.levels[0]
+    post = lvl.post
+    A0, mdinv = lvl.A, post.mask_dinv[0]
+    dinv, fmask = post.arrays[0], post.arrays[1]
+    omega = post.config[2]
+    m = A0.n_pad
+    x, b = rand(m, f32), rand(m, f32)
+    tag = f"AIR level0 A nd={A0.ndiags} n_pad={m}, F-masked dinv"
+    compare(check, f"dia_jacobi.float32 [{tag}]", f32,
+            lambda: dia.dia_jacobi(A0, x, b, mdinv, omega),
+            lambda: dia.dia_jacobi_ref(A0, x, b, mdinv, omega), results,
+            *dia_cost(A0, 4, extra_ops=4), path="AIR stationary")
+    got = dia.dia_jacobi(A0, x, b, mdinv, omega)
+    composed = torch.where(fmask, x + omega * dinv * (b - A0 @ x), x)
+    err = float((got - composed).abs().max() / composed.abs().max())
+    check(err <= F32_REL_TOL and torch.equal(got[~fmask], x[~fmask]),
+          f"AIR masked sweep: K2 with the masked dinv vs the composed "
+          f"torch.where form on the card, max rel err {err:.2e} (tol "
+          f"{F32_REL_TOL:g}), rows off the mask bit-identical")
+    res = []
+    _, counts, wall = counted(lambda: dair.solve(ba, tol=1e-8, maxiter=5,
+                                                 residuals=res))
+    launches["AIR stationary"] = counts
+    drop = res[0] / res[1]
+    log(f"AIR stationary (256^2, f32, 5 cycles): history "
+        f"{' '.join(f'{r:.4e}' for r in res)}, first-cycle drop {drop:.4g} "
+        f"(reference 6.09e5), solve {wall:.4f} s")
+    log(f"  launches: {json.dumps(counts, sort_keys=True)}")
+    check(drop >= AIR_MIN_DROP and bool(np.isfinite(res).all()),
+          f"AIR: first stationary cycle drops the residual {drop:.4g}x "
+          f"(>= {AIR_MIN_DROP:g})")
+    path_launches(check, "AIR stationary", counts)
+    profile_phase("AIR 256^2", (
+        ("AIR stationary, 5 cycles", lambda: dair.solve(ba, tol=1e-8,
+                                                        maxiter=5)),))
+
+
 def main():
     import numpy as np
     import torch
@@ -2909,6 +3338,11 @@ def main():
     smoother_kinds_phase(check, dev, launches)
     log(f"smoother phase: {time.perf_counter() - t_m:.1f} s")
 
+    # 18. the classical device setups: configs 3 and 5, AIR
+    t_cl = time.perf_counter()
+    classical_phase(check, dev, rand, results, launches, card)
+    log(f"classical phase: {time.perf_counter() - t_cl:.1f} s")
+
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
               file=sys.stderr)
@@ -2916,7 +3350,7 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 18. result lines: each path kernel instance, with its launches on
+    # 19. result lines: each path kernel instance, with its launches on
     # the paths that run it (``launches``: the first of them) and, where a
     # later path's shapes were checked too (config 2's 64^3), those
     # numbers under ``at_paths``

@@ -35,6 +35,20 @@ or, with the hierarchy built on the card, and K right-hand sides at once:
     dla = device_sa_setup(A, grid=(2048, 2048), lane_align=True)
     X = dla.solve(B, tol=1e-5, accel="cg")     # the interleaved route
 
+or the classical family's device-built hierarchies of a grid stencil,
+Ruge-Stüben (symmetric or not) and AIR (upwind advection):
+
+    from pyamg_tpu_torch import (advection_2d, device_air_setup,
+                                 device_rs_setup, recirc_flow)
+
+    A5 = recirc_flow((1024, 1024), epsilon=1e-2)
+    drs = device_rs_setup(A5, grid=(1024, 1024), mixed_precision=True)
+    x = drs.solve(b, tol=1e-8, maxiter=150, accel="fgmres",
+                  precision="mixed")
+    Aa, ba = advection_2d((256, 256))
+    dair = device_air_setup(Aa, grid=(256, 256))
+    x = dair.solve(ba, tol=1e-8, maxiter=5)   # stationary AIR cycles
+
 or, for an operator that is not a grid stencil (a FEM mesh, a graph
 Laplacian), the unstructured device setup (``device_sa_setup`` routes
 such an operator there):
@@ -71,9 +85,12 @@ from .convert import (hierarchy_from_jax, structured_solver_from_jax,
 from .engine import (ComposedWindowed, DeviceHierarchy,
                      DeviceMultilevelSolver, ReorderedSolver,
                      StructuredDeviceSolver, as_device_solver,
-                     compile_hierarchy, detect_grid, device_sa_setup,
+                     compile_hierarchy, detect_grid, device_air_setup,
+                     device_rs_setup, device_sa_setup,
                      device_unstructured_sa_setup)
-from .gallery import gradgradform, poisson, regular_triangle_mesh
+from .gallery import (advection_2d, diffusion_stencil_2d, gradgradform,
+                      poisson, recirc_flow, regular_triangle_mesh,
+                      stencil_grid)
 from .multilevel import MultilevelSolver
 from .parallel import (halo_width, initialize_distributed, make_halo_dia_spmv,
                        make_solver_mesh, shard_hierarchy, shard_vector)
@@ -81,11 +98,14 @@ from .sparse import dia_from_stencil
 
 __all__ = ["ComposedWindowed", "DeviceHierarchy", "DeviceMultilevelSolver",
            "MultilevelSolver", "ReorderedSolver", "StructuredDeviceSolver",
-           "as_device_solver", "backend", "compile_hierarchy", "detect_grid",
-           "device_sa_setup", "device_unstructured_sa_setup",
+           "advection_2d", "as_device_solver", "backend",
+           "compile_hierarchy", "detect_grid", "device_air_setup",
+           "device_rs_setup", "device_sa_setup",
+           "device_unstructured_sa_setup", "diffusion_stencil_2d",
            "dia_from_stencil", "gradgradform", "halo_width",
            "hierarchy_from_jax", "initialize_distributed", "launches",
            "make_halo_dia_spmv", "make_solver_mesh", "poisson",
-           "regular_triangle_mesh", "reset_launches", "shard_hierarchy",
-           "shard_vector", "smoothed_aggregation_solver",
+           "recirc_flow", "regular_triangle_mesh", "reset_launches",
+           "shard_hierarchy", "shard_vector", "smoothed_aggregation_solver",
+           "stencil_grid",
            "structured_solver_from_jax", "unstructured_solver_from_jax"]

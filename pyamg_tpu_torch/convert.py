@@ -7,9 +7,11 @@ counterpart of loading weights.  Operators shared inside the JAX
 hierarchy (R's transposed tentative operator is P's) stay shared.  Every
 scalar smoother kind carries across (Jacobi, Richardson, multicolour
 Gauss-Seidel, polynomial, Cimmino, windowed Schwarz, with static or
-device weights), and so do the device-built hierarchy's structured
-transfers; :func:`structured_solver_from_jax` wraps such a hierarchy with
-the JAX solver's grid layout.  The unstructured setup's
+device weights), and so does the masked C/F Jacobi (its masks kept
+bool); so do the device-built hierarchies' structured transfers (SA's
+factored ones, the classical setups' embedded ones);
+:func:`structured_solver_from_jax` wraps such a hierarchy with the JAX
+solver's grid layout.  The unstructured setup's
 composed prolongators carry across as well, and
 :func:`unstructured_solver_from_jax` wraps its hierarchy (in the JAX
 ``ReorderedSolver``'s permutation when it has one).
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from .backend import resolve_device
+from .engine.classical_setup import EmbeddedProlongator, EmbeddedRestrictor
 from .engine.device_setup import (StructuredDeviceSolver,
                                   StructuredProlongator,
                                   StructuredRestrictor)
@@ -34,7 +37,15 @@ from .sparse import (ComposedOperator, DenseOperator, DIAMatrix,
 __all__ = ["hierarchy_from_jax", "structured_solver_from_jax",
            "unstructured_solver_from_jax"]
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bool": torch.bool}
+# JAX transfer class name -> (the port's class, its DIA factor's field)
+_GRID_TRANSFERS = {
+    "StructuredProlongator": (StructuredProlongator, "S"),
+    "StructuredRestrictor": (StructuredRestrictor, "St"),
+    "EmbeddedProlongator": (EmbeddedProlongator, "P_emb"),
+    "EmbeddedRestrictor": (EmbeddedRestrictor, "R_emb"),
+}
 
 
 def _dtype(jax_dtype):
@@ -84,11 +95,12 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
         if name == "ComposedOperator":
             return ComposedOperator(ops=tuple(op(f) for f in o.ops),
                                     shape=tuple(o.shape), nnz=int(o.nnz))
-        if name in ("StructuredProlongator", "StructuredRestrictor"):
-            cls, factor = ((StructuredProlongator, "S")
-                           if name == "StructuredProlongator"
-                           else (StructuredRestrictor, "St"))
-            return cls(**{factor: op(getattr(o, factor))}, tv=tensor(o.tv),
+        if name in _GRID_TRANSFERS:
+            # the grid setups' transfers: a DIA factor, SA's tentative
+            # values, and the static grid geometry
+            cls, factor = _GRID_TRANSFERS[name]
+            kw = {"tv": tensor(o.tv)} if hasattr(o, "tv") else {}
+            return cls(**{factor: op(getattr(o, factor))}, **kw,
                        fine_grid_p=o.fine_grid_p, coarse_grid=o.coarse_grid,
                        coarse_grid_p=o.coarse_grid_p, stride=o.stride,
                        center=o.center)
@@ -97,11 +109,11 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
             "(ROADMAP.md Queue 1)")
 
     def smoother(s):
-        # a kind the port lacks (the block and masked forms) raises in
-        # DeviceSmoother; int32 colours stay int32; every float leaf (0-d
-        # weights, 1-d coefficient stacks, per-row vectors, Schwarz
-        # blocks) keeps its dtype; a static coefficient tuple rides in the
-        # config
+        # a kind the port lacks (the block forms) raises in
+        # DeviceSmoother; int32 colours stay int32 and masks bool; every
+        # float leaf (0-d weights, 1-d coefficient stacks, per-row
+        # vectors, Schwarz blocks) keeps its dtype; a static coefficient
+        # tuple rides in the config
         return DeviceSmoother(config=tuple(s.config), arrays=tuple(
             tensor(a, torch.int32 if np.dtype(a.dtype).kind in "iu"
                    else None) for a in s.arrays))
@@ -118,9 +130,12 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
 
 def structured_solver_from_jax(dsa, device) -> StructuredDeviceSolver:
     """The port's StructuredDeviceSolver over the arrays of a JAX
-    ``device_sa_setup`` result, with its grid and padded grid."""
+    ``device_sa_setup``, ``device_rs_setup`` or ``device_air_setup``
+    result, with its grid and padded grid (and its setup family)."""
+    info = {k: v for k, v in getattr(dsa, "setup_info", {}).items()
+            if k in ("family", "nlevels")}
     return StructuredDeviceSolver(hierarchy_from_jax(dsa.hierarchy, device),
-                                  dsa.grid, dsa.grid_p)
+                                  dsa.grid, dsa.grid_p, setup_info=info)
 
 
 def unstructured_solver_from_jax(dsa, device):

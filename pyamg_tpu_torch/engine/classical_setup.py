@@ -1,0 +1,624 @@
+"""Device-built classical setups for grid-stencil operators (counterpart of
+``pyamg_tpu/engine/classical_setup.py``): Ruge-Stüben
+(:func:`device_rs_setup`) and AIR (:func:`device_air_setup`).
+
+The hierarchy is built on the device from the operator's diagonals, as
+the smoothed-aggregation one is (``engine/device_setup.py``), and shares
+its layout: the padded grid, the static coarsening plan, the solve
+padding, the filtered DIA SpGEMM and the strided compaction.
+
+- **C/F splitting**: the C points are the stride-2 sublattice of the
+  coarsened dims (per-dim strides: a weakly coupled dim keeps stride 1,
+  ``stride='auto'`` reads the couplings off the stencil); the F points of
+  pass m are those off the sublattice in m coarsened dims.
+- **Ruge-Stüben interpolation**: each pass is an embedded fine-grid DIA
+  operator S_m (identity on finished rows, direct-interpolation weights
+  toward the C and earlier-pass points on pass-m rows, the positive and
+  negative couplings scaled apart), and P = S_n ... S_1 D_C is their
+  product, stored as the embedded DIA ``P_emb``; R = P^T by rolls.
+- **AIR**: one-point interpolation (each pass row takes its strongest
+  target neighbour), and the local approximate ideal restriction: for
+  every C point, the degree-2 neighbourhood's dense system A_ff^T r =
+  -A_cf^T solved by Gaussian elimination without pivoting (guarded
+  pivots), batched over the rows; the post-smoother is the masked
+  F-then-C Jacobi.
+- **Galerkin product**: R (A P) through the span-filtered SpGEMM, then
+  compaction to the coarse grid.
+
+Every step runs eagerly in plain PyTorch (rolls, elementwise products,
+reshapes); the spectral-radius estimates are the power iteration whose
+SpMV is K1, the coarsest solve the Newton-Schulz pseudo-inverse.  Nothing
+is read back to the host but the ``stride='auto'`` couplings.  In the
+solve, the embedded transfers apply through K1 (``SPMV_ADD`` for the
+correction) or, on a K-major (K, n) lane stack, K8; the Jacobi smoothers
+through K3 and K2 (K10 and K9 on lanes), and AIR's masked sweeps each
+through one K2 (K9) pass.
+
+An operator that is not a grid stencil (``detect_grid`` finds no grid)
+raises: the unstructured classical setups are ROADMAP.md Queue 1 item 13.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+import torch.nn.functional as F
+
+from ..backend import resolve_device
+from ..sparse.dia import DIAMatrix, dia_spmm_add, dia_spmv_add, dia_transpose
+from ..sparse.formats import fit
+from . import relaxation as device_relaxation
+from .device_setup import (_check_dtype, _check_smoother, _coarsening_plan,
+                           _compact_dia, _compact_fine, _dia_spgemm_filtered,
+                           _dia_to_dense, _dinv_of, _embed_coarse,
+                           _grid_operator, _grid_pad_vec, _grid_unpad_vec,
+                           _not_ported, _ns_pinv, _offset_sums,
+                           _offset_to_coords, _pad_smoother_arrays,
+                           _pad_solve_items, _power_rho, _relayout_dia,
+                           _smoother_device_arrays, _smoother_wrap,
+                           _spec_key, _structured_solver, _tup, detect_grid)
+from .hierarchy import DeviceLevel
+
+__all__ = ["device_rs_setup", "device_air_setup", "EmbeddedProlongator",
+           "EmbeddedRestrictor"]
+
+
+# ---------------------------------------------------------------------------
+# solve-phase transfers (the embedded P and R)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class EmbeddedProlongator:
+    """P stored as an embedded fine-grid DIA whose columns live on the C
+    points: P xc = P_emb embed(xc), a vector or each lane of a K-major
+    (K, nc) stack."""
+
+    P_emb: DIAMatrix
+    fine_grid_p: Tuple[int, ...]
+    coarse_grid: Tuple[int, ...]
+    coarse_grid_p: Tuple[int, ...]
+    stride: Tuple[int, ...]
+    center: Tuple[int, ...]
+
+    @property
+    def nnz(self):
+        return int(np.prod(self.fine_grid_p)) * self.P_emb.ndiags
+
+    @property
+    def shape(self):
+        return (int(np.prod(self.fine_grid_p)),
+                int(np.prod(self.coarse_grid_p)))
+
+    def _embed(self, xc):
+        # xc may carry solve padding beyond the coarse padded grid; the
+        # grid lives in its leading prod(coarse_grid_p) entries
+        xc = xc[..., : int(np.prod(self.coarse_grid_p))]
+        xc = _grid_unpad_vec(xc, self.coarse_grid, self.coarse_grid_p)
+        e = _embed_coarse(xc, self.coarse_grid, self.stride, self.center)
+        nf = int(np.prod(self.fine_grid_p))
+        if self.P_emb.n_pad != nf:
+            e = F.pad(e, (0, self.P_emb.n_pad - nf))
+        return e
+
+    def __matmul__(self, xc):
+        return self.P_emb @ self._embed(xc)
+
+    def apply_correction(self, xc, x):
+        """x + P @ xc, the add in the SpMV's epilogue when x has P_emb's
+        length: K1 ``SPMV_ADD`` for a vector, K8 ``add`` for a lane
+        stack."""
+        e = self._embed(xc)
+        if x.shape[-1] == self.P_emb.n_pad:
+            add = dia_spmm_add if x.ndim == 2 else dia_spmv_add
+            return add(self.P_emb, e, x)
+        return x + fit(self.P_emb @ e, x.shape[-1])
+
+
+@dataclass(frozen=True)
+class EmbeddedRestrictor:
+    """R applied as R_emb @ r, then compaction to the C points and the
+    coarse level's padded grid (lane by lane for a K-major stack)."""
+
+    R_emb: DIAMatrix
+    fine_grid_p: Tuple[int, ...]
+    coarse_grid: Tuple[int, ...]
+    coarse_grid_p: Tuple[int, ...]
+    stride: Tuple[int, ...]
+    center: Tuple[int, ...]
+
+    @property
+    def nnz(self):
+        return int(np.prod(self.fine_grid_p)) * self.R_emb.ndiags
+
+    @property
+    def shape(self):
+        return (int(np.prod(self.coarse_grid_p)),
+                int(np.prod(self.fine_grid_p)))
+
+    @property
+    def n_pad(self):
+        return int(np.prod(self.coarse_grid_p))
+
+    def __matmul__(self, r):
+        y = (self.R_emb @ r)[..., : int(np.prod(self.fine_grid_p))]
+        yc = _compact_fine(y, self.coarse_grid, self.stride, self.center)
+        return _grid_pad_vec(yc, self.coarse_grid, self.coarse_grid_p)
+
+
+# ---------------------------------------------------------------------------
+# splitting and interpolation
+# ---------------------------------------------------------------------------
+
+def _oddness_masks(grid_p, stride, center, device):
+    """Flat bool masks by pass: mask[m] holds the points whose number of
+    coarsened dims with coord != center (mod stride) is m; mask[0] is the
+    C sublattice.  Returns (masks, number of coarsened dims)."""
+    dim = len(grid_p)
+    ss = _tup(stride, dim)
+    cc = _tup(center, dim)
+    n_coarse_dims = sum(1 for s in ss if s > 1)
+    oddness = torch.zeros(grid_p, dtype=torch.int32, device=device)
+    for d in range(dim):
+        if ss[d] == 1:
+            continue
+        od = (torch.arange(grid_p[d], device=device) % ss[d]
+              != cc[d]).to(torch.int32)
+        shape = [1] * dim
+        shape[d] = grid_p[d]
+        oddness = oddness + od.reshape(shape)
+    flat = oddness.reshape(-1)
+    return [flat == m for m in range(n_coarse_dims + 1)], n_coarse_dims
+
+
+def _sorted_dia(rows, offsets, n):
+    """A DIAMatrix from per-offset rows, sorted by offset."""
+    order = np.argsort(offsets)
+    return DIAMatrix(data=torch.stack([rows[i] for i in order]),
+                     offsets=tuple(int(offsets[i]) for i in order),
+                     shape=(n, n), nnz=n * len(offsets))
+
+
+def _injection(cmask, dtype):
+    """D_C: the identity on the C points, as a one-diagonal DIA."""
+    n = cmask.shape[0]
+    return DIAMatrix(data=torch.where(cmask, 1.0, 0.0).to(dtype)[None, :],
+                     offsets=(0,), shape=(n, n), nnz=n)
+
+
+def _pass_interp(A_p: DIAMatrix, fmask, tmask, dtype):
+    """One interpolation pass as an embedded DIA operator S: pass rows
+    (``fmask``) hold direct-interpolation weights toward the targets
+    (``tmask``: the C and earlier-pass points), every other row is the
+    identity.  The weights are rs_direct_interpolation_pass2's with the
+    targets as the strong C neighbours:
+
+        alpha_i = sum_{j != i} a_ij^- / sum_{j target} a_ij^-
+        beta_i  = sum_{j != i} a_ij^+ / sum_{j target} a_ij^+
+        w_ij = -(alpha_i | beta_i) a_ij / a~_ii,
+
+    couplings of a sign with no target lumped into the diagonal
+    (a~_ii)."""
+    diag = A_p.diagonal()
+    neg_all = torch.zeros_like(diag)
+    pos_all = torch.zeros_like(diag)
+    neg_t = torch.zeros_like(diag)
+    pos_t = torch.zeros_like(diag)
+    t_ind = []
+    for d, o in enumerate(A_p.offsets):
+        if o == 0:
+            t_ind.append(None)
+            continue
+        a = A_p.data[d]
+        neg_all = neg_all + torch.clamp_max(a, 0)
+        pos_all = pos_all + torch.clamp_min(a, 0)
+        ind = torch.roll(tmask, -o)          # entry (i, i+o) lands on a target
+        t_ind.append(ind)
+        at = torch.where(ind, a, 0)
+        neg_t = neg_t + torch.clamp_max(at, 0)
+        pos_t = pos_t + torch.clamp_min(at, 0)
+
+    alpha = torch.where(neg_t != 0,
+                        neg_all / torch.where(neg_t != 0, neg_t, 1), 0.0)
+    beta = torch.where(pos_t != 0,
+                       pos_all / torch.where(pos_t != 0, pos_t, 1), 0.0)
+    diag_eff = (diag + torch.where(pos_t == 0, pos_all, 0)
+                + torch.where(neg_t == 0, neg_all, 0))
+    diag_eff = torch.where(diag_eff != 0, diag_eff, 1.0)
+
+    rows = []
+    offsets = []
+    for d, o in enumerate(A_p.offsets):
+        if o == 0:
+            continue
+        a = A_p.data[d]
+        scale = torch.where(a < 0, alpha, beta)
+        w = torch.where(fmask & t_ind[d], -(scale * a) / diag_eff, 0.0)
+        offsets.append(o)
+        rows.append(w.to(dtype))
+    offsets.append(0)
+    rows.append(torch.where(fmask, 0.0, 1.0).to(dtype))
+    return _sorted_dia(rows, offsets, A_p.n_pad)
+
+
+def _span_filter(A: DIAMatrix, B: DIAMatrix, grid_p, bound):
+    """The offset sums of A B whose per-dim deltas stay within ``bound``
+    (offsets that do not decompose on the grid are dropped): the
+    structurally nonzero diagonals of the interpolation and Galerkin
+    products."""
+    return _offset_sums(A.offsets, B.offsets, grid_p, lambda coords: all(
+        abs(c) <= b for c, b in zip(coords, bound)))
+
+
+def _spans(A_p, grid_p, stride):
+    """(per-dim stencil span, the interpolation bound)."""
+    ss = _tup(stride, len(grid_p))
+    a_span = [0] * len(grid_p)
+    for o in A_p.offsets:
+        for d, c in enumerate(_offset_to_coords(o, grid_p)):
+            a_span[d] = max(a_span[d], abs(c))
+    return a_span, tuple(a if s > 1 else 0 for a, s in zip(a_span, ss))
+
+
+def _interpolation(A_p, masks, n_passes, grid_p, p_bound, pass_fn, dtype):
+    """P_emb = S_n ... S_1 D_C, S_m = ``pass_fn`` on the pass-m rows."""
+    P_emb = _injection(masks[0], dtype)
+    tmask = masks[0]
+    for m in range(1, n_passes + 1):
+        S_m = pass_fn(A_p, masks[m], tmask, dtype)
+        P_emb = _dia_spgemm_filtered(
+            S_m, P_emb, _span_filter(S_m, P_emb, grid_p, p_bound))
+        tmask = tmask | masks[m]
+    return P_emb
+
+
+def _galerkin(A_p, P_emb, R_emb, grid_p, stride, center, rap_bound):
+    """A_c = compaction of R_emb (A_p P_emb), both products span-filtered
+    and the second kept to the C-to-C offsets."""
+    ss = _tup(stride, len(grid_p))
+    AP = _dia_spgemm_filtered(
+        A_p, P_emb, _span_filter(A_p, P_emb, grid_p, rap_bound))
+    cand = _offset_sums(R_emb.offsets, AP.offsets, grid_p, lambda coords: all(
+        c % s == 0 and abs(c) <= b for c, s, b in zip(coords, ss, rap_bound)))
+    Ac_emb = _dia_spgemm_filtered(R_emb, AP, cand)
+    return _compact_dia(Ac_emb, grid_p, stride, center)
+
+
+def _rs_coarsen_level(A_p: DIAMatrix, grid_p, stride, center, dtype):
+    """One classical coarsening step: masks, multi-pass P, R = P^T, the
+    filtered Galerkin product and its compaction.  (P_emb, R_emb, A_c)."""
+    masks, n_passes = _oddness_masks(grid_p, stride, center, A_p.device)
+    ss = _tup(stride, len(grid_p))
+    a_span, p_bound = _spans(A_p, grid_p, stride)
+    P_emb = _interpolation(A_p, masks, n_passes, grid_p, p_bound,
+                           _pass_interp, dtype)
+    R_emb = dia_transpose(P_emb)
+    rap_bound = tuple(max(s, a) for s, a in zip(ss, a_span))
+    A_c = _galerkin(A_p, P_emb, R_emb, grid_p, stride, center, rap_bound)
+    return P_emb, R_emb, A_c
+
+
+def _rs_setup_pipeline(A_in, *, plan, dtype, pre_key, post_key):
+    """The multi-level classical setup, one eager loop over the static
+    plan: per level the padded operator, P_emb, R_emb, the rho(D^-1 A)
+    estimate and the smoother tensors (solve-padded), then the dense
+    coarsest operator and its pseudo-inverse."""
+    cur = A_in
+    out_levels = []
+    for (grid, grid_p, strides) in plan:
+        center = tuple(0 for _ in strides)
+        A_p = _relayout_dia(cur, grid, grid_p)
+        P_emb, R_emb, A_c = _rs_coarsen_level(A_p, grid_p, strides, center,
+                                              dtype)
+        dinv = _dinv_of(A_p.diagonal())
+        rho = _power_rho(A_p, dinv)
+        pre_arr = _smoother_device_arrays(pre_key, A_p, dinv, rho, dtype)
+        post_arr = _smoother_device_arrays(post_key, A_p, dinv, rho, dtype)
+        out_levels.append(
+            _pad_solve_items(A_p.n_pad, (A_p, P_emb, R_emb, rho))
+            + (_pad_smoother_arrays(pre_key, pre_arr, A_p.n_pad),
+               _pad_smoother_arrays(post_key, post_arr, A_p.n_pad)))
+        cur = A_c
+    Ac_dense = _dia_to_dense(cur)
+    return tuple(out_levels), Ac_dense, _ns_pinv(Ac_dense)
+
+
+# ---------------------------------------------------------------------------
+# AIR: one-point prolongation and local approximate ideal restriction
+# ---------------------------------------------------------------------------
+
+def _pass_onepoint(A_p: DIAMatrix, fmask, tmask, dtype):
+    """One one-point interpolation pass as an embedded DIA operator: each
+    pass row puts a single 1 at its strongest target neighbour (largest
+    |a_ij|, the first such offset on a tie); other rows are the
+    identity."""
+    offs = [o for o in A_p.offsets if o != 0]
+    scores = []
+    for o in offs:
+        d = A_p.offsets.index(o)
+        ind = torch.roll(tmask, -o)
+        scores.append(torch.where(ind, torch.abs(A_p.data[d]), 0.0))
+    smax = scores[0]
+    for s in scores[1:]:
+        smax = torch.maximum(smax, s)
+    rows = []
+    offsets = []
+    taken = torch.zeros_like(fmask)
+    for o, s in zip(offs, scores):
+        win = fmask & (~taken) & (s > 0) & (s == smax)
+        taken = taken | win
+        offsets.append(o)
+        rows.append(torch.where(win, 1.0, 0.0).to(dtype))
+    offsets.append(0)
+    rows.append(torch.where(fmask, 0.0, 1.0).to(dtype))
+    return _sorted_dia(rows, offsets, A_p.n_pad)
+
+
+def _unrolled_solve(M, b, eps=1e-30):
+    """Batched k x k solves M x = b, M (n, k, k), b (n, k): Gaussian
+    elimination without pivoting, a missing pivot (|p| <= eps) turning
+    its row into an identity row with a zero right-hand side (the
+    reference's unrolled elimination).  Each pivot's trailing update runs
+    over the whole (n, k-p-1, k-p-1) block at once, every entry formed as
+    the reference forms it, ``m_ij - f_i * m_pj`` with ``f_i = m_ip *
+    (1 / pivot)``; the back substitution sums in the reference's order."""
+    n, k = b.shape
+    W = M.clone()
+    rhs = b.clone()
+    pivs = torch.empty_like(b)
+    for p in range(k):
+        piv = W[:, p, p]
+        ok = torch.abs(piv) > eps
+        piv = torch.where(ok, piv, 1.0)
+        pivs[:, p] = piv
+        rhs[:, p] = torch.where(ok, rhs[:, p], 0.0)
+        W[:, p, p + 1:] = torch.where(ok[:, None], W[:, p, p + 1:], 0.0)
+        inv = 1.0 / piv
+        f = W[:, p + 1:, p] * inv[:, None]
+        W[:, p + 1:, p + 1:] -= f[:, :, None] * W[:, p, None, p + 1:]
+        rhs[:, p + 1:] -= f * rhs[:, p, None]
+    x = torch.empty_like(b)
+    for p in range(k - 1, -1, -1):
+        acc = rhs[:, p]
+        for j in range(p + 1, k):
+            acc = acc - W[:, p, j] * x[:, j]
+        x[:, p] = acc / pivs[:, p]
+    return x
+
+
+def _air_slots(A_p: DIAMatrix, grid_p, degree, span_cap=2):
+    """The local AIR neighbourhood's slot offsets: the stencil's
+    off-diagonal offsets, and at degree 2 their pairwise sums (the F
+    points one F-F connection further), each sum's per-dim span capped at
+    ``span_cap``, in the reference's order."""
+    offs1 = [o for o in A_p.offsets if o != 0]
+    if degree < 2:
+        return offs1
+    sums = _offset_sums(offs1, offs1, grid_p, lambda coords: all(
+        abs(c) <= span_cap for c in coords))
+    return offs1 + [o for o in sums if o != 0 and o not in offs1]
+
+
+def _local_air_restriction(A_p: DIAMatrix, cmask, grid_p, dtype,
+                           degree=2):
+    """Local AIR as an embedded DIA operator: for every C point c with F
+    neighbours {c + o_p} in its slots, the solution of
+
+        A_ff(N, N)^T r = -A_cf(c, N)^T,   R[c, c] = 1,  R[c, c + o_p] = r_p.
+
+    A[c + o_p, c + o_q] is diagonal (o_q - o_p) rolled by -o_p; a slot
+    that is not an F point with a nonzero diagonal gets an identity row
+    and a zero right-hand side."""
+    offs = _air_slots(A_p, grid_p, degree)
+    k = len(offs)
+    dlook = {o: d for d, o in enumerate(A_p.offsets)}
+    diag = A_p.diagonal()
+    zero = torch.zeros_like(diag)
+    valid = [torch.roll((~cmask) & (diag != 0), -o) for o in offs]
+    # M[:, p, q] = A[x + o_p, x + o_q] for rows x (only C rows used)
+    M = []
+    for p, op in enumerate(offs):
+        row = []
+        for q, oq in enumerate(offs):
+            rel = oq - op
+            if p == q:
+                a = torch.roll(diag, -op)
+            elif rel in dlook:
+                a = torch.roll(A_p.data[dlook[rel]], -op)
+            else:
+                a = zero
+            a = torch.where(valid[p] & valid[q], a, 0.0)
+            if p == q:
+                a = torch.where(valid[p], a, 1.0)
+            row.append(a)
+        M.append(torch.stack(row, dim=1))
+    Mt = torch.stack(M, dim=1).transpose(1, 2)       # (n, k, k), M^T
+    rhs = torch.stack(
+        [torch.where(valid[p], -A_p.data[dlook[op]] if op in dlook else zero,
+                     0.0) for p, op in enumerate(offs)], dim=1)
+    r = _unrolled_solve(Mt, rhs)
+    del M, Mt
+    crow = cmask & (diag != 0)
+    rows = [torch.where(crow, r[:, p], 0.0).to(dtype) for p in range(k)]
+    rows.append(torch.where(crow, 1.0, 0.0).to(dtype))
+    return _sorted_dia(rows, list(offs) + [0], A_p.n_pad)
+
+
+def _air_coarsen_level(A_p: DIAMatrix, grid_p, stride, center, dtype,
+                       degree=2):
+    """One AIR coarsening step: one-point P, local AIR R, the
+    nonsymmetric Galerkin product with its span capped at 2 coarse cells
+    per coarsened dim.  (P_emb, R_emb, A_c, cmask)."""
+    masks, n_passes = _oddness_masks(grid_p, stride, center, A_p.device)
+    ss = _tup(stride, len(grid_p))
+    a_span, p_bound = _spans(A_p, grid_p, stride)
+    P_emb = _interpolation(A_p, masks, n_passes, grid_p, p_bound,
+                           _pass_onepoint, dtype)
+    R_emb = _local_air_restriction(A_p, masks[0], grid_p, dtype,
+                                   degree=degree)
+    rap_bound = tuple(2 * s if s > 1 else a for s, a in zip(ss, a_span))
+    A_c = _galerkin(A_p, P_emb, R_emb, grid_p, stride, center, rap_bound)
+    return P_emb, R_emb, A_c, masks[0]
+
+
+def _air_level_stage(cur, *, grid, grid_p, strides, dtype, degree):
+    """One level of the AIR setup: the solve-padded (A_p, P_emb, R_emb,
+    dinv, F mask, C mask) and the coarse operator.  The masks leave out
+    the rows with a zero diagonal (the padding)."""
+    center = tuple(0 for _ in strides)
+    A_p = _relayout_dia(cur, grid, grid_p)
+    P_emb, R_emb, A_c, cmask = _air_coarsen_level(
+        A_p, grid_p, strides, center, dtype, degree=degree)
+    diag = A_p.diagonal()
+    fmask = (~cmask) & (diag != 0)
+    cmask_r = cmask & (diag != 0)
+    return _pad_solve_items(
+        A_p.n_pad, (A_p, P_emb, R_emb, _dinv_of(diag), fmask, cmask_r)), A_c
+
+
+def _air_setup_pipeline(A_in, *, plan, dtype, degree):
+    """The multi-level AIR setup, one eager stage per level, then the
+    dense coarsest operator and its pseudo-inverse."""
+    cur = A_in
+    out_levels = []
+    for (grid, grid_p, strides) in plan:
+        lvl, cur = _air_level_stage(cur, grid=grid, grid_p=grid_p,
+                                    strides=strides, dtype=dtype,
+                                    degree=degree)
+        out_levels.append(lvl)
+    Ac_dense = _dia_to_dense(cur)
+    return tuple(out_levels), Ac_dense, _ns_pinv(Ac_dense)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def _stencil_grid_of(A, grid, setup):
+    """The grid of ``A``: ``grid``, or the one :func:`detect_grid` infers;
+    an operator with none raises (the unstructured classical setups are
+    not ported)."""
+    if grid is not None:
+        return grid
+    if not (sp.issparse(A) or isinstance(A, np.ndarray)):
+        raise ValueError("grid= is required for DIAMatrix inputs")
+    try:
+        return detect_grid(A)
+    except ValueError:
+        raise _not_ported(
+            f"device_unstructured_{setup}_setup, which device_{setup}_setup "
+            "takes for an operator that is not a grid stencil,", 13) from None
+
+
+def _embedded_transfers(plan, i, P_emb, R_emb):
+    """Level ``i``'s EmbeddedProlongator and EmbeddedRestrictor."""
+    grid_p, strides = plan[i][1], plan[i][2]
+    coarse_grid = tuple(g // s for g, s in zip(grid_p, strides))
+    geom = dict(fine_grid_p=grid_p, coarse_grid=coarse_grid,
+                coarse_grid_p=(plan[i + 1][1] if i + 1 < len(plan)
+                               else coarse_grid),
+                stride=strides, center=tuple(0 for _ in strides))
+    return EmbeddedProlongator(P_emb=P_emb, **geom), EmbeddedRestrictor(
+        R_emb=R_emb, **geom)
+
+
+def device_rs_setup(A, grid=None, dtype=torch.float32, device=None,
+                    stride="auto", max_coarse=400, max_levels=12,
+                    presmoother=("jacobi", {"omega": 4.0 / 3.0}),
+                    postsmoother=("jacobi", {"omega": 4.0 / 3.0}),
+                    mixed_precision=False):
+    """Build a classical (Ruge-Stüben) hierarchy on ``device`` for a
+    grid-stencil operator and return its :class:`StructuredDeviceSolver`.
+
+    The C points are the stride-2 sublattice of the coarsened dims, the
+    interpolation is multi-pass direct interpolation, R = P^T, and the
+    coarse operators are Galerkin products.  ``A`` is scipy sparse (or
+    dense numpy) or a :class:`DIAMatrix` (then ``grid`` is required);
+    ``grid`` is inferred by :func:`detect_grid` when None.  ``stride`` is
+    2, a per-dim tuple of 1 and 2 (semicoarsening) or ``'auto'``: the dims
+    whose coupling is within 4x of the strongest coarsen, the couplings
+    rescaled by 1/s^2 per level.  Smoothers: ``jacobi``, ``richardson``
+    or ``chebyshev`` specs, their spectral radii estimated on the device.
+    ``mixed_precision=True`` also stores the finest operator in float64
+    for the mixed-precision outer loop."""
+    device = resolve_device(device)
+    _check_dtype(dtype)
+    grid, A_dia = _grid_operator(A, _stencil_grid_of(A, grid, "rs"), dtype,
+                                 device)
+    pre_key = _spec_key(presmoother)
+    post_key = _spec_key(postsmoother)
+    _check_smoother(pre_key)
+    _check_smoother(post_key)
+    plan, cur_grid = _coarsening_plan(A_dia, grid, stride, 2, max_coarse,
+                                      max_levels)
+    out_levels, Ac_dense, coarse_inv = _rs_setup_pipeline(
+        A_dia, plan=tuple(plan), dtype=dtype, pre_key=pre_key,
+        post_key=post_key)
+
+    dev_levels = []
+    infos = []
+    for i, ((_, grid_p, strides), (A_p, P_emb, R_emb, rho, pre_arr,
+                                   post_arr)) in enumerate(
+            zip(plan, out_levels)):
+        P, R = _embedded_transfers(plan, i, P_emb, R_emb)
+        npad_lvl = int(np.prod(grid_p))
+        dev_levels.append(DeviceLevel(
+            A=A_p, P=P, R=R, pre=_smoother_wrap(pre_key, pre_arr),
+            post=_smoother_wrap(post_key, post_arr), n=npad_lvl,
+            n_pad=int(A_p.n_pad)))
+        # rho stays a device scalar
+        infos.append({"level": i, "n": npad_lvl, "strides": strides,
+                      "ndiags": A_p.ndiags, "rho_D_inv_A": rho})
+    return _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
+                              Ac_dense, coarse_inv, dtype, device,
+                              mixed_precision, "classical")
+
+
+def device_air_setup(A, grid=None, dtype=torch.float32, device=None,
+                     stride=2, max_coarse=400, max_levels=4, degree=2,
+                     f_iterations=2, c_iterations=1, omega=1.0,
+                     mixed_precision=False):
+    """Build an AIR (approximate ideal restriction) hierarchy on
+    ``device`` for a grid-stencil operator and return its
+    :class:`StructuredDeviceSolver`: one-point prolongation, the local
+    AIR restriction of ``degree`` (batched dense neighbourhood solves),
+    the nonsymmetric Galerkin product, no pre-smoother and the masked
+    F-then-C Jacobi after (``f_iterations`` sweeps on the F points, then
+    ``c_iterations`` on the C points, weight ``omega``).
+
+    ``stride`` is 2 or a per-dim tuple.  ``max_levels=4`` by default: the
+    fixed C/F lattice keeps the degree-2 restriction near-exact for at
+    most three coarsenings.  Solve a nonsymmetric problem with
+    ``accel='fgmres'`` or ``'bicgstab'``, or stationary cycles."""
+    device = resolve_device(device)
+    _check_dtype(dtype)
+    grid, A_dia = _grid_operator(A, _stencil_grid_of(A, grid, "air"), dtype,
+                                 device)
+    _tup(stride, len(grid))                  # 'auto' is the RS setup's
+    plan, cur_grid = _coarsening_plan(A_dia, grid, stride, 2, max_coarse,
+                                      max_levels)
+    out_levels, Ac_dense, coarse_inv = _air_setup_pipeline(
+        A_dia, plan=tuple(plan), dtype=dtype, degree=int(degree))
+
+    dev_levels = []
+    infos = []
+    for i, ((_, grid_p, strides), (A_p, P_emb, R_emb, dinv, fmask,
+                                   cmask_r)) in enumerate(
+            zip(plan, out_levels)):
+        P, R = _embedded_transfers(plan, i, P_emb, R_emb)
+        post = device_relaxation.masked_jacobi(
+            dinv, (fmask, cmask_r),
+            iters_per_mask=(int(f_iterations), int(c_iterations)),
+            omega=float(omega))
+        npad_lvl = int(np.prod(grid_p))
+        dev_levels.append(DeviceLevel(
+            A=A_p, P=P, R=R, pre=device_relaxation.identity(), post=post,
+            n=npad_lvl, n_pad=int(A_p.n_pad)))
+        infos.append({"level": i, "n": npad_lvl, "strides": strides,
+                      "ndiags": A_p.ndiags})
+    return _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
+                              Ac_dense, coarse_inv, dtype, device,
+                              mixed_precision, "air")

@@ -215,12 +215,30 @@ def _grid_unpad_vec(v, grid, grid_p):
 
 
 def _compact_fine(v, coarse_grid, stride, center):
-    """Fine padded-grid vector -> its values at the aggregate centres."""
+    """Fine padded-grid vector -> its values at the aggregate centres (a
+    strided slice), lane by lane for a (K, n) stack."""
     dim = len(coarse_grid)
     ss = _tup(stride, dim)
     cc = _tup(center, dim)
-    v = v.reshape(tuple(g * s for g, s in zip(coarse_grid, ss)))
-    return v[tuple(slice(c, None, s) for s, c in zip(ss, cc))].reshape(-1)
+    lead = tuple(v.shape[:-1])
+    v = v.reshape(lead + tuple(g * s for g, s in zip(coarse_grid, ss)))
+    return v[(Ellipsis,) + tuple(slice(c, None, s) for s, c in zip(
+        ss, cc))].reshape(lead + (-1,))
+
+
+def _embed_coarse(xc, coarse_grid, stride, center):
+    """Coarse grid vector -> the fine padded grid with its values at the
+    centres and zeros elsewhere (the reference's interior-padding
+    ``lax.pad``): zeros and one strided assignment, an exact copy, lane by
+    lane for a (K, nc) stack.  The inverse of :func:`_compact_fine`."""
+    dim = len(coarse_grid)
+    ss = _tup(stride, dim)
+    cc = _tup(center, dim)
+    lead = tuple(xc.shape[:-1])
+    out = xc.new_zeros(lead + tuple(g * s for g, s in zip(coarse_grid, ss)))
+    out[(Ellipsis,) + tuple(slice(c, None, s) for s, c in zip(ss, cc))] = (
+        xc.reshape(lead + tuple(coarse_grid)))
+    return out.reshape(lead + (-1,))
 
 
 def _blocked(coarse_grid, ss):
@@ -276,6 +294,25 @@ def _relayout_dia(dia: DIAMatrix, grid, grid_p) -> DIAMatrix:
         offsets=tuple(int(offsets[i]) for i in order),
         shape=(int(np.prod(grid_p)),) * 2,
         nnz=dia.nnz)
+
+
+def _offset_sums(a_offs, b_offs, grid_p, keep):
+    """The pairwise sums oa + ob that decompose on ``grid_p`` and whose
+    per-dim coordinates pass ``keep``, each once, in the order first met
+    (a sum that does not decompose is dropped)."""
+    out = {}
+    for oa in a_offs:
+        for ob in b_offs:
+            oc = oa + ob
+            if oc in out:
+                continue
+            try:
+                coords = _offset_to_coords(oc, grid_p)
+            except ValueError:
+                out[oc] = False
+                continue
+            out[oc] = bool(keep(coords))
+    return [o for o, kept in out.items() if kept]
 
 
 def _dia_spgemm_filtered(A: DIAMatrix, B: DIAMatrix, keep_offsets):
@@ -547,16 +584,8 @@ def _coarsen_level(A_p: DIAMatrix, B, grid_p, stride, center, omega, dtype,
     # only centre-to-centre offsets (every per-dim delta a multiple of
     # the stride) survive compaction
     ss = _tup(stride, len(grid_p))
-    cand = set()
-    for oa in R_emb.offsets:
-        for ob in AP.offsets:
-            oc = oa + ob
-            try:
-                coords = _offset_to_coords(oc, grid_p)
-            except ValueError:
-                continue
-            if all(c % s == 0 for c, s in zip(coords, ss)):
-                cand.add(oc)
+    cand = _offset_sums(R_emb.offsets, AP.offsets, grid_p, lambda coords: all(
+        c % s == 0 for c, s in zip(coords, ss)))
     Ac_emb = _dia_spgemm_filtered(R_emb, AP, cand)
     A_c = _compact_dia(Ac_emb, grid_p, stride, center)
     return S, St, tv, A_c, Bc, rho
@@ -786,6 +815,100 @@ def _ns_pinv(A, iters=60):
     return X
 
 
+def _check_dtype(dtype):
+    if dtype not in (torch.float32, torch.float64):
+        raise _not_ported(f"dtype {dtype}", 4)
+
+
+def _grid_operator(A, grid, dtype, device):
+    """(grid as a tuple, A as a DIAMatrix in ``dtype`` on ``device``) for
+    the device-built setups: ``A`` scipy sparse or dense numpy (then its
+    rows must match the grid) or a DIAMatrix."""
+    grid = tuple(int(g) for g in grid)
+    n = int(np.prod(grid))
+    if sp.issparse(A) or isinstance(A, np.ndarray):
+        if A.shape[0] != n:
+            raise ValueError(f"grid {grid} does not match A {A.shape}")
+        A_dia = dia_from_scipy(sp.csr_matrix(A), dtype=dtype, device=device,
+                               row_pad=1)
+    elif isinstance(A, DIAMatrix):
+        A_dia = DIAMatrix(data=A.data.to(dtype=dtype, device=device),
+                          offsets=A.offsets, shape=A.shape, nnz=A.nnz)
+    else:
+        raise TypeError("A must be scipy sparse or DIAMatrix")
+    return grid, A_dia
+
+
+def _relayout_a64(A, grid, grid_p, device):
+    """The finest operator in float64 on the padded grid, at the float32
+    hierarchy's solve padding (so the mixed loop's fits never cut rows):
+    the A64 of the mixed-precision outer loop (the reference's
+    ``_relayout_jit``), shared by the SA, classical and AIR setups."""
+    if isinstance(A, DIAMatrix):
+        A64 = DIAMatrix(data=A.data.to(dtype=torch.float64, device=device),
+                        offsets=A.offsets, shape=A.shape, nnz=A.nnz)
+    else:
+        A64 = dia_from_scipy(sp.csr_matrix(A), dtype=torch.float64,
+                             device=device, row_pad=1)
+    M = _relayout_dia(A64, grid, grid_p)
+    (M,) = _pad_solve_items(M.n_pad, (M,))
+    return M
+
+
+def _stride_coupling(A_dia, grid):
+    """Per-dim coupling strengths for ``stride='auto'``: the larger of
+    mean |A[i, i + e_d]| and mean |A[i, i - e_d]| over the stored rows,
+    read to the host once per dim (None when every one is zero)."""
+    offs = dict(zip(A_dia.offsets, range(len(A_dia.offsets))))
+    couple = []
+    for d in range(len(grid)):
+        delta = int(np.prod(grid[d + 1:]))
+        s_d = 0.0
+        for o in (delta, -delta):
+            if o in offs:
+                s_d = max(s_d, float(torch.mean(torch.abs(
+                    A_dia.data[offs[o]]))))
+        couple.append(s_d)
+    return couple if max(couple) > 0 else None
+
+
+def _coarsening_plan(A_dia, grid, stride, base, max_coarse, max_levels,
+                     lane_align=False):
+    """The static coarsening plan [(grid, grid_p, strides)] per level and
+    the coarsest grid.  ``stride`` is an int, a per-dim tuple or
+    ``'auto'``: then a dim coarsens by ``base`` where its coupling is
+    within base^2 of the strongest, each coupling rescaled by 1/s^2 per
+    level (the 1/h^2 law; SA takes base 3, classical base 2).  Offset
+    decomposition is unambiguous only while every coarsened padded dim is
+    >= 3 * stride, so the plan stops there too."""
+    dim = len(grid)
+    couple = _stride_coupling(A_dia, grid) if stride == "auto" else None
+
+    def level_strides(cpl):
+        if cpl is None:
+            return _tup(base if stride == "auto" else stride, dim)
+        smax = max(cpl)
+        return tuple(base if c * float(base * base) >= smax else 1
+                     for c in cpl)
+
+    plan = []
+    cur_grid = grid
+    while int(np.prod(cur_grid)) > max_coarse and len(plan) < max_levels - 1:
+        strides = level_strides(couple)
+        grid_p = _padded_grid(cur_grid, strides, lane_align=lane_align)
+        if not all(gp >= 3 * s for gp, s in zip(grid_p, strides) if s > 1):
+            break
+        plan.append((cur_grid, grid_p, strides))
+        cur_grid = tuple(g // s for g, s in zip(grid_p, strides))
+        if couple is not None:
+            couple = [c / (s * s) for c, s in zip(couple, strides)]
+    if not plan:
+        raise ValueError(
+            f"grid {grid} is below the coarsening threshold "
+            f"(max_coarse={max_coarse}); use the host setup path")
+    return plan, cur_grid
+
+
 # ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
@@ -850,6 +973,27 @@ class StructuredDeviceSolver(DeviceMultilevelSolver):
         return LinearOperator((n, n), matvec=matvec, dtype=np.float64)
 
 
+def _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
+                       Ac_dense, coarse_inv, dtype, device, mixed_precision,
+                       family=None):
+    """The StructuredDeviceSolver over a device-built setup's levels, with
+    the dense coarsest level appended (and the float64 A64 for the mixed
+    loop); ``family`` ("classical", "air") goes into its setup_info."""
+    nc = int(np.prod(cur_grid))
+    ident = device_relaxation.identity()
+    dev_levels.append(DeviceLevel(
+        A=DenseOperator(data=Ac_dense, shape=(nc, nc), nnz=nc * nc), P=None,
+        R=None, pre=ident, post=ident, n=nc, n_pad=nc))
+    A64 = (_relayout_a64(A, grid, plan[0][1], device) if mixed_precision
+           else None)
+    hier = DeviceHierarchy(levels=tuple(dev_levels), coarse_inv=coarse_inv,
+                           nc=nc, nc_pad=nc, dtype=dtype, A64=A64)
+    info = {"levels": infos, "nlevels": len(plan) + 1}
+    if family is not None:
+        info["family"] = family
+    return StructuredDeviceSolver(hier, grid, plan[0][1], setup_info=info)
+
+
 def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
                     omega=4.0 / 3.0, stride=3, max_coarse=400, max_levels=12,
                     presmoother=("jacobi", {"omega": 4.0 / 3.0}),
@@ -876,8 +1020,7 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
     ``jacobi``, ``richardson`` or ``chebyshev`` specs (their spectral
     radii estimated on the device by power iteration)."""
     device = resolve_device(device)
-    if dtype not in (torch.float32, torch.float64):
-        raise _not_ported(f"dtype {dtype}", 4)
+    _check_dtype(dtype)
     if grid is None:
         if not (sp.issparse(A) or isinstance(A, np.ndarray)):
             raise ValueError("grid= is required for DIAMatrix inputs")
@@ -892,65 +1035,16 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
                 max_coarse=max_coarse, max_levels=max_levels,
                 presmoother=presmoother, postsmoother=postsmoother,
                 improve_candidates_iters=improve_candidates_iters)
-    grid = tuple(int(g) for g in grid)
-    dim = len(grid)
+    grid, A_dia = _grid_operator(A, grid, dtype, device)
     n = int(np.prod(grid))
-    if sp.issparse(A) or isinstance(A, np.ndarray):
-        if A.shape[0] != n:
-            raise ValueError(f"grid {grid} does not match A {A.shape}")
-        A_dia = dia_from_scipy(sp.csr_matrix(A), dtype=dtype, device=device,
-                               row_pad=1)
-    elif isinstance(A, DIAMatrix):
-        A_dia = DIAMatrix(data=A.data.to(dtype=dtype, device=device),
-                          offsets=A.offsets, shape=A.shape, nnz=A.nnz)
-    else:
-        raise TypeError("A must be scipy sparse or DIAMatrix")
     pre_key = _spec_key(presmoother)
     post_key = _spec_key(postsmoother)
     _check_smoother(pre_key)
     _check_smoother(post_key)
 
-    # per-dim coupling strengths for stride='auto': mean |A[i, i +- e_d]|
-    couple = None
-    if stride == "auto":
-        couple = []
-        offs = dict(zip(A_dia.offsets, range(len(A_dia.offsets))))
-        for d in range(dim):
-            delta = int(np.prod(grid[d + 1:]))
-            s_d = 0.0
-            for o in (delta, -delta):
-                if o in offs:
-                    s_d = max(s_d, float(torch.mean(torch.abs(
-                        A_dia.data[offs[o]]))))
-            couple.append(s_d)
-        if max(couple) == 0:
-            couple = None
-
-    def _level_strides(cpl):
-        if cpl is None:
-            return _tup(3 if stride == "auto" else stride, dim)
-        smax = max(cpl)
-        return tuple(3 if c * 9.0 >= smax else 1 for c in cpl)
-
-    # the static coarsening plan: offset decomposition is unambiguous only
-    # while every coarsened padded dim is >= 3 * stride
-    plan = []
-    cur_grid = grid
-    cur_couple = couple
-    while int(np.prod(cur_grid)) > max_coarse and len(plan) < max_levels - 1:
-        strides = _level_strides(cur_couple)
-        grid_p = _padded_grid(cur_grid, strides, lane_align=lane_align)
-        if not all(gp >= 3 * s for gp, s in zip(grid_p, strides) if s > 1):
-            break
-        plan.append((cur_grid, grid_p, strides))
-        cur_grid = tuple(g // s for g, s in zip(grid_p, strides))
-        if cur_couple is not None:
-            cur_couple = [c / (s * s) for c, s in zip(cur_couple, strides)]
+    plan, cur_grid = _coarsening_plan(A_dia, grid, stride, 3, max_coarse,
+                                      max_levels, lane_align=lane_align)
     nlev = len(plan)
-    if nlev == 0:
-        raise ValueError(
-            f"grid {grid} is below the coarsening threshold "
-            f"(max_coarse={max_coarse}); use the host setup path")
 
     B_dev = None
     if B is not None:
@@ -993,27 +1087,6 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
         infos.append({"level": i, "n": npad_lvl, "strides": strides,
                       "ndiags": A_p.ndiags, "rho_D_inv_A": rho})
 
-    nc = int(np.prod(cur_grid))
-    ident = device_relaxation.identity()
-    Ac_op = DenseOperator(data=Ac_dense, shape=(nc, nc), nnz=nc * nc)
-    dev_levels.append(DeviceLevel(A=Ac_op, P=None, R=None, pre=ident,
-                                  post=ident, n=nc, n_pad=nc))
-
-    A64 = None
-    if mixed_precision:
-        if isinstance(A, DIAMatrix):
-            A64_dia = DIAMatrix(data=A.data.to(dtype=torch.float64,
-                                               device=device),
-                                offsets=A.offsets, shape=A.shape, nnz=A.nnz)
-        else:
-            A64_dia = dia_from_scipy(sp.csr_matrix(A), dtype=torch.float64,
-                                     device=device, row_pad=1)
-        M = _relayout_dia(A64_dia, grid, plan[0][1])
-        # the f32 hierarchy's solve padding, so _fitv never cuts rows
-        (A64,) = _pad_solve_items(M.n_pad, (M,))
-
-    hier = DeviceHierarchy(levels=tuple(dev_levels), coarse_inv=coarse_inv,
-                           nc=nc, nc_pad=nc, dtype=dtype, A64=A64)
-    return StructuredDeviceSolver(
-        hier, grid, plan[0][1],
-        setup_info={"levels": infos, "nlevels": nlev + 1})
+    return _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
+                              Ac_dense, coarse_inv, dtype, device,
+                              mixed_precision)

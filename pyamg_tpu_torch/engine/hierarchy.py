@@ -15,10 +15,11 @@ multicolour Gauss-Seidel on a Jones-Plassmann colouring (Chebyshev of
 degree 4 where a level needs more than 16 colours), the Kaczmarz forms to
 the Cimmino sweeps, Schwarz to windowed Schwarz, and an unknown name to
 multicolour Gauss-Seidel, each substitution announced by the reference's
-warning.  Not ported yet (each raises ``NotImplementedError``): the block
-smoothers with a blocksize above 1 and BSR block-DIA levels (ROADMAP.md
-Queue 1 item 9), the masked C/F Jacobi (item 10), complex hierarchies,
-and bf16 DIA storage.
+warning; the C/F smoothers (``cf_jacobi``, ``fc_jacobi``) compile to the
+masked Jacobi on the level's splitting.  Not ported yet (each raises
+``NotImplementedError``): the block smoothers with a blocksize above 1
+and BSR block-DIA levels (ROADMAP.md Queue 1 item 9), complex
+hierarchies, and bf16 DIA storage.
 """
 
 from __future__ import annotations
@@ -222,9 +223,30 @@ def _compile_smoother(lvl, spec, dtype, n_pad, device):
 
     if name in ("cf_jacobi", "fc_jacobi", "cf_block_jacobi",
                 "fc_block_jacobi"):
-        if getattr(lvl, "splitting", None) is None:
+        splitting = getattr(lvl, "splitting", None)
+        if splitting is None:
             raise ValueError(f"{name} requires lvl.splitting")
-        raise _not_ported(f"the masked {name!r} smoother", 10)
+        splitting = np.asarray(splitting)
+        bs = A.blocksize[0] if sp.issparse(A) and A.format == "bsr" else 1
+        if "block" in name and bs != 1:
+            raise _not_ported(f"the {name!r} smoother with blocksize {bs}",
+                              9)
+        # a node's mask covers its bs rows
+        cmask = np.zeros(n_pad, dtype=bool)
+        fmask = np.zeros(n_pad, dtype=bool)
+        for mask, nodes in ((cmask, np.flatnonzero(splitting == 1)),
+                            (fmask, np.flatnonzero(splitting == 0))):
+            mask[(nodes[:, None] * bs + np.arange(bs)[None, :]).ravel()] = True
+        cmask_t, fmask_t = (torch.as_tensor(m, device=device)
+                            for m in (cmask, fmask))
+        f_it = int(kwargs.get("f_iterations", 1))
+        c_it = int(kwargs.get("c_iterations", 1))
+        masks, iters = (((cmask_t, fmask_t), (c_it, f_it))
+                        if name.startswith("cf")
+                        else ((fmask_t, cmask_t), (f_it, c_it)))
+        return device_relaxation.masked_jacobi(
+            _device_dinv(Acsr, n_pad, dtype, device), masks, iters,
+            omega=float(kwargs.get("omega", 1.0)), iterations=iterations)
 
     if name in ("schwarz", "strength_based_schwarz"):
         # contiguous sliding windows instead of the reference's

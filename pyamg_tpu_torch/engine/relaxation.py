@@ -11,8 +11,10 @@ SOR: the colours of a Jones-Plassmann colouring swept in order, every row
 of one colour updated at once); the polynomial (Chebyshev) smoothers
 ``poly`` and ``poly_dyn`` (Horner on the residual); the Cimmino
 normal-equation sweeps ``jacobi_ne`` and ``jacobi_nr`` (the parallel form
-of the Kaczmarz smoothers); and ``win_schwarz``, additive overlapping
-Schwarz over contiguous sliding windows.
+of the Kaczmarz smoothers); ``win_schwarz``, additive overlapping
+Schwarz over contiguous sliding windows; and ``masked_jacobi``, Jacobi
+sweeps restricted to ordered point sets (the C/F smoothers ``cf_jacobi``
+and ``fc_jacobi``, AIR's post-smoother), each with its own sweep count.
 
 Every entry form takes one vector or a K-major (K, n_pad) lane stack for
 x and b (the batched solve).  The kernels they run on a DIA operator:
@@ -27,6 +29,10 @@ x and b (the batched solve).  The kernels they run on a DIA operator:
   ``x + dinv * r``, outside it ``x + 0`` is ``x``.  The smoother builds
   the (ncolors, n_pad) stack of those diagonals on the device at its
   first step on a DIA operator, and keeps it;
+- a masked Jacobi sweep is one K2 pass (K9) with ``where(mask, dinv,
+  0)`` as its inverse diagonal: on the mask ``x + w * (dinv * r)`` is the
+  reference's update, off it ``x + w * 0`` is ``x``.  The (nmasks, n_pad)
+  stack is built as the colours' is;
 - a Horner step ``h = c * r + A @ h`` is one K1 ``SPMV_ADD`` pass (K8
   ``add`` for lanes).
 
@@ -35,7 +41,7 @@ through ``A @ x`` and a select, as the reference's.  Richardson's and the
 Cimmino sweeps' updates compose through ``A @ x`` and ``A.rmatvec`` (the
 roll form on a DIA operator, K7 or K13 on a windowed one), and windowed
 Schwarz rolls, reshapes and one batched (nwin, w, w) product.  The block
-forms and the masked C/F Jacobi raise (ROADMAP.md Queue 1 items 9 and 10).
+forms raise (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ from ..sparse.formats import fit as _fit_len
 
 __all__ = ["DeviceSmoother", "apply_smoother", "apply_smoother_zero",
            "identity", "jacobi", "jacobi_dyn", "jacobi_ne", "jacobi_nr",
-           "multicolor_gs", "polynomial", "polynomial_dyn", "richardson",
+           "masked_jacobi", "multicolor_gs", "polynomial", "polynomial_dyn",
+           "richardson",
            "richardson_dyn", "windowed_schwarz"]
 
 
@@ -64,8 +71,10 @@ class DeviceSmoother:
     """kind + static scalars (``config``) and device tensors (``arrays``).
 
     A multicolour Gauss-Seidel smoother also holds ``color_dinv``, its
-    (ncolors, n_pad) per-colour inverse diagonals, built from ``arrays``
-    on the device when first read (its first step on a DIA operator)."""
+    (ncolors, n_pad) per-colour inverse diagonals, and a masked Jacobi
+    smoother ``mask_dinv``, its (nmasks, n_pad) per-mask ones, each built
+    from ``arrays`` on the device when first read (its first step on a
+    DIA operator)."""
 
     config: Tuple
     arrays: Tuple
@@ -84,15 +93,24 @@ class DeviceSmoother:
         dinv, colors = self.arrays
         cs = torch.arange(self.config[1], dtype=colors.dtype,
                           device=colors.device)
-        return torch.where(colors[None, :] == cs[:, None], dinv[None, :],
-                           torch.zeros((), dtype=dinv.dtype,
-                                       device=dinv.device)).contiguous()
+        return _dinv_stack(dinv, colors[None, :] == cs[:, None])
+
+    @cached_property
+    def mask_dinv(self):
+        """A masked Jacobi smoother's per-mask inverse diagonals, else
+        None."""
+        if self.config[0] != "masked_jacobi":
+            return None
+        return _dinv_stack(self.arrays[0], torch.stack(self.arrays[1:]))
 
     def _stack(self, A):
-        """The per-colour stack where a colour step is one K2 / K9 pass."""
-        if self.config[0] == "mcgs" and isinstance(A, DIAMatrix):
+        """The per-colour or per-mask stack where a colour step or a
+        masked sweep is one K2 / K9 pass."""
+        if not isinstance(A, DIAMatrix):
+            return None
+        if self.config[0] == "mcgs":
             return self.color_dinv
-        return None
+        return self.mask_dinv
 
     def _jacobi(self):
         """(dinv, omega, iterations) of a Jacobi smoother, else None."""
@@ -109,14 +127,14 @@ class DeviceSmoother:
 
     def __call__(self, A, x, b):
         return apply_smoother(self.config, self.arrays, A, x, b,
-                              color_dinv=self._stack(A))
+                              dinv_stack=self._stack(A))
 
     def zero_call(self, A, b):
         """Apply with a known-zero initial guess: the first Jacobi or
         Richardson sweep collapses to a scaling of b, the first polynomial
         residual is b."""
         return apply_smoother_zero(self.config, self.arrays, A, b,
-                                   color_dinv=self._stack(A))
+                                   dinv_stack=self._stack(A))
 
     def zero_call_residual(self, A, b):
         """(x, r) = (zero_call(A, b), b - A @ x) in one kernel pass when
@@ -149,9 +167,15 @@ class DeviceSmoother:
         return dia_jacobi_res(A, x, b, dinv, omega)
 
 
+def _dinv_stack(dinv, masks):
+    """(len(masks), n_pad): dinv on each mask's rows, zero elsewhere."""
+    return torch.where(masks, dinv[None, :],
+                       torch.zeros((), dtype=dinv.dtype,
+                                   device=dinv.device)).contiguous()
+
+
 # the reference's kinds still to port, with their ROADMAP.md Queue 1 item
-_UNPORTED = {"block_jacobi": 9, "block_jacobi_dyn": 9, "block_mcgs": 9,
-             "masked_jacobi": 10}
+_UNPORTED = {"block_jacobi": 9, "block_jacobi_dyn": 9, "block_mcgs": 9}
 
 
 def _not_ported(kind, item):
@@ -250,6 +274,9 @@ def windowed_schwarz(inv_blocks, window, stride, omega=1.0, iterations=1):
 
 
 def masked_jacobi(dinv, masks, iters_per_mask, omega=1.0, iterations=1):
+    """Ordered masked Jacobi (the device cf/fc_jacobi): ``iterations``
+    passes over the bool (n_pad,) ``masks`` in order, ``iters_per_mask``
+    sweeps on each, a sweep updating only the rows of its mask."""
     return DeviceSmoother(
         config=("masked_jacobi", tuple(int(i) for i in iters_per_mask),
                 float(omega), int(iterations)),
@@ -290,7 +317,7 @@ def _sweeps(ncolors, sweep):
     return order
 
 
-def apply_smoother_zero(config, arrays, A, b, color_dinv=None):
+def apply_smoother_zero(config, arrays, A, b, dinv_stack=None):
     """apply_smoother with x = 0: the first sweep collapses (a Jacobi or
     Richardson sweep to a scaling of b, the first polynomial residual to
     b); the remaining sweeps run the general form."""
@@ -334,15 +361,16 @@ def apply_smoother_zero(config, arrays, A, b, color_dinv=None):
         return h
 
     return apply_smoother(config, arrays, A, torch.zeros_like(b), b,
-                          color_dinv=color_dinv)
+                          dinv_stack=dinv_stack)
 
 
-def apply_smoother(config, arrays, A, x, b, color_dinv=None):
+def apply_smoother(config, arrays, A, x, b, dinv_stack=None):
     """The smoother ``config``/``arrays`` applied to (A, x, b); x and b
-    are vectors or K-major (K, n_pad) lane stacks.  ``color_dinv``: a
+    are vectors or K-major (K, n_pad) lane stacks.  ``dinv_stack``: a
     multicolour smoother's per-colour stack (``DeviceSmoother.color_dinv``)
-    on a DIA operator, where each colour step is then one K2 / K9 pass;
-    without it the steps compose, as the reference's."""
+    or a masked Jacobi smoother's per-mask one (``mask_dinv``) on a DIA
+    operator, where each colour step or masked sweep is then one K2 / K9
+    pass; without it the steps compose, as the reference's."""
     kind = config[0]
 
     if kind == "identity":
@@ -372,10 +400,10 @@ def apply_smoother(config, arrays, A, x, b, color_dinv=None):
     if kind == "mcgs":
         _, ncolors, sweep, iterations = config
         dinv, colors = arrays
-        if color_dinv is not None:
+        if dinv_stack is not None:
             for _ in range(iterations):
                 for c in _sweeps(ncolors, sweep):
-                    x = _jacobi_step(A, x, b, color_dinv[c], 1.0)
+                    x = _jacobi_step(A, x, b, dinv_stack[c], 1.0)
             return x
         for _ in range(iterations):
             for c in _sweeps(ncolors, sweep):
@@ -426,6 +454,19 @@ def apply_smoother(config, arrays, A, x, b, color_dinv=None):
                     u[..., c * s:(c + 1) * s].reshape(lead + (-1,)), c * s,
                     dims=-1)
             x = x + (omega / q) * upd
+        return x
+
+    if kind == "masked_jacobi":
+        _, iters_per_mask, omega, iterations = config
+        dinv, masks = arrays[0], arrays[1:]
+        for _ in range(iterations):
+            for m, (mask, k) in enumerate(zip(masks, iters_per_mask)):
+                for _ in range(k):
+                    if dinv_stack is not None:
+                        x = _jacobi_step(A, x, b, dinv_stack[m], omega)
+                    else:
+                        r = b - (A @ x)
+                        x = torch.where(mask, x + omega * dinv * r, x)
         return x
 
     raise ValueError(f"unknown device smoother kind {kind!r}")

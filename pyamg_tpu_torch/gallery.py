@@ -1,7 +1,10 @@
-"""Test problems: Poisson on regular grids and the P1 finite-element
-stiffness matrix on a triangle mesh (copies of
+"""Test problems: Poisson on regular grids, the rotated anisotropic
+diffusion stencil, upwind advection and recirculating advection-diffusion,
+and the P1 finite-element stiffness matrix on a triangle mesh (copies of
 ``pyamg_tpu/gallery/laplacian.py::poisson``,
 ``pyamg_tpu/gallery/stencil.py::stencil_grid``,
+``pyamg_tpu/gallery/diffusion.py::diffusion_stencil_2d``,
+``pyamg_tpu/gallery/advection.py::advection_2d`` and ``recirc_flow``,
 ``pyamg_tpu/gallery/mesh.py::regular_triangle_mesh`` and
 ``pyamg_tpu/gallery/fem.py::gradgradform``, which the port carries so that
 it imports nothing of the JAX package)."""
@@ -11,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["gradgradform", "poisson", "regular_triangle_mesh",
+__all__ = ["advection_2d", "diffusion_stencil_2d", "gradgradform",
+           "poisson", "recirc_flow", "regular_triangle_mesh",
            "stencil_grid"]
 
 
@@ -107,6 +111,146 @@ def poisson(grid, dtype=float, format=None, type="FD"):
     else:
         raise ValueError("only 1D/2D/3D Poisson supported")
     return stencil_grid(S, grid, dtype=dtype, format=format)
+
+
+def diffusion_stencil_2d(epsilon=1.0, theta=0.0, type="FE"):
+    """The 3x3 stencil of rotated anisotropic diffusion,
+    -div(Q^T diag(1, eps) Q grad(u)) with Q the rotation by ``theta``:
+    finite elements ("FE") or second-order finite differences with a
+    centred four-corner cross term ("FD")."""
+    eps = float(epsilon)
+    c = np.cos(theta)
+    s = np.sin(theta)
+    cc = c * c
+    ss = s * s
+    cs = c * s
+
+    if type == "FE":
+        a = (-1 * eps - 1) * cc + (-1 * eps - 1) * ss + (3 * eps - 3) * cs
+        b = (2 * eps - 4) * cc + (-4 * eps + 2) * ss
+        cpt = (-1 * eps - 1) * cc + (-1 * eps - 1) * ss + (-3 * eps + 3) * cs
+        d = (-4 * eps + 2) * cc + (2 * eps - 4) * ss
+        e = (8 * eps + 8) * cc + (8 * eps + 8) * ss
+        stencil = np.array(
+            [[a, d, cpt],
+             [b, e, b],
+             [cpt, d, a]]
+        ) / 6.0
+    elif type == "FD":
+        a = 0.5 * (eps - 1) * cs
+        b = -(eps * ss + cc)
+        cpt = -a
+        d = -(eps * cc + ss)
+        e = 2.0 * (eps + 1)
+        stencil = np.array(
+            [[a, d, cpt],
+             [b, e, b],
+             [cpt, d, a]]
+        )
+    else:
+        raise ValueError("type must be 'FE' or 'FD'")
+    return stencil
+
+
+def advection_2d(grid, theta=np.pi / 4.0, l_bdry=1.0, b_bdry=1.0):
+    """First-order upwind finite differences for (cos t, sin t) . grad(u)
+    on a regular (ny, nx) grid, the inflow boundary values (left and
+    bottom edges) moved to the right-hand side.  Returns (A, rhs), A CSR
+    and nonsymmetric."""
+    ny, nx = int(grid[0]), int(grid[1])
+    n = nx * ny
+    c = np.cos(theta)
+    s = np.sin(theta)
+    if c < 0 or s < 0:
+        raise ValueError("theta must lie in [0, pi/2]")
+    hx = 1.0 / nx
+    hy = 1.0 / ny
+
+    idx = np.arange(n).reshape(ny, nx)
+    rows, cols, vals = [], [], []
+    rhs = np.zeros(n)
+
+    rows.append(idx.ravel())
+    cols.append(idx.ravel())
+    vals.append(np.full(n, c / hx + s / hy))
+
+    # left neighbour (x-upwind), the left-boundary inflow to the rhs
+    has_left = idx[:, 1:]
+    left = idx[:, :-1]
+    rows.append(has_left.ravel())
+    cols.append(left.ravel())
+    vals.append(np.full(has_left.size, -c / hx))
+    rhs[idx[:, 0]] += (c / hx) * l_bdry
+
+    # bottom neighbour (y-upwind; row 0 is the bottom boundary row)
+    has_down = idx[1:, :]
+    down = idx[:-1, :]
+    rows.append(has_down.ravel())
+    cols.append(down.ravel())
+    vals.append(np.full(has_down.size, -s / hy))
+    rhs[idx[0, :]] += (s / hy) * b_bdry
+
+    A = sp.coo_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(n, n),
+    ).tocsr()
+    return A, rhs
+
+
+def recirc_flow(grid, epsilon=1e-2, format=None):
+    """Recirculating advection-diffusion -eps lap(u) + b . grad(u) on the
+    unit square, b = 2 pi (y - 0.5, -(x - 0.5)): first-order upwind
+    advection, centred diffusion, Dirichlet boundaries.  Nonsymmetric."""
+    ny, nx = int(grid[0]), int(grid[1])
+    n = nx * ny
+    h = 1.0 / (nx + 1)
+    x = (np.arange(nx) + 1) * (1.0 / (nx + 1))
+    y = (np.arange(ny) + 1) * (1.0 / (ny + 1))
+    X, Y = np.meshgrid(x, y, indexing="xy")  # shape (ny, nx)
+    bx = 2.0 * np.pi * (Y - 0.5)
+    by = -2.0 * np.pi * (X - 0.5)
+
+    idx = np.arange(n).reshape(ny, nx)
+    rows, cols, vals = [], [], []
+
+    diag = np.full((ny, nx), 4.0 * epsilon / h ** 2)
+
+    def add(rsel, csel, v):
+        rows.append(rsel.ravel())
+        cols.append(csel.ravel())
+        vals.append(v.ravel())
+
+    # diffusion off-diagonals
+    add(idx[:, 1:], idx[:, :-1], np.full((ny, nx - 1), -epsilon / h ** 2))
+    add(idx[:, :-1], idx[:, 1:], np.full((ny, nx - 1), -epsilon / h ** 2))
+    add(idx[1:, :], idx[:-1, :], np.full((ny - 1, nx), -epsilon / h ** 2))
+    add(idx[:-1, :], idx[1:, :], np.full((ny - 1, nx), -epsilon / h ** 2))
+
+    # upwind advection in x: bx >= 0 takes the left neighbour, else the
+    # right one
+    pos = bx >= 0
+    diag += np.abs(bx) / h
+    m = pos[:, 1:]
+    add(idx[:, 1:][m], idx[:, :-1][m], (-bx[:, 1:][m]) / h)
+    m = (~pos)[:, :-1]
+    add(idx[:, :-1][m], idx[:, 1:][m], bx[:, :-1][m] / h)
+
+    # upwind advection in y
+    posy = by >= 0
+    diag += np.abs(by) / h
+    m = posy[1:, :]
+    add(idx[1:, :][m], idx[:-1, :][m], (-by[1:, :][m]) / h)
+    m = (~posy)[:-1, :]
+    add(idx[:-1, :][m], idx[1:, :][m], (by[:-1, :][m]) / h)
+
+    add(idx, idx, diag)
+    A = sp.coo_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(n, n),
+    ).tocsr()
+    if format is not None:
+        A = A.asformat(format)
+    return A
 
 
 def regular_triangle_mesh(nx, ny):

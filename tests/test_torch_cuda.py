@@ -1230,3 +1230,96 @@ def test_device_setup_smoothers_on_card_match_cpu(cuda, name):
     dc.solve(b, tol=1e-8, maxiter=60, accel="cg", residuals=res_c)
     assert len(res_g) == len(res_c) and res_g[-1] <= 1e-8 * res_g[0]
     np.testing.assert_allclose(res_g, res_c, rtol=1e-8)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_masked_jacobi_k2_matches_twin(cuda, dtype, lanes):
+    """AIR's masked sweep at 256^2 (upwind advection): one K2 launch (K9
+    on lanes) with where(mask, dinv, 0), against the composed where-form
+    on the card and against the twin on the CPU; the rows off the mask
+    keep their bits."""
+    from pyamg_tpu_torch import advection_2d
+    from pyamg_tpu_torch.engine import relaxation as rel
+
+    A, _ = advection_2d((256, 256))
+    D = dia_from_scipy(A, dtype=dtype, device=cuda, row_pad=1024)
+    n, m = A.shape[0], D.n_pad
+    dinv = torch.zeros(m, dtype=dtype, device=cuda)
+    dinv[:n] = torch.as_tensor(1.0 / A.diagonal(), dtype=dtype)
+    idx = torch.arange(m, device=cuda)
+    f = (idx < n) & (idx % 2 == 1)
+    c = (idx < n) & ~f
+    sm = rel.masked_jacobi(dinv, (f, c), (2, 1), omega=1.0)
+    shape = (m,) if lanes == 1 else (lanes, m)
+    x, b = (torch.as_tensor(np.random.default_rng(s).random(shape),
+                            dtype=dtype, device=cuda) for s in (0, 1))
+    _build.reset_launches()
+    got = sm(D, x, b)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    name = str(dtype).removeprefix("torch.")
+    key = f"dia_jacobi{'_k' if lanes > 1 else ''}.{name}"
+    assert counts == {key: 3}, counts
+    composed = rel.apply_smoother(sm.config, sm.arrays, D, x, b)
+    assert _rel_err(got, composed) <= TOL[dtype]
+    Dc = dataclasses.replace(D, data=D.data.cpu())
+    smc = rel.masked_jacobi(dinv.cpu(), (f.cpu(), c.cpu()), (2, 1))
+    assert _rel_err(got.cpu(), smc(Dc, x.cpu(), b.cpu())) <= TOL[dtype]
+    one = rel.masked_jacobi(dinv, (f,), (1,))(D, x, b)
+    keep = (~f).expand_as(one)
+    assert torch.equal(one[keep], x[keep])
+
+
+def test_classical_setup_on_card_matches_cpu(cuda):
+    """device_rs_setup at 128^2 (float64) on the card against the same
+    setup on the CPU: every level's A, P_emb, R_emb and rho, and the CG
+    history; EmbeddedProlongator.apply_correction through K1 SPMV_ADD
+    against the composed x + P @ xc; a float32 AIR setup at 128^2 on the
+    card and on the CPU, each first stationary cycle dropping the
+    residual by more than 1e5."""
+    from pyamg_tpu_torch import (advection_2d, device_air_setup,
+                                 device_rs_setup)
+
+    A = poisson((128, 128), format="csr")
+    kw = dict(grid=(128, 128), dtype=torch.float64, max_coarse=100)
+    dg = device_rs_setup(A, device=cuda, **kw)
+    dc = device_rs_setup(A, device="cpu", **kw)
+    for i, (lg, lc) in enumerate(zip(dg.hierarchy.levels[:-1],
+                                     dc.hierarchy.levels[:-1])):
+        for g, c in ((lg.A, lc.A), (lg.P.P_emb, lc.P.P_emb),
+                     (lg.R.R_emb, lc.R.R_emb)):
+            assert g.offsets == c.offsets, i
+            assert _rel_err(g.data.cpu(), c.data) <= 1e-12, i
+        rg = float(dg.setup_info["levels"][i]["rho_D_inv_A"])
+        rc = float(dc.setup_info["levels"][i]["rho_D_inv_A"])
+        assert abs(rg - rc) <= 1e-12 * rc
+    b = np.random.default_rng(0).random(A.shape[0])
+    res_g, res_c = [], []
+    dg.solve(b, tol=1e-10, maxiter=40, accel="cg", residuals=res_g)
+    dc.solve(b, tol=1e-10, maxiter=40, accel="cg", residuals=res_c)
+    assert len(res_g) == len(res_c)
+    np.testing.assert_allclose(res_g, res_c, rtol=1e-8)
+    lvl = dg.hierarchy.levels[0]
+    ncp = dg.hierarchy.levels[1].n_pad
+    rng = np.random.default_rng(2)
+    for shape in ((ncp,), (3, ncp)):
+        xc = torch.as_tensor(rng.random(shape), device=cuda)
+        x = torch.as_tensor(rng.random(shape[:-1] + (lvl.n_pad,)),
+                            device=cuda)
+        _build.reset_launches()
+        got = lvl.P.apply_correction(xc, x)
+        torch.cuda.synchronize()
+        key = "dia_spmm_add" if len(shape) == 2 else "dia_spmv_add"
+        assert _build.launches.get(f"{key}.float64", 0) == 1
+        assert _rel_err(got, x + lvl.P @ xc) <= 1e-12
+    Aa, ba = advection_2d((128, 128))
+    akw = dict(grid=(128, 128), max_coarse=400)
+    ag = device_air_setup(Aa, device=cuda, **akw)
+    ac = device_air_setup(Aa, device="cpu", **akw)
+    res_g, res_c = [], []
+    ag.solve(ba, tol=1e-8, maxiter=2, residuals=res_g)
+    ac.solve(ba, tol=1e-8, maxiter=2, residuals=res_c)
+    # after the near-exact first cycle both sit at the float32 floor
+    assert res_g[0] == pytest.approx(res_c[0], rel=1e-6)
+    assert res_g[1] / res_g[0] < 1e-5 and res_c[1] / res_c[0] < 1e-5

@@ -61,7 +61,8 @@ def test_import_loads_no_jax():
     solve, its device-built setup with a batched solve, with Chebyshev
     smoothers, lane-aligned too (the
     interleaved route), a world-of-one gloo sharded solve of the
-    host-built hierarchy, and an unstructured setup with a solve, in a
+    host-built hierarchy, an unstructured setup with a solve, and the
+    classical (Ruge-Stüben) and AIR device setups with a solve each, in a
     fresh interpreter, leaves every ``jax*`` and ``pyamg_tpu*`` module
     (but the port's own) out of sys.modules."""
     code = ("import sys, numpy as np, pyamg_tpu_torch as pt, "
@@ -96,6 +97,11 @@ def test_import_loads_no_jax():
             ".sparse.eye(900)\n"
             "pt.device_unstructured_sa_setup(M, device='cpu', max_coarse=50)"
             ".solve(np.ones(900), accel='cg', tol=1e-6)\n"
+            "pt.device_rs_setup(A, grid=(40, 40), device='cpu', "
+            "max_coarse=100).solve(b[:, 0], accel='cg')\n"
+            "Aa, ba = pt.advection_2d((32, 32))\n"
+            "pt.device_air_setup(Aa, grid=(32, 32), device='cpu', "
+            "max_coarse=100).solve(ba, maxiter=3)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyamg_tpu'))\n"
             "print(bad); sys.exit(1 if bad else 0)")

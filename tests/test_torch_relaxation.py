@@ -3,8 +3,8 @@
 relaxation.py``), on the CPU.
 
 Two operators: a DIA one (2-D Poisson 32^2, the multicolour colour steps
-then run K2's twin with a per-colour inverse diagonal, the Horner steps
-K1's ``SPMV_ADD`` twin) and a windowed one (a nonsymmetric 2-D
+and the masked Jacobi sweeps then run K2's twin with a per-colour or
+per-mask inverse diagonal, the Horner steps K1's ``SPMV_ADD`` twin) and a windowed one (a nonsymmetric 2-D
 convection-diffusion operator on 48^2, whose transpose apply and column
 padding the Cimmino sweeps exercise).  Each kind is applied from a
 nonzero guess (``__call__``) and from zero (``zero_call``), to one vector
@@ -124,6 +124,12 @@ def _arrays(kind, A, n_pad, dtype):
                                                   16, 8))
     if kind == "jacobi_dyn":
         return ("jacobi_dyn", dinv, 0.8)
+    if kind == "masked_jacobi":
+        # F = the rows off every third index, C the others; padded rows in
+        # neither
+        rows = np.arange(n_pad) < A.shape[0]
+        f = rows & (np.arange(n_pad) % 3 != 0)
+        return ("masked_jacobi", dinv, f, rows & ~f)
     raise AssertionError(kind)
 
 
@@ -165,12 +171,18 @@ def _smoothers(kind, A, n_pad, dtype):
     if name == "jacobi_dyn":
         return (jrel.jacobi_dyn(j(spec[1]), j(spec[2]), 2),
                 rel.jacobi_dyn(t(spec[1]), t(spec[2]), 2))
+    if name == "masked_jacobi":
+        _, dinv, f, c = spec
+        kw = dict(iters_per_mask=(2, 1), omega=0.8, iterations=2)
+        return (jrel.masked_jacobi(j(dinv), (j(f, bool), j(c, bool)), **kw),
+                rel.masked_jacobi(t(dinv), (t(f, torch.bool),
+                                            t(c, torch.bool)), **kw))
     raise AssertionError(name)
 
 
 KINDS = ["mcgs_forward", "mcgs_backward", "mcgs_symmetric", "poly",
          "poly_dyn", "richardson", "richardson_dyn", "jacobi_ne",
-         "jacobi_nr", "win_schwarz", "jacobi_dyn"]
+         "jacobi_nr", "win_schwarz", "jacobi_dyn", "masked_jacobi"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
@@ -224,6 +236,22 @@ def test_multicolor_stack_is_built_with_the_smoother():
     assert sm._stack(object()) is None
 
 
+def test_mask_stack_is_built_with_the_smoother():
+    """A masked Jacobi smoother's (nmasks, n_pad) inverse diagonals, in
+    its mask order: dinv on the mask, zero off it; built once and read
+    only by the sweeps on a DIA operator."""
+    dinv = torch.tensor([0.5, 0.25, 0.2, 0.1, 0.0])
+    f = torch.tensor([True, False, True, False, False])
+    c = torch.tensor([False, True, False, True, False])
+    sm = rel.masked_jacobi(dinv, (f, c), (2, 1))
+    want = torch.tensor([[0.5, 0.0, 0.2, 0.0, 0.0],
+                         [0.0, 0.25, 0.0, 0.1, 0.0]])
+    assert torch.equal(sm.mask_dinv, want)
+    assert sm.mask_dinv is sm.mask_dinv and sm.color_dinv is None
+    assert rel.jacobi(dinv, 1.0).mask_dinv is None
+    assert sm._stack(object()) is None
+
+
 def test_only_single_jacobi_sweeps_fuse_the_residual():
     """zero_call_residual / call_residual fuse only a single Jacobi sweep
     on a DIA operator; every other kind returns None (the caller
@@ -241,8 +269,7 @@ def test_only_single_jacobi_sweeps_fuse_the_residual():
 
 @pytest.mark.parametrize("ctor,item", [
     (lambda: rel.block_jacobi(None, 1.0), "item 9"),
-    (lambda: rel.block_multicolor_gs(None, None, 2), "item 9"),
-    (lambda: rel.masked_jacobi(None, (), ()), "item 10")])
+    (lambda: rel.block_multicolor_gs(None, None, 2), "item 9")])
 def test_unported_kinds_raise(ctor, item):
     with pytest.raises(NotImplementedError, match=item):
         ctor()

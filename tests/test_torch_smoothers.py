@@ -189,9 +189,10 @@ def test_setup_raises_as_the_reference():
 
 
 def test_cf_smoothers_raise_at_compile():
-    """A level with a C/F splitting compiles cf_* to the masked Jacobi,
-    which is not ported (item 10); without one both compiles raise the
-    reference's ValueError."""
+    """Without a C/F splitting both compiles raise the reference's
+    ValueError; with one, cf_jacobi / fc_jacobi compile to the masked
+    Jacobi with the JAX compile's masks (in its order), iteration counts,
+    inverse diagonal and weight, and smooth to its iterate (1e-12)."""
     ml = pyamg_tpu.smoothed_aggregation_solver(
         poisson((48, 48), format="csr"), max_coarse=100,
         presmoother="jacobi", postsmoother="jacobi")
@@ -202,9 +203,27 @@ def test_cf_smoothers_raise_at_compile():
     with pytest.raises(ValueError, match="splitting"):
         compile_hierarchy(ml, device=CPU)
     for lvl in ml.levels[:-1]:
-        lvl.splitting = np.arange(lvl.A.shape[0]) % 2
-    with pytest.raises(NotImplementedError, match="item 10"):
-        compile_hierarchy(ml, device=CPU)
+        lvl.splitting = np.arange(lvl.A.shape[0]) % 3 == 0
+        lvl.postsmoother_spec = ("fc_jacobi", {"omega": 0.7,
+                                               "f_iterations": 2,
+                                               "iterations": 2})
+    hj = jax_compile(ml, dtype=jnp.float64)
+    ht = compile_hierarchy(ml, dtype=torch.float64, device=CPU)
+    rng = np.random.default_rng(6)
+    for lj, lt in zip(hj.levels[:-1], ht.levels[:-1]):
+        for sj, st in ((lj.pre, lt.pre), (lj.post, lt.post)):
+            assert st.config == tuple(sj.config)
+            assert st.config[0] == "masked_jacobi"
+            np.testing.assert_allclose(st.arrays[0].numpy(),
+                                       np.asarray(sj.arrays[0]), rtol=1e-15)
+            for mt, mj in zip(st.arrays[1:], sj.arrays[1:], strict=True):
+                assert mt.dtype == torch.bool
+                np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+            x, b = rng.random((2, lt.n_pad))
+            want = np.asarray(sj(lj.A, jnp.asarray(x), jnp.asarray(b)))
+            got = st(lt.A, torch.as_tensor(x), torch.as_tensor(b)).numpy()
+            np.testing.assert_allclose(got, want, rtol=1e-12,
+                                       atol=1e-12 * np.abs(want).max())
 
 
 def test_schwarz_blocks_match_reference(A64):
