@@ -174,8 +174,29 @@ result lines):
     twin and the composed where-form, 5 stationary cycles (first drop >=
     1e5); counters around every solve, each solve profiled, the setup and
     solve walls beside the card's name and power limit;
-19. result lines: the script's seconds, the kernels' JSON (with the 64^3
-    checks of config 2's paths and the classical paths' checks under
+19. config 4, the block device setup (bench.py:540-559, :729-736;
+    linear_elasticity 128^2, 2x2 blocks, the three rigid-body modes,
+    device_sa_setup_block float32 with the float64 A64, max_coarse=400):
+    its levels (n, bs, ndiags) against the JAX package's on the CPU, the
+    setup time (a second call), mixed CG to 1e-8 with b =
+    default_rng(3).random(n) (the reference's 22 +- 1 iterations, true
+    relres <= 1e-8) and native float32 CG to 1e-5 (JAX on the CPU: 15), a
+    V-cycle under set_sync_debug_mode("error"); the plain-PyTorch block
+    operations against scipy's BSR product in float64 and against the
+    CPU in float32 (the BlockDIAMatrix apply and its transpose, the block
+    Jacobi sweep of the setup's level 0, block multicolour Gauss-Seidel
+    on the operator's JP node colouring, the host-built compile's form);
+    then 1024^2 (2.1 M unknowns): setup (second call) with peak memory,
+    mixed CG to 1e-8 (count, walls, true relres <= 1e-8), the level-0
+    block apply timed by CUDA events with its launches per call (the
+    kernel, memcpy and memset nodes of one call captured in a CUDA
+    graph) beside its bytes bound, the reference's roll form and torch.mv on the same
+    operator as CSR, the block sweeps timed alike, each solve profiled;
+    then adaptive SA (device_adaptive_sa_setup, stages=2) on Poisson
+    512^2, its levels and native CG count to 1e-5 against JAX's (13);
+20. result lines: the script's seconds, the block operations' JSON
+    (plain PyTorch, no kernel of their own), the kernels' JSON (with the
+    64^3 checks of config 2's paths and the classical paths' checks under
     ``at_paths``), the card's name and power limit, and last {"ok": true,
     "device": {...}}.
 """
@@ -185,6 +206,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 F32_REL_TOL = 1e-5     # f32 kernels vs twin: FMA contraction and other
                        # summation orders (the windowed transposes K7, K13
@@ -257,6 +279,24 @@ AIR_LEVELS = [65536, 16384, 4096]
 AIR_COARSE = 1024
 AIR_MIN_DROP = 1e5
 PRIMITIVE_SEEDS = (0, 1, 2)
+# config 4 (bench.py:540-559, :729-736): 2-D linear elasticity, the block
+# device setup; levels (n, bs, ndiags) and the dense coarsest n from
+# scripts/jax_block_counts.py (the JAX package on the CPU);
+# bench_detail.json config4.device_setup_iters_to_1e8; adaptive SA
+# (stages=2) on Poisson 512^2, JAX on the CPU
+C4_GRID = (128, 128)
+C4_NODE_GRID = (128, 127)
+C4_LEVELS = [(33282, 2, 9), (6075, 3, 9), (675, 3, 9)]
+C4_COARSE = 75
+REF_ITERS_C4 = 22
+REF_ITERS_C4_1E5 = 15
+C4_BIG = (1024, 1024)
+C4_BIG_NODE_GRID = (1024, 1023)
+C4_BIG_LEVELS = [2099196, 350892, 38988, 4563, 675]
+ADAPT_GRID = (512, 512)
+ADAPT_LEVELS = [(263169, 1, 5), (58482, 2, 9), (6498, 2, 9), (882, 2, 9)]
+ADAPT_COARSE = 98
+REF_ITERS_ADAPT = 13
 # the card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit): HBM3
 # bytes/s, and float32 / float64 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -2923,6 +2963,343 @@ def classical_phase(check, dev, rand, results, launches, card):
                                                         maxiter=5)),))
 
 
+def launches_per_call(fn):
+    """Device operations one ``fn()`` issues, counted exactly: a call
+    after a warm one is captured in a CUDA graph, and the graph's kernel,
+    memcpy and memset nodes are counted through the driver API (a
+    profiler trace can drop events)."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    kind = ctypes.c_int()
+    ops = 0
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                   ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
+        ops += kind.value in (0, 1, 2)
+    del graph
+    return ops
+
+
+def block_levels(solver):
+    """(n, bs, ndiags) of each level of a block device setup, and the
+    dense coarsest level's n."""
+    return ([(i["n"], i["bs"], i["ndiags"])
+             for i in solver.setup_info["levels"]],
+            solver.hierarchy.levels[-1].n)
+
+
+def bdia_roll_form(A, x):
+    """The reference's form of the block-DIA apply: a roll and bs^2
+    elementwise mul-adds per diagonal (``pyamg_tpu/sparse/block_dia.py``
+    ``matvec``), timed beside the port's padded-window form."""
+    import torch
+
+    bs = A.bs
+    xb = x.reshape(-1, bs)
+    cols = [xb[:, j] for j in range(bs)]
+    out = [torch.zeros_like(cols[0]) for _ in range(bs)]
+    for d, off in enumerate(A.offsets):
+        xr = [torch.roll(c, -off) for c in cols]
+        for i in range(bs):
+            for j in range(bs):
+                out[i] = out[i] + A.data[d][:, i, j] * xr[j]
+    return torch.stack(out, dim=1).reshape(-1)
+
+
+def bdia_to_csr(A, dev):
+    """The same operator as a torch sparse CSR tensor on ``dev`` (the
+    yardstick for torch.mv)."""
+    import torch
+
+    nd, nb, bs, _ = A.data.shape
+    n = nb * bs
+    rows = (torch.arange(nb, device=dev)[None, :, None, None] * bs
+            + torch.arange(bs, device=dev)[None, None, :, None])
+    offs = torch.tensor(A.offsets, device=dev)[:, None, None, None]
+    cols = ((torch.arange(nb, device=dev)[None, :, None, None] + offs) % nb
+            * bs + torch.arange(bs, device=dev)[None, None, None, :])
+    rows = rows.expand(nd, nb, bs, bs)
+    cols = cols.expand(nd, nb, bs, bs)
+    keep = A.data != 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # sparse tensors are "beta"
+        coo = torch.sparse_coo_tensor(
+            torch.stack([rows[keep], cols[keep]]), A.data[keep], (n, n))
+        return coo.coalesce().to_sparse_csr()
+
+
+def block_op_row(name, shape, ms, launches, nbytes, ops, dtype, plain_ms,
+                 library_ms, max_abs_err):
+    """One entry of the block operations' JSON line."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[str(dtype).removeprefix("torch.")] * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    return {"name": name, "route": "plain PyTorch", "shape": shape,
+            "ms": ms, "launches_per_call": launches, "bound_ms": bound_ms,
+            "bound_by": bound_by, "plain_ms": plain_ms,
+            "library_ms": library_ms, "max_abs_err": max_abs_err}
+
+
+def config4_phase(check, dev, card, block_ops):
+    """Phase 19: config 4's block device setup on the card (128^2 at the
+    reference's size, 1024^2 at the card's), the block operations
+    against scipy and the CPU, and adaptive SA on Poisson 512^2."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import (DeviceMultilevelSolver,
+                                 device_adaptive_sa_setup,
+                                 device_sa_setup_block, linear_elasticity,
+                                 poisson)
+    from pyamg_tpu_torch.engine import relaxation as rel
+    from pyamg_tpu_torch.engine.hierarchy import (_block_colors_for,
+                                                  _device_block_dinv)
+    from pyamg_tpu_torch.sparse import block_dia_from_scipy
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(7)
+    A4, B4 = linear_elasticity(C4_GRID)
+    n4 = A4.shape[0]
+    b4 = np.random.default_rng(3).random(n4)
+    kw4 = dict(grid=C4_NODE_GRID, B=B4, max_coarse=400, dtype=f32,
+               device=dev, mixed_precision=True)
+    d4, t_setup, t_first = timed_setup(device_sa_setup_block, A4, kw4)
+    lv, nc = block_levels(d4)
+    log(f"config 4 block device setup, elasticity {C4_GRID} (n={n4}, "
+        f"mixed): {t_setup:.4f} s (first call {t_first:.3f} s; {card}); "
+        f"levels {lv} + dense {nc}")
+    check(lv == C4_LEVELS and nc == C4_COARSE,
+          f"config 4 levels {lv} + dense {nc} (the JAX package's "
+          f"{C4_LEVELS} + {C4_COARSE})")
+    mixed = dict(tol=1e-8, maxiter=100, accel="cg", precision="mixed")
+    d4.solve(b4, **mixed)                           # warm-up
+    res = []
+    x, counts, wall = counted(lambda: d4.solve(b4, residuals=res, **mixed))
+    normb = float(np.linalg.norm(b4))
+    true = float(np.linalg.norm(b4 - A4 @ x)) / normb
+    iters = len(res) - 1
+    log(f"config 4 (128^2, mixed CG to 1e-8): {iters} iterations, history "
+        f"relres {res[-1] / normb:.4e}, true relres {true:.4e} (reference "
+        f"{REF_ITERS_C4}, 4.241e-9), solve {wall:.4f} s ({card})")
+    log(f"  launches of hand-written kernels: "
+        f"{json.dumps(counts, sort_keys=True)} (the block path is plain "
+        f"PyTorch)")
+    check(abs(iters - REF_ITERS_C4) <= 1 and true <= 1e-8
+          and bool(np.isfinite(x).all()),
+          f"config 4: {iters} mixed CG iterations within {REF_ITERS_C4} +- "
+          f"1, true relres {true:.3e} <= 1e-8")
+    res = []
+    d4.solve(b4, tol=1e-5, maxiter=100, accel="cg", residuals=res)
+    check(abs(len(res) - 1 - REF_ITERS_C4_1E5) <= 1,
+          f"config 4 native float32 CG to 1e-5: {len(res) - 1} iterations "
+          f"(JAX on the CPU {REF_ITERS_C4_1E5} +- 1)")
+    h4 = d4.hierarchy
+    r0 = torch.as_tensor(rng.random(h4.levels[0].n_pad), dtype=f32,
+                         device=dev)
+    sync_free_cycle(check, DeviceMultilevelSolver(h4).cycle_operator("V"),
+                    r0, "the config 4 block hierarchy (128^2)")
+    profile_phase("config 4 128^2", (
+        ("block mixed CG to 1e-8", lambda: d4.solve(b4, **mixed)),))
+
+    # the block operations on the card against scipy (f64) and the CPU
+    # (f32), on the operator as the host-built compile lays it out
+    x4 = rng.standard_normal(n4)
+    T64 = block_dia_from_scipy(A4, dtype=f64, device=dev)
+    xt = torch.as_tensor(x4, dtype=f64, device=dev)
+    for what, got, want in (
+            ("A x", T64 @ xt, A4 @ x4), ("A^T x", T64.rmatvec(xt),
+                                         A4.T @ x4)):
+        err = float(np.abs(got.cpu().numpy() - want).max()
+                    / np.abs(want).max())
+        check(err <= 1e-13, f"BlockDIAMatrix {what} float64 on the card vs "
+              f"scipy BSR: max rel err {err:.2e} (tol 1e-13)")
+    T32 = block_dia_from_scipy(A4, dtype=f32, device=dev)
+    Tc = block_dia_from_scipy(A4, dtype=f32, device="cpu")
+    x32 = torch.as_tensor(x4, dtype=f32)
+    X32 = torch.as_tensor(rng.standard_normal((4, n4)), dtype=f32)
+    Dinv = _device_block_dinv(A4, 2, T32.nb_pad, f32, dev)
+    colors, ncolors = _block_colors_for(A4, 2, T32.nb_pad, dev)
+    b32 = torch.as_tensor(rng.standard_normal(n4), dtype=f32)
+    bj = rel.block_jacobi(Dinv, 0.6, iterations=2)
+    gs = rel.block_multicolor_gs(Dinv, colors, ncolors, sweep="symmetric")
+    bj_c = rel.block_jacobi(Dinv.cpu(), 0.6, iterations=2)
+    gs_c = rel.block_multicolor_gs(Dinv.cpu(), colors.cpu(), ncolors,
+                                   sweep="symmetric")
+    for what, got, want in (
+            ("A x", T32 @ x32.to(dev), Tc @ x32),
+            ("A X (K = 4)", T32 @ X32.to(dev), Tc @ X32),
+            ("A^T x", T32.rmatvec(x32.to(dev)), Tc.rmatvec(x32)),
+            ("block Jacobi, 2 sweeps", bj(T32, x32.to(dev), b32.to(dev)),
+             bj_c(Tc, x32, b32)),
+            (f"block multicolour GS ({ncolors} colours, symmetric)",
+             gs(T32, x32.to(dev), b32.to(dev)), gs_c(Tc, x32, b32))):
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        check(err <= F32_REL_TOL, f"{what} float32 on the card vs the CPU: "
+              f"max rel err {err:.2e} (tol {F32_REL_TOL:g})")
+    del d4, h4
+
+    # 1024^2: 2.1 M unknowns
+    t0 = time.perf_counter()
+    A8, B8 = linear_elasticity(C4_BIG)
+    n8 = A8.shape[0]
+    b8 = np.random.default_rng(3).random(n8)
+    t_host = time.perf_counter() - t0
+    kw8 = dict(kw4, grid=C4_BIG_NODE_GRID, B=B8)
+    t0 = time.perf_counter()
+    device_sa_setup_block(A8, **kw8)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    d8, counts, t_setup = counted(lambda: device_sa_setup_block(A8, **kw8))
+    peak = torch.cuda.max_memory_allocated(dev)
+    lv, nc = block_levels(d8)
+    log(f"config 4 at {C4_BIG} (n={n8}; gallery {t_host:.1f} s on the "
+        f"host): setup {t_setup:.4f} s (first call {t_first:.3f} s), peak "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} held before; {card}); levels {lv} + dense {nc}")
+    check([n for n, _, _ in lv] == C4_BIG_LEVELS and nc == C4_COARSE,
+          f"config 4 1024^2 levels {[n for n, _, _ in lv]} + dense {nc} "
+          f"(the plan's {C4_BIG_LEVELS} + {C4_COARSE})")
+    d8.solve(b8, **mixed)                           # warm-up
+    walls = []
+    res = []
+    x = d8.solve(b8, residuals=res, **mixed)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        d8.solve(b8, **mixed)
+        walls.append(time.perf_counter() - t0)
+    normb = float(np.linalg.norm(b8))
+    true = float(np.linalg.norm(b8 - A8 @ x)) / normb
+    log(f"config 4 1024^2 mixed CG to 1e-8: {len(res) - 1} iterations, "
+        f"history relres {res[-1] / normb:.4e}, true relres {true:.4e}, "
+        f"solve walls {', '.join(f'{t:.4f}' for t in walls)} s (median "
+        f"{float(np.median(walls)):.4f}; {card})")
+    check(true <= 1e-8 and res[-1] <= 1e-8 * normb
+          and bool(np.isfinite(x).all()),
+          f"config 4 1024^2: true relres {true:.3e} <= 1e-8")
+    profile_phase("config 4 1024^2", (
+        ("block setup", lambda: device_sa_setup_block(A8, **kw8)),
+        ("block mixed CG to 1e-8", lambda: d8.solve(b8, **mixed))))
+
+    # level 0's block apply and sweeps, timed
+    lvl = d8.hierarchy.levels[0]
+    A0 = lvl.A
+    xg = torch.as_tensor(rng.standard_normal(A0.n_pad), dtype=f32,
+                         device=dev)
+    bg = torch.as_tensor(rng.standard_normal(A0.n_pad), dtype=f32,
+                         device=dev)
+    nd, nb, bs = A0.ndiags, A0.nb_pad, A0.bs
+    shape = f"1024^2 level 0 nd={nd} nb_pad={nb} bs={bs}"
+    csr = bdia_to_csr(A0, dev)
+    want = bdia_roll_form(A0, xg)
+    got = A0 @ xg
+    err = float((got - want).abs().max())
+    check(err <= F32_REL_TOL * float(want.abs().max()),
+          f"level-0 block apply vs the reference's roll form: max abs err "
+          f"{err:.3e}")
+    ms = min(time_ms(lambda: A0 @ xg) for _ in range(2))
+    plain = min(time_ms(lambda: bdia_roll_form(A0, xg)) for _ in range(2))
+    lib = time_ms(lambda: torch.mv(csr, xg))
+    k = launches_per_call(lambda: A0 @ xg)
+    k_plain = launches_per_call(lambda: bdia_roll_form(A0, xg))
+    row = block_op_row("BlockDIAMatrix.matvec.float32", shape, ms, k,
+                       (nd * nb * bs * bs + 2 * nb * bs) * 4,
+                       2 * nd * nb * bs * bs, f32, plain, lib, err)
+    block_ops.append(row)
+    log(f"  block apply [{shape}]: {ms:.4f} ms, {k} launches a call, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the reference's "
+        f"roll form {plain:.4f} ms ({k_plain} launches); torch.mv on CSR "
+        f"({csr._nnz()} entries) {lib:.4f} ms ({card})")
+    A64 = d8.hierarchy.A64
+    x64 = xg.to(f64)
+    csr64 = bdia_to_csr(A64, dev)
+    err = float((A64 @ x64 - bdia_roll_form(A64, x64)).abs().max())
+    ms = min(time_ms(lambda: A64 @ x64) for _ in range(2))
+    row = block_op_row(
+        "BlockDIAMatrix.matvec.float64 (A64)", shape, ms,
+        launches_per_call(lambda: A64 @ x64),
+        (nd * nb * bs * bs + 2 * nb * bs) * 8, 2 * nd * nb * bs * bs, f64,
+        min(time_ms(lambda: bdia_roll_form(A64, x64)) for _ in range(2)),
+        time_ms(lambda: torch.mv(csr64, x64)), err)
+    block_ops.append(row)
+    log(f"  float64 A64 apply [{shape}]: {ms:.4f} ms, "
+        f"{row['launches_per_call']} launches a call, bound "
+        f"{row['bound_ms']:.4f} ms; roll form {row['plain_ms']:.4f} ms; "
+        f"torch.mv on CSR {row['library_ms']:.4f} ms")
+    del csr64
+    # the sweeps against a CPU copy of the level; block multicolour GS on
+    # the 4-colour parity colouring of the padded node grid (a valid
+    # colouring of the 9-point node stencil)
+    A0c = dataclasses.replace(A0, data=A0.data.cpu())
+    Dinv0, omega0 = lvl.pre.arrays
+    gy, gx = lvl.P.fine_grid_p
+    node = torch.arange(nb, device=dev)
+    parity = ((node // gx) % 2 * 2 + node % gx % 2).to(torch.int32)
+    sweeps = (("block_jacobi_dyn sweep", 1, lvl.pre,
+               rel.block_jacobi_dyn(Dinv0.cpu(), omega0.cpu())),
+              ("block_mcgs forward sweep (4 colours)", 4,
+               rel.block_multicolor_gs(Dinv0, parity, 4),
+               rel.block_multicolor_gs(Dinv0.cpu(), parity.cpu(), 4)))
+    for name, steps, sm, sm_c in sweeps:
+        got = sm(A0, xg, bg)
+        want = sm_c(A0c, xg.cpu(), bg.cpu())
+        err = float((got.cpu() - want).abs().max())
+        check(err <= F32_REL_TOL * float(want.abs().max()),
+              f"{name} [{shape}] on the card vs the CPU: max abs err "
+              f"{err:.3e} (rel tol {F32_REL_TOL:g})")
+        ms = min(time_ms(lambda: sm(A0, xg, bg), 10) for _ in range(2))
+        k = launches_per_call(lambda: sm(A0, xg, bg))
+        # a step reads A, the blocks, x and b and writes x
+        row = block_op_row(
+            f"{name}.float32", shape, ms, k,
+            steps * (nd * nb * bs * bs + nb * bs * bs + 3 * nb * bs) * 4,
+            steps * (2 * (nd + 1) * nb * bs * bs + 3 * nb * bs), f32, None,
+            None, err)
+        block_ops.append(row)
+        log(f"  {name} [{shape}]: {ms:.4f} ms, {k} launches a call, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del d8, csr, A0, A0c, lvl
+
+    # adaptive SA on Poisson 512^2
+    A2 = poisson(ADAPT_GRID, format="csr")
+    b2 = np.random.default_rng(0).random(A2.shape[0])
+    dad, t_setup, t_first = timed_setup(device_adaptive_sa_setup, A2, dict(
+        grid=ADAPT_GRID, stages=2, max_coarse=400, device=dev))
+    lv, nc = block_levels(dad)
+    res = []
+    _, _, wall = counted(lambda: dad.solve(b2, tol=1e-5, maxiter=100,
+                                           accel="cg", residuals=res))
+    log(f"adaptive SA stages=2, Poisson {ADAPT_GRID}: setup {t_setup:.4f} s "
+        f"(first call {t_first:.3f} s), m={dad.setup_info['m']}, levels "
+        f"{lv} + dense {nc}; native CG to 1e-5 {len(res) - 1} iterations in "
+        f"{wall:.4f} s ({card})")
+    check(lv == ADAPT_LEVELS and nc == ADAPT_COARSE
+          and dad.setup_info["m"] == 2,
+          f"adaptive SA levels {lv} + dense {nc} (the JAX package's "
+          f"{ADAPT_LEVELS} + {ADAPT_COARSE})")
+    check(abs(len(res) - 1 - REF_ITERS_ADAPT) <= 1,
+          f"adaptive SA: {len(res) - 1} CG iterations to 1e-5 (JAX on the "
+          f"CPU {REF_ITERS_ADAPT} +- 1)")
+
+
 def main():
     import numpy as np
     import torch
@@ -3343,6 +3720,13 @@ def main():
     classical_phase(check, dev, rand, results, launches, card)
     log(f"classical phase: {time.perf_counter() - t_cl:.1f} s")
 
+    # 19. config 4: the block device setup, its block operations, and
+    # adaptive SA
+    t_c4 = time.perf_counter()
+    block_ops = []
+    config4_phase(check, dev, card, block_ops)
+    log(f"config 4 phase: {time.perf_counter() - t_c4:.1f} s")
+
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
               file=sys.stderr)
@@ -3350,7 +3734,7 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 19. result lines: each path kernel instance, with its launches on
+    # 20. result lines: each path kernel instance, with its launches on
     # the paths that run it (``launches``: the first of them) and, where a
     # later path's shapes were checked too (config 2's 64^3), those
     # numbers under ``at_paths``
@@ -3383,6 +3767,8 @@ def main():
                      "library_ms": r0["library_ms"], "shape": r0["name"],
                      **({"at_paths": at_paths} if at_paths else {})})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    log("block operations (plain PyTorch, no kernel of their own): "
+        + json.dumps({"block_ops": block_ops}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

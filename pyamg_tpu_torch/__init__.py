@@ -60,6 +60,20 @@ such an operator there):
     dus = device_unstructured_sa_setup(A, max_coarse=1000)
     x = dus.solve(b, tol=1e-6, accel="cg")
 
+or, for a BSR operator or several near-nullspace candidates (config 4:
+2-D linear elasticity, 2x2 blocks, the three rigid-body modes), the
+block device setup, and adaptive SA, which grows its candidates through
+it:
+
+    from pyamg_tpu_torch import (device_adaptive_sa_setup,
+                                 device_sa_setup_block, linear_elasticity)
+
+    A4, B4 = linear_elasticity((1024, 1024))
+    dbk = device_sa_setup_block(A4, grid=(1024, 1023), B=B4,
+                                mixed_precision=True)
+    x = dbk.solve(b4, tol=1e-8, accel="cg", precision="mixed")
+    dad = device_adaptive_sa_setup(A, grid=(2048, 2048), stages=2)
+
 Row-sharded solves over ``torch.distributed`` (one rank per GPU, NCCL;
 gloo on the CPU), the DIA levels through the overlapped halo SpMV:
 
@@ -80,30 +94,35 @@ PyTorch twin instead, which is what the CPU tests exercise.
 from . import backend
 from ._build import launches, reset_launches
 from .aggregation import smoothed_aggregation_solver
-from .convert import (hierarchy_from_jax, structured_solver_from_jax,
+from .convert import (block_solver_from_jax, hierarchy_from_jax,
+                      structured_solver_from_jax,
                       unstructured_solver_from_jax)
-from .engine import (ComposedWindowed, DeviceHierarchy,
-                     DeviceMultilevelSolver, ReorderedSolver,
-                     StructuredDeviceSolver, as_device_solver,
-                     compile_hierarchy, detect_grid, device_air_setup,
-                     device_rs_setup, device_sa_setup,
+from .engine import (BlockStructuredDeviceSolver, ComposedWindowed,
+                     DeviceHierarchy, DeviceMultilevelSolver,
+                     ReorderedSolver, StructuredDeviceSolver,
+                     as_device_solver, compile_hierarchy, detect_grid,
+                     device_adaptive_sa_setup, device_air_setup,
+                     device_rs_setup, device_sa_setup, device_sa_setup_block,
                      device_unstructured_sa_setup)
 from .gallery import (advection_2d, diffusion_stencil_2d, gradgradform,
-                      poisson, recirc_flow, regular_triangle_mesh,
-                      stencil_grid)
+                      linear_elasticity, poisson, recirc_flow,
+                      regular_triangle_mesh, stencil_grid)
 from .multilevel import MultilevelSolver
 from .parallel import (halo_width, initialize_distributed, make_halo_dia_spmv,
                        make_solver_mesh, shard_hierarchy, shard_vector)
-from .sparse import dia_from_stencil
+from .sparse import BlockDIAMatrix, block_dia_from_scipy, dia_from_stencil
 
-__all__ = ["ComposedWindowed", "DeviceHierarchy", "DeviceMultilevelSolver",
+__all__ = ["BlockDIAMatrix", "BlockStructuredDeviceSolver",
+           "ComposedWindowed", "DeviceHierarchy", "DeviceMultilevelSolver",
            "MultilevelSolver", "ReorderedSolver", "StructuredDeviceSolver",
            "advection_2d", "as_device_solver", "backend",
-           "compile_hierarchy", "detect_grid", "device_air_setup",
-           "device_rs_setup", "device_sa_setup",
-           "device_unstructured_sa_setup", "diffusion_stencil_2d",
-           "dia_from_stencil", "gradgradform", "halo_width",
-           "hierarchy_from_jax", "initialize_distributed", "launches",
+           "block_dia_from_scipy", "block_solver_from_jax",
+           "compile_hierarchy", "detect_grid", "device_adaptive_sa_setup",
+           "device_air_setup", "device_rs_setup", "device_sa_setup",
+           "device_sa_setup_block", "device_unstructured_sa_setup",
+           "diffusion_stencil_2d", "dia_from_stencil", "gradgradform",
+           "halo_width", "hierarchy_from_jax", "initialize_distributed",
+           "launches", "linear_elasticity",
            "make_halo_dia_spmv", "make_solver_mesh", "poisson",
            "recirc_flow", "regular_triangle_mesh", "reset_launches",
            "shard_hierarchy", "shard_vector", "smoothed_aggregation_solver",

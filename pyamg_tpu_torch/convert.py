@@ -8,10 +8,13 @@ hierarchy (R's transposed tentative operator is P's) stay shared.  Every
 scalar smoother kind carries across (Jacobi, Richardson, multicolour
 Gauss-Seidel, polynomial, Cimmino, windowed Schwarz, with static or
 device weights), and so does the masked C/F Jacobi (its masks kept
-bool); so do the device-built hierarchies' structured transfers (SA's
-factored ones, the classical setups' embedded ones);
-:func:`structured_solver_from_jax` wraps such a hierarchy with the JAX
-solver's grid layout.  The unstructured setup's
+bool), and the block smoothers (block Jacobi with a static or device
+weight, block multicolour Gauss-Seidel); so do the device-built
+hierarchies' structured transfers (SA's factored ones, the block setup's
+block ones, the classical setups' embedded ones) and the block-DIA
+operators; :func:`structured_solver_from_jax` wraps such a hierarchy with
+the JAX solver's grid layout, and :func:`block_solver_from_jax` a block
+setup's with its node grid and block size.  The unstructured setup's
 composed prolongators carry across as well, and
 :func:`unstructured_solver_from_jax` wraps its hierarchy (in the JAX
 ``ReorderedSolver``'s permutation when it has one).
@@ -23,6 +26,9 @@ import numpy as np
 import torch
 
 from .backend import resolve_device
+from .engine.block_setup import (BlockStructuredDeviceSolver,
+                                 BlockStructuredProlongator,
+                                 BlockStructuredRestrictor)
 from .engine.classical_setup import EmbeddedProlongator, EmbeddedRestrictor
 from .engine.device_setup import (StructuredDeviceSolver,
                                   StructuredProlongator,
@@ -31,11 +37,11 @@ from .engine.hierarchy import DeviceHierarchy, DeviceLevel
 from .engine.relaxation import DeviceSmoother
 from .engine.solver import DeviceMultilevelSolver
 from .engine.unstructured_setup import ComposedWindowed, ReorderedSolver
-from .sparse import (ComposedOperator, DenseOperator, DIAMatrix,
-                     TransposedWindowed, WindowedELL)
+from .sparse import (BlockDIAMatrix, ComposedOperator, DenseOperator,
+                     DIAMatrix, TransposedWindowed, WindowedELL)
 
-__all__ = ["hierarchy_from_jax", "structured_solver_from_jax",
-           "unstructured_solver_from_jax"]
+__all__ = ["block_solver_from_jax", "hierarchy_from_jax",
+           "structured_solver_from_jax", "unstructured_solver_from_jax"]
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bool": torch.bool}
@@ -45,6 +51,8 @@ _GRID_TRANSFERS = {
     "StructuredRestrictor": (StructuredRestrictor, "St"),
     "EmbeddedProlongator": (EmbeddedProlongator, "P_emb"),
     "EmbeddedRestrictor": (EmbeddedRestrictor, "R_emb"),
+    "BlockStructuredProlongator": (BlockStructuredProlongator, "S"),
+    "BlockStructuredRestrictor": (BlockStructuredRestrictor, "St"),
 }
 
 
@@ -78,6 +86,11 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
         if name == "DIAMatrix":
             return DIAMatrix(data=tensor(o.data), offsets=tuple(o.offsets),
                              shape=tuple(o.shape), nnz=int(o.nnz))
+        if name == "BlockDIAMatrix":
+            return BlockDIAMatrix(data=tensor(o.data),
+                                  offsets=tuple(o.offsets),
+                                  shape=tuple(o.shape), bs=int(o.bs),
+                                  nnz=int(o.nnz))
         if name == "DenseOperator":
             return DenseOperator(data=tensor(o.data), shape=tuple(o.shape),
                                  nnz=int(o.nnz))
@@ -96,10 +109,12 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
             return ComposedOperator(ops=tuple(op(f) for f in o.ops),
                                     shape=tuple(o.shape), nnz=int(o.nnz))
         if name in _GRID_TRANSFERS:
-            # the grid setups' transfers: a DIA factor, SA's tentative
-            # values, and the static grid geometry
+            # the grid setups' transfers: a DIA or block-DIA factor, SA's
+            # tentative values (a block setup's per-node blocks), and the
+            # static grid geometry
             cls, factor = _GRID_TRANSFERS[name]
-            kw = {"tv": tensor(o.tv)} if hasattr(o, "tv") else {}
+            kw = {v: tensor(getattr(o, v)) for v in ("tv", "Qv")
+                  if hasattr(o, v)}
             return cls(**{factor: op(getattr(o, factor))}, **kw,
                        fine_grid_p=o.fine_grid_p, coarse_grid=o.coarse_grid,
                        coarse_grid_p=o.coarse_grid_p, stride=o.stride,
@@ -109,8 +124,7 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
             "(ROADMAP.md Queue 1)")
 
     def smoother(s):
-        # a kind the port lacks (the block forms) raises in
-        # DeviceSmoother; int32 colours stay int32 and masks bool; every
+        # int32 colours stay int32 and masks bool; every
         # float leaf (0-d weights, 1-d coefficient stacks, per-row
         # vectors, Schwarz blocks) keeps its dtype; a static coefficient
         # tuple rides in the config
@@ -136,6 +150,18 @@ def structured_solver_from_jax(dsa, device) -> StructuredDeviceSolver:
             if k in ("family", "nlevels")}
     return StructuredDeviceSolver(hierarchy_from_jax(dsa.hierarchy, device),
                                   dsa.grid, dsa.grid_p, setup_info=info)
+
+
+def block_solver_from_jax(dsa, device) -> BlockStructuredDeviceSolver:
+    """The port's BlockStructuredDeviceSolver over the arrays of a JAX
+    ``device_sa_setup_block`` (or ``device_adaptive_sa_setup`` with more
+    than one candidate) result, with its node grid, padded grid and block
+    size."""
+    info = {k: v for k, v in getattr(dsa, "setup_info", {}).items()
+            if k in ("m", "stride")}
+    return BlockStructuredDeviceSolver(
+        hierarchy_from_jax(dsa.hierarchy, device), dsa.grid, dsa.grid_p,
+        dsa.bs, setup_info=info)
 
 
 def unstructured_solver_from_jax(dsa, device):

@@ -34,7 +34,10 @@ An operator that is not a grid stencil (``detect_grid`` finds no grid)
 goes to the unstructured device setup
 (:func:`~pyamg_tpu_torch.engine.unstructured_setup.device_unstructured_sa_setup`)
 with the arguments the reference passes.  Smoothers: ``jacobi``,
-``richardson`` and ``chebyshev`` specs, as the reference's.
+``richardson`` and ``chebyshev`` specs, as the reference's.  Several
+candidates, or a BSR operator, take the block setup
+(:func:`~pyamg_tpu_torch.engine.block_setup.device_sa_setup_block`);
+:func:`device_adaptive_sa_setup` grows the candidates it builds with.
 """
 
 from __future__ import annotations
@@ -60,8 +63,9 @@ from .krylov import _norm
 from .setup import _hash_weights
 from .solver import DeviceMultilevelSolver
 
-__all__ = ["detect_grid", "device_sa_setup", "StructuredProlongator",
-           "StructuredRestrictor", "StructuredDeviceSolver", "dia_transpose"]
+__all__ = ["detect_grid", "device_adaptive_sa_setup", "device_sa_setup",
+           "StructuredProlongator", "StructuredRestrictor",
+           "StructuredDeviceSolver", "dia_transpose"]
 
 
 def _not_ported(what, item):
@@ -921,6 +925,7 @@ class StructuredDeviceSolver(DeviceMultilevelSolver):
     never taken through the host."""
 
     lane_solves = True
+    bs = 1                       # unknowns per grid node
 
     def __init__(self, hierarchy, grid, grid_p, setup_info=None):
         super().__init__(hierarchy)
@@ -965,7 +970,7 @@ class StructuredDeviceSolver(DeviceMultilevelSolver):
         from scipy.sparse.linalg import LinearOperator
 
         inner = super().aspreconditioner(cycle)
-        n = int(np.prod(self.grid))
+        n = int(np.prod(self.grid)) * self.bs
 
         def matvec(r):
             return self._decode(inner @ self._encode(np.asarray(r).ravel()))
@@ -1053,8 +1058,8 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
                                       device=device))
         if B_dev.ndim != 1 or B_dev.shape[0] < n:
             raise ValueError("B must be a length-n near-nullspace "
-                             "candidate (multi-candidate is ROADMAP.md "
-                             "Queue 1 item 9)")
+                             "candidate (multi-candidate: use "
+                             "device_sa_setup_block)")
     out_levels, Ac_dense, coarse_inv = _setup_pipeline(
         A_dia, B_dev, plan=tuple(plan), omega=omega, dtype=dtype,
         pre_key=pre_key, post_key=post_key,
@@ -1090,3 +1095,74 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
     return _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
                               Ac_dense, coarse_inv, dtype, device,
                               mixed_precision)
+
+
+def device_adaptive_sa_setup(A, grid=None, stages=2, candidate_iters=8,
+                             cycle_iters=6, seed=0, dtype=torch.float32,
+                             device=None, **kwargs):
+    """Adaptive SA built on ``device`` (the reference's staged alpha-SA):
+
+    - stage 0: relax the candidate (ones, or ``B``) on A z = 0 by
+      ``candidate_iters`` weighted-Jacobi sweeps (omega = 1 / rho(D^-1 A),
+      the power-iteration estimate) and build the single-candidate
+      hierarchy from it (:func:`device_sa_setup`, which relaxes it per
+      level as well, ``improve_candidates_iters`` sweeps,
+      ``candidate_iters`` unless given);
+    - each further stage: ``cycle_iters`` cycles of the current hierarchy
+      on A z = 0 from a hashed start leave the error it cannot remove;
+      that z, orthogonalised against the candidates so far and scaled to
+      max |z| = 1, joins them, and the hierarchy is rebuilt from the
+      grown block (:func:`~pyamg_tpu_torch.engine.block_setup.
+      device_sa_setup_block`).  A z that vanishes (max |z| < 1e-10)
+      would make the tentative fit rank-deficient: the stages stop there
+      and the previous hierarchy stands.
+
+    ``stages`` is 1..4 (the block setup's candidate cap); ``kwargs`` go to
+    the setups.  The candidates stay on the device; one float a stage is
+    read to the host (the guard's max |z|)."""
+    from .block_setup import device_sa_setup_block
+
+    if not 1 <= int(stages) <= 4:
+        raise ValueError("stages must be in 1..4 (block candidate cap)")
+    device = resolve_device(device)
+    improve = int(kwargs.pop("improve_candidates_iters", candidate_iters))
+    B0 = kwargs.pop("B", None)
+    A_csr = sp.csr_matrix(A)
+    if grid is None:
+        grid = detect_grid(A_csr)
+    n = A_csr.shape[0]
+    A_dia = dia_from_scipy(A_csr, dtype=dtype, device=device, row_pad=1)
+    diag = A_dia.diagonal()
+    dinv = _dinv_of(diag)
+    rho = _power_rho(A_dia, dinv)
+
+    z = (torch.ones(n, dtype=dtype, device=device) if B0 is None
+         else torch.as_tensor(np.asarray(B0).ravel()[:n], dtype=dtype,
+                              device=device))
+    z = torch.where(diag != 0, z, 0)
+    om = 1.0 / torch.clamp_min(rho, 1e-30)
+    for _ in range(int(candidate_iters)):
+        z = z - om * (dinv * (A_dia @ z))
+    cands = [z / torch.clamp_min(torch.max(torch.abs(z)), 1e-30)]
+    dsa = device_sa_setup(A_csr, grid=grid, B=cands[0], dtype=dtype,
+                          device=device, improve_candidates_iters=improve,
+                          **kwargs)
+    block_kw = {k: v for k, v in kwargs.items()
+                if k in ("stride", "max_coarse", "max_levels", "omega",
+                         "presmoother", "postsmoother", "mixed_precision")}
+    for s in range(1, int(stages)):
+        z0 = (_hash_weights(n, 9876 + int(seed) + s, device=device).to(dtype)
+              - 0.5)
+        z = dsa.solve(torch.zeros(n, dtype=dtype, device=device), x0=z0,
+                      tol=0.0, maxiter=int(cycle_iters), accel=None)
+        for c in cands:
+            denom = torch.clamp_min(torch.sum(c * c), 1e-30)
+            z = z - (torch.sum(c * z) / denom) * c
+        zmax = float(torch.max(torch.abs(z)))
+        if zmax < 1e-10:
+            break
+        cands.append(z / zmax)
+        dsa = device_sa_setup_block(A_csr, grid=grid,
+                                    B=torch.stack(cands, dim=1), dtype=dtype,
+                                    device=device, **block_kw)
+    return dsa

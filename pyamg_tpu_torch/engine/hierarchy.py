@@ -4,8 +4,11 @@
 The host setup is the port's own copy of the JAX package's
 (``pyamg_tpu_torch.aggregation`` and friends, NumPy/SciPy plus a native
 C++ subset); a ``pyamg_tpu`` MultilevelSolver, which has the same
-attributes, compiles too.  This module converts the host operators once into padded DIA / dense / windowed / composed operators on
-``device`` and resolves the smoother specs.  Every decision follows the
+attributes, compiles too.  This module converts the host operators once into padded DIA /
+block-DIA / dense / windowed / composed operators on ``device`` and
+resolves the smoother specs: a square-block BSR level of more than 2048
+rows becomes a :class:`~pyamg_tpu_torch.sparse.block_dia.BlockDIAMatrix`,
+as the reference's.  Every decision follows the
 JAX package's rules (row padding 1024, the 2048 dense threshold, the
 factored transfers, the windowed block/w2 choice, the transpose gate), so
 the port's hierarchy is the reference's, level by level.
@@ -15,11 +18,14 @@ multicolour Gauss-Seidel on a Jones-Plassmann colouring (Chebyshev of
 degree 4 where a level needs more than 16 colours), the Kaczmarz forms to
 the Cimmino sweeps, Schwarz to windowed Schwarz, and an unknown name to
 multicolour Gauss-Seidel, each substitution announced by the reference's
-warning; the C/F smoothers (``cf_jacobi``, ``fc_jacobi``) compile to the
-masked Jacobi on the level's splitting.  Not ported yet (each raises
-``NotImplementedError``): the block smoothers with a blocksize above 1
-and BSR block-DIA levels (ROADMAP.md Queue 1 item 9), complex
-hierarchies, and bf16 DIA storage.
+warning; block Jacobi and block Gauss-Seidel with a blocksize above 1
+to their block forms (the inverse diagonal blocks, block multicolour
+Gauss-Seidel on a JP colouring of the node graph); the C/F smoothers
+(``cf_jacobi``, ``fc_jacobi``, and ``cf_block_jacobi`` /
+``fc_block_jacobi`` at any blocksize, a node's mask covering its bs rows)
+to the masked point Jacobi on the level's splitting.  Not ported yet
+(each raises ``NotImplementedError``): complex hierarchies, and bf16 DIA
+storage.
 """
 
 from __future__ import annotations
@@ -35,13 +41,15 @@ import torch
 from ..backend import resolve_device
 from ..graph import vertex_coloring
 from ..relaxation.chebyshev import chebyshev_polynomial_coefficients
-from ..relaxation.smoothing import _blocksize, rho_D_inv_A
+from ..relaxation.smoothing import (_blocksize, rho_block_D_inv_A,
+                                    rho_D_inv_A)
 from ..sparse import (ComposedOperator, DIAMatrix, TransposedWindowed,
-                      WindowedELL, dense_from_scipy, dia_from_scipy, pad_to,
-                      select_operator, windowed_from_scipy)
+                      WindowedELL, block_dia_from_scipy, dense_from_scipy,
+                      dia_from_scipy, pad_to, select_operator,
+                      windowed_from_scipy)
 from ..sparse.dia import dia_transpose
 from ..util.linalg import approximate_spectral_radius
-from ..util.utils import scale_rows
+from ..util.utils import amalgamate, get_block_diag, scale_rows
 from . import relaxation as device_relaxation
 
 __all__ = ["DeviceLevel", "DeviceHierarchy", "compile_hierarchy"]
@@ -109,6 +117,14 @@ def _device_dinv(A_scipy, n_pad, dtype, device):
     return _device_vector(dinv, n_pad, dtype, device)
 
 
+def _device_block_dinv(A_scipy, bs, nb_pad, dtype, device):
+    """The inverse diagonal blocks, zero-padded to (nb_pad, bs, bs)."""
+    Dinv = get_block_diag(A_scipy, bs, inv_flag=True)
+    out = np.zeros((nb_pad, bs, bs), dtype=np.float64)
+    out[: Dinv.shape[0]] = Dinv
+    return torch.as_tensor(out, dtype=dtype, device=device)
+
+
 def _colors_for(A_scipy, n_pad, device):
     """JP colouring of the scalar connectivity graph, padded with -1:
     (int32 colours on ``device``, the colour count)."""
@@ -117,6 +133,14 @@ def _colors_for(A_scipy, n_pad, device):
     out[: len(colors)] = colors
     return (torch.as_tensor(out, dtype=torch.int32, device=device),
             int(colors.max()) + 1)
+
+
+def _block_colors_for(A_scipy, bs, nb_pad, device):
+    """JP colouring of the amalgamated node graph (one vertex per bs x bs
+    block row), padded with -1 to nb_pad."""
+    node_graph = (amalgamate(sp.csr_matrix(A_scipy), bs) if bs > 1
+                  else sp.csr_matrix(A_scipy))
+    return _colors_for(node_graph, nb_pad, device)
 
 
 def _compile_smoother(lvl, spec, dtype, n_pad, device):
@@ -201,12 +225,25 @@ def _compile_smoother(lvl, spec, dtype, n_pad, device):
 
     if name in ("block_gauss_seidel", "block_jacobi"):
         bs = _blocksize(A, kwargs.get("blocksize"))
-        if bs != 1 and n_pad % bs == 0:
-            raise _not_ported(f"the {name!r} smoother with blocksize {bs}",
-                              9)
-        if name == "block_jacobi":
-            return jacobi()
-        return mcgs_or_chebyshev(kwargs.get("sweep", "forward"))
+        sweep = kwargs.get("sweep", "forward")
+        if bs == 1 or n_pad % bs != 0:
+            return jacobi() if name == "block_jacobi" else mcgs_or_chebyshev(
+                sweep)
+        nb_pad = n_pad // bs
+        if name == "block_gauss_seidel":
+            colors, ncolors = _block_colors_for(A, bs, nb_pad, device)
+            if ncolors > _MAX_GS_COLORS:
+                return mcgs_or_chebyshev(sweep)
+            return device_relaxation.block_multicolor_gs(
+                _device_block_dinv(A, bs, nb_pad, dtype, device), colors,
+                ncolors, sweep=sweep, iterations=iterations)
+        omega = float(kwargs.get("omega", 1.0))
+        if kwargs.get("withrho", True):
+            omega = omega / rho_block_D_inv_A(
+                Acsr, get_block_diag(A, bs, inv_flag=True))
+        return device_relaxation.block_jacobi(
+            _device_block_dinv(A, bs, nb_pad, dtype, device), omega,
+            iterations)
 
     if name == "chebyshev":
         rho = approximate_spectral_radius(Acsr)
@@ -228,10 +265,8 @@ def _compile_smoother(lvl, spec, dtype, n_pad, device):
             raise ValueError(f"{name} requires lvl.splitting")
         splitting = np.asarray(splitting)
         bs = A.blocksize[0] if sp.issparse(A) and A.format == "bsr" else 1
-        if "block" in name and bs != 1:
-            raise _not_ported(f"the {name!r} smoother with blocksize {bs}",
-                              9)
-        # a node's mask covers its bs rows
+        # a node's mask covers its bs rows (the block forms too: the
+        # reference compiles them to this masked point Jacobi)
         cmask = np.zeros(n_pad, dtype=bool)
         fmask = np.zeros(n_pad, dtype=bool)
         for mask, nodes in ((cmask, np.flatnonzero(splitting == 1)),
@@ -436,13 +471,17 @@ def compile_hierarchy(ml, dtype=torch.float32, device=None,
             raise _not_ported("a complex hierarchy", 2)
         n = A.shape[0]
         n_pad = pad_to(n, row_pad)
+        A_dev = None
         if (sp.issparse(lvl.A) and lvl.A.format == "bsr"
                 and lvl.A.blocksize[0] == lvl.A.blocksize[1]
                 and lvl.A.blocksize[0] > 1 and n > 2048
                 and n_pad % lvl.A.blocksize[0] == 0):
-            raise _not_ported("the block-DIA form of a BSR level", 9)
-        A_dev = select_operator(A, dtype=dtype, device=device,
-                                row_pad=row_pad)
+            # the block smoothers then run on node blocks
+            A_dev = block_dia_from_scipy(lvl.A, dtype=dtype, device=device,
+                                         n_pad=n_pad, max_diags=600)
+        if A_dev is None:
+            A_dev = select_operator(A, dtype=dtype, device=device,
+                                    row_pad=row_pad)
         # the level's vector length follows the compiled operator's row
         # padding (the adaptive windowed row block may exceed row_pad)
         n_pad = int(getattr(A_dev, "n_pad", n_pad))

@@ -14,7 +14,13 @@ normal-equation sweeps ``jacobi_ne`` and ``jacobi_nr`` (the parallel form
 of the Kaczmarz smoothers); ``win_schwarz``, additive overlapping
 Schwarz over contiguous sliding windows; and ``masked_jacobi``, Jacobi
 sweeps restricted to ordered point sets (the C/F smoothers ``cf_jacobi``
-and ``fc_jacobi``, AIR's post-smoother), each with its own sweep count.
+and ``fc_jacobi``, AIR's post-smoother), each with its own sweep count;
+and the block forms for operators of bs x bs node blocks: block Jacobi
+``block_jacobi`` and ``block_jacobi_dyn`` (the weight a 0-d tensor, as
+the device-built block setup stores it) and block multicolour
+Gauss-Seidel ``block_mcgs`` (colours per node), each update the
+(nb_pad, bs, bs) inverse diagonal blocks applied to the residual's node
+blocks (:func:`_block_apply`, a product and a sum).
 
 Every entry form takes one vector or a K-major (K, n_pad) lane stack for
 x and b (the batched solve).  The kernels they run on a DIA operator:
@@ -41,7 +47,10 @@ through ``A @ x`` and a select, as the reference's.  Richardson's and the
 Cimmino sweeps' updates compose through ``A @ x`` and ``A.rmatvec`` (the
 roll form on a DIA operator, K7 or K13 on a windowed one), and windowed
 Schwarz rolls, reshapes and one batched (nwin, w, w) product.  The block
-forms raise (ROADMAP.md Queue 1 item 9).
+forms compose through ``A @ x`` on any operator (a
+:class:`~pyamg_tpu_torch.sparse.block_dia.BlockDIAMatrix` level takes the
+composed path of every kind, as the reference's does), with the
+reference's arithmetic.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from ..sparse.dia import (DIAMatrix, dia_jacobi, dia_jacobi_k,
 from ..sparse.formats import fit as _fit_len
 
 __all__ = ["DeviceSmoother", "apply_smoother", "apply_smoother_zero",
+           "block_jacobi", "block_jacobi_dyn", "block_multicolor_gs",
            "identity", "jacobi", "jacobi_dyn", "jacobi_ne", "jacobi_nr",
            "masked_jacobi", "multicolor_gs", "polynomial", "polynomial_dyn",
            "richardson",
@@ -78,11 +88,6 @@ class DeviceSmoother:
 
     config: Tuple
     arrays: Tuple
-
-    def __post_init__(self):
-        kind = self.config[0]
-        if kind in _UNPORTED:
-            raise _not_ported(kind, _UNPORTED[kind])
 
     @cached_property
     def color_dinv(self):
@@ -174,16 +179,6 @@ def _dinv_stack(dinv, masks):
                                    device=dinv.device)).contiguous()
 
 
-# the reference's kinds still to port, with their ROADMAP.md Queue 1 item
-_UNPORTED = {"block_jacobi": 9, "block_jacobi_dyn": 9, "block_mcgs": 9}
-
-
-def _not_ported(kind, item):
-    return NotImplementedError(
-        f"the device smoother {kind!r} is not ported to pyamg_tpu_torch yet "
-        f"(ROADMAP.md Queue 1 item {item})")
-
-
 def identity():
     return DeviceSmoother(config=("identity",), arrays=())
 
@@ -213,6 +208,9 @@ def multicolor_gs(dinv, colors, ncolors, sweep="forward", iterations=1):
 
 def block_multicolor_gs(Dinv, colors, ncolors, sweep="forward",
                         iterations=1):
+    """Block multicolour Gauss-Seidel: ``colors`` int32 (nb_pad,) per
+    node, -1 on padded nodes; a colour step updates that colour's nodes
+    by their inverse diagonal blocks ``Dinv`` (nb_pad, bs, bs)."""
     return DeviceSmoother(
         config=("block_mcgs", int(ncolors), str(sweep), int(iterations)),
         arrays=(Dinv, colors))
@@ -236,6 +234,13 @@ def richardson_dyn(omega, iterations=1):
     """Richardson with its weight a 0-d tensor on the device."""
     return DeviceSmoother(config=("richardson_dyn", int(iterations)),
                           arrays=(omega,))
+
+
+def block_jacobi_dyn(Dinv, omega, iterations=1):
+    """Block Jacobi whose ``omega`` is a 0-d tensor on the device (the
+    device-built block setup's form of :func:`block_jacobi`)."""
+    return DeviceSmoother(config=("block_jacobi_dyn", int(iterations)),
+                          arrays=(Dinv, omega))
 
 
 def polynomial_dyn(coefficients, iterations=1):
@@ -281,6 +286,33 @@ def masked_jacobi(dinv, masks, iters_per_mask, omega=1.0, iterations=1):
         config=("masked_jacobi", tuple(int(i) for i in iters_per_mask),
                 float(omega), int(iterations)),
         arrays=(dinv,) + tuple(masks))
+
+
+def _block_apply(Dinv, r2):
+    """The (nb, bs, bs) blocks applied to the (nb, bs) node blocks of a
+    vector, or of each lane of a (K, nb, bs) stack: one elementwise
+    product and one sum over the block row (a batched GEMM library call
+    splits a million tiny products into many launches)."""
+    return torch.sum(Dinv * r2.unsqueeze(-2), dim=-1)
+
+
+def _block_update(Dinv, r):
+    """Dinv applied node block by node block to r (a vector or a K-major
+    lane stack), in r's layout."""
+    bs = Dinv.shape[-1]
+    return _block_apply(Dinv, r.reshape(r.shape[:-1] + (-1, bs))).reshape(
+        r.shape)
+
+
+def _block_jacobi_parts(config, arrays):
+    """(Dinv, omega, iterations) of a block Jacobi smoother."""
+    if config[0] == "block_jacobi":
+        _, omega, iterations = config
+        (Dinv,) = arrays
+    else:
+        _, iterations = config
+        Dinv, omega = arrays
+    return Dinv, omega, iterations
 
 
 def _jacobi_step(A, x, b, dinv, omega):
@@ -349,6 +381,13 @@ def apply_smoother_zero(config, arrays, A, b, dinv_stack=None):
             x = x + omega * (b - (A @ x))
         return x
 
+    if kind in ("block_jacobi", "block_jacobi_dyn"):
+        Dinv, omega, iterations = _block_jacobi_parts(config, arrays)
+        x = omega * _block_update(Dinv, b)
+        for _ in range(iterations - 1):
+            x = x + omega * _block_update(Dinv, b - (A @ x))
+        return x
+
     if kind in ("poly", "poly_dyn"):
         coefficients = _coefficient_list(config, arrays)
         h = coefficients[0] * b
@@ -409,6 +448,25 @@ def apply_smoother(config, arrays, A, x, b, dinv_stack=None):
             for c in _sweeps(ncolors, sweep):
                 r = b - (A @ x)
                 x = torch.where(colors == c, x + dinv * r, x)
+        return x
+
+    if kind in ("block_jacobi", "block_jacobi_dyn"):
+        Dinv, omega, iterations = _block_jacobi_parts(config, arrays)
+        for _ in range(iterations):
+            x = x + omega * _block_update(Dinv, b - (A @ x))
+        return x
+
+    if kind == "block_mcgs":
+        _, ncolors, sweep, iterations = config
+        Dinv, colors = arrays
+        bs = Dinv.shape[-1]
+        nodes = x.shape[:-1] + (-1, bs)
+        for _ in range(iterations):
+            for c in _sweeps(ncolors, sweep):
+                xb = x.reshape(nodes)
+                upd = xb + _block_apply(Dinv, (b - (A @ x)).reshape(nodes))
+                x = torch.where((colors == c)[:, None], upd, xb).reshape(
+                    x.shape)
         return x
 
     if kind in ("poly", "poly_dyn"):

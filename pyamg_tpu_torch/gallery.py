@@ -5,9 +5,10 @@ and the P1 finite-element stiffness matrix on a triangle mesh (copies of
 ``pyamg_tpu/gallery/stencil.py::stencil_grid``,
 ``pyamg_tpu/gallery/diffusion.py::diffusion_stencil_2d``,
 ``pyamg_tpu/gallery/advection.py::advection_2d`` and ``recirc_flow``,
-``pyamg_tpu/gallery/mesh.py::regular_triangle_mesh`` and
-``pyamg_tpu/gallery/fem.py::gradgradform``, which the port carries so that
-it imports nothing of the JAX package)."""
+``pyamg_tpu/gallery/mesh.py::regular_triangle_mesh``,
+``pyamg_tpu/gallery/fem.py::gradgradform`` and
+``pyamg_tpu/gallery/elasticity.py::linear_elasticity``, which the port
+carries so that it imports nothing of the JAX package)."""
 
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ import numpy as np
 import scipy.sparse as sp
 
 __all__ = ["advection_2d", "diffusion_stencil_2d", "gradgradform",
-           "poisson", "recirc_flow", "regular_triangle_mesh",
-           "stencil_grid"]
+           "linear_elasticity", "poisson", "recirc_flow",
+           "regular_triangle_mesh", "stencil_grid"]
 
 
 def stencil_grid(S, grid, dtype=None, format=None):
@@ -312,3 +313,94 @@ def gradgradform(vertices, elements, kappa=None):
     A = sp.coo_matrix((Ke.ravel(), (rows, cols)), shape=(n, n)).tocsr()
     A.sum_duplicates()
     return A
+
+
+def _q1_element_stiffness(E, nu, hx, hy):
+    """8x8 plane-strain Q1 element stiffness by 2x2 Gauss quadrature."""
+    D = (E / ((1 + nu) * (1 - 2 * nu))) * np.array(
+        [[1 - nu, nu, 0],
+         [nu, 1 - nu, 0],
+         [0, 0, (1 - 2 * nu) / 2.0]]
+    )
+    gp = np.array([-1.0, 1.0]) / np.sqrt(3.0)
+    K = np.zeros((8, 8))
+    # local nodes (0,0), (1,0), (1,1), (0,1) on the reference square
+    xi_sign = np.array([-1, 1, 1, -1], dtype=float)
+    eta_sign = np.array([-1, -1, 1, 1], dtype=float)
+    for xi in gp:
+        for eta in gp:
+            dN_dxi = 0.25 * xi_sign * (1 + eta_sign * eta)
+            dN_deta = 0.25 * eta_sign * (1 + xi_sign * xi)
+            dN_dx = dN_dxi * (2.0 / hx)
+            dN_dy = dN_deta * (2.0 / hy)
+            B = np.zeros((3, 8))
+            B[0, 0::2] = dN_dx
+            B[1, 1::2] = dN_dy
+            B[2, 0::2] = dN_dy
+            B[2, 1::2] = dN_dx
+            detJ = (hx / 2.0) * (hy / 2.0)
+            K += (B.T @ D @ B) * detJ
+    return K
+
+
+def linear_elasticity(grid, spacing=None, E=1e5, nu=0.3, format="bsr"):
+    """Q1 plane-strain linear elasticity on a regular ``grid`` = (ny, nx)
+    of nodes, the left edge (x = 0) clamped: (A, B) with A BSR of 2x2
+    blocks (``format='bsr'``) on the free nodes, node-major on the
+    row-major (ny, nx - 1) grid, and B the (2n, 3) rigid-body modes
+    [(1, 0), (0, 1), (-y, x)] about the free nodes' centroid."""
+    ny, nx = int(grid[0]), int(grid[1])
+    if nx < 2 or ny < 2:
+        raise ValueError("grid must be at least 2x2")
+    if spacing is None:
+        hx = hy = 1.0
+    else:
+        hy, hx = float(spacing[0]), float(spacing[1])
+    n_nodes = nx * ny
+    Ke = _q1_element_stiffness(E, nu, hx, hy)
+
+    node = np.arange(n_nodes).reshape(ny, nx)
+    n00 = node[:-1, :-1].ravel()
+    n10 = node[:-1, 1:].ravel()
+    n11 = node[1:, 1:].ravel()
+    n01 = node[1:, :-1].ravel()
+    elems = np.stack([n00, n10, n11, n01], axis=1)
+    ne = elems.shape[0]
+
+    dofs = np.empty((ne, 8), dtype=np.int64)
+    dofs[:, 0::2] = 2 * elems
+    dofs[:, 1::2] = 2 * elems + 1
+
+    rows = np.repeat(dofs, 8, axis=1).ravel()
+    cols = np.tile(dofs, (1, 8)).ravel()
+    vals = np.tile(Ke.ravel(), ne)
+    A = sp.coo_matrix((vals, (rows, cols)),
+                      shape=(2 * n_nodes, 2 * n_nodes)).tocsr()
+    A.sum_duplicates()
+    A.eliminate_zeros()
+
+    clamped = node[:, 0]
+    clamped_dofs = np.concatenate([2 * clamped, 2 * clamped + 1])
+    keep = np.ones(2 * n_nodes, dtype=bool)
+    keep[clamped_dofs] = False
+    A = A[keep][:, keep].tocsr()
+
+    X, Y = np.meshgrid(np.arange(nx) * hx, np.arange(ny) * hy, indexing="xy")
+    X = X.ravel()
+    Y = Y.ravel()
+    free_nodes = np.flatnonzero(np.isin(np.arange(n_nodes), clamped,
+                                        invert=True))
+    Xf = X[free_nodes] - X[free_nodes].mean()
+    Yf = Y[free_nodes] - Y[free_nodes].mean()
+    nf = len(free_nodes)
+    B = np.zeros((2 * nf, 3))
+    B[0::2, 0] = 1.0
+    B[1::2, 1] = 1.0
+    B[0::2, 2] = -Yf
+    B[1::2, 2] = Xf
+
+    if format == "bsr":
+        A = A.tobsr(blocksize=(2, 2))
+    elif format is not None:
+        A = A.asformat(format)
+    return A, B

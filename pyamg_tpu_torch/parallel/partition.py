@@ -381,6 +381,8 @@ _SMOOTHER_UNSHARDED = {
     "jacobi_nr": "the Cimmino smoother 'jacobi_nr' (A^T of a sharded "
                  "operator)",
     "win_schwarz": "windowed Schwarz (its windows roll across shards)",
+    **{kind: f"block smoother {kind!r} (node blocks across shards)"
+       for kind in ("block_jacobi", "block_jacobi_dyn", "block_mcgs")},
 }
 
 

@@ -1,14 +1,14 @@
 """Smoother specs of the port's host SA setup (a copy of
-``pyamg_tpu/relaxation/smoothing.py::rho_D_inv_A`` and the spec half of
-``change_smoothers``).  The port's hierarchy has no host solve: a level
-keeps its resolved ``('name', kwargs)`` specs for the device compile, and
-the setup computes the host caches the reference's ``_setup_*`` compute,
-so the compile reads the same spectral radii: rho(D^-1 A) for a
-``withrho`` Jacobi (cached on A as ``_rho_D_inv``) and rho(A) for
-Richardson and Chebyshev (``A._rho``).  Every name of the reference's
-table resolves; the block forms with a blocksize above 1 raise
-(ROADMAP.md Queue 1 item 9), and the C/F forms raise the reference's
-ValueError on a level with no C/F splitting."""
+``pyamg_tpu/relaxation/smoothing.py::rho_D_inv_A``, ``rho_block_D_inv_A``
+and the spec half of ``change_smoothers``).  The port's hierarchy has no
+host solve: a level keeps its resolved ``('name', kwargs)`` specs for the
+device compile, and the setup computes the host caches the reference's
+``_setup_*`` compute, so the compile reads the same spectral radii:
+rho(D^-1 A) for a ``withrho`` Jacobi (cached on A as ``_rho_D_inv``),
+rho(block-D^-1 A) for a ``withrho`` block Jacobi with a blocksize above 1
+(``A._rho_block_D_inv``) and rho(A) for Richardson and Chebyshev
+(``A._rho``).  Every name of the reference's table resolves; the C/F forms
+raise the reference's ValueError on a level with no C/F splitting."""
 
 from __future__ import annotations
 
@@ -16,9 +16,9 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..util.linalg import approximate_spectral_radius
-from ..util.utils import get_diagonal
+from ..util.utils import get_block_diag, get_diagonal
 
-__all__ = ["change_smoothers", "rho_D_inv_A"]
+__all__ = ["change_smoothers", "rho_D_inv_A", "rho_block_D_inv_A"]
 
 
 def rho_D_inv_A(A):
@@ -33,6 +33,32 @@ def rho_D_inv_A(A):
     rho = approximate_spectral_radius(DinvA)
     try:
         A._rho_D_inv = rho
+    except AttributeError:
+        pass
+    return rho
+
+
+def _blockdiag_csr(blocks):
+    """(n, bs, bs) stack -> its block-diagonal CSR matrix."""
+    n, bs, _ = blocks.shape
+    rows = np.arange(n)[:, None, None] * bs + np.arange(bs)[None, :, None]
+    cols = np.arange(n)[:, None, None] * bs + np.arange(bs)[None, None, :]
+    rows = np.broadcast_to(rows, (n, bs, bs)).ravel()
+    cols = np.broadcast_to(cols, (n, bs, bs)).ravel()
+    return sp.csr_matrix((blocks.ravel(), (rows, cols)),
+                         shape=(n * bs, n * bs))
+
+
+def rho_block_D_inv_A(A, Dinv):
+    """Spectral radius of block-D^-1 A for the (n / bs, bs, bs) inverse
+    diagonal blocks ``Dinv``, cached on A as ``_rho_block_D_inv``."""
+    cached = getattr(A, "_rho_block_D_inv", None)
+    if cached is not None:
+        return cached
+    DinvA = sp.csr_matrix(_blockdiag_csr(Dinv) @ sp.csr_matrix(A))
+    rho = approximate_spectral_radius(DinvA)
+    try:
+        A._rho_block_D_inv = rho
     except AttributeError:
         pass
     return rho
@@ -57,12 +83,6 @@ def _blocksize(A, blocksize):
     return int(blocksize)
 
 
-def _block_not_ported(name):
-    return NotImplementedError(
-        f"the {name!r} smoother with a blocksize above 1 is not ported to "
-        "pyamg_tpu_torch yet (ROADMAP.md Queue 1 item 9)")
-
-
 def _setup_jacobi(lvl, withrho=True, **_):
     if withrho:
         rho_D_inv_A(lvl.A)
@@ -77,15 +97,22 @@ def _setup_polynomial(lvl, coefficients=None, **_):
         raise ValueError("polynomial smoother requires coefficients")
 
 
-def _setup_block_jacobi(lvl, blocksize=None, withrho=True, **_):
-    if _blocksize(lvl.A, blocksize) != 1:
-        raise _block_not_ported("block_jacobi")
-    _setup_jacobi(lvl, withrho=withrho)
+def _setup_block_jacobi(lvl, blocksize=None, withrho=True, Dinv=None, **_):
+    bs = _blocksize(lvl.A, blocksize)
+    if bs == 1:
+        _setup_jacobi(lvl, withrho=withrho)
+        return
+    if Dinv is None:
+        # as the reference's setup: raises where the blocks do not tile A
+        Dinv = get_block_diag(lvl.A, bs, inv_flag=True)
+    if withrho:
+        rho_block_D_inv_A(lvl.A, Dinv)
 
 
-def _setup_block_gauss_seidel(lvl, blocksize=None, **_):
-    if _blocksize(lvl.A, blocksize) != 1:
-        raise _block_not_ported("block_gauss_seidel")
+def _setup_block_gauss_seidel(lvl, blocksize=None, Dinv=None, **_):
+    bs = _blocksize(lvl.A, blocksize)
+    if bs != 1 and Dinv is None:
+        get_block_diag(lvl.A, bs, inv_flag=True)
 
 
 def _setup_cf(lvl, **_):

@@ -4,6 +4,7 @@
 import numpy as np
 import torch
 
+from .block_dia import BlockDIAMatrix, block_dia_from_scipy
 from .composed import ComposedOperator
 from .dia import (DenseOperator, DIAMatrix, dense_from_scipy, dia_from_scipy,
                   dia_from_stencil, dia_jacobi, dia_jacobi_k, dia_jacobi_res,
@@ -18,11 +19,13 @@ from .window import (TransposedWindowed, WindowedELL, windowed_from_scipy,
                      windowed_rmatvec, windowed_select)
 
 __all__ = [
+    "BlockDIAMatrix",
     "ComposedOperator",
     "DenseOperator",
     "DIAMatrix",
     "TransposedWindowed",
     "WindowedELL",
+    "block_dia_from_scipy",
     "dense_from_scipy",
     "dia_from_scipy",
     "dia_from_stencil",

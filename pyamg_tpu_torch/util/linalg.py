@@ -1,5 +1,6 @@
 """Host linear-algebra helpers of the port's SA setup (a copy of
-``pyamg_tpu/util/linalg.py::norm`` and ``approximate_spectral_radius``)."""
+``pyamg_tpu/util/linalg.py::norm``, ``approximate_spectral_radius`` and
+``pinv_array``)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import scipy.linalg
 import scipy.sparse as sp
 from scipy.sparse.linalg import LinearOperator
 
-__all__ = ["norm", "approximate_spectral_radius"]
+__all__ = ["norm", "approximate_spectral_radius", "pinv_array"]
 
 
 def norm(x):
@@ -112,3 +113,22 @@ def approximate_spectral_radius(A, tol=0.01, maxiter=15, restart=5):
         except AttributeError:
             pass
     return rho
+
+
+def pinv_array(a, tol=None):
+    """Overwrite each matrix of the (n, m, m) stack ``a`` with its
+    pseudo-inverse (1 / d, or 0 for d = 0, when m = 1)."""
+    a = np.asarray(a)
+    if a.ndim != 3:
+        raise ValueError("expected (n, m, m) array")
+    if a.shape[1] == 1:
+        d = a[:, 0, 0]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            a[:, 0, 0] = np.where(d != 0, 1.0 / d, 0.0)
+        return a
+    try:
+        inv = np.linalg.pinv(a, rcond=1e-12 if tol is None else tol)
+    except np.linalg.LinAlgError:
+        inv = np.stack([np.linalg.pinv(ai) for ai in a])
+    a[...] = inv
+    return a

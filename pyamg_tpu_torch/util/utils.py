@@ -1,5 +1,5 @@
-"""Host sparse helpers of the port's SA setup (a copy of the parts of
-``pyamg_tpu/util/utils.py`` that config 1's setup calls)."""
+"""Host sparse helpers of the port's SA setup and its block compile (a
+copy of the parts of ``pyamg_tpu/util/utils.py`` that they call)."""
 
 from __future__ import annotations
 
@@ -7,9 +7,10 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..amg_core import native
+from .linalg import pinv_array
 
-__all__ = ["upcast", "asfptype", "get_diagonal", "scale_rows",
-           "galerkin_product"]
+__all__ = ["upcast", "asfptype", "get_diagonal", "get_block_diag",
+           "scale_rows", "amalgamate", "galerkin_product"]
 
 
 def galerkin_product(R, A, P):
@@ -60,3 +61,34 @@ def scale_rows(A, v, copy=True):
         raise ValueError("vector length must match rows of A")
     A.data *= np.repeat(v, np.diff(A.indptr))
     return A
+
+
+def get_block_diag(A, blocksize, inv_flag=True):
+    """The (n / bs, bs, bs) diagonal blocks of A, pseudo-inverted when
+    ``inv_flag``."""
+    if A.shape[0] % blocksize != 0:
+        raise ValueError("matrix dimension must be divisible by blocksize")
+    nblocks = A.shape[0] // blocksize
+    if (sp.issparse(A) and A.format == "bsr"
+            and A.blocksize == (blocksize, blocksize)):
+        Ab = A
+    else:
+        Ab = sp.csr_matrix(A).tobsr(blocksize=(blocksize, blocksize))
+    out = np.zeros((nblocks, blocksize, blocksize), dtype=Ab.dtype)
+    rows = np.repeat(np.arange(nblocks), np.diff(Ab.indptr))
+    mask = Ab.indices == rows
+    out[rows[mask]] = Ab.data[mask]
+    if inv_flag:
+        pinv_array(out)
+    return out
+
+
+def amalgamate(A, bs):
+    """The node graph of A: each stored bs x bs block becomes a 1."""
+    if bs == 1:
+        return A
+    Ab = sp.csr_matrix(A).tobsr(blocksize=(bs, bs))
+    n = Ab.shape[0] // bs
+    data = np.ones(Ab.indices.shape[0], dtype=A.dtype)
+    return sp.csr_matrix((data, Ab.indices.copy(), Ab.indptr.copy()),
+                         shape=(n, Ab.shape[1] // bs))

@@ -1323,3 +1323,33 @@ def test_classical_setup_on_card_matches_cpu(cuda):
     # after the near-exact first cycle both sit at the float32 floor
     assert res_g[0] == pytest.approx(res_c[0], rel=1e-6)
     assert res_g[1] / res_g[0] < 1e-5 and res_c[1] / res_c[0] < 1e-5
+
+
+def test_block_setup_on_card_matches_cpu(cuda):
+    """The block device setup of 2-D elasticity (2x2 blocks, the three
+    rigid-body modes) on the card and on the CPU in float64: the same
+    levels and CG history (rtol 1e-10), and the block-DIA apply and its
+    transpose within 1e-12 of the CPU's."""
+    from pyamg_tpu_torch import device_sa_setup_block, linear_elasticity
+    from pyamg_tpu_torch.sparse import block_dia_from_scipy
+
+    A, B = linear_elasticity((32, 32))
+    kw = dict(grid=(32, 31), B=B, max_coarse=300, dtype=torch.float64)
+    on_card = device_sa_setup_block(A, device=cuda, **kw)
+    on_cpu = device_sa_setup_block(A, device="cpu", **kw)
+    assert ([(i["n"], i["bs"], i["ndiags"])
+             for i in on_card.setup_info["levels"]]
+            == [(i["n"], i["bs"], i["ndiags"])
+                for i in on_cpu.setup_info["levels"]])
+    b = np.random.default_rng(3).random(A.shape[0])
+    rg, rc = [], []
+    on_card.solve(b, tol=1e-8, accel="cg", residuals=rg)
+    on_cpu.solve(b, tol=1e-8, accel="cg", residuals=rc)
+    assert len(rg) == len(rc)
+    np.testing.assert_allclose(rg, rc, rtol=1e-10)
+    T = block_dia_from_scipy(A, dtype=torch.float64, device=cuda)
+    Tc = block_dia_from_scipy(A, dtype=torch.float64, device="cpu")
+    x = _rand(T.n_pad, torch.float64, "cpu", 4)
+    assert _rel_err((T @ x.to(cuda)).cpu(), Tc @ x) <= TOL[torch.float64]
+    assert _rel_err(T.rmatvec(x.to(cuda)).cpu(),
+                    Tc.rmatvec(x)) <= TOL[torch.float64]

@@ -318,14 +318,28 @@ def test_batched_rhs_raises(pair32, b):
 
 
 def test_unported_smoother_raises():
-    """Block Gauss-Seidel with 2x2 blocks (the reference compiles it to
-    block multicolour GS) raises: ROADMAP.md Queue 1 item 9."""
+    """Block Gauss-Seidel with 2x2 blocks on a scalar hierarchy compiles,
+    as the reference's, to block multicolour GS on the node graph's JP
+    colouring: the same configs, inverse diagonal blocks and colours as
+    the JAX compile, and the same float64 CG history (rtol 1e-10)."""
     A = poisson((64, 64), format="csr")
     spec = ("block_gauss_seidel", {"sweep": "symmetric", "blocksize": 2})
     ml_gs = pyamg_tpu.smoothed_aggregation_solver(
         A, max_coarse=100, presmoother=spec, postsmoother=spec)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        compile_hierarchy(ml_gs, device=CPU)
+    hj = jax_compile(ml_gs, dtype=jnp.float64)
+    ht = compile_hierarchy(ml_gs, dtype=torch.float64, device=CPU)
+    assert ht.levels[0].pre.config[0] == "block_mcgs"
+    for lj, lt in zip(hj.levels, ht.levels):
+        assert lt.pre.config == tuple(lj.pre.config)
+        for a, t in zip(lj.pre.arrays, lt.pre.arrays):
+            np.testing.assert_allclose(t.numpy(), np.asarray(a), rtol=1e-15,
+                                       atol=0)
+    b = np.random.default_rng(2).random(A.shape[0])
+    rj, rt = [], []
+    JaxSolver(hj).solve(b, tol=1e-8, accel="cg", residuals=rj)
+    DeviceMultilevelSolver(ht).solve(b, tol=1e-8, accel="cg", residuals=rt)
+    assert len(rt) == len(rj) > 3
+    np.testing.assert_allclose(rt, rj, rtol=1e-10)
 
 
 def test_compile_needs_an_explicit_device(ml):

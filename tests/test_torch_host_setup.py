@@ -113,8 +113,6 @@ def test_compiled_hierarchies_solve_alike(pair):
     (dict(keep=True), "item 16"),
     (dict(symmetry="nonsymmetric"), "item 16"),
     (dict(coarse_solver="splu"), "item 16"),
-    (dict(presmoother=("block_gauss_seidel", {"blocksize": 2})), "item 9"),
-    (dict(postsmoother=("block_jacobi", {"blocksize": 2})), "item 9"),
     ("bsr", "item 16"),
 ])
 def test_unported_options_raise(kwargs, match):
@@ -125,6 +123,47 @@ def test_unported_options_raise(kwargs, match):
     kw.update(kwargs)
     with pytest.raises(NotImplementedError, match=match):
         smoothed_aggregation_solver(A, **kw)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(presmoother=("block_gauss_seidel", {"blocksize": 2})),
+    dict(postsmoother=("block_jacobi", {"blocksize": 2}))],
+    ids=["block_gauss_seidel", "block_jacobi"])
+def test_block_smoother_specs_match_reference(kwargs):
+    """The block smoothers with 2x2 blocks on a scalar operator: the
+    port's setup gives the reference's levels, specs and block Jacobi's
+    rho(block-D^-1 A) cache (rel 1e-12), and its compile the smoothers of
+    the reference hierarchy's compile (block multicolour GS, block
+    Jacobi), in float64 to 1e-15."""
+    import jax.numpy as jnp
+
+    from pyamg_tpu.engine import compile_hierarchy as jax_compile
+
+    grid = (24, 24)
+    kw = dict(CONFIG1, max_coarse=10)
+    kw.update(kwargs)
+    mt = smoothed_aggregation_solver(poisson(grid, format="csr"), **kw)
+    mj = pyamg_tpu.smoothed_aggregation_solver(
+        jax_poisson(grid, format="csr"), **kw)
+    assert len(mt.levels) == len(mj.levels) >= 3
+    for lt, lj in zip(mt.levels, mj.levels):
+        assert _rel(lt.A, lj.A) <= TOL
+        for spec in ("presmoother_spec", "postsmoother_spec"):
+            assert getattr(lt, spec, None) == getattr(lj, spec, None)
+        rho_j = getattr(lj.A, "_rho_block_D_inv", None)
+        if rho_j is not None:
+            assert abs(lt.A._rho_block_D_inv - rho_j) <= TOL * rho_j
+    ht = compile_hierarchy(mt, dtype=torch.float64, device="cpu")
+    hj = jax_compile(mj, dtype=jnp.float64)
+    kinds = set()
+    for lt, lj in zip(ht.levels, hj.levels):
+        for st, sj in ((lt.pre, lj.pre), (lt.post, lj.post)):
+            assert st.config == tuple(sj.config)
+            kinds.add(st.config[0])
+            for a, t in zip(sj.arrays, st.arrays):
+                np.testing.assert_allclose(t.numpy(), np.asarray(a),
+                                           rtol=1e-15, atol=0)
+    assert kinds & {"block_mcgs", "block_jacobi"}
 
 
 def test_default_smoothers_are_config1():

@@ -61,10 +61,11 @@ def test_import_loads_no_jax():
     solve, its device-built setup with a batched solve, with Chebyshev
     smoothers, lane-aligned too (the
     interleaved route), a world-of-one gloo sharded solve of the
-    host-built hierarchy, an unstructured setup with a solve, and the
-    classical (Ruge-Stüben) and AIR device setups with a solve each, in a
-    fresh interpreter, leaves every ``jax*`` and ``pyamg_tpu*`` module
-    (but the port's own) out of sys.modules."""
+    host-built hierarchy, an unstructured setup with a solve, the
+    classical (Ruge-Stüben) and AIR device setups with a solve each, and
+    the block device setup of elasticity with a mixed solve and adaptive
+    SA with a solve, in a fresh interpreter, leaves every ``jax*`` and
+    ``pyamg_tpu*`` module (but the port's own) out of sys.modules."""
     code = ("import sys, numpy as np, pyamg_tpu_torch as pt, "
             "pyamg_tpu_torch.convert, pyamg_tpu_torch.engine, "
             "pyamg_tpu_torch.sparse\n"
@@ -102,6 +103,12 @@ def test_import_loads_no_jax():
             "Aa, ba = pt.advection_2d((32, 32))\n"
             "pt.device_air_setup(Aa, grid=(32, 32), device='cpu', "
             "max_coarse=100).solve(ba, maxiter=3)\n"
+            "Ae, Be = pt.linear_elasticity((20, 20))\n"
+            "pt.device_sa_setup_block(Ae, grid=(20, 19), B=Be, device='cpu', "
+            "max_coarse=100, mixed_precision=True).solve(np.ones(Ae.shape[0])"
+            ", accel='cg', precision='mixed')\n"
+            "pt.device_adaptive_sa_setup(A, grid=(40, 40), device='cpu', "
+            "max_coarse=100).solve(b[:, 0], accel='cg')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyamg_tpu'))\n"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -267,9 +267,44 @@ def test_only_single_jacobi_sweeps_fuse_the_residual():
     assert one.zero_call_residual(T, b) is not None
 
 
-@pytest.mark.parametrize("ctor,item", [
-    (lambda: rel.block_jacobi(None, 1.0), "item 9"),
-    (lambda: rel.block_multicolor_gs(None, None, 2), "item 9")])
-def test_unported_kinds_raise(ctor, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ctor()
+@pytest.mark.parametrize("kind", ["block_jacobi", "block_mcgs"])
+def test_unported_kinds_raise(kind):
+    """The block kinds (ported) on a scalar DIA operator with 2x2 node
+    blocks: from a nonzero guess and from zero, one vector and a K = 3
+    stack, against the JAX ``apply_smoother`` (float64, rtol 1e-12); they
+    never take the fused single-sweep forms."""
+    from pyamg_tpu.util.utils import get_block_diag
+
+    A, J, T = _pair("dia", torch.float64)
+    n, n_pad = A.shape[0], T.n_pad
+    Dinv = np.zeros((n_pad // 2, 2, 2))
+    Dinv[: n // 2] = get_block_diag(A, 2, inv_flag=True)
+    if kind == "block_jacobi":
+        js = jrel.block_jacobi(jnp.asarray(Dinv), 0.6, iterations=2)
+        ts = rel.block_jacobi(torch.as_tensor(Dinv), 0.6, iterations=2)
+    else:
+        colors = np.full(n_pad // 2, -1, dtype=np.int32)
+        colors[: n // 2] = np.arange(n // 2) % 2
+        js = jrel.block_multicolor_gs(jnp.asarray(Dinv), jnp.asarray(colors),
+                                      2, sweep="symmetric")
+        ts = rel.block_multicolor_gs(torch.as_tensor(Dinv),
+                                     torch.as_tensor(colors), 2,
+                                     sweep="symmetric")
+    assert ts.config == js.config
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((LANES, n_pad))
+    b = rng.standard_normal((LANES, n_pad))
+    x[:, n:] = b[:, n:] = 0
+    want = [np.asarray(jrel.apply_smoother(js.config, js.arrays, J,
+                                           jnp.asarray(x[k]),
+                                           jnp.asarray(b[k])))
+            for k in range(LANES)]
+    want0 = np.asarray(jrel.apply_smoother_zero(js.config, js.arrays, J,
+                                                jnp.asarray(b[0])))
+    got = ts(T, torch.as_tensor(x[0]), torch.as_tensor(b[0])).numpy()
+    lanes = ts(T, torch.as_tensor(x), torch.as_tensor(b)).numpy()
+    got0 = ts.zero_call(T, torch.as_tensor(b[0])).numpy()
+    for g, w in [(got, want[0]), (got0, want0)] + list(zip(lanes, want)):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=TOL[torch.float64] * np.abs(w).max())
+    assert ts.zero_call_residual(T, torch.as_tensor(b[0])) is None

@@ -315,13 +315,25 @@ def test_config2_hierarchy_from_jax_solves_alike(config2):
 
 
 def test_hierarchy_from_jax_raises_on_block_smoothers(ml64):
-    """A JAX hierarchy with block Jacobi (2x2 blocks) does not carry
-    across: the block forms are ROADMAP.md Queue 1 item 9."""
+    """A JAX hierarchy with block Jacobi (2x2 blocks) carries across: the
+    port's compile of the same host hierarchy gives its smoothers, and
+    the carried hierarchy its CG history (rtol 1e-10)."""
     spec = ("block_jacobi", {"blocksize": 2})
-    hj = jax_compile(change_smoothers(ml64, spec, spec), dtype=jnp.float64)
+    ml = change_smoothers(ml64, spec, spec)
+    hj = jax_compile(ml, dtype=jnp.float64)
     assert hj.levels[0].pre.config[0] == "block_jacobi"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        hierarchy_from_jax(hj, CPU)
+    hc = hierarchy_from_jax(hj, CPU)
+    ht = compile_hierarchy(ml, dtype=torch.float64, device=CPU)
+    for lj, lc, lt in zip(hj.levels, hc.levels, ht.levels):
+        _assert_same_smoother(lj.pre, lc.pre)
+        _assert_same_smoother(lj.pre, lt.pre)
+    b = np.random.default_rng(6).random(ml.levels[0].A.shape[0])
+    rj, rc = [], []
+    kw = dict(tol=1e-8, maxiter=40, accel="cg")
+    JaxSolver(hj).solve(b, residuals=rj, **kw)
+    DeviceMultilevelSolver(hc).solve(b, residuals=rc, **kw)
+    assert len(rc) == len(rj) > 3
+    np.testing.assert_allclose(rc, rj, rtol=1e-10)
 
 
 # ---------------------------------------------------------------------------
