@@ -181,23 +181,30 @@ result lines):
     setup time (a second call), mixed CG to 1e-8 with b =
     default_rng(3).random(n) (the reference's 22 +- 1 iterations, true
     relres <= 1e-8) and native float32 CG to 1e-5 (JAX on the CPU: 15), a
-    V-cycle under set_sync_debug_mode("error"); the plain-PyTorch block
-    operations against scipy's BSR product in float64 and against the
-    CPU in float32 (the BlockDIAMatrix apply and its transpose, the block
-    Jacobi sweep of the setup's level 0, block multicolour Gauss-Seidel
-    on the operator's JP node colouring, the host-built compile's form);
-    then 1024^2 (2.1 M unknowns): setup (second call) with peak memory,
-    mixed CG to 1e-8 (count, walls, true relres <= 1e-8), the level-0
-    block apply timed by CUDA events with its launches per call (the
-    kernel, memcpy and memset nodes of one call captured in a CUDA
-    graph) beside its bytes bound, the reference's roll form and torch.mv on the same
-    operator as CSR, the block sweeps timed alike, each solve profiled;
-    then adaptive SA (device_adaptive_sa_setup, stages=2) on Poisson
-    512^2, its levels and native CG count to 1e-5 against JAX's (13);
-20. result lines: the script's seconds, the block operations' JSON
-    (plain PyTorch, no kernel of their own), the kernels' JSON (with the
+    V-cycle under set_sync_debug_mode("error"); the block operations on
+    the card (through the block-DIA kernels) against scipy's BSR product
+    in float64 and against the CPU twins in float32 (the BlockDIAMatrix
+    apply and its transpose, the block Jacobi sweep of the setup's level
+    0, block multicolour Gauss-Seidel on the operator's JP node colouring,
+    the host-built compile's form); then 1024^2 (2.1 M unknowns): setup
+    (second call) with peak memory, mixed CG to 1e-8 (25 +- 1 iterations,
+    true relres <= 1e-8, two solves bit-identical; walls, the solve's peak
+    memory), each solve profiled; the block-DIA kernels (B1
+    block_dia_spmv: PLAIN, RESID, K = 4; B2 block_dia_jacobi: STEP, ZERO,
+    ZERO_RES beside its composed alternative, one COLOUR step and the
+    4-colour forward sweep) at its level 0 (bs 2, float32, and A64 in
+    float64) and level 1 (bs 3) against their twins on the same tensors,
+    two launches bit-identical, with launches per call (one call captured
+    in a CUDA graph), the bound and torch.mv / torch.sparse.mm on the
+    operator as CSR; then adaptive SA (device_adaptive_sa_setup,
+    stages=2) on Poisson 512^2, its levels and native CG count to 1e-5
+    against JAX's (13), and the kernels at its level 0 (bs 1); counters
+    around every solve, every block kernel of the path launched and no
+    block twin run on a CUDA tensor;
+20. result lines: the script's seconds, the kernels' JSON (with the
     64^3 checks of config 2's paths and the classical paths' checks under
-    ``at_paths``), the card's name and power limit, and last {"ok": true,
+    ``at_paths``, and every check of the block-DIA kernels under
+    ``checks``), the card's name and power limit, and last {"ok": true,
     "device": {...}}.
 """
 
@@ -293,6 +300,7 @@ REF_ITERS_C4_1E5 = 15
 C4_BIG = (1024, 1024)
 C4_BIG_NODE_GRID = (1024, 1023)
 C4_BIG_LEVELS = [2099196, 350892, 38988, 4563, 675]
+REF_ITERS_C4_BIG = 25   # the port's count on the H100 (no reference run)
 ADAPT_GRID = (512, 512)
 ADAPT_LEVELS = [(263169, 1, 5), (58482, 2, 9), (6498, 2, 9), (882, 2, 9)]
 ADAPT_COARSE = 98
@@ -302,6 +310,9 @@ REF_ITERS_ADAPT = 13
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 
+# the block-DIA kernels (B1, B2): the kernels line lists each of their
+# checks (every mode and shape) beside the row
+BLOCK_KERNELS = ("block_dia_spmv", "block_dia_jacobi")
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("pyamg_tpu_torch/csrc/dia.cu",
@@ -346,6 +357,11 @@ KERNELS = {
               "pyamg_tpu/sparse/interleaved.py:160")
        for name in ("int_jacobi_zero_res", "int_spmv_scaled", "int_spmv",
                     "int_spmv_add", "int_jacobi_step")},
+    # no Pallas kernel: the reference's block algebra is plain jnp
+    **{name: ("pyamg_tpu_torch/csrc/block_dia.cu",
+              "none: plain jnp in pyamg_tpu/sparse/block_dia.py:77 / "
+              "engine/relaxation.py:232")
+       for name in BLOCK_KERNELS},
 }
 # path -> the kernel instances it must launch
 PATHS = {
@@ -462,6 +478,18 @@ PATHS.update({
         "dia_spmv_add.float32", "dia_jacobi.float32", "dia_spmv.float64"),
     "AIR stationary": (
         "dia_spmv.float32", "dia_spmv_add.float32", "dia_jacobi.float32"),
+})
+# config 4: the block applies (A, S, S^T, the float64 A64) through B1,
+# the level entry (ZERO_RES), the post-sweep (STEP) and the residuals
+# (RESID) through B2 and B1; adaptive SA's native CG likewise
+PATHS.update({
+    "config 4 block mixed CG": (
+        "block_dia_spmv.float32", "block_dia_spmv.float64",
+        "block_dia_jacobi.float32"),
+    "config 4 1024^2 block mixed CG": (
+        "block_dia_spmv.float32", "block_dia_spmv.float64",
+        "block_dia_jacobi.float32"),
+    "adaptive SA CG": ("block_dia_spmv.float32", "block_dia_jacobi.float32"),
 })
 # the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
 PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
@@ -3004,24 +3032,6 @@ def block_levels(solver):
             solver.hierarchy.levels[-1].n)
 
 
-def bdia_roll_form(A, x):
-    """The reference's form of the block-DIA apply: a roll and bs^2
-    elementwise mul-adds per diagonal (``pyamg_tpu/sparse/block_dia.py``
-    ``matvec``), timed beside the port's padded-window form."""
-    import torch
-
-    bs = A.bs
-    xb = x.reshape(-1, bs)
-    cols = [xb[:, j] for j in range(bs)]
-    out = [torch.zeros_like(cols[0]) for _ in range(bs)]
-    for d, off in enumerate(A.offsets):
-        xr = [torch.roll(c, -off) for c in cols]
-        for i in range(bs):
-            for j in range(bs):
-                out[i] = out[i] + A.data[d][:, i, j] * xr[j]
-    return torch.stack(out, dim=1).reshape(-1)
-
-
 def bdia_to_csr(A, dev):
     """The same operator as a torch sparse CSR tensor on ``dev`` (the
     yardstick for torch.mv)."""
@@ -3044,22 +3054,154 @@ def bdia_to_csr(A, dev):
         return coo.coalesce().to_sparse_csr()
 
 
-def block_op_row(name, shape, ms, launches, nbytes, ops, dtype, plain_ms,
-                 library_ms, max_abs_err):
-    """One entry of the block operations' JSON line."""
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_OPS[str(dtype).removeprefix("torch.")] * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    return {"name": name, "route": "plain PyTorch", "shape": shape,
-            "ms": ms, "launches_per_call": launches, "bound_ms": bound_ms,
-            "bound_by": bound_by, "plain_ms": plain_ms,
-            "library_ms": library_ms, "max_abs_err": max_abs_err}
+def block_cost(A, vectors, dinv=False, nodes=None, extra_ops=0):
+    """(bytes, operations) of one block-DIA pass: the blocks of ``nodes``
+    nodes (all by default) of every diagonal, their Dinv blocks where
+    ``dinv``, and ``vectors`` full vectors, each read or written once."""
+    nd, nb, bs = A.ndiags, A.nb_pad, A.bs
+    nn = nb if nodes is None else nodes
+    blocks = nd * nn * bs * bs + (nn * bs * bs if dinv else 0)
+    nbytes = (blocks + vectors * nb * bs) * A.data.element_size()
+    return nbytes, 2 * blocks + extra_ops * nn * bs
 
 
-def config4_phase(check, dev, card, block_ops):
+class TwinSpy:
+    """Counts calls of the block-DIA twins with a CUDA tensor among their
+    arguments while active: on the card every wrapper must launch its
+    kernel, so the count must stay 0 through a solve."""
+
+    NAMES = ("block_dia_spmv_ref", "block_dia_resid_ref",
+             "block_jacobi_zero_ref", "block_jacobi_zero_res_ref",
+             "block_jacobi_step_ref", "block_colour_step_ref")
+
+    def __enter__(self):
+        import torch
+
+        from pyamg_tpu_torch.sparse import block_dia
+
+        self.module, self.saved, self.calls = block_dia, {}, 0
+
+        def spying(fn):
+            def spy(*args, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda
+                       for a in args):
+                    self.calls += 1
+                return fn(*args, **kw)
+            return spy
+
+        for name in self.NAMES:
+            self.saved[name] = getattr(block_dia, name)
+            setattr(block_dia, name, spying(self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def counted_no_twin(check, label, fn):
+    """``counted(fn)`` with the block twins watched: (result, counts,
+    wall); checks that no twin ran on the card."""
+    with TwinSpy() as spy:
+        out = counted(fn)
+    check(spy.calls == 0, f"{label}: no block-DIA twin ran on the card "
+          f"({spy.calls} calls on CUDA tensors)")
+    return out
+
+
+def block_level_checks(check, where, A, Dinv, omega, rand, results, path,
+                       csr=None, lanes=0, colors=None, ncolors=0):
+    """B1 (PLAIN, RESID, and PLAIN on a K = ``lanes`` stack) and B2 (ZERO,
+    ZERO_RES, STEP, and with ``colors`` one COLOUR step and the forward
+    sweep over ``ncolors`` colours, B3) on the block-DIA level operator A
+    against their twins on the same card tensors, two launches
+    bit-identical; each with its launches per call, its bound, and
+    torch.mv / torch.sparse.mm on ``csr`` (the same operator as CSR) for
+    B1; ZERO_RES beside its composed alternative (ZERO, then RESID)."""
+    import torch
+
+    from pyamg_tpu_torch.engine import relaxation as rel
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    dt = str(A.dtype).removeprefix("torch.")
+    nb, bs = A.nb_pad, A.bs
+    tag = f"{where} nd={A.ndiags} nb_pad={nb} bs={bs}"
+    x, b = rand(A.n_pad, A.dtype), rand(A.n_pad, A.dtype)
+
+    def run(name, kernel, plain, cost, lib=None):
+        compare(check, name, A.dtype, kernel, plain, results, *cost,
+                library_fn=lib, path=path, repeat_exact=True)
+        k = launches_per_call(kernel)
+        results[-1]["launches_per_call"] = k
+        log(f"    {k} launch(es) a call")
+
+    spmv, jac = f"block_dia_spmv.{dt}", f"block_dia_jacobi.{dt}"
+    run(f"{spmv} [{tag}]", lambda: bd.block_dia_apply(A, x),
+        lambda: bd.block_dia_spmv_ref(A, x), block_cost(A, 2),
+        None if csr is None else (lambda: torch.mv(csr, x)))
+    run(f"{spmv} RESID [{tag}]", lambda: bd.block_dia_resid(A, x, b),
+        lambda: bd.block_dia_resid_ref(A, x, b),
+        block_cost(A, 3, extra_ops=1),
+        None if csr is None else (lambda: torch.addmv(b, csr, x,
+                                                      alpha=-1.0)))
+    if lanes:
+        X = rand((lanes, A.n_pad), A.dtype)
+        Xc = X.T.contiguous()
+        run(f"{spmv} [{tag} K={lanes}]", lambda: bd.block_dia_apply(A, X),
+            lambda: bd.block_dia_spmv_ref(A, X),
+            (block_cost(A, 2 * lanes)[0], lanes * block_cost(A, 0)[1]),
+            None if csr is None else (lambda: torch.sparse.mm(csr, Xc)))
+        del X, Xc
+    if Dinv is None:
+        return
+    run(f"{jac} STEP [{tag}]",
+        lambda: bd.block_jacobi_step(A, x, b, Dinv, omega),
+        lambda: bd.block_jacobi_step_ref(A, x, b, Dinv, omega),
+        block_cost(A, 3, dinv=True, extra_ops=3))
+    run(f"{jac} ZERO [{tag}]", lambda: bd.block_jacobi_zero(Dinv, b, omega),
+        lambda: bd.block_jacobi_zero_ref(Dinv, b, omega),
+        (block_cost(A, 2, dinv=True)[0] - A.data.numel()
+         * A.data.element_size(), 2 * nb * bs * bs + nb * bs))
+    run(f"{jac} ZERO_RES [{tag}]",
+        lambda: bd.block_jacobi_zero_res(A, b, Dinv, omega),
+        lambda: bd.block_jacobi_zero_res_ref(A, b, Dinv, omega),
+        block_cost(A, 3, dinv=True, extra_ops=2))
+
+    def composed():
+        x0 = bd.block_jacobi_zero(Dinv, b, omega)
+        return x0, bd.block_dia_resid(A, x0, b)
+
+    t_comp = min(time_ms(composed) for _ in range(2))
+    results[-1]["composed_ms"] = t_comp
+    log(f"    composed alternative (ZERO, then RESID: 2 launches) "
+        f"{t_comp:.4f} ms against ZERO_RES {results[-1]['ms']:.4f} ms")
+    if colors is None:
+        return
+    n0 = int((colors == 0).sum())
+    run(f"{jac} COLOUR 0 of {ncolors} ({n0} nodes) [{tag}]",
+        lambda: bd.block_colour_step(A, x, b, Dinv, colors, 0),
+        lambda: bd.block_colour_step_ref(A, x, b, Dinv, colors, 0),
+        block_cost(A, 2 + n0 / nb, dinv=True, nodes=n0, extra_ops=3))
+    gs = rel.block_multicolor_gs(Dinv, colors, ncolors)
+
+    def gs_plain():
+        y = x
+        for c in range(ncolors):
+            y = bd.block_colour_step_ref(A, y, b, Dinv, colors, c)
+        return y
+
+    # the sweep needs the blocks and Dinv once, b once, x and y each step
+    run(f"{jac} COLOUR forward sweep ({ncolors} colours) [{tag}]",
+        lambda: gs(A, x, b), gs_plain,
+        block_cost(A, 1 + 2 * ncolors, dinv=True, extra_ops=3))
+
+
+def config4_phase(check, dev, card, rand, results, launches):
     """Phase 19: config 4's block device setup on the card (128^2 at the
     reference's size, 1024^2 at the card's), the block operations
-    against scipy and the CPU, and adaptive SA on Poisson 512^2."""
+    against scipy and the CPU, the block-DIA kernels (B1, B2) against
+    their twins at the 1024^2 levels' and adaptive SA's shapes, and
+    adaptive SA on Poisson 512^2."""
     import numpy as np
     import torch
 
@@ -3090,7 +3232,10 @@ def config4_phase(check, dev, card, block_ops):
     mixed = dict(tol=1e-8, maxiter=100, accel="cg", precision="mixed")
     d4.solve(b4, **mixed)                           # warm-up
     res = []
-    x, counts, wall = counted(lambda: d4.solve(b4, residuals=res, **mixed))
+    path = "config 4 block mixed CG"
+    x, counts, wall = counted_no_twin(
+        check, path, lambda: d4.solve(b4, residuals=res, **mixed))
+    launches[path] = counts
     normb = float(np.linalg.norm(b4))
     true = float(np.linalg.norm(b4 - A4 @ x)) / normb
     iters = len(res) - 1
@@ -3098,8 +3243,8 @@ def config4_phase(check, dev, card, block_ops):
         f"relres {res[-1] / normb:.4e}, true relres {true:.4e} (reference "
         f"{REF_ITERS_C4}, 4.241e-9), solve {wall:.4f} s ({card})")
     log(f"  launches of hand-written kernels: "
-        f"{json.dumps(counts, sort_keys=True)} (the block path is plain "
-        f"PyTorch)")
+        f"{json.dumps(counts, sort_keys=True)}")
+    path_launches(check, path, counts)
     check(abs(iters - REF_ITERS_C4) <= 1 and true <= 1e-8
           and bool(np.isfinite(x).all()),
           f"config 4: {iters} mixed CG iterations within {REF_ITERS_C4} +- "
@@ -3181,102 +3326,66 @@ def config4_phase(check, dev, card, block_ops):
     d8.solve(b8, **mixed)                           # warm-up
     walls = []
     res = []
-    x = d8.solve(b8, residuals=res, **mixed)
+    path = "config 4 1024^2 block mixed CG"
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    x, counts, _ = counted_no_twin(
+        check, path, lambda: d8.solve(b8, residuals=res, **mixed))
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches[path] = counts
     for _ in range(3):
         t0 = time.perf_counter()
-        d8.solve(b8, **mixed)
+        x2 = d8.solve(b8, **mixed)
         walls.append(time.perf_counter() - t0)
     normb = float(np.linalg.norm(b8))
     true = float(np.linalg.norm(b8 - A8 @ x)) / normb
-    log(f"config 4 1024^2 mixed CG to 1e-8: {len(res) - 1} iterations, "
-        f"history relres {res[-1] / normb:.4e}, true relres {true:.4e}, "
-        f"solve walls {', '.join(f'{t:.4f}' for t in walls)} s (median "
-        f"{float(np.median(walls)):.4f}; {card})")
-    check(true <= 1e-8 and res[-1] <= 1e-8 * normb
-          and bool(np.isfinite(x).all()),
-          f"config 4 1024^2: true relres {true:.3e} <= 1e-8")
+    iters = len(res) - 1
+    log(f"config 4 1024^2 mixed CG to 1e-8: {iters} iterations, history "
+        f"relres {res[-1] / normb:.4e}, true relres {true:.4e}, solve walls "
+        f"{', '.join(f'{t:.4f}' for t in walls)} s (median "
+        f"{float(np.median(walls)):.4f}); solve peak {peak / 2**30:.2f} GiB "
+        f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} "
+        f"held; {card})")
+    log(f"  launches of hand-written kernels: "
+        f"{json.dumps(counts, sort_keys=True)}")
+    path_launches(check, path, counts)
+    check(abs(iters - REF_ITERS_C4_BIG) <= 1 and true <= 1e-8
+          and res[-1] <= 1e-8 * normb and bool(np.isfinite(x).all()),
+          f"config 4 1024^2: {iters} mixed CG iterations within "
+          f"{REF_ITERS_C4_BIG} +- 1, true relres {true:.3e} <= 1e-8")
+    check(np.array_equal(x, x2), "config 4 1024^2: two solves give the "
+          "same bits")
     profile_phase("config 4 1024^2", (
         ("block setup", lambda: device_sa_setup_block(A8, **kw8)),
         ("block mixed CG to 1e-8", lambda: d8.solve(b8, **mixed))))
 
-    # level 0's block apply and sweeps, timed
+    # the block-DIA kernels at the 1024^2 levels' shapes: level 0 (bs 2,
+    # float32, K = 4, the 4-colour parity colouring of the padded node
+    # grid: a valid colouring of the 9-point node stencil), A64
+    # (float64), level 1 (bs 3)
     lvl = d8.hierarchy.levels[0]
     A0 = lvl.A
-    xg = torch.as_tensor(rng.standard_normal(A0.n_pad), dtype=f32,
-                         device=dev)
-    bg = torch.as_tensor(rng.standard_normal(A0.n_pad), dtype=f32,
-                         device=dev)
-    nd, nb, bs = A0.ndiags, A0.nb_pad, A0.bs
-    shape = f"1024^2 level 0 nd={nd} nb_pad={nb} bs={bs}"
-    csr = bdia_to_csr(A0, dev)
-    want = bdia_roll_form(A0, xg)
-    got = A0 @ xg
-    err = float((got - want).abs().max())
-    check(err <= F32_REL_TOL * float(want.abs().max()),
-          f"level-0 block apply vs the reference's roll form: max abs err "
-          f"{err:.3e}")
-    ms = min(time_ms(lambda: A0 @ xg) for _ in range(2))
-    plain = min(time_ms(lambda: bdia_roll_form(A0, xg)) for _ in range(2))
-    lib = time_ms(lambda: torch.mv(csr, xg))
-    k = launches_per_call(lambda: A0 @ xg)
-    k_plain = launches_per_call(lambda: bdia_roll_form(A0, xg))
-    row = block_op_row("BlockDIAMatrix.matvec.float32", shape, ms, k,
-                       (nd * nb * bs * bs + 2 * nb * bs) * 4,
-                       2 * nd * nb * bs * bs, f32, plain, lib, err)
-    block_ops.append(row)
-    log(f"  block apply [{shape}]: {ms:.4f} ms, {k} launches a call, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the reference's "
-        f"roll form {plain:.4f} ms ({k_plain} launches); torch.mv on CSR "
-        f"({csr._nnz()} entries) {lib:.4f} ms ({card})")
-    A64 = d8.hierarchy.A64
-    x64 = xg.to(f64)
-    csr64 = bdia_to_csr(A64, dev)
-    err = float((A64 @ x64 - bdia_roll_form(A64, x64)).abs().max())
-    ms = min(time_ms(lambda: A64 @ x64) for _ in range(2))
-    row = block_op_row(
-        "BlockDIAMatrix.matvec.float64 (A64)", shape, ms,
-        launches_per_call(lambda: A64 @ x64),
-        (nd * nb * bs * bs + 2 * nb * bs) * 8, 2 * nd * nb * bs * bs, f64,
-        min(time_ms(lambda: bdia_roll_form(A64, x64)) for _ in range(2)),
-        time_ms(lambda: torch.mv(csr64, x64)), err)
-    block_ops.append(row)
-    log(f"  float64 A64 apply [{shape}]: {ms:.4f} ms, "
-        f"{row['launches_per_call']} launches a call, bound "
-        f"{row['bound_ms']:.4f} ms; roll form {row['plain_ms']:.4f} ms; "
-        f"torch.mv on CSR {row['library_ms']:.4f} ms")
-    del csr64
-    # the sweeps against a CPU copy of the level; block multicolour GS on
-    # the 4-colour parity colouring of the padded node grid (a valid
-    # colouring of the 9-point node stencil)
-    A0c = dataclasses.replace(A0, data=A0.data.cpu())
     Dinv0, omega0 = lvl.pre.arrays
     gy, gx = lvl.P.fine_grid_p
-    node = torch.arange(nb, device=dev)
+    node = torch.arange(A0.nb_pad, device=dev)
     parity = ((node // gx) % 2 * 2 + node % gx % 2).to(torch.int32)
-    sweeps = (("block_jacobi_dyn sweep", 1, lvl.pre,
-               rel.block_jacobi_dyn(Dinv0.cpu(), omega0.cpu())),
-              ("block_mcgs forward sweep (4 colours)", 4,
-               rel.block_multicolor_gs(Dinv0, parity, 4),
-               rel.block_multicolor_gs(Dinv0.cpu(), parity.cpu(), 4)))
-    for name, steps, sm, sm_c in sweeps:
-        got = sm(A0, xg, bg)
-        want = sm_c(A0c, xg.cpu(), bg.cpu())
-        err = float((got.cpu() - want).abs().max())
-        check(err <= F32_REL_TOL * float(want.abs().max()),
-              f"{name} [{shape}] on the card vs the CPU: max abs err "
-              f"{err:.3e} (rel tol {F32_REL_TOL:g})")
-        ms = min(time_ms(lambda: sm(A0, xg, bg), 10) for _ in range(2))
-        k = launches_per_call(lambda: sm(A0, xg, bg))
-        # a step reads A, the blocks, x and b and writes x
-        row = block_op_row(
-            f"{name}.float32", shape, ms, k,
-            steps * (nd * nb * bs * bs + nb * bs * bs + 3 * nb * bs) * 4,
-            steps * (2 * (nd + 1) * nb * bs * bs + 3 * nb * bs), f32, None,
-            None, err)
-        block_ops.append(row)
-        log(f"  {name} [{shape}]: {ms:.4f} ms, {k} launches a call, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-    del d8, csr, A0, A0c, lvl
+    csr = bdia_to_csr(A0, dev)
+    log(f"  block-DIA kernels at 1024^2 (torch.mv on the same operator as "
+        f"CSR, {csr._nnz()} entries, the library yardstick; {card}):")
+    block_level_checks(check, "1024^2 level0", A0, Dinv0, omega0, rand,
+                       results, path, csr=csr, lanes=4, colors=parity,
+                       ncolors=4)
+    del csr
+    A64 = d8.hierarchy.A64
+    csr64 = bdia_to_csr(A64, dev)
+    block_level_checks(check, "1024^2 level0 A64", A64, Dinv0.double(),
+                       omega0.double(), rand, results, path, csr=csr64)
+    del csr64
+    lvl1 = d8.hierarchy.levels[1]
+    Dinv1, omega1 = lvl1.pre.arrays
+    block_level_checks(check, "1024^2 level1", lvl1.A, Dinv1, omega1, rand,
+                       results, path, csr=bdia_to_csr(lvl1.A, dev))
+    del d8, A0, lvl, lvl1, A64
 
     # adaptive SA on Poisson 512^2
     A2 = poisson(ADAPT_GRID, format="csr")
@@ -3285,8 +3394,12 @@ def config4_phase(check, dev, card, block_ops):
         grid=ADAPT_GRID, stages=2, max_coarse=400, device=dev))
     lv, nc = block_levels(dad)
     res = []
-    _, _, wall = counted(lambda: dad.solve(b2, tol=1e-5, maxiter=100,
-                                           accel="cg", residuals=res))
+    path = "adaptive SA CG"
+    _, counts, wall = counted_no_twin(
+        check, path, lambda: dad.solve(b2, tol=1e-5, maxiter=100,
+                                       accel="cg", residuals=res))
+    launches[path] = counts
+    path_launches(check, path, counts)
     log(f"adaptive SA stages=2, Poisson {ADAPT_GRID}: setup {t_setup:.4f} s "
         f"(first call {t_first:.3f} s), m={dad.setup_info['m']}, levels "
         f"{lv} + dense {nc}; native CG to 1e-5 {len(res) - 1} iterations in "
@@ -3298,6 +3411,11 @@ def config4_phase(check, dev, card, block_ops):
     check(abs(len(res) - 1 - REF_ITERS_ADAPT) <= 1,
           f"adaptive SA: {len(res) - 1} CG iterations to 1e-5 (JAX on the "
           f"CPU {REF_ITERS_ADAPT} +- 1)")
+    # the block-DIA kernels at adaptive SA's level 0 (bs 1, nd 5)
+    lvl = dad.hierarchy.levels[0]
+    Dinv_a, omega_a = lvl.pre.arrays
+    block_level_checks(check, "adaptive level0", lvl.A, Dinv_a, omega_a,
+                       rand, results, path, csr=bdia_to_csr(lvl.A, dev))
 
 
 def main():
@@ -3720,11 +3838,10 @@ def main():
     classical_phase(check, dev, rand, results, launches, card)
     log(f"classical phase: {time.perf_counter() - t_cl:.1f} s")
 
-    # 19. config 4: the block device setup, its block operations, and
-    # adaptive SA
+    # 19. config 4: the block device setup, its block operations and
+    # kernels, and adaptive SA
     t_c4 = time.perf_counter()
-    block_ops = []
-    config4_phase(check, dev, card, block_ops)
+    config4_phase(check, dev, card, rand, results, launches)
     log(f"config 4 phase: {time.perf_counter() - t_c4:.1f} s")
 
     if check.failures:
@@ -3765,10 +3882,13 @@ def main():
                      "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
                      "bound_by": r0["bound_by"],
                      "library_ms": r0["library_ms"], "shape": r0["name"],
-                     **({"at_paths": at_paths} if at_paths else {})})
+                     **({"at_paths": at_paths} if at_paths else {}),
+                     **({"checks": [{k: r[k] for k in (
+                         "name", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "max_abs_err", "launches_per_call",
+                         "composed_ms") if k in r} for r in mine]}
+                        if base in BLOCK_KERNELS else {})})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
-    log("block operations (plain PyTorch, no kernel of their own): "
-        + json.dumps({"block_ops": block_ops}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,8 @@ launches: dict[str, int] = {}
 
 # lanes per launch of the K-lane DIA and interleaved kernels (K8-K11,
 # K15): each holds its lanes' sums in a register array of this size
-# (kMaxLanes in csrc/dia_k.cu, csrc/interleaved.cu)
+# (kMaxLanes in csrc/dia_k.cu, csrc/interleaved.cu); the block-DIA kernels
+# (csrc/block_dia.cu) take as many lanes on gridDim.y
 MAX_LANES = 16
 
 # streaming multiprocessors that a plan for a CPU tensor assumes (an
@@ -161,6 +162,17 @@ _SIGNATURES = {
                             _L, _P, _P),
     "pyamg_halo_spmv_f64": (_P, _L, _P, _I, _L, _I, _P, _P, _P, _L, _L, _L,
                             _L, _P, _P),
+    # data, offsets, nd, nb, bs, lanes, x, b, y, mode, stream
+    "pyamg_block_dia_spmv_f32": (_P, _P, _I, _L, _I, _I, _P, _P, _P, _I, _P),
+    "pyamg_block_dia_spmv_f64": (_P, _P, _I, _L, _I, _I, _P, _P, _P, _I, _P),
+    # data, offsets, nd, nb, bs, lanes, x, b, dinv, omega, omega_dev,
+    # colors, colour, y, r, mode, stream
+    "pyamg_block_dia_jacobi_f32": (_P, _P, _I, _L, _I, _I, _P, _P, _P,
+                                   ctypes.c_float, _P, _P, _I, _P, _P, _I,
+                                   _P),
+    "pyamg_block_dia_jacobi_f64": (_P, _P, _I, _L, _I, _I, _P, _P, _P,
+                                   ctypes.c_double, _P, _P, _I, _P, _P, _I,
+                                   _P),
 }
 
 

@@ -46,11 +46,17 @@ On any other operator (windowed, dense, row-sharded) the steps compose
 through ``A @ x`` and a select, as the reference's.  Richardson's and the
 Cimmino sweeps' updates compose through ``A @ x`` and ``A.rmatvec`` (the
 roll form on a DIA operator, K7 or K13 on a windowed one), and windowed
-Schwarz rolls, reshapes and one batched (nwin, w, w) product.  The block
-forms compose through ``A @ x`` on any operator (a
-:class:`~pyamg_tpu_torch.sparse.block_dia.BlockDIAMatrix` level takes the
-composed path of every kind, as the reference's does), with the
-reference's arithmetic.
+Schwarz rolls, reshapes and one batched (nwin, w, w) product.
+
+The block forms on a
+:class:`~pyamg_tpu_torch.sparse.block_dia.BlockDIAMatrix` run B2
+(``csrc/block_dia.cu``): the zero-guess block Jacobi sweep is one
+``ZERO`` pass (on any operator: it reads only Dinv and b), a later sweep
+one ``STEP`` pass, the single zero-guess sweep plus its residual one
+``ZERO_RES`` pass (:meth:`DeviceSmoother.zero_call_residual`), and a
+block multicolour Gauss-Seidel colour step one ``COLOUR`` pass.  On any
+other operator they compose through ``A @ x``, with the reference's
+arithmetic.
 """
 
 from __future__ import annotations
@@ -62,6 +68,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..sparse.block_dia import (BlockDIAMatrix, _block_apply,
+                                _block_update, block_colour_step,
+                                block_jacobi_step, block_jacobi_zero,
+                                block_jacobi_zero_res)
 from ..sparse.dia import (DIAMatrix, dia_jacobi, dia_jacobi_k,
                           dia_jacobi_res, dia_jacobi_res_k,
                           dia_jacobi_zero_res, dia_jacobi_zero_res_k,
@@ -144,8 +154,18 @@ class DeviceSmoother:
     def zero_call_residual(self, A, b):
         """(x, r) = (zero_call(A, b), b - A @ x) in one kernel pass when
         the smoother is a single Jacobi sweep on a DIA operator (K3, or
-        K10 for a K-major lane stack b); None otherwise (the caller
+        K10 for a K-major lane stack b) or a single block Jacobi sweep on
+        a block-DIA one (B2 ``ZERO_RES``); None otherwise (the caller
         composes)."""
+        if isinstance(A, BlockDIAMatrix):
+            if self.config[0] not in ("block_jacobi", "block_jacobi_dyn"):
+                return None
+            Dinv, omega, iterations = _block_jacobi_parts(self.config,
+                                                          self.arrays)
+            if (iterations != 1
+                    or tuple(Dinv.shape) != (A.nb_pad, A.bs, A.bs)):
+                return None
+            return block_jacobi_zero_res(A, b, Dinv, omega)
         jac = self._jacobi()
         if not isinstance(A, DIAMatrix) or jac is None:
             return None
@@ -288,22 +308,6 @@ def masked_jacobi(dinv, masks, iters_per_mask, omega=1.0, iterations=1):
         arrays=(dinv,) + tuple(masks))
 
 
-def _block_apply(Dinv, r2):
-    """The (nb, bs, bs) blocks applied to the (nb, bs) node blocks of a
-    vector, or of each lane of a (K, nb, bs) stack: one elementwise
-    product and one sum over the block row (a batched GEMM library call
-    splits a million tiny products into many launches)."""
-    return torch.sum(Dinv * r2.unsqueeze(-2), dim=-1)
-
-
-def _block_update(Dinv, r):
-    """Dinv applied node block by node block to r (a vector or a K-major
-    lane stack), in r's layout."""
-    bs = Dinv.shape[-1]
-    return _block_apply(Dinv, r.reshape(r.shape[:-1] + (-1, bs))).reshape(
-        r.shape)
-
-
 def _block_jacobi_parts(config, arrays):
     """(Dinv, omega, iterations) of a block Jacobi smoother."""
     if config[0] == "block_jacobi":
@@ -313,6 +317,12 @@ def _block_jacobi_parts(config, arrays):
         _, iterations = config
         Dinv, omega = arrays
     return Dinv, omega, iterations
+
+
+def _block_jacobi_step(A, x, b, Dinv, omega):
+    if isinstance(A, BlockDIAMatrix):
+        return block_jacobi_step(A, x, b, Dinv, omega)
+    return x + omega * _block_update(Dinv, b - (A @ x))
 
 
 def _jacobi_step(A, x, b, dinv, omega):
@@ -383,9 +393,9 @@ def apply_smoother_zero(config, arrays, A, b, dinv_stack=None):
 
     if kind in ("block_jacobi", "block_jacobi_dyn"):
         Dinv, omega, iterations = _block_jacobi_parts(config, arrays)
-        x = omega * _block_update(Dinv, b)
+        x = block_jacobi_zero(Dinv, b, omega)
         for _ in range(iterations - 1):
-            x = x + omega * _block_update(Dinv, b - (A @ x))
+            x = _block_jacobi_step(A, x, b, Dinv, omega)
         return x
 
     if kind in ("poly", "poly_dyn"):
@@ -453,12 +463,17 @@ def apply_smoother(config, arrays, A, x, b, dinv_stack=None):
     if kind in ("block_jacobi", "block_jacobi_dyn"):
         Dinv, omega, iterations = _block_jacobi_parts(config, arrays)
         for _ in range(iterations):
-            x = x + omega * _block_update(Dinv, b - (A @ x))
+            x = _block_jacobi_step(A, x, b, Dinv, omega)
         return x
 
     if kind == "block_mcgs":
         _, ncolors, sweep, iterations = config
         Dinv, colors = arrays
+        if isinstance(A, BlockDIAMatrix):
+            for _ in range(iterations):
+                for c in _sweeps(ncolors, sweep):
+                    x = block_colour_step(A, x, b, Dinv, colors, c)
+            return x
         bs = Dinv.shape[-1]
         nodes = x.shape[:-1] + (-1, bs)
         for _ in range(iterations):

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..backend import resolve_device
+from ..sparse.block_dia import BlockDIAMatrix, block_dia_resid
 from ..sparse.dia import DIAMatrix, dia_zero_chain, dia_zero_chain_k
 from ..sparse.formats import fit as _fitv
 from ..sparse.formats import pad_vector
@@ -92,6 +93,14 @@ def _fused_zero_entry_chain(lvl, b):
     chain = dia_zero_chain_k if b.ndim == 2 else dia_zero_chain
     x, y = chain(lvl.A, St, b, dinv, tv, omega)
     return x, finish(y)
+
+
+def _residual(A, x, b):
+    """b - A @ x: one B1 ``RESID`` pass on a block-DIA level, composed
+    elsewhere."""
+    if isinstance(A, BlockDIAMatrix):
+        return block_dia_resid(A, x, b)
+    return b - (A @ x)
 
 
 CYCLES = ("V", "W", "F", "AMLI")
@@ -155,7 +164,9 @@ def _make_cycle(nlev, cycle, amli_depth=2):
         zero-guess form.  The entry front-end is the deepest fused form
         that applies: sweep + residual + scaled restrict (K5), else sweep
         + residual (K3 from zero, K4 from a nonzero x: a W or F visit's
-        second), else composed."""
+        second; B2 ``ZERO_RES`` from zero on a block-DIA level), else
+        composed (the residual one B1 ``RESID`` pass on a block-DIA
+        level)."""
         lvl = h.levels[i]
         chain = _fused_zero_entry_chain(lvl, b) if xz else None
         if chain is not None:
@@ -168,7 +179,7 @@ def _make_cycle(nlev, cycle, amli_depth=2):
                 x, r = fused
             else:
                 x = lvl.pre.zero_call(lvl.A, b) if xz else lvl.pre(lvl.A, x, b)
-                r = b - (lvl.A @ x)
+                r = _residual(lvl.A, x, b)
             rc = _fitv(lvl.R @ r, h.levels[i + 1].n_pad)
         if i == nlev - 2:
             xc = h.coarse_solve(rc)

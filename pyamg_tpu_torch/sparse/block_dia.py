@@ -9,20 +9,36 @@ matrix), offsets in block units, and applied as
     y_blk[i] = sum_d data[d, i] @ x_blk[i + offsets[d]]
 
 The reference applies it with one roll and bs^2 elementwise mul-adds per
-diagonal (its TPU vectorizes those).  Here one apply is five kernels
-whatever the diagonal count: x is zero-padded by the largest offset on
-both sides (a fill and a copy); each run of consecutive offsets (a 9-point node stencil has
-three) reads its neighbours as one strided view of overlapping windows,
-and one ``cat`` lays the runs side by side, so row i holds its (ndiags *
-bs) neighbour values in diagonal order; one product with ``data`` laid
-out once per operator as (nb_pad, bs, ndiags * bs) row strips, and one
-sum over the strip, give y.  The padding stands for the reference's
-roll: a block that falls outside the matrix is stored as zero, so the
-neighbour it meets (a wrapped one there, a padded zero here) contributes
-exactly zero.
+diagonal (its TPU vectorizes those).  Here it runs through hand-written
+CUDA kernels (``csrc/block_dia.cu``), one pass each, no temporary:
+
+- :func:`block_dia_apply`      y = A x                        (B1 ``PLAIN``)
+- :func:`block_dia_resid`      b - A x                        (B1 ``RESID``)
+- :func:`block_jacobi_zero`    w Dinv b, node block by node block
+                                                              (B2 ``ZERO``)
+- :func:`block_jacobi_zero_res` (w Dinv b, b - A (w Dinv b))  (B2 ``ZERO_RES``)
+- :func:`block_jacobi_step`    x + w Dinv (b - A x)           (B2 ``STEP``)
+- :func:`block_colour_step`    x + Dinv (b - A x) on the nodes of one
+                               colour, x elsewhere            (B2 ``COLOUR``)
+
+x and b are vectors (n_pad,) or K-major (K, n_pad) lane stacks; Dinv is
+the (nb_pad, bs, bs) inverse diagonal blocks, colours int32 (nb_pad,).
 
 No Pallas kernel stands behind this format in the reference (its block
-algebra is plain ``jnp``), so it is plain PyTorch here too.
+algebra is plain ``jnp``), so these replace none; they exist because the
+same algebra composed from PyTorch ops took five launches an apply and
+four times the bytes.  Each has a plain PyTorch twin (``*_ref``) in this
+module, which a wrapper runs only when its operands lie on the CPU; on
+CUDA tensors it launches the kernel or raises.  The apply's twin pads x
+by the largest offset on both sides, reads each run of consecutive
+offsets (a 9-point node stencil has three) as one strided view of
+overlapping windows, lays the runs side by side with one ``cat``, so row
+i holds its (ndiags * bs) neighbour values in diagonal order, and takes
+one product with ``data`` laid out as (nb_pad, bs, ndiags * bs) row
+strips and one sum over the strip.  The padding stands for the
+reference's roll: a block that falls outside the matrix is stored as
+zero, so the neighbour it meets (a wrapped one there, a padded zero here)
+contributes exactly zero; the kernels skip such a neighbour.
 """
 
 from __future__ import annotations
@@ -36,7 +52,20 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
-__all__ = ["BlockDIAMatrix", "block_dia_from_scipy"]
+from .. import _build
+from .dia import _KERNEL_DTYPES, _omega_args
+
+__all__ = ["BlockDIAMatrix", "block_dia_from_scipy", "block_dia_apply",
+           "block_dia_resid", "block_jacobi_zero", "block_jacobi_zero_res",
+           "block_jacobi_step", "block_colour_step", "block_dia_spmv_ref",
+           "block_dia_resid_ref", "block_jacobi_zero_ref",
+           "block_jacobi_zero_res_ref", "block_jacobi_step_ref",
+           "block_colour_step_ref"]
+
+# modes of csrc/block_dia.cu: block_dia_spmv_kernel (B1) and
+# block_dia_jacobi_kernel (B2)
+_PLAIN, _RESID = 0, 1
+_ZERO, _ZERO_RES, _STEP, _COLOUR = 0, 1, 2, 3
 
 
 @dataclass(frozen=True)
@@ -53,6 +82,12 @@ class BlockDIAMatrix:
     @property
     def nb_pad(self):
         return self.data.shape[1]
+
+    @cached_property
+    def offsets_t(self) -> torch.Tensor:
+        """The offsets as an int32 tensor beside ``data`` (kernel input)."""
+        return torch.tensor(self.offsets, dtype=torch.int32,
+                            device=self.data.device)
 
     @property
     def n_pad(self):
@@ -89,7 +124,8 @@ class BlockDIAMatrix:
     @cached_property
     def row_strips(self) -> torch.Tensor:
         """(nb_pad, bs, ndiags * bs): row i's blocks side by side,
-        ``[i, p, d * bs + q] = data[d, i, p, q]``."""
+        ``[i, p, d * bs + q] = data[d, i, p, q]`` (the CPU twin's layout;
+        the kernels read ``data`` as it is)."""
         nd, nb, bs, _ = self.data.shape
         return self.data.permute(1, 2, 0, 3).reshape(nb, bs, nd * bs
                                                      ).contiguous()
@@ -113,8 +149,8 @@ class BlockDIAMatrix:
 
     def matmat(self, X):
         """Y = A @ X for a column stack X (n_pad, K), the reference's
-        layout (the coarse densify's)."""
-        return block_dia_apply(self, X.T).T
+        layout (the coarse densify's), as a K-major stack."""
+        return block_dia_apply(self, X.T.contiguous()).T
 
     def rmatvec(self, x):
         """A^T @ x (a vector or a K-major lane stack), through :attr:`T`."""
@@ -143,7 +179,9 @@ class BlockDIAMatrix:
                            device=self.device)
 
 
-def block_dia_apply(A: BlockDIAMatrix, x):
+# -- the plain PyTorch twins -------------------------------------------------
+
+def block_dia_spmv_ref(A: BlockDIAMatrix, x):
     """A @ x for a vector (n_pad,) or a K-major stack (K, n_pad): pad, the
     runs' windows side by side, one product and one sum over each row's
     strip."""
@@ -166,6 +204,219 @@ def block_dia_apply(A: BlockDIAMatrix, x):
     xg = views[0] if len(views) == 1 else torch.cat(views, dim=-1)
     y = torch.sum(A.row_strips * xg.unsqueeze(-2), dim=-1)
     return y.reshape(lead + (nb * bs,))
+
+
+def _block_apply(Dinv, r2):
+    """The (nb, bs, bs) blocks applied to the (nb, bs) node blocks of a
+    vector, or of each lane of a (K, nb, bs) stack: one elementwise
+    product and one sum over the block row (a batched GEMM library call
+    splits a million tiny products into many launches)."""
+    return torch.sum(Dinv * r2.unsqueeze(-2), dim=-1)
+
+
+def _block_update(Dinv, r):
+    """Dinv applied node block by node block to r (a vector or a K-major
+    lane stack), in r's layout."""
+    bs = Dinv.shape[-1]
+    return _block_apply(Dinv, r.reshape(r.shape[:-1] + (-1, bs))).reshape(
+        r.shape)
+
+
+def block_dia_resid_ref(A: BlockDIAMatrix, x, b):
+    return b - block_dia_spmv_ref(A, x)
+
+
+def block_jacobi_zero_ref(Dinv, b, omega):
+    return omega * _block_update(Dinv, b)
+
+
+def block_jacobi_zero_res_ref(A: BlockDIAMatrix, b, Dinv, omega):
+    x = block_jacobi_zero_ref(Dinv, b, omega)
+    return x, b - block_dia_spmv_ref(A, x)
+
+
+def block_jacobi_step_ref(A: BlockDIAMatrix, x, b, Dinv, omega):
+    return x + omega * _block_update(Dinv, b - block_dia_spmv_ref(A, x))
+
+
+def block_colour_step_ref(A: BlockDIAMatrix, x, b, Dinv, colors, colour):
+    bs = Dinv.shape[-1]
+    nodes = x.shape[:-1] + (-1, bs)
+    xb = x.reshape(nodes)
+    upd = xb + _block_apply(Dinv, (b - block_dia_spmv_ref(A, x)).reshape(
+        nodes))
+    return torch.where((colors == colour)[:, None], upd, xb).reshape(
+        x.shape)
+
+
+# -- the kernel wrappers ------------------------------------------------------
+#
+# Each checks its operands on either device (float32 or float64 throughout,
+# contiguous, the operator's shapes) and raises on anything else; then it
+# runs its twin for CPU tensors, or launches its kernel for CUDA tensors.
+
+def _check_operand(name, v, dtype, shape):
+    if tuple(v.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(v.shape)}")
+    if v.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {v.dtype}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_vectors(n, dtype, x, **others):
+    """x a vector (n,) or a K-major (K, n) stack, the others of x's shape,
+    every one ``dtype`` and contiguous."""
+    if x.ndim not in (1, 2) or x.shape[-1] != n:
+        raise ValueError(f"x: expected shape ({n},) or (K, {n}), got "
+                         f"{tuple(x.shape)}")
+    _check_operand("x", x, dtype, x.shape)
+    for name, v in others.items():
+        _check_operand(name, v, dtype, x.shape)
+
+
+def _check_matrix(A: BlockDIAMatrix):
+    if not isinstance(A, BlockDIAMatrix):
+        raise TypeError(f"expected a BlockDIAMatrix, got {type(A).__name__}")
+    if A.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"block-DIA kernel takes float32 or float64, not "
+                        f"{A.dtype}")
+    _check_operand("A.data", A.data, A.dtype,
+                   (A.ndiags, A.nb_pad, A.bs, A.bs))
+
+
+def _lanes(v, k0, k1):
+    """Lanes [k0, k1) of a stack (the whole of a vector), or None."""
+    if v is None:
+        return None
+    return (v if v.ndim == 1 else v[k0:k1]).data_ptr()
+
+
+def _launch(kernel, mode, dtype, device, nb, bs, A, x, b, outputs,
+            shared=()):
+    """Launch B1 (``kernel`` "block_dia_spmv") or B2 ("block_dia_jacobi")
+    over the lanes of the outputs in chunks of at most MAX_LANES, one
+    count a launch.  ``shared``: B2's arguments between b and the
+    outputs (Dinv, the weight, the colours and the colour)."""
+    suffix, _ = _KERNEL_DTYPES[dtype]
+    fn_name = f"pyamg_{kernel}_{suffix}"
+    fn = getattr(_build.library(), fn_name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    data = None if A is None else A.data.data_ptr()
+    offsets = None if A is None else A.offsets_t.data_ptr()
+    nd = 0 if A is None else A.ndiags
+    y = outputs[0]
+    for k0, k1 in _build.lane_chunks(1 if y.ndim == 1 else y.shape[0]):
+        err = fn(data, offsets, nd, nb, bs, k1 - k0, _lanes(x, k0, k1),
+                 _lanes(b, k0, k1), *shared,
+                 *(_lanes(v, k0, k1) for v in outputs), mode, stream)
+        _build.check(fn_name, err)
+        _build.count_launch(f"{kernel}.{_build.dtype_name(dtype)}")
+
+
+def _jacobi_shared(Dinv, omega, colors=None, colour=0):
+    """B2's shared arguments: Dinv, the weight by value or by pointer to
+    a 0-d device tensor, the colours and the colour."""
+    w, w_dev = _omega_args(omega, Dinv, _KERNEL_DTYPES[Dinv.dtype][1])
+    return (Dinv.data_ptr(), w, w_dev,
+            None if colors is None else colors.data_ptr(), int(colour))
+
+
+def block_dia_apply(A: BlockDIAMatrix, x):
+    """y = A @ x for a vector (n_pad,) or a K-major stack (K, n_pad): one
+    B1 pass (``PLAIN``)."""
+    cpu = _build.on_cpu(A.data, x)
+    _check_matrix(A)
+    _check_vectors(A.n_pad, A.dtype, x)
+    if cpu:
+        return block_dia_spmv_ref(A, x)
+    y = torch.empty_like(x)
+    _launch("block_dia_spmv", _PLAIN, A.dtype, A.device, A.nb_pad, A.bs, A,
+            x, None, (y,))
+    return y
+
+
+def block_dia_resid(A: BlockDIAMatrix, x, b):
+    """b - A @ x in one B1 pass (``RESID``)."""
+    cpu = _build.on_cpu(A.data, x, b)
+    _check_matrix(A)
+    _check_vectors(A.n_pad, A.dtype, x, b=b)
+    if cpu:
+        return block_dia_resid_ref(A, x, b)
+    y = torch.empty_like(x)
+    _launch("block_dia_spmv", _RESID, A.dtype, A.device, A.nb_pad, A.bs, A,
+            x, b, (y,))
+    return y
+
+
+def block_jacobi_zero(Dinv, b, omega):
+    """The zero-guess block Jacobi sweep omega * Dinv b, node block by
+    node block, in one B2 pass (``ZERO``; no operator is read)."""
+    cpu = _build.on_cpu(Dinv, b)
+    if Dinv.ndim != 3:
+        raise ValueError(f"Dinv: expected shape (nb, bs, bs), got "
+                         f"{tuple(Dinv.shape)}")
+    if Dinv.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"block-DIA kernel takes float32 or float64, not "
+                        f"{Dinv.dtype}")
+    nb, bs = Dinv.shape[0], Dinv.shape[-1]
+    _check_operand("Dinv", Dinv, Dinv.dtype, (nb, bs, bs))
+    _check_vectors(nb * bs, Dinv.dtype, b)
+    if cpu:
+        return block_jacobi_zero_ref(Dinv, b, omega)
+    y = torch.empty_like(b)
+    _launch("block_dia_jacobi", _ZERO, Dinv.dtype, Dinv.device, nb, bs,
+            None, None, b, (y, None), _jacobi_shared(Dinv, omega))
+    return y
+
+
+def block_jacobi_zero_res(A: BlockDIAMatrix, b, Dinv, omega):
+    """(x, b - A x), x = omega * Dinv b, in one B2 pass (``ZERO_RES``):
+    each neighbour's x is recomputed from its Dinv block and b, so x is
+    written once and never read back."""
+    cpu = _build.on_cpu(A.data, b, Dinv)
+    _check_matrix(A)
+    _check_operand("Dinv", Dinv, A.dtype, (A.nb_pad, A.bs, A.bs))
+    _check_vectors(A.n_pad, A.dtype, b)
+    if cpu:
+        return block_jacobi_zero_res_ref(A, b, Dinv, omega)
+    x, r = torch.empty_like(b), torch.empty_like(b)
+    _launch("block_dia_jacobi", _ZERO_RES, A.dtype, A.device, A.nb_pad,
+            A.bs, A, None, b, (x, r), _jacobi_shared(Dinv, omega))
+    return x, r
+
+
+def block_jacobi_step(A: BlockDIAMatrix, x, b, Dinv, omega):
+    """One block Jacobi sweep x + omega * Dinv (b - A x) in one B2 pass
+    (``STEP``)."""
+    cpu = _build.on_cpu(A.data, x, b, Dinv)
+    _check_matrix(A)
+    _check_operand("Dinv", Dinv, A.dtype, (A.nb_pad, A.bs, A.bs))
+    _check_vectors(A.n_pad, A.dtype, x, b=b)
+    if cpu:
+        return block_jacobi_step_ref(A, x, b, Dinv, omega)
+    y = torch.empty_like(x)
+    _launch("block_dia_jacobi", _STEP, A.dtype, A.device, A.nb_pad, A.bs, A,
+            x, b, (y, None), _jacobi_shared(Dinv, omega))
+    return y
+
+
+def block_colour_step(A: BlockDIAMatrix, x, b, Dinv, colors, colour):
+    """One block multicolour Gauss-Seidel step: x + Dinv (b - A x) on the
+    nodes whose ``colors`` entry is ``colour``, x elsewhere, in one B2
+    pass (``COLOUR``; the other nodes read no operator data)."""
+    cpu = _build.on_cpu(A.data, x, b, Dinv, colors)
+    _check_matrix(A)
+    _check_operand("Dinv", Dinv, A.dtype, (A.nb_pad, A.bs, A.bs))
+    _check_vectors(A.n_pad, A.dtype, x, b=b)
+    _check_operand("colors", colors, torch.int32, (A.nb_pad,))
+    if cpu:
+        return block_colour_step_ref(A, x, b, Dinv, colors, colour)
+    y = torch.empty_like(x)
+    _launch("block_dia_jacobi", _COLOUR, A.dtype, A.device, A.nb_pad, A.bs,
+            A, x, b, (y, None), _jacobi_shared(Dinv, 1.0, colors, colour))
+    return y
 
 
 def _distinct(offs, nb):

@@ -48,6 +48,7 @@ from pyamg_tpu_torch import (BlockDIAMatrix,  # noqa: E402
                              block_solver_from_jax, device_adaptive_sa_setup,
                              device_sa_setup, device_sa_setup_block)
 from pyamg_tpu_torch.engine import block_setup as tbs  # noqa: E402
+from pyamg_tpu_torch.engine import relaxation as rel  # noqa: E402
 
 CPU = "cpu"
 F64 = torch.float64
@@ -56,6 +57,7 @@ MIXED_RTOL = 1e-3
 ELAST_GRID = (32, 31)
 POISSON_GRID = (48, 48)
 SOLVE = dict(tol=1e-8, maxiter=100, accel="cg")
+MIXED = dict(tol=1e-9, maxiter=100, accel="cg", precision="mixed")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -195,24 +197,64 @@ def test_elasticity_float64_matches_reference(elasticity):
     assert np.linalg.norm(b - A @ x) / np.linalg.norm(b) < 1e-7
 
 
-def test_elasticity_mixed_matches_reference():
+@pytest.fixture(scope="module")
+def elasticity_mixed():
     A, B = jax_elasticity((32, 32))
     b = np.random.default_rng(1).random(A.shape[0])
     kw = dict(grid=ELAST_GRID, B=B, mixed_precision=True)
-    mixed = dict(tol=1e-9, maxiter=100, accel="cg", precision="mixed")
     tj = jax_block(A, **kw)
+    rj = []
+    tj.solve(b, residuals=rj, **MIXED)
+    return A, b, kw, tj, rj
+
+
+def test_elasticity_mixed_matches_reference(elasticity_mixed):
+    A, b, kw, tj, rj = elasticity_mixed
     tt = device_sa_setup_block(A, device=CPU, **kw)
     assert tt.hierarchy.dtype == torch.float32
     assert tt.hierarchy.A64.dtype == F64
     _assert_same_setup(tj, tt, rho_rtol=1e-5)
-    rj, rt = [], []
-    tj.solve(b, residuals=rj, **mixed)
-    x = tt.solve(b, residuals=rt, **mixed)
+    rt = []
+    x = tt.solve(b, residuals=rt, **MIXED)
     assert len(rt) == len(rj)
     np.testing.assert_allclose(rt, rj, rtol=MIXED_RTOL)
     true = np.linalg.norm(b - A @ x) / np.linalg.norm(b)
     assert true < 1e-8
     np.testing.assert_allclose(rt[-1] / rt[0], true, rtol=1e-3)
+
+
+@pytest.mark.parametrize("precision", ["float64", "mixed"])
+def test_block_cycle_enters_through_the_zero_residual_hook(
+        precision, elasticity, elasticity_mixed, monkeypatch):
+    """Every level visit of the small elasticity V-cycle takes its (x, r)
+    from the block Jacobi ``zero_call_residual`` hook (one B2 ``ZERO_RES``
+    pass on the card), and the solve keeps the JAX package's count and
+    history (rtol 1e-3, the mixed solve's tolerance)."""
+    if precision == "float64":
+        _, _, b, kw, _, rj, _ = elasticity
+        At, Bt = pt.linear_elasticity((32, 32))
+        tt = device_sa_setup_block(At, dtype=F64, device=CPU,
+                                   **dict(kw, B=Bt))
+        solve = SOLVE
+    else:
+        A, b, kw, _, rj = elasticity_mixed
+        tt = device_sa_setup_block(A, device=CPU, **kw)
+        solve = MIXED
+    hook = rel.DeviceSmoother.zero_call_residual
+    taken = []
+
+    def spy(self, A_, b_):
+        out = hook(self, A_, b_)
+        taken.append(out is not None)
+        return out
+
+    monkeypatch.setattr(rel.DeviceSmoother, "zero_call_residual", spy)
+    rt = []
+    tt.solve(b, residuals=rt, **solve)
+    visits = len(tt.hierarchy.levels) - 1       # the levels above the dense
+    assert taken and all(taken) and len(taken) % visits == 0
+    assert len(rt) == len(rj)
+    np.testing.assert_allclose(rt, rj, rtol=MIXED_RTOL)
 
 
 @pytest.fixture(scope="module")

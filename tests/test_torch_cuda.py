@@ -1353,3 +1353,165 @@ def test_block_setup_on_card_matches_cpu(cuda):
     assert _rel_err((T @ x.to(cuda)).cpu(), Tc @ x) <= TOL[torch.float64]
     assert _rel_err(T.rmatvec(x.to(cuda)).cpu(),
                     Tc.rmatvec(x)) <= TOL[torch.float64]
+
+
+# -- the block-DIA kernels (csrc/block_dia.cu, B1 and B2) ---------------------
+
+BLOCK_OFFSETS = (-9, -1, 0, 2, 11)     # the outer ones reach past the matrix
+BLOCK_MODES = ["plain", "resid", "zero", "zero_res", "step", "colour"]
+
+
+def _block_case(bs, dtype, dev, lanes, nb=300, pad=5, misalign=False,
+                seed=0):
+    """A random block-banded BlockDIAMatrix of bs x bs blocks on
+    BLOCK_OFFSETS (nb nodes, padded by ``pad``), x and b (K-major stacks
+    for ``lanes``), Dinv and int32 colours 0..3 (-1 and zero blocks on the
+    padded nodes), on ``dev``.  ``misalign``: data and Dinv start 4 bytes
+    past a 16-byte boundary (the run-time block size instance's case for
+    bs 2 and 4)."""
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for off in BLOCK_OFFSETS:
+        r = np.arange(max(0, -off), min(nb, nb - off))
+        rows.append(r)
+        cols.append(r + off)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    data = rng.standard_normal((len(rows), bs, bs))
+    data[rows == cols] += 4 * np.eye(bs)
+    S = sp.bsr_matrix((data, cols, np.searchsorted(rows, np.arange(nb + 1))),
+                      shape=(nb * bs, nb * bs))
+    A = bd.block_dia_from_scipy(S, dtype=dtype, device=dev,
+                                n_pad=(nb + pad) * bs)
+    n = A.n_pad
+    shape = (n,) if lanes is None else (lanes, n)
+    x = rng.standard_normal(shape)
+    b = rng.standard_normal(shape)
+    x[..., nb * bs:] = 0
+    b[..., nb * bs:] = 0
+    D = rng.standard_normal((nb + pad, bs, bs))
+    D[nb:] = 0
+    colors = rng.integers(0, 4, nb + pad).astype(np.int32)
+    colors[nb:] = -1
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    D = t(D)
+    if misalign:
+        def shifted(v):
+            buf = torch.empty(v.numel() + 1, dtype=dtype, device=dev)
+            out = buf[1:].view(v.shape)
+            out.copy_(v)
+            return out
+        A = dataclasses.replace(A, data=shifted(A.data))
+        D = shifted(D)
+        assert A.data.data_ptr() % 16 and D.data_ptr() % 16
+    return A, t(x), t(b), D, torch.as_tensor(colors, device=dev)
+
+
+def _block_call(mode, A, x, b, D, colors, twin=False):
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    omega = torch.tensor(0.7, dtype=A.dtype, device=A.device)
+    sfx = "_ref" if twin else ""
+    if mode == "plain":
+        return ((bd.block_dia_spmv_ref if twin else bd.block_dia_apply)(
+            A, x),)
+    if mode == "resid":
+        return (getattr(bd, "block_dia_resid" + sfx)(A, x, b),)
+    if mode == "zero":
+        return (getattr(bd, "block_jacobi_zero" + sfx)(D, b, omega),)
+    if mode == "zero_res":
+        return getattr(bd, "block_jacobi_zero_res" + sfx)(A, b, D, omega)
+    if mode == "step":
+        return (getattr(bd, "block_jacobi_step" + sfx)(A, x, b, D, omega),)
+    return (getattr(bd, "block_colour_step" + sfx)(A, x, b, D, colors, 2),)
+
+
+@pytest.mark.parametrize("lanes", [None, 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bs,misalign", [(1, False), (2, False), (3, False),
+                                         (4, False), (5, False), (2, True)])
+@pytest.mark.parametrize("mode", BLOCK_MODES)
+def test_block_dia_kernels_match_twins(cuda, mode, bs, misalign, dtype,
+                                       lanes):
+    """B1 / B2 in every mode against the twin on the same card tensors (bs
+    1-4 unrolled, bs 5 and a misaligned bs 2 through the run-time block
+    size instance), two launches bit-identical, one launch a call for up
+    to MAX_LANES lanes, and the twin not run on the card."""
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    A, x, b, D, colors = _block_case(bs, dtype, cuda, lanes,
+                                     misalign=misalign)
+    want = _block_call(mode, A, x, b, D, colors, twin=True)
+    kernel = "block_dia_spmv" if mode in ("plain", "resid") \
+        else "block_dia_jacobi"
+    key = f"{kernel}.{str(dtype).removeprefix('torch.')}"
+    calls = []
+    real = bd.block_dia_spmv_ref
+    bd.block_dia_spmv_ref = lambda *a: calls.append(1) or real(*a)
+    try:
+        before = _build.launches.get(key, 0)
+        got = _block_call(mode, A, x, b, D, colors)
+        again = _block_call(mode, A, x, b, D, colors)
+        torch.cuda.synchronize()
+        assert _build.launches.get(key, 0) - before == 2
+    finally:
+        bd.block_dia_spmv_ref = real
+    assert not calls
+    for g, a, w in zip(got, again, want):
+        assert g.is_cuda and g.shape == x.shape and g.dtype == dtype
+        assert torch.equal(g, a)
+        assert _rel_err(g, w) <= TOL[dtype], mode
+        assert not g[..., -5 * bs:].any()
+
+
+def test_block_dia_kernel_failure_raises_without_fallback(cuda,
+                                                          monkeypatch):
+    """A failed build and a launch that reports a CUDA error both raise
+    from the wrapper; neither runs the twin."""
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    A, x, b, D, _ = _block_case(2, torch.float32, cuda, None)
+    calls = []
+    monkeypatch.setattr(bd, "block_dia_spmv_ref",
+                        lambda *a: calls.append(1))
+    monkeypatch.setattr(bd, "block_jacobi_step_ref",
+                        lambda *a: calls.append(1))
+
+    def no_build():
+        raise RuntimeError("nvcc failed (simulated)")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    with pytest.raises(RuntimeError, match="simulated"):
+        bd.block_dia_apply(A, x)
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "pyamg_error_string":
+                return lambda err: b"simulated launch failure"
+            return lambda *args: 98        # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setattr(_build, "library", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="simulated launch failure"):
+        bd.block_dia_apply(A, x)
+    with pytest.raises(RuntimeError, match="simulated launch failure"):
+        bd.block_jacobi_step(A, x, b, D, 0.7)
+    assert not calls
+
+
+def test_block_dia_wrapper_rejects_bad_operands(cuda):
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    A, x, b, D, colors = _block_case(2, torch.float32, cuda, None)
+    with pytest.raises(TypeError):
+        bd.block_dia_apply(A, x.double())
+    with pytest.raises(ValueError):
+        bd.block_dia_apply(A, x.cpu())                 # CPU x, CUDA A
+    with pytest.raises(ValueError):
+        bd.block_dia_apply(A, torch.zeros(2 * A.n_pad, device=cuda)[::2])
+    with pytest.raises(ValueError):
+        bd.block_jacobi_step(A, x, b, D[:-1], 0.7)
+    with pytest.raises(ValueError):
+        bd.block_jacobi_step(A, x, b, D, torch.tensor(0.7))  # CPU omega
