@@ -29,8 +29,10 @@ result lines):
    level 0's S and S^T; the K-lane kernels at K = 8 on the device-built
    level-0 and level-1 operators (K8 in its three modes, K9, K11) and K9
    and K8 plain at host level 0, K8 and K9 also bit for bit against their
-   thread-per-row form; K10 at host level 0 and K12, K13 on the
-   host-built T at K = 8; K15's five modes on the
+   thread-per-row form; K10 at host levels 0 and 1 (K = 8, and K = 19
+   at level 0), bit for bit against its thread-per-row form in one
+   launch a call, and K12, K13 on the host-built T at K = 8; K15's five
+   modes on the
    lane-aligned level-0 operators at K = 8; K6 on the host-built T equal
    to its per-row kernel bit for bit, with its plan printed: max error,
    CUDA-event times of both, the bound from the bytes and operations the
@@ -48,9 +50,10 @@ result lines):
    CPU twin's bits (held to the twin run on CPU copies; the twin on the
    card is timed only);
 5b. K16 (dia_halo_spmv) at host level 0, float32 and float64: the ring of
-   one against its twin and bit for bit against K1, four in-process row
-   blocks (halos copied on a side stream) against K1, and the interior
-   alone, the halo copies alone and the overlapped total;
+   one against its twin and bit for bit against K1 in one launch a call
+   (its row-block plan printed), four in-process row blocks (halos copied
+   on a side stream) against K1, and the interior alone, the halo copies
+   alone and the overlapped total;
 6. a small-input reference check: a 128^2 float64 host-built solve on the
    card against the same hierarchy copied to the CPU (the plain twins);
 7. host-built config 1: mixed-precision CG to 1e-8 with
@@ -150,7 +153,8 @@ result lines):
     its level 0, its W-cycle with no host read; the host-built hierarchy
     sharded in a world of one (K16), its native stationary W-cycle to 1e-4
     against the unsharded history, and K16 at its level 0 (7 diagonals)
-    against its twin and bit for bit against K1; and Richardson, SOR,
+    against its twin and bit for bit against K1 in one launch, and on
+    four in-process row blocks, with their times; and Richardson, SOR,
     Cimmino NE and NR, windowed Schwarz, polynomial and Chebyshev on a
     float64 256^2 host-built hierarchy, each CG solve at its CPU copy's
     count;
@@ -158,8 +162,9 @@ result lines):
     (bench.py:502-520; rotated anisotropic diffusion 512^2,
     device_rs_setup float32, max_coarse=400): its levels against the JAX
     package's, levels 0 and 1 against the port's CPU copy of the setup,
-    K1 (A, R_emb), K1 SPMV_ADD (P_emb), K3 and K2 and at K = 8 K10, K9, K8
-    and K8 add at its level 0, CG to 1e-5 with b = default_rng(2).random(n)
+    K1 (A, R_emb), K1 SPMV_ADD (P_emb), K3 and K2 and at K = 8 K10 (bit
+    for bit against its thread-per-row form), K9, K8 and K8 add at its
+    level 0, CG to 1e-5 with b = default_rng(2).random(n)
     (the reference's 13 iterations) and K = 8 lanes of it
     (default_rng(5)), each lane within one of its 1-D count; config 3's
     device SA column with stride="auto" (its strides, 10 iterations); the
@@ -494,9 +499,9 @@ PATHS.update({
 # the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
 PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
               for h in ("device-built", "host-built") for a in KRYLOV_2048})
-# K8 and K9's thread-per-row form (the wrapper counts it apart)
+# K8, K9 and K10's thread-per-row form (the wrapper counts it apart)
 K8_ROWS = ("dia_spmm_rows", "dia_spmm_scaled_rows", "dia_spmm_add_rows",
-           "dia_jacobi_k_rows")
+           "dia_jacobi_k_rows", "dia_jacobi_zero_res_k_rows")
 # K5 and K4's per-row kernel (for the shapes the strip march refuses)
 CHAIN_ROWS = {"dia_zero_chain": "dia_zero_chain_rows",
               "dia_jacobi_res": "dia_jacobi_res_rows"}
@@ -871,16 +876,16 @@ def lane_launches(check, label, key, fn):
 
 
 def path_launches(check, label, counts):
-    """Every kernel instance of PATHS[label] launched in ``counts``, K8
-    and K9 only in their lane kernel and K4 / K5 (where the path runs them)
+    """Every kernel instance of PATHS[label] launched in ``counts``, K8,
+    K9 and K10 only in their lane kernel and K4 / K5 (where the path runs them)
     only in their strip march (the thread-per-row forms, counted as
     ``<kernel>_rows``, are for the shapes those refuse)."""
     for k in PATHS[label]:
         check(counts.get(k, 0) > 0, f"{label}: {k} launched "
               f"({counts.get(k, 0)} launches)")
     rows = {k: c for k, c in counts.items() if k.split(".")[0] in K8_ROWS}
-    check(not rows, f"{label}: K8 / K9 through the lane kernel only "
-          f"(thread-per-row launches {rows or 'none'})")
+    check(not rows, f"{label}: K8 / K9 / K10 through the lane kernel "
+          f"only (thread-per-row launches {rows or 'none'})")
     chain = [CHAIN_ROWS[k.split(".")[0]] for k in PATHS[label]
              if k.split(".")[0] in CHAIN_ROWS]
     if chain:
@@ -961,6 +966,39 @@ def k8_rows_check(check, name, kernel, mode, A, X, b, dinv, omega, lane_fn):
     check(plan is not None and torch.equal(got, rows),
           f"{name}: the lane kernel ({form}) equals the thread-per-row "
           "kernel bit for bit")
+
+
+def k10_checks(check, name, A, Bk, dinv, omega, results, path=None):
+    """K10 against its twin at a path shape, two launches bit-identical,
+    its launches a call, and bit for bit against its thread-per-row form,
+    with the lane kernel's plan printed (one row a thread in float64 and
+    for an odd n_pad or an unaligned operand)."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import dia
+
+    K, m = Bk.shape
+    kernel = lambda: dia.dia_jacobi_zero_res_k(A, Bk, dinv, omega)  # noqa
+    compare(check, name, A.dtype, kernel,
+            lambda: dia.dia_jacobi_zero_res_k_ref(A, Bk, dinv, omega),
+            results, *dia_cost(A, 1, K, 3, extra_ops=3), path=path,
+            repeat_exact=True)
+    k = launches_per_call(kernel)
+    results[-1]["launches_per_call"] = k
+    plan = dia.k8_plan(A.offsets, m, K, A.dtype,
+                       dia._aligned(A.data, Bk, dinv))
+    got = kernel()
+    rows = dia._zero_res_k_rows(A, Bk, dinv, omega)
+    torch.cuda.synchronize()
+    form = (f"{plan.blocks} blocks of {plan.rows} rows, {plan.vec} a "
+            f"thread{' (one row a thread)' if plan.vec == 1 else ''}, row "
+            f"blocks [{plan.lo}, {plan.hi}) unchecked"
+            if plan is not None else "not taken")
+    check(plan is not None and k == 1
+          and all(torch.equal(g, r) for g, r in zip(got, rows)),
+          f"{name}: the lane kernel ({form}) equals the thread-per-row "
+          f"kernel bit for bit; {k} launch(es) a call (the thread-per-row "
+          f"form {-(-K // 16)})")
 
 
 def device_level_checks(check, where, h, rand, results, paths, wide=False):
@@ -1487,13 +1525,14 @@ def lane_cycle_times(check, dla, rand):
 def halo_ring_check(check, A, rand, results, tag, path):
     """K16 as a ring of one on the DIA operator A: against its plain twin
     (the rolled sum over [tail, x, head]) at the kernel tolerance, a second
-    launch with the first one's bits, and bit for bit against K1.  Returns
-    (x, K1's y, the bytes of one SpMV)."""
+    launch with the first one's bits, one launch a call (its plan printed:
+    the row blocks, rows a thread and the interior), and bit for bit
+    against K1.  Returns (x, K1's y, the bytes of one SpMV)."""
     import torch
 
     from pyamg_tpu_torch.parallel import halo_width
     from pyamg_tpu_torch.parallel.dist_spmv import dia_halo_rows_ref
-    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv
+    from pyamg_tpu_torch.parallel.halo_spmv import halo_plan, halo_spmv
     from pyamg_tpu_torch.parallel.partition import SolverMesh
     from pyamg_tpu_torch.sparse import dia
 
@@ -1516,54 +1555,74 @@ def halo_ring_check(check, A, rand, results, tag, path):
             plain, results, nbytes, ops,
             library_fn=lambda: torch.mv(A_csr, x), path=path,
             repeat_exact=True)
+    k = launches_per_call(ring)
+    results[-1]["launches_per_call"] = k
+    plan = halo_plan(tuple(A.offsets), n, dtype)
     k1 = dia.dia_spmv(A, x)
     torch.cuda.synchronize()
-    check(torch.equal(ring(), k1), f"dia_halo_spmv.{dt} [{tag}]: the ring "
-          "of one equals K1 (dia_spmv) bit for bit")
+    check(torch.equal(ring(), k1) and k == 1,
+          f"dia_halo_spmv.{dt} [{tag}]: the ring of one ({plan.row_blocks} "
+          f"row blocks of {plan.rows} rows, {plan.vec} a thread"
+          f"{' (one row a thread)' if plan.vec == 1 else ''}, interior "
+          f"[{plan.lo}, {plan.hi})) equals K1 (dia_spmv) bit for bit in "
+          f"{k} launch(es) a call (the split form took two)")
     return x, k1, nbytes
+
+
+def halo_shards_check(check, A, x, k1, nbytes, tag, side, shards=4):
+    """K16 on ``shards`` in-process row blocks of A (halos copied on the
+    side stream ``side``) against K1's ``k1`` bit for bit; then the
+    interior alone, the halo copies alone and the overlapped total beside
+    K1 and the bound (``nbytes`` of one SpMV)."""
+    import torch
+
+    from pyamg_tpu_torch.parallel.halo_spmv import (halo_plan,
+                                                    halo_spmv_shards)
+    from pyamg_tpu_torch.sparse import dia
+
+    dt = str(A.dtype).removeprefix("torch.")
+    split = halo_spmv_shards(A, x, shards, side)
+    torch.cuda.synchronize()
+    plan = halo_plan(tuple(A.offsets), A.n_pad // shards, A.dtype)
+    check(torch.equal(split, k1),
+          f"dia_halo_spmv.{dt} [{tag}]: {shards} in-process shards (each "
+          f"{plan.row_blocks} row blocks of {plan.rows} rows, interior "
+          f"[{plan.lo}, {plan.hi})) equal K1 (dia_spmv) bit for bit")
+    t = {}
+    for label, phases in (("interior", ("interior",)),
+                          ("halo copies", ("halos",)),
+                          ("overlapped", ("interior", "halos",
+                                          "boundary"))):
+        t[label] = min(time_ms(lambda: halo_spmv_shards(
+            A, x, shards, side, phases=phases)) for _ in range(2))
+    t_k1 = min(time_ms(lambda: dia.dia_spmv(A, x)) for _ in range(2))
+    log(f"  K16 {shards} shards in one process [{dt} {tag}]: interior "
+        f"alone {t['interior']:.4f} ms, halo copies alone (side stream, "
+        f"{2 * shards} copies) {t['halo copies']:.4f} ms, overlapped "
+        f"total {t['overlapped']:.4f} ms; K1 on the whole operator "
+        f"{t_k1:.4f} ms; bound {nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
 
 
 def halo_phase(check, h, rand, results):
     """K16 at host level 0 of 2048^2 (nd = 5, n = 4.19M, halo 2048), in
     float32 (the level's operator) and float64 (A64): the ring of one
     against its plain twin (the rolled sum over [tail, x, head]) and bit
-    for bit against K1; P = 4 in-process row blocks (halos copied on a
-    side stream) against K1; then the interior alone, the halo copies
-    alone and the overlapped total beside K1 and the bound.  One H100
-    gives no scaling number."""
+    for bit against K1 in one launch; P = 4 in-process row blocks (halos
+    copied on a side stream) against K1; then the interior alone, the halo
+    copies alone and the overlapped total beside K1 and the bound.  One
+    H100 gives no scaling number."""
     import torch
 
     from pyamg_tpu_torch.parallel import halo_width
-    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv_shards
-    from pyamg_tpu_torch.sparse import dia
 
-    shards = 4
     side = torch.cuda.Stream()
     for A in (h.levels[0].A, h.A64):
-        dt = str(A.dtype).removeprefix("torch.")
         tag = (f"host level0 nd={A.ndiags} n_pad={A.n_pad} "
                f"halo={halo_width(A)}")
         x, k1, nbytes = halo_ring_check(
             check, A, rand, results, tag, "sharded host-built config 1"
             if A.dtype == torch.float32 else None)
-        split = halo_spmv_shards(A, x, shards, side)
-        torch.cuda.synchronize()
-        check(torch.equal(split, k1),
-              f"dia_halo_spmv.{dt} [{tag}]: {shards} in-process shards "
-              "equal K1 (dia_spmv) bit for bit")
-        t = {}
-        for label, phases in (("interior", ("interior",)),
-                              ("halo copies", ("halos",)),
-                              ("overlapped", ("interior", "halos",
-                                              "boundary"))):
-            t[label] = min(time_ms(lambda: halo_spmv_shards(
-                A, x, shards, side, phases=phases)) for _ in range(2))
-        t_k1 = min(time_ms(lambda: dia.dia_spmv(A, x)) for _ in range(2))
-        log(f"  K16 {shards} shards in one process [{dt} {tag}]: interior "
-            f"alone {t['interior']:.4f} ms, halo copies alone (side stream, "
-            f"{2 * shards} copies) {t['halo copies']:.4f} ms, overlapped "
-            f"total {t['overlapped']:.4f} ms; K1 on the whole operator "
-            f"{t_k1:.4f} ms; bound {nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+        halo_shards_check(check, A, x, k1, nbytes, tag, side)
 
 
 def sharded_phase(check, dev, dml, A, dus, A_un, launches):
@@ -2542,6 +2601,7 @@ def sharded_config2_phase(check, dev, dml2, b2, rand, results, launches):
     import tempfile
 
     import numpy as np
+    import torch
     import torch.distributed as dist
 
     from pyamg_tpu_torch import DeviceMultilevelSolver
@@ -2578,9 +2638,10 @@ def sharded_config2_phase(check, dev, dml2, b2, rand, results, launches):
           f"to rtol {STATIONARY_RTOL:g}")
     path_launches(check, label, counts)
     A = dml2.hierarchy.levels[0].A
-    halo_ring_check(check, A, rand, results, f"host config2 level0 "
-                    f"nd={A.ndiags} n_pad={A.n_pad} halo={halo_width(A)}",
-                    label)
+    tag = f"host config2 level0 nd={A.ndiags} n_pad={A.n_pad} " \
+          f"halo={halo_width(A)}"
+    x, k1, nbytes = halo_ring_check(check, A, rand, results, tag, label)
+    halo_shards_check(check, A, x, k1, nbytes, tag, torch.cuda.Stream())
 
 
 def smoother_kinds_phase(check, dev, launches):
@@ -2681,11 +2742,10 @@ def classical_level_checks(check, where, h, rand, results, path, lane_path,
         R_csr, P_csr = dia_to_csr(R), dia_to_csr(P)
         Xcols, Vcols = Xk.T.contiguous(), Vk.T.contiguous()
         ktag = f"{tag} K={LANES}"
+        k10_checks(check, f"dia_jacobi_zero_res_k.float32 [{ktag} "
+                   f"nd={A.ndiags}]", A, Bk, dinv, omega, results,
+                   path=lane_path)
         for name, op, kern, plain, cost, lib in (
-                ("dia_jacobi_zero_res_k", A,
-                 lambda: dia.dia_jacobi_zero_res_k(A, Bk, dinv, omega),
-                 lambda: dia.dia_jacobi_zero_res_k_ref(A, Bk, dinv, omega),
-                 dia_cost(A, 1, LANES, 3, extra_ops=3), None),
                 ("dia_jacobi_k", A,
                  lambda: dia.dia_jacobi_k(A, Xk, Bk, dinv, omega),
                  lambda: dia.dia_jacobi_k_ref(A, Xk, Bk, dinv, omega),
@@ -3561,14 +3621,16 @@ def main():
                     results, *dia_cost(Ad, 4, extra_ops=3))
             # K10, the host-built batched cycle's zero-entry front-end
             Bk = rand((LANES, Ad.n_pad), dtype)
-            compare(check, f"dia_jacobi_zero_res_k.{dt} [{tag} K={LANES}]",
-                    dtype,
-                    lambda: dia.dia_jacobi_zero_res_k(Ad, Bk, dinv, omega0),
-                    lambda: dia.dia_jacobi_zero_res_k_ref(Ad, Bk, dinv,
-                                                          omega0),
-                    results, *dia_cost(Ad, 1, LANES, 3, extra_ops=3))
+            k10_checks(check, f"dia_jacobi_zero_res_k.{dt} [{tag} "
+                       f"K={LANES}]", Ad, Bk, dinv, omega0, results)
             if label != "level0" or dtype != torch.float32:
                 continue
+            # ... and on 19 lanes: still one launch (the thread-per-row
+            # form took two)
+            B19 = rand((19, Ad.n_pad), dtype)
+            k10_checks(check, f"dia_jacobi_zero_res_k.{dt} [{tag} K=19]",
+                       Ad, B19, dinv, omega0, results)
+            del B19
             # K9 and K8 plain at the host-built level 0 (the host-built
             # batched path's sweeps and residuals); X from a generator of
             # its own, so the later checks keep their inputs

@@ -100,11 +100,11 @@ _SIGNATURES = {
     "pyamg_dia_k_f64": (_P, _P, _I, _L, _I, _P, _P, _P, ctypes.c_double,
                         _P, _P, _P, _I, _P),
     # data, offsets (host ints), nd, n_pad, lanes, vec, lo_int, hi_int, x,
-    # b, dinv, omega, omega_dev, y, mode, stream
+    # b, dinv, omega, omega_dev, y, r, mode, stream
     "pyamg_dia_k_lanes_f32": (_P, _IP, _I, _L, _I, _I, _I, _I, _P, _P, _P,
-                              ctypes.c_float, _P, _P, _I, _P),
+                              ctypes.c_float, _P, _P, _P, _I, _P),
     "pyamg_dia_k_lanes_f64": (_P, _IP, _I, _L, _I, _I, _I, _I, _P, _P, _P,
-                              ctypes.c_double, _P, _P, _I, _P),
+                              ctypes.c_double, _P, _P, _P, _I, _P),
     # data, offsets, nd, sdata, soffsets, nds, n_pad, lanes, b, dinv, tv,
     # omega, omega_dev, x_out, y_out, stream
     "pyamg_dia_zero_chain_k_f32": (_P, _P, _I, _P, _P, _I, _L, _I, _P, _P,
@@ -156,12 +156,12 @@ _SIGNATURES = {
     # mode, stream
     "pyamg_interleaved_f32": (_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,
                               _I, _P),
-    # data, ld, offsets, nd, n_local, halo, left, x, right, a0, a1, b0, b1,
-    # y, stream
-    "pyamg_halo_spmv_f32": (_P, _L, _P, _I, _L, _I, _P, _P, _P, _L, _L, _L,
-                            _L, _P, _P),
-    "pyamg_halo_spmv_f64": (_P, _L, _P, _I, _L, _I, _P, _P, _P, _L, _L, _L,
-                            _L, _P, _P),
+    # data, ld, offsets (host ints), offsets_dev, nd, n_local, halo, left,
+    # x, right, vec, lo, hi, a0, a1, b0, b1, y, stream
+    "pyamg_halo_spmv_f32": (_P, _L, _IP, _P, _I, _L, _I, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _P, _P),
+    "pyamg_halo_spmv_f64": (_P, _L, _IP, _P, _I, _L, _I, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _P, _P),
     # data, offsets, nd, nb, bs, lanes, x, b, y, mode, stream
     "pyamg_block_dia_spmv_f32": (_P, _P, _I, _L, _I, _I, _P, _P, _P, _I, _P),
     "pyamg_block_dia_spmv_f64": (_P, _P, _I, _L, _I, _I, _P, _P, _P, _I, _P),

@@ -3,8 +3,8 @@
 // ((K, n_pad) stacks, lane k's row contiguous), as the batched solve
 // carries them.
 //
-//   dia_k_lane_kernel<T, Mode, ND> (and, for the shapes it refuses,
-//   dia_k_kernel<T, Mode>), K8 and K9:
+//   dia_k_lane_kernel<T, Mode, ND, VEC> (and, for the shapes it refuses,
+//   dia_k_kernel<T, Mode>), K8, K9 and K10:
 //     SPMM         Y = A X                  pyamg_tpu/sparse/dia.py::_dia_pallas_matmat_k (plain)
 //     SPMM_SCALED  Y = s * (A X), s (n_pad,) shared by the lanes
 //                                           pyamg_tpu/sparse/dia.py::_dia_pallas_matmat_k (scale=)
@@ -12,7 +12,6 @@
 //                                           pyamg_tpu/sparse/dia.py::_dia_pallas_matmat_k (addk=)
 //     JACOBI_K     Y = X + w * dinv * (B - A X)
 //                                           pyamg_tpu/sparse/dia.py::dia_pallas_jacobi_km
-//   dia_k_kernel<T, ZERO_RES_K>, K10:
 //     ZERO_RES_K   Y = w * dinv * B,  R = B - A Y
 //                                           pyamg_tpu/sparse/dia.py::dia_pallas_jacobi_zero_res_km
 //   zero_chain_k_ring_kernel<T, ND, NDS> and zero_chain_k_kernel<T>, K11:
@@ -31,11 +30,12 @@
 // about one flop per byte in f32, far below the card's ~20 flops per
 // byte.
 //
-// K8 and K9, dia_k_lane_kernel: the lane on the grid.  A CTA of 256
+// K8, K9 and K10, dia_k_lane_kernel: the lane on the grid.  A CTA of 256
 // threads streams one lane's contiguous rows, as the single-lane K1 does:
 // 4 float32 rows a thread in 16-byte loads and stores (the row's
-// diagonals, V, B, X, dinv and Y; X at an offset that is no multiple of 4
-// from the two aligned 16-byte runs around it), or 1 row a thread in
+// diagonals, V, B, X, dinv, Y and R; a neighbour run at an offset that is
+// no multiple of 4 from the two aligned 16-byte runs around it,
+// csrc/lane_io.cuh::ld_x), or 1 row a thread in
 // float64 and where a float32 n_pad is no multiple of 4 or an operand not
 // 16-byte aligned (the coarse levels' odd n_pad).
 // The blocks walk super tiles of row blocks (128 in float32, 1 in
@@ -50,7 +50,8 @@
 // apart, and the form with the loop unrolled, the offsets as arguments and
 // no interior checks ran no faster (scripts/dia_k_variants.cu, PERF.md
 // §6).  ND, when not 0, fixes the diagonal count at compile time (5 and
-// 9, the 2-D grids' levels), so the term loop unrolls and all of a row's
+// 9, the 2-D grids' levels; for K10 also 7, the 3-D grids' fine levels),
+// so the term loop unrolls and all of a row's
 // loads issue together; the offsets arrive as a kernel argument (copied to
 // shared memory for the run-time loop), not as a load per thread and
 // diagonal; the row blocks whose neighbours all lie in [0, n_pad), with 3
@@ -65,8 +66,8 @@
 //
 // dia_k_kernel, one thread per row, looping over the lanes inside:
 // data[d, i], dinv[i] and the offsets are loaded once per row for all
-// lanes.  K8 and K9 take it where the lane kernel does not take the shape
-// (rows past 2^31, more than kMaxArgDiags diagonals), K10 always.
+// lanes.  K8, K9 and K10 take it where the lane kernel does not take the
+// shape (rows past 2^31, more than kMaxArgDiags diagonals).
 // Each lane's sum runs over the diagonals in offset order, then the
 // epilogue, as the reference's composed form and the single-lane kernels
 // (csrc/dia.cu) do; nvcc contracts to FMAs, so results agree with the
@@ -108,7 +109,15 @@
 // ZERO_RES_K forms each neighbour's iterate w * dinv_j * b_j from b as it
 // goes (the zero-guess sweep needs no x input), so Y and R leave in one
 // pass and Y is never read back: the reference's point, which saves the
-// composed form's extra (K, n_pad) round trip.
+// composed form's extra (K, n_pad) round trip.  In the lane kernel the
+// neighbour's B and dinv come as runs through ld_x (dinv, shared by the
+// lanes, from L2 after the super tile's first lane), B and dinv of the
+// row itself as plain 16-byte loads (B is read again by the neighbouring
+// rows, so it is not streamed evict-first), Y and R leave evict-first;
+// each term is fma(a, w * (dinv_j * b_j), acc) in offset order with the
+// out-of-range ones left out, then Y = w * (dinv_i * b_i), R = b_i - acc:
+// the thread-per-row form's contraction, so both forms give the same
+// bits.  Bound: (nd + 1 + 3K) n_pad values.
 //
 // Out-of-range neighbours: the TPU kernels clamp their halo reads and
 // multiply the garbage by structurally-zero slots.  Here an index outside
@@ -117,7 +126,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
-#include <type_traits>
+
+#include "lane_io.cuh"
 
 namespace {
 
@@ -132,14 +142,6 @@ constexpr int kMaxArgDiags = 32;
 constexpr int kRingThreads = 1024;
 constexpr int kRingLanes = 8;
 constexpr int kMaxSmem = 232448;
-
-// a * b + c rounded once (an explicit FMA)
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
 
 enum DiaKMode : int {
   SPMM = 0, SPMM_SCALED = 1, SPMM_ADD = 2, JACOBI_K = 3, ZERO_RES_K = 4
@@ -229,71 +231,20 @@ struct LaneShape {
   static constexpr int SUPER = sizeof(T) == 4 ? 128 : 1;
 };
 
-// VEC values at p (VEC * sizeof(T) bytes aligned); CS: evict-first
-template <typename T, int VEC, bool CS>
-__device__ __forceinline__ void ld_vec(T (&v)[VEC], const T* p) {
-  if constexpr (VEC == 1) {
-    v[0] = CS ? __ldcs(p) : *p;
-  } else {
-    static_assert(std::is_same<T, float>::value && VEC == 4,
-                  "4 float32 values a load");
-    const float4* q = reinterpret_cast<const float4*>(p);
-    const float4 u = CS ? __ldcs(q) : *q;
-    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void st_vec_cs(T* p, const T (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    __stcs(p, v[0]);
-  } else {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  }
-}
-
-// X at rows [j, j + VEC), j = i0 + o (i0 a multiple of VEC): with 4 rows
-// a thread, one 16-byte load where o is a multiple of 4, else the two
-// aligned 16-byte runs around the rows (up to 3 rows past them on either
-// side), picked by o's remainder, the same for every thread
-template <int R>
-__device__ __forceinline__ void pick4(float (&v)[4], const float4& p,
-                                      const float4& q) {
-  const float a[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int t = 0; t < 4; ++t) v[t] = a[t + R];
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void ld_x(T (&v)[VEC], const T* p, int o) {
-  if constexpr (VEC == 1) {
-    v[0] = *p;
-  } else {
-    const int r = o & 3;
-    if (r == 0) {
-      ld_vec<T, VEC, false>(v, p);
-      return;
-    }
-    const float4* q = reinterpret_cast<const float4*>(p - r);
-    const float4 lo = q[0], hi = q[1];
-    if (r == 1) pick4<1>(v, lo, hi);
-    else if (r == 2) pick4<2>(v, lo, hi);
-    else pick4<3>(v, lo, hi);
-  }
-}
-
-// rows [i0, i0 + VEC) of the lane at xl, bl, yl (bl: s for SPMM_SCALED,
-// shared by the lanes); offs the offsets (a kernel argument when ND fixes
-// their count, else shared memory); CHECK true where a neighbour may fall
-// outside [0, n_pad) (its term left out by a select) or the rows past
-// n_pad
+// rows [i0, i0 + VEC) of the lane at xl, bl, yl, rl (bl: s for
+// SPMM_SCALED, shared by the lanes; rl: ZERO_RES_K's residual, whose X is
+// formed from bl, the lane's B, as it goes); offs the offsets (a kernel
+// argument when ND fixes their count, else shared memory); CHECK true
+// where a neighbour may fall outside [0, n_pad) (its term left out by a
+// select) or the rows past n_pad
 template <typename T, int Mode, int ND, int VEC, bool CHECK>
 __device__ __forceinline__ void lane_rows(const T* __restrict__ data,
                                           const int* offs, int nd, int n_pad,
                                           int i0, const T* __restrict__ xl,
                                           const T* __restrict__ bl,
                                           const T* __restrict__ dinv, T w,
-                                          T* __restrict__ yl) {
+                                          T* __restrict__ yl,
+                                          T* __restrict__ rl) {
   if (CHECK && i0 >= n_pad) return;
   T acc[VEC];
 #pragma unroll
@@ -304,7 +255,26 @@ __device__ __forceinline__ void lane_rows(const T* __restrict__ data,
     const int o = offs[d];
     T a[VEC];
     ld_vec<T, VEC, false>(a, data + static_cast<int64_t>(d) * n_pad + i0);
-    if (!CHECK) {
+    if (Mode == ZERO_RES_K && !CHECK) {
+      // the neighbours' iterate w * dinv_j * b_j, formed from the runs of
+      // B and dinv (the thread-per-row form's contraction: one FMA a term)
+      T bv[VEC], dv[VEC];
+      ld_x<T, VEC>(bv, bl + i0 + o, o);
+      ld_x<T, VEC>(dv, dinv + i0 + o, o);
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) {
+        acc[t] = fma_rn(a[t], w * (dv[t] * bv[t]), acc[t]);
+      }
+    } else if (Mode == ZERO_RES_K) {
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) {
+        const int j = i0 + t + o;
+        const bool in = j >= 0 && j < n_pad;
+        const int jc = in ? j : i0;
+        const T v = fma_rn(a[t], w * (dinv[jc] * bl[jc]), acc[t]);
+        acc[t] = in ? v : acc[t];
+      }
+    } else if (!CHECK) {
       T xv[VEC];
       ld_x<T, VEC>(xv, xl + i0 + o, o);
 #pragma unroll
@@ -339,11 +309,22 @@ __device__ __forceinline__ void lane_rows(const T* __restrict__ data,
     for (int t = 0; t < VEC; ++t) {
       out[t] = fma_rn(w, dv[t] * (bv[t] - acc[t]), xv[t]);
     }
+  } else if (Mode == ZERO_RES_K) {
+    // B stays in L2 for the neighbouring blocks' runs: no evict-first
+    T bv[VEC], dv[VEC], res[VEC];
+    ld_vec<T, VEC, false>(bv, bl + i0);
+    ld_vec<T, VEC, false>(dv, dinv + i0);
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) {
+      out[t] = w * (dv[t] * bv[t]);
+      res[t] = bv[t] - acc[t];
+    }
+    st_vec<T, VEC>(rl + i0, res);
   } else {
 #pragma unroll
     for (int t = 0; t < VEC; ++t) out[t] = acc[t];
   }
-  st_vec_cs<T, VEC>(yl + i0, out);
+  st_vec<T, VEC>(yl + i0, out);
 }
 
 template <typename T, int Mode, int ND, int VEC>
@@ -354,23 +335,24 @@ __device__ __forceinline__ void lane_block(bool check,
                                            const T* __restrict__ xl,
                                            const T* __restrict__ bl,
                                            const T* __restrict__ dinv, T w,
-                                           T* __restrict__ yl) {
+                                           T* __restrict__ yl,
+                                           T* __restrict__ rl) {
   if (check) {
     lane_rows<T, Mode, ND, VEC, true>(data, offs, nd, n_pad, i0, xl, bl,
-                                      dinv, w, yl);
+                                      dinv, w, yl, rl);
   } else {
     lane_rows<T, Mode, ND, VEC, false>(data, offs, nd, n_pad, i0, xl, bl,
-                                       dinv, w, yl);
+                                       dinv, w, yl, rl);
   }
 }
 
-// K8 and K9 with the lane on the grid (see the header): the blocks walk
-// super tiles of SUPER row blocks, the lanes of a super tile one after
-// another (block b of super tile st: lane (b - st * SUPER * lanes) / s,
-// row block st * SUPER + its remainder, s the tile's row blocks); the row
-// blocks [lo_int, hi_int) need no bounds checks.  ND, when not 0, fixes
-// the diagonal count; otherwise the offsets go to shared memory first.
-// VEC rows a thread.
+// K8, K9 and K10 with the lane on the grid (see the header): the blocks
+// walk super tiles of SUPER row blocks, the lanes of a super tile one
+// after another (block b of super tile st: lane (b - st * SUPER * lanes)
+// / s, row block st * SUPER + its remainder, s the tile's row blocks); the
+// row blocks [lo_int, hi_int) need no bounds checks.  ND, when not 0,
+// fixes the diagonal count; otherwise the offsets go to shared memory
+// first.  VEC rows a thread.  r: ZERO_RES_K's residual stack (x unused).
 template <typename T, int Mode, int ND, int VEC>
 __global__ void __launch_bounds__(kThreads)
 dia_k_lane_kernel(const T* __restrict__ data, DiaOffsets offs, int nd,
@@ -378,7 +360,7 @@ dia_k_lane_kernel(const T* __restrict__ data, DiaOffsets offs, int nd,
                   int hi_int, const T* __restrict__ x,
                   const T* __restrict__ b, const T* __restrict__ dinv,
                   T omega, const T* __restrict__ omega_dev,
-                  T* __restrict__ y) {
+                  T* __restrict__ y, T* __restrict__ r) {
   using S = LaneShape<T, VEC>;
   const int bid = static_cast<int>(blockIdx.x);
   const int st = bid / (S::SUPER * lanes);
@@ -389,13 +371,17 @@ dia_k_lane_kernel(const T* __restrict__ data, DiaOffsets offs, int nd,
   const int rb = base + rem - k * tile;
   const int64_t lo = static_cast<int64_t>(k) * n_pad;
   T w = T(0);
-  if (Mode == JACOBI_K) w = omega_dev != nullptr ? *omega_dev : omega;
+  if (Mode == JACOBI_K || Mode == ZERO_RES_K) {
+    w = omega_dev != nullptr ? *omega_dev : omega;
+  }
   const T* bl = Mode == SPMM_SCALED ? b : (Mode == SPMM ? nullptr : b + lo);
+  const T* xl = Mode == ZERO_RES_K ? nullptr : x + lo;
+  T* rl = Mode == ZERO_RES_K ? r + lo : nullptr;
   const int i0 = rb * S::ROWS + static_cast<int>(threadIdx.x) * VEC;
   const bool check = rb < lo_int || rb >= hi_int;
   if constexpr (ND > 0) {
-    lane_block<T, Mode, ND, VEC>(check, data, offs.o, nd, n_pad, i0, x + lo,
-                                 bl, dinv, w, y + lo);
+    lane_block<T, Mode, ND, VEC>(check, data, offs.o, nd, n_pad, i0, xl, bl,
+                                 dinv, w, y + lo, rl);
   } else {
     // a run-time index into the argument would copy it to local memory
     __shared__ int s_offs[kMaxArgDiags];
@@ -404,8 +390,8 @@ dia_k_lane_kernel(const T* __restrict__ data, DiaOffsets offs, int nd,
       for (int d = 0; d < kMaxArgDiags; ++d) s_offs[d] = offs.o[d];
     }
     __syncthreads();
-    lane_block<T, Mode, ND, VEC>(check, data, s_offs, nd, n_pad, i0, x + lo,
-                                 bl, dinv, w, y + lo);
+    lane_block<T, Mode, ND, VEC>(check, data, s_offs, nd, n_pad, i0, xl, bl,
+                                 dinv, w, y + lo, rl);
   }
 }
 
@@ -689,7 +675,7 @@ template <typename T, int Mode, int ND, int VEC>
 int launch_lane(const void* data, const DiaOffsets& offs, int nd, int n_pad,
                 int lanes, int lo_int, int hi_int, const void* x,
                 const void* b, const void* dinv, T omega,
-                const void* omega_dev, void* y, cudaStream_t s) {
+                const void* omega_dev, void* y, void* r, cudaStream_t s) {
   constexpr int kRows = LaneShape<T, VEC>::ROWS;
   if (n_pad % VEC != 0 || n_pad >= (1LL << 31) - kRows) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -702,23 +688,27 @@ int launch_lane(const void* data, const DiaOffsets& offs, int nd, int n_pad,
       static_cast<const T*>(data), offs, nd, n_pad, lanes, row_blocks,
       lo_int, hi_int, static_cast<const T*>(x), static_cast<const T*>(b),
       static_cast<const T*>(dinv), omega, static_cast<const T*>(omega_dev),
-      static_cast<T*>(y));
+      static_cast<T*>(y), static_cast<T*>(r));
   return static_cast<int>(cudaGetLastError());
 }
 
 // the term loop unrolls for the 5- and 9-diagonal operators of 2-D grids
-// (float32 and float64: neither spills), else runs to nd
+// (float32 and float64: neither spills), and for K10 the 7-diagonal
+// operators of 3-D grids, else runs to nd
 template <typename T, int Mode, int VEC>
 int launch_lane_nd(const void* data, const DiaOffsets& offs, int nd,
                    int n_pad, int lanes, int lo_int, int hi_int,
                    const void* x, const void* b, const void* dinv, T omega,
-                   const void* omega_dev, void* y, cudaStream_t s) {
+                   const void* omega_dev, void* y, void* r, cudaStream_t s) {
 #define PYAMG_K8_LANE(ND)                                                   \
   return launch_lane<T, Mode, ND, VEC>(data, offs, nd, n_pad, lanes,        \
                                        lo_int, hi_int, x, b, dinv, omega,   \
-                                       omega_dev, y, s)
+                                       omega_dev, y, r, s)
   if (nd == 5) PYAMG_K8_LANE(5);
   if (nd == 9) PYAMG_K8_LANE(9);
+  if constexpr (Mode == ZERO_RES_K) {
+    if (nd == 7) PYAMG_K8_LANE(7);
+  }
   PYAMG_K8_LANE(0);
 #undef PYAMG_K8_LANE
 }
@@ -729,18 +719,19 @@ template <typename T, int Mode>
 int launch_lane_vec(int vec, const void* data, const DiaOffsets& offs,
                     int nd, int n_pad, int lanes, int lo_int, int hi_int,
                     const void* x, const void* b, const void* dinv, T omega,
-                    const void* omega_dev, void* y, cudaStream_t s) {
+                    const void* omega_dev, void* y, void* r,
+                    cudaStream_t s) {
   if constexpr (sizeof(T) == 4) {
     if (vec == 4) {
       return launch_lane_nd<T, Mode, 4>(data, offs, nd, n_pad, lanes,
                                         lo_int, hi_int, x, b, dinv, omega,
-                                        omega_dev, y, s);
+                                        omega_dev, y, r, s);
     }
   }
   if (vec != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_lane_nd<T, Mode, 1>(data, offs, nd, n_pad, lanes, lo_int,
                                     hi_int, x, b, dinv, omega, omega_dev, y,
-                                    s);
+                                    r, s);
 }
 
 template <typename T>
@@ -748,9 +739,9 @@ int launch_dia_k_lanes(const void* data, const int* offsets, int nd,
                        long long n_pad, int lanes, int vec, int lo_int,
                        int hi_int, const void* x, const void* b,
                        const void* dinv, T omega, const void* omega_dev,
-                       void* y, int mode, void* stream) {
+                       void* y, void* r, int mode, void* stream) {
   if (lanes < 1 || nd < 1 || nd > kMaxArgDiags || n_pad >= (1LL << 31) ||
-      lo_int < 0 || hi_int < lo_int) {
+      lo_int < 0 || hi_int < lo_int || (mode == ZERO_RES_K) != (r != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_pad <= 0) return static_cast<int>(cudaSuccess);
@@ -758,26 +749,20 @@ int launch_dia_k_lanes(const void* data, const int* offsets, int nd,
   for (int d = 0; d < nd; ++d) offs.o[d] = offsets[d];
   const int n = static_cast<int>(n_pad);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PYAMG_K8_MODE(MODE)                                                 \
+  return launch_lane_vec<T, MODE>(vec, data, offs, nd, n, lanes, lo_int,    \
+                                  hi_int, x, b, dinv, omega, omega_dev, y,  \
+                                  r, s)
   switch (mode) {
-    case SPMM:
-      return launch_lane_vec<T, SPMM>(vec, data, offs, nd, n, lanes, lo_int,
-                                      hi_int, x, b, dinv, omega, omega_dev,
-                                      y, s);
-    case SPMM_SCALED:
-      return launch_lane_vec<T, SPMM_SCALED>(vec, data, offs, nd, n, lanes,
-                                             lo_int, hi_int, x, b, dinv,
-                                             omega, omega_dev, y, s);
-    case SPMM_ADD:
-      return launch_lane_vec<T, SPMM_ADD>(vec, data, offs, nd, n, lanes,
-                                          lo_int, hi_int, x, b, dinv, omega,
-                                          omega_dev, y, s);
-    case JACOBI_K:
-      return launch_lane_vec<T, JACOBI_K>(vec, data, offs, nd, n, lanes,
-                                          lo_int, hi_int, x, b, dinv, omega,
-                                          omega_dev, y, s);
+    case SPMM: PYAMG_K8_MODE(SPMM);
+    case SPMM_SCALED: PYAMG_K8_MODE(SPMM_SCALED);
+    case SPMM_ADD: PYAMG_K8_MODE(SPMM_ADD);
+    case JACOBI_K: PYAMG_K8_MODE(JACOBI_K);
+    case ZERO_RES_K: PYAMG_K8_MODE(ZERO_RES_K);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PYAMG_K8_MODE
 }
 
 template <typename T>
@@ -888,33 +873,34 @@ int pyamg_dia_k_f64(const void* data, const void* offsets, int nd,
                               omega, omega_dev, y, r, mode, stream);
 }
 
-// K8 and K9 with the lane on the grid, every lane in one launch: data,
-// offsets (a host array of nd ints, passed to the kernel by value), nd,
-// n_pad, lanes, vec (rows a thread: 4, float32 only, with n_pad a multiple
-// of 4 and every pointer 16-byte aligned; or 1), lo_int, hi_int (the row
-// blocks of 256 * vec rows that need no bounds checks), x, b, dinv,
-// omega, omega_dev, y, mode (SPMM, SPMM_SCALED, SPMM_ADD, JACOBI_K; b as
-// for pyamg_dia_k_*), stream.
+// K8, K9 and K10 with the lane on the grid, every lane in one launch:
+// data, offsets (a host array of nd ints, passed to the kernel by value),
+// nd, n_pad, lanes, vec (rows a thread: 4, float32 only, with n_pad a
+// multiple of 4 and every pointer 16-byte aligned; or 1), lo_int, hi_int
+// (the row blocks of 256 * vec rows that need no bounds checks), x, b,
+// dinv, omega, omega_dev, y, r, mode (SPMM, SPMM_SCALED, SPMM_ADD,
+// JACOBI_K, ZERO_RES_K; b, x and r as for pyamg_dia_k_*: r non-null for
+// ZERO_RES_K only), stream.
 int pyamg_dia_k_lanes_f32(const void* data, const int* offsets, int nd,
                           long long n_pad, int lanes, int vec, int lo_int,
                           int hi_int, const void* x, const void* b,
                           const void* dinv, float omega,
-                          const void* omega_dev, void* y, int mode,
+                          const void* omega_dev, void* y, void* r, int mode,
                           void* stream) {
   return launch_dia_k_lanes<float>(data, offsets, nd, n_pad, lanes, vec,
                                    lo_int, hi_int, x, b, dinv, omega,
-                                   omega_dev, y, mode, stream);
+                                   omega_dev, y, r, mode, stream);
 }
 
 int pyamg_dia_k_lanes_f64(const void* data, const int* offsets, int nd,
                           long long n_pad, int lanes, int vec, int lo_int,
                           int hi_int, const void* x, const void* b,
                           const void* dinv, double omega,
-                          const void* omega_dev, void* y, int mode,
+                          const void* omega_dev, void* y, void* r, int mode,
                           void* stream) {
   return launch_dia_k_lanes<double>(data, offsets, nd, n_pad, lanes, vec,
                                     lo_int, hi_int, x, b, dinv, omega,
-                                    omega_dev, y, mode, stream);
+                                    omega_dev, y, r, mode, stream);
 }
 
 // data, offsets, nd, sdata, soffsets, nds, n_pad, lanes, b, dinv, tv,

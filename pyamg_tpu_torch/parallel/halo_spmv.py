@@ -8,22 +8,28 @@ interior rows while they fly and the boundary rows after.  Here the
 remote DMA is a ``torch.distributed`` send/receive pair per direction
 (:func:`~pyamg_tpu_torch.parallel.dist_spmv.start_halo_exchange`: NCCL on
 the card, gloo on the CPU), and one CUDA kernel reads its three sources
-(left halo, local x, right halo) by index instead of an extended copy:
+(left halo, local x, right halo) in place instead of an extended copy.
+Its rows go in row blocks, planned on the host by :func:`halo_plan`: the
+interior blocks read x only, the boundary blocks pick the source per
+term.  With an exchange:
 
 1. start the halo exchange;
-2. launch the interior rows [halo, n_local - halo) on the current stream
-   while it runs;
+2. launch the interior blocks on the current stream while it runs;
 3. wait for it (for NCCL, the current stream waits on the exchange);
-4. launch the two boundary row ranges.
+4. launch the boundary blocks of both ends in one launch.
+
+A ring of one exchanges nothing (its halos are x's own tail and head) and
+takes one launch over every block.
 
 Entry points:
 
-- :func:`dia_halo_rows`: one launch over one or two row ranges, the
-  kernel wrapper (counted as ``dia_halo_spmv.<dtype>``);
-- :func:`halo_spmv`: steps 1-4 on one rank's block, what the sharded
-  hierarchy's DIA operators apply; a ring of one (a world of one, or a
-  level on one group) takes its halos from x itself, as the reference's
-  single-device ring does, and gives K1's result;
+- :func:`dia_halo_rows`: one launch over a part of the plan's blocks
+  (``"all"``, ``"interior"`` or ``"boundary"``), the kernel wrapper
+  (counted as ``dia_halo_spmv.<dtype>``);
+- :func:`halo_spmv`: one rank's block, what the sharded hierarchy's DIA
+  operators apply; a ring of one (a world of one, or a level on one group)
+  takes its halos from x itself, as the reference's single-device ring
+  does, and gives K1's result;
 - :func:`halo_spmv_shards`: P row blocks of one operator in one process,
   each halo copied from its neighbouring block on a side stream under
   events while the main stream runs every interior, then every boundary;
@@ -32,53 +38,110 @@ Entry points:
 
 On CPU tensors :func:`dia_halo_rows` runs its plain twin
 (:func:`~pyamg_tpu_torch.parallel.dist_spmv.dia_halo_rows_ref`, the
-rolled sum over the extended vector) and the exchange is gloo's; on CUDA
-tensors it launches the kernel or raises.
+rolled sum over the extended vector, on the plan's rows) and the exchange
+is gloo's; on CUDA tensors it launches the kernel or raises.
 The TPU kernel is float32 only; this one takes float32 and float64.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from contextlib import nullcontext
+from dataclasses import dataclass
 
 import torch
 
 from .. import _build
-from ..sparse.dia import DIAMatrix
+from ..sparse.dia import DIAMatrix, _aligned
 from .dist_spmv import dia_halo_rows_ref, halo_width, start_halo_exchange
 
-__all__ = ["dia_halo_rows", "halo_spmv", "split_rows"]
+__all__ = ["HaloPlan", "halo_plan", "dia_halo_rows", "halo_spmv"]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# threads per CTA of csrc/halo.cu::halo_spmv_kernel (kThreads)
+_THREADS = 256
+_PARTS = ("all", "interior", "boundary")
 
 
-def split_rows(n_local, halo):
-    """(interior, boundary) row ranges of a block: the interior
-    [halo, n_local - halo) reads only the block, the boundary is the
-    first and last ``halo`` rows (each clipped to the block)."""
-    lo = min(halo, n_local)
-    hi = max(n_local - halo, lo)
-    return ((lo, hi),), ((0, lo), (hi, n_local))
+@dataclass(frozen=True)
+class HaloPlan:
+    """K16's row blocks on a block of ``n_local`` rows: ``row_blocks``
+    blocks of ``rows`` rows (``vec`` a thread); the blocks [lo, hi) are
+    interior: every neighbour of their rows lies in [0, n_local), with vec
+    - 1 rows to spare on either side (the aligned 16-byte runs a thread of
+    4 rows loads around a neighbour run)."""
+
+    vec: int
+    rows: int
+    row_blocks: int
+    lo: int
+    hi: int
+    n_local: int
+
+    def blocks(self, part):
+        """The block ranges of ``part``: every block ("all", a ring of
+        one's single launch), the interior, or the boundary blocks of both
+        ends (one launch after the exchange)."""
+        if part == "all":
+            return ((0, self.row_blocks),)
+        if part == "interior":
+            return ((self.lo, self.hi),)
+        if part == "boundary":
+            return ((0, self.lo), (self.hi, self.row_blocks))
+        raise ValueError(f"part: expected one of {_PARTS}, got {part!r}")
+
+    def row_ranges(self, part):
+        """The row ranges of ``part``'s blocks."""
+        return tuple((b0 * self.rows, min(b1 * self.rows, self.n_local))
+                     for b0, b1 in self.blocks(part))
 
 
-def dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, ranges,
-                  y):
-    """One K16 launch over at most two row ranges of a block: ``data``
-    (nd, n_local), rows contiguous (a column slice of a wider array is
-    fine), ``offsets`` (ascending, |offset| <= halo) and ``offsets_t``
-    their int32 tensor beside data, ``left`` / ``right`` the halos
-    (``halo`` entries each), ``x`` and ``y`` (n_local,).  Writes y's rows
-    in place; raises on operands the kernel does not take."""
+@functools.lru_cache(maxsize=256)
+def halo_plan(offsets, n_local, dtype, aligned=True):
+    """K16's row blocks for ``offsets`` on a block of ``n_local`` rows of
+    ``dtype`` (``aligned``: data, its row stride, x and y 16-byte
+    aligned).  A thread takes 4 float32 rows in 16-byte loads where
+    n_local is a multiple of 4 and the operands are aligned, else 1 row."""
+    vec = 4 if dtype == torch.float32 and aligned and n_local % 4 == 0 \
+        else 1
+    rows = _THREADS * vec
+    row_blocks = -(-n_local // rows)
+    below = max(0, -min(offsets)) + vec - 1
+    above = max(0, max(offsets)) + vec - 1
+    lo = min(-(-below // rows), row_blocks)
+    hi = min(max(lo, (n_local - above) // rows), row_blocks)
+    return HaloPlan(vec=vec, rows=rows, row_blocks=row_blocks, lo=lo, hi=hi,
+                    n_local=n_local)
+
+
+@functools.lru_cache(maxsize=256)
+def _offsets_c(offsets):
+    return (ctypes.c_int * len(offsets))(*offsets)
+
+
+def _plan_for(data, offsets, x, y):
+    aligned = data.stride(0) % 4 == 0 and _aligned(data, x, y)
+    return halo_plan(tuple(offsets), x.shape[0], data.dtype, aligned)
+
+
+def dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, part, y):
+    """One K16 launch over ``part`` (``"all"``, ``"interior"`` or
+    ``"boundary"``) of the row blocks of :func:`halo_plan` on a block:
+    ``data`` (nd, n_local), rows contiguous (a column slice of a wider
+    array is fine), ``offsets`` (ascending, |offset| <= halo) and
+    ``offsets_t`` their int32 tensor beside data, ``left`` / ``right`` the
+    halos (``halo`` entries each), ``x`` and ``y`` (n_local,).  Writes y's
+    rows in place; raises on operands the kernel does not take."""
+    plan = _plan_for(data, offsets, x, y)
     if _build.on_cpu(data, left, x, right, y):
-        return dia_halo_rows_ref(data, offsets, left, x, right, halo, ranges,
-                                 y)
-    ranges = [r for r in ranges if r[1] > r[0]]
-    if not ranges:
+        return dia_halo_rows_ref(data, offsets, left, x, right, halo,
+                                 plan.row_ranges(part), y)
+    blocks = [r for r in plan.blocks(part) if r[1] > r[0]]
+    if not blocks:
         return y
-    if len(ranges) > 2:
-        raise ValueError("a K16 launch covers at most two row ranges")
-    (a0, a1), (b0, b1) = ranges[0], ranges[-1]
-    if len(ranges) == 1:
+    (a0, a1), (b0, b1) = blocks[0], blocks[-1]
+    if len(blocks) == 1:
         b0 = b1 = a1
     n_local = x.shape[0]
     dtype = data.dtype
@@ -96,10 +159,10 @@ def dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, ranges,
         _build.check_vector(name, h, halo, dtype)
     fn_name = f"pyamg_halo_spmv_{_SUFFIX[dtype]}"
     err = getattr(_build.library(), fn_name)(
-        data.data_ptr(), data.stride(0), offsets_t.data_ptr(), len(offsets),
-        n_local, halo, left.data_ptr(), x.data_ptr(), right.data_ptr(), a0,
-        a1, b0, b1, y.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        data.data_ptr(), data.stride(0), _offsets_c(tuple(offsets)),
+        offsets_t.data_ptr(), len(offsets), n_local, halo, left.data_ptr(),
+        x.data_ptr(), right.data_ptr(), plan.vec, plan.lo, plan.hi, a0, a1,
+        b0, b1, y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(fn_name, err)
     _build.count_launch(f"dia_halo_spmv.{_build.dtype_name(dtype)}")
     return y
@@ -107,18 +170,21 @@ def dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, ranges,
 
 def halo_spmv(data, offsets, offsets_t, x, halo, mesh, groups):
     """This rank's block of A @ x for a DIA A row-sharded over ``groups``
-    shard groups of ``mesh``: the exchange started, the interior launched
-    while it runs, then the boundary (K16's order).  A ring of one
-    exchanges nothing and reads its halos from x."""
+    shard groups of ``mesh``: the exchange started, the interior blocks
+    launched while it runs, then the boundary blocks (K16's order).  A
+    ring of one exchanges nothing, reads its halos from x and takes one
+    launch over every block."""
     y = torch.empty_like(x)
-    interior, boundary = split_rows(x.shape[0], halo)
     left, right, reqs = start_halo_exchange(x, halo, mesh, groups)
-    dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, interior,
+    if not reqs:
+        return dia_halo_rows(data, offsets, offsets_t, left, x, right, halo,
+                             "all", y)
+    dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, "interior",
                   y)
     for req in reqs:
         req.wait()
     return dia_halo_rows(data, offsets, offsets_t, left, x, right, halo,
-                         boundary, y)
+                         "boundary", y)
 
 
 def halo_spmv_shards(A: DIAMatrix, x, n_shards, side_stream=None,
@@ -156,16 +222,15 @@ def halo_spmv_shards(A: DIAMatrix, x, n_shards, side_stream=None,
                 halos[p, 1].copy_(x[right][:halo], non_blocking=True)
             if on_card:
                 done.record(side)
-    interior, boundary = split_rows(nl, halo)
     offsets_t = A.offsets_t
     if "interior" in phases:
         for p, blk in enumerate(blocks):
             dia_halo_rows(A.data[:, blk], A.offsets, offsets_t, halos[p, 0],
-                          x[blk], halos[p, 1], halo, interior, y[blk])
+                          x[blk], halos[p, 1], halo, "interior", y[blk])
     if on_card and "halos" in phases:
         main.wait_event(done)     # the boundary and halos' reuse wait
     if "boundary" in phases:
         for p, blk in enumerate(blocks):
             dia_halo_rows(A.data[:, blk], A.offsets, offsets_t, halos[p, 0],
-                          x[blk], halos[p, 1], halo, boundary, y[blk])
+                          x[blk], halos[p, 1], halo, "boundary", y[blk])
     return y

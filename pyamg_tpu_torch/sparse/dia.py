@@ -34,10 +34,10 @@ through three stages with two rings in shared memory, so each inner value
 is computed once, by the plan of :func:`chain_plan`; a shape that plan
 refuses takes the per-row kernel, with the same bits.
 
-:func:`dia_spmm` (all three modes) and :func:`dia_jacobi_k` put the lane
-on the grid, every lane in one launch, by the plan of :func:`k8_plan`; a
-shape that plan refuses takes the thread-per-row kernel in 16-lane
-chunks, with the same bits.  :func:`dia_zero_chain_k` marches strips of
+:func:`dia_spmm` (all three modes), :func:`dia_jacobi_k` and
+:func:`dia_jacobi_zero_res_k` put the lane on the grid, every lane in one
+launch, by the plan of :func:`k8_plan`; a shape that plan refuses takes
+the thread-per-row kernel in 16-lane chunks, with the same bits.  :func:`dia_zero_chain_k` marches strips of
 rows with a ring of the residual in shared memory, every lane in one
 launch, by the plan of :func:`k11_plan`; an St whose reach is too large
 for the ring takes the per-row kernel.  And :func:`dia_jacobi_res_k`, the
@@ -91,8 +91,8 @@ _SPMV, _JACOBI, _JACOBI_ZERO_RES, _SPMV_SCALED, _SPMV_ADD = 0, 1, 2, 3, 4
 _ZERO_CHAIN, _JACOBI_RES = 0, 1
 # modes of csrc/dia_k.cu::dia_k_kernel
 _SPMM, _SPMM_SCALED, _SPMM_ADD, _JACOBI_K, _ZERO_RES_K = 0, 1, 2, 3, 4
-# K8 and K9's lane kernel (csrc/dia_k.cu::dia_k_lane_kernel): threads per
-# CTA (kThreads), the offsets it takes as a kernel argument at most
+# K8, K9 and K10's lane kernel (csrc/dia_k.cu::dia_k_lane_kernel): threads
+# per CTA (kThreads), the offsets it takes as a kernel argument at most
 # (kMaxArgDiags), and row blocks a super tile per value type (LaneShape)
 _K8_THREADS = 256
 _K8_MAX_DIAGS = 32
@@ -338,12 +338,12 @@ def dia_zero_chain_k_ref(A: DIAMatrix, St: DIAMatrix, Bk, dinv, tv, omega):
 
 @dataclass(frozen=True)
 class K8Plan:
-    """A launch of K8 / K9's lane kernel: ``row_blocks`` blocks of ``rows``
-    rows (``vec`` a thread) for each of ``lanes`` lanes.  The blocks walk
-    super tiles of ``super`` row blocks, the lanes of a tile one after
-    another (:meth:`block`); the row blocks [lo, hi) have every neighbour
-    in [0, n_pad), with vec - 1 rows to spare on either side, and carry no
-    bounds checks."""
+    """A launch of K8 / K9 / K10's lane kernel: ``row_blocks`` blocks of
+    ``rows`` rows (``vec`` a thread) for each of ``lanes`` lanes.  The
+    blocks walk super tiles of ``super`` row blocks, the lanes of a tile
+    one after another (:meth:`block`); the row blocks [lo, hi) have every
+    neighbour in [0, n_pad), with vec - 1 rows to spare on either side, and
+    carry no bounds checks."""
 
     vec: int
     rows: int
@@ -367,8 +367,8 @@ class K8Plan:
 
 @functools.lru_cache(maxsize=256)
 def k8_plan(offsets, n_pad, K, dtype, aligned=True):
-    """K8 / K9's lane-kernel launch for ``offsets`` on ``n_pad`` rows and
-    K lanes of ``dtype`` (``aligned``: every operand 16-byte aligned), or
+    """K8 / K9 / K10's lane-kernel launch for ``offsets`` on ``n_pad`` rows
+    and K lanes of ``dtype`` (``aligned``: every operand 16-byte aligned), or
     None when the kernel does not take the shape (then the thread-per-row
     kernel runs): rows past 2^31, more than 32 diagonals, or more than
     2^31 - 1 blocks.  A thread takes 4 float32 rows in 16-byte loads where
@@ -665,24 +665,24 @@ def _aligned(*tensors):
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _launch_k8(kernel, mode, A, Xk, b, dinv, omega, Yk):
-    """K8 / K9: the lane kernel by :func:`k8_plan`, every lane in one
+def _launch_k8(kernel, mode, A, Xk, b, dinv, omega, Yk, Rk=None):
+    """K8 / K9 / K10: the lane kernel by :func:`k8_plan`, every lane in one
     launch, counted as ``kernel``; a shape it refuses takes the
     thread-per-row kernel in lane chunks, counted as ``kernel + "_rows"``.
-    Both give the same bits."""
+    Both give the same bits.  ``Rk``: K10's residual stack (``Xk`` None)."""
     _kernel_operand(A)
     plan = k8_plan(A.offsets, A.n_pad, Yk.shape[0], A.dtype,
-                   _aligned(A.data, Xk, b, dinv, Yk))
+                   _aligned(A.data, Xk, b, dinv, Yk, Rk))
     if plan is None:
-        _launch_k(f"{kernel}_rows", mode, A, Xk, b, dinv, omega, Yk)
+        _launch_k(f"{kernel}_rows", mode, A, Xk, b, dinv, omega, Yk, Rk)
         return
     suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
     fn_name = f"pyamg_dia_k_lanes_{suffix}"
     w, w_dev = _omega_args(omega, A, c_scalar)
     err = getattr(_build.library(), fn_name)(
         A.data.data_ptr(), A.offsets_c, A.ndiags, A.n_pad, Yk.shape[0],
-        plan.vec, plan.lo, plan.hi, Xk.data_ptr(), _ptr(b), _ptr(dinv), w,
-        w_dev, Yk.data_ptr(), mode,
+        plan.vec, plan.lo, plan.hi, _ptr(Xk), _ptr(b), _ptr(dinv), w,
+        w_dev, Yk.data_ptr(), _ptr(Rk), mode,
         torch.cuda.current_stream(A.device).cuda_stream)
     _build.check(fn_name, err)
     _count(kernel, A)
@@ -694,6 +694,15 @@ def _dia_k_rows(kernel, mode, A, Xk, b, dinv, omega):
     Yk = torch.empty_like(Xk)
     _launch_k(f"{kernel}_rows", mode, A, Xk, b, dinv, omega, Yk)
     return Yk
+
+
+def _zero_res_k_rows(A, Bk, dinv, omega):
+    """K10 in the thread-per-row form whatever the shape (for checks that
+    hold the lane kernel to it)."""
+    Xk, Rk = torch.empty_like(Bk), torch.empty_like(Bk)
+    _launch_k("dia_jacobi_zero_res_k_rows", _ZERO_RES_K, A, None, Bk, dinv,
+              omega, Xk, Rk)
+    return Xk, Rk
 
 
 def _check_stacks(A, K, **stacks):
@@ -852,15 +861,17 @@ def dia_jacobi_k(A: DIAMatrix, Xk, Bk, dinv, omega):
 
 def dia_jacobi_zero_res_k(A: DIAMatrix, Bk, dinv, omega):
     """Zero-guess Jacobi sweep and its residual per lane in one pass:
-    (X, R) = (omega * dinv * B, B - A @ X) (K10)."""
+    (X, R) = (omega * dinv * B, B - A @ X) (K10: the lane kernel by
+    :func:`k8_plan`, one launch for every lane; the thread-per-row kernel
+    in 16-lane chunks for a shape it refuses, with the same bits)."""
     if _build.on_cpu(A.data, Bk, dinv):
         return dia_jacobi_zero_res_k_ref(A, Bk, dinv, omega)
     _check_stacks(A, None, Bk=Bk)
     _check_vectors(A, dinv=dinv)
     Xk = torch.empty_like(Bk)
     Rk = torch.empty_like(Bk)
-    _launch_k("dia_jacobi_zero_res_k", _ZERO_RES_K, A, None, Bk, dinv, omega,
-              Xk, Rk)
+    _launch_k8("dia_jacobi_zero_res_k", _ZERO_RES_K, A, None, Bk, dinv,
+               omega, Xk, Rk)
     return Xk, Rk
 
 

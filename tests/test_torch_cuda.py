@@ -580,7 +580,7 @@ def test_k_lane_wrapper_rejects_bad_operands(cuda):
 @pytest.mark.parametrize("K", [3, 8, 19])
 def test_k10_zero_res_k_matches_twin(cuda, dtype, K):
     """K10 against its twin on K-major stacks, omega by value and as a 0-d
-    device tensor; K=19 takes two launches per call."""
+    device tensor; one launch per call for any K (the lane kernel)."""
     A = poisson((48, 70), format="csr")
     D = dia_from_scipy(A, dtype=dtype, device=cuda, row_pad=1024)
     B = torch.as_tensor(np.random.default_rng(K).random((K, D.n_pad)),
@@ -595,8 +595,45 @@ def test_k10_zero_res_k_matches_twin(cuda, dtype, K):
             assert g.shape == (K, D.n_pad)
             assert _rel_err(g, w) <= TOL[dtype]
     name = str(dtype).removeprefix("torch.")
-    assert _build.launches == {f"dia_jacobi_zero_res_k.{name}":
-                               2 * -(-K // 16)}
+    assert _build.launches == {f"dia_jacobi_zero_res_k.{name}": 2}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K", [3, 8, 19])
+@pytest.mark.parametrize("case", ["device level0", "device level1",
+                                  "device level4", "host level0",
+                                  "3-D 7-point", "unaligned stack"])
+def test_k10_lane_kernel_equals_per_row_kernel(cuda, dtype, K, case):
+    """K10 with the lane on the grid at the paths' offsets (nd 5, 9 and the
+    7-point form), 4 float32 rows a thread or 1 (level 4's odd n_pad, a
+    misaligned B): one launch per call for any K, two launches equal, bit
+    for bit the thread-per-row kernel's (X, R), within TOL of the twin."""
+    n, offsets, shift = K8_CASES[case]
+    D = _random_dia(n, offsets, dtype, cuda, 0)
+    rng = np.random.default_rng(K)
+    big = torch.as_tensor(rng.random(K * n + shift), dtype=dtype,
+                          device=cuda)
+    B = big[shift:].view(K, n)
+    dinv = _rand(n, dtype, cuda, 3)
+    omega = torch.tensor(0.85, dtype=dtype, device=cuda)
+    plan = dia.k8_plan(D.offsets, n, K, dtype, shift == 0)
+    assert plan is not None and 0 < plan.lo <= plan.hi < plan.row_blocks
+    assert plan.vec == (4 if dtype == torch.float32 and n % 4 == 0
+                        and shift == 0 else 1)
+    name = str(dtype).removeprefix("torch.")
+    _build.reset_launches()
+    got = dia.dia_jacobi_zero_res_k(D, B, dinv, omega)
+    again = dia.dia_jacobi_zero_res_k(D, B, dinv, omega)
+    assert _build.launches == {f"dia_jacobi_zero_res_k.{name}": 2}
+    rows = dia._zero_res_k_rows(D, B, dinv, omega)
+    torch.cuda.synchronize()
+    assert _build.launches[f"dia_jacobi_zero_res_k_rows.{name}"] == \
+        -(-K // 16)
+    want = dia.dia_jacobi_zero_res_k_ref(D, B, dinv, omega)
+    for g, a, r, w in zip(got, again, rows, want):
+        assert g.shape == (K, n)
+        assert torch.equal(g, a) and torch.equal(g, r)
+        assert _rel_err(g, w) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -969,16 +1006,19 @@ def test_unstructured_setup_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_k16_ring_of_one_and_shards_match_k1(cuda, dtype):
-    """K16 on the card: the ring of one (halos are x's own tail and head)
-    and P = 4 in-process shards (halos copied on a side stream) equal K1
-    bit for bit; two launches per ring apply, eight for the shards."""
+@pytest.mark.parametrize("grid", [(96, 128), (64, 16, 16)])
+def test_k16_ring_of_one_and_shards_match_k1(cuda, dtype, grid):
+    """K16 on the card, on a 2-D 5-point and a 3-D 7-point operator: the
+    ring of one (halos are x's own tail and head) and P = 4 in-process
+    shards (halos copied on a side stream) equal K1 bit for bit; one
+    launch per ring apply, two per shard (interior, then boundary)."""
     from pyamg_tpu_torch.parallel import halo_width
     from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv, halo_spmv_shards
     from pyamg_tpu_torch.parallel.partition import SolverMesh
 
-    A = dia_from_scipy(poisson((96, 128), format="csr"), dtype=dtype,
+    A = dia_from_scipy(poisson(grid, format="csr"), dtype=dtype,
                        device=cuda, row_pad=1024)
+    assert A.ndiags == 2 * len(grid) + 1
     x = _rand(A.n_pad, dtype, cuda, 7)
     want = dia.dia_spmv(A, x)
     one = SolverMesh(rank=0, world=1, device=cuda)
@@ -989,7 +1029,7 @@ def test_k16_ring_of_one_and_shards_match_k1(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(ring, want) and torch.equal(shards, want)
     name = str(dtype).removeprefix("torch.")
-    assert _build.launches == {f"dia_halo_spmv.{name}": 2 + 2 * 4}
+    assert _build.launches == {f"dia_halo_spmv.{name}": 1 + 2 * 4}
 
 
 def test_sharded_solve_world_of_one_on_card(cuda, tmp_path):

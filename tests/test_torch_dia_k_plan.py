@@ -1,7 +1,7 @@
-"""K8 and K9's launch plan, on the CPU.
+"""K8, K9 and K10's launch plan, on the CPU.
 
-K8 (``dia_spmm`` in its three modes) and K9 (``dia_jacobi_k``) put the
-lane on the grid (csrc/dia_k.cu::dia_k_lane_kernel): a block computes one
+K8 (``dia_spmm`` in its three modes), K9 (``dia_jacobi_k``) and K10
+(``dia_jacobi_zero_res_k``) put the lane on the grid (csrc/dia_k.cu::dia_k_lane_kernel): a block computes one
 row block of one lane, 4 float32 rows a thread (n_pad a multiple of 4,
 operands 16-byte aligned) or 1, walking super tiles of row blocks (128
 in float32) with the lanes of a tile one after another, and the row
@@ -14,7 +14,7 @@ cover every (lane, row) once, every neighbour of an interior block lies in
 kernel is taken exactly for the shapes the lane kernel refuses.  An
 emulation of the kernel's block and row indexing in numpy (float64
 arithmetic on a small n_pad with the real offsets, under the float32 and
-the float64 plan) is held against the plain twins bit for bit in all four
+the float64 plan) is held against the plain twins bit for bit in all five
 modes.
 """
 import numpy as np
@@ -44,6 +44,9 @@ LEVELS = {
     "lane-aligned level0": (4784128, (-2304, -1, 0, 1, 2304)),
     "lane-aligned level1": (540672, (-769, -768, -767, -1, 0, 1, 767, 768,
                                      769)),
+    # config 3's level 0 (512^2 anisotropic FD diffusion, the classical
+    # batched CG's K10 / K9 shape)
+    "config3 level0": (262144, (-512, -1, 0, 1, 512)),
 }
 
 
@@ -139,11 +142,16 @@ def _lane_grid(plan, mode, A, X, b, dinv, w):
     block, each thread's vec rows, the neighbours (and the aligned runs
     around them) unchecked in the plan's interior (an index outside [0,
     n_pad) there fails) and out-of-range terms left out elsewhere, then the
-    mode's epilogue; every (lane, row) written once."""
+    mode's epilogue; every (lane, row) written once.  Mode "zero_res"
+    (K10): X is the lane's B, each neighbour's iterate w * (dinv_j * b_j)
+    formed from B and dinv as the kernel forms it, and the result the pair
+    (w * (dinv * B), B - A X)."""
     n = A.n_pad
     a = A.data.numpy()
     K = X.shape[0]
     Y = np.full((K, n), np.nan)
+    R = np.full((K, n), np.nan)
+    src = w * (dinv * X) if mode == "zero_res" else X
     for blk in range(plan.blocks):
         k, rb = plan.block(blk)
         interior = plan.lo <= rb < plan.hi
@@ -162,11 +170,15 @@ def _lane_grid(plan, mode, A, X, b, dinv, w):
                 if plan.vec == 4 and off % 4:
                     run = run - off % 4 + np.arange(8)
                 assert run.min() >= 0 and run.max() < n
-                acc = acc + a[d, i] * X[k, j]
+                acc = acc + a[d, i] * src[k, j]
             else:
                 ok = (j >= 0) & (j < n)
-                acc[ok] = acc[ok] + a[d, i[ok]] * X[k, j[ok]]
-        if mode == "plain":
+                acc[ok] = acc[ok] + a[d, i[ok]] * src[k, j[ok]]
+        if mode == "zero_res":
+            assert np.isnan(R[k, i]).all()
+            R[k, i] = X[k, i] - acc
+            out = src[k, i]
+        elif mode == "plain":
             out = acc
         elif mode == "scale":
             out = acc * b[i]
@@ -176,7 +188,7 @@ def _lane_grid(plan, mode, A, X, b, dinv, w):
             out = X[k, i] + w * (dinv[i] * (b[k, i] - acc))
         assert np.isnan(Y[k, i]).all()
         Y[k, i] = out
-    return Y
+    return (Y, R) if mode == "zero_res" else Y
 
 
 @pytest.mark.parametrize("mode", ["plain", "scale", "add", "jacobi"])
@@ -210,3 +222,31 @@ def test_lane_grid_emulation_matches_twin_bit_for_bit(level, n_pad, K,
             "add": lambda: dia.dia_spmm_add_ref(A, Xt, Vt),
             "jacobi": lambda: dia.dia_jacobi_k_ref(A, Xt, Vt, dt, 0.7)}[mode]()
     assert np.array_equal(got.view(np.uint64), want.numpy().view(np.uint64))
+
+
+@pytest.mark.parametrize("plan_dtype", DTYPES)
+@pytest.mark.parametrize("level", list(LEVELS))
+def test_lane_grid_zero_res_emulation_matches_twin_bit_for_bit(level,
+                                                                plan_dtype):
+    """K10 (``dia_jacobi_zero_res_k``) in the lane kernel: its block and
+    row indexing under the float32 or float64 plan at each path level's
+    real offsets (config 3's level 0 too), on an n_pad cut to a few row
+    blocks past the reach (the real one where it is smaller: the coarse
+    levels' odd n_pad, one row a thread), the neighbours' iterate formed
+    from B and dinv, in float64: (X, R) are the twin's bits."""
+    n_real, offsets = LEVELS[level]
+    reach = max(abs(o) for o in offsets)
+    n_pad = min(n_real, 4 * ((2 * reach + 3 * 1024) // 4 + 3))
+    K = 3
+    A = _random_dia(n_pad, offsets, 1)
+    rng = np.random.default_rng(n_pad)
+    B = rng.standard_normal((K, n_pad))
+    dinv = rng.random(n_pad)
+    plan = dia.k8_plan(offsets, n_pad, K, plan_dtype)
+    assert plan.vec == _vec(plan_dtype, n_pad)
+    assert 0 < plan.lo < plan.hi < plan.row_blocks
+    got = _lane_grid(plan, "zero_res", A, B, None, dinv, 0.7)
+    want = dia.dia_jacobi_zero_res_k_ref(A, torch.as_tensor(B),
+                                         torch.as_tensor(dinv), 0.7)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.view(np.uint64), w.numpy().view(np.uint64))
