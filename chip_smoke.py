@@ -108,11 +108,28 @@ result lines):
     fixed order), and levels 3+ and that true relres must be the ones
     recorded since the transposes sum in that order (every kernel keeps
     its arithmetic, so the hierarchy keeps its bits);
+12b. the unstructured classical setups (device_unstructured_rs_setup,
+    device_unstructured_air_setup): RS with the setup's defaults on the
+    640k mesh, modified interpolation twice (per-stage seconds, peak
+    memory, each level's n, nc, period, k and widths, the two runs'
+    levels identical and equal to the ones recorded on the card) and
+    direct once, each with float32 CG to 1e-6 and b =
+    default_rng(0).standard_normal(n) on the card (iterations recorded
+    likewise), K14 on level 0's A, K6 / K7 and K12 / K13 (K = 64) on level
+    0's M and P_direct; both at 200^2 against the JAX package's levels
+    and counts; AIR through device_air_setup(grid=None) on RCM-permuted
+    upwind advection at 256^2 (the 512^2 and 384^2 coarsest levels would
+    pass 8192 rows: the dense pseudo-inverse), twice, its first cycle's
+    drop (>= 1e4) and FGMRES to 1e-8 (<= 10 iterations), K6 / K7 / K12 /
+    K13 on its level 0's A and injection Tinj, and at 128^2 in float64
+    against the JAX package's levels and count; counters around every
+    setup and solve, the three solves profiled, a V-cycle of each
+    hierarchy with no host sync;
 13. row-sharded solves (pyamg_tpu_torch.parallel) in a world of one NCCL
     rank: host-built config 1 (native f32 CG to 1e-5, K16 on its DIA
-    levels) and the 640k unstructured hierarchy (f32 CG to 1e-6), each at
-    its unsharded solve's iteration count, with counters; the process
-    group is destroyed before the result lines;
+    levels) and the 640k unstructured SA and RS hierarchies (f32 CG to
+    1e-6), each at its unsharded solve's iteration count, with counters;
+    the process group is destroyed before the result lines;
 14. config 2 (bench.py:446-455, :698-712): the device-built hierarchy of
     3-D 7-point Poisson 64^3 (float32, max_coarse=400, float64 A64), its
     setup time (a second call) and levels; K5, K4, K1 (plain and both
@@ -214,6 +231,7 @@ result lines):
 """
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -411,6 +429,8 @@ PATHS = {
         "windowed_rmatvec.float32"),
     "sharded unstructured": (
         "windowed_matvec.float32", "windowed_rmatvec.float32"),
+    "sharded unstructured RS": (
+        "windowed_matvec.float32", "windowed_rmatvec.float32"),
     # config 2 at 64^3: the W and F cycles' second visits enter through K4
     # and restrict through K1 SPMV_SCALED; AMLI's coarse products are K1
     "config 2 W-cycle": (
@@ -495,6 +515,25 @@ PATHS.update({
         "block_dia_spmv.float32", "block_dia_spmv.float64",
         "block_dia_jacobi.float32"),
     "adaptive SA CG": ("block_dia_spmv.float32", "block_dia_jacobi.float32"),
+})
+# the unstructured classical setups: PMIS's selects (K14) and lambda (K7),
+# the power iteration (K6), the probe chains (K12 on P's factors and A, K13
+# on P^T's factors or the Neumann restriction's injection); their solves
+# apply A, P's factors, the smoothers and the Neumann restriction's A
+# through K6, P^T's factors and the injection's transpose through K7
+PATHS.update({
+    **{f"unstructured {what} setup": (
+        "windowed_select.float32", "windowed_matvec.float32",
+        "windowed_rmatvec.float32", "windowed_matmat_k.float32",
+        "windowed_rmatmat_k.float32")
+       for what in ("RS modified", "RS direct")},
+    # no spectral radius: no K6 in the AIR setup
+    "unstructured AIR setup": (
+        "windowed_select.float32", "windowed_rmatvec.float32",
+        "windowed_matmat_k.float32", "windowed_rmatmat_k.float32"),
+    **{f"unstructured {what} solve": (
+        "windowed_matvec.float32", "windowed_rmatvec.float32")
+       for what in ("RS modified", "RS direct", "AIR")},
 })
 # the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
 PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
@@ -1573,7 +1612,8 @@ def halo_shards_check(check, A, x, k1, nbytes, tag, side, shards=4):
     """K16 on ``shards`` in-process row blocks of A (halos copied on the
     side stream ``side``) against K1's ``k1`` bit for bit; then the
     interior alone, the halo copies alone and the overlapped total beside
-    K1 and the bound (``nbytes`` of one SpMV)."""
+    K1, the plain twin (the rolled-DIA SpMV), ``torch.mv`` on A as CSR
+    (the same product) and the bound (``nbytes`` of one SpMV)."""
     import torch
 
     from pyamg_tpu_torch.parallel.halo_spmv import (halo_plan,
@@ -1596,11 +1636,15 @@ def halo_shards_check(check, A, x, k1, nbytes, tag, side, shards=4):
         t[label] = min(time_ms(lambda: halo_spmv_shards(
             A, x, shards, side, phases=phases)) for _ in range(2))
     t_k1 = min(time_ms(lambda: dia.dia_spmv(A, x)) for _ in range(2))
+    A_csr = dia_to_csr(A)
+    t_plain = time_ms(lambda: dia.dia_spmv_ref(A, x))
+    t_lib = time_ms(lambda: torch.mv(A_csr, x))
     log(f"  K16 {shards} shards in one process [{dt} {tag}]: interior "
         f"alone {t['interior']:.4f} ms, halo copies alone (side stream, "
         f"{2 * shards} copies) {t['halo copies']:.4f} ms, overlapped "
         f"total {t['overlapped']:.4f} ms; K1 on the whole operator "
-        f"{t_k1:.4f} ms; bound {nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+        f"{t_k1:.4f} ms; plain {t_plain:.4f} ms; library {t_lib:.4f} ms "
+        f"(torch.mv, CSR); bound {nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
 
 
 def halo_phase(check, h, rand, results):
@@ -1625,12 +1669,13 @@ def halo_phase(check, h, rand, results):
         halo_shards_check(check, A, x, k1, nbytes, tag, side)
 
 
-def sharded_phase(check, dev, dml, A, dus, A_un, launches):
+def sharded_phase(check, dev, dml, A, dus, A_un, drs, launches):
     """Row-sharded solves in a world of one NCCL rank (file:// rendezvous
     in a temporary directory): the host-built config 1 hierarchy sharded
     (every level a ring of one; its DIA levels through K16), native f32 CG
-    to 1e-5, and the 640k unstructured hierarchy sharded, f32 CG to 1e-6;
-    each against the unsharded solve of the same b in this run (the same
+    to 1e-5, and the 640k unstructured SA and RS (modified: P's two
+    windowed factors sharded one by one) hierarchies sharded, f32 CG to
+    1e-6; each against the unsharded solve of the same b in this run (the same
     iterations; the reference's 7 +- 1 for the unstructured one),
     counters zeroed just before each sharded solve and read just after,
     wall times (numpy b and x, median of 3).  The process group is
@@ -1667,7 +1712,10 @@ def sharded_phase(check, dev, dml, A, dus, A_un, launches):
                      np.random.default_rng(1).random(A.shape[0]), 1e-5, None),
                     ("sharded unstructured", dus, A_un,
                      np.random.default_rng(0).standard_normal(A_un.shape[0]),
-                     1e-6, UNSTR_REF_ITERS)):
+                     1e-6, UNSTR_REF_ITERS),
+                    ("sharded unstructured RS", drs, A_un,
+                     np.random.default_rng(0).standard_normal(A_un.shape[0]),
+                     1e-6, None)):
                 kw = dict(tol=tol, maxiter=100, accel="cg")
                 t0 = time.perf_counter()
                 sharded = DeviceMultilevelSolver(
@@ -2098,6 +2146,261 @@ def unstructured_phase(check, dev, rand, results, launches):
           f"aggressive float32: true relres {true_rels[-1]:.3e} (recorded "
           f"{ROUTED_F32_TRUE_FIXED})")
     return dus, A
+
+
+# the unstructured classical setups (engine/unstructured_classical.py): RS
+# with the setup's defaults on the 640k mesh of phase 12, and AIR through
+# device_air_setup's route (its max_coarse 400 and max_levels 4) on upwind
+# advection, RCM-permuted so that detect_grid finds no grid
+UCL_PARITY_NX = 200
+# levels and float32 CG iterations to 1e-6 at 200^2, the JAX package on the
+# CPU (float32 and float64 alike; tests/test_torch_unstructured_classical.py
+# holds the two packages' hierarchies equal at smaller sizes)
+UCL_PARITY = {"modified": ((40000, 14567, 2745, 541), 7),
+              "direct": ((40000, 14567, 3649, 781), 10)}
+# the 640k levels and float32 CG iterations of the port on the card,
+# recorded from its first run there (the JAX package was not run at this
+# size on the CPU; the reference's TPU record is 8 / 11 iterations): a
+# regression check, as UNSTR_DEEP_FIXED is
+UCL_FIXED = {"modified": ((640000, 233341, 43355, 8282, 1479), 8),
+             "direct": ((640000, 233341, 57046, 12185, 2598, 546), 11)}
+UCL_AIR_NX = 256
+UCL_AIR_PARITY_NX = 128
+# levels and FGMRES iterations to 1e-8 of the routed 128^2 setup, the JAX
+# package on the CPU in float64.  In float32 the probe chains' rounding
+# breaks the advection operator's exact strength ties at level 1's coarse
+# operator, so the deeper levels move with the summation order (JAX float32
+# on the CPU: 3302, 1154 and 4 iterations; the port's CPU twins 3302, 1159)
+UCL_AIR_PARITY = ((16384, 8398, 3148, 1073), 3)
+UCL_AIR_MIN_DROP = 1e4           # the reference test's bars
+UCL_AIR_MAX_ITERS = 10
+
+
+def advection_operator(nx):
+    """Upwind advection on an nx^2 grid (theta = pi/4) and its right-hand
+    side, in the RCM order of |A| + |A^T| (no grid stencil left)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from pyamg_tpu_torch import advection_2d
+
+    A, b = advection_2d((nx, nx), theta=np.pi / 4)
+    A = sp.csr_matrix(A)
+    perm = csgraph.reverse_cuthill_mckee(sp.csr_matrix(abs(A) + abs(A.T)),
+                                         symmetric_mode=True)
+    return sp.csr_matrix(A[perm][:, perm]), np.asarray(b)[perm]
+
+
+def ucl_levels(solver):
+    return tuple(lv.n for lv in solver.hierarchy.levels)
+
+
+def ucl_solve(check, label, solver, A, b, kw, launches):
+    """``solver.solve(b, **kw)`` with ``b`` on the card, warm, then counted:
+    iterations, history and true relres (at most 1e-5, the float32 floor of
+    x), wall (median of 3); its launches under ``launches[label]``.
+    Returns the iterations."""
+    import numpy as np
+    import torch
+
+    bt = torch.as_tensor(b, dtype=torch.float32, device=solver.hierarchy
+                         .device)
+    solver.solve(bt, **kw)                           # warm-up
+    res = []
+    x, counts, wall = counted(lambda: solver.solve(bt, residuals=res, **kw))
+    launches[label] = counts
+    walls = [wall]
+    for _ in range(2):
+        walls.append(counted(lambda: solver.solve(bt, **kw))[2])
+    normb = float(np.linalg.norm(b))
+    iters = len(res) - 1
+    x = x.double().cpu().numpy()
+    true = float(np.linalg.norm(b - A @ x)) / normb
+    log(f"{label} ({kw['accel']} to {kw['tol']:g}, b on the card): {iters} "
+        f"iterations, history relres {res[-1] / normb:.3e}, true relres "
+        f"{true:.3e}; solve {float(np.median(walls)):.4f} s (median of 3)")
+    log(f"  history: {' '.join(f'{r / normb:.3e}' for r in res)}")
+    log(f"  launches in that solve: {json.dumps(counts, sort_keys=True)}")
+    check(bool(np.isfinite(x).all()) and res[-1] <= kw["tol"] * normb
+          and true <= 1e-5, f"{label}: relres {res[-1] / normb:.2e} <= "
+          f"{kw['tol']:g}, true {true:.2e} <= 1e-5")
+    path_launches(check, label, counts)
+    return iters
+
+
+def unstructured_classical_phase(check, dev, rand, results, launches, A,
+                                 card):
+    """Phase 12b: the unstructured classical setups on the card.  (a) RS
+    on the 640k mesh ``A`` with the setup's defaults, modified
+    interpolation twice (per-stage seconds of the second, peak memory,
+    each level's n, nc, period, k and widths; the two runs' levels
+    identical and the recorded ones), counters zeroed before the first;
+    K14 on level 0's A (a PMIS round's payload), K6 / K7 on level 0's M
+    and P_direct, K12 / K13 at the probe width on them; float32 CG to
+    1e-6, then the same with direct interpolation; (b) both at 200^2
+    against the JAX package's levels and counts; (c) AIR through
+    device_air_setup's route on RCM-permuted advection at UCL_AIR_NX^2,
+    twice, its first cycle's drop and FGMRES to 1e-8, K6 / K7 / K12 / K13
+    on level 0's A and the injection Tinj, and at 128^2 against the JAX
+    package's levels and count (float64); (d) the three solves profiled and
+    a V-cycle of each hierarchy with no host sync.  Returns the 640k
+    modified RS solver."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import (DeviceMultilevelSolver, _build,
+                                 device_air_setup,
+                                 device_unstructured_rs_setup)
+
+    f32 = torch.float32
+    n = A.shape[0]
+    b = np.random.default_rng(0).standard_normal(n)
+    cg = dict(tol=1e-6, maxiter=100, accel="cg")
+    solvers = {}
+    for interp in ("modified", "direct"):
+        kw = dict(device=dev, interpolation=interp)
+        runs = []
+        for i in range(2 if interp == "modified" else 1):
+            prof = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            live = torch.cuda.memory_allocated(dev)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            drs = device_unstructured_rs_setup(A, profile=prof, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if i == 0:
+                launches[f"unstructured RS {interp} setup"] = dict(
+                    _build.launches)
+            peak = (torch.cuda.max_memory_allocated(dev) - live) / 2**30
+            runs.append(ucl_levels(drs))
+            stages = {}
+            for key, sec in prof.items():
+                stage = key.split(".", 1)[1]
+                stages[stage] = stages.get(stage, 0.0) + sec
+            log(f"unstructured RS ({interp}) setup run {i + 1}, {UNSTR_NX}^2 "
+                f"P1 mesh + 1e-2 I (n={n}): {wall:.3f} s (CUDA-synchronised, "
+                f"host CSR -> windowed included; {card}), peak device memory "
+                f"{peak:.2f} GiB above the {live / 2**30:.2f} GiB live, "
+                f"levels {list(runs[-1])}")
+            log(f"  stage totals (s): {json.dumps(stages)}")
+            log(f"  per level and stage (s): {json.dumps(prof)}")
+        solvers[interp] = drs
+        label = f"unstructured RS {interp} setup"
+        log(f"  launches in the first setup: "
+            f"{json.dumps(launches[label], sort_keys=True)}")
+        for info in drs.setup_info["levels"]:
+            log(f"  setup_info {json.dumps(info)}")
+        for i, lvl in enumerate(drs.hierarchy.levels):
+            log(f"  level {i}: n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
+        check(len(set(runs)) == 1, f"{label}: the runs' levels identical: "
+              f"{runs}")
+        path_launches(check, label, launches[label])
+        if interp == "modified":
+            lv0 = drs.hierarchy.levels[0]
+            M, Pd = lv0.P.factors
+            log("unstructured RS kernels at level 0 (kernel vs plain twin):")
+            windowed_kernel_checks(
+                check, "unstructured RS", (("level0 A", lv0.A),),
+                (("level0 M", M), ("level0 P_direct", Pd)),
+                ("level0 M", "level0 P_direct"), f32, rand, results, label)
+        iters = ucl_solve(check, f"unstructured RS {interp} solve", drs, A,
+                          b, cg, launches)
+        fixed = UCL_FIXED[interp]
+        got = (ucl_levels(drs), iters)
+        log(f"unstructured RS ({interp}) 640k: levels {list(got[0])}, "
+            f"{iters} CG iterations (recorded {fixed}; the reference's TPU "
+            "record, context only: 8 modified / 11 direct)")
+        if fixed is not None:
+            check(got == fixed, f"unstructured RS ({interp}) 640k: levels "
+                  f"and iterations {got}, the recorded {fixed}")
+        sync_free_cycle(check, DeviceMultilevelSolver(drs.hierarchy)
+                        .cycle_operator("V"),
+                        rand(drs.hierarchy.levels[0].n_pad, f32),
+                        f"one vector (unstructured RS {interp} 640k)")
+
+    # (b) 200^2 against the JAX package's levels and counts
+    Ap = fem_operator(UCL_PARITY_NX)
+    bp = np.random.default_rng(0).standard_normal(Ap.shape[0])
+    for (interp, (levels, iters)), dtype in itertools.product(
+            UCL_PARITY.items(), (f32, torch.float64)):
+        s = device_unstructured_rs_setup(Ap, dtype=dtype, device=dev,
+                                         interpolation=interp)
+        res = []
+        s.solve(bp, residuals=res, **cg)
+        got = (ucl_levels(s), len(res) - 1)
+        check(got == (levels, iters), f"unstructured RS ({interp}) "
+              f"{UCL_PARITY_NX}^2 {str(dtype)[6:]}: levels {list(got[0])}, "
+              f"{got[1]} CG iterations (JAX on the CPU: {list(levels)}, "
+              f"{iters})")
+
+    # (c) AIR through device_air_setup's route
+    Aa, ba = advection_operator(UCL_AIR_NX)
+    _, launches["unstructured AIR setup"], t_first = counted(
+        lambda: device_air_setup(Aa, device=dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    live = torch.cuda.memory_allocated(dev)
+    dair, _, t_air = counted(lambda: device_air_setup(Aa, device=dev))
+    peak = (torch.cuda.max_memory_allocated(dev) - live) / 2**30
+    log(f"unstructured AIR setup (device_air_setup route), RCM-permuted "
+        f"advection {UCL_AIR_NX}^2 (n={Aa.shape[0]}): {t_air:.3f} s (first "
+        f"call {t_first:.3f} s; {card}), peak device memory {peak:.2f} GiB "
+        f"above the {live / 2**30:.2f} GiB live, levels "
+        f"{list(ucl_levels(dair))}, dense coarse {dair.hierarchy.nc}")
+    log(f"  launches in the first setup: "
+        f"{json.dumps(launches['unstructured AIR setup'], sort_keys=True)}")
+    for info in dair.setup_info["levels"]:
+        log(f"  setup_info {json.dumps(info)}")
+    for i, lvl in enumerate(dair.hierarchy.levels):
+        log(f"  level {i}: n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}")
+    check(type(dair).__name__ == "DeviceMultilevelSolver"
+          and {i["family"] for i in dair.setup_info["levels"]} == {"air"},
+          "unstructured AIR: device_air_setup(grid=None) routed to the "
+          "unstructured AIR setup")
+    path_launches(check, "unstructured AIR setup",
+                  launches["unstructured AIR setup"])
+    lv0 = dair.hierarchy.levels[0]
+    log("unstructured AIR kernels at level 0 (kernel vs plain twin):")
+    windowed_kernel_checks(
+        check, "unstructured AIR", (("level0 A", lv0.A),),
+        (("level0 A", lv0.A), ("level0 Tinj", lv0.R.Tinj)),
+        ("level0 A", "level0 Tinj"), f32, rand, results,
+        "unstructured AIR setup")
+    res = []
+    dair.solve(ba, tol=1e-8, maxiter=1, residuals=res)
+    drop = res[0] / res[1]
+    check(drop >= UCL_AIR_MIN_DROP, f"unstructured AIR: first cycle drops "
+          f"the residual {drop:.3e}x (>= {UCL_AIR_MIN_DROP:g})")
+    fg = dict(tol=1e-8, maxiter=30, accel="fgmres")
+    it = ucl_solve(check, "unstructured AIR solve", dair, Aa, ba, fg,
+                   launches)
+    check(it <= UCL_AIR_MAX_ITERS, f"unstructured AIR: {it} FGMRES "
+          f"iterations (<= {UCL_AIR_MAX_ITERS})")
+    Ap, bp = advection_operator(UCL_AIR_PARITY_NX)
+    s = device_air_setup(Ap, dtype=torch.float64, device=dev)
+    res = []
+    s.solve(bp, residuals=res, **fg)
+    got = (ucl_levels(s), len(res) - 1)
+    check(got == UCL_AIR_PARITY, f"unstructured AIR {UCL_AIR_PARITY_NX}^2 "
+          f"float64: levels {list(got[0])}, {got[1]} FGMRES iterations (JAX "
+          f"on the CPU: {list(UCL_AIR_PARITY[0])}, {UCL_AIR_PARITY[1]})")
+    sync_free_cycle(check, DeviceMultilevelSolver(dair.hierarchy)
+                    .cycle_operator("V"), rand(lv0.n_pad, f32),
+                    f"one vector (unstructured AIR {UCL_AIR_NX}^2)")
+
+    # (d) the three solves profiled
+    bt = torch.as_tensor(b, dtype=f32, device=dev)
+    bat = torch.as_tensor(ba, dtype=f32, device=dev)
+    profile_phase("unstructured classical", (
+        ("unstructured RS modified f32 CG to 1e-6, 640k",
+         lambda: solvers["modified"].solve(bt, **cg)),
+        ("unstructured RS direct f32 CG to 1e-6, 640k",
+         lambda: solvers["direct"].solve(bt, **cg)),
+        (f"unstructured AIR f32 FGMRES to 1e-8, {UCL_AIR_NX}^2",
+         lambda: dair.solve(bat, **fg))))
+    return solvers["modified"]
 
 
 def levels_log(solver, rho=True):
@@ -3852,9 +4155,16 @@ def main():
     dus, A_un = unstructured_phase(check, dev, rand, results, launches)
     log(f"unstructured phases: {time.perf_counter() - t_u:.1f} s")
 
+    # 12b. the unstructured classical setups and solves
+    t_u = time.perf_counter()
+    drs = unstructured_classical_phase(check, dev, rand, results, launches,
+                                       A_un, card)
+    log(f"unstructured classical phase: {time.perf_counter() - t_u:.1f} s")
+
     # 13. row-sharded solves in a world of one NCCL rank
     t_s = time.perf_counter()
-    sharded_phase(check, dev, dml, A, dus, A_un, launches)
+    sharded_phase(check, dev, dml, A, dus, A_un, drs, launches)
+    del drs
     log(f"sharded phase: {time.perf_counter() - t_s:.1f} s")
 
     # 14. config 2: the device-built 64^3 hierarchy, its kernels, and the

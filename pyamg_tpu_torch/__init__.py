@@ -99,10 +99,13 @@ from .convert import (block_solver_from_jax, hierarchy_from_jax,
                       unstructured_solver_from_jax)
 from .engine import (BlockStructuredDeviceSolver, ComposedWindowed,
                      DeviceHierarchy, DeviceMultilevelSolver,
-                     ReorderedSolver, StructuredDeviceSolver,
-                     as_device_solver, compile_hierarchy, detect_grid,
+                     NeumannAIRRestriction, ReorderedSolver,
+                     StructuredDeviceSolver, as_device_solver,
+                     compile_hierarchy, detect_grid,
                      device_adaptive_sa_setup, device_air_setup,
                      device_rs_setup, device_sa_setup, device_sa_setup_block,
+                     device_unstructured_air_setup,
+                     device_unstructured_rs_setup,
                      device_unstructured_sa_setup)
 from .gallery import (advection_2d, diffusion_stencil_2d, gradgradform,
                       linear_elasticity, poisson, recirc_flow,
@@ -114,12 +117,14 @@ from .sparse import BlockDIAMatrix, block_dia_from_scipy, dia_from_stencil
 
 __all__ = ["BlockDIAMatrix", "BlockStructuredDeviceSolver",
            "ComposedWindowed", "DeviceHierarchy", "DeviceMultilevelSolver",
-           "MultilevelSolver", "ReorderedSolver", "StructuredDeviceSolver",
+           "MultilevelSolver", "NeumannAIRRestriction", "ReorderedSolver",
+           "StructuredDeviceSolver",
            "advection_2d", "as_device_solver", "backend",
            "block_dia_from_scipy", "block_solver_from_jax",
            "compile_hierarchy", "detect_grid", "device_adaptive_sa_setup",
            "device_air_setup", "device_rs_setup", "device_sa_setup",
-           "device_sa_setup_block", "device_unstructured_sa_setup",
+           "device_sa_setup_block", "device_unstructured_air_setup",
+           "device_unstructured_rs_setup", "device_unstructured_sa_setup",
            "diffusion_stencil_2d", "dia_from_stencil", "gradgradform",
            "halo_width", "hierarchy_from_jax", "initialize_distributed",
            "launches", "linear_elasticity",

@@ -15,8 +15,9 @@ block ones, the classical setups' embedded ones) and the block-DIA
 operators; :func:`structured_solver_from_jax` wraps such a hierarchy with
 the JAX solver's grid layout, and :func:`block_solver_from_jax` a block
 setup's with its node grid and block size.  The unstructured setup's
-composed prolongators carry across as well, and
-:func:`unstructured_solver_from_jax` wraps its hierarchy (in the JAX
+composed prolongators carry across as well, and so does the unstructured
+AIR setup's Neumann restriction; :func:`unstructured_solver_from_jax`
+wraps an unstructured SA, RS or AIR hierarchy (in the JAX
 ``ReorderedSolver``'s permutation when it has one).
 """
 
@@ -36,6 +37,7 @@ from .engine.device_setup import (StructuredDeviceSolver,
 from .engine.hierarchy import DeviceHierarchy, DeviceLevel
 from .engine.relaxation import DeviceSmoother
 from .engine.solver import DeviceMultilevelSolver
+from .engine.unstructured_classical import NeumannAIRRestriction
 from .engine.unstructured_setup import ComposedWindowed, ReorderedSolver
 from .sparse import (BlockDIAMatrix, ComposedOperator, DenseOperator,
                      DIAMatrix, TransposedWindowed, WindowedELL)
@@ -105,6 +107,10 @@ def hierarchy_from_jax(dh, device) -> DeviceHierarchy:
             return TransposedWindowed(base=op(o.base))
         if name == "ComposedWindowed":
             return ComposedWindowed(factors=tuple(op(f) for f in o.factors))
+        if name == "NeumannAIRRestriction":
+            return NeumannAIRRestriction(
+                A=op(o.A), Tinj=op(o.Tinj), dinv_f=tensor(o.dinv_f),
+                shape=tuple(o.shape), nnz=int(o.nnz), degree=int(o.degree))
         if name == "ComposedOperator":
             return ComposedOperator(ops=tuple(op(f) for f in o.ops),
                                     shape=tuple(o.shape), nnz=int(o.nnz))
@@ -166,7 +172,8 @@ def block_solver_from_jax(dsa, device) -> BlockStructuredDeviceSolver:
 
 def unstructured_solver_from_jax(dsa, device):
     """The port's solver over the arrays of a JAX
-    ``device_unstructured_sa_setup`` result: a DeviceMultilevelSolver, in
+    ``device_unstructured_sa_setup``, ``device_unstructured_rs_setup`` or
+    ``device_unstructured_air_setup`` result: a DeviceMultilevelSolver, in
     a :class:`ReorderedSolver` with the JAX one's permutation when the
     JAX setup reordered."""
     inner = getattr(dsa, "_inner", None)

@@ -21,6 +21,9 @@ from .setup import (device_bellman_ford, device_jp_coloring, device_luby_mis,
                     device_pmis_splitting, device_strength_mask,
                     neighbor_reduce_max, neighbor_reduce_min_plus)
 from .solver import DeviceMultilevelSolver, as_device_solver
+from .unstructured_classical import (NeumannAIRRestriction,
+                                     device_unstructured_air_setup,
+                                     device_unstructured_rs_setup)
 from .unstructured_setup import (ComposedWindowed, ReorderedSolver,
                                  device_unstructured_sa_setup)
 
@@ -28,7 +31,7 @@ __all__ = ["BlockStructuredDeviceSolver", "BlockStructuredProlongator",
            "BlockStructuredRestrictor", "ComposedWindowed",
            "DeviceHierarchy", "DeviceLevel",
            "DeviceMultilevelSolver", "DeviceSmoother", "EmbeddedProlongator",
-           "EmbeddedRestrictor", "ReorderedSolver",
+           "EmbeddedRestrictor", "NeumannAIRRestriction", "ReorderedSolver",
            "StructuredDeviceSolver", "apply_smoother", "apply_smoother_zero",
            "as_device_solver", "compile_hierarchy",
            "detect_grid", "device_adaptive_sa_setup", "device_air_setup",
@@ -39,6 +42,7 @@ __all__ = ["BlockStructuredDeviceSolver", "BlockStructuredProlongator",
            "device_minimal_residual", "device_pmis_splitting",
            "device_rs_setup", "device_sa_setup", "device_sa_setup_block",
            "device_steepest_descent", "device_strength_mask",
+           "device_unstructured_air_setup", "device_unstructured_rs_setup",
            "device_unstructured_sa_setup", "dia_from_stencil",
            "dia_transpose", "interleaved_batched_cg",
            "interleaved_zero_vcycle", "neighbor_reduce_max",

@@ -35,7 +35,8 @@ through K3 and K2 (K10 and K9 on lanes), and AIR's masked sweeps each
 through one K2 (K9) pass.
 
 An operator that is not a grid stencil (``detect_grid`` finds no grid)
-raises: the unstructured classical setups are ROADMAP.md Queue 1 item 13.
+goes to the unstructured classical setups
+(``engine/unstructured_classical.py``), with the reference's arguments.
 """
 
 from __future__ import annotations
@@ -56,12 +57,14 @@ from .device_setup import (_check_dtype, _check_smoother, _coarsening_plan,
                            _compact_dia, _compact_fine, _dia_spgemm_filtered,
                            _dia_to_dense, _dinv_of, _embed_coarse,
                            _grid_operator, _grid_pad_vec, _grid_unpad_vec,
-                           _not_ported, _ns_pinv, _offset_sums,
+                           _ns_pinv, _offset_sums,
                            _offset_to_coords, _pad_smoother_arrays,
                            _pad_solve_items, _power_rho, _relayout_dia,
                            _smoother_device_arrays, _smoother_wrap,
                            _spec_key, _structured_solver, _tup, detect_grid)
 from .hierarchy import DeviceLevel
+from .unstructured_classical import (device_unstructured_air_setup,
+                                     device_unstructured_rs_setup)
 
 __all__ = ["device_rs_setup", "device_air_setup", "EmbeddedProlongator",
            "EmbeddedRestrictor"]
@@ -497,10 +500,10 @@ def _air_setup_pipeline(A_in, *, plan, dtype, degree):
 # entry points
 # ---------------------------------------------------------------------------
 
-def _stencil_grid_of(A, grid, setup):
+def _stencil_grid_of(A, grid):
     """The grid of ``A``: ``grid``, or the one :func:`detect_grid` infers;
-    an operator with none raises (the unstructured classical setups are
-    not ported)."""
+    None for an operator that is not a grid stencil (the caller routes it
+    to the unstructured classical setups)."""
     if grid is not None:
         return grid
     if not (sp.issparse(A) or isinstance(A, np.ndarray)):
@@ -508,9 +511,7 @@ def _stencil_grid_of(A, grid, setup):
     try:
         return detect_grid(A)
     except ValueError:
-        raise _not_ported(
-            f"device_unstructured_{setup}_setup, which device_{setup}_setup "
-            "takes for an operator that is not a grid stencil,", 13) from None
+        return None
 
 
 def _embedded_transfers(plan, i, P_emb, R_emb):
@@ -543,11 +544,25 @@ def device_rs_setup(A, grid=None, dtype=torch.float32, device=None,
     rescaled by 1/s^2 per level.  Smoothers: ``jacobi``, ``richardson``
     or ``chebyshev`` specs, their spectral radii estimated on the device.
     ``mixed_precision=True`` also stores the finest operator in float64
-    for the mixed-precision outer loop."""
+    for the mixed-precision outer loop.
+
+    An operator that is not a grid stencil goes to
+    :func:`device_unstructured_rs_setup` with ``dtype``, ``device``,
+    ``max_coarse``, ``max_levels``, ``mixed_precision`` and the smoothers
+    the caller changed from ``("jacobi", {"omega": 4/3})`` (the
+    reference's routing; the unstructured setup's defaults sweep twice)."""
     device = resolve_device(device)
     _check_dtype(dtype)
-    grid, A_dia = _grid_operator(A, _stencil_grid_of(A, grid, "rs"), dtype,
-                                 device)
+    grid = _stencil_grid_of(A, grid)
+    if grid is None:
+        default = ("jacobi", {"omega": 4.0 / 3.0})
+        kw = {name: spec for name, spec in (("presmoother", presmoother),
+                                            ("postsmoother", postsmoother))
+              if spec != default}
+        return device_unstructured_rs_setup(
+            A, dtype=dtype, device=device, max_coarse=max_coarse,
+            max_levels=max_levels, mixed_precision=mixed_precision, **kw)
+    grid, A_dia = _grid_operator(A, grid, dtype, device)
     pre_key = _spec_key(presmoother)
     post_key = _spec_key(postsmoother)
     _check_smoother(pre_key)
@@ -592,11 +607,23 @@ def device_air_setup(A, grid=None, dtype=torch.float32, device=None,
     ``stride`` is 2 or a per-dim tuple.  ``max_levels=4`` by default: the
     fixed C/F lattice keeps the degree-2 restriction near-exact for at
     most three coarsenings.  Solve a nonsymmetric problem with
-    ``accel='fgmres'`` or ``'bicgstab'``, or stationary cycles."""
+    ``accel='fgmres'`` or ``'bicgstab'``, or stationary cycles.
+
+    An operator that is not a grid stencil goes to
+    :func:`device_unstructured_air_setup` with ``dtype``, ``device``,
+    ``degree``, ``max_coarse``, ``max_levels``, ``f_iterations``,
+    ``c_iterations``, ``omega`` and ``mixed_precision`` (the reference's
+    routing)."""
     device = resolve_device(device)
     _check_dtype(dtype)
-    grid, A_dia = _grid_operator(A, _stencil_grid_of(A, grid, "air"), dtype,
-                                 device)
+    grid = _stencil_grid_of(A, grid)
+    if grid is None:
+        return device_unstructured_air_setup(
+            A, dtype=dtype, device=device, degree=degree,
+            max_coarse=max_coarse, max_levels=max_levels,
+            f_iterations=f_iterations, c_iterations=c_iterations,
+            omega=omega, mixed_precision=mixed_precision)
+    grid, A_dia = _grid_operator(A, grid, dtype, device)
     _tup(stride, len(grid))                  # 'auto' is the RS setup's
     plan, cur_grid = _coarsening_plan(A_dia, grid, stride, 2, max_coarse,
                                       max_levels)

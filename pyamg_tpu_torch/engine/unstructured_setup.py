@@ -543,12 +543,15 @@ def _p_residue_matmat(P, d0, K, period, nc_pad, n_pad):
     return Y.reshape(K, m)[:, :n_pad]
 
 
-def _probe_rap(A_w, P, cstarts, *, period, K, nc_pad, bc, dtype):
-    """A_c = P^T A P recovered exactly by banded probing.  ``cstarts``
-    (nb_c,) int64 = per-coarse-block window starts; returns the band
-    (nb_c, bc, period): residue d lands for coarse block b at position
-    (d - cstart_b) mod period, a bijection, so each chunk is placed by
-    one index assignment of its float32-cast values."""
+def _probe_rap(A_w, P, cstarts, *, period, K, nc_pad, bc, dtype, R=None):
+    """A_c = R A P recovered exactly by banded probing, R = P^T unless
+    given (the AIR setup's Neumann restriction: the chain P, then A, then
+    R).  ``cstarts`` (nb_c,) int64 = per-coarse-block window starts;
+    returns the band (nb_c, bc, period): residue d lands for coarse block
+    b at position (d - cstart_b) mod period, a bijection, so each chunk is
+    placed by one index assignment of its float32-cast values."""
+    if R is None:
+        R = TransposedWindowed(P)
     n_pad = A_w.n_pad
     nchunks = -(-period // K)
     nb_c = nc_pad // bc
@@ -558,7 +561,7 @@ def _probe_rap(A_w, P, cstarts, *, period, K, nc_pad, bc, dtype):
         d0 = c * K
         Y1 = _p_residue_matmat(P, d0, K, period, nc_pad, n_pad)
         Y2 = A_w @ Y1                                     # K12
-        Y3 = P.rmatvec(fit(Y2, P.n_pad))                  # K13
+        Y3 = R @ Y2                                       # K13
         kv = min(K, period - d0)                          # lanes < period
         Yc = Y3[:kv, :nc_pad].to(torch.float32)
         d = d0 + torch.arange(kv, device=A_w.device)
@@ -674,14 +677,42 @@ def _next_from_band(A_band, cstarts, nc, nc_pad, bc, dtype):
 # reordering
 # ---------------------------------------------------------------------------
 
+def _sym_abs(A):
+    """|A| + |A^T| as CSR: the symmetrized structure of a CSR ``A``."""
+    Aa = sp.csr_matrix((np.abs(A.data), A.indices, A.indptr),
+                       shape=A.shape)
+    return (Aa + Aa.T).tocsr()
+
+
 def _rcm_perm(A):
     """RCM permutation over the symmetrized structure |A| + |A^T|."""
     from scipy.sparse import csgraph
-    Aa = sp.csr_matrix((np.abs(A.data), A.indices, A.indptr),
-                       shape=A.shape)
-    S = (Aa + Aa.T).tocsr()
     return np.asarray(csgraph.reverse_cuthill_mckee(
-        S, symmetric_mode=True)).astype(np.int64)
+        _sym_abs(A), symmetric_mode=True)).astype(np.int64)
+
+
+def _windowed_or_reordered(A, dtype, device, reorder, retry):
+    """(A as sorted CSR, its WindowedELL on ``device``); or, for an
+    operator that is not windowable under its ordering and ``reorder=
+    "auto"``, ``retry(A_perm, perm)`` on its RCM reordering (the caller's
+    setup there, in a :class:`ReorderedSolver`)."""
+    A = sp.csr_matrix(A)
+    A.sort_indices()
+    if A.shape[0] >= 2 ** 24:
+        raise ValueError("unstructured device setup requires n < 2^24 "
+                         "(float32-exact index payloads)")
+    W = windowed_from_scipy(A, dtype=dtype, device=device, block=1024)
+    if W is None:
+        if reorder == "auto":
+            perm = _rcm_perm(A)
+            Ap = A[perm][:, perm].tocsr()
+            if windowed_from_scipy(Ap, dtype=dtype, device=device,
+                                   block=1024) is not None:
+                return ReorderedSolver(retry(Ap, perm), perm)
+        raise ValueError(
+            "operator is not windowable under its ordering (even after "
+            "RCM reordering); use the host setup path")
+    return A, W
 
 
 class ReorderedSolver:
@@ -761,33 +792,22 @@ def device_unstructured_sa_setup(A, B=None, dtype=torch.float32, device=None,
     _check_smoother(pre_key)
     _check_smoother(post_key)
     device = resolve_device(device)
-    A = sp.csr_matrix(A)
-    A.sort_indices()
+
+    def retry(Ap, perm):
+        return device_unstructured_sa_setup(
+            Ap, B=None if B is None else np.asarray(B).ravel()[perm],
+            dtype=dtype, device=device, theta=theta, omega=omega,
+            max_coarse=max_coarse, max_levels=max_levels,
+            presmoother=presmoother, postsmoother=postsmoother,
+            improve_candidates_iters=improve_candidates_iters, seed=seed,
+            aggregate=aggregate, smooth_passes=smooth_passes, reorder=False,
+            profile=profile)
+
+    prep = _windowed_or_reordered(A, dtype, device, reorder, retry)
+    if isinstance(prep, ReorderedSolver):
+        return prep
+    A, W = prep
     n = A.shape[0]
-    if n >= 2 ** 24:
-        raise ValueError("unstructured device setup requires n < 2^24 "
-                         "(float32-exact index payloads)")
-    W = windowed_from_scipy(A, dtype=dtype, device=device, block=1024)
-    if W is None:
-        if reorder == "auto":
-            perm = _rcm_perm(A)
-            Ap = A[perm][:, perm].tocsr()
-            if windowed_from_scipy(Ap, dtype=dtype, device=device,
-                                   block=1024) is not None:
-                Bp = None if B is None else np.asarray(B).ravel()[perm]
-                inner = device_unstructured_sa_setup(
-                    Ap, B=Bp, dtype=dtype, device=device, theta=theta,
-                    omega=omega, max_coarse=max_coarse,
-                    max_levels=max_levels, presmoother=presmoother,
-                    postsmoother=postsmoother,
-                    improve_candidates_iters=improve_candidates_iters,
-                    mixed_precision=mixed_precision, seed=seed,
-                    aggregate=aggregate, smooth_passes=smooth_passes,
-                    reorder=False, profile=profile)
-                return ReorderedSolver(inner, perm)
-        raise ValueError(
-            "operator is not windowable under its ordering (even after "
-            "RCM reordering); use the host setup path")
     spans = _SpanPlan.from_csr(A)
     B_dev = None
     if B is not None:

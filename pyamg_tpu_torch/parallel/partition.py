@@ -261,7 +261,8 @@ def _factors(op):
                 for f in reversed(_factors(op.base))]
     name = type(op).__name__
     if name == "NeumannAIRRestriction":
-        raise _not_ported("sharding the AIR restriction", 13)
+        raise _not_ported("sharding the AIR restriction (its level's "
+                          "masked Jacobi has no sharding roles yet)", 14)
     if name == "ELLMatrix":
         raise _not_ported("sharding a gather-ELL operator", 1)
     if not isinstance(op, (DIAMatrix, DenseOperator, WindowedELL)):

@@ -11,8 +11,8 @@ and histories to 1e-10 relative.  The cases: 2-D Poisson 32^2 (5-point
 FD), the 9-point FE diffusion stencil, 48^2 anisotropic diffusion with
 ``stride='auto'`` (semicoarsening), ``stride=(2, 1)`` and 3-D Poisson
 12^3.  Also a batched K = 2 solve, a JAX hierarchy carried across by
-``structured_solver_from_jax``, and the raise for an operator with no
-grid (the unstructured classical setup, ROADMAP.md Queue 1 item 13).
+``structured_solver_from_jax``, and the route of an operator with no
+grid to the unstructured classical setups.
 """
 import numpy as np
 import pytest
@@ -198,17 +198,30 @@ def test_from_jax_classical_solver(fd5):
 
 
 def test_no_grid_raises_item_13():
-    """An operator that is not a grid stencil: the reference routes it to
-    its unstructured classical setup, which the port lacks (item 13); a
-    DIAMatrix without a grid raises the reference's ValueError."""
+    """An operator that is not a grid stencil: the port routes it to its
+    unstructured classical setups, as the reference does (the routes are
+    held against the JAX package in
+    tests/test_torch_unstructured_classical.py); a DIAMatrix without a
+    grid raises the reference's ValueError."""
     n = 400
     M = sp.random(n, n, density=0.02, random_state=3, format="csr")
     M = (M + M.T + 10.0 * sp.eye(n)).tocsr()
     with pytest.raises(ValueError):
         pt.detect_grid(M)
-    for setup in (pt.device_rs_setup, pt.device_air_setup):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            setup(M, device=CPU)
+    for setup, direct, family in (
+            (pt.device_rs_setup, pt.device_unstructured_rs_setup, "rs"),
+            (pt.device_air_setup, pt.device_unstructured_air_setup, "air")):
+        # no negative coupling: AIR's 'min' strength finds no strong
+        # connection and leaves the one dense level, as in the reference
+        routed = setup(M, device=CPU, max_coarse=100)
+        assert type(routed).__name__ == "DeviceMultilevelSolver"
+        assert type(routed.hierarchy.levels[0].A).__name__ in (
+            "WindowedELL", "DenseOperator")
+        info = routed.setup_info["levels"]
+        assert {lv["family"] for lv in info} == ({"rs"} if family == "rs"
+                                                 else set())
+        kw = dict(max_coarse=100, max_levels=12 if family == "rs" else 4)
+        assert direct(M, device=CPU, **kw).setup_info == routed.setup_info
     D = pt.sparse.dia_from_scipy(jgal.poisson((8, 8), format="csr"),
                                  device=CPU)
     with pytest.raises(ValueError, match="grid= is required"):

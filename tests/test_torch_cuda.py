@@ -1365,6 +1365,120 @@ def test_classical_setup_on_card_matches_cpu(cuda):
     assert res_g[1] / res_g[0] < 1e-5 and res_c[1] / res_c[0] < 1e-5
 
 
+def _classical_pair(cuda, family, dtype):
+    """An unstructured classical hierarchy built on the card and the same
+    setup on the CPU: RS (modified) on a 40^2 P1 mesh + 1e-2 I, or AIR on
+    40^2 upwind advection."""
+    from pyamg_tpu_torch import (advection_2d, device_unstructured_air_setup,
+                                 device_unstructured_rs_setup, gradgradform,
+                                 regular_triangle_mesh)
+
+    if family == "rs":
+        A = gradgradform(*regular_triangle_mesh(40, 40))
+        A = (A + 1e-2 * sp.eye(A.shape[0], format="csr")).tocsr()
+        b = np.random.default_rng(0).standard_normal(A.shape[0])
+        setup, kw = device_unstructured_rs_setup, dict(max_coarse=100)
+    else:
+        A, b = advection_2d((40, 40), theta=np.pi / 4)
+        setup, kw = device_unstructured_air_setup, dict(max_coarse=200)
+    _build.reset_launches()
+    g = setup(A, dtype=dtype, device=cuda, **kw)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    return A, np.asarray(b), g, setup(A, dtype=dtype, device="cpu", **kw), \
+        counts
+
+
+def _cpu_windowed(W):
+    return dataclasses.replace(W, data=W.data.cpu(), idx=W.idx.cpu(),
+                               starts=W.starts.cpu())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_unstructured_classical_kernels_match_twins(cuda, dtype):
+    """At the unstructured classical setups' shapes: K7 on the one-slot
+    injection Tinj (AIR) and on M and P_direct (modified RS) equal to the
+    CPU twins bit for bit, K6 within TOL, K14 exactly; at K = 64, K12
+    through the composed P = M P_direct and K13 through P^T (one launch a
+    factor; P^T the CPU twins' bits), and the degree-2 Neumann
+    restriction (two K12, one K13) against its CPU copy."""
+    from pyamg_tpu_torch import ComposedWindowed
+
+    P = _classical_pair(cuda, "rs", dtype)[2].hierarchy.levels[0].P
+    R = _classical_pair(cuda, "air", dtype)[2].hierarchy.levels[0].R
+    M, Pd = P.factors
+    for name, W in (("M", M), ("Pd", Pd), ("Tinj", R.Tinj)):
+        cpu = _cpu_windowed(W)
+        m = W.m_chunks * W.w2
+        x, r = _rand(m, dtype, cuda, 1), _rand(W.n_pad, dtype, cuda, 2)
+        assert torch.equal(window.windowed_rmatvec(W, r).cpu(),
+                           window.windowed_rmatvec_ref(cpu, r.cpu())), name
+        assert _rel_err(window.windowed_matvec(W, x).cpu(),
+                        window.windowed_matvec_ref(cpu, x.cpu())) \
+            <= TOL[dtype], name
+        sel = _rand(m, torch.float32, cuda, 3)
+        assert torch.equal(window.windowed_select(W, sel).cpu(),
+                           window.windowed_select_ref(cpu, sel.cpu())), name
+    Pc = ComposedWindowed(factors=(_cpu_windowed(M), _cpu_windowed(Pd)))
+    Rc = dataclasses.replace(R, A=_cpu_windowed(R.A),
+                             Tinj=_cpu_windowed(R.Tinj),
+                             dinv_f=R.dinv_f.cpu())
+    X = _rand(64 * Pd.m_chunks * Pd.w2, dtype, cuda, 4).reshape(64, -1)
+    Y = _rand(64 * R.A.n_pad, dtype, cuda, 5).reshape(64, -1)
+    Yp = Y[:, :M.n_pad].contiguous()
+    name = str(dtype).removeprefix("torch.")
+    for fn, want, exact, launches in (
+            (lambda: P @ X, lambda: Pc @ X.cpu(), False,
+             {f"windowed_matmat_k.{name}": 2}),
+            (lambda: P.rmatvec(Yp), lambda: Pc.rmatvec(Yp.cpu()), True,
+             {f"windowed_rmatmat_k.{name}": 2}),
+            (lambda: R @ Y, lambda: Rc @ Y.cpu(), False,
+             {f"windowed_matmat_k.{name}": 2,
+              f"windowed_rmatmat_k.{name}": 1})):
+        _build.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == launches
+        if exact:
+            assert torch.equal(got.cpu(), want())
+        else:
+            assert _rel_err(got.cpu(), want()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("family", ["rs", "air"])
+def test_unstructured_classical_solve_on_card_matches_cpu(cuda, family):
+    """The unstructured RS (modified) and AIR setups on the card: the
+    CPU's levels in float64, every setup kernel launched (K14, K7, K12,
+    K13, and K6 in RS's spectral radius), the float64 solve's history the CPU's to 1e-8 (AIR: to
+    1e-7 of the first entry below it, the float32-cast coarse entries),
+    and a V-cycle with no host sync."""
+    A, b, g, c, counts = _classical_pair(cuda, family, torch.float64)
+    assert g.setup_info == c.setup_info
+    # the AIR setup estimates no spectral radius: no K6
+    for k in ("windowed_select.float32", "windowed_rmatvec.float64",
+              "windowed_matmat_k.float64", "windowed_rmatmat_k.float64") \
+            + (("windowed_matvec.float64",) if family == "rs" else ()):
+        assert counts.get(k, 0) > 0, (k, counts)
+    kw = (dict(tol=1e-8, maxiter=60, accel="cg") if family == "rs"
+          else dict(tol=1e-8, maxiter=30, accel="fgmres"))
+    res_g, res_c = [], []
+    g.solve(b, residuals=res_g, **kw)
+    c.solve(b, residuals=res_c, **kw)
+    assert len(res_g) == len(res_c)
+    np.testing.assert_allclose(res_g, res_c, rtol=1e-8,
+                               atol=1e-7 * res_c[0])
+    cycle = g.cycle_operator("V")
+    r = _rand(g.hierarchy.levels[0].n_pad, torch.float64, cuda, 5)
+    cycle(r)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        y = cycle(r)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(y).all())
+
+
 def test_block_setup_on_card_matches_cpu(cuda):
     """The block device setup of 2-D elasticity (2x2 blocks, the three
     rigid-body modes) on the card and on the CPU in float64: the same

@@ -62,8 +62,9 @@ def test_import_loads_no_jax():
     smoothers, lane-aligned too (the
     interleaved route), a world-of-one gloo sharded solve of the
     host-built hierarchy, an unstructured setup with a solve, the
-    classical (Ruge-Stüben) and AIR device setups with a solve each, and
-    the block device setup of elasticity with a mixed solve and adaptive
+    classical (Ruge-Stüben) and AIR device setups with a solve each, the
+    unstructured classical (Ruge-Stüben and AIR) setups with a solve
+    each, and the block device setup of elasticity with a mixed solve and adaptive
     SA with a solve, in a fresh interpreter, leaves every ``jax*`` and
     ``pyamg_tpu*`` module (but the port's own) out of sys.modules."""
     code = ("import sys, numpy as np, pyamg_tpu_torch as pt, "
@@ -103,6 +104,10 @@ def test_import_loads_no_jax():
             "Aa, ba = pt.advection_2d((32, 32))\n"
             "pt.device_air_setup(Aa, grid=(32, 32), device='cpu', "
             "max_coarse=100).solve(ba, maxiter=3)\n"
+            "pt.device_unstructured_rs_setup(M, device='cpu', "
+            "max_coarse=50).solve(np.ones(900), accel='cg', tol=1e-6)\n"
+            "pt.device_unstructured_air_setup(Aa, device='cpu', "
+            "max_coarse=100).solve(ba, accel='fgmres', tol=1e-8)\n"
             "Ae, Be = pt.linear_elasticity((20, 20))\n"
             "pt.device_sa_setup_block(Ae, grid=(20, 19), B=Be, device='cpu', "
             "max_coarse=100, mixed_precision=True).solve(np.ones(Ae.shape[0])"

@@ -26,9 +26,11 @@ import scipy.sparse as sp
 
 torch = pytest.importorskip("torch")
 
-from pyamg_tpu_torch import (DeviceMultilevelSolver,  # noqa: E402
-                             compile_hierarchy, device_unstructured_sa_setup,
-                             gradgradform, poisson, regular_triangle_mesh,
+from pyamg_tpu_torch import (ComposedWindowed,  # noqa: E402
+                             DeviceMultilevelSolver, compile_hierarchy,
+                             device_unstructured_rs_setup,
+                             device_unstructured_sa_setup, gradgradform,
+                             poisson, regular_triangle_mesh,
                              smoothed_aggregation_solver)
 from pyamg_tpu_torch.relaxation import change_smoothers  # noqa: E402
 from pyamg_tpu_torch.sparse import dia_from_scipy, window  # noqa: E402
@@ -87,7 +89,7 @@ def _rank_main(rank, init_file, inputs_path, out_dir):
                 mesh.local(A.data, WORLD), A.offsets, A.offsets_t, place(x),
                 halo_width(A), mesh, WORLD), WORLD)
         for key, kw in (("host", dict(min_local_rows=128)),
-                        ("unstructured", {})):
+                        ("unstructured", {}), ("unstructured_rs", {})):
             h, b, tol, maxiter = inp[key]
             hs = shard_hierarchy(h, mesh, **kw)
             res = []
@@ -232,15 +234,25 @@ def _spmd(tmp_path_factory):
     smoothers["unstructured_chebyshev"] = (dus_c.hierarchy, b_un, 1e-10, 30)
     ref_smoothers["unstructured_chebyshev"] = (res, x)
 
+    drs = device_unstructured_rs_setup(M, dtype=torch.float64, device="cpu",
+                                       max_coarse=400)
+    assert isinstance(drs.hierarchy.levels[0].P, ComposedWindowed)
+    b_rs = np.random.default_rng(5).random(M.shape[0])
+    res_rs = []
+    x_rs = drs.solve(b_rs, tol=1e-8, maxiter=40, accel="cg",
+                     residuals=res_rs)
+
     inputs = {"dia64": (dia64, torch.as_tensor(x64)),
               "dia32": (dia32, torch.as_tensor(x32)),
               "host": (h, b_host, 1e-10, 20),
-              "unstructured": (dus.hierarchy, b_un, 1e-10, 30), **smoothers}
+              "unstructured": (dus.hierarchy, b_un, 1e-10, 30),
+              "unstructured_rs": (drs.hierarchy, b_rs, 1e-8, 40), **smoothers}
     ranks = _spawn(tmp_path_factory.mktemp("spmd"), inputs)
     return dict(A32=A32, x64=x64, x32=x32, dia32=dia32, ml=ml, A64=A64,
                 b_host=b_host, res_host=res_host, x_host=x_host,
                 ref_cycles=ref_cycles, ref_smoothers=ref_smoothers, M=M,
-                res_un=res_un, x_un=x_un, ranks=ranks)
+                res_un=res_un, x_un=x_un, res_rs=res_rs, x_rs=x_rs,
+                ranks=ranks)
 
 
 def test_ranks_agree_and_initialize(spmd):
@@ -448,6 +460,24 @@ def test_sharded_windowed_unstructured_solve(spmd):
     np.testing.assert_allclose(res, spmd["res_un"], rtol=1e-9)
     rel = np.linalg.norm(x - spmd["x_un"]) / np.linalg.norm(spmd["x_un"])
     assert x.shape == (n,) and rel < 1e-9, rel
+
+
+def test_sharded_unstructured_rs_solve(spmd):
+    """Counterpart of test_parallel.py::test_sharded_unstructured_rs_solve:
+    the modified-interpolation RS hierarchy of the 128^2 P1 mesh + 1e-2 I
+    (max_coarse=400, f64; level 0's P composed of two windowed factors,
+    each sharded, re-laid out between them) on 8 ranks: CG to 1e-8 with
+    the one-rank solve's history (same length, rtol 1e-9) and its solution
+    within 1e-9 relative; every rank holds the same history."""
+    res, x, groups, _ = spmd["ranks"][0]["unstructured_rs"]
+    assert groups[0] == WORLD
+    assert len(res) == len(spmd["res_rs"]) > 3
+    np.testing.assert_allclose(res, spmd["res_rs"], rtol=1e-9)
+    assert res[-1] <= 1e-8 * res[0]
+    rel = np.linalg.norm(x - spmd["x_rs"]) / np.linalg.norm(spmd["x_rs"])
+    assert x.shape == (spmd["M"].shape[0],) and rel < 1e-9, rel
+    for out in spmd["ranks"][1:]:
+        np.testing.assert_array_equal(out["unstructured_rs"][0], res)
 
 
 def test_krylov_dots_partition(spmd):
