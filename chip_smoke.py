@@ -333,9 +333,9 @@ REF_ITERS_ADAPT = 13
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 
-# the block-DIA kernels (B1, B2): the kernels line lists each of their
-# checks (every mode and shape) beside the row
-BLOCK_KERNELS = ("block_dia_spmv", "block_dia_jacobi")
+# the block-DIA kernels (B1, B2, B1's halo mode): the kernels line lists
+# each of their checks (every mode and shape) beside the row
+BLOCK_KERNELS = ("block_dia_spmv", "block_dia_jacobi", "block_dia_halo")
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("pyamg_tpu_torch/csrc/dia.cu",
@@ -384,7 +384,10 @@ KERNELS = {
     **{name: ("pyamg_tpu_torch/csrc/block_dia.cu",
               "none: plain jnp in pyamg_tpu/sparse/block_dia.py:77 / "
               "engine/relaxation.py:232")
-       for name in BLOCK_KERNELS},
+       for name in BLOCK_KERNELS[:2]},
+    "block_dia_halo": ("pyamg_tpu_torch/csrc/block_dia.cu",
+                       "none: plain jnp in pyamg_tpu/sparse/block_dia.py:77,"
+                       " row-sharded by GSPMD (tests/test_parallel.py:277)"),
 }
 # path -> the kernel instances it must launch
 PATHS = {
@@ -506,15 +509,18 @@ PATHS.update({
 })
 # config 4: the block applies (A, S, S^T, the float64 A64) through B1,
 # the level entry (ZERO_RES), the post-sweep (STEP) and the residuals
-# (RESID) through B2 and B1; adaptive SA's native CG likewise
+# (RESID) through B2 and B1, the transfers' candidate remap Q through K6
+# and its transpose through K7; adaptive SA's native CG likewise
+_BLOCK_REMAP = ("windowed_matvec.float32", "windowed_rmatvec.float32")
 PATHS.update({
     "config 4 block mixed CG": (
         "block_dia_spmv.float32", "block_dia_spmv.float64",
-        "block_dia_jacobi.float32"),
+        "block_dia_jacobi.float32") + _BLOCK_REMAP,
     "config 4 1024^2 block mixed CG": (
         "block_dia_spmv.float32", "block_dia_spmv.float64",
-        "block_dia_jacobi.float32"),
-    "adaptive SA CG": ("block_dia_spmv.float32", "block_dia_jacobi.float32"),
+        "block_dia_jacobi.float32") + _BLOCK_REMAP,
+    "adaptive SA CG": ("block_dia_spmv.float32",
+                       "block_dia_jacobi.float32") + _BLOCK_REMAP,
 })
 # the unstructured classical setups: PMIS's selects (K14) and lambda (K7),
 # the power iteration (K6), the probe chains (K12 on P's factors and A, K13
@@ -534,6 +540,38 @@ PATHS.update({
     **{f"unstructured {what} solve": (
         "windowed_matvec.float32", "windowed_rmatvec.float32")
        for what in ("RS modified", "RS direct", "AIR")},
+})
+# the device-built hierarchies row-sharded (a world of one): every DIA
+# operator (A, S, S^T, P_emb, R_emb) through K16, the grid remaps (T, the
+# embedding E, the block candidates' Q) through K6 and their transposes
+# through K7; the block levels through B1's halo mode (RESID for the
+# sweeps' residuals) and the local B2 ZERO update; the routed AIR's
+# windowed levels and Neumann restriction through K6 and K7
+_SHARDED_GRID = ("dia_halo_spmv.float32", "windowed_matvec.float32",
+                 "windowed_rmatvec.float32")
+_SHARDED_BLOCK = ("block_dia_halo.float32", "block_dia_jacobi.float32",
+                  "windowed_matvec.float32", "windowed_rmatvec.float32")
+# the sharded device-built float32 histories against the unsharded ones
+# (the same hierarchy; K7's column sums and the composed cycle round in
+# another order than the unsharded cycle's fused kernels)
+SHARDED_HIST_RTOL = 1e-2
+# the grid remap each sharded path's level-0 transfers apply, checked
+# at the block shard_hierarchy picks (``remap_checks``)
+REMAPS = {"sharded device-built config 1": "T",
+          "sharded config 2 V-cycle": "T", "sharded config 3 RS": "E",
+          "sharded config 5 RS": "E", "sharded config 4 1024^2": "Q",
+          "sharded config 4 128^2": "Q"}
+PATHS.update({
+    "sharded device-built config 1": _SHARDED_GRID,
+    "sharded config 2 V-cycle": _SHARDED_GRID,
+    "sharded config 2 W-cycle": _SHARDED_GRID,
+    "sharded config 3 RS": _SHARDED_GRID,
+    "sharded config 5 RS": _SHARDED_GRID,
+    "sharded structured AIR": _SHARDED_GRID,
+    "sharded routed AIR": ("windowed_matvec.float32",
+                           "windowed_rmatvec.float32"),
+    "sharded config 4 1024^2": _SHARDED_BLOCK,
+    "sharded config 4 128^2": _SHARDED_BLOCK,
 })
 # the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
 PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
@@ -3781,6 +3819,328 @@ def config4_phase(check, dev, card, rand, results, launches):
                        rand, results, path, csr=bdia_to_csr(lvl.A, dev))
 
 
+def block_halo_checks(check, A, rand, results, tag, path, side, shards=4):
+    """B1's halo mode on the block level A: the ring of one against its
+    plain twin (the strip sum over [tail, x, head]) at the kernel
+    tolerance, a second launch with the first one's bits, one launch a
+    call, and bit for bit against B1 PLAIN (RESID too); then ``shards``
+    in-process node-row blocks (halos copied on the side stream ``side``)
+    against B1 bit for bit, and the interior alone, the halo copies alone
+    and the overlapped total beside B1 on the whole operator, the plain
+    twin, ``torch.mv`` on A as CSR and the bound."""
+    import torch
+
+    from pyamg_tpu_torch.parallel.dist_spmv import block_dia_halo_rows_ref
+    from pyamg_tpu_torch.parallel.halo_spmv import (block_halo_plan,
+                                                    block_halo_spmv,
+                                                    block_halo_spmv_shards)
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    one = SolverMesh(rank=0, world=1, device=A.device)
+    dtype, n, nb = A.dtype, A.n_pad, A.nb_pad
+    dt = str(dtype).removeprefix("torch.")
+    halo = max(A.halo, 1)
+    hw = halo * A.bs
+    x, b = rand(n, dtype), rand(n, dtype)
+    csr = bdia_to_csr(A, A.device)
+
+    def ring():
+        return block_halo_spmv(A.data, A.offsets, A.offsets_t, x, halo, one,
+                               1)
+
+    def plain():
+        return block_dia_halo_rows_ref(A.data, A.offsets, x[n - hw:], x,
+                                       x[:hw], halo, ((0, nb),),
+                                       torch.empty_like(x))
+
+    nbytes, ops = block_cost(A, 2)
+    compare(check, f"block_dia_halo.{dt} [{tag} ring of one]", dtype, ring,
+            plain, results, nbytes, ops,
+            library_fn=lambda: torch.mv(csr, x), path=path,
+            repeat_exact=True)
+    k = launches_per_call(ring)
+    results[-1]["launches_per_call"] = k
+    plan = block_halo_plan(tuple(A.offsets), nb)
+    b1, b1_r = bd.block_dia_apply(A, x), bd.block_dia_resid(A, x, b)
+    ring_r = block_halo_spmv(A.data, A.offsets, A.offsets_t, x, halo, one,
+                             1, b=b)
+    torch.cuda.synchronize()
+    check(torch.equal(ring(), b1) and torch.equal(ring_r, b1_r) and k == 1,
+          f"block_dia_halo.{dt} [{tag}]: the ring of one ({plan.row_blocks} "
+          f"row blocks of {plan.rows} nodes, interior [{plan.lo}, "
+          f"{plan.hi})) equals B1 PLAIN and RESID bit for bit in {k} "
+          f"launch(es) a call")
+    split = block_halo_spmv_shards(A, x, shards, side)
+    split_r = block_halo_spmv_shards(A, x, shards, side, b=b)
+    torch.cuda.synchronize()
+    check(torch.equal(split, b1) and torch.equal(split_r, b1_r),
+          f"block_dia_halo.{dt} [{tag}]: {shards} in-process node-row "
+          f"blocks (~{nb // shards} nodes each) equal B1 PLAIN and RESID "
+          "bit for bit")
+    t = {}
+    for label, phases in (("interior", ("interior",)),
+                          ("halo copies", ("halos",)),
+                          ("overlapped", ("interior", "halos",
+                                          "boundary"))):
+        t[label] = min(time_ms(lambda: block_halo_spmv_shards(
+            A, x, shards, side, phases=phases)) for _ in range(2))
+    t_b1 = min(time_ms(lambda: bd.block_dia_apply(A, x)) for _ in range(2))
+    t_plain = time_ms(lambda: bd.block_dia_spmv_ref(A, x))
+    t_lib = time_ms(lambda: torch.mv(csr, x))
+    log(f"  B1 halo mode, {shards} blocks in one process [{dt} {tag}]: "
+        f"interior alone {t['interior']:.4f} ms, halo copies alone (side "
+        f"stream, {2 * shards} copies) {t['halo copies']:.4f} ms, "
+        f"overlapped total {t['overlapped']:.4f} ms; B1 on the whole "
+        f"operator {t_b1:.4f} ms; plain {t_plain:.4f} ms; library "
+        f"{t_lib:.4f} ms (torch.mv, CSR); bound "
+        f"{nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
+
+
+def remap_checks(check, label, what, solver, sharded, rand, results):
+    """K6 and K7 on the grid remap that the sharded level-0 transfers
+    apply (``what``: the structured T, the embedding E or the block
+    candidates' Q), at the block ``shard_hierarchy`` chose: P's last
+    factor and R's first, which must be one remap built once for the
+    level (the transfers' shared ``remaps``, one entry); then, through
+    ``windowed_kernel_checks``, each kernel against its twin (K7 twice,
+    the same bits), its bound, ``torch.mv`` on the CSR, K6 equal to its
+    per-row kernel and K7's column plan built with no host sync and equal
+    to the CPU twin bit for bit; and each kernel's launches a call."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import window
+
+    lv0, lvs = solver.hierarchy.levels[0], sharded.hierarchy.levels[0]
+    W, Wt = lvs.P.factors[-1].local, lvs.R.factors[0].local
+    remaps = lv0.P.remaps
+    check(remaps is lv0.R.remaps and len(remaps) == 1
+          and W.block == Wt.block and W.block in remaps
+          and all(torch.equal(getattr(W, f), getattr(Wt, f))
+                  for f in ("data", "idx", "starts")),
+          f"{label}: level 0's P and R shard one {what} (built once for "
+          f"the level at block {W.block}; blocks kept {sorted(remaps)})")
+    x, r = rand(W.m_chunks * W.w2, W.dtype), rand(W.n_pad, W.dtype)
+    k6 = launches_per_call(lambda: window.windowed_matvec(W, x))
+    k7 = launches_per_call(lambda: window.windowed_rmatvec(W, r))
+    log(f"  {label} level0 {what}: {W.shape[0]}x{W.shape[1]}, k={W.k}, "
+        f"block={W.block}, w2={W.w2}, {W.nnz} entries; K6 {k6} and K7 {k7} "
+        f"device operation(s) a call")
+    check(k6 == 1 and k7 == 1, f"{label} level0 {what}: K6 and K7 one "
+          f"launch a call ({k6}, {k7})")
+    windowed_kernel_checks(check, f"sharded {label.split('sharded ')[-1]}",
+                           (), ((f"level0 {what}", W),), (), W.dtype, rand,
+                           results, label)
+
+
+def sharded_device_built_phase(check, dev, card, rand, results, launches,
+                               dsa, A1, d2, A3):
+    """Phase 20: the device-built hierarchies row-sharded in a world of one
+    NCCL rank (file:// rendezvous), each solve against the unsharded solve
+    of the same b in this run: the same iteration count, a true relres
+    within 2x of the unsharded one, walls (numpy b and x, median of 3),
+    the launches of the counted solve (zeroed just before, read just
+    after).  Config 1 2048^2 (native f32 CG to 1e-5), config 2 64^3 (V-
+    and W-cycle CG to 1e-5), config 3 RS 512^2 (CG to 1e-5, 13), config 5
+    RS 1024^2 (native f32 FGMRES to 1e-5), AIR 256^2 structured and routed
+    (the first stationary cycle's drop and FGMRES to 1e-6), config 4
+    128^2 and 1024^2 (native CG to 1e-5); K16 at the device-built level-0
+    S / S^T, the 64^3 S and config 5's P_emb / R_emb, and B1's halo mode
+    at config 4's 1024^2 level 0, through ``compare``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pyamg_tpu_torch import (BlockStructuredDeviceSolver,
+                                 DeviceMultilevelSolver,
+                                 StructuredDeviceSolver, _build, advection_2d,
+                                 device_air_setup, device_rs_setup,
+                                 device_sa_setup_block, diffusion_stencil_2d,
+                                 linear_elasticity, recirc_flow,
+                                 stencil_grid)
+    from pyamg_tpu_torch.parallel import (initialize_distributed,
+                                          make_solver_mesh, shard_hierarchy)
+
+    f32 = torch.float32
+
+    def sharded_solver(solver, mesh):
+        hs = shard_hierarchy(solver.hierarchy, mesh)
+        if isinstance(solver, BlockStructuredDeviceSolver):
+            return BlockStructuredDeviceSolver(
+                hs, solver.grid, solver.grid_p, solver.bs, solver.setup_info)
+        if isinstance(solver, StructuredDeviceSolver):
+            return StructuredDeviceSolver(hs, solver.grid, solver.grid_p,
+                                          solver.setup_info)
+        assert type(solver) is DeviceMultilevelSolver, type(solver)
+        return DeviceMultilevelSolver(hs)
+
+    def c3():
+        A = stencil_grid(diffusion_stencil_2d(epsilon=1e-3, theta=0.0,
+                                              type="FD"), C3_GRID).tocsr()
+        return A, device_rs_setup(A, grid=C3_GRID, dtype=f32, device=dev,
+                                  max_coarse=400)
+
+    def c5():
+        A = recirc_flow(C5_GRID, epsilon=1e-2)
+        return A, device_rs_setup(A, grid=C5_GRID, dtype=f32, device=dev,
+                                  max_coarse=400)
+
+    def air():
+        A, b = advection_2d(AIR_GRID, theta=np.pi / 4)
+        return A, device_air_setup(A, grid=AIR_GRID, device=dev,
+                                   max_coarse=400), b
+
+    def routed():
+        A, b = advection_operator(UCL_AIR_NX)
+        return A, device_air_setup(A, device=dev), b
+
+    def c4(grid, node_grid):
+        A, B = linear_elasticity(grid)
+        return A, device_sa_setup_block(A, grid=node_grid, B=B,
+                                        max_coarse=400, dtype=f32,
+                                        device=dev)
+
+    cg5 = dict(tol=1e-5, maxiter=100, accel="cg")
+    fg = dict(tol=1e-6, maxiter=30, accel="fgmres")
+    rng = np.random.default_rng(11)
+    side = torch.cuda.Stream()
+    cases = (
+        ("sharded device-built config 1", lambda: (A1, dsa), cg5, None),
+        ("sharded config 2 V-cycle", lambda: (A3, d2), cg5, None),
+        ("sharded config 2 W-cycle", lambda: (A3, d2), dict(cg5, cycle="W"),
+         None),
+        ("sharded config 3 RS", c3, dict(cg5, maxiter=60), REF_ITERS_C3_RS),
+        ("sharded config 5 RS", c5,
+         dict(tol=1e-5, maxiter=150, accel="fgmres"), None),
+        ("sharded structured AIR", air, fg, AIR_MIN_DROP),
+        ("sharded routed AIR", routed, fg, UCL_AIR_MIN_DROP),
+        ("sharded config 4 1024^2", lambda: c4(C4_BIG, C4_BIG_NODE_GRID),
+         cg5, None),
+        ("sharded config 4 128^2", lambda: c4(C4_GRID, C4_NODE_GRID), cg5,
+         REF_ITERS_C4_1E5))
+    with tempfile.TemporaryDirectory() as tmp:
+        rank, world, _ = initialize_distributed(
+            init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+            device=dev)
+        try:
+            mesh = make_solver_mesh(device=dev)
+            log(f"sharded device-built solves: torch.distributed "
+                f"{dist.get_backend()}, rank {rank} of {world}; {card}")
+            for label, make, kw, ref in cases:
+                t0 = time.perf_counter()
+                made = make()
+                M, solver = made[:2]
+                b = made[2] if len(made) > 2 else rng.random(M.shape[0])
+                torch.cuda.synchronize()
+                t_setup = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                sharded = sharded_solver(solver, mesh)
+                torch.cuda.synchronize()
+                t_shard = time.perf_counter() - t0
+                res0 = []
+                x0 = solver.solve(b, residuals=res0, **kw)
+                sharded.solve(b, **kw)                 # warm-up
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                res1 = []
+                x1 = sharded.solve(b, residuals=res1, **kw)
+                torch.cuda.synchronize()
+                counts = launches[label] = dict(_build.launches)
+                times = {}
+                for key, s in (("sharded", sharded), ("unsharded", solver)):
+                    ts = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        s.solve(b, **kw)
+                        ts.append(time.perf_counter() - t0)
+                    times[key] = float(np.median(ts))
+                normb = float(np.linalg.norm(b))
+                true0, true1 = (float(np.linalg.norm(
+                    b - M @ np.asarray(x, dtype=np.float64))) / normb
+                    for x in (x0, x1))
+                it0, it1 = len(res0) - 1, len(res1) - 1
+                m = min(it0, it1) + 1
+                hist_diff = float(np.max(np.abs(np.subtract(
+                    res1[:m], res0[:m])) / np.asarray(res0[:m])))
+                per_solve = sum(counts.values())
+                halo = {k: c for k, c in counts.items()
+                        if k.split(".")[0] in ("dia_halo_spmv",
+                                               "block_dia_halo")}
+                cyc = f", {kw['cycle']}-cycle" if "cycle" in kw else ""
+                log(f"{label} (n={M.shape[0]}, {kw.get('accel')} to "
+                    f"{kw['tol']:g}{cyc}): "
+                    f"{it1} iterations (unsharded {it0}), true relres "
+                    f"{true1:.3e} (unsharded {true0:.3e}), history vs "
+                    f"unsharded max rel diff {hist_diff:.2e}; setup "
+                    f"{t_setup:.3f} s, shard_hierarchy {t_shard:.3f} s; "
+                    f"solve {times['sharded']:.4f} s sharded, "
+                    f"{times['unsharded']:.4f} s unsharded (numpy b, median "
+                    f"of 3); {per_solve} kernel launches a solve, K16 / B1 "
+                    f"halo {json.dumps(halo, sort_keys=True)}")
+                log(f"  launches in that solve: "
+                    f"{json.dumps(counts, sort_keys=True)}")
+                check(x1.shape == (M.shape[0],)
+                      and bool(np.isfinite(x1).all())
+                      and res1[-1] <= kw["tol"] * normb
+                      and true1 <= 2 * true0,
+                      f"{label}: finite, relres <= {kw['tol']:g}, true "
+                      f"relres {true1:.3e} within 2x of the unsharded "
+                      f"{true0:.3e}")
+                check(it1 == it0, f"{label}: {it1} iterations, the "
+                      f"unsharded solve's {it0}")
+                check(hist_diff <= SHARDED_HIST_RTOL, f"{label}: history "
+                      f"within rtol {SHARDED_HIST_RTOL:g} of the unsharded "
+                      f"one ({hist_diff:.2e})")
+                if label.endswith("AIR"):
+                    drops = []
+                    for s in (solver, sharded):
+                        r = []
+                        s.solve(b, tol=1e-12, maxiter=2, residuals=r)
+                        drops.append(r[0] / r[1])
+                    check(drops[1] >= ref, f"{label}: the first stationary "
+                          f"cycle drops the residual {drops[1]:.4g}x "
+                          f"(unsharded {drops[0]:.4g}x, bar {ref:g})")
+                elif ref is not None:
+                    check(it1 == ref, f"{label}: {it1} iterations, the "
+                          f"unsharded phase's {ref}")
+                path_launches(check, label, counts)
+                # the kernels at this path's shapes
+                lv0 = solver.hierarchy.levels[0]
+                if label == "sharded device-built config 1":
+                    for what, op in (("S^T", lv0.R.St), ("S", lv0.P.S)):
+                        tag = (f"device level0 {what} nd={op.ndiags} "
+                               f"n_pad={op.n_pad}")
+                        ring = halo_ring_check(check, op, rand, results, tag,
+                                               label)
+                    halo_shards_check(check, lv0.P.S, *ring, tag, side)
+                elif label == "sharded config 2 V-cycle":
+                    op = lv0.P.S
+                    halo_ring_check(check, op, rand, results,
+                                    f"64^3 level0 S nd={op.ndiags} "
+                                    f"n_pad={op.n_pad}", label)
+                elif label == "sharded config 5 RS":
+                    for what, op in (("P_emb", lv0.P.P_emb),
+                                     ("R_emb", lv0.R.R_emb)):
+                        halo_ring_check(check, op, rand, results,
+                                        f"config5 level0 {what} "
+                                        f"nd={op.ndiags} n_pad={op.n_pad}",
+                                        label)
+                elif label == "sharded config 4 1024^2":
+                    A0 = lv0.A
+                    block_halo_checks(check, A0, rand, results,
+                                      f"config4 1024^2 level0 A bs={A0.bs} "
+                                      f"nd={A0.ndiags} nb={A0.nb_pad}",
+                                      label, side)
+                if label in REMAPS:
+                    remap_checks(check, label, REMAPS[label], solver,
+                                 sharded, rand, results)
+                del made, M, solver, sharded
+        finally:
+            dist.destroy_process_group()
+
+
 def main():
     import numpy as np
     import torch
@@ -4216,6 +4576,12 @@ def main():
     config4_phase(check, dev, card, rand, results, launches)
     log(f"config 4 phase: {time.perf_counter() - t_c4:.1f} s")
 
+    # 20. the device-built hierarchies row-sharded (a world of one)
+    t_sd = time.perf_counter()
+    sharded_device_built_phase(check, dev, card, rand, results, launches,
+                               dsa, A, d2, A3)
+    log(f"sharded device-built phase: {time.perf_counter() - t_sd:.1f} s")
+
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
               file=sys.stderr)
@@ -4223,7 +4589,7 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 20. result lines: each path kernel instance, with its launches on
+    # 21. result lines: each path kernel instance, with its launches on
     # the paths that run it (``launches``: the first of them) and, where a
     # later path's shapes were checked too (config 2's 64^3), those
     # numbers under ``at_paths``

@@ -13,6 +13,9 @@
 //   block_dia_spmv_kernel<T, BS, Mode>, B1:
 //     PLAIN     y = A x
 //     RESID     y = b - A x
+//   block_dia_halo_kernel<T, BS, Mode>, B1's halo mode: PLAIN or RESID on
+//     one rank's block of node rows of a row-sharded operator, x read from
+//     three sources in place (see "B1's halo mode" below)
 //   block_dia_jacobi_kernel<T, BS, Mode>, B2 (and B3's colour step):
 //     ZERO      y = w Dinv b                     (no read of A)
 //     ZERO_RES  y = w Dinv b,  r = b - A y       (y's neighbours recomputed)
@@ -57,6 +60,29 @@
 // BS = 1 .. 4 are unrolled template instances; BS = 0 takes the block size
 // at run time (any bs, and bs 2 or 4 whose blocks are not 16-byte
 // aligned), one thread per output component, with the same summation
+// order.
+//
+// B1's halo mode (the row-sharded block levels, parallel/partition.py::
+// _ShardedBlockDIA): a rank owns node rows [0, nb) of the operator, data
+// (nd, nb, bs, bs) with ld values between diagonals (a column slice of a
+// wider operator's data is fine).  Node i needs x at i + offsets[d],
+// which lies in one of three sources, read in place as K16 reads them
+// (csrc/halo.cu): the left neighbour's last `halo` nodes (j < 0), the
+// local x (0 <= j < nb) or the right neighbour's first `halo` nodes (j >=
+// nb); no extended copy of x is made.  The node rows go in row blocks of
+// 256 nodes, one CTA each; the wrapper's plan (parallel/halo_spmv.py::
+// block_halo_plan) names the interior blocks [lo, hi), whose every
+// neighbour lies in [0, nb): those read x only, with no select and no
+// check.  A launch covers the row blocks [a0, a1) and [b0, b1): a ring of
+// one takes one launch over every block; with an exchange the wrapper
+// launches the interior while the halos travel, then the boundary blocks
+// of both ends.  A neighbour is never skipped here: where the ring wraps
+// (a ring of one, or the first and last ranks) its block is a stored
+// zero block (BlockDIAMatrix keeps one wherever a column falls outside
+// the operator), and an FMA with a zero block leaves the sum's bits as
+// they were (the sum starts at +0 and never becomes -0), so the result
+// equals B1 PLAIN / RESID on the whole operator bit for bit, in the same
+// instance (the unrolled BS or the run-time one) and the same summation
 // order.
 
 #include <cuda_runtime.h>
@@ -144,36 +170,6 @@ __device__ __forceinline__ void zero_sweep(const Args<T>& a,
   }
 }
 
-// acc = (A v)_i, v = x or (ZERO_GUESS) the zero-guess sweep of b.
-template <typename T, int BS, bool ZERO_GUESS>
-__device__ __forceinline__ void node_product(const Args<T>& a,
-                                             const T* __restrict__ x,
-                                             const T* __restrict__ b,
-                                             long long i, T w, T (&acc)[BS]) {
-#pragma unroll
-  for (int p = 0; p < BS; ++p) acc[p] = T(0);
-  const T* __restrict__ blocks = a.data + i * (BS * BS);
-  const long long stride = a.nb * (BS * BS);
-#pragma unroll 3
-  for (int d = 0; d < a.nd; ++d) {
-    const long long j = i + __ldg(a.offsets + d);
-    if (j < 0 || j >= a.nb) continue;
-    T blk[BS * BS], xj[BS];
-    load_run<T, BS * BS>(blocks + d * stride, blk);
-    if constexpr (ZERO_GUESS) {
-      zero_sweep<T, BS>(a, b, j, w, xj);
-    } else {
-#pragma unroll
-      for (int q = 0; q < BS; ++q) xj[q] = x[j * BS + q];
-    }
-#pragma unroll
-    for (int p = 0; p < BS; ++p) {
-#pragma unroll
-      for (int q = 0; q < BS; ++q) acc[p] += blk[p * BS + q] * xj[q];
-    }
-  }
-}
-
 // ---- run-time block size: one thread per output component -------------
 
 template <typename T>
@@ -187,24 +183,136 @@ __device__ __forceinline__ T zero_sweep_rt(const Args<T>& a,
   return w * s;
 }
 
-template <typename T, bool ZERO_GUESS>
-__device__ __forceinline__ T row_product_rt(const Args<T>& a,
-                                            const T* __restrict__ x,
-                                            const T* __restrict__ b,
-                                            long long i, int p, T w) {
-  const int bs = a.bs;
-  const long long bs2 = static_cast<long long>(bs) * bs;
-  T acc = T(0);
-  for (int d = 0; d < a.nd; ++d) {
-    const long long j = i + a.offsets[d];
-    if (j < 0 || j >= a.nb) continue;
-    const T* blk = a.data + (d * a.nb + i) * bs2 + static_cast<long long>(p) * bs;
-    for (int q = 0; q < bs; ++q) {
-      const T xq = ZERO_GUESS ? zero_sweep_rt(a, b, j, q, w) : x[j * bs + q];
-      acc += blk[q] * xq;
+// ---- the node product, shared by B1, B2 and B1's halo mode ------------
+//
+// acc = (A v)_i over every diagonal in order: one summation order for
+// every mode and every source of v.  Node j's components of v come from a
+// source policy:
+//   take(j)         whether the term is summed (B1 and B2 skip a
+//                   neighbour outside the operator; the halo mode never
+//                   does)
+//   load<BS>(j, v)  node j's BS components (compile-time block size)
+//   at(j, q)        node j's component q (run-time block size)
+
+// v = x (read-only in every kernel), a neighbour outside [0, nb) skipped
+template <typename T>
+struct LocalSource {
+  const T* x;
+  long long nb;
+  int bs;
+  __device__ __forceinline__ bool take(long long j) const {
+    return j >= 0 && j < nb;
+  }
+  template <int BS>
+  __device__ __forceinline__ void load(long long j, T (&v)[BS]) const {
+#pragma unroll
+    for (int q = 0; q < BS; ++q) v[q] = __ldg(x + j * BS + q);
+  }
+  __device__ __forceinline__ T at(long long j, int q) const {
+    return __ldg(x + j * bs + q);
+  }
+};
+
+// v = the zero-guess sweep w Dinv b, recomputed at each neighbour (B2
+// ZERO_RES), a neighbour outside [0, nb) skipped
+template <typename T>
+struct ZeroGuessSource {
+  const Args<T>& a;
+  const T* b;
+  T w;
+  __device__ __forceinline__ bool take(long long j) const {
+    return j >= 0 && j < a.nb;
+  }
+  template <int BS>
+  __device__ __forceinline__ void load(long long j, T (&v)[BS]) const {
+    zero_sweep<T, BS>(a, b, j, w, v);
+  }
+  __device__ __forceinline__ T at(long long j, int q) const {
+    return zero_sweep_rt(a, b, j, q, w);
+  }
+};
+
+// B1's halo mode: x, or (not INTERIOR) a halo, none skipped
+template <typename T, bool INTERIOR>
+struct HaloSource {
+  const T* x;
+  const T* left;
+  const T* right;
+  long long nb;
+  int halo;
+  int bs;
+  __device__ __forceinline__ const T* node(long long j) const {
+    if (INTERIOR || (j >= 0 && j < nb)) return x + j * bs;
+    return j < 0 ? left + (halo + j) * bs : right + (j - nb) * bs;
+  }
+  __device__ __forceinline__ bool take(long long) const { return true; }
+  template <int BS>
+  __device__ __forceinline__ void load(long long j, T (&v)[BS]) const {
+    const T* p = node(j);
+#pragma unroll
+    for (int q = 0; q < BS; ++q) v[q] = p[q];
+  }
+  __device__ __forceinline__ T at(long long j, int q) const {
+    return node(j)[q];
+  }
+};
+
+// compile-time block size: node i's BS outputs; `blocks` is node i's
+// block of diagonal 0, each diagonal's `stride` values after the last
+template <typename T, int BS, typename Src>
+__device__ __forceinline__ void node_product(const T* __restrict__ blocks,
+                                             long long stride,
+                                             const int* __restrict__ offsets,
+                                             int nd, long long i,
+                                             const Src& src, T (&acc)[BS]) {
+#pragma unroll
+  for (int p = 0; p < BS; ++p) acc[p] = T(0);
+#pragma unroll 3
+  for (int d = 0; d < nd; ++d) {
+    const long long j = i + __ldg(offsets + d);
+    if (!src.take(j)) continue;
+    T blk[BS * BS], xj[BS];
+    load_run<T, BS * BS>(blocks + d * stride, blk);
+    src.template load<BS>(j, xj);
+#pragma unroll
+    for (int p = 0; p < BS; ++p) {
+#pragma unroll
+      for (int q = 0; q < BS; ++q) acc[p] += blk[p * BS + q] * xj[q];
     }
   }
+}
+
+// run-time block size: output p of node i; `row` is that output's row of
+// node i's block of diagonal 0, each diagonal's `stride` values after
+template <typename T, typename Src>
+__device__ __forceinline__ T row_product_rt(const T* row, long long stride,
+                                            const int* offsets, int nd,
+                                            long long i, int bs,
+                                            const Src& src) {
+  T acc = T(0);
+  for (int d = 0; d < nd; ++d) {
+    const long long j = i + offsets[d];
+    if (!src.take(j)) continue;
+    const T* blk = row + d * stride;
+    for (int q = 0; q < bs; ++q) acc += blk[q] * src.at(j, q);
+  }
   return acc;
+}
+
+// B1 and B2 over the whole operator: node i's outputs, or its output p
+template <typename T, int BS, typename Src>
+__device__ __forceinline__ void node_product(const Args<T>& a, long long i,
+                                             const Src& src, T (&acc)[BS]) {
+  node_product<T, BS>(a.data + i * (BS * BS), a.nb * (BS * BS), a.offsets,
+                      a.nd, i, src, acc);
+}
+
+template <typename T, typename Src>
+__device__ __forceinline__ T row_product_rt(const Args<T>& a, long long i,
+                                            int p, const Src& src) {
+  const long long bs = a.bs;
+  return row_product_rt<T>(a.data + (i * bs + p) * bs, a.nb * bs * bs,
+                           a.offsets, a.nd, i, a.bs, src);
 }
 
 // ---- B1 -----------------------------------------------------------------
@@ -219,7 +327,7 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (BS > 0) {
     if (t >= a.nb) return;
     T acc[BS];
-    node_product<T, BS, false>(a, x, nullptr, t, T(0), acc);
+    node_product<T, BS>(a, t, LocalSource<T>{x, a.nb, BS}, acc);
 #pragma unroll
     for (int p = 0; p < BS; ++p) {
       const long long e = t * BS + p;
@@ -229,7 +337,7 @@ __global__ void __launch_bounds__(kThreads)
     const long long i = t / a.bs;
     const int p = static_cast<int>(t - i * a.bs);
     if (i >= a.nb) return;
-    const T acc = row_product_rt<T, false>(a, x, nullptr, i, p, T(0));
+    const T acc = row_product_rt<T>(a, i, p, LocalSource<T>{x, a.nb, a.bs});
     y[t] = Mode == RESID ? a.b[lane + t] - acc : acc;
   }
 }
@@ -260,14 +368,14 @@ __global__ void __launch_bounds__(kThreads)
       for (int p = 0; p < BS; ++p) y[i * BS + p] = xi[p];
       if constexpr (Mode == ZERO_RES) {
         T acc[BS];
-        node_product<T, BS, true>(a, nullptr, b, i, w, acc);
+        node_product<T, BS>(a, i, ZeroGuessSource<T>{a, b, w}, acc);
         T* __restrict__ r = a.r + lane;
 #pragma unroll
         for (int p = 0; p < BS; ++p) r[i * BS + p] = b[i * BS + p] - acc[p];
       }
     } else {
       T acc[BS], res[BS], D[BS * BS];
-      node_product<T, BS, false>(a, x, b, i, w, acc);
+      node_product<T, BS>(a, i, LocalSource<T>{x, a.nb, BS}, acc);
 #pragma unroll
       for (int q = 0; q < BS; ++q) res[q] = b[i * BS + q] - acc[q];
       load_run<T, BS * BS>(a.dinv + i * (BS * BS), D);
@@ -292,19 +400,137 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (Mode == ZERO || Mode == ZERO_RES) {
       y[t] = zero_sweep_rt(a, b, i, p, w);
       if constexpr (Mode == ZERO_RES) {
-        a.r[lane + t] = b[t] - row_product_rt<T, true>(a, nullptr, b, i, p, w);
+        a.r[lane + t] = b[t] - row_product_rt<T>(a, i, p,
+                                                 ZeroGuessSource<T>{a, b, w});
       }
     } else {
       // this component's row of Dinv against the node's whole residual
       const T* D = a.dinv + (i * bs + p) * bs;
       T s = T(0);
       for (int q = 0; q < bs; ++q) {
-        const T res = b[i * bs + q] - row_product_rt<T, false>(a, x, b, i, q, w);
+        const T res = b[i * bs + q] -
+                      row_product_rt<T>(a, i, q, LocalSource<T>{x, a.nb, bs});
         s += D[q] * res;
       }
       y[t] = Mode == COLOUR ? x[t] + s : x[t] + w * s;
     }
   }
+}
+
+// ---- B1's halo mode -------------------------------------------------------
+
+template <typename T>
+struct HaloArgs {
+  const T* data;          // (nd, nb, bs, bs), ld values between diagonals
+  long long ld;
+  const int* offsets;     // (nd,) ascending, in nodes, |offset| <= halo
+  int nd;
+  long long nb;           // the block's node rows
+  int bs;
+  int halo;               // nodes in each halo
+  const T* left;          // (halo * bs)
+  const T* x;             // (nb * bs)
+  const T* right;         // (halo * bs)
+  const T* b;             // (nb * bs), RESID
+  T* y;                   // (nb * bs)
+  int lo, hi;             // the interior row blocks
+  int a0, a1, b0;         // the row blocks of this launch: [a0, a1), [b0, ...)
+};
+
+// node j's source of x (HaloSource) for this block of node rows
+template <typename T, bool INTERIOR>
+__device__ __forceinline__ HaloSource<T, INTERIOR> halo_source(
+    const HaloArgs<T>& a, int bs) {
+  return HaloSource<T, INTERIOR>{a.x, a.left, a.right, a.nb, a.halo, bs};
+}
+
+template <typename T, int BS, int Mode>
+__global__ void __launch_bounds__(kThreads)
+    block_dia_halo_kernel(const HaloArgs<T> a) {
+  const int bid = static_cast<int>(blockIdx.x);
+  const int na = a.a1 - a.a0;
+  const int rb = bid < na ? a.a0 + bid : a.b0 + (bid - na);
+  const bool interior = rb >= a.lo && rb < a.hi;
+  const long long n0 = static_cast<long long>(rb) * kThreads;
+  if constexpr (BS > 0) {
+    const long long i = n0 + threadIdx.x;
+    if (i >= a.nb) return;
+    T acc[BS];
+    const T* blocks = a.data + i * (BS * BS);
+    if (interior) {
+      node_product<T, BS>(blocks, a.ld, a.offsets, a.nd, i,
+                          halo_source<T, true>(a, BS), acc);
+    } else {
+      node_product<T, BS>(blocks, a.ld, a.offsets, a.nd, i,
+                          halo_source<T, false>(a, BS), acc);
+    }
+#pragma unroll
+    for (int p = 0; p < BS; ++p) {
+      const long long e = i * BS + p;
+      a.y[e] = Mode == RESID ? a.b[e] - acc[p] : acc[p];
+    }
+  } else {
+    // run-time bs: the CTA's 256 nodes, a thread per component in turn
+    const int bs = a.bs;
+    const long long n1 = n0 + kThreads < a.nb ? n0 + kThreads : a.nb;
+    for (long long t = n0 * bs + threadIdx.x; t < n1 * bs; t += kThreads) {
+      const long long i = t / bs;
+      const int p = static_cast<int>(t - i * bs);
+      const T* row = a.data + t * bs;
+      const T acc =
+          interior ? row_product_rt<T>(row, a.ld, a.offsets, a.nd, i, bs,
+                                       halo_source<T, true>(a, bs))
+                   : row_product_rt<T>(row, a.ld, a.offsets, a.nd, i, bs,
+                                       halo_source<T, false>(a, bs));
+      a.y[t] = Mode == RESID ? a.b[t] - acc : acc;
+    }
+  }
+}
+
+template <typename T, int BS>
+void launch_halo_mode(const HaloArgs<T>& a, unsigned int blocks, int mode,
+                      cudaStream_t s) {
+  if (mode == RESID) {
+    block_dia_halo_kernel<T, BS, RESID><<<blocks, kThreads, 0, s>>>(a);
+  } else {
+    block_dia_halo_kernel<T, BS, PLAIN><<<blocks, kThreads, 0, s>>>(a);
+  }
+}
+
+template <typename T>
+int block_halo(const void* data, long long ld, const void* offsets, int nd,
+               long long nb, int bs, int halo, const void* left,
+               const void* x, const void* right, const void* b, void* y,
+               int lo, int hi, int a0, int a1, int b0, int b1, int mode,
+               void* stream) {
+  const long long row_blocks = (nb + kThreads - 1) / kThreads;
+  if (nb <= 0 || nd < 1 || bs < 1 || halo < 1 || halo > nb ||
+      ld < nb * bs * bs || row_blocks >= (1LL << 31) || lo < 0 || hi < lo ||
+      hi > row_blocks || a0 < 0 || a1 < a0 || b0 < a1 || b1 < b0 ||
+      b1 > row_blocks || (mode != PLAIN && mode != RESID) ||
+      (mode == RESID && b == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a1 - a0 + b1 - b0 == 0) return static_cast<int>(cudaSuccess);
+  const HaloArgs<T> a{static_cast<const T*>(data), ld,
+                      static_cast<const int*>(offsets), nd, nb, bs, halo,
+                      static_cast<const T*>(left), static_cast<const T*>(x),
+                      static_cast<const T*>(right), static_cast<const T*>(b),
+                      static_cast<T*>(y), lo, hi, a0, a1, b0};
+  const unsigned int blocks = static_cast<unsigned int>((a1 - a0) + (b1 - b0));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // B1's instance choice (dispatch below): the unrolled bs, or the
+  // run-time one where a block of 16-byte words does not start aligned
+  const bool words = (bs * bs * sizeof(T)) % 16 == 0;
+  const bool aligned = reinterpret_cast<uintptr_t>(data) % 16 == 0;
+  switch (words && !aligned ? 0 : bs) {
+    case 1: launch_halo_mode<T, 1>(a, blocks, mode, s); break;
+    case 2: launch_halo_mode<T, 2>(a, blocks, mode, s); break;
+    case 3: launch_halo_mode<T, 3>(a, blocks, mode, s); break;
+    case 4: launch_halo_mode<T, 4>(a, blocks, mode, s); break;
+    default: launch_halo_mode<T, 0>(a, blocks, mode, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- launchers ----------------------------------------------------------
@@ -438,6 +664,31 @@ int pyamg_block_dia_jacobi_f64(const void* data, const void* offsets, int nd,
       make_args<double>(data, offsets, nd, nb, bs, x, b, dinv, omega,
                         omega_dev, colors, colour, y, r),
       lanes, mode, stream);
+}
+
+// B1's halo mode: data, ld (values between diagonals), offsets (device),
+// nd, nb (the block's node rows), bs, halo (nodes), left, x, right, b
+// (RESID, else null), y, lo, hi (the interior row blocks of 256 nodes),
+// a0, a1, b0, b1 (the row blocks to compute), mode, stream
+int pyamg_block_dia_halo_f32(const void* data, long long ld,
+                             const void* offsets, int nd, long long nb,
+                             int bs, int halo, const void* left,
+                             const void* x, const void* right, const void* b,
+                             void* y, int lo, int hi, int a0, int a1, int b0,
+                             int b1, int mode, void* stream) {
+  return block_halo<float>(data, ld, offsets, nd, nb, bs, halo, left, x,
+                           right, b, y, lo, hi, a0, a1, b0, b1, mode, stream);
+}
+
+int pyamg_block_dia_halo_f64(const void* data, long long ld,
+                             const void* offsets, int nd, long long nb,
+                             int bs, int halo, const void* left,
+                             const void* x, const void* right, const void* b,
+                             void* y, int lo, int hi, int a0, int a1, int b0,
+                             int b1, int mode, void* stream) {
+  return block_halo<double>(data, ld, offsets, nd, nb, bs, halo, left, x,
+                            right, b, y, lo, hi, a0, a1, b0, b1, mode,
+                            stream);
 }
 
 }  // extern "C"

@@ -21,14 +21,17 @@ Every step runs eagerly in plain PyTorch on the device; nothing is read
 to the host (the smoother weights and spectral-radius estimates stay 0-d
 tensors).  No Pallas kernel stands behind any of it in the reference.
 The solve applies the block transfers factored (:class:`
-BlockStructuredProlongator`, :class:`BlockStructuredRestrictor`), the
+BlockStructuredProlongator`, :class:`BlockStructuredRestrictor`: the
+block-DIA S or S^T through B1 and the candidates' remap Q, built on the
+device at setup as an m-slot WindowedELL, through K6 or K7), the
 block-DIA levels through :class:`~pyamg_tpu_torch.sparse.block_dia.
 BlockDIAMatrix`, and the dense coarsest level through its pseudo-inverse.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from functools import cached_property
 from typing import Tuple
 
 import numpy as np
@@ -39,12 +42,16 @@ from ..backend import resolve_device
 from ..relaxation.chebyshev import chebyshev_polynomial_coefficients
 from ..sparse.block_dia import BlockDIAMatrix, block_dia_from_scipy
 from ..sparse.dia import DenseOperator
+from ..sparse.formats import fit
+from ..sparse.window import TransposedWindowed
 from . import relaxation as device_relaxation
 from .device_setup import (StructuredDeviceSolver, _block_sum,
-                           _broadcast_coarse, _check_dtype, _compact_fine,
-                           _coords_to_offset, _grid_pad_vec, _grid_pads,
-                           _grid_unpad_vec, _ns_pinv, _offset_to_coords,
-                           _padded_grid, _spec_key)
+                           _broadcast_coarse, _check_dtype, _coarse_index,
+                           _compact_fine, _coords_to_offset, _grid_pad_vec,
+                           _grid_pads, _ns_pinv,
+                           _offset_to_coords, _padded_grid,
+                           _shared_factor, _spec_key, _transfer_block,
+                           _windowed_rows)
 from .hierarchy import DeviceHierarchy, DeviceLevel
 from .relaxation import _block_apply
 from .setup import _hash_weights
@@ -327,12 +334,50 @@ def _block_power_rho(A: BlockDIAMatrix, Dinv, iters=40):
 # solve-phase factored block transfers
 # ---------------------------------------------------------------------------
 
+def _candidate_factor(Qv, coarse_grid, coarse_grid_p, stride, center, block):
+    """Q: (Q xc)[node, c] = sum_j Qv[node, c, j] xc[agg(node), j], coarse
+    padded grid (m unknowns a node) -> fine scalar rows, as a WindowedELL
+    of m slots a row (a scalar row's candidates, in column order)."""
+    nb, bs, m = Qv.shape
+    agg = _broadcast_coarse(_coarse_index(coarse_grid, coarse_grid_p,
+                                          Qv.device),
+                            coarse_grid, stride, center)
+    cols = (agg[:, None, None] * m
+            + torch.arange(m, device=Qv.device)).expand(nb, bs, m)
+    return _windowed_rows(
+        cols.reshape(nb * bs, m), Qv.reshape(nb * bs, m),
+        (nb * bs, int(np.prod(coarse_grid_p)) * m), block, Qv.dtype)
+
+
+class _CandidateRemap:
+    """The candidates' remap Q of a block level's transfers (P = S Q, R =
+    Q^T S^T), built on the device once a block size and shared by the
+    level's P and R through ``remaps``: the solve applies it at the
+    level's own block (K6 forward, K7 by its column plan transposed), a
+    row-sharded hierarchy at the block its ranks' rows take."""
+
+    @cached_property
+    def Q(self):
+        """Q at the whole level's block (:func:`~pyamg_tpu_torch.engine.
+        device_setup._transfer_block`), what the unsharded applies take;
+        looked up once a transfer."""
+        nb, bs, _ = self.Qv.shape
+        return self.factor(_transfer_block(nb * bs))
+
+    def factor(self, block):
+        """Q in row blocks of ``block`` rows."""
+        return _shared_factor(
+            self.remaps, block,
+            lambda b: _candidate_factor(self.Qv, self.coarse_grid,
+                                        self.coarse_grid_p, self.stride,
+                                        self.center, b))
+
+
 @dataclass(frozen=True)
-class BlockStructuredProlongator:
-    """P = S T applied factored on the node grids:
-    (T xc)[node, c] = sum_j Qv[node, c, j] xc[agg(node), j], P xc = S (T
-    xc): m aggregate broadcasts, one node-wise product, one block-DIA
-    apply.  A K-major (K, nc) stack is prolongated lane by lane."""
+class BlockStructuredProlongator(_CandidateRemap):
+    """P = S Q applied factored on the node grids: (Q xc)[node, c] =
+    sum_j Qv[node, c, j] xc[agg(node), j] through K6 (K12 for a K-major
+    (K, nc) stack, lane by lane), then the block-DIA S through B1."""
 
     S: BlockDIAMatrix
     Qv: torch.Tensor                 # (nb_fine_pad, bs, m)
@@ -341,6 +386,8 @@ class BlockStructuredProlongator:
     coarse_grid_p: Tuple[int, ...]
     stride: int
     center: int
+    # Q by block, shared with the level's restrictor
+    remaps: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def m(self):
@@ -357,22 +404,19 @@ class BlockStructuredProlongator:
                 int(np.prod(self.coarse_grid_p)) * self.m)
 
     def __matmul__(self, xc):
-        lead = tuple(xc.shape[:-1])
-        m = self.m
-        xcb = xc.reshape(lead + (-1, m)).transpose(-1, -2)    # (.., m, ncp)
-        t = _broadcast_coarse(
-            _grid_unpad_vec(xcb, self.coarse_grid, self.coarse_grid_p),
-            self.coarse_grid, self.stride, self.center)       # (.., m, nb)
-        # elementwise product and sum: a batched library product splits a
-        # million tiny ones into many slow launches
-        y = torch.sum(self.Qv * t.transpose(-1, -2).unsqueeze(-2), dim=-1)
-        return self.S @ y.reshape(lead + (-1,))
+        return self.S @ self.Q.matvec(xc)
+
+    def shard_factors(self, block):
+        """(S, Q), P as factors applied right to left, Q in row blocks of
+        ``block``: the form a row-sharded hierarchy applies."""
+        return (self.S, self.factor(block))
 
 
 @dataclass(frozen=True)
-class BlockStructuredRestrictor:
-    """R = P^T = T^T S^T applied factored: z = S^T r, then (R r)[(a, j)]
-    = sum over aggregate a's nodes of sum_c Qv[node, c, j] z[node, c]."""
+class BlockStructuredRestrictor(_CandidateRemap):
+    """R = P^T = Q^T S^T applied factored: z = S^T r through B1, then
+    (R r)[(a, j)] = sum over aggregate a's nodes of sum_c Qv[node, c, j]
+    z[node, c] through K7 (K13 for a lane stack)."""
 
     St: BlockDIAMatrix
     Qv: torch.Tensor
@@ -381,6 +425,8 @@ class BlockStructuredRestrictor:
     coarse_grid_p: Tuple[int, ...]
     stride: int
     center: int
+    # Q by block, shared with the level's prolongator
+    remaps: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def m(self):
@@ -401,13 +447,12 @@ class BlockStructuredRestrictor:
         return int(np.prod(self.coarse_grid_p)) * self.m
 
     def __matmul__(self, r):
-        lead = tuple(r.shape[:-1])
-        bs = self.Qv.shape[1]
-        z = (self.St @ r).reshape(lead + (-1, bs))
-        f = torch.sum(self.Qv * z.unsqueeze(-1), dim=-2).transpose(-1, -2)
-        yc = _grid_pad_vec(_block_sum(f, self.coarse_grid, self.stride),
-                           self.coarse_grid, self.coarse_grid_p)
-        return yc.transpose(-1, -2).reshape(lead + (-1,))
+        return fit(self.Q.rmatvec(self.St @ r), self.n_pad)
+
+    def shard_factors(self, block):
+        """(Q^T, S^T), R as factors applied right to left (K7 sums each
+        coarse unknown's entries by Q's column plan)."""
+        return (TransposedWindowed(self.factor(block)), self.St)
 
 
 # ---------------------------------------------------------------------------
@@ -680,11 +725,12 @@ def device_sa_setup_block(A, grid, B, dtype=torch.float32, device=None,
         coarse_grid_p = plan[i + 1][1] if i + 1 < nlev else coarse_grid
         geometry = dict(Qv=Qv, fine_grid_p=grid_p, coarse_grid=coarse_grid,
                         coarse_grid_p=coarse_grid_p, stride=stride,
-                        center=stride // 2)
+                        center=stride // 2, remaps={})
         npad_lvl = int(np.prod(grid_p)) * A_p.bs
+        P = BlockStructuredProlongator(S=S, **geometry)
+        P.Q                          # built here, once for P and R
         dev_levels.append(DeviceLevel(
-            A=A_p, P=BlockStructuredProlongator(S=S, **geometry),
-            R=BlockStructuredRestrictor(St=St, **geometry),
+            A=A_p, P=P, R=BlockStructuredRestrictor(St=St, **geometry),
             pre=_block_smoother_wrap(pre_key, pre_arr),
             post=_block_smoother_wrap(post_key, post_arr), n=npad_lvl,
             n_pad=npad_lvl))

@@ -41,7 +41,7 @@ goes to the unstructured classical setups
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
@@ -52,9 +52,12 @@ import torch.nn.functional as F
 from ..backend import resolve_device
 from ..sparse.dia import DIAMatrix, dia_spmm_add, dia_spmv_add, dia_transpose
 from ..sparse.formats import fit
+from ..sparse.window import TransposedWindowed
 from . import relaxation as device_relaxation
-from .device_setup import (_check_dtype, _check_smoother, _coarsening_plan,
-                           _compact_dia, _compact_fine, _dia_spgemm_filtered,
+from .device_setup import (_check_dtype, _check_smoother, _coarse_index,
+                           _coarsening_plan, _compact_dia, _compact_fine,
+                           _dia_spgemm_filtered, _shared_factor,
+                           _windowed_rows,
                            _dia_to_dense, _dinv_of, _embed_coarse,
                            _grid_operator, _grid_pad_vec, _grid_unpad_vec,
                            _ns_pinv, _offset_sums,
@@ -74,6 +77,29 @@ __all__ = ["device_rs_setup", "device_air_setup", "EmbeddedProlongator",
 # solve-phase transfers (the embedded P and R)
 # ---------------------------------------------------------------------------
 
+def _embedding_factor(n_rows, coarse_grid, coarse_grid_p, stride, center,
+                      dtype, device, block):
+    """E: coarse padded grid -> fine rows, 1 where a fine point is a coarse
+    point's centre (``embed(unpad(xc))``), as a one-slot WindowedELL; its
+    transpose is the compaction (one entry a column, an exact copy)."""
+    cols = _embed_coarse(_coarse_index(coarse_grid, coarse_grid_p,
+                                       device) + 1,
+                         coarse_grid, stride, center) - 1
+    return _windowed_rows(cols[:, None],
+                          torch.ones(cols.shape[0], 1, dtype=dtype,
+                                     device=device),
+                          (n_rows, int(np.prod(coarse_grid_p))), block,
+                          dtype)
+
+
+def _shared_embedding(t, M, block):
+    """The embedding factor of the embedded transfer ``t`` (its DIA factor
+    ``M``), built once for the level's P and R."""
+    return _shared_factor(t.remaps, block, lambda b: _embedding_factor(
+        M.n_pad, t.coarse_grid, t.coarse_grid_p, t.stride, t.center,
+        M.dtype, M.device, b))
+
+
 @dataclass(frozen=True)
 class EmbeddedProlongator:
     """P stored as an embedded fine-grid DIA whose columns live on the C
@@ -86,6 +112,8 @@ class EmbeddedProlongator:
     coarse_grid_p: Tuple[int, ...]
     stride: Tuple[int, ...]
     center: Tuple[int, ...]
+    # the embedding E by block, shared with the level's restrictor
+    remaps: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def nnz(self):
@@ -120,6 +148,12 @@ class EmbeddedProlongator:
             return add(self.P_emb, e, x)
         return x + fit(self.P_emb @ e, x.shape[-1])
 
+    def shard_factors(self, block):
+        """(P_emb, E), P as factors applied right to left (E the embedding
+        as a one-slot WindowedELL of ``block`` rows a block): the form a
+        row-sharded hierarchy applies."""
+        return (self.P_emb, _shared_embedding(self, self.P_emb, block))
+
 
 @dataclass(frozen=True)
 class EmbeddedRestrictor:
@@ -132,6 +166,8 @@ class EmbeddedRestrictor:
     coarse_grid_p: Tuple[int, ...]
     stride: Tuple[int, ...]
     center: Tuple[int, ...]
+    # the embedding E by block, shared with the level's prolongator
+    remaps: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def nnz(self):
@@ -150,6 +186,12 @@ class EmbeddedRestrictor:
         y = (self.R_emb @ r)[..., : int(np.prod(self.fine_grid_p))]
         yc = _compact_fine(y, self.coarse_grid, self.stride, self.center)
         return _grid_pad_vec(yc, self.coarse_grid, self.coarse_grid_p)
+
+    def shard_factors(self, block):
+        """(E^T, R_emb), R as factors applied right to left: the
+        compaction is the embedding's transpose (K7)."""
+        return (TransposedWindowed(_shared_embedding(self, self.R_emb,
+                                                     block)), self.R_emb)
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +563,8 @@ def _embedded_transfers(plan, i, P_emb, R_emb):
     geom = dict(fine_grid_p=grid_p, coarse_grid=coarse_grid,
                 coarse_grid_p=(plan[i + 1][1] if i + 1 < len(plan)
                                else coarse_grid),
-                stride=strides, center=tuple(0 for _ in strides))
+                stride=strides, center=tuple(0 for _ in strides),
+                remaps={})
     return EmbeddedProlongator(P_emb=P_emb, **geom), EmbeddedRestrictor(
         R_emb=R_emb, **geom)
 

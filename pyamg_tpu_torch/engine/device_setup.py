@@ -43,7 +43,7 @@ candidates, or a BSR operator, take the block setup
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Tuple
 
 import numpy as np
@@ -57,6 +57,7 @@ from ..sparse.dia import (DenseOperator, DIAMatrix, dia_from_scipy,
                           dia_spgemm, dia_spmm_add, dia_spmm_scaled,
                           dia_spmv_add, dia_spmv_scaled, dia_transpose)
 from ..sparse.formats import fit, pad_to
+from ..sparse.window import TransposedWindowed, WindowedELL
 from . import relaxation as device_relaxation
 from .hierarchy import DeviceHierarchy, DeviceLevel
 from .krylov import _norm
@@ -376,6 +377,88 @@ def _dia_to_dense(A: DIAMatrix):
 # structured transfer operators
 # ---------------------------------------------------------------------------
 
+def _transfer_block(rows):
+    """Rows a block of a transfer's windowed factor over ``rows`` fine
+    rows (a row-sharded level's rows on one rank, or the whole level):
+    the largest divisor of ``rows`` up to 8192 (the largest block the JAX
+    package's layout takes), a multiple of 4 (K6's 16-byte rows) where
+    one of at least 256 divides, so that the rows are whole blocks."""
+    divisors = [d for d in range(1, min(rows, 8192) + 1) if rows % d == 0]
+    by4 = [d for d in divisors if d % 4 == 0 and d >= 256]
+    return (by4 or divisors)[-1]
+
+
+def _windowed_rows(cols, vals, shape, block, dtype):
+    """The operator whose row i holds ``vals[i, s]`` at column ``cols[i,
+    s]`` (an (n, k) pair of tensors on one device, a column < 0 no entry;
+    rows past n empty up to ``shape[0]``) as a WindowedELL in row blocks
+    of ``block``, built on that device with a few host reads:
+    :func:`~pyamg_tpu_torch.sparse.window.windowed_from_scipy`'s layout
+    (slots in the given order, which is each row's column order here; the
+    smallest power-of-two w2 >= 1024 whose two-chunk window spans every
+    block's columns, however wide the grid).  The grid remaps of the
+    transfers, in the form a row-sharded hierarchy applies (K6, K7)."""
+    n, k = cols.shape
+    n_pad = pad_to(max(shape[0], 1), block)
+    nb = n_pad // block
+    has = torch.zeros((n_pad, k), dtype=torch.bool, device=cols.device)
+    has[:n] = cols >= 0
+    c = torch.zeros((n_pad, k), dtype=torch.int64, device=cols.device)
+    c[:n] = cols
+    v = torch.zeros((n_pad, k), dtype=dtype, device=cols.device)
+    v[:n] = vals.to(dtype)
+    lo = torch.where(has, c, torch.iinfo(torch.int64).max).reshape(
+        nb, -1).amin(1)
+    hi = torch.where(has, c, -1).reshape(nb, -1).amax(1)
+    lo = torch.where(hi < 0, 0, lo)                  # an empty block
+    hi = torch.clamp_min(hi, 0)
+    w2 = 1024
+    while not bool((hi < (lo // w2 + 2) * w2).all()):
+        w2 *= 2
+    starts = lo // w2
+    m_chunks = max(pad_to(max(shape[1], 1), w2) // w2,
+                   int(starts.max()) + 2)            # starts + 1 addressable
+    local = torch.where(has, c - starts.repeat_interleave(block)[:, None]
+                        * w2, 0)
+    return WindowedELL(
+        data=torch.where(has, v, 0).reshape(nb, block, k).transpose(
+            1, 2).contiguous(),
+        idx=local.to(torch.int32).reshape(nb, block, k).transpose(
+            1, 2).contiguous(),
+        starts=starts.to(torch.int32), shape=tuple(shape), block=int(block),
+        w2=w2, m_chunks=int(m_chunks), nnz=int(has.sum()))
+
+
+def _shared_factor(remaps, block, build):
+    """``build(block)``, built once and kept in ``remaps`` (the dict a
+    level's prolongator and restrictor share, so that the remap both
+    shard into is built once a level)."""
+    if block not in remaps:
+        remaps[block] = build(block)
+    return remaps[block]
+
+
+def _coarse_index(coarse_grid, coarse_grid_p, device=None):
+    """Each coarse grid point's index on the coarse padded grid, in grid
+    order (an int64 tensor)."""
+    return _grid_unpad_vec(torch.arange(int(np.prod(coarse_grid_p)),
+                                        device=device),
+                           coarse_grid, coarse_grid_p)
+
+
+def _remap_factor(tv, n_rows, coarse_grid, coarse_grid_p, stride, center,
+                  block):
+    """T xc = tv * broadcast(unpad(xc)), coarse padded grid -> fine rows
+    (the first prod(fine grid) of ``n_rows``), as a one-slot
+    WindowedELL."""
+    cols = _broadcast_coarse(_coarse_index(coarse_grid, coarse_grid_p,
+                                           tv.device),
+                             coarse_grid, stride, center)
+    return _windowed_rows(
+        cols[:, None], tv[: cols.shape[0], None],
+        (n_rows, int(np.prod(coarse_grid_p))), block, tv.dtype)
+
+
 @dataclass(frozen=True)
 class StructuredProlongator:
     """P = S T applied factored, coarse padded-grid vector -> fine
@@ -390,6 +473,8 @@ class StructuredProlongator:
     coarse_grid_p: Tuple[int, ...]   # the next level's padded grid
     stride: Any
     center: Any
+    # the remap T by block, shared with the level's restrictor
+    remaps: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def nnz(self):
@@ -425,6 +510,19 @@ class StructuredProlongator:
             return add(self.S, t, x)
         return x + fit(self.S @ t, x.shape[-1])
 
+    def remap(self, block):
+        """T = ``tv * broadcast(unpad(xc))`` as a one-slot WindowedELL of
+        ``block`` rows a block (the solve padding's rows and columns
+        structural zeros), built once for the level's P and R."""
+        return _shared_factor(self.remaps, block, lambda b: _remap_factor(
+            self.tv, self.S.n_pad, self.coarse_grid, self.coarse_grid_p,
+            self.stride, self.center, b))
+
+    def shard_factors(self, block):
+        """(S, T), P as factors applied right to left: the form a
+        row-sharded hierarchy applies."""
+        return (self.S, self.remap(block))
+
 
 @dataclass(frozen=True)
 class StructuredRestrictor:
@@ -439,6 +537,8 @@ class StructuredRestrictor:
     coarse_grid_p: Tuple[int, ...]
     stride: Any
     center: Any
+    # the remap T by block, shared with the level's prolongator
+    remaps: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def nnz(self):
@@ -472,6 +572,15 @@ class StructuredRestrictor:
         nf = int(np.prod(self.fine_grid_p))
         yc = _block_sum(y[..., :nf], self.coarse_grid, self.stride)
         return _grid_pad_vec(yc, self.coarse_grid, self.coarse_grid_p)
+
+    def shard_factors(self, block):
+        """(T^T, S^T), R as factors applied right to left: T^T the
+        transpose of :meth:`StructuredProlongator.remap` (K7 sums each
+        aggregate's members by its column plan)."""
+        T = _shared_factor(self.remaps, block, lambda b: _remap_factor(
+            self.tv, self.St.n_pad, self.coarse_grid, self.coarse_grid_p,
+            self.stride, self.center, b))
+        return (TransposedWindowed(T), self.St)
 
 
 # ---------------------------------------------------------------------------
@@ -955,6 +1064,18 @@ class StructuredDeviceSolver(DeviceMultilevelSolver):
         return v.reshape(self.grid_p + tail)[sl].reshape((-1,) + tail)
 
     def solve(self, b, x0=None, **kw):
+        """:meth:`DeviceMultilevelSolver.solve` on the grid's vectors.  On
+        a row-sharded hierarchy (``shard_hierarchy``) every rank passes the
+        full numpy ``b`` and gets the full decoded x; a tensor ``b`` raises
+        there, since the solve would give this rank's block of the padded
+        grid (to have that block, solve with ``DeviceMultilevelSolver(
+        hierarchy)`` on ``_encode(b)``; ``_decode(hierarchy.gather(x))`` is
+        then the full x)."""
+        if (getattr(self.hierarchy, "mesh", None) is not None
+                and isinstance(b, torch.Tensor)):
+            raise TypeError("a grid solver over a row-sharded hierarchy "
+                            "takes a numpy b (a tensor b would give this "
+                            "rank's block of the padded grid)")
         b = self._encode(b)
         if x0 is not None:
             x0 = self._encode(x0)
@@ -1073,16 +1194,19 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
         centers = tuple(s // 2 for s in strides)
         coarse_grid = tuple(g // s for g, s in zip(grid_p, strides))
         coarse_grid_p = plan[i + 1][1] if i + 1 < nlev else coarse_grid
+        remaps = {}
         P = StructuredProlongator(
             S=S_op, tv=tv, fine_grid_p=grid_p, coarse_grid=coarse_grid,
-            coarse_grid_p=coarse_grid_p, stride=strides, center=centers)
+            coarse_grid_p=coarse_grid_p, stride=strides, center=centers,
+            remaps=remaps)
         # R's tv rides the solve-padded St (zero pad: those rows are
         # structurally absent), so the scale-epilogue gate passes
         tv_r = (tv if St_op.n_pad == tv.shape[0]
                 else F.pad(tv, (0, St_op.n_pad - tv.shape[0])))
         R = StructuredRestrictor(
             St=St_op, tv=tv_r, fine_grid_p=grid_p, coarse_grid=coarse_grid,
-            coarse_grid_p=coarse_grid_p, stride=strides, center=centers)
+            coarse_grid_p=coarse_grid_p, stride=strides, center=centers,
+            remaps=remaps)
         npad_lvl = int(np.prod(grid_p))
         dev_levels.append(DeviceLevel(
             A=A_p, P=P, R=R, pre=_smoother_wrap(pre_key, pre_arr),

@@ -55,7 +55,10 @@ The block forms on a
 one ``STEP`` pass, the single zero-guess sweep plus its residual one
 ``ZERO_RES`` pass (:meth:`DeviceSmoother.zero_call_residual`), and a
 block multicolour Gauss-Seidel colour step one ``COLOUR`` pass.  On any
-other operator they compose through ``A @ x``, with the reference's
+other operator a sweep is the operator's residual (:func:`residual`:
+one B1 halo ``RESID`` pass on a row-sharded block level, whose STEP and
+ZERO_RES would read neighbouring ranks' nodes) and then the local block
+update, one B2 ``ZERO`` pass on the residual, with the reference's
 arithmetic.
 """
 
@@ -69,7 +72,7 @@ import numpy as np
 import torch
 
 from ..sparse.block_dia import (BlockDIAMatrix, _block_apply,
-                                _block_update, block_colour_step,
+                                block_colour_step, block_dia_resid,
                                 block_jacobi_step, block_jacobi_zero,
                                 block_jacobi_zero_res)
 from ..sparse.dia import (DIAMatrix, dia_jacobi, dia_jacobi_k,
@@ -319,10 +322,22 @@ def _block_jacobi_parts(config, arrays):
     return Dinv, omega, iterations
 
 
+def residual(A, x, b):
+    """b - A @ x: one B1 ``RESID`` pass on a block-DIA operator, the
+    operator's own one-pass form where it has one (a row-sharded block
+    level's B1 halo ``RESID``), composed elsewhere."""
+    if isinstance(A, BlockDIAMatrix):
+        return block_dia_resid(A, x, b)
+    own = getattr(A, "residual", None)
+    if own is not None:
+        return own(x, b)
+    return b - (A @ x)
+
+
 def _block_jacobi_step(A, x, b, Dinv, omega):
     if isinstance(A, BlockDIAMatrix):
         return block_jacobi_step(A, x, b, Dinv, omega)
-    return x + omega * _block_update(Dinv, b - (A @ x))
+    return x + block_jacobi_zero(Dinv, residual(A, x, b), omega)
 
 
 def _jacobi_step(A, x, b, dinv, omega):
@@ -478,10 +493,9 @@ def apply_smoother(config, arrays, A, x, b, dinv_stack=None):
         nodes = x.shape[:-1] + (-1, bs)
         for _ in range(iterations):
             for c in _sweeps(ncolors, sweep):
-                xb = x.reshape(nodes)
-                upd = xb + _block_apply(Dinv, (b - (A @ x)).reshape(nodes))
-                x = torch.where((colors == c)[:, None], upd, xb).reshape(
-                    x.shape)
+                upd = x + block_jacobi_zero(Dinv, residual(A, x, b), 1.0)
+                x = torch.where((colors == c)[:, None], upd.reshape(nodes),
+                                x.reshape(nodes)).reshape(x.shape)
         return x
 
     if kind in ("poly", "poly_dyn"):

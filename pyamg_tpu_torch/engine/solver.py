@@ -19,13 +19,16 @@ batched native float32 V-cycle CG from x0 = 0 on a hierarchy that
 instead (:func:`~pyamg_tpu_torch.engine.batched_cycle.interleaved_batched_cg`,
 K15; ``pyamg_tpu/engine/solver.py:355-385``).
 
-A row-sharded hierarchy (:func:`~pyamg_tpu_torch.parallel.shard_hierarchy`)
-solves on every rank at once: each rank stages its block of ``b``, the
-cycle runs on the blocks (each sharded operator communicates, the Jacobi
-sweeps compose through ``A @ x``), and the Krylov dots sum over the
-shards (AMLI's coarse dots over the level's shards).  Batched and
-mixed-precision sharded solves, and CGNR / CGNE there (A^T of a sharded
-operator), are not ported.
+A row-sharded hierarchy (:func:`~pyamg_tpu_torch.parallel.shard_hierarchy`),
+host-built, unstructured or device-built, solves on every rank at once:
+each rank stages its block of ``b``, the cycle runs on the blocks (each
+sharded operator communicates, the transfers apply factor by factor, the
+Jacobi sweeps compose through ``A @ x``, a block level's residual is one
+B1 halo ``RESID`` pass), and the Krylov dots sum over the shards (AMLI's
+coarse dots over the level's shards).  Batched (n, K) and
+mixed-precision sharded solves (no ``A64``, as in the reference), and
+CGNR / CGNE there (A^T of a sharded operator), are not ported (ROADMAP.md
+Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -35,11 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from ..backend import resolve_device
-from ..sparse.block_dia import BlockDIAMatrix, block_dia_resid
 from ..sparse.dia import DIAMatrix, dia_zero_chain, dia_zero_chain_k
 from ..sparse.formats import fit as _fitv
 from ..sparse.formats import pad_vector
 from .hierarchy import DeviceHierarchy, compile_hierarchy
+from .relaxation import residual
 from .krylov import (_freeze, _lane, _norm, _rtol_of, _safe_div, _vdot,
                      device_bicgstab, device_cg, device_cgne, device_cgnr,
                      device_cr, device_fgmres, device_gmres,
@@ -93,14 +96,6 @@ def _fused_zero_entry_chain(lvl, b):
     chain = dia_zero_chain_k if b.ndim == 2 else dia_zero_chain
     x, y = chain(lvl.A, St, b, dinv, tv, omega)
     return x, finish(y)
-
-
-def _residual(A, x, b):
-    """b - A @ x: one B1 ``RESID`` pass on a block-DIA level, composed
-    elsewhere."""
-    if isinstance(A, BlockDIAMatrix):
-        return block_dia_resid(A, x, b)
-    return b - (A @ x)
 
 
 CYCLES = ("V", "W", "F", "AMLI")
@@ -179,7 +174,7 @@ def _make_cycle(nlev, cycle, amli_depth=2):
                 x, r = fused
             else:
                 x = lvl.pre.zero_call(lvl.A, b) if xz else lvl.pre(lvl.A, x, b)
-                r = _residual(lvl.A, x, b)
+                r = residual(lvl.A, x, b)
             rc = _fitv(lvl.R @ r, h.levels[i + 1].n_pad)
         if i == nlev - 2:
             xc = h.coarse_solve(rc)
@@ -268,6 +263,12 @@ class DeviceMultilevelSolver:
         if precision not in ("native", "mixed"):
             raise ValueError(f"unknown precision {precision!r}")
         mixed = precision == "mixed"
+        sharded = getattr(h, "mesh", None) is not None
+        if mixed and sharded:
+            raise ValueError(
+                "a row-sharded hierarchy carries no A64 (as the reference's), "
+                "so mixed precision on it is not ported (ROADMAP.md Queue 1 "
+                "item 14)")
         if mixed and h.A64 is None:
             raise ValueError("mixed precision requires a hierarchy compiled "
                              "with mixed_precision=True")
@@ -275,7 +276,6 @@ class DeviceMultilevelSolver:
         if np.ndim(b) not in (1, 2):
             raise ValueError(f"b must be a vector or an (n, K) stack, got "
                              f"{np.ndim(b)} dimensions")
-        sharded = getattr(h, "mesh", None) is not None
         if sharded and lanes:
             raise NotImplementedError(
                 "a batched (n, K) solve on a sharded hierarchy is not ported "

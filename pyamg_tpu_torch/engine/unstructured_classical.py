@@ -276,6 +276,20 @@ def _stage_build_m_mod(W: WindowedELL, c_f, *, theta, norm, dtype, p_geom):
 # the Neumann AIR restriction
 # ---------------------------------------------------------------------------
 
+def neumann_residual(r, dinv_f, degree, apply_A):
+    """r - A z, z ``degree`` F-masked Jacobi sweeps on A_ff z = r_F (none
+    for degree 0: r itself), A applied by ``apply_A``: the Neumann AIR
+    restriction's front end, on a whole level or (row-sharded) on a
+    rank's rows."""
+    if degree <= 0:
+        return r
+    rf = torch.where(dinv_f != 0, r, 0.0)
+    z = dinv_f * rf
+    for _ in range(degree - 1):
+        z = z + dinv_f * (rf - apply_A(z))
+    return r - apply_A(z)
+
+
 @dataclass(frozen=True)
 class NeumannAIRRestriction:
     """R r = inject_C(r - A z), z = ``degree`` F-masked Jacobi sweeps on
@@ -290,14 +304,13 @@ class NeumannAIRRestriction:
     nnz: int
     degree: int
 
+    @property
+    def dtype(self):
+        return self.A.dtype
+
     def matvec(self, r):
-        r = fit(r, self.A.n_pad)
-        if self.degree > 0:
-            rf = torch.where(self.dinv_f != 0, r, 0.0)
-            z = self.dinv_f * rf
-            for _ in range(self.degree - 1):
-                z = z + self.dinv_f * (rf - (self.A @ z))
-            r = r - (self.A @ z)
+        r = neumann_residual(fit(r, self.A.n_pad), self.dinv_f, self.degree,
+                             self.A.__matmul__)
         return self.Tinj.rmatvec(r)
 
     def __matmul__(self, r):

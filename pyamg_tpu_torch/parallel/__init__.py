@@ -7,7 +7,12 @@ the caller), NCCL for CUDA tensors and gloo for CPU ones, every rank
 holding its own row block of each level and local shards of the vectors.
 The sharded operators carry their own communication: the DIA levels apply
 through K16 (ring halo exchange overlapped with the interior rows), the
-gathers and sums are collectives, and the Krylov dots all_reduce.
+block-DIA levels through B1's halo mode (the halo in whole nodes), the
+transfers factor by factor, the gathers and sums are collectives, and
+the Krylov dots all_reduce.  Every hierarchy the port builds shards:
+host-built, unstructured, and device-built (structured SA, classical RS
+and AIR, the block setup); a device-built solver keeps its grid encoding
+around the sharded hierarchy.
 
     from pyamg_tpu_torch.parallel import (initialize_distributed,
                                           make_solver_mesh, shard_hierarchy)
@@ -16,6 +21,14 @@ gathers and sums are collectives, and the Krylov dots all_reduce.
     mesh = make_solver_mesh()
     dml = DeviceMultilevelSolver(shard_hierarchy(hierarchy, mesh))
     x = dml.solve(b, tol=1e-8, accel="cg")   # numpy b: the full x
+    ds = device_sa_setup(A, grid)             # device-built:
+    x = StructuredDeviceSolver(shard_hierarchy(ds.hierarchy, mesh), ds.grid,
+                               ds.grid_p, ds.setup_info).solve(b, tol=1e-8)
+
+Not ported (ROADMAP.md Queue 1 item 14): batched (n, K) and
+mixed-precision sharded solves, CGNR / CGNE, the Cimmino smoothers and
+windowed Schwarz on a sharded hierarchy, and a setup that partitions its
+own work over the ranks (a device setup runs whole, then is sharded).
 
 Importing this package initialises nothing.
 """

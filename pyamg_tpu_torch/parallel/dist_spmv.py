@@ -34,7 +34,7 @@ import torch.distributed as dist
 from ..sparse import DIAMatrix
 
 __all__ = ["make_halo_dia_spmv", "halo_width", "start_halo_exchange",
-           "dia_halo_rows_ref"]
+           "dia_halo_rows_ref", "block_dia_halo_rows_ref"]
 
 # P2P tags of the two directions (gloo matches messages by tag; NCCL
 # matches them in order)
@@ -82,6 +82,37 @@ def dia_halo_rows_ref(data, offsets, left, x, right, halo, ranges, y):
             acc = acc + data[d, r0:r1] * x_ext[halo + r0 + off:
                                                halo + r1 + off]
         y[r0:r1] = acc
+    return y
+
+
+def block_dia_halo_rows_ref(data, offsets, left, x, right, halo, ranges,
+                            y, b=None):
+    """The block form of :func:`dia_halo_rows_ref`, the plain twin of B1's
+    halo mode: for each node range (n0, n1) of ``ranges``, the node rows
+    of ``data`` (nd, n_local, bs, bs) applied to the extended vector x_ext
+    = [left, x, right] (``halo`` nodes on either side) as
+    :func:`~pyamg_tpu_torch.sparse.block_dia.block_dia_spmv_ref` applies
+    a whole operator: each run of consecutive offsets one strided view of
+    overlapping windows, the runs side by side, one product and one sum
+    over each row's strip; ``b - A x`` when ``b`` is given (``RESID``).
+    Writes ``y`` in place and returns it."""
+    from ..sparse.block_dia import _offset_runs
+
+    nd, bs = data.shape[0], data.shape[-1]
+    x_ext = torch.cat([left, x, right])
+    for n0, n1 in ranges:
+        if n1 <= n0:
+            continue
+        nb = n1 - n0
+        strips = data[:, n0:n1].permute(1, 2, 0, 3).reshape(nb, bs, nd * bs)
+        views = [x_ext.as_strided((nb, length * bs), (bs, 1),
+                                  x_ext.storage_offset()
+                                  + (halo + n0 + first) * bs)
+                 for first, length in _offset_runs(offsets)]
+        xg = views[0] if len(views) == 1 else torch.cat(views, dim=-1)
+        acc = torch.sum(strips * xg.unsqueeze(-2), dim=-1).reshape(-1)
+        rows = slice(n0 * bs, n1 * bs)
+        y[rows] = acc if b is None else b[rows] - acc
     return y
 
 

@@ -41,6 +41,22 @@ On CPU tensors :func:`dia_halo_rows` runs its plain twin
 rolled sum over the extended vector, on the plan's rows) and the exchange
 is gloo's; on CUDA tensors it launches the kernel or raises.
 The TPU kernel is float32 only; this one takes float32 and float64.
+
+B1's halo mode (``csrc/block_dia.cu::block_dia_halo_kernel``) is the same
+scheme for a row-sharded :class:`~pyamg_tpu_torch.sparse.block_dia.
+BlockDIAMatrix`, the halo in whole nodes (``bs`` entries each), rows in
+blocks of 256 nodes (:func:`block_halo_plan`):
+
+- :func:`block_dia_halo_rows`: one launch over a part of the plan's
+  blocks, ``PLAIN`` (y = A x) or ``RESID`` (y = b - A x), counted as
+  ``block_dia_halo.<dtype>``; its twin on CPU tensors is
+  :func:`~pyamg_tpu_torch.parallel.dist_spmv.block_dia_halo_rows_ref`;
+- :func:`block_halo_spmv`: one rank's block, in K16's order;
+- :func:`block_halo_spmv_shards`: P node-row blocks in one process, as
+  :func:`halo_spmv_shards` (the card check's and the tests' form).
+
+The reference has no kernel here: its sharded block levels are plain
+``jnp`` that GSPMD partitions.
 """
 
 from __future__ import annotations
@@ -53,10 +69,13 @@ from dataclasses import dataclass
 import torch
 
 from .. import _build
+from ..sparse.block_dia import _PLAIN, _RESID, BlockDIAMatrix
 from ..sparse.dia import DIAMatrix, _aligned
-from .dist_spmv import dia_halo_rows_ref, halo_width, start_halo_exchange
+from .dist_spmv import (block_dia_halo_rows_ref, dia_halo_rows_ref,
+                        halo_width, start_halo_exchange)
 
-__all__ = ["HaloPlan", "halo_plan", "dia_halo_rows", "halo_spmv"]
+__all__ = ["HaloPlan", "halo_plan", "dia_halo_rows", "halo_spmv",
+           "block_halo_plan", "block_dia_halo_rows", "block_halo_spmv"]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # threads per CTA of csrc/halo.cu::halo_spmv_kernel (kThreads)
@@ -105,6 +124,18 @@ def halo_plan(offsets, n_local, dtype, aligned=True):
     n_local is a multiple of 4 and the operands are aligned, else 1 row."""
     vec = 4 if dtype == torch.float32 and aligned and n_local % 4 == 0 \
         else 1
+    return _row_block_plan(offsets, n_local, vec)
+
+
+@functools.lru_cache(maxsize=256)
+def block_halo_plan(offsets, nb_local):
+    """B1's halo mode's row blocks for block ``offsets`` on a block of
+    ``nb_local`` node rows: 256 nodes a block (one thread a node), the
+    interior those whose every neighbour lies in the block."""
+    return _row_block_plan(offsets, nb_local, 1)
+
+
+def _row_block_plan(offsets, n_local, vec):
     rows = _THREADS * vec
     row_blocks = -(-n_local // rows)
     below = max(0, -min(offsets)) + vec - 1
@@ -168,45 +199,108 @@ def dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, part, y):
     return y
 
 
-def halo_spmv(data, offsets, offsets_t, x, halo, mesh, groups):
-    """This rank's block of A @ x for a DIA A row-sharded over ``groups``
-    shard groups of ``mesh``: the exchange started, the interior blocks
-    launched while it runs, then the boundary blocks (K16's order).  A
-    ring of one exchanges nothing, reads its halos from x and takes one
-    launch over every block."""
+def _ring_apply(x, hw, mesh, groups, rows):
+    """This rank's block of an operator row-sharded over ``groups`` shard
+    groups of ``mesh``, in K16's order: the exchange of ``hw`` entries a
+    side started, ``rows(left, right, "interior", y)`` launched while it
+    runs, then ``rows(left, right, "boundary", y)``; a ring of one
+    exchanges nothing, reads its halos from x and takes one launch
+    (``"all"``)."""
     y = torch.empty_like(x)
-    left, right, reqs = start_halo_exchange(x, halo, mesh, groups)
+    left, right, reqs = start_halo_exchange(x, hw, mesh, groups)
     if not reqs:
-        return dia_halo_rows(data, offsets, offsets_t, left, x, right, halo,
-                             "all", y)
-    dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, "interior",
-                  y)
+        return rows(left, right, "all", y)
+    rows(left, right, "interior", y)
     for req in reqs:
         req.wait()
-    return dia_halo_rows(data, offsets, offsets_t, left, x, right, halo,
-                         "boundary", y)
+    return rows(left, right, "boundary", y)
 
 
-def halo_spmv_shards(A: DIAMatrix, x, n_shards, side_stream=None,
-                     phases=("interior", "halos", "boundary")):
-    """A @ x with A and x split into ``n_shards`` row blocks in one
-    process (n_pad % n_shards == 0, halo <= n_pad / n_shards): each
-    block's halos are copied from its neighbouring blocks of x on a side
-    stream (recorded by an event), every block's interior runs on the
-    current stream meanwhile, then, after the event, every boundary.
-    ``phases`` picks what runs (for timing the interior alone, the halo
-    copies alone, or all three).  On CPU tensors the copies are plain
-    and the launches run their twin.  Returns the (n_pad,) result."""
-    n_pad = A.n_pad
-    if n_pad % n_shards:
-        raise ValueError(f"n_pad {n_pad} not divisible by {n_shards} shards")
-    nl = n_pad // n_shards
-    halo = halo_width(A)
-    if halo > nl:
-        raise ValueError(f"halo {halo} exceeds the block {nl}")
+def halo_spmv(data, offsets, offsets_t, x, halo, mesh, groups):
+    """This rank's block of A @ x for a DIA A row-sharded over ``groups``
+    shard groups of ``mesh`` (:func:`_ring_apply`'s order)."""
+    return _ring_apply(x, halo, mesh, groups, lambda left, right, part, y:
+                       dia_halo_rows(data, offsets, offsets_t, left, x,
+                                     right, halo, part, y))
+
+
+def block_dia_halo_rows(data, offsets, offsets_t, left, x, right, halo,
+                        part, y, b=None):
+    """One launch of B1's halo mode over ``part`` (``"all"``,
+    ``"interior"`` or ``"boundary"``) of :func:`block_halo_plan`'s row
+    blocks: ``data`` (nd, nb_local, bs, bs), each diagonal's blocks
+    contiguous (a node-column slice of a wider operator's data is fine),
+    ``offsets`` (ascending, in nodes, |offset| <= halo) and ``offsets_t``
+    their int32 tensor beside data, ``left`` / ``right`` the halos
+    (``halo`` nodes, ``halo * bs`` entries each), ``x`` and ``y``
+    (nb_local * bs,); ``b`` given: y = b - A x (``RESID``), else y = A x
+    (``PLAIN``).  Writes y's rows in place; raises on operands the kernel
+    does not take."""
+    nd, nb, bs = data.shape[0], data.shape[1], data.shape[-1]
+    plan = block_halo_plan(tuple(offsets), nb)
+    others = (b,) if b is not None else ()
+    if _build.on_cpu(data, left, x, right, y, *others):
+        return block_dia_halo_rows_ref(data, offsets, left, x, right, halo,
+                                       plan.row_ranges(part), y, b)
+    blocks = [r for r in plan.blocks(part) if r[1] > r[0]]
+    if not blocks:
+        return y
+    (a0, a1), (b0, b1) = blocks[0], blocks[-1]
+    if len(blocks) == 1:
+        b0 = b1 = a1
+    dtype = data.dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"B1 takes float32 or float64, not {dtype}")
+    if max(abs(o) for o in offsets) > halo or halo > nb:
+        raise ValueError(f"halo {halo}: must cover every offset and fit "
+                         f"the block of {nb} nodes")
+    if (data.ndim != 4 or data.shape[2] != bs or data.stride(3) != 1
+            or data.stride(2) != bs or data.stride(1) != bs * bs):
+        raise ValueError("data: expected (nd, nb, bs, bs) with contiguous "
+                         "node blocks")
+    if offsets_t.dtype != torch.int32 or offsets_t.numel() != nd:
+        raise ValueError("offsets_t: expected the int32 offsets")
+    for name, v, n in (("x", x, nb * bs), ("y", y, nb * bs),
+                       ("left", left, halo * bs),
+                       ("right", right, halo * bs)) + (
+                           (("b", b, nb * bs),) if b is not None else ()):
+        _build.check_vector(name, v, n, dtype)
+    fn_name = f"pyamg_block_dia_halo_{_SUFFIX[dtype]}"
+    err = getattr(_build.library(), fn_name)(
+        data.data_ptr(), data.stride(0), offsets_t.data_ptr(), nd, nb, bs,
+        halo, left.data_ptr(), x.data_ptr(), right.data_ptr(),
+        None if b is None else b.data_ptr(), y.data_ptr(), plan.lo, plan.hi,
+        a0, a1, b0, b1, _PLAIN if b is None else _RESID,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(fn_name, err)
+    _build.count_launch(f"block_dia_halo.{_build.dtype_name(dtype)}")
+    return y
+
+
+def block_halo_spmv(data, offsets, offsets_t, x, halo, mesh, groups, b=None):
+    """This rank's block of A @ x (or b - A @ x) for a BlockDIAMatrix A
+    row-sharded by node rows over ``groups`` shard groups of ``mesh``,
+    ``halo`` nodes each side, with B1's halo mode in :func:`_ring_apply`'s
+    order."""
+    return _ring_apply(x, halo * data.shape[-1], mesh, groups,
+                       lambda left, right, part, y: block_dia_halo_rows(
+                           data, offsets, offsets_t, left, x, right, halo,
+                           part, y, b))
+
+
+def _shards_apply(x, cuts, hw, side_stream, phases, rows):
+    """One operator split at the entries ``cuts`` into row blocks in one
+    process: each block's halos (``hw`` entries a side, from its ring
+    neighbours' blocks of x) copied on a side stream under an event while
+    the current stream runs ``rows(p, left, right, "interior", block)``
+    for every block p, then, after the event, ``rows(p, left, right,
+    "boundary", block)``.  ``phases`` picks what runs (for timing the
+    interior alone, the halo copies alone, or all three).  On CPU tensors
+    the copies are plain.  Returns the (n,) result."""
+    n_shards = len(cuts) - 1
     y = torch.empty_like(x)
-    blocks = [slice(p * nl, (p + 1) * nl) for p in range(n_shards)]
-    halos = torch.empty((n_shards, 2, halo), dtype=x.dtype, device=x.device)
+    rows_of = [slice(a, b) for a, b in zip(cuts, cuts[1:])]
+    halos = torch.empty((n_shards, 2, hw), dtype=x.dtype, device=x.device)
     on_card = x.device.type == "cuda"
     main = torch.cuda.current_stream(x.device) if on_card else None
     side = (side_stream or torch.cuda.Stream(x.device)) if on_card else None
@@ -216,21 +310,63 @@ def halo_spmv_shards(A: DIAMatrix, x, n_shards, side_stream=None,
             side.wait_stream(main)
         with torch.cuda.stream(side) if on_card else nullcontext():
             for p in range(n_shards):
-                left = blocks[(p - 1) % n_shards]
-                right = blocks[(p + 1) % n_shards]
-                halos[p, 0].copy_(x[left][nl - halo:], non_blocking=True)
-                halos[p, 1].copy_(x[right][:halo], non_blocking=True)
+                left = cuts[(p - 1) % n_shards + 1]
+                right = cuts[(p + 1) % n_shards]
+                halos[p, 0].copy_(x[left - hw:left], non_blocking=True)
+                halos[p, 1].copy_(x[right:right + hw], non_blocking=True)
             if on_card:
                 done.record(side)
-    offsets_t = A.offsets_t
-    if "interior" in phases:
-        for p, blk in enumerate(blocks):
-            dia_halo_rows(A.data[:, blk], A.offsets, offsets_t, halos[p, 0],
-                          x[blk], halos[p, 1], halo, "interior", y[blk])
-    if on_card and "halos" in phases:
-        main.wait_event(done)     # the boundary and halos' reuse wait
-    if "boundary" in phases:
-        for p, blk in enumerate(blocks):
-            dia_halo_rows(A.data[:, blk], A.offsets, offsets_t, halos[p, 0],
-                          x[blk], halos[p, 1], halo, "boundary", y[blk])
+    for part in ("interior", "boundary"):
+        if part == "boundary" and on_card and "halos" in phases:
+            main.wait_event(done)     # the boundary and halos' reuse wait
+        if part not in phases:
+            continue
+        for p, blk in enumerate(rows_of):
+            rows(p, halos[p, 0], halos[p, 1], part, blk, y[blk])
     return y
+
+
+def block_halo_spmv_shards(A: BlockDIAMatrix, x, n_shards, side_stream=None,
+                           phases=("interior", "halos", "boundary"), b=None):
+    """A @ x (or b - A @ x) with A split into ``n_shards`` node-row blocks
+    in one process (block p the nodes [p nb / P, (p + 1) nb / P), each at
+    least A.halo nodes, the halo at least 1), in :func:`_shards_apply`'s
+    order, as :func:`halo_spmv_shards` does for K16."""
+    nb, bs = A.nb_pad, A.bs
+    cuts = [p * nb // n_shards for p in range(n_shards + 1)]
+    halo = max(A.halo, 1)
+    if min(b - a for a, b in zip(cuts, cuts[1:])) < halo:
+        raise ValueError(f"halo {halo} exceeds a block of {nb} nodes in "
+                         f"{n_shards}")
+    offsets_t = A.offsets_t
+
+    def rows(p, left, right, part, blk, y):
+        block_dia_halo_rows(A.data[:, cuts[p]:cuts[p + 1]], A.offsets,
+                            offsets_t, left, x[blk], right, halo, part, y,
+                            None if b is None else b[blk])
+
+    return _shards_apply(x, [c * bs for c in cuts], halo * bs, side_stream,
+                         phases, rows)
+
+
+def halo_spmv_shards(A: DIAMatrix, x, n_shards, side_stream=None,
+                     phases=("interior", "halos", "boundary")):
+    """A @ x with A and x split into ``n_shards`` row blocks in one
+    process (n_pad % n_shards == 0, halo <= n_pad / n_shards), in
+    :func:`_shards_apply`'s order; on CPU tensors the launches run their
+    twin.  Returns the (n_pad,) result."""
+    n_pad = A.n_pad
+    if n_pad % n_shards:
+        raise ValueError(f"n_pad {n_pad} not divisible by {n_shards} shards")
+    nl = n_pad // n_shards
+    halo = halo_width(A)
+    if halo > nl:
+        raise ValueError(f"halo {halo} exceeds the block {nl}")
+    offsets_t = A.offsets_t
+
+    def rows(p, left, right, part, blk, y):
+        dia_halo_rows(A.data[:, blk], A.offsets, offsets_t, left, x[blk],
+                      right, halo, part, y)
+
+    return _shards_apply(x, [p * nl for p in range(n_shards + 1)], halo,
+                         side_stream, phases, rows)

@@ -9,6 +9,9 @@ communication:
 
 - a DIA operator applies through K16 (``halo_spmv.py``): ring halo
   exchange, interior rows while it runs, then the boundary rows;
+- a block-DIA operator (node rows of a BlockDIAMatrix) applies through
+  B1's halo mode (``halo_spmv.py::block_halo_spmv``), the halo in whole
+  nodes, in K16's order; its residual b - A x is one pass of that mode;
 - a dense or windowed operator gathers its input (``all_gather``) and
   applies its local rows (K6 for windowed);
 - a windowed transpose (restriction stored as windowed(R^T)) applies its
@@ -16,6 +19,16 @@ communication:
   partials over one replica per group (``all_reduce``);
 - composed operators shard factor by factor, re-laying the vector out
   between factors whose row blocks differ;
+- a transfer of the device-built setups gives its factors
+  (``shard_factors``): the structured SA P = S T, R = T^T S^T and the
+  block one P = S Q, R = Q^T S^T (S and S^T DIA or block DIA, T and Q
+  the grid remaps as windowed operators of one slot or m slots a row),
+  the embedded classical P = P_emb E, R = E^T R_emb (E the embedding of
+  the coarse grid in the fine one); each remap is built on the device
+  once a level and block, and shared by the level's P and R;
+- the Neumann AIR restriction R r = Tinj^T (r - A z) keeps its local
+  rows of A, Tinj and dinv_f: A through K6 on the gathered z, Tinj^T
+  through K7 into a coarse partial summed over the groups;
 - the Krylov dots sum their local partials (``all_reduce``).
 
 Power-of-two agglomeration, as the reference's: a level on k < world
@@ -38,15 +51,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..engine.device_setup import _transfer_block
 from ..engine.hierarchy import DeviceHierarchy, DeviceLevel
 from ..engine.relaxation import DeviceSmoother
+from ..engine.unstructured_classical import (NeumannAIRRestriction,
+                                            neumann_residual)
 from ..engine.unstructured_setup import ComposedWindowed
 from ..sparse import (ComposedOperator, DenseOperator, DIAMatrix,
                       TransposedWindowed, WindowedELL)
+from ..sparse.block_dia import BlockDIAMatrix
 from ..sparse.formats import fit, pad_vector
 from ..sparse.window import windowed_rmatvec
 from .dist_spmv import halo_width
-from .halo_spmv import halo_spmv
+from .halo_spmv import block_halo_spmv, halo_spmv
 from .multihost import initialize_distributed, rank_device
 
 __all__ = ["SolverMesh", "ShardedHierarchy", "ShardedOperator",
@@ -194,6 +211,32 @@ class _ShardedDIA:
                          self.halo, self.mesh, self.groups)
 
 
+class _ShardedBlockDIA:
+    """A square block-DIA factor row-sharded by node rows over ``groups``
+    (B1's halo mode, the halo in whole nodes)."""
+
+    def __init__(self, A, mesh, groups):
+        self.halo = max(A.halo, 1)
+        nb = A.nb_pad
+        if nb % groups or self.halo > nb // groups:
+            groups = 1                     # too few nodes: replicate
+        self.mesh, self.groups = mesh, groups
+        nl, sh = nb // groups, mesh.shard(groups)
+        self.data = A.data[:, sh * nl:(sh + 1) * nl].contiguous()
+        self.offsets = A.offsets
+        self.offsets_t = A.offsets_t
+        self.in_layout = self.out_layout = (groups, A.n_pad)
+
+    def apply(self, x):
+        return block_halo_spmv(self.data, self.offsets, self.offsets_t, x,
+                               self.halo, self.mesh, self.groups)
+
+    def residual(self, x, b):
+        """b - A x in one pass (B1's halo mode ``RESID``)."""
+        return block_halo_spmv(self.data, self.offsets, self.offsets_t, x,
+                               self.halo, self.mesh, self.groups, b=b)
+
+
 class _ShardedDense:
     """A dense factor: input gathered, local rows applied."""
 
@@ -249,38 +292,74 @@ class _ShardedTransposed:
                                     self.groups)
 
 
-def _factors(op):
-    """An operator as its factors, applied right to left."""
+class _ShardedNeumannAIR:
+    """The Neumann AIR restriction R r = Tinj^T (r - A z), z ``degree``
+    F-masked Jacobi sweeps on A_ff z = r_F, on this rank's fine rows: A's
+    and Tinj's row blocks and dinv_f's rows kept, each A z through K6 on
+    the gathered z, Tinj^T through K7 into a coarse partial summed over
+    the groups (the reference's branch, ``pyamg_tpu/parallel/
+    partition.py:87-93``, shards the same three by rows)."""
+
+    def __init__(self, R, mesh, groups):
+        A, T = R.A, R.Tinj
+        if not (A.n_pad == T.n_pad and A.block == T.block
+                and A.data.shape[0] % groups == 0):
+            groups = 1                     # rows that do not align: whole
+        self.A, _ = _local_windowed(A, mesh, groups)
+        self.Tinj, _ = _local_windowed(T, mesh, groups)
+        self.dinv_f = mesh.local(fit(R.dinv_f, A.n_pad), groups).contiguous()
+        self.degree, self.mesh, self.groups = R.degree, mesh, groups
+        self.in_layout = (groups, A.n_pad)
+        self.out_layout = (1, T.m_chunks * T.w2)
+
+    def _apply_A(self, z):
+        return self.A.matvec(self.mesh.gather(z, self.groups))
+
+    def apply(self, r):
+        r = neumann_residual(r, self.dinv_f, self.degree, self._apply_A)
+        return self.mesh.sum_groups(windowed_rmatvec(self.Tinj, r),
+                                    self.groups)
+
+
+def _factors(op, block):
+    """An operator as its factors, applied right to left; a device-built
+    transfer gives its own (``shard_factors``), its windowed factors in
+    row blocks of ``block``."""
     if isinstance(op, ComposedOperator):
-        return [f for o in op.ops for f in _factors(o)]
+        return [f for o in op.ops for f in _factors(o, block)]
     if isinstance(op, ComposedWindowed):
-        return [f for o in op.factors for f in _factors(o)]
+        return [f for o in op.factors for f in _factors(o, block)]
     if isinstance(op, TransposedWindowed):
         # (F0 F1 ...)^T = ... F1^T F0^T
         return [TransposedWindowed(f) if isinstance(f, WindowedELL) else f
-                for f in reversed(_factors(op.base))]
+                for f in reversed(_factors(op.base, block))]
+    own = getattr(op, "shard_factors", None)
+    if own is not None:
+        return [f for o in own(block) for f in _factors(o, block)]
     name = type(op).__name__
-    if name == "NeumannAIRRestriction":
-        raise _not_ported("sharding the AIR restriction (its level's "
-                          "masked Jacobi has no sharding roles yet)", 14)
     if name == "ELLMatrix":
         raise _not_ported("sharding a gather-ELL operator", 1)
-    if not isinstance(op, (DIAMatrix, DenseOperator, WindowedELL)):
-        raise _not_ported(f"sharding a {name}", 14)
+    if not isinstance(op, (DIAMatrix, DenseOperator, WindowedELL,
+                           BlockDIAMatrix, NeumannAIRRestriction)):
+        raise TypeError(f"no sharded form of a {name}")
     return [op]
 
 
 def _shard_factor(f, mesh, k_in, k_out):
     """One factor mapping a space on ``k_in`` groups to one on ``k_out``:
-    a forward factor shards its rows (the output side), a transpose its
-    base's rows (the input side)."""
+    a forward factor shards its rows (the output side), a transpose and
+    the Neumann restriction their fine rows (the input side)."""
     if isinstance(f, TransposedWindowed):
         if not isinstance(f.base, WindowedELL):
-            raise _not_ported(f"sharding the transpose of a "
-                              f"{type(f.base).__name__}", 14)
+            raise TypeError(f"no sharded form of the transpose of a "
+                            f"{type(f.base).__name__}")
         return _ShardedTransposed(f.base, mesh, k_in)
+    if isinstance(f, NeumannAIRRestriction):
+        return _ShardedNeumannAIR(f, mesh, k_in)
     if isinstance(f, DIAMatrix):
         return _ShardedDIA(f, mesh, k_out)
+    if isinstance(f, BlockDIAMatrix):
+        return _ShardedBlockDIA(f, mesh, k_out)
     if isinstance(f, DenseOperator):
         return _ShardedDense(f, mesh, k_out)
     return _ShardedWindowed(f, mesh, k_out)
@@ -293,7 +372,10 @@ class ShardedOperator:
     layouts differ)."""
 
     def __init__(self, op, mesh, in_layout, out_layout, k_mid):
-        fs = _factors(op)
+        # the fine side is the longer one; a transfer's windowed factors
+        # take row blocks that tile a rank's k_mid block of it
+        fine = max(in_layout[1], out_layout[1])
+        fs = _factors(op, _transfer_block(fine // k_mid))
         last = len(fs) - 1
         self.factors = tuple(
             _shard_factor(f, mesh, in_layout[0] if i == last else k_mid,
@@ -301,7 +383,7 @@ class ShardedOperator:
             for i, f in enumerate(fs))
         self.mesh = mesh
         self.in_layout, self.out_layout = in_layout, out_layout
-        self.shape, self.nnz, self.dtype = op.shape, op.nnz, op.dtype
+        self.shape, self.nnz, self.dtype = op.shape, op.nnz, fs[0].dtype
 
     @property
     def n_pad(self):
@@ -317,6 +399,17 @@ class ShardedOperator:
             x = f.apply(self.mesh.relayout(x, cur, f.in_layout))
             cur = f.out_layout
         return self.mesh.relayout(x, cur, self.out_layout)
+
+    def residual(self, x, b):
+        """b - A x on this rank's blocks: one pass where the operator is a
+        single factor with a residual form on the operator's own layout
+        (a block-DIA level: B1's halo mode ``RESID``), else composed."""
+        (f, *rest) = self.factors
+        if (not rest and hasattr(f, "residual") and x.ndim == 1
+                and f.in_layout == self.in_layout
+                and f.out_layout == self.out_layout):
+            return f.residual(x, b)
+        return b - self.matvec(x)
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -361,18 +454,24 @@ class ShardedHierarchy(DeviceHierarchy):
         return self.mesh.sum_groups(s, self.groups[i])
 
 
-# per smoother kind, the role of each array: True = one entry per row (a
-# rank keeps its row block), False = whole on every rank (a 0-d weight, a
-# polynomial's coefficient stack)
-_SMOOTHER_ROWS = {
+# the roles of a smoother's arrays: one entry per row (a rank keeps its
+# row block, the last axis), one entry per node (a block level's (nb_pad,
+# ...) array: its node-row block, the first axis), or whole on every rank
+# (a 0-d weight, a polynomial's coefficient stack)
+_ROW, _NODE, _WHOLE = "row", "node", "whole"
+# per smoother kind, the role of each array
+_SMOOTHER_ROLES = {
     "identity": (),
-    "jacobi": (True,),
-    "jacobi_dyn": (True, False),
+    "jacobi": (_ROW,),
+    "jacobi_dyn": (_ROW, _WHOLE),
     "richardson": (),
-    "richardson_dyn": (False,),
-    "mcgs": (True, True),           # (dinv, colors)
+    "richardson_dyn": (_WHOLE,),
+    "mcgs": (_ROW, _ROW),            # (dinv, colors)
     "poly": (),
-    "poly_dyn": (False,),
+    "poly_dyn": (_WHOLE,),
+    "block_jacobi": (_NODE,),        # (Dinv,)
+    "block_jacobi_dyn": (_NODE, _WHOLE),
+    "block_mcgs": (_NODE, _NODE),    # (Dinv, colours per node)
 }
 # kinds whose sweep needs A^T of the sharded operator, or rolls vectors
 # across shards
@@ -382,46 +481,76 @@ _SMOOTHER_UNSHARDED = {
     "jacobi_nr": "the Cimmino smoother 'jacobi_nr' (A^T of a sharded "
                  "operator)",
     "win_schwarz": "windowed Schwarz (its windows roll across shards)",
-    **{kind: f"block smoother {kind!r} (node blocks across shards)"
-       for kind in ("block_jacobi", "block_jacobi_dyn", "block_mcgs")},
 }
 
 
 def _shard_smoother(sm, mesh, groups):
-    """This rank's copy of a smoother: its per-row arrays cut to the
-    rank's row block, by each kind's explicit roles."""
+    """This rank's copy of a smoother: its per-row and per-node arrays cut
+    to the rank's block, by each kind's explicit roles.  The copy is a new
+    smoother, so what it derives from its arrays (the per-colour and
+    per-mask inverse diagonals) is built from the rank's blocks."""
     kind = sm.config[0]
     if kind in _SMOOTHER_UNSHARDED:
         raise _not_ported(f"a sharded {_SMOOTHER_UNSHARDED[kind]}", 14)
-    if kind not in _SMOOTHER_ROWS:
+    if kind == "masked_jacobi":
+        # dinv and one (n_pad,) mask a pass, as many as it has passes
+        roles = (_ROW,) * len(sm.arrays)
+    elif kind in _SMOOTHER_ROLES:
+        roles = _SMOOTHER_ROLES[kind]
+    else:
         raise ValueError(f"no sharding roles for smoother {kind!r}")
-    rows = _SMOOTHER_ROWS[kind]
+
+    def cut(role, a):
+        if role == _ROW:
+            return mesh.local(a, groups).contiguous()
+        if role == _NODE:
+            return _rows(a, mesh, groups)
+        return a
+
     return DeviceSmoother(config=sm.config, arrays=tuple(
-        mesh.local(a, groups).contiguous() if row else a
-        for row, a in zip(rows, sm.arrays, strict=True)))
+        cut(role, a) for role, a in zip(roles, sm.arrays, strict=True)))
 
 
 def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):
     """This rank's row blocks of a DeviceHierarchy, with POWER-OF-TWO
     COARSE-LEVEL AGGLOMERATION (the reference's): each level is sharded
     over the largest power-of-two group count that keeps >=
-    ``min_local_rows`` rows per shard (``_level_groups``), replicated
-    within a group; only tiny levels replicate everywhere.  The coarse
-    dense inverse is replicated.  Every level is wrapped (a level on one
-    group is a ring of one on each rank), and the result carries no
-    ``A64``, as the reference's, so ``precision="mixed"`` raises.
+    ``min_local_rows`` rows per shard (``_level_groups``; a block level's
+    count also divides its node rows), replicated within a group; only
+    tiny levels replicate everywhere.  The coarse dense inverse is
+    replicated.  Every level is wrapped (a level on one group is a ring of
+    one on each rank), and the result carries no ``A64``, as the
+    reference's, so ``precision="mixed"`` raises.
 
-    Compile the hierarchy with ``row_pad`` a multiple of 8 * world so
-    level paddings divide evenly.  Host-built (``compile_hierarchy``) and
-    unstructured hierarchies shard; the device-built grid hierarchy's
-    structured transfers raise (ROADMAP.md Queue 1 item 14)."""
+    Every hierarchy the port builds shards: host-built
+    (``compile_hierarchy``; give it ``row_pad`` a multiple of 8 * world so
+    level paddings divide evenly), unstructured (SA, RS, AIR with its
+    Neumann restriction), and device-built (``device_sa_setup``,
+    ``device_rs_setup``, ``device_air_setup``, ``device_sa_setup_block``,
+    adaptive SA): their levels' DIA and block-DIA operators through K16
+    and B1's halo mode, their transfers factor by factor, the masked and
+    block smoothers by their rows and nodes.  The setup itself is not
+    partitioned: it runs whole, then this shards its result.  To solve
+    with a device-built hierarchy, keep its solver's grid encoding::
+
+        ds = device_sa_setup(A, grid)
+        StructuredDeviceSolver(shard_hierarchy(ds.hierarchy, mesh),
+                               ds.grid, ds.grid_p, ds.setup_info)
+
+    (``BlockStructuredDeviceSolver`` also takes ``ds.bs``).  What raises
+    (ROADMAP.md Queue 1 item 14): a batched (n, K) solve, CGNR / CGNE (A^T
+    of a sharded operator), the Cimmino smoothers and windowed Schwarz,
+    and ``precision="mixed"`` (no ``A64``)."""
     if axis != mesh.axis:
         raise ValueError(f"mesh has no axis {axis!r}")
     levels = hierarchy.levels
     n_pads = tuple(int(lvl.n_pad) for lvl in levels)
     if n_pads[-1] != hierarchy.nc_pad:
         raise ValueError("the coarsest level's n_pad must be nc_pad")
-    ks = tuple(_level_groups(n, mesh.world, min_local_rows) for n in n_pads)
+    ks = tuple(_node_groups(
+        _level_groups(n, mesh.world, min_local_rows),
+        n // lvl.A.bs if isinstance(lvl.A, BlockDIAMatrix) else n)
+        for n, lvl in zip(n_pads, levels))
     new_levels = []
     for i, lvl in enumerate(levels):
         k = ks[i]
@@ -440,3 +569,12 @@ def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):
         levels=tuple(new_levels), coarse_inv=hierarchy.coarse_inv,
         nc=hierarchy.nc, nc_pad=n_pads[-1] // ks[-1], dtype=hierarchy.dtype,
         A64=None, mesh=mesh, groups=ks, n_pads=n_pads)
+
+
+def _node_groups(k, nodes):
+    """The largest power-of-two group count up to ``k`` that divides a
+    level's ``nodes`` (its rows on a scalar level), so that no node's
+    components straddle two ranks."""
+    while k > 1 and nodes % k:
+        k //= 2
+    return k

@@ -108,13 +108,7 @@ class BlockDIAMatrix:
     @cached_property
     def runs(self) -> Tuple[Tuple[int, int], ...]:
         """The offsets as runs of consecutive values: (first, length)."""
-        out = []
-        for o in self.offsets:
-            if out and out[-1][0] + out[-1][1] == o:
-                out[-1][1] += 1
-            else:
-                out.append([o, 1])
-        return tuple((o, n) for o, n in out)
+        return _offset_runs(self.offsets)
 
     @property
     def halo(self):
@@ -177,6 +171,17 @@ class BlockDIAMatrix:
             return self.data[self.offsets.index(0)]
         return torch.zeros((self.nb_pad, self.bs, self.bs), dtype=self.dtype,
                            device=self.device)
+
+
+def _offset_runs(offsets):
+    """Ascending offsets as runs of consecutive values: (first, length)."""
+    out = []
+    for o in offsets:
+        if out and out[-1][0] + out[-1][1] == o:
+            out[-1][1] += 1
+        else:
+            out.append([o, 1])
+    return tuple((o, n) for o, n in out)
 
 
 # -- the plain PyTorch twins -------------------------------------------------

@@ -1669,3 +1669,51 @@ def test_block_dia_wrapper_rejects_bad_operands(cuda):
         bd.block_jacobi_step(A, x, b, D[:-1], 0.7)
     with pytest.raises(ValueError):
         bd.block_jacobi_step(A, x, b, D, torch.tensor(0.7))  # CPU omega
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bs,misalign", [(2, False), (3, False), (2, True)])
+def test_block_halo_mode_matches_b1_and_twin(cuda, bs, misalign, dtype):
+    """B1's halo mode on the card (csrc/block_dia.cu::block_dia_halo_kernel):
+    a ring of one (halos are x's own tail and head) and 4 in-process
+    node-row blocks (halos copied on a side stream) equal B1 ``PLAIN`` and
+    ``RESID`` on the whole operator bit for bit (the outer offsets reach
+    past the matrix: their stored zero blocks meet wrapped halo values),
+    and the plain twin to the kernel tolerance; one launch a ring apply,
+    two a block (interior, then boundary), and the twin not run."""
+    from pyamg_tpu_torch.parallel import dist_spmv
+    from pyamg_tpu_torch.parallel import halo_spmv as hs
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    A, x, b, _, _ = _block_case(bs, dtype, cuda, None, nb=4091,
+                                misalign=misalign)
+    assert A.nb_pad == 4096
+    plain, resid = bd.block_dia_apply(A, x), bd.block_dia_resid(A, x, b)
+    one = SolverMesh(rank=0, world=1, device=cuda)
+    calls = []
+    real = dist_spmv.block_dia_halo_rows_ref
+    hs.block_dia_halo_rows_ref = lambda *a, **k: calls.append(1) or real(
+        *a, **k)
+    try:
+        _build.reset_launches()
+        ring = hs.block_halo_spmv(A.data, A.offsets, A.offsets_t, x, A.halo,
+                                  one, 1)
+        ring_r = hs.block_halo_spmv(A.data, A.offsets, A.offsets_t, x,
+                                    A.halo, one, 1, b=b)
+        shards = hs.block_halo_spmv_shards(A, x, 4)
+        shards_r = hs.block_halo_spmv_shards(A, x, 4, b=b)
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+    finally:
+        hs.block_dia_halo_rows_ref = real
+    assert not calls
+    name = str(dtype).removeprefix("torch.")
+    assert counts == {f"block_dia_halo.{name}": 2 + 2 * 2 * 4}, counts
+    for got in (ring, shards):
+        assert torch.equal(got, plain)
+    for got in (ring_r, shards_r):
+        assert torch.equal(got, resid)
+    A_cpu = dataclasses.replace(A, data=A.data.cpu())
+    want = bd.block_dia_spmv_ref(A_cpu, x.cpu())
+    assert _rel_err(ring.cpu(), want) <= TOL[dtype]

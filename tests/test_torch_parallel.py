@@ -2,14 +2,24 @@
 JAX package's (``tests/test_parallel.py``), and the deterministic windowed
 transposes' plan form against their twins.
 
+The device-built hierarchies (structured SA, classical RS, the block
+setup, structured and routed AIR) are built whole in the parent and
+sharded on the ranks of a second spawn (its own fixture and deadline), the
+counterparts of ``test_parallel.py``'s distributed setups (whose setup
+GSPMD partitions; here the setup's result is sharded): each sharded solve
+against the port's one-rank solve (same length, rtol 1e-9, x within 1e-10
+relative) and against the JAX package's unsharded solve at its family's
+parity tolerance.
+
 The JAX side runs as ``tests/test_parallel.py`` runs it, on the 8 virtual
 CPU devices of ``tests/conftest.py`` (K16 under the Pallas interpreter).
-The port side runs SPMD on 8 gloo ranks: one module-scoped fixture spawns
-them once (``torch.multiprocessing``, a ``file://`` rendezvous under the
-test's temporary directory, each rank single-threaded, a 120 s deadline
-after which the ranks are killed and the tests fail), every rank runs
-every case in :func:`_rank_main` and saves its results, and the tests
-compare.  Inputs come from numpy seeds; the spawned ranks import torch,
+The port side runs SPMD on 8 gloo ranks: each of two module-scoped
+fixtures spawns them once (``torch.multiprocessing``, a ``file://``
+rendezvous under the test's temporary directory, each rank
+single-threaded, a 120 s deadline after which the ranks are killed and
+the tests fail), every rank runs every case of the fixture's body
+(:func:`_cases`, :func:`_device_built_rank_cases`) and saves its
+results, and the tests compare.  Inputs come from numpy seeds; the spawned ranks import torch,
 numpy and the port only (JAX is imported inside the tests).  Tolerances:
 bit-equality where the arithmetic is the same; f64 parity at the
 reference's rtol 1e-9 (1e-10 against the port's one-rank solve), since
@@ -26,11 +36,16 @@ import scipy.sparse as sp
 
 torch = pytest.importorskip("torch")
 
-from pyamg_tpu_torch import (ComposedWindowed,  # noqa: E402
-                             DeviceMultilevelSolver, compile_hierarchy,
+from pyamg_tpu_torch import (BlockStructuredDeviceSolver,  # noqa: E402
+                             ComposedWindowed, DeviceMultilevelSolver,
+                             StructuredDeviceSolver, advection_2d,
+                             compile_hierarchy, device_air_setup,
+                             device_rs_setup, device_sa_setup,
+                             device_sa_setup_block,
                              device_unstructured_rs_setup,
                              device_unstructured_sa_setup, gradgradform,
-                             poisson, regular_triangle_mesh,
+                             linear_elasticity, poisson,
+                             regular_triangle_mesh,
                              smoothed_aggregation_solver)
 from pyamg_tpu_torch.relaxation import change_smoothers  # noqa: E402
 from pyamg_tpu_torch.sparse import dia_from_scipy, window  # noqa: E402
@@ -62,16 +77,84 @@ def _fem(nx):
     return (A + 1e-2 * sp.eye(A.shape[0], format="csr")).tocsr()
 
 
-def _rank_main(rank, init_file, inputs_path, out_dir):
-    """One gloo rank: every distributed case, results saved per rank."""
+def _routed_advection(nx):
+    """Upwind advection (theta = pi/4) in the RCM order of |A| + |A^T|:
+    no grid stencil left, so device_air_setup routes it to the
+    unstructured AIR setup (40^2: a 32^2 grid's RCM order still reads as
+    a (64, 4, 4) grid)."""
+    from scipy.sparse import csgraph
+
+    A, b = advection_2d((nx, nx), theta=np.pi / 4)
+    A = sp.csr_matrix(A)
+    perm = csgraph.reverse_cuthill_mckee(sp.csr_matrix(abs(A) + abs(A.T)),
+                                         symmetric_mode=True)
+    return sp.csr_matrix(A[perm][:, perm]), np.asarray(b)[perm]
+
+
+def _device_built_cases():
+    """The device-built hierarchies sharded on the ranks: key -> (A, b,
+    the JAX setup's call, the port's solver, solve kwargs,
+    min_local_rows).  The first three are test_parallel.py:176, :229 and
+    :277's cases."""
+    f64 = dict(dtype=torch.float64, device="cpu")
+    A_sa = poisson((96, 96), format="csr")
+    b_sa = np.random.default_rng(0).random(A_sa.shape[0])
+    A_rs = poisson((64, 64), format="csr")
+    b_rs = np.random.default_rng(0).random(A_rs.shape[0])
+    A_bk, B_bk = linear_elasticity((24, 24))
+    b_bk = np.random.default_rng(0).random(A_bk.shape[0])
+    A_air, b_air = advection_2d((64, 64), theta=np.pi / 4)
+    A_un, b_un = _routed_advection(40)
+    cg10 = dict(tol=1e-10, maxiter=40, accel="cg")
+    fg = dict(tol=1e-10, maxiter=30, accel="fgmres")
+    return {
+        "sa": (A_sa, b_sa, ("sa", dict(grid=(96, 96), max_coarse=200)),
+               device_sa_setup(A_sa, grid=(96, 96), max_coarse=200, **f64),
+               cg10, 128),
+        "sa_f32": (A_sa, b_sa, None,
+                   device_sa_setup(A_sa, grid=(96, 96), max_coarse=200,
+                                   device="cpu"),
+                   dict(tol=1e-5, maxiter=40, accel="cg"), 128),
+        "rs": (A_rs, b_rs, ("rs", dict(grid=(64, 64), max_coarse=200)),
+               device_rs_setup(A_rs, grid=(64, 64), max_coarse=200, **f64),
+               cg10, 128),
+        "block": (A_bk, b_bk, ("block", dict(grid=(24, 23), B=B_bk,
+                                             max_coarse=120)),
+                  device_sa_setup_block(A_bk, grid=(24, 23), B=B_bk,
+                                        max_coarse=120, **f64),
+                  dict(tol=1e-8, maxiter=60, accel="cg"), 128),
+        "air": (A_air, b_air, ("air", dict(grid=(64, 64), max_coarse=30)),
+                device_air_setup(A_air, grid=(64, 64), max_coarse=30, **f64),
+                fg, 128),
+        # level 0's two row blocks of 1024 split over 2 groups
+        "air_routed": (A_un, b_un, ("air", dict(max_coarse=400)),
+                       device_air_setup(A_un, max_coarse=400, **f64), fg,
+                       1024),
+    }
+
+
+def _sharded_solver(solver, mesh, min_local_rows):
+    """The solver over its hierarchy sharded, keeping a grid solver's
+    encoding (and a block solver's block size)."""
+    from pyamg_tpu_torch.parallel import shard_hierarchy
+
+    hs = shard_hierarchy(solver.hierarchy, mesh,
+                         min_local_rows=min_local_rows)
+    if isinstance(solver, BlockStructuredDeviceSolver):
+        return BlockStructuredDeviceSolver(hs, solver.grid, solver.grid_p,
+                                           solver.bs, solver.setup_info)
+    if isinstance(solver, StructuredDeviceSolver):
+        return StructuredDeviceSolver(hs, solver.grid, solver.grid_p,
+                                      solver.setup_info)
+    return DeviceMultilevelSolver(hs)
+
+
+def _rank_main(body, rank, init_file, inputs_path, out_dir):
+    """One gloo rank: ``body(mesh, inputs)``'s results saved per rank."""
     import torch.distributed as dist
 
-    from pyamg_tpu_torch.engine.krylov import device_cg
-    from pyamg_tpu_torch.parallel import (halo_width, initialize_distributed,
-                                          make_halo_dia_spmv,
-                                          make_solver_mesh, shard_hierarchy,
-                                          shard_vector)
-    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv
+    from pyamg_tpu_torch.parallel import (initialize_distributed,
+                                          make_solver_mesh)
 
     torch.set_num_threads(1)
     try:
@@ -79,52 +162,8 @@ def _rank_main(rank, init_file, inputs_path, out_dir):
                                      world_size=WORLD, rank=rank,
                                      device="cpu")
         mesh = make_solver_mesh(device="cpu")
-        inp = torch.load(inputs_path, weights_only=False)
-        out = {"init": got}
-        for key in ("dia64", "dia32"):
-            A, x = inp[key]
-            spmv, place = make_halo_dia_spmv(A, mesh)
-            out[key] = mesh.gather(spmv(A.data, place(x)), WORLD)
-            out[key + "_k16"] = mesh.gather(halo_spmv(
-                mesh.local(A.data, WORLD), A.offsets, A.offsets_t, place(x),
-                halo_width(A), mesh, WORLD), WORLD)
-        for key, kw in (("host", dict(min_local_rows=128)),
-                        ("unstructured", {}), ("unstructured_rs", {})):
-            h, b, tol, maxiter = inp[key]
-            hs = shard_hierarchy(h, mesh, **kw)
-            res = []
-            x = DeviceMultilevelSolver(hs).solve(b, tol=tol, maxiter=maxiter,
-                                                 accel="cg", residuals=res)
-            out[key] = (np.asarray(res), x, hs.groups, hs.n_pads)
-        h, b, tol, maxiter = inp["host"]
-        hs = shard_hierarchy(h, mesh, min_local_rows=128)
-        for key, kw in SHARDED_CYCLES.items():
-            res = []
-            x = DeviceMultilevelSolver(hs).solve(b, tol=tol, maxiter=maxiter,
-                                                 residuals=res, **kw)
-            out[key] = (np.asarray(res), x)
-        out["asprecond"] = DeviceMultilevelSolver(hs).aspreconditioner(
-            "W") @ b
-        for key in list(SHARDED_SMOOTHERS) + ["unstructured_chebyshev"]:
-            h, b, tol, maxiter = inp[key]
-            hs = shard_hierarchy(h, mesh, min_local_rows=128)
-            res = []
-            x = DeviceMultilevelSolver(hs).solve(b, tol=tol, maxiter=maxiter,
-                                                 accel="cg", residuals=res)
-            out[key] = (np.asarray(res), x)
-        for key in UNSHARDED_SMOOTHERS:
-            try:
-                shard_hierarchy(inp[key], mesh, min_local_rows=128)
-                out[key] = None
-            except NotImplementedError as e:
-                out[key] = str(e)
-        d = torch.arange(1.0, 513.0, dtype=torch.float32)
-        d_loc = shard_vector(mesh, d)
-        ones = shard_vector(mesh, torch.ones(512))
-        x, _, _ = device_cg(lambda v: d_loc * v, ones, torch.zeros_like(ones),
-                            tol=1e-6, maxiter=50, M=lambda r: r / d_loc,
-                            reduce=lambda s: mesh.sum_groups(s, WORLD))
-        out["cg_diag"] = mesh.gather(x, WORLD)
+        out = {"init": got,
+               **body(mesh, torch.load(inputs_path, weights_only=False))}
         dist.destroy_process_group()
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     except BaseException:
@@ -133,16 +172,82 @@ def _rank_main(rank, init_file, inputs_path, out_dir):
         raise
 
 
-def _spawn(tmp, inputs):
-    """Run :func:`_rank_main` on WORLD ranks; returns each rank's results
-    (fails the caller on an error or past the deadline)."""
+def _device_built_rank_cases(mesh, inp):
+    """One rank's sharded device-built solves."""
+    out = {}
+    for key, (solver, b, kw, mlr) in inp.items():
+        sv = _sharded_solver(solver, mesh, mlr)
+        res = []
+        x = sv.solve(b, residuals=res, **kw)
+        out[key] = (np.asarray(res), x, sv.hierarchy.groups)
+    return out
+
+
+def _cases(mesh, inp):
+    """One rank's host-built, unstructured, smoother and Krylov cases."""
+    from pyamg_tpu_torch.engine.krylov import device_cg
+    from pyamg_tpu_torch.parallel import (halo_width, make_halo_dia_spmv,
+                                          shard_hierarchy, shard_vector)
+    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv
+
+    out = {}
+    for key in ("dia64", "dia32"):
+        A, x = inp[key]
+        spmv, place = make_halo_dia_spmv(A, mesh)
+        out[key] = mesh.gather(spmv(A.data, place(x)), WORLD)
+        out[key + "_k16"] = mesh.gather(halo_spmv(
+            mesh.local(A.data, WORLD), A.offsets, A.offsets_t, place(x),
+            halo_width(A), mesh, WORLD), WORLD)
+    for key, kw in (("host", dict(min_local_rows=128)),
+                    ("unstructured", {}), ("unstructured_rs", {})):
+        h, b, tol, maxiter = inp[key]
+        hs = shard_hierarchy(h, mesh, **kw)
+        res = []
+        x = DeviceMultilevelSolver(hs).solve(b, tol=tol, maxiter=maxiter,
+                                             accel="cg", residuals=res)
+        out[key] = (np.asarray(res), x, hs.groups, hs.n_pads)
+    h, b, tol, maxiter = inp["host"]
+    hs = shard_hierarchy(h, mesh, min_local_rows=128)
+    for key, kw in SHARDED_CYCLES.items():
+        res = []
+        x = DeviceMultilevelSolver(hs).solve(b, tol=tol, maxiter=maxiter,
+                                             residuals=res, **kw)
+        out[key] = (np.asarray(res), x)
+    out["asprecond"] = DeviceMultilevelSolver(hs).aspreconditioner(
+        "W") @ b
+    for key in list(SHARDED_SMOOTHERS) + ["unstructured_chebyshev"]:
+        h, b, tol, maxiter = inp[key]
+        hs = shard_hierarchy(h, mesh, min_local_rows=128)
+        res = []
+        x = DeviceMultilevelSolver(hs).solve(b, tol=tol, maxiter=maxiter,
+                                             accel="cg", residuals=res)
+        out[key] = (np.asarray(res), x)
+    for key in UNSHARDED_SMOOTHERS:
+        try:
+            shard_hierarchy(inp[key], mesh, min_local_rows=128)
+            out[key] = None
+        except NotImplementedError as e:
+            out[key] = str(e)
+    d = torch.arange(1.0, 513.0, dtype=torch.float32)
+    d_loc = shard_vector(mesh, d)
+    ones = shard_vector(mesh, torch.ones(512))
+    x, _, _ = device_cg(lambda v: d_loc * v, ones, torch.zeros_like(ones),
+                        tol=1e-6, maxiter=50, M=lambda r: r / d_loc,
+                        reduce=lambda s: mesh.sum_groups(s, WORLD))
+    out["cg_diag"] = mesh.gather(x, WORLD)
+    return out
+
+
+def _spawn(tmp, inputs, body=_cases):
+    """Run :func:`_rank_main` with ``body`` on WORLD ranks; returns each
+    rank's results (fails the caller on an error or past the deadline)."""
     import torch.multiprocessing as mp
 
     inputs_path = str(tmp / "inputs.pt")
     torch.save(inputs, inputs_path)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, str(tmp / "rendezvous"), inputs_path,
+                         args=(body, r, str(tmp / "rendezvous"), inputs_path,
                                str(tmp)))
              for r in range(WORLD)]
     for p in procs:
@@ -253,6 +358,29 @@ def _spmd(tmp_path_factory):
                 ref_cycles=ref_cycles, ref_smoothers=ref_smoothers, M=M,
                 res_un=res_un, x_un=x_un, res_rs=res_rs, x_rs=x_rs,
                 ranks=ranks)
+
+
+@pytest.fixture(scope="module")
+def spmd_device_built(tmp_path_factory):
+    """The device-built cases (:func:`_device_built_cases`), the port's
+    one-rank solves of each, and every rank's sharded solves, from a spawn
+    of their own (single-threaded, as :func:`spmd`)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cases = _device_built_cases()
+        refs = {}
+        for key, (_, b, _, solver, kw, _) in cases.items():
+            res = []
+            x = solver.solve(b, residuals=res, **kw)
+            refs[key] = (np.asarray(res), x)
+        ranks = _spawn(tmp_path_factory.mktemp("spmd_device_built"),
+                       {key: (c[3], c[1], c[4], c[5])
+                        for key, c in cases.items()},
+                       _device_built_rank_cases)
+        return dict(cases=cases, refs=refs, ranks=ranks)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_ranks_agree_and_initialize(spmd):
@@ -478,6 +606,110 @@ def test_sharded_unstructured_rs_solve(spmd):
     assert x.shape == (spmd["M"].shape[0],) and rel < 1e-9, rel
     for out in spmd["ranks"][1:]:
         np.testing.assert_array_equal(out["unstructured_rs"][0], res)
+
+
+def _jax_history(case):
+    """The JAX package's unsharded float64 solve of a device-built case."""
+    import jax
+    import jax.numpy as jnp
+
+    from pyamg_tpu import engine as je
+
+    A, b, (family, kw), _, solve_kw, _ = case
+    jax.config.update("jax_enable_x64", True)
+    setup = {"sa": je.device_sa_setup, "rs": je.device_rs_setup,
+             "air": je.device_air_setup,
+             "block": je.device_sa_setup_block}[family]
+    res = []
+    setup(A, dtype=jnp.float64, **kw).solve(b, residuals=res, **solve_kw)
+    return np.asarray(res)
+
+
+def _assert_sharded_device_built(db, key, groups0):
+    """The sharded solve of ``key`` on rank 0 against the one-rank solve
+    (same length, rtol 1e-9, x within 1e-10 relative), every rank's
+    history equal to rank 0's, level 0 on ``groups0`` groups (or more than
+    one); returns rank 0's history."""
+    res, x, groups = db["ranks"][0][key]
+    res1, x1 = db["refs"][key]
+    assert groups[0] == groups0 if groups0 else groups[0] > 1, groups
+    assert len(res) == len(res1) > 1
+    np.testing.assert_allclose(res, res1, rtol=1e-9)
+    rel = np.linalg.norm(x - x1) / np.linalg.norm(x1)
+    assert x.shape == x1.shape and rel < 1e-10, rel
+    for out in db["ranks"][1:]:
+        np.testing.assert_array_equal(out[key][0], res)
+    return res
+
+
+def test_distributed_device_setup(spmd_device_built):
+    """Counterpart of test_parallel.py::test_distributed_device_setup_gspmd
+    (96^2 5-point, device_sa_setup(max_coarse=200), f64): the hierarchy
+    sharded over 8 ranks (level 0 on all 8; S, S^T through K16, the
+    remap T through K6 and T^T through K7) solves CG to 1e-10 with the
+    unsharded history, and with the JAX package's to rtol 1e-8 (the
+    device SA parity test's)."""
+    res = _assert_sharded_device_built(spmd_device_built, "sa", WORLD)
+    hj = _jax_history(spmd_device_built["cases"]["sa"])
+    assert len(res) == len(hj)
+    np.testing.assert_allclose(res, hj, rtol=1e-8)
+
+
+def test_distributed_classical_setup(spmd_device_built):
+    """Counterpart of test_parallel.py::
+    test_distributed_classical_setup_gspmd (64^2, device_rs_setup(
+    max_coarse=200), f64): the embedded P_emb / R_emb through K16, the
+    embedding and its transpose (the compaction) through K6 / K7, on 8
+    ranks; CG to 1e-10 with the unsharded history, and the JAX package's
+    at the classical parity test's tolerance."""
+    res = _assert_sharded_device_built(spmd_device_built, "rs", WORLD)
+    hj = _jax_history(spmd_device_built["cases"]["rs"])
+    assert len(res) == len(hj)
+    np.testing.assert_allclose(res, hj, rtol=1e-10, atol=1e-13 * hj[0])
+
+
+def test_distributed_block_setup(spmd_device_built):
+    """Counterpart of test_parallel.py::test_distributed_block_setup_gspmd
+    (linear_elasticity((24, 24)) on the (24, 23) node grid,
+    device_sa_setup_block(max_coarse=120), f64): the block levels through
+    B1's halo mode (its CPU twin here), the block Jacobi sweeps as the
+    halo RESID and the local B2 ZERO, the candidates' remap through K6 /
+    K7, on 8 ranks; CG to 1e-8 with the unsharded history, and the JAX
+    package's to rtol 1e-8 (the block setup's parity tolerance)."""
+    res = _assert_sharded_device_built(spmd_device_built, "block", WORLD)
+    hj = _jax_history(spmd_device_built["cases"]["block"])
+    assert len(res) == len(hj)
+    np.testing.assert_allclose(res, hj, rtol=1e-8)
+
+
+@pytest.mark.parametrize("key", ["air", "air_routed"])
+def test_sharded_air_solves(spmd_device_built, key):
+    """AIR sharded over 8 ranks, f64 FGMRES to 1e-10: the structured
+    setup on 64^2 advection (embedded transfers, the masked F-then-C
+    Jacobi by rows) and the routed unstructured one on the RCM-ordered
+    40^2 (the Neumann restriction's A, Tinj and dinv_f by rows, level 0
+    split over 2 groups); the unsharded history, and the JAX package's at
+    the AIR parity tests' tolerances (structured rtol 1e-8, unstructured
+    1e-6 with a floor of 1e-7 of the first entry)."""
+    res = _assert_sharded_device_built(spmd_device_built, key,
+                                       WORLD if key == "air" else 2)
+    hj = _jax_history(spmd_device_built["cases"][key])
+    assert len(res) == len(hj)
+    np.testing.assert_allclose(
+        res, hj, rtol=1e-8 if key == "air" else 1e-6,
+        atol=(1e-12 if key == "air" else 1e-7) * hj[0])
+    assert res[-1] <= 1e-10 * res[0]
+
+
+def test_sharded_device_built_float32(spmd_device_built):
+    """The 96^2 device-built SA hierarchy in float32 sharded over 8
+    ranks: CG to 1e-5 in the unsharded count, its history within 1e-5
+    (float32 sums in another order)."""
+    res, x, groups = spmd_device_built["ranks"][0]["sa_f32"]
+    res1, x1 = spmd_device_built["refs"]["sa_f32"]
+    assert groups[0] == WORLD and len(res) == len(res1) > 3
+    np.testing.assert_allclose(res, res1, rtol=1e-5)
+    assert res[-1] <= 1e-5 * res[0]
 
 
 def test_krylov_dots_partition(spmd):

@@ -537,15 +537,29 @@ def test_route_passes_changed_smoothers_only(monkeypatch):
 
 
 def test_sharding_the_air_restriction_raises(air64):
-    """The AIR level's Neumann restriction (its masked Jacobi has no
-    sharding roles) raises, citing ROADMAP.md Queue 1 item 14, before any
-    communication."""
+    """The AIR level's Neumann restriction shards (rank 0 of 8, level 0's
+    two row blocks on two groups: rank 0 keeps the first block of A and
+    Tinj and its rows of dinv_f, the masked Jacobi its rows of dinv and of
+    each mask); what still raises is a batched (n, K) apply of it, citing
+    ROADMAP.md Queue 1 item 14, before any communication."""
     from pyamg_tpu_torch import shard_hierarchy
-    from pyamg_tpu_torch.parallel.partition import SolverMesh
+    from pyamg_tpu_torch.parallel.partition import (SolverMesh,
+                                                    _ShardedNeumannAIR)
 
     mesh = SolverMesh(rank=0, world=8, device=torch.device(CPU))
-    with pytest.raises(NotImplementedError, match="AIR restriction.*item 14"):
-        shard_hierarchy(air64[3].hierarchy, mesh)
+    h = air64[3].hierarchy
+    hs = shard_hierarchy(h, mesh, min_local_rows=1024)
+    lvl, lvl_s = h.levels[0], hs.levels[0]
+    (f,) = lvl_s.R.factors
+    assert isinstance(f, _ShardedNeumannAIR) and f.groups == hs.groups[0] == 2
+    rows = lvl.R.A.n_pad // f.groups
+    assert f.A.n_pad == f.Tinj.n_pad == rows
+    assert torch.equal(f.dinv_f, lvl.R.dinv_f[:rows])
+    for a, a_s in zip(lvl.post.arrays, lvl_s.post.arrays):
+        n = a.shape[0] // hs.groups[0]
+        assert torch.equal(a_s, a[:n])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        lvl_s.R.matvec(torch.zeros(2, lvl_s.n_pad, dtype=torch.float64))
 
 
 @pytest.mark.parametrize("setup", ["rs", "air"])
