@@ -223,7 +223,23 @@ result lines):
     against JAX's (13), and the kernels at its level 0 (bs 1); counters
     around every solve, every block kernel of the path launched and no
     block twin run on a CUDA tensor;
-20. result lines: the script's seconds, the kernels' JSON (with the
+20. the device-built hierarchies row-sharded in a world of one NCCL rank
+    (configs 1-5, both AIR forms, config 4 at 128^2 and 1024^2), each
+    solve at its unsharded count, K16 at their level-0 shapes and B1's
+    halo mode at config 4's 1024^2 level 0;
+21. sharded lanes, A^T and the cross-shard sweeps (a world of one): K16's
+    lane mode at K = 8 at config 1's device-built level-0 S and S^T
+    (float32 and float64) and the 64^3 level-0 S, each against its twin,
+    bit for bit against K8 in one launch a call (K8's time beside it) and
+    in 4 in-process row blocks; B1's halo mode on K = 8 lanes at config
+    4's 1024^2 level 0 against B1's lanes; the transposed DIA and block
+    DIA against the unsharded transposes; sharded batched K = 8 solves
+    against the unsharded batched ones (config 1 device-built and
+    host-built, config 3 RS 512^2, config 4 1024^2, the 640k unstructured
+    SA): every lane's count, true relres, walls and launches, never the
+    interleaved route; CGNR and CGNE on config 5's RS 1024^2 and AIR
+    256^2; the Cimmino sweep and windowed Schwarz at 256^2 float64;
+22. result lines: the script's seconds, the kernels' JSON (with the
     64^3 checks of config 2's paths and the classical paths' checks under
     ``at_paths``, and every check of the block-DIA kernels under
     ``checks``), the card's name and power limit, and last {"ok": true,
@@ -335,7 +351,8 @@ PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 
 # the block-DIA kernels (B1, B2, B1's halo mode): the kernels line lists
 # each of their checks (every mode and shape) beside the row
-BLOCK_KERNELS = ("block_dia_spmv", "block_dia_jacobi", "block_dia_halo")
+BLOCK_KERNELS = ("block_dia_spmv", "block_dia_jacobi", "block_dia_halo",
+                 "block_dia_halo_spmm")
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("pyamg_tpu_torch/csrc/dia.cu",
@@ -376,6 +393,10 @@ KERNELS = {
                         "pyamg_tpu/sparse/window.py:361"),
     "dia_halo_spmv": ("pyamg_tpu_torch/csrc/halo.cu",
                       "pyamg_tpu/parallel/pallas_halo.py:50"),
+    # K16's lane mode: K8's arithmetic on a rank's rows (the reference
+    # applies a sharded lane stack through K8 under GSPMD)
+    "dia_halo_spmm": ("pyamg_tpu_torch/csrc/halo.cu",
+                      "pyamg_tpu/sparse/dia.py:353"),
     **{name: ("pyamg_tpu_torch/csrc/interleaved.cu",
               "pyamg_tpu/sparse/interleaved.py:160")
        for name in ("int_jacobi_zero_res", "int_spmv_scaled", "int_spmv",
@@ -385,9 +406,10 @@ KERNELS = {
               "none: plain jnp in pyamg_tpu/sparse/block_dia.py:77 / "
               "engine/relaxation.py:232")
        for name in BLOCK_KERNELS[:2]},
-    "block_dia_halo": ("pyamg_tpu_torch/csrc/block_dia.cu",
-                       "none: plain jnp in pyamg_tpu/sparse/block_dia.py:77,"
-                       " row-sharded by GSPMD (tests/test_parallel.py:277)"),
+    **{name: ("pyamg_tpu_torch/csrc/block_dia.cu",
+              "none: plain jnp in pyamg_tpu/sparse/block_dia.py:77, "
+              "row-sharded by GSPMD (tests/test_parallel.py:277)")
+       for name in BLOCK_KERNELS[2:]},
 }
 # path -> the kernel instances it must launch
 PATHS = {
@@ -572,6 +594,34 @@ PATHS.update({
                            "windowed_rmatvec.float32"),
     "sharded config 4 1024^2": _SHARDED_BLOCK,
     "sharded config 4 128^2": _SHARDED_BLOCK,
+})
+# the sharded batched solves (phase 21, a world of one, K = 8): the DIA
+# levels through K16's lane mode, the block levels through B1's halo mode
+# on lanes and the local B2 ZERO update, the grid remaps through K12 and
+# K13; the sharded CGNR / CGNE and the Cimmino / Schwarz sweeps apply A
+# and A^T (each DIA level's transposed diagonals) through K16
+_LANE_REMAP = ("windowed_matmat_k.float32", "windowed_rmatmat_k.float32")
+# the grid remap each sharded batched path's level-0 transfers apply on
+# lanes, checked through K12 / K13 at K = LANES (``remap_checks``)
+LANE_REMAPS = {"sharded batched device-built config 1": "T",
+               "sharded batched config 3 RS": "E",
+               "sharded batched config 4 1024^2": "Q"}
+PATHS.update({
+    "sharded batched device-built config 1": ("dia_halo_spmm.float32",)
+    + _LANE_REMAP,
+    "sharded batched host-built config 1": ("dia_halo_spmm.float32",)
+    + _LANE_REMAP,
+    "sharded batched config 3 RS": ("dia_halo_spmm.float32",) + _LANE_REMAP,
+    "sharded batched config 4 1024^2": (
+        "block_dia_halo_spmm.float32", "block_dia_jacobi.float32")
+    + _LANE_REMAP,
+    "sharded batched unstructured": _LANE_REMAP,
+    "sharded CGNR config 5 RS": _SHARDED_GRID,
+    "sharded CGNE config 5 RS": _SHARDED_GRID,
+    "sharded CGNR structured AIR": _SHARDED_GRID,
+    "sharded CGNE structured AIR": _SHARDED_GRID,
+    "sharded Cimmino 256^2 float64": ("dia_halo_spmv.float64",),
+    "sharded Schwarz 256^2 float64": ("dia_halo_spmv.float64",),
 })
 # the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
 PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
@@ -1868,14 +1918,16 @@ def windowed_to_csr(W, transpose=False):
 
 
 def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
-                           results, path, lanes=None, lane_path=None):
+                           results, path, lanes=None, lane_path=None,
+                           vectors=True):
     """The windowed kernels at a hierarchy's shapes, in ``dtype`` (the
     operators' dtype), results tagged with ``path``: K14 on each (label,
     W) of ``selects`` (bit-exact against its twin; torch.take on the
-    precomputed int64 index as the yardstick), K6/K7 on each of ``ops``,
-    and K12/K13 at ``lanes`` lanes (the unstructured setup's probe width
-    by default), tagged with ``lane_path`` (default ``path``), on those of
-    ``ops`` whose labels are in ``probes``."""
+    precomputed int64 index as the yardstick), K6/K7 on each of ``ops``
+    (unless ``vectors`` is False), and K12/K13 at ``lanes`` lanes (the
+    unstructured setup's probe width by default), tagged with
+    ``lane_path`` (default ``path``), on those of ``ops`` whose labels
+    are in ``probes``."""
     import torch
 
     from pyamg_tpu_torch.sparse import window
@@ -1909,21 +1961,22 @@ def windowed_kernel_checks(check, where, selects, ops, probes, dtype, rand,
         flops = 2 * int((W.data != 0).sum())
         tag = (f"{where} {label} {W.shape[0]}x{W.shape[1]} k={W.k} "
                f"block={W.block} w2={W.w2}")
-        compare(check, f"windowed_matvec.{dt} [{tag}]", dtype,
-                lambda: window.windowed_matvec(W, x),
-                lambda: window.windowed_matvec_ref(W, x), results,
-                meta + (m + W.n_pad) * sz, flops,
-                library_fn=lambda: torch.mv(W_csr, x), path=path)
-        k6_rows_check(check, f"windowed_matvec.{dt} [{tag}]", W, x)
-        if where == "routed":
-            log(f"  windowed_matvec.{dt} [{tag}]: an empty launch of its "
-                f"grid {empty_floor(W, x, False):.4f} ms")
-        compare(check, f"windowed_rmatvec.{dt} [{tag}]", dtype,
-                lambda: window.windowed_rmatvec(W, r),
-                lambda: window.windowed_rmatvec_ref(W, r), results,
-                meta + (m + W.n_pad) * sz, flops,
-                library_fn=lambda: torch.mv(Wt_csr, r), path=path,
-                repeat_exact=True)
+        if vectors:
+            compare(check, f"windowed_matvec.{dt} [{tag}]", dtype,
+                    lambda: window.windowed_matvec(W, x),
+                    lambda: window.windowed_matvec_ref(W, x), results,
+                    meta + (m + W.n_pad) * sz, flops,
+                    library_fn=lambda: torch.mv(W_csr, x), path=path)
+            k6_rows_check(check, f"windowed_matvec.{dt} [{tag}]", W, x)
+            if where == "routed":
+                log(f"  windowed_matvec.{dt} [{tag}]: an empty launch of "
+                    f"its grid {empty_floor(W, x, False):.4f} ms")
+            compare(check, f"windowed_rmatvec.{dt} [{tag}]", dtype,
+                    lambda: window.windowed_rmatvec(W, r),
+                    lambda: window.windowed_rmatvec_ref(W, r), results,
+                    meta + (m + W.n_pad) * sz, flops,
+                    library_fn=lambda: torch.mv(Wt_csr, r), path=path,
+                    repeat_exact=True)
         if label not in probes:
             transpose_checks(check, f"{where} {label} {dt}", W, r, None)
             continue
@@ -3897,21 +3950,26 @@ def block_halo_checks(check, A, rand, results, tag, path, side, shards=4):
         f"{nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes)")
 
 
-def remap_checks(check, label, what, solver, sharded, rand, results):
+def remap_checks(check, label, what, solver, hs, rand, results, lanes=0):
     """K6 and K7 on the grid remap that the sharded level-0 transfers
     apply (``what``: the structured T, the embedding E or the block
     candidates' Q), at the block ``shard_hierarchy`` chose: P's last
-    factor and R's first, which must be one remap built once for the
-    level (the transfers' shared ``remaps``, one entry); then, through
-    ``windowed_kernel_checks``, each kernel against its twin (K7 twice,
-    the same bits), its bound, ``torch.mv`` on the CSR, K6 equal to its
-    per-row kernel and K7's column plan built with no host sync and equal
-    to the CPU twin bit for bit; and each kernel's launches a call."""
+    factor and R's first in the sharded hierarchy ``hs``, which must be
+    one remap built once for the level (the transfers' shared
+    ``remaps``, one entry); then, through ``windowed_kernel_checks``,
+    each kernel against its twin (K7 twice, the same bits), its bound,
+    ``torch.mv`` on the CSR, K6 equal to its per-row kernel and K7's
+    column plan built with no host sync and equal to the CPU twin bit for
+    bit; and each kernel's launches a call.  With ``lanes``, K12 and K13
+    on a stack of that many lanes instead, as the sharded batched solve
+    applies the remap (each against its twin with a repeat's bits, one
+    launch a call, ``torch.sparse.mm`` on the CSR, K13 equal to the CPU
+    twin bit for bit)."""
     import torch
 
     from pyamg_tpu_torch.sparse import window
 
-    lv0, lvs = solver.hierarchy.levels[0], sharded.hierarchy.levels[0]
+    lv0, lvs = solver.hierarchy.levels[0], hs.levels[0]
     W, Wt = lvs.P.factors[-1].local, lvs.R.factors[0].local
     remaps = lv0.P.remaps
     check(remaps is lv0.R.remaps and len(remaps) == 1
@@ -3920,6 +3978,12 @@ def remap_checks(check, label, what, solver, sharded, rand, results):
                   for f in ("data", "idx", "starts")),
           f"{label}: level 0's P and R shard one {what} (built once for "
           f"the level at block {W.block}; blocks kept {sorted(remaps)})")
+    where = f"sharded {label.split('sharded ')[-1]}"
+    if lanes:
+        windowed_kernel_checks(check, where, (), ((f"level0 {what}", W),),
+                               (f"level0 {what}",), W.dtype, rand, results,
+                               label, lanes=lanes, vectors=False)
+        return
     x, r = rand(W.m_chunks * W.w2, W.dtype), rand(W.n_pad, W.dtype)
     k6 = launches_per_call(lambda: window.windowed_matvec(W, x))
     k7 = launches_per_call(lambda: window.windowed_rmatvec(W, r))
@@ -3928,9 +3992,8 @@ def remap_checks(check, label, what, solver, sharded, rand, results):
         f"device operation(s) a call")
     check(k6 == 1 and k7 == 1, f"{label} level0 {what}: K6 and K7 one "
           f"launch a call ({k6}, {k7})")
-    windowed_kernel_checks(check, f"sharded {label.split('sharded ')[-1]}",
-                           (), ((f"level0 {what}", W),), (), W.dtype, rand,
-                           results, label)
+    windowed_kernel_checks(check, where, (), ((f"level0 {what}", W),), (),
+                           W.dtype, rand, results, label)
 
 
 def sharded_device_built_phase(check, dev, card, rand, results, launches,
@@ -4135,8 +4198,492 @@ def sharded_device_built_phase(check, dev, card, rand, results, launches,
                                       label, side)
                 if label in REMAPS:
                     remap_checks(check, label, REMAPS[label], solver,
-                                 sharded, rand, results)
+                                 sharded.hierarchy, rand, results)
                 del made, M, solver, sharded
+        finally:
+            dist.destroy_process_group()
+
+
+def halo_lane_checks(check, A, rand, results, tag, path, side, shards=4):
+    """K16's lane mode on the DIA operator A at K = LANES: the ring of one
+    against its plain twin (the rolled sum over every lane's [tail, x,
+    head]) at the kernel tolerance, a second launch with the first one's
+    bits, one launch a call, bit for bit against K8 (``dia_spmm``) with
+    K8's own time beside it; then ``shards`` in-process row blocks (each
+    block's columns of the stack, (K, halo) halos copied on the side
+    stream) against K8 bit for bit, and the interior alone, the halo
+    copies alone and the overlapped total.  Library: ``torch.sparse.mm``
+    of A as CSR against the (n, K) columns."""
+    import torch
+
+    from pyamg_tpu_torch.parallel import halo_width
+    from pyamg_tpu_torch.parallel.dist_spmv import dia_halo_rows_ref
+    from pyamg_tpu_torch.parallel.halo_spmv import (halo_plan, halo_spmv,
+                                                    halo_spmv_shards)
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+    from pyamg_tpu_torch.sparse import dia
+
+    one = SolverMesh(rank=0, world=1, device=A.device)
+    dtype, n, halo = A.dtype, A.n_pad, halo_width(A)
+    dt = str(dtype).removeprefix("torch.")
+    X = rand((LANES, n), dtype)
+    Xcols = X.T.contiguous()
+    A_csr = dia_to_csr(A)
+
+    def ring():
+        return halo_spmv(A.data, A.offsets, A.offsets_t, X, halo, one, 1)
+
+    def plain():
+        return dia_halo_rows_ref(A.data, A.offsets, X[:, n - halo:], X,
+                                 X[:, :halo], halo, ((0, n),),
+                                 torch.empty_like(X))
+
+    nbytes, ops = dia_cost(A, 0, LANES, 2)
+    name = f"dia_halo_spmm.{dt} [{tag} K={LANES} ring of one]"
+    compare(check, name, dtype, ring, plain, results, nbytes, ops,
+            library_fn=lambda: torch.sparse.mm(A_csr, Xcols), path=path,
+            repeat_exact=True)
+    row = results[-1]
+    k = row["launches_per_call"] = launches_per_call(ring)
+    k8 = dia.dia_spmm(A, X)
+    row["k8_ms"] = min(time_ms(lambda: dia.dia_spmm(A, X)) for _ in range(2))
+    plan = halo_plan(tuple(A.offsets), n, dtype)
+    torch.cuda.synchronize()
+    check(torch.equal(ring(), k8) and k == 1,
+          f"dia_halo_spmm.{dt} [{tag}]: the lane mode's ring of one "
+          f"({plan.row_blocks} row blocks of {plan.rows} rows x {LANES} "
+          f"lanes) equals K8 (dia_spmm) bit for bit in {k} launch(es) a "
+          f"call; K16 lanes {row['ms']:.4f} ms, K8 {row['k8_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms")
+    split = halo_spmv_shards(A, X, shards, side)
+    torch.cuda.synchronize()
+    check(torch.equal(split, k8),
+          f"dia_halo_spmm.{dt} [{tag}]: {shards} in-process row blocks of "
+          f"the K={LANES} stack equal K8 bit for bit")
+    t = {}
+    for label, phases in (("interior", ("interior",)),
+                          ("halo copies", ("halos",)),
+                          ("overlapped", ("interior", "halos",
+                                          "boundary"))):
+        t[label] = min(time_ms(lambda: halo_spmv_shards(
+            A, X, shards, side, phases=phases)) for _ in range(2))
+    log(f"  K16 lanes, {shards} blocks in one process [{dt} {tag} "
+        f"K={LANES}]: interior alone {t['interior']:.4f} ms, halo copies "
+        f"alone ({2 * shards} (K, halo) copies) {t['halo copies']:.4f} ms, "
+        f"overlapped total {t['overlapped']:.4f} ms; K8 on the whole "
+        f"operator {row['k8_ms']:.4f} ms")
+
+
+def block_halo_lane_checks(check, A, rand, results, tag, path, side,
+                           shards=4):
+    """B1's halo mode on K = LANES lanes of the block level A: the ring of
+    one against its plain twin at the kernel tolerance, two launches with
+    the same bits, launches a call, and PLAIN and RESID bit for bit
+    against B1 on the lanes (``block_dia_apply``, B1's own time beside
+    it); ``shards`` in-process node-row blocks of the stack against B1
+    bit for bit.  Library: ``torch.sparse.mm`` of A as CSR against the
+    (n, K) columns."""
+    import torch
+
+    from pyamg_tpu_torch.parallel.dist_spmv import block_dia_halo_rows_ref
+    from pyamg_tpu_torch.parallel.halo_spmv import (block_halo_spmv,
+                                                    block_halo_spmv_shards)
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    one = SolverMesh(rank=0, world=1, device=A.device)
+    dtype, n, nb = A.dtype, A.n_pad, A.nb_pad
+    dt = str(dtype).removeprefix("torch.")
+    halo = max(A.halo, 1)
+    hw = halo * A.bs
+    X, Bv = rand((LANES, n), dtype), rand((LANES, n), dtype)
+    Xcols = X.T.contiguous()
+    csr = bdia_to_csr(A, A.device)
+
+    def ring():
+        return block_halo_spmv(A.data, A.offsets, A.offsets_t, X, halo, one,
+                               1)
+
+    def plain():
+        return block_dia_halo_rows_ref(A.data, A.offsets, X[:, n - hw:], X,
+                                       X[:, :hw], halo, ((0, nb),),
+                                       torch.empty_like(X))
+
+    # the blocks once, every lane's x and y; 2 operations a block entry a
+    # lane
+    nbytes, ops = block_cost(A, 2 * LANES)
+    compare(check, f"block_dia_halo_spmm.{dt} [{tag} K={LANES} ring of "
+            "one]", dtype, ring, plain, results, nbytes, ops * LANES,
+            library_fn=lambda: torch.sparse.mm(csr, Xcols), path=path,
+            repeat_exact=True)
+    row = results[-1]
+    k = row["launches_per_call"] = launches_per_call(ring)
+    b1, b1_r = bd.block_dia_apply(A, X), bd.block_dia_resid(A, X, Bv)
+    row["b1_lanes_ms"] = min(time_ms(lambda: bd.block_dia_apply(A, X))
+                             for _ in range(2))
+    ring_r = block_halo_spmv(A.data, A.offsets, A.offsets_t, X, halo, one,
+                             1, b=Bv)
+    split = block_halo_spmv_shards(A, X, shards, side)
+    split_r = block_halo_spmv_shards(A, X, shards, side, b=Bv)
+    torch.cuda.synchronize()
+    check(torch.equal(ring(), b1) and torch.equal(ring_r, b1_r) and k == 1
+          and torch.equal(split, b1) and torch.equal(split_r, b1_r),
+          f"block_dia_halo_spmm.{dt} [{tag}]: the ring of one and {shards} "
+          f"in-process blocks of the K={LANES} stack equal B1's lanes "
+          f"(PLAIN and RESID) bit for bit, {k} launch(es) a call; halo "
+          f"lanes {row['ms']:.4f} ms, B1 lanes {row['b1_lanes_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms")
+
+
+def block_zero_lane_check(check, Dinv, omega, rand, results, tag, path):
+    """B2 ``ZERO`` (omega Dinv b, node block by node block) on a K = LANES
+    stack, the local update of the sharded block sweep on lanes: against
+    its twin at the kernel tolerance, a second launch with the first
+    one's bits, launches a call, and every lane equal to ``ZERO`` on that
+    lane alone bit for bit.  Library: ``torch.baddbmm`` of Dinv against
+    the stack's (nb, bs, K) view, scaled by omega."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    dtype = Dinv.dtype
+    dt = str(dtype).removeprefix("torch.")
+    nb, bs = Dinv.shape[0], Dinv.shape[-1]
+    B = rand((LANES, nb * bs), dtype)
+    Bv = B.view(LANES, nb, bs).permute(1, 2, 0)
+    out = torch.empty((nb, bs, LANES), dtype=dtype, device=B.device)
+    w = float(omega)
+    sz = B.element_size()
+    # Dinv once, every lane's b and y; 2 bs operations a row a lane, and
+    # the weight
+    compare(check, f"block_dia_jacobi.{dt} ZERO [{tag} K={LANES}]", dtype,
+            lambda: bd.block_jacobi_zero(Dinv, B, omega),
+            lambda: bd.block_jacobi_zero_ref(Dinv, B, omega), results,
+            Dinv.numel() * sz + 2 * LANES * nb * bs * sz,
+            LANES * (2 * nb * bs * bs + nb * bs),
+            library_fn=lambda: torch.baddbmm(out, Dinv, Bv, beta=0,
+                                             alpha=w),
+            path=path, repeat_exact=True)
+    row = results[-1]
+    k = row["launches_per_call"] = launches_per_call(
+        lambda: bd.block_jacobi_zero(Dinv, B, omega))
+    Y = bd.block_jacobi_zero(Dinv, B, omega)
+    same = all(torch.equal(Y[i], bd.block_jacobi_zero(Dinv, B[i].clone(),
+                                                      omega))
+               for i in range(LANES))
+    check(same and k == 1, f"block_dia_jacobi.{dt} ZERO [{tag} K={LANES}]: "
+          f"every lane equals ZERO on that lane alone bit for bit, {k} "
+          f"launch(es) a call; {row['ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms")
+
+
+def transposed_level_checks(check, A, Ab, rand):
+    """A^T of a sharded level in a world of one: the DIA level A's
+    transposed diagonals (built at the first transpose) through K16,
+    against ``DIAMatrix.rmatvec``'s rolls on a vector and a K = LANES
+    stack (the kernel tolerance: the rolls round each product apart from
+    its sum), one launch a call after the build; the block level Ab's
+    through B1's halo mode against ``BlockDIAMatrix.rmatvec`` (B1 on its
+    transposed blocks) bit for bit; times of both forms."""
+    import torch
+
+    from pyamg_tpu_torch.parallel.partition import (ShardedOperator,
+                                                    SolverMesh)
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    one = SolverMesh(rank=0, world=1, device=A.device)
+    for M, kind in ((A, "DIA"), (Ab, "block")):
+        sh = ShardedOperator(M, one, (1, M.n_pad), (1, M.n_pad), 1)
+        dt = str(M.dtype).removeprefix("torch.")
+        y0 = rand(M.n_pad, M.dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sh.rmatvec(y0)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        for y in (rand(M.n_pad, M.dtype), rand((LANES, M.n_pad), M.dtype)):
+            got = sh.rmatvec(y)
+            want = (M.rmatvec(y) if kind == "DIA"
+                    else bd.block_dia_apply(M.T, y))
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max() / want.abs().max())
+            k = launches_per_call(lambda: sh.rmatvec(y))
+            t_sh = time_ms(lambda: sh.rmatvec(y))
+            t_un = time_ms(lambda: M.rmatvec(y))
+            lanes = "one vector" if y.ndim == 1 else f"K={LANES}"
+            tol = F32_REL_TOL if M.dtype == torch.float32 else F64_REL_TOL
+            ok = (torch.equal(got, want) if kind == "block"
+                  else err <= tol)
+            how = ("bit for bit" if kind == "block"
+                   else f"rel err {err:.2e}")
+            check(ok and k == 1,
+                  f"sharded A^T [{kind} {dt} n_pad={M.n_pad}, {lanes}]: "
+                  f"{how} against the unsharded transpose, {k} launch(es) a call,"
+                  f" {t_sh:.4f} ms (unsharded {t_un:.4f} ms); the first "
+                  f"transpose, the diagonals' build included, "
+                  f"{t_build * 1e3:.1f} ms")
+
+
+def sharded_lanes_phase(check, dev, card, rand, results, launches, dsa, dml,
+                        A1, d2, dla, dus, A_un):
+    """Phase 21: sharded batched (n, K) solves, A^T of sharded levels and
+    the cross-shard sweeps, in a world of one NCCL rank (file://
+    rendezvous).  Kernels: K16's lane mode at config 1's device-built
+    2048^2 level-0 S and S^T (float32 and float64) and the 64^3 level-0 S,
+    B1's halo mode on lanes at config 4's 1024^2 level 0, the transposed
+    DIA and block DIA.  Solves at K = LANES, each against its unsharded
+    batched solve in this run (every lane's count, its history within
+    SHARDED_HIST_RTOL, its true relres, walls median of 3, launches a
+    solve): config 1 device-built and host-built (CG to 1e-5), config 3
+    RS 512^2, config 4 1024^2 (block, its columns grid-encoded), the 640k
+    unstructured SA (CG to 1e-6); CGNR and CGNE on config 5's RS 1024^2
+    and on AIR 256^2 (20 iterations); the Cimmino sweep and windowed
+    Schwarz on a host-built 256^2 float64 hierarchy (CG)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pyamg_tpu_torch import (DeviceMultilevelSolver,
+                                 StructuredDeviceSolver, advection_2d,
+                                 compile_hierarchy, device_air_setup,
+                                 device_rs_setup, device_sa_setup_block,
+                                 diffusion_stencil_2d, linear_elasticity,
+                                 poisson, recirc_flow,
+                                 smoothed_aggregation_solver, stencil_grid)
+    from pyamg_tpu_torch.engine.batched_cycle import supports_interleaved
+    from pyamg_tpu_torch.parallel import (initialize_distributed,
+                                          make_solver_mesh, shard_hierarchy)
+    from pyamg_tpu_torch.sparse import DIAMatrix
+
+    f32 = torch.float32
+    side = torch.cuda.Stream()
+    rng = np.random.default_rng(21)
+
+    def walls(fn):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    def lane_case(label, unsharded, sharded, B, true_relres, kw, ref=None):
+        """``unsharded`` / ``sharded``: (B, **kw) -> X; B (n, K)."""
+        res0 = []
+        unsharded(B, residuals=res0, **kw)
+        sharded(B, **kw)                           # warm-up
+        res1 = []
+        X1, counts, _ = counted(lambda: sharded(B, residuals=res1, **kw))
+        launches[label] = counts
+        t1, t0 = walls(lambda: sharded(B, **kw)), walls(
+            lambda: unsharded(B, **kw))
+        its0 = [len(r) - 1 for r in res0]
+        its1 = [len(r) - 1 for r in res1]
+        true1 = true_relres(X1)
+        normb = np.linalg.norm(B, axis=0)
+        diff = max(float(np.max(np.abs(r1[:m] - r0[:m]) / r0[:m]))
+                   for r0, r1 in zip(res0, res1)
+                   for m in (min(len(r0), len(r1)),))
+        per_solve = sum(counts.values())
+        lane_k = {k: c for k, c in counts.items()
+                  if k.split(".")[0] in ("dia_halo_spmm",
+                                         "block_dia_halo_spmm")}
+        log(f"{label} (world of one, K={B.shape[1]}, {kw['accel']} to "
+            f"{kw['tol']:g}): iterations per lane {its1} (unsharded "
+            f"{its0}); history relres max "
+            f"{max(r[-1] for r in res1) / normb.min():.3e}, true relres "
+            f"per lane {[f'{v:.3e}' for v in true1]}; history vs unsharded "
+            f"max rel diff {diff:.2e}; solve {t1:.4f} s sharded, {t0:.4f} "
+            f"s unsharded (numpy B, median of 3); {per_solve} kernel "
+            f"launches a solve, lane halo {json.dumps(lane_k)}")
+        log(f"  launches in that solve: {json.dumps(counts, sort_keys=True)}")
+        check(X1.shape == B.shape and bool(np.isfinite(X1).all())
+              and all(r[-1] <= kw["tol"] * nb for r, nb in zip(res1, normb)),
+              f"{label}: finite, every lane's relres <= {kw['tol']:g}")
+        check(its1 == its0, f"{label}: iterations per lane {its1}, the "
+              f"unsharded batched solve's {its0}")
+        if ref is not None:
+            check(all(i == ref for i in its1), f"{label}: {ref} iterations "
+                  f"every lane ({its1})")
+        check(diff <= SHARDED_HIST_RTOL, f"{label}: every lane's history "
+              f"within rtol {SHARDED_HIST_RTOL:g} of the unsharded one "
+              f"({diff:.2e})")
+        check(not any(k.startswith("int_") for k in counts),
+              f"{label}: the K-major lane route (no interleaved kernel)")
+        path_launches(check, label, counts)
+
+    def one_case(label, unsharded, sharded, b, kw, rtol):
+        """A one-vector solve: the unsharded count, history within
+        ``rtol``."""
+        res0, res1 = [], []
+        unsharded(b, residuals=res0, **kw)
+        sharded(b, **kw)
+        _, counts, wall = counted(lambda: sharded(b, residuals=res1, **kw))
+        launches[label] = counts
+        m = min(len(res0), len(res1))
+        diff = float(np.max(np.abs(np.subtract(res1[:m], res0[:m]))
+                            / np.asarray(res0[:m])))
+        log(f"{label} (world of one, {kw['accel']}, maxiter "
+            f"{kw['maxiter']}): {len(res1) - 1} iterations (unsharded "
+            f"{len(res0) - 1}), last {res1[-1] / res1[0]:.3e} of the first,"
+            f" history vs unsharded max rel diff {diff:.2e}; solve "
+            f"{wall:.4f} s; {sum(counts.values())} kernel launches")
+        check(len(res1) == len(res0) and diff <= rtol,
+              f"{label}: {len(res1) - 1} iterations, the unsharded "
+              f"{len(res0) - 1}, history within rtol {rtol:g} ({diff:.2e})")
+        path_launches(check, label, counts)
+
+    def grid_pair(solver, mesh):
+        """(unsharded, sharded) solves of a grid solver, and the sharded
+        hierarchy."""
+        hs = shard_hierarchy(solver.hierarchy, mesh)
+        return solver.solve, StructuredDeviceSolver(
+            hs, solver.grid, solver.grid_p, solver.setup_info).solve, hs
+
+    def lane_remap(label, solver, hs):
+        """K12 / K13 on the remap ``label``'s level-0 transfers apply."""
+        remap_checks(check, label, LANE_REMAPS[label], solver, hs, rand,
+                     results, lanes=LANES)
+
+    def true_of(M, B):
+        """Each lane's true relres of an (n, K) solution of M X = B."""
+        return lambda X: np.linalg.norm(
+            B - M @ X.astype(np.float64), axis=0) / np.linalg.norm(B, axis=0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rank, world, _ = initialize_distributed(
+            init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+            device=dev)
+        try:
+            mesh = make_solver_mesh(device=dev)
+            log(f"sharded lanes, A^T and cross-shard sweeps: "
+                f"torch.distributed {dist.get_backend()}, rank {rank} of "
+                f"{world}; {card}")
+            # kernels: K16's lane mode at the device-built 2048^2 level 0
+            lv0 = dsa.hierarchy.levels[0]
+            for what, op in (("S", lv0.P.S), ("S^T", lv0.R.St)):
+                for dtype in (f32, torch.float64):
+                    M = op if dtype == f32 else DIAMatrix(
+                        data=op.data.double(), offsets=op.offsets,
+                        shape=op.shape, nnz=op.nnz)
+                    halo_lane_checks(
+                        check, M, rand, results,
+                        f"device level0 {what} nd={M.ndiags} "
+                        f"n_pad={M.n_pad}",
+                        "sharded batched device-built config 1"
+                        if dtype == f32 and what == "S" else None, side)
+                    del M
+            op = d2.hierarchy.levels[0].P.S
+            halo_lane_checks(check, op, rand, results,
+                             f"64^3 level0 S nd={op.ndiags} n_pad={op.n_pad}",
+                             None, side)
+            # config 1: the device-built hierarchy (and the lane-aligned
+            # one's sharded copy, which the interleaved route refuses)
+            hs_la = shard_hierarchy(dla.hierarchy, mesh)
+            check(supports_interleaved(dla.hierarchy)
+                  and not supports_interleaved(hs_la),
+                  "the lane-aligned hierarchy takes the interleaved route "
+                  "unsharded and not sharded (the reference's rule)")
+            del hs_la
+            n1 = A1.shape[0]
+            B1 = rng.random((n1, LANES))
+            cg5 = dict(tol=1e-5, maxiter=100, accel="cg")
+            un, sh, hs = grid_pair(dsa, mesh)
+            lane_case("sharded batched device-built config 1", un, sh, B1,
+                      true_of(A1, B1), cg5, REF_ITERS_BATCHED_1E5)
+            lane_remap("sharded batched device-built config 1", dsa, hs)
+            del un, sh, hs
+            hsm = shard_hierarchy(dml.hierarchy, mesh)
+            lane_case("sharded batched host-built config 1", dml.solve,
+                      DeviceMultilevelSolver(hsm).solve, B1,
+                      true_of(A1, B1), cg5)
+            del hsm, B1
+            # config 3 RS 512^2
+            A3 = stencil_grid(diffusion_stencil_2d(
+                epsilon=1e-3, theta=0.0, type="FD"), C3_GRID).tocsr()
+            d3 = device_rs_setup(A3, grid=C3_GRID, dtype=f32, device=dev,
+                                 max_coarse=400)
+            B3 = rng.random((A3.shape[0], LANES))
+            un, sh, hs = grid_pair(d3, mesh)
+            lane_case("sharded batched config 3 RS", un, sh, B3,
+                      true_of(A3, B3), dict(cg5, maxiter=60),
+                      REF_ITERS_C3_RS)
+            lane_remap("sharded batched config 3 RS", d3, hs)
+            del d3, un, sh, hs, B3
+            # config 4 1024^2: block levels, columns grid-encoded
+            A4, Bm = linear_elasticity(C4_BIG)
+            d4 = device_sa_setup_block(A4, grid=C4_BIG_NODE_GRID, B=Bm,
+                                       max_coarse=400, dtype=f32, device=dev)
+            lv4 = d4.hierarchy.levels[0]
+            block_halo_lane_checks(
+                check, lv4.A, rand, results,
+                f"config4 1024^2 level0 A bs={lv4.A.bs} nd={lv4.A.ndiags} "
+                f"nb={lv4.A.nb_pad}", "sharded batched config 4 1024^2",
+                side)
+            block_zero_lane_check(
+                check, *lv4.pre.arrays, rand, results,
+                f"config4 1024^2 level0 Dinv nb={lv4.A.nb_pad} "
+                f"bs={lv4.A.bs}", "sharded batched config 4 1024^2")
+            transposed_level_checks(check, lv0.A, lv4.A, rand)
+            B4 = rng.random((A4.shape[0], LANES))
+            E4 = np.stack([d4._encode(c) for c in B4.T], axis=1)
+            true4 = true_of(A4, B4)
+            hs4 = shard_hierarchy(d4.hierarchy, mesh)
+            lane_case("sharded batched config 4 1024^2",
+                      DeviceMultilevelSolver(d4.hierarchy).solve,
+                      DeviceMultilevelSolver(hs4).solve, E4,
+                      lambda X: true4(np.stack(
+                          [d4._decode(c) for c in X.T], axis=1)), cg5)
+            lane_remap("sharded batched config 4 1024^2", d4, hs4)
+            del d4, hs4, lv4, E4, B4
+            # the 640k unstructured SA hierarchy, CG to 1e-6
+            Bu = rng.standard_normal((A_un.shape[0], LANES))
+            hsu = shard_hierarchy(dus.hierarchy, mesh)
+            lane_case("sharded batched unstructured",
+                      DeviceMultilevelSolver(dus.hierarchy).solve,
+                      DeviceMultilevelSolver(hsu).solve, Bu,
+                      true_of(A_un, Bu), dict(tol=1e-6, maxiter=100,
+                                              accel="cg"))
+            del hsu, Bu
+            # CGNR / CGNE: config 5's RS 1024^2 and AIR 256^2
+            A5 = recirc_flow(C5_GRID, epsilon=1e-2)
+            d5 = device_rs_setup(A5, grid=C5_GRID, dtype=f32, device=dev,
+                                 max_coarse=400)
+            Aa, ba = advection_2d(AIR_GRID, theta=np.pi / 4)
+            da = device_air_setup(Aa, grid=AIR_GRID, device=dev,
+                                  max_coarse=400)
+            for what, solver, b in (
+                    ("config 5 RS", d5,
+                     np.random.default_rng(4).random(A5.shape[0])),
+                    ("structured AIR", da, np.asarray(ba))):
+                un, sh, _ = grid_pair(solver, mesh)
+                for accel in ("cgnr", "cgne"):
+                    one_case(f"sharded {accel.upper()} {what}", un, sh, b,
+                             dict(tol=1e-8, maxiter=20, accel=accel),
+                             SHARDED_HIST_RTOL)
+                del un, sh
+            del d5, da
+            # the Cimmino sweep and windowed Schwarz, host-built 256^2
+            A2 = poisson(STATIONARY_GRID, format="csr")
+            b2 = np.random.default_rng(5).random(A2.shape[0])
+            for label, spec in (("sharded Cimmino 256^2 float64",
+                                 ("gauss_seidel_nr", {"sweep":
+                                                      "symmetric"})),
+                                ("sharded Schwarz 256^2 float64",
+                                 ("schwarz", {}))):
+                ml = smoothed_aggregation_solver(A2, presmoother=spec,
+                                                 postsmoother=spec)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    h = compile_hierarchy(ml, dtype=torch.float64,
+                                          device=dev)
+                one_case(label, DeviceMultilevelSolver(h).solve,
+                         DeviceMultilevelSolver(
+                             shard_hierarchy(h, mesh)).solve, b2,
+                         dict(tol=1e-8, maxiter=40, accel="cg"), 1e-8)
         finally:
             dist.destroy_process_group()
 
@@ -4582,6 +5129,13 @@ def main():
                                dsa, A, d2, A3)
     log(f"sharded device-built phase: {time.perf_counter() - t_sd:.1f} s")
 
+    # 21. sharded batched solves, A^T of sharded levels (CGNR / CGNE) and
+    # the cross-shard sweeps (a world of one)
+    t_sl = time.perf_counter()
+    sharded_lanes_phase(check, dev, card, rand, results, launches, dsa, dml,
+                        A, d2, dla, dus, A_un)
+    log(f"sharded lanes phase: {time.perf_counter() - t_sl:.1f} s")
+
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
               file=sys.stderr)
@@ -4589,7 +5143,7 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 21. result lines: each path kernel instance, with its launches on
+    # 22. result lines: each path kernel instance, with its launches on
     # the paths that run it (``launches``: the first of them) and, where a
     # later path's shapes were checked too (config 2's 64^3), those
     # numbers under ``at_paths``

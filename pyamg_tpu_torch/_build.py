@@ -157,20 +157,23 @@ _SIGNATURES = {
     "pyamg_interleaved_f32": (_P, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P, _P,
                               _I, _P),
     # data, ld, offsets (host ints), offsets_dev, nd, n_local, halo, left,
-    # x, right, vec, lo, hi, a0, a1, b0, b1, y, stream
-    "pyamg_halo_spmv_f32": (_P, _L, _IP, _P, _I, _L, _I, _P, _P, _P, _I, _I,
-                            _I, _I, _I, _I, _I, _P, _P),
-    "pyamg_halo_spmv_f64": (_P, _L, _IP, _P, _I, _L, _I, _P, _P, _P, _I, _I,
-                            _I, _I, _I, _I, _I, _P, _P),
+    # ldl, x, ldx, right, ldr, lanes, vec, lo, hi, a0, a1, b0, b1, y,
+    # stream
+    "pyamg_halo_spmv_f32": (_P, _L, _IP, _P, _I, _L, _I, _P, _L, _P, _L, _P,
+                            _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "pyamg_halo_spmv_f64": (_P, _L, _IP, _P, _I, _L, _I, _P, _L, _P, _L, _P,
+                            _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # data, offsets, nd, nb, bs, lanes, x, b, y, mode, stream
     "pyamg_block_dia_spmv_f32": (_P, _P, _I, _L, _I, _I, _P, _P, _P, _I, _P),
     "pyamg_block_dia_spmv_f64": (_P, _P, _I, _L, _I, _I, _P, _P, _P, _I, _P),
-    # data, ld, offsets, nd, nb, bs, halo, left, x, right, b, y, lo, hi,
-    # a0, a1, b0, b1, mode, stream
-    "pyamg_block_dia_halo_f32": (_P, _L, _P, _I, _L, _I, _I, _P, _P, _P, _P,
-                                 _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "pyamg_block_dia_halo_f64": (_P, _L, _P, _I, _L, _I, _I, _P, _P, _P, _P,
-                                 _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # data, ld, offsets, nd, nb, bs, halo, left, ldl, x, ldx, right, ldr,
+    # b, y, lanes, lo, hi, a0, a1, b0, b1, mode, stream
+    "pyamg_block_dia_halo_f32": (_P, _L, _P, _I, _L, _I, _I, _P, _L, _P, _L,
+                                 _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _P),
+    "pyamg_block_dia_halo_f64": (_P, _L, _P, _I, _L, _I, _I, _P, _L, _P, _L,
+                                 _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _P),
     # data, offsets, nd, nb, bs, lanes, x, b, dinv, omega, omega_dev,
     # colors, colour, y, r, mode, stream
     "pyamg_block_dia_jacobi_f32": (_P, _P, _I, _L, _I, _I, _P, _P, _P,

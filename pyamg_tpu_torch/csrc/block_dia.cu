@@ -83,7 +83,14 @@
 // they were (the sum starts at +0 and never becomes -0), so the result
 // equals B1 PLAIN / RESID on the whole operator bit for bit, in the same
 // instance (the unrolled BS or the run-time one) and the same summation
-// order.
+// order.  On a K-major lane stack (the wrapper launches at most MAX_LANES
+// lanes at a time, as B1's) the CTAs walk super tiles of the launch's row
+// blocks (128 in float32, 1 in float64), the lanes of a tile one after
+// another, as K16's lane mode does, so a tile's blocks are read from
+// device memory once for all its lanes (B1 puts the lane on gridDim.y
+// and reads them once a lane); the halos are (K, halo * bs) stacks whose
+// lanes lie ldl and ldr values apart (a received buffer, or in a ring of
+// one x's own tail and head), and every lane's value is B1's lane value.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -428,13 +435,18 @@ struct HaloArgs {
   long long nb;           // the block's node rows
   int bs;
   int halo;               // nodes in each halo
-  const T* left;          // (halo * bs)
-  const T* x;             // (nb * bs)
-  const T* right;         // (halo * bs)
-  const T* b;             // (nb * bs), RESID
-  T* y;                   // (nb * bs)
+  const T* left;          // (lanes, halo * bs), lanes ldl values apart
+  long long ldl;
+  const T* x;             // (lanes, nb * bs), lanes ldx values apart
+  long long ldx;          // (and y's and b's)
+  const T* right;         // (lanes, halo * bs), lanes ldr values apart
+  long long ldr;
+  const T* b;             // (lanes, nb * bs), RESID
+  T* y;                   // (lanes, nb * bs)
   int lo, hi;             // the interior row blocks
   int a0, a1, b0;         // the row blocks of this launch: [a0, a1), [b0, ...)
+  int nrb;                // their count
+  int lanes;
 };
 
 // node j's source of x (HaloSource) for this block of node rows
@@ -446,10 +458,27 @@ __device__ __forceinline__ HaloSource<T, INTERIOR> halo_source(
 
 template <typename T, int BS, int Mode>
 __global__ void __launch_bounds__(kThreads)
-    block_dia_halo_kernel(const HaloArgs<T> a) {
+    block_dia_halo_kernel(HaloArgs<T> a) {
+  // the launch's row blocks, [a0, a1) then [b0, ...), nrb in all, in
+  // super tiles of SUPER, the lanes of a tile one after another (K16's
+  // lane order): a tile's blocks come from device memory once and from L2
+  // for the other lanes
+  constexpr int SUPER = sizeof(T) == 4 ? 128 : 1;
   const int bid = static_cast<int>(blockIdx.x);
+  const int st = bid / (SUPER * a.lanes);
+  const int base = st * SUPER;
+  const int tile = min(SUPER, a.nrb - base);
+  const int rem = bid - st * SUPER * a.lanes;
+  const int k = rem / tile;
+  const int v = base + rem - k * tile;
+  const long long lane = k;
+  a.x += lane * a.ldx;
+  a.y += lane * a.ldx;
+  if (Mode == RESID) a.b += lane * a.ldx;
+  a.left += lane * a.ldl;
+  a.right += lane * a.ldr;
   const int na = a.a1 - a.a0;
-  const int rb = bid < na ? a.a0 + bid : a.b0 + (bid - na);
+  const int rb = v < na ? a.a0 + v : a.b0 + (v - na);
   const bool interior = rb >= a.lo && rb < a.hi;
   const long long n0 = static_cast<long long>(rb) * kThreads;
   if constexpr (BS > 0) {
@@ -488,7 +517,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int BS>
-void launch_halo_mode(const HaloArgs<T>& a, unsigned int blocks, int mode,
+void launch_halo_mode(const HaloArgs<T>& a, dim3 blocks, int mode,
                       cudaStream_t s) {
   if (mode == RESID) {
     block_dia_halo_kernel<T, BS, RESID><<<blocks, kThreads, 0, s>>>(a);
@@ -500,24 +529,31 @@ void launch_halo_mode(const HaloArgs<T>& a, unsigned int blocks, int mode,
 template <typename T>
 int block_halo(const void* data, long long ld, const void* offsets, int nd,
                long long nb, int bs, int halo, const void* left,
-               const void* x, const void* right, const void* b, void* y,
-               int lo, int hi, int a0, int a1, int b0, int b1, int mode,
-               void* stream) {
+               long long ldl, const void* x, long long ldx,
+               const void* right, long long ldr, const void* b, void* y,
+               int lanes, int lo, int hi, int a0, int a1, int b0, int b1,
+               int mode, void* stream) {
   const long long row_blocks = (nb + kThreads - 1) / kThreads;
   if (nb <= 0 || nd < 1 || bs < 1 || halo < 1 || halo > nb ||
       ld < nb * bs * bs || row_blocks >= (1LL << 31) || lo < 0 || hi < lo ||
       hi > row_blocks || a0 < 0 || a1 < a0 || b0 < a1 || b1 < b0 ||
       b1 > row_blocks || (mode != PLAIN && mode != RESID) ||
-      (mode == RESID && b == nullptr)) {
+      (mode == RESID && b == nullptr) || lanes < 1 ||
+      (static_cast<long long>(a1 - a0) + (b1 - b0)) * lanes >= (1LL << 31) ||
+      (lanes > 1 && (ldl < halo * bs || ldr < halo * bs ||
+                     ldx < nb * bs))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a1 - a0 + b1 - b0 == 0) return static_cast<int>(cudaSuccess);
   const HaloArgs<T> a{static_cast<const T*>(data), ld,
                       static_cast<const int*>(offsets), nd, nb, bs, halo,
-                      static_cast<const T*>(left), static_cast<const T*>(x),
-                      static_cast<const T*>(right), static_cast<const T*>(b),
-                      static_cast<T*>(y), lo, hi, a0, a1, b0};
-  const unsigned int blocks = static_cast<unsigned int>((a1 - a0) + (b1 - b0));
+                      static_cast<const T*>(left), ldl,
+                      static_cast<const T*>(x), ldx,
+                      static_cast<const T*>(right), ldr,
+                      static_cast<const T*>(b), static_cast<T*>(y), lo, hi,
+                      a0, a1, b0, (a1 - a0) + (b1 - b0), lanes};
+  const dim3 blocks(static_cast<unsigned int>(
+      static_cast<long long>(a.nrb) * lanes));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // B1's instance choice (dispatch below): the unrolled bs, or the
   // run-time one where a block of 16-byte words does not start aligned
@@ -667,28 +703,36 @@ int pyamg_block_dia_jacobi_f64(const void* data, const void* offsets, int nd,
 }
 
 // B1's halo mode: data, ld (values between diagonals), offsets (device),
-// nd, nb (the block's node rows), bs, halo (nodes), left, x, right, b
-// (RESID, else null), y, lo, hi (the interior row blocks of 256 nodes),
-// a0, a1, b0, b1 (the row blocks to compute), mode, stream
+// nd, nb (the block's node rows), bs, halo (nodes), left, ldl (values
+// between its lanes), x, ldx (values between the lanes of x, b and y),
+// right, ldr, b (RESID, else null), y, lanes (x, b and y K-major stacks
+// of nb * bs values a lane, a vector for 1), lo, hi (the
+// interior row blocks of 256 nodes), a0, a1, b0, b1 (the row blocks to
+// compute), mode, stream
 int pyamg_block_dia_halo_f32(const void* data, long long ld,
                              const void* offsets, int nd, long long nb,
                              int bs, int halo, const void* left,
-                             const void* x, const void* right, const void* b,
-                             void* y, int lo, int hi, int a0, int a1, int b0,
-                             int b1, int mode, void* stream) {
-  return block_halo<float>(data, ld, offsets, nd, nb, bs, halo, left, x,
-                           right, b, y, lo, hi, a0, a1, b0, b1, mode, stream);
+                             long long ldl, const void* x, long long ldx,
+                             const void* right, long long ldr, const void* b,
+                             void* y, int lanes, int lo, int hi, int a0,
+                             int a1, int b0, int b1, int mode,
+                             void* stream) {
+  return block_halo<float>(data, ld, offsets, nd, nb, bs, halo, left, ldl,
+                           x, ldx, right, ldr, b, y, lanes, lo, hi, a0, a1,
+                           b0, b1, mode, stream);
 }
 
 int pyamg_block_dia_halo_f64(const void* data, long long ld,
                              const void* offsets, int nd, long long nb,
                              int bs, int halo, const void* left,
-                             const void* x, const void* right, const void* b,
-                             void* y, int lo, int hi, int a0, int a1, int b0,
-                             int b1, int mode, void* stream) {
-  return block_halo<double>(data, ld, offsets, nd, nb, bs, halo, left, x,
-                            right, b, y, lo, hi, a0, a1, b0, b1, mode,
-                            stream);
+                             long long ldl, const void* x, long long ldx,
+                             const void* right, long long ldr, const void* b,
+                             void* y, int lanes, int lo, int hi, int a0,
+                             int a1, int b0, int b1, int mode,
+                             void* stream) {
+  return block_halo<double>(data, ld, offsets, nd, nb, bs, halo, left, ldl,
+                            x, ldx, right, ldr, b, y, lanes, lo, hi, a0, a1,
+                            b0, b1, mode, stream);
 }
 
 }  // extern "C"

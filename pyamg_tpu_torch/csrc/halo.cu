@@ -2,6 +2,9 @@
 // pyamg_tpu_torch, for Hopper (sm_90a).
 //
 //   halo_spmv_kernel  replaces pyamg_tpu/parallel/pallas_halo.py::make_pallas_halo_spmv
+//                     (one vector), and on K lanes the arithmetic of
+//                     pyamg_tpu/sparse/dia.py::_dia_pallas_matmat_k on a
+//                     rank's rows (the reference's sharded batched apply)
 //
 // One rank (or one shard) owns rows [0, n_local) of a DIA operator whose
 // offsets all lie in [-halo, halo]: data is (nd, ld) row-major with
@@ -31,6 +34,22 @@
 // while it runs, waits for it, and launches the boundary blocks of both
 // ends in one launch.
 //
+// The K-lane mode (a batched solve's K-major (K, n_local) stacks, x and y
+// lane k at k * ldx, ldx = n_local or, for a row block of a wider stack,
+// its width; the halos (K, halo) stacks whose lanes lie ldl and ldr
+// values apart: a received buffer, ldl = halo, or in a ring of one x's
+// own tail and head, ldl = n_local) puts the lane on the grid as
+// K8 does (csrc/dia_k.cu::dia_k_lane_kernel): a CTA streams one lane's
+// row block, and the CTAs walk super tiles of the launch's row blocks (128
+// in float32, 1 in float64, K8's), the lanes of a tile one after another,
+// so the tile's diagonals are read from device memory once for all K
+// lanes; with K8's cache policy (the diagonals kept in L2, y stored
+// evict-first), not the one-vector form's.  Every lane in one launch,
+// one exchange a side for all lanes.  A lane's value is the one-vector
+// form's, so in a ring of one the mode
+// gives K8's bits (K8 skips an out-of-range term, this adds its stored
+// zero, fma(0, x_j, acc) = acc).  Bound: (nd + 2K) n_local values.
+//
 // ND, when not 0, fixes the diagonal count (5 and 7, the 2-D and 3-D
 // grids' levels), so the term loop unrolls and a row's loads go out
 // together, and the offsets arrive as a kernel argument; the run-time
@@ -47,8 +66,8 @@
 //
 // Bound: device-memory bandwidth, as K1: the nd diagonals and x read and
 // y written once ((nd + 2) * n_local * sizeof(T) bytes at 2 flops per
-// stored entry).  The diagonals stream through L2 evict-first (read once),
-// so x's runs, read nd times, stay there.
+// stored entry).  One vector streams the diagonals through L2 evict-first
+// (read once), so x's runs, read nd times, stay there.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -65,9 +84,19 @@ struct HaloOffsets {
   int o[ND > 0 ? ND : 1];
 };
 
+// launch row blocks a super tile of the lane form (K8's: 128 in float32,
+// 1 in float64)
+template <typename T>
+struct HaloSuper {
+  static constexpr int value = sizeof(T) == 4 ? 128 : 1;
+};
+
 // rows [i0, i0 + VEC) of the block; INTERIOR: every neighbour run (and
-// the aligned runs around it) lies in [0, n_local)
-template <typename T, int ND, int VEC, bool INTERIOR>
+// the aligned runs around it) lies in [0, n_local).  LANES: the lane
+// mode's cache policy (K8's): the diagonals, read again by the tile's
+// other lanes, stay in L2 and y leaves evict-first; one vector streams
+// the diagonals evict-first instead, so that x's runs stay
+template <typename T, int ND, int VEC, bool INTERIOR, bool LANES>
 __device__ __forceinline__ void halo_rows(const T* __restrict__ data,
                                           int64_t ld, const int* offs,
                                           int nd, int64_t n_local, int halo,
@@ -83,7 +112,7 @@ __device__ __forceinline__ void halo_rows(const T* __restrict__ data,
   for (int d = 0; d < n_d; ++d) {
     const int o = offs[d];
     T a[VEC];
-    ld_vec<T, VEC, true>(a, data + static_cast<int64_t>(d) * ld + i0);
+    ld_vec<T, VEC, !LANES>(a, data + static_cast<int64_t>(d) * ld + i0);
     if (INTERIOR) {
       T xv[VEC];
       ld_x<T, VEC>(xv, x + i0 + o, o);
@@ -99,25 +128,48 @@ __device__ __forceinline__ void halo_rows(const T* __restrict__ data,
       }
     }
   }
-  st_vec<T, VEC, false>(y + i0, acc);
+  st_vec<T, VEC, LANES>(y + i0, acc);
 }
 
-// K16 over the row blocks [a0, a1) and [b0, b1) (see the header); the row
-// blocks [lo, hi) are interior.  offsets: the device array the run-time
-// form (ND 0) stages in shared memory.
-template <typename T, int ND, int VEC>
+// K16 over the row blocks [a0, a1) and [b0, b1) of each of `lanes` lanes
+// (see the header); the row blocks [lo, hi) are interior.  The launch's
+// row blocks, [a0, a1) then [b0, b1), are nrb in all; the CTAs walk super
+// tiles of SUPER of them, the lanes of a tile one after another (K8's
+// order, csrc/dia_k.cu::dia_k_lane_kernel), so a tile's diagonals come
+// from device memory once and from L2 for the other lanes.  Lane k's x
+// and y start k * ldx values in, its halos k * ldl and k * ldr.
+// offsets: the device array the run-time form (ND 0) stages in shared
+// memory.
+template <typename T, int ND, int VEC, bool LANES>
 __global__ void __launch_bounds__(kThreads)
 halo_spmv_kernel(const T* __restrict__ data, int64_t ld, HaloOffsets<ND> offs,
                  const int* __restrict__ offsets, int nd, int64_t n_local,
-                 int halo, const T* __restrict__ left,
-                 const T* __restrict__ x, const T* __restrict__ right,
-                 int lo, int hi, int a0, int a1, int b0,
+                 int halo, const T* __restrict__ left, int64_t ldl,
+                 const T* __restrict__ x, int64_t ldx,
+                 const T* __restrict__ right, int64_t ldr, int lanes,
+                 int lo, int hi, int a0, int a1, int b0, int nrb,
                  T* __restrict__ y) {
   const int bid = static_cast<int>(blockIdx.x);
+  // one vector: the CTA's row block is its index, with no division
+  int k = 0, v = bid;
+  if constexpr (LANES) {
+    constexpr int SUPER = HaloSuper<T>::value;
+    const int st = bid / (SUPER * lanes);
+    const int base = st * SUPER;
+    const int tile = min(SUPER, nrb - base);
+    const int rem = bid - st * SUPER * lanes;
+    k = rem / tile;
+    v = base + rem - k * tile;
+  }
   const int na = a1 - a0;
-  const int rb = bid < na ? a0 + bid : b0 + (bid - na);
+  const int rb = v < na ? a0 + v : b0 + (v - na);
   const int64_t i0 = static_cast<int64_t>(rb) * (kThreads * VEC) +
                      static_cast<int64_t>(threadIdx.x) * VEC;
+  const int64_t lane = static_cast<int64_t>(k) * ldx;
+  const T* xl = x + lane;
+  const T* ll = left + static_cast<int64_t>(k) * ldl;
+  const T* rl = right + static_cast<int64_t>(k) * ldr;
+  T* yl = y + lane;
   const int* o;
   if constexpr (ND > 0) {
     o = offs.o;
@@ -131,11 +183,11 @@ halo_spmv_kernel(const T* __restrict__ data, int64_t ld, HaloOffsets<ND> offs,
   }
   if (i0 >= n_local) return;
   if (rb >= lo && rb < hi) {
-    halo_rows<T, ND, VEC, true>(data, ld, o, nd, n_local, halo, left, x,
-                                right, i0, y);
+    halo_rows<T, ND, VEC, true, LANES>(data, ld, o, nd, n_local, halo, ll,
+                                       xl, rl, i0, yl);
   } else {
-    halo_rows<T, ND, VEC, false>(data, ld, o, nd, n_local, halo, left, x,
-                                 right, i0, y);
+    halo_rows<T, ND, VEC, false, LANES>(data, ld, o, nd, n_local, halo, ll,
+                                        xl, rl, i0, yl);
   }
 }
 
@@ -145,33 +197,40 @@ constexpr int kMaxStagedDiags = 48 * 1024 / 4;
 template <typename T, int ND, int VEC>
 int launch_halo(const void* data, long long ld, const int* offsets,
                 const void* offsets_dev, int nd, long long n_local, int halo,
-                const void* left, const void* x, const void* right, int lo,
-                int hi, int a0, int a1, int b0, int b1, void* y,
+                const void* left, long long ldl, const void* x,
+                long long ldx, const void* right, long long ldr, int lanes,
+                int lo, int hi, int a0, int a1, int b0, int b1, void* y,
                 cudaStream_t s) {
   HaloOffsets<ND> offs{};
   if constexpr (ND > 0) {
     for (int d = 0; d < ND; ++d) offs.o[d] = offsets[d];
   }
   const size_t smem = ND > 0 ? 0 : static_cast<size_t>(nd) * sizeof(int);
-  const unsigned int blocks = static_cast<unsigned int>((a1 - a0) + (b1 - b0));
-  halo_spmv_kernel<T, ND, VEC><<<blocks, kThreads, smem, s>>>(
+  const int nrb = (a1 - a0) + (b1 - b0);
+  const unsigned int blocks = static_cast<unsigned int>(
+      static_cast<long long>(nrb) * lanes);
+  auto kernel = lanes > 1 ? halo_spmv_kernel<T, ND, VEC, true>
+                          : halo_spmv_kernel<T, ND, VEC, false>;
+  kernel<<<blocks, kThreads, smem, s>>>(
       static_cast<const T*>(data), ld, offs,
       static_cast<const int*>(offsets_dev), nd, n_local, halo,
-      static_cast<const T*>(left), static_cast<const T*>(x),
-      static_cast<const T*>(right), lo, hi, a0, a1, b0, static_cast<T*>(y));
+      static_cast<const T*>(left), ldl, static_cast<const T*>(x), ldx,
+      static_cast<const T*>(right), ldr, lanes, lo, hi, a0, a1, b0, nrb,
+      static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int VEC>
 int launch_halo_nd(const void* data, long long ld, const int* offsets,
                    const void* offsets_dev, int nd, long long n_local,
-                   int halo, const void* left, const void* x,
-                   const void* right, int lo, int hi, int a0, int a1, int b0,
-                   int b1, void* y, cudaStream_t s) {
+                   int halo, const void* left, long long ldl, const void* x,
+                   long long ldx, const void* right, long long ldr,
+                   int lanes, int lo, int hi, int a0, int a1, int b0, int b1,
+                   void* y, cudaStream_t s) {
 #define PYAMG_K16(ND)                                                       \
   return launch_halo<T, ND, VEC>(data, ld, offsets, offsets_dev, nd,        \
-                                 n_local, halo, left, x, right, lo, hi, a0, \
-                                 a1, b0, b1, y, s)
+                                 n_local, halo, left, ldl, x, ldx, right,   \
+                                 ldr, lanes, lo, hi, a0, a1, b0, b1, y, s)
   if (nd == 5) PYAMG_K16(5);
   if (nd == 7) PYAMG_K16(7);
   PYAMG_K16(0);
@@ -181,16 +240,21 @@ int launch_halo_nd(const void* data, long long ld, const int* offsets,
 template <typename T>
 int launch_halo_vec(const void* data, long long ld, const int* offsets,
                     const void* offsets_dev, int nd, long long n_local,
-                    int halo, const void* left, const void* x,
-                    const void* right, int vec, int lo, int hi, int a0,
-                    int a1, int b0, int b1, void* y, void* stream) {
+                    int halo, const void* left, long long ldl, const void* x,
+                    long long ldx, const void* right, long long ldr,
+                    int lanes, int vec, int lo, int hi, int a0, int a1,
+                    int b0, int b1, void* y, void* stream) {
   const long long rows = static_cast<long long>(kThreads) * vec;
   const long long row_blocks = (n_local + rows - 1) / rows;
+  const long long nrb = static_cast<long long>(a1 - a0) + (b1 - b0);
   if (nd < 1 || nd > kMaxStagedDiags || halo < 1 || halo > n_local ||
       ld < n_local || !(vec == 1 || (vec == 4 && sizeof(T) == 4)) ||
       n_local % vec != 0 || row_blocks >= (1LL << 31) || lo < 0 ||
       hi < lo || hi > row_blocks || a0 < 0 || a1 < a0 || b0 < a1 ||
-      b1 < b0 || b1 > row_blocks) {
+      b1 < b0 || b1 > row_blocks || lanes < 1 ||
+      nrb * lanes >= (1LL << 31) ||
+      (lanes > 1 && (ldl < halo || ldr < halo || ldx < n_local ||
+                     ldx % vec != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int d = 0; d < nd; ++d) {
@@ -198,18 +262,18 @@ int launch_halo_vec(const void* data, long long ld, const int* offsets,
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (a1 - a0 + b1 - b0 == 0) return static_cast<int>(cudaSuccess);
+  if (nrb == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (sizeof(T) == 4) {
     if (vec == 4) {
       return launch_halo_nd<T, 4>(data, ld, offsets, offsets_dev, nd,
-                                  n_local, halo, left, x, right, lo, hi, a0,
-                                  a1, b0, b1, y, s);
+                                  n_local, halo, left, ldl, x, ldx, right,
+                                  ldr, lanes, lo, hi, a0, a1, b0, b1, y, s);
     }
   }
   return launch_halo_nd<T, 1>(data, ld, offsets, offsets_dev, nd, n_local,
-                              halo, left, x, right, lo, hi, a0, a1, b0, b1, y,
-                              s);
+                              halo, left, ldl, x, ldx, right, ldr, lanes, lo,
+                              hi, a0, a1, b0, b1, y, s);
 }
 
 }  // namespace
@@ -217,29 +281,37 @@ int launch_halo_vec(const void* data, long long ld, const int* offsets,
 extern "C" {
 
 // data, ld (data's row stride), offsets (a host array of nd ints),
-// offsets_dev (the same on the device), nd, n_local, halo, left, x, right,
-// vec (rows a thread: 4, float32 only, with n_local a multiple of 4 and
-// data, ld, x and y 16-byte aligned; or 1), lo, hi (the interior row
-// blocks of 256 * vec rows), a0, a1, b0, b1 (the row blocks to compute:
-// [a0, a1) and [b0, b1)), y, stream
+// offsets_dev (the same on the device), nd, n_local, halo, left, ldl
+// (values between its lanes), x, ldx (values between the lanes of x and
+// y), right, ldr, lanes (x and y K-major stacks of n_local values a
+// lane, a vector for 1), vec (rows a thread: 4, float32 only, with
+// n_local and ldx multiples of 4 and data, ld, x and y 16-byte aligned;
+// or 1), lo, hi (the interior row blocks of 256 * vec rows), a0,
+// a1, b0, b1 (the row blocks to compute: [a0, a1) and [b0, b1)), y,
+// stream
 int pyamg_halo_spmv_f32(const void* data, long long ld, const int* offsets,
                         const void* offsets_dev, int nd, long long n_local,
-                        int halo, const void* left, const void* x,
-                        const void* right, int vec, int lo, int hi, int a0,
-                        int a1, int b0, int b1, void* y, void* stream) {
+                        int halo, const void* left, long long ldl,
+                        const void* x, long long ldx, const void* right,
+                        long long ldr, int lanes, int vec, int lo, int hi,
+                        int a0, int a1, int b0, int b1, void* y,
+                        void* stream) {
   return launch_halo_vec<float>(data, ld, offsets, offsets_dev, nd, n_local,
-                                halo, left, x, right, vec, lo, hi, a0, a1,
-                                b0, b1, y, stream);
+                                halo, left, ldl, x, ldx, right, ldr, lanes,
+                                vec, lo, hi, a0, a1, b0, b1, y, stream);
 }
 
 int pyamg_halo_spmv_f64(const void* data, long long ld, const int* offsets,
                         const void* offsets_dev, int nd, long long n_local,
-                        int halo, const void* left, const void* x,
-                        const void* right, int vec, int lo, int hi, int a0,
-                        int a1, int b0, int b1, void* y, void* stream) {
+                        int halo, const void* left, long long ldl,
+                        const void* x, long long ldx, const void* right,
+                        long long ldr, int lanes, int vec, int lo, int hi,
+                        int a0, int a1, int b0, int b1, void* y,
+                        void* stream) {
   return launch_halo_vec<double>(data, ld, offsets, offsets_dev, nd,
-                                 n_local, halo, left, x, right, vec, lo, hi,
-                                 a0, a1, b0, b1, y, stream);
+                                 n_local, halo, left, ldl, x, ldx, right,
+                                 ldr, lanes, vec, lo, hi, a0, a1, b0, b1, y,
+                                 stream);
 }
 
 }  // extern "C"

@@ -99,13 +99,14 @@
 // and a thread keeps LT gathers in flight per entry:
 //
 // - K12: a CTA takes `rows` consecutive rows of one row block (one window
-//   start) and stages their k slots' data and idx (slot-major, so the
-//   loads are coalesced); a thread takes (row, lane group) pairs of
-//   kK12Lanes = 4 lanes, rows fastest within a warp (neighbouring rows
-//   gather neighbouring x and write neighbouring y), and sums its row's
-//   slots for each of its lanes in ascending slot order with one explicit
-//   fma per slot from 0, the arithmetic the 16-lane loop of earlier
-//   versions got from nvcc's contraction of acc += a * x (same bits).
+//   start; a block's last CTA the rows left) and stages their k slots'
+//   data and idx (slot-major, so the loads are coalesced); a thread
+//   takes (row, lane group) pairs of kK12Lanes = 4 lanes, rows fastest
+//   within a warp (neighbouring rows gather neighbouring x and write
+//   neighbouring y), and sums its row's slots for each of its lanes in
+//   ascending slot order with one explicit fma per slot from 0, the
+//   arithmetic the 16-lane loop of earlier versions got from nvcc's
+//   contraction of acc += a * x (same bits).
 //   The x window is not staged: 2 * w2 entries per lane, 1 MB for 64
 //   float32 lanes at w2 = 2048, exceeds a CTA's shared memory.
 // - K13: K7's column plan, cut into tiles of consecutive columns by a
@@ -401,47 +402,52 @@ __global__ void windowed_rmatvec_tiles_kernel(const T* __restrict__ data,
   }
 }
 
-// K12: CTA (blockIdx.x, blockIdx.y) = `rows` consecutive rows of one row
-// block x lanes [64 * blockIdx.y, +64); shared memory holds the rows' k
-// slots, data then idx, slot-major (k * rows each).
+// K12: CTA (blockIdx.x, blockIdx.y) = rows [r0, r0 + nr) of row block
+// blockIdx.x / cpb, r0 = rows * (blockIdx.x % cpb), cpb = ceil(block /
+// rows) CTAs a row block (its last one takes the rows left, so any block
+// size keeps `rows` rows a CTA) x lanes [64 * blockIdx.y, +64); shared
+// memory holds the rows' k slots, data then idx, slot-major (k * nr
+// each).
 template <typename T>
 __global__ void windowed_matmat_k_kernel(const T* __restrict__ data,
                                          const int* __restrict__ idx,
                                          const int* __restrict__ starts,
                                          int k, int block, int w2,
                                          int64_t n_rows, int64_t m,
-                                         int lanes, int rows,
+                                         int lanes, int rows, int cpb,
                                          const T* __restrict__ x,
                                          T* __restrict__ y) {
   constexpr int LT = kK12Lanes;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sdata = reinterpret_cast<T*>(smem);
   int* sidx = reinterpret_cast<int*>(sdata + k * rows);
-  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * rows;
-  const int64_t blk = g0 / block;
-  const int64_t e0 = blk * k * block + (g0 - blk * block);
-  for (int i = threadIdx.x; i < k * rows; i += blockDim.x) {
-    const int s = i / rows;
-    const int64_t e = e0 + static_cast<int64_t>(s) * block + (i - s * rows);
+  const int64_t blk = blockIdx.x / cpb;
+  const int r0 = static_cast<int>(blockIdx.x - blk * cpb) * rows;
+  const int nr = min(rows, block - r0);
+  const int64_t g0 = blk * block + r0;
+  const int64_t e0 = blk * k * block + r0;
+  for (int i = threadIdx.x; i < k * nr; i += blockDim.x) {
+    const int s = i / nr;
+    const int64_t e = e0 + static_cast<int64_t>(s) * block + (i - s * nr);
     sdata[i] = data[e];
     sidx[i] = idx[e];
   }
   __syncthreads();
   const int l0 = blockIdx.y * kLaneTile;
   const int kl = min(kLaneTile, lanes - l0);
-  const int n_pairs = rows * ((kl + LT - 1) / LT);
+  const int n_pairs = nr * ((kl + LT - 1) / LT);
   const int64_t base = static_cast<int64_t>(starts[blk]) * w2;
-  // pair p: row p % rows (rows fastest in a warp) and LT lanes from
-  // l0 + LT * (p / rows); the LT gathers of a slot are in flight together
+  // pair p: row p % nr (rows fastest in a warp) and LT lanes from
+  // l0 + LT * (p / nr); the LT gathers of a slot are in flight together
   for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
-    const int rr = p % rows;
-    const int la = LT * (p / rows);
+    const int rr = p % nr;
+    const int la = LT * (p / nr);
     const int nl = kl - la;
     const T* xl = x + static_cast<int64_t>(l0 + la) * m + base;
     T acc[LT];
 #pragma unroll
     for (int j = 0; j < LT; ++j) acc[j] = T(0);
-    for (int i = rr; i < k * rows; i += rows) {
+    for (int i = rr; i < k * nr; i += nr) {
       const T a = sdata[i];
       const int col = sidx[i];
 #pragma unroll
@@ -600,19 +606,22 @@ int launch_matmat_k(const void* data, const void* idx, const void* starts,
                     int k, int block, int w2, long long n_rows, long long m,
                     int lanes, int rows, const void* x, void* y,
                     void* stream) {
-  if (lanes < 1 || rows < 1 || block % rows != 0) {
+  if (lanes < 1 || rows < 1 || rows > block || n_rows % block != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   const size_t smem = static_cast<size_t>(k) * rows * (sizeof(T) + sizeof(int));
   cudaError_t err = allow_smem(windowed_matmat_k_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned int>(n_rows / rows), lane_tiles(lanes));
+  const int cpb = (block + rows - 1) / rows;
+  const long long ctas = n_rows / block * cpb;
+  if (ctas >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(ctas), lane_tiles(lanes));
   windowed_matmat_k_kernel<T><<<grid, kThreads, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int*>(idx),
       static_cast<const int*>(starts), k, block, w2, n_rows, m, lanes, rows,
-      static_cast<const T*>(x), static_cast<T*>(y));
+      cpb, static_cast<const T*>(x), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -66,8 +66,11 @@ def _jacobi_wd(sm):
 
 
 def supports_interleaved(h: DeviceHierarchy):
-    """True when the finest level fits the interleaved route."""
-    if len(h.levels) < 2:
+    """True when the finest level fits the interleaved route; never on a
+    row-sharded hierarchy, which takes the K-major lane route (the
+    reference sends a sharded hierarchy to its vmapped path,
+    ``pyamg_tpu/engine/batched_cycle.py:87-92``)."""
+    if len(h.levels) < 2 or getattr(h, "mesh", None) is not None:
         return False
     lvl = h.levels[0]
     if not isinstance(lvl.A, DIAMatrix):

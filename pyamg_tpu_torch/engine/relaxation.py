@@ -45,8 +45,12 @@ x and b (the batched solve).  The kernels they run on a DIA operator:
 On any other operator (windowed, dense, row-sharded) the steps compose
 through ``A @ x`` and a select, as the reference's.  Richardson's and the
 Cimmino sweeps' updates compose through ``A @ x`` and ``A.rmatvec`` (the
-roll form on a DIA operator, K7 or K13 on a windowed one), and windowed
-Schwarz rolls, reshapes and one batched (nwin, w, w) product.
+roll form on a DIA operator, K7 or K13 on a windowed one, the sharded
+transposes on a row-sharded one), and windowed Schwarz is slices, one
+batched (nwin, w, w) product and the chunks' sums
+(:func:`schwarz_corrections`: a right halo of r in, each window chunk's
+spill out, through the ring of a row-sharded operator, wrapped onto the
+rows of any other).
 
 The block forms on a
 :class:`~pyamg_tpu_torch.sparse.block_dia.BlockDIAMatrix` run B2
@@ -357,6 +361,68 @@ def _horner_step(A, h, r, c):
     return c * r + (A @ h)
 
 
+def _schwarz_update(A, inv_blocks, r, w, s):
+    """Windowed Schwarz's summed window corrections for the residual r on
+    A's rows: :func:`schwarz_corrections`, through the ring exchange of
+    a row-sharded operator (its ``schwarz_update``), else wrapped onto
+    r's own rows."""
+    own = getattr(A, "schwarz_update", None)
+    if own is not None:
+        return own(inv_blocks, r, w, s)
+    return schwarz_corrections(inv_blocks, r, w, s)
+
+
+def _wrap(t, to_right):
+    """The exchange of a ring of one: what is sent comes back."""
+    return t
+
+
+def schwarz_corrections(inv_blocks, r, w, s, send=_wrap):
+    """Windowed Schwarz's summed window corrections for the rows of the
+    residual r (a vector or a K-major lane stack) whose windows
+    [i s, i s + w) start there: each window reads those rows and the
+    first w - s rows to their right; its (w, w) pseudo-inverse's
+    correction is summed into place, chunk c of every window at c s past
+    its start, c ascending, and the chunks that land past the rows go to
+    the right, each chunk's spill in its own row, added after the rows'
+    own chunks in c order.  So every entry's chunks are summed in c order,
+    as the reference's rolls sum them.  ``send(t, to_right)``: the
+    exchange with the ring neighbours (t sent to one side, a tensor of
+    its shape received from the other); by default a ring of one, whose
+    windows wrap onto r's own rows, as often as they reach past them."""
+    q, hw = w // s, w - s
+    lead, n = tuple(r.shape[:-1]), r.shape[-1]
+    nwin = inv_blocks.shape[0]
+    if nwin * s != n:
+        raise ValueError(f"windowed Schwarz: {nwin} windows of stride {s} "
+                         f"on {n} rows")
+    r_ext = r
+    if hw:
+        head = torch.cat([r] * -(-hw // n), dim=-1)[..., :hw]
+        r_ext = torch.cat([r, send(head, False)], dim=-1)
+    Wn = torch.cat([r_ext[..., c * s:c * s + n].reshape(lead + (nwin, s))
+                    for c in range(q)], dim=-1)
+    u = torch.einsum("nij,...nj->...ni", inv_blocks, Wn)
+    chunks = [u[..., c * s:(c + 1) * s].reshape(lead + (-1,))
+              for c in range(q)]
+    upd = torch.zeros_like(r)
+    for c in range(q):
+        if c * s < n:
+            upd[..., c * s:] = upd[..., c * s:] + chunks[c][..., :n - c * s]
+    if hw:
+        spill = torch.zeros(lead + (q - 1, hw), dtype=r.dtype,
+                            device=r.device)
+        for c in range(1, q):
+            lo = max(n - c * s, 0)
+            spill[..., c - 1, lo + c * s - n:c * s] = chunks[c][..., lo:]
+        got = send(spill, True)
+        for c in range(1, q):
+            for k in range(0, hw, n):
+                m = min(n, hw - k)
+                upd[..., :m] = upd[..., :m] + got[..., c - 1, k:k + m]
+    return upd
+
+
 def _coefficient_list(config, arrays):
     """A polynomial smoother's coefficients: floats, or 0-d tensors."""
     if config[0] == "poly":
@@ -527,20 +593,10 @@ def apply_smoother(config, arrays, A, x, b, dinv_stack=None):
     if kind == "win_schwarz":
         _, w, s, omega, iterations = config
         (inv_blocks,) = arrays
-        q = w // s
-        nwin = inv_blocks.shape[0]
-        lead = x.shape[:-1]
         for _ in range(iterations):
             r = b - (A @ x)
-            Wn = torch.cat([torch.roll(r, -c * s, dims=-1).reshape(
-                lead + (nwin, s)) for c in range(q)], dim=-1)
-            u = torch.einsum("nij,...nj->...ni", inv_blocks, Wn)
-            upd = torch.zeros_like(r)
-            for c in range(q):
-                upd = upd + torch.roll(
-                    u[..., c * s:(c + 1) * s].reshape(lead + (-1,)), c * s,
-                    dims=-1)
-            x = x + (omega / q) * upd
+            x = x + (omega / (w // s)) * _schwarz_update(A, inv_blocks, r,
+                                                         w, s)
         return x
 
     if kind == "masked_jacobi":

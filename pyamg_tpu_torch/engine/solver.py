@@ -21,14 +21,17 @@ K15; ``pyamg_tpu/engine/solver.py:355-385``).
 
 A row-sharded hierarchy (:func:`~pyamg_tpu_torch.parallel.shard_hierarchy`),
 host-built, unstructured or device-built, solves on every rank at once:
-each rank stages its block of ``b``, the cycle runs on the blocks (each
-sharded operator communicates, the transfers apply factor by factor, the
-Jacobi sweeps compose through ``A @ x``, a block level's residual is one
-B1 halo ``RESID`` pass), and the Krylov dots sum over the shards (AMLI's
-coarse dots over the level's shards).  Batched (n, K) and
-mixed-precision sharded solves (no ``A64``, as in the reference), and
-CGNR / CGNE there (A^T of a sharded operator), are not ported (ROADMAP.md
-Queue 1 item 14).
+each rank stages its block of ``b`` (of every column of an (n, K) ``b``,
+as a K-major (K, n_local) lane stack), the cycle runs on the blocks (each
+sharded operator communicates, one message a side for all lanes; the
+transfers apply factor by factor, the Jacobi sweeps compose through ``A @
+x``, a block level's residual is one B1 halo ``RESID`` pass), and the
+Krylov dots sum over the shards (AMLI's coarse dots over the level's
+shards), so every rank takes the same per-lane branches.  CGNR / CGNE
+apply A^T through the sharded operator's ``rmatvec``.  A sharded batched
+solve takes the K-major lane route, never the interleaved one (the
+reference's rule).  Mixed precision on a sharded hierarchy raises: it
+carries no ``A64``, as the reference's does not.
 """
 
 from __future__ import annotations
@@ -243,8 +246,9 @@ class DeviceMultilevelSolver:
 
         On a row-sharded hierarchy every rank calls this with the full
         ``b`` (and ``x0``) and stages its own block: a numpy ``b`` gives
-        the full x, gathered, on every rank; a tensor ``b`` gives this
-        rank's padded block of x (``hierarchy.gather`` assembles it).
+        the full x, gathered, on every rank ((n, K) for an (n, K) ``b``);
+        a tensor ``b`` gives this rank's padded block of x (``hierarchy.
+        gather`` assembles it), (n_local, K) for lanes.
 
         precision='native' runs entirely in the hierarchy dtype; 'mixed'
         runs the outer loop in float64 with the cycle as preconditioner
@@ -266,9 +270,9 @@ class DeviceMultilevelSolver:
         sharded = getattr(h, "mesh", None) is not None
         if mixed and sharded:
             raise ValueError(
-                "a row-sharded hierarchy carries no A64 (as the reference's), "
-                "so mixed precision on it is not ported (ROADMAP.md Queue 1 "
-                "item 14)")
+                "a row-sharded hierarchy carries no A64 (as the reference's, "
+                "which cannot run it either), so mixed precision on it is "
+                "not ported (ROADMAP.md Queue 1 item 14)")
         if mixed and h.A64 is None:
             raise ValueError("mixed precision requires a hierarchy compiled "
                              "with mixed_precision=True")
@@ -276,14 +280,6 @@ class DeviceMultilevelSolver:
         if np.ndim(b) not in (1, 2):
             raise ValueError(f"b must be a vector or an (n, K) stack, got "
                              f"{np.ndim(b)} dimensions")
-        if sharded and lanes:
-            raise NotImplementedError(
-                "a batched (n, K) solve on a sharded hierarchy is not ported "
-                "yet (ROADMAP.md Queue 1 item 14)")
-        if sharded and accel in ("cgnr", "cgne"):
-            raise NotImplementedError(
-                "A^T of a sharded operator (accel 'cgnr' / 'cgne') is not "
-                "ported yet (ROADMAP.md Queue 1 item 14)")
         n = h.levels[0].n
         n_pad = h.levels[0].n_pad
         dtype = torch.float64 if mixed else h.dtype

@@ -25,10 +25,13 @@ around the sharded hierarchy.
     x = StructuredDeviceSolver(shard_hierarchy(ds.hierarchy, mesh), ds.grid,
                                ds.grid_p, ds.setup_info).solve(b, tol=1e-8)
 
-Not ported (ROADMAP.md Queue 1 item 14): batched (n, K) and
-mixed-precision sharded solves, CGNR / CGNE, the Cimmino smoothers and
-windowed Schwarz on a sharded hierarchy, and a setup that partitions its
-own work over the ranks (a device setup runs whole, then is sharded).
+A sharded hierarchy also solves an (n, K) stack of right-hand sides (K16
+and B1's halo mode on every lane at once), CGNR / CGNE (A^T of each
+sharded level) and with the Cimmino and windowed Schwarz smoothers.  Not
+ported (ROADMAP.md Queue 1 item 14): a setup that partitions its own
+work over the ranks (a device setup runs whole, then is sharded), and
+NCCL on several GPUs is not measured yet.  Mixed precision on a sharded
+hierarchy raises: it carries no float64 copy, as the reference's.
 
 Importing this package initialises nothing.
 """

@@ -34,7 +34,7 @@ import torch.distributed as dist
 from ..sparse import DIAMatrix
 
 __all__ = ["make_halo_dia_spmv", "halo_width", "start_halo_exchange",
-           "dia_halo_rows_ref", "block_dia_halo_rows_ref"]
+           "ring_send", "dia_halo_rows_ref", "block_dia_halo_rows_ref"]
 
 # P2P tags of the two directions (gloo matches messages by tag; NCCL
 # matches them in order)
@@ -47,41 +47,66 @@ def halo_width(dia: DIAMatrix):
 
 
 def start_halo_exchange(x, halo, mesh, groups):
-    """Start the ring exchange of a rank's block ``x`` on a layout of
-    ``groups`` shard groups; returns ``(from_left, from_right, requests)``:
-    the left neighbour's last and the right neighbour's first ``halo``
-    entries once every request has been waited on.  A ring of one returns
-    views of x's own tail and head and no request."""
-    n = x.shape[0]
+    """Start the ring exchange of a rank's block ``x`` (a vector, or a
+    K-major (K, n) lane stack) on a layout of ``groups`` shard groups;
+    returns ``(from_left, from_right, requests)``: the left neighbour's
+    last and the right neighbour's first ``halo`` entries (of every lane:
+    (K, halo) stacks) once every request has been waited on.  Each side
+    goes as one contiguous buffer, all lanes in one message.  A ring of
+    one returns views of x's own tail and head and no request."""
+    n = x.shape[-1]
     left, right = mesh.partners(groups)
     if left == mesh.rank:
-        return x[n - halo:], x[:halo], []
-    from_left = torch.empty(halo, dtype=x.dtype, device=x.device)
-    from_right = torch.empty(halo, dtype=x.dtype, device=x.device)
-    ops = [dist.P2POp(dist.isend, x[n - halo:], right, tag=_TO_RIGHT),
+        return x[..., n - halo:], x[..., :halo], []
+    shape = tuple(x.shape[:-1]) + (halo,)
+    from_left = torch.empty(shape, dtype=x.dtype, device=x.device)
+    from_right = torch.empty(shape, dtype=x.dtype, device=x.device)
+    ops = [dist.P2POp(dist.isend, x[..., n - halo:].contiguous(), right,
+                      tag=_TO_RIGHT),
            dist.P2POp(dist.irecv, from_left, left, tag=_TO_RIGHT),
-           dist.P2POp(dist.isend, x[:halo], left, tag=_TO_LEFT),
+           dist.P2POp(dist.isend, x[..., :halo].contiguous(), left,
+                      tag=_TO_LEFT),
            dist.P2POp(dist.irecv, from_right, right, tag=_TO_LEFT)]
     return from_left, from_right, dist.batch_isend_irecv(ops)
+
+
+def ring_send(t, mesh, groups, to_right):
+    """Send ``t`` to the ring neighbour on one side (``to_right``: the
+    right one) on a layout of ``groups`` shard groups, and receive a
+    tensor of its shape from the neighbour on the other side; returns it
+    once received.  A ring of one returns ``t`` itself."""
+    left, right = mesh.partners(groups)
+    if left == mesh.rank:
+        return t
+    got = torch.empty_like(t)
+    dst, src = (right, left) if to_right else (left, right)
+    tag = _TO_RIGHT if to_right else _TO_LEFT
+    for req in dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, t.contiguous(), dst, tag=tag),
+             dist.P2POp(dist.irecv, got, src, tag=tag)]):
+        req.wait()
+    return got
 
 
 def dia_halo_rows_ref(data, offsets, left, x, right, halo, ranges, y):
     """The rolled-DIA sum over a block and its halos: for each (r0, r1) of
     ``ranges``, y[r0:r1] = sum_d data[d, r0:r1] * x_ext[halo + r0 + off_d
     : ...] with x_ext = [left, x, right], in offset order (the JAX
-    function's).  ``data`` is the block's (nd, n_local) diagonals (a view
-    is fine); writes ``y`` in place and returns it."""
-    x_ext = torch.cat([left, x, right])
+    function's); lane by lane for K-major (K, n_local) stacks x and y with
+    (K, halo) halos (K8's twin's products and sums, ``dia_spmm_ref``).
+    ``data`` is the block's (nd, n_local) diagonals (a view is fine);
+    writes ``y`` in place and returns it."""
+    x_ext = torch.cat([left, x, right], dim=-1)
     for r0, r1 in ranges:
         if r1 <= r0:
             continue
-        acc = data[0, r0:r1] * x_ext[halo + r0 + offsets[0]:
+        acc = data[0, r0:r1] * x_ext[..., halo + r0 + offsets[0]:
                                      halo + r1 + offsets[0]]
         for d in range(1, len(offsets)):
             off = offsets[d]
-            acc = acc + data[d, r0:r1] * x_ext[halo + r0 + off:
+            acc = acc + data[d, r0:r1] * x_ext[..., halo + r0 + off:
                                                halo + r1 + off]
-        y[r0:r1] = acc
+        y[..., r0:r1] = acc
     return y
 
 
@@ -94,25 +119,30 @@ def block_dia_halo_rows_ref(data, offsets, left, x, right, halo, ranges,
     :func:`~pyamg_tpu_torch.sparse.block_dia.block_dia_spmv_ref` applies
     a whole operator: each run of consecutive offsets one strided view of
     overlapping windows, the runs side by side, one product and one sum
-    over each row's strip; ``b - A x`` when ``b`` is given (``RESID``).
-    Writes ``y`` in place and returns it."""
+    over each row's strip; lane by lane for K-major stacks x, y and b
+    with (K, halo * bs) halos; ``b - A x`` when ``b`` is given
+    (``RESID``).  Writes ``y`` in place and returns it."""
     from ..sparse.block_dia import _offset_runs
 
     nd, bs = data.shape[0], data.shape[-1]
-    x_ext = torch.cat([left, x, right])
+    x_ext = torch.cat([left, x, right], dim=-1)
+    lead = tuple(x_ext.shape[:-1])
+    lead_strides = tuple(x_ext.stride()[:-1])
     for n0, n1 in ranges:
         if n1 <= n0:
             continue
         nb = n1 - n0
         strips = data[:, n0:n1].permute(1, 2, 0, 3).reshape(nb, bs, nd * bs)
-        views = [x_ext.as_strided((nb, length * bs), (bs, 1),
+        views = [x_ext.as_strided(lead + (nb, length * bs),
+                                  lead_strides + (bs, 1),
                                   x_ext.storage_offset()
                                   + (halo + n0 + first) * bs)
                  for first, length in _offset_runs(offsets)]
         xg = views[0] if len(views) == 1 else torch.cat(views, dim=-1)
-        acc = torch.sum(strips * xg.unsqueeze(-2), dim=-1).reshape(-1)
+        acc = torch.sum(strips * xg.unsqueeze(-2), dim=-1).reshape(
+            lead + (-1,))
         rows = slice(n0 * bs, n1 * bs)
-        y[rows] = acc if b is None else b[rows] - acc
+        y[..., rows] = acc if b is None else b[..., rows] - acc
     return y
 
 

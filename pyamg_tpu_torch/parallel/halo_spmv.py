@@ -21,11 +21,18 @@ term.  With an exchange:
 A ring of one exchanges nothing (its halos are x's own tail and head) and
 takes one launch over every block.
 
+A K-major (K, n_local) lane stack (a batched solve) takes K16's lane
+mode: one exchange a side sends every lane's halo as one contiguous (K,
+halo) buffer, and each launch covers every lane, the CTAs walking K8's
+super tiles of row blocks with the lanes of a tile one after another; in
+a ring of one it gives K8's bits.
+
 Entry points:
 
 - :func:`dia_halo_rows`: one launch over a part of the plan's blocks
   (``"all"``, ``"interior"`` or ``"boundary"``), the kernel wrapper
-  (counted as ``dia_halo_spmv.<dtype>``);
+  (counted as ``dia_halo_spmv.<dtype>``, on lanes as
+  ``dia_halo_spmm.<dtype>``);
 - :func:`halo_spmv`: one rank's block, what the sharded hierarchy's DIA
   operators apply; a ring of one (a world of one, or a level on one group)
   takes its halos from x itself, as the reference's single-device ring
@@ -49,7 +56,8 @@ blocks of 256 nodes (:func:`block_halo_plan`):
 
 - :func:`block_dia_halo_rows`: one launch over a part of the plan's
   blocks, ``PLAIN`` (y = A x) or ``RESID`` (y = b - A x), counted as
-  ``block_dia_halo.<dtype>``; its twin on CPU tensors is
+  ``block_dia_halo.<dtype>`` (on lanes, at most 16 a launch, as
+  ``block_dia_halo_spmm.<dtype>``); its twin on CPU tensors is
   :func:`~pyamg_tpu_torch.parallel.dist_spmv.block_dia_halo_rows_ref`;
 - :func:`block_halo_spmv`: one rank's block, in K16's order;
 - :func:`block_halo_spmv_shards`: P node-row blocks in one process, as
@@ -152,8 +160,36 @@ def _offsets_c(offsets):
 
 
 def _plan_for(data, offsets, x, y):
-    aligned = data.stride(0) % 4 == 0 and _aligned(data, x, y)
-    return halo_plan(tuple(offsets), x.shape[0], data.dtype, aligned)
+    aligned = (data.stride(0) % 4 == 0 and _aligned(data, x, y)
+               and (x.ndim == 1 or x.stride(0) % 4 == 0))
+    return halo_plan(tuple(offsets), x.shape[-1], data.dtype, aligned)
+
+
+def _check_operands(dtype, n, lanes, halo_n, **operands):
+    """Raise unless x, y (and b) are ``dtype`` vectors of length ``n`` or,
+    for ``lanes``, K-major (lanes, n) stacks whose lanes are contiguous and
+    lie the same distance apart (a row block of a wider stack is fine),
+    and the halos ``left`` / ``right`` are ``halo_n`` entries a lane with
+    contiguous lanes."""
+    strides = set()
+    for name, v in operands.items():
+        m = halo_n if name in ("left", "right") else n
+        want = (m,) if lanes is None else (lanes, m)
+        if tuple(v.shape) != want or v.stride(-1) != 1:
+            raise ValueError(f"{name}: expected shape {want} with contiguous "
+                             f"lanes, got {tuple(v.shape)}")
+        if v.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {v.dtype}")
+        if lanes is not None and m == n and name not in ("left", "right"):
+            strides.add(v.stride(0))
+    if len(strides) > 1:
+        raise ValueError("x, y and b: their lanes must lie the same "
+                         "distance apart")
+
+
+def _lane_stride(v):
+    """Values between a stack's lanes (unused for one vector)."""
+    return v.stride(0) if v.ndim == 2 else v.shape[0]
 
 
 def dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, part, y):
@@ -162,8 +198,12 @@ def dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, part, y):
     ``data`` (nd, n_local), rows contiguous (a column slice of a wider
     array is fine), ``offsets`` (ascending, |offset| <= halo) and
     ``offsets_t`` their int32 tensor beside data, ``left`` / ``right`` the
-    halos (``halo`` entries each), ``x`` and ``y`` (n_local,).  Writes y's
-    rows in place; raises on operands the kernel does not take."""
+    halos (``halo`` entries each), ``x`` and ``y`` (n_local,).  K-major
+    (K, n_local) stacks ``x`` and ``y`` with (K, halo) halos take the
+    K-lane mode, every lane in the one launch (counted as
+    ``dia_halo_spmm.<dtype>``; one vector as ``dia_halo_spmv.<dtype>``).
+    Writes y's rows in place; raises on operands the kernel does not
+    take."""
     plan = _plan_for(data, offsets, x, y)
     if _build.on_cpu(data, left, x, right, y):
         return dia_halo_rows_ref(data, offsets, left, x, right, halo,
@@ -174,7 +214,8 @@ def dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, part, y):
     (a0, a1), (b0, b1) = blocks[0], blocks[-1]
     if len(blocks) == 1:
         b0 = b1 = a1
-    n_local = x.shape[0]
+    n_local = x.shape[-1]
+    lanes = x.shape[0] if x.ndim == 2 else None
     dtype = data.dtype
     if dtype not in _SUFFIX:
         raise TypeError(f"K16 takes float32 or float64, not {dtype}")
@@ -184,18 +225,18 @@ def dia_halo_rows(data, offsets, offsets_t, left, x, right, halo, part, y):
         raise ValueError("data: expected (nd, n_local) with contiguous rows")
     if offsets_t.dtype != torch.int32 or offsets_t.numel() != len(offsets):
         raise ValueError("offsets_t: expected the int32 offsets")
-    _build.check_vector("x", x, n_local, dtype)
-    _build.check_vector("y", y, n_local, dtype)
-    for name, h in (("left", left), ("right", right)):
-        _build.check_vector(name, h, halo, dtype)
+    _check_operands(dtype, n_local, lanes, halo, x=x, y=y, left=left,
+                    right=right)
     fn_name = f"pyamg_halo_spmv_{_SUFFIX[dtype]}"
     err = getattr(_build.library(), fn_name)(
         data.data_ptr(), data.stride(0), _offsets_c(tuple(offsets)),
         offsets_t.data_ptr(), len(offsets), n_local, halo, left.data_ptr(),
-        x.data_ptr(), right.data_ptr(), plan.vec, plan.lo, plan.hi, a0, a1,
+        _lane_stride(left), x.data_ptr(), _lane_stride(x), right.data_ptr(),
+        _lane_stride(right), lanes or 1, plan.vec, plan.lo, plan.hi, a0, a1,
         b0, b1, y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(fn_name, err)
-    _build.count_launch(f"dia_halo_spmv.{_build.dtype_name(dtype)}")
+    kernel = "dia_halo_spmv" if lanes is None else "dia_halo_spmm"
+    _build.count_launch(f"{kernel}.{_build.dtype_name(dtype)}")
     return y
 
 
@@ -218,7 +259,9 @@ def _ring_apply(x, hw, mesh, groups, rows):
 
 def halo_spmv(data, offsets, offsets_t, x, halo, mesh, groups):
     """This rank's block of A @ x for a DIA A row-sharded over ``groups``
-    shard groups of ``mesh`` (:func:`_ring_apply`'s order)."""
+    shard groups of ``mesh`` (:func:`_ring_apply`'s order); ``x`` a vector
+    or a K-major (K, n_local) lane stack (one exchange a side for every
+    lane, one launch a part)."""
     return _ring_apply(x, halo, mesh, groups, lambda left, right, part, y:
                        dia_halo_rows(data, offsets, offsets_t, left, x,
                                      right, halo, part, y))
@@ -234,8 +277,12 @@ def block_dia_halo_rows(data, offsets, offsets_t, left, x, right, halo,
     their int32 tensor beside data, ``left`` / ``right`` the halos
     (``halo`` nodes, ``halo * bs`` entries each), ``x`` and ``y``
     (nb_local * bs,); ``b`` given: y = b - A x (``RESID``), else y = A x
-    (``PLAIN``).  Writes y's rows in place; raises on operands the kernel
-    does not take."""
+    (``PLAIN``).  K-major (K, nb_local * bs) stacks x, y and b with (K,
+    halo * bs) halos take the lanes in K16's lane order (super tiles of
+    row blocks, the lanes of a tile one after another), at most MAX_LANES
+    lanes a launch as B1 (counted as ``block_dia_halo_spmm.<dtype>``; one
+    vector as ``block_dia_halo.<dtype>``).  Writes y's rows in place;
+    raises on operands the kernel does not take."""
     nd, nb, bs = data.shape[0], data.shape[1], data.shape[-1]
     plan = block_halo_plan(tuple(offsets), nb)
     others = (b,) if b is not None else ()
@@ -249,6 +296,7 @@ def block_dia_halo_rows(data, offsets, offsets_t, left, x, right, halo,
     if len(blocks) == 1:
         b0 = b1 = a1
     dtype = data.dtype
+    lanes = x.shape[0] if x.ndim == 2 else None
     if dtype not in _SUFFIX:
         raise TypeError(f"B1 takes float32 or float64, not {dtype}")
     if max(abs(o) for o in offsets) > halo or halo > nb:
@@ -260,20 +308,24 @@ def block_dia_halo_rows(data, offsets, offsets_t, left, x, right, halo,
                          "node blocks")
     if offsets_t.dtype != torch.int32 or offsets_t.numel() != nd:
         raise ValueError("offsets_t: expected the int32 offsets")
-    for name, v, n in (("x", x, nb * bs), ("y", y, nb * bs),
-                       ("left", left, halo * bs),
-                       ("right", right, halo * bs)) + (
-                           (("b", b, nb * bs),) if b is not None else ()):
-        _build.check_vector(name, v, n, dtype)
+    _check_operands(dtype, nb * bs, lanes, halo * bs, x=x, y=y, left=left,
+                    right=right, **({} if b is None else {"b": b}))
     fn_name = f"pyamg_block_dia_halo_{_SUFFIX[dtype]}"
-    err = getattr(_build.library(), fn_name)(
-        data.data_ptr(), data.stride(0), offsets_t.data_ptr(), nd, nb, bs,
-        halo, left.data_ptr(), x.data_ptr(), right.data_ptr(),
-        None if b is None else b.data_ptr(), y.data_ptr(), plan.lo, plan.hi,
-        a0, a1, b0, b1, _PLAIN if b is None else _RESID,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(fn_name, err)
-    _build.count_launch(f"block_dia_halo.{_build.dtype_name(dtype)}")
+    fn = getattr(_build.library(), fn_name)
+    kernel = "block_dia_halo" if lanes is None else "block_dia_halo_spmm"
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for k0, k1 in _build.lane_chunks(lanes or 1):
+        def lane(v):
+            return v if lanes is None else v[k0:k1]
+        err = fn(data.data_ptr(), data.stride(0), offsets_t.data_ptr(), nd,
+                 nb, bs, halo, lane(left).data_ptr(), _lane_stride(left),
+                 lane(x).data_ptr(), _lane_stride(x), lane(right).data_ptr(),
+                 _lane_stride(right),
+                 None if b is None else lane(b).data_ptr(),
+                 lane(y).data_ptr(), k1 - k0, plan.lo, plan.hi, a0, a1, b0,
+                 b1, _PLAIN if b is None else _RESID, stream)
+        _build.check(fn_name, err)
+        _build.count_launch(f"{kernel}.{_build.dtype_name(dtype)}")
     return y
 
 
@@ -291,16 +343,18 @@ def block_halo_spmv(data, offsets, offsets_t, x, halo, mesh, groups, b=None):
 def _shards_apply(x, cuts, hw, side_stream, phases, rows):
     """One operator split at the entries ``cuts`` into row blocks in one
     process: each block's halos (``hw`` entries a side, from its ring
-    neighbours' blocks of x) copied on a side stream under an event while
-    the current stream runs ``rows(p, left, right, "interior", block)``
-    for every block p, then, after the event, ``rows(p, left, right,
-    "boundary", block)``.  ``phases`` picks what runs (for timing the
-    interior alone, the halo copies alone, or all three).  On CPU tensors
-    the copies are plain.  Returns the (n,) result."""
+    neighbours' blocks of x; of every lane of a K-major (K, n) stack x)
+    copied on a side stream under an event while the current stream runs
+    ``rows(p, left, right, "interior", block)`` for every block p, then,
+    after the event, ``rows(p, left, right, "boundary", block)``.
+    ``phases`` picks what runs (for timing the interior alone, the halo
+    copies alone, or all three).  On CPU tensors the copies are plain.
+    Returns the (n,) (or (K, n)) result."""
     n_shards = len(cuts) - 1
     y = torch.empty_like(x)
     rows_of = [slice(a, b) for a, b in zip(cuts, cuts[1:])]
-    halos = torch.empty((n_shards, 2, hw), dtype=x.dtype, device=x.device)
+    halos = torch.empty((n_shards, 2) + tuple(x.shape[:-1]) + (hw,),
+                        dtype=x.dtype, device=x.device)
     on_card = x.device.type == "cuda"
     main = torch.cuda.current_stream(x.device) if on_card else None
     side = (side_stream or torch.cuda.Stream(x.device)) if on_card else None
@@ -312,8 +366,9 @@ def _shards_apply(x, cuts, hw, side_stream, phases, rows):
             for p in range(n_shards):
                 left = cuts[(p - 1) % n_shards + 1]
                 right = cuts[(p + 1) % n_shards]
-                halos[p, 0].copy_(x[left - hw:left], non_blocking=True)
-                halos[p, 1].copy_(x[right:right + hw], non_blocking=True)
+                halos[p, 0].copy_(x[..., left - hw:left], non_blocking=True)
+                halos[p, 1].copy_(x[..., right:right + hw],
+                                  non_blocking=True)
             if on_card:
                 done.record(side)
     for part in ("interior", "boundary"):
@@ -322,7 +377,7 @@ def _shards_apply(x, cuts, hw, side_stream, phases, rows):
         if part not in phases:
             continue
         for p, blk in enumerate(rows_of):
-            rows(p, halos[p, 0], halos[p, 1], part, blk, y[blk])
+            rows(p, halos[p, 0], halos[p, 1], part, blk, y[..., blk])
     return y
 
 
@@ -342,8 +397,8 @@ def block_halo_spmv_shards(A: BlockDIAMatrix, x, n_shards, side_stream=None,
 
     def rows(p, left, right, part, blk, y):
         block_dia_halo_rows(A.data[:, cuts[p]:cuts[p + 1]], A.offsets,
-                            offsets_t, left, x[blk], right, halo, part, y,
-                            None if b is None else b[blk])
+                            offsets_t, left, x[..., blk], right, halo, part,
+                            y, None if b is None else b[..., blk])
 
     return _shards_apply(x, [c * bs for c in cuts], halo * bs, side_stream,
                          phases, rows)
@@ -353,8 +408,10 @@ def halo_spmv_shards(A: DIAMatrix, x, n_shards, side_stream=None,
                      phases=("interior", "halos", "boundary")):
     """A @ x with A and x split into ``n_shards`` row blocks in one
     process (n_pad % n_shards == 0, halo <= n_pad / n_shards), in
-    :func:`_shards_apply`'s order; on CPU tensors the launches run their
-    twin.  Returns the (n_pad,) result."""
+    :func:`_shards_apply`'s order; x a vector or a K-major (K, n_pad)
+    lane stack (K16's lane mode on each block's columns of it); on CPU
+    tensors the launches run their twin.  Returns the (n_pad,) (or (K,
+    n_pad)) result."""
     n_pad = A.n_pad
     if n_pad % n_shards:
         raise ValueError(f"n_pad {n_pad} not divisible by {n_shards} shards")
@@ -365,8 +422,8 @@ def halo_spmv_shards(A: DIAMatrix, x, n_shards, side_stream=None,
     offsets_t = A.offsets_t
 
     def rows(p, left, right, part, blk, y):
-        dia_halo_rows(A.data[:, blk], A.offsets, offsets_t, left, x[blk],
-                      right, halo, part, y)
+        dia_halo_rows(A.data[:, blk], A.offsets, offsets_t, left,
+                      x[..., blk], right, halo, part, y)
 
     return _shards_apply(x, [p * nl for p in range(n_shards + 1)], halo,
                          side_stream, phases, rows)

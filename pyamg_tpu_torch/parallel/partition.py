@@ -31,6 +31,19 @@ communication:
   through K7 into a coarse partial summed over the groups;
 - the Krylov dots sum their local partials (``all_reduce``).
 
+Every operator applies to a rank's block of one vector or of a K-major
+(K, n_local) lane stack (a batched solve): K16's and B1's halo modes take
+every lane in one launch and one exchange a side, the windowed factors
+K12 / K13, the dense ones a matmul.  A^T (``ShardedOperator.rmatvec``,
+CGNR / CGNE and the Cimmino sweeps) applies each factor's transpose: a
+DIA or block-DIA factor's transposed diagonals, built on the device at
+its first transpose from its own and its neighbours' diagonals (one
+exchange), through K16 / B1's halo mode; a windowed factor's through K7 /
+K13 into a partial summed over the groups; a windowed transpose's through
+K6 / K12 on the local rows.  Windowed Schwarz keeps the windows that
+start in a rank's rows and passes a right halo of the residual in and
+each window chunk's spill out through the ring (:func:`_schwarz_update`).
+
 Power-of-two agglomeration, as the reference's: a level on k < world
 groups shards over ``rank // (world // k)`` and is replicated within a
 group; its halo partners are ``rank -+ world // k``.  The JAX package
@@ -45,6 +58,7 @@ levels through K16 too, with the unsharded numerics.  A layout is
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Any, Tuple
 
 import numpy as np
@@ -53,7 +67,7 @@ import torch.distributed as dist
 
 from ..engine.device_setup import _transfer_block
 from ..engine.hierarchy import DeviceHierarchy, DeviceLevel
-from ..engine.relaxation import DeviceSmoother
+from ..engine.relaxation import DeviceSmoother, schwarz_corrections
 from ..engine.unstructured_classical import (NeumannAIRRestriction,
                                             neumann_residual)
 from ..engine.unstructured_setup import ComposedWindowed
@@ -61,8 +75,7 @@ from ..sparse import (ComposedOperator, DenseOperator, DIAMatrix,
                       TransposedWindowed, WindowedELL)
 from ..sparse.block_dia import BlockDIAMatrix
 from ..sparse.formats import fit, pad_vector
-from ..sparse.window import windowed_rmatvec
-from .dist_spmv import halo_width
+from .dist_spmv import halo_width, ring_send, start_halo_exchange
 from .halo_spmv import block_halo_spmv, halo_spmv
 from .multihost import initialize_distributed, rank_device
 
@@ -193,39 +206,81 @@ def _rows(t, mesh, groups):
     return t[s * n:(s + 1) * n].contiguous()
 
 
-class _ShardedDIA:
+class _HaloFactor:
+    """A square factor row-sharded over ``groups`` whose applies exchange
+    halos: this rank's diagonals (``data``, its last axes the rank's rows
+    or node rows), their offsets, the halo width and the layout.  Its
+    transpose (``rapply``) applies the transposed diagonals, built once
+    on the device at the first transpose (``transposed``)."""
+
+    def __init__(self, data, offsets, halo, mesh, groups, n_pad,
+                 offsets_t=None):
+        self.data, self.offsets = data, offsets
+        self.offsets_t = offsets_t if offsets_t is not None else torch.tensor(
+            offsets, dtype=torch.int32, device=data.device)
+        self.halo, self.mesh, self.groups = halo, mesh, groups
+        self.in_layout = self.out_layout = (groups, n_pad)
+
+    def _extended(self, hw):
+        """The diagonals with their neighbours' ``hw`` values of each on
+        either side, (nd, hw + local + hw) as a flat row a diagonal: one
+        ring exchange of every diagonal at once (a ring of one wraps onto
+        its own block)."""
+        nd = self.data.shape[0]
+        left, right, reqs = start_halo_exchange(
+            self.data.reshape(nd, -1), hw, self.mesh, self.groups)
+        for req in reqs:
+            req.wait()
+        return torch.cat([left, self.data.reshape(nd, -1), right], dim=-1)
+
+    def rapply(self, y):
+        return self.transposed.apply(y)
+
+
+class _ShardedDIA(_HaloFactor):
     """A square DIA factor row-sharded over ``groups`` (K16)."""
 
-    def __init__(self, A, mesh, groups):
-        self.halo = halo_width(A)
-        if A.n_pad % groups or self.halo > A.n_pad // groups:
+    @classmethod
+    def of(cls, A, mesh, groups):
+        halo = halo_width(A)
+        if A.n_pad % groups or halo > A.n_pad // groups:
             groups = 1                     # too few rows: replicate
-        self.mesh, self.groups = mesh, groups
-        self.data = mesh.local(A.data, groups).contiguous()
-        self.offsets = A.offsets
-        self.offsets_t = A.offsets_t
-        self.in_layout = self.out_layout = (groups, A.n_pad)
+        return cls(mesh.local(A.data, groups).contiguous(), A.offsets, halo,
+                   mesh, groups, A.n_pad, A.offsets_t)
 
     def apply(self, x):
         return halo_spmv(self.data, self.offsets, self.offsets_t, x,
                          self.halo, self.mesh, self.groups)
 
+    @cached_property
+    def transposed(self):
+        """A^T's rows on this rank, sharded as A: the diagonal of offset -o
+        holds data[o] shifted by o (row i of A^T at offset -o is A's entry
+        (i - o, i)), its first and last o entries from the neighbours'
+        blocks.  The diagonals keep A's order, so a row's products are
+        summed in the order of ``DIAMatrix.rmatvec``'s rolls; a wrapped
+        entry is a stored zero, as the rolls' are."""
+        h, nl = self.halo, self.data.shape[-1]
+        ext = self._extended(h)
+        return _ShardedDIA(torch.stack([ext[d, h - o:h - o + nl]
+                                        for d, o in enumerate(self.offsets)]),
+                           tuple(-o for o in self.offsets), h, self.mesh,
+                           self.groups, self.in_layout[1])
 
-class _ShardedBlockDIA:
+
+class _ShardedBlockDIA(_HaloFactor):
     """A square block-DIA factor row-sharded by node rows over ``groups``
     (B1's halo mode, the halo in whole nodes)."""
 
-    def __init__(self, A, mesh, groups):
-        self.halo = max(A.halo, 1)
+    @classmethod
+    def of(cls, A, mesh, groups):
+        halo = max(A.halo, 1)
         nb = A.nb_pad
-        if nb % groups or self.halo > nb // groups:
+        if nb % groups or halo > nb // groups:
             groups = 1                     # too few nodes: replicate
-        self.mesh, self.groups = mesh, groups
         nl, sh = nb // groups, mesh.shard(groups)
-        self.data = A.data[:, sh * nl:(sh + 1) * nl].contiguous()
-        self.offsets = A.offsets
-        self.offsets_t = A.offsets_t
-        self.in_layout = self.out_layout = (groups, A.n_pad)
+        return cls(A.data[:, sh * nl:(sh + 1) * nl].contiguous(), A.offsets,
+                   halo, mesh, groups, A.n_pad, A.offsets_t)
 
     def apply(self, x):
         return block_halo_spmv(self.data, self.offsets, self.offsets_t, x,
@@ -236,19 +291,43 @@ class _ShardedBlockDIA:
         return block_halo_spmv(self.data, self.offsets, self.offsets_t, x,
                                self.halo, self.mesh, self.groups, b=b)
 
+    @cached_property
+    def transposed(self):
+        """A^T's node rows on this rank, sharded as A and built as
+        ``BlockDIAMatrix.T`` is on the whole operator: offsets negated and
+        ascending, blocks transposed, block row i at offset p A's block (i
+        + p, i), the rows past either end from the neighbours' blocks."""
+        nd, nl, bs, _ = self.data.shape
+        h = self.halo
+        ext = self._extended(h * bs * bs).reshape(nd, nl + 2 * h, bs, bs)
+        lookup = {o: d for d, o in enumerate(self.offsets)}
+        offsets = tuple(sorted(-o for o in self.offsets))
+        data_t = torch.stack([ext[lookup[-p], h + p:h + p + nl]
+                              for p in offsets]).transpose(-1, -2)
+        return _ShardedBlockDIA(data_t.contiguous(), offsets, h, self.mesh,
+                                self.groups, self.in_layout[1])
+
 
 class _ShardedDense:
-    """A dense factor: input gathered, local rows applied."""
+    """A dense factor: input gathered, local rows applied; its transpose
+    the local rows' partial over the columns, summed over the groups."""
 
     def __init__(self, D, mesh, groups):
         rows = D.data.shape[0]
         groups = groups if rows % groups == 0 else 1
         self.data = _rows(D.data, mesh, groups)
+        self.mesh, self.groups = mesh, groups
         self.in_layout = (1, D.data.shape[1])
         self.out_layout = (groups, rows)
 
     def apply(self, x):
+        # DenseOperator.matvec's products, on the local rows
+        if x.ndim == 2:
+            return torch.matmul(x, self.data.T)
         return torch.matmul(self.data, x)
+
+    def rapply(self, y):
+        return self.mesh.sum_groups(torch.matmul(y, self.data), self.groups)
 
 
 def _local_windowed(W, mesh, groups):
@@ -266,20 +345,27 @@ def _local_windowed(W, mesh, groups):
 
 
 class _ShardedWindowed:
-    """A windowed forward factor: input gathered, local row blocks (K6)."""
+    """A windowed forward factor: input gathered, local row blocks (K6,
+    K12 on lanes); its transpose the local rows into a full partial (K7,
+    K13 on lanes) summed over the groups."""
 
     def __init__(self, W, mesh, groups):
         self.local, groups = _local_windowed(W, mesh, groups)
+        self.mesh, self.groups = mesh, groups
         self.in_layout = (1, W.m_chunks * W.w2)
         self.out_layout = (groups, W.n_pad)
 
     def apply(self, x):
         return self.local.matvec(x)
 
+    def rapply(self, y):
+        return self.mesh.sum_groups(self.local.rmatvec(y), self.groups)
+
 
 class _ShardedTransposed:
     """A windowed transpose: the local fine rows into a full coarse
-    partial (K7), summed over one replica per group."""
+    partial (K7, K13 on lanes), summed over one replica per group; its
+    transpose the local rows of the base operator (K6, K12)."""
 
     def __init__(self, W, mesh, groups):
         self.local, groups = _local_windowed(W, mesh, groups)
@@ -288,17 +374,20 @@ class _ShardedTransposed:
         self.out_layout = (1, W.m_chunks * W.w2)
 
     def apply(self, r):
-        return self.mesh.sum_groups(windowed_rmatvec(self.local, r),
-                                    self.groups)
+        return self.mesh.sum_groups(self.local.rmatvec(r), self.groups)
+
+    def rapply(self, y):
+        return self.local.matvec(y)
 
 
 class _ShardedNeumannAIR:
     """The Neumann AIR restriction R r = Tinj^T (r - A z), z ``degree``
     F-masked Jacobi sweeps on A_ff z = r_F, on this rank's fine rows: A's
-    and Tinj's row blocks and dinv_f's rows kept, each A z through K6 on
-    the gathered z, Tinj^T through K7 into a coarse partial summed over
-    the groups (the reference's branch, ``pyamg_tpu/parallel/
-    partition.py:87-93``, shards the same three by rows)."""
+    and Tinj's row blocks and dinv_f's rows kept, each A z through K6
+    (K12 on lanes) on the gathered z, Tinj^T through K7 (K13) into a
+    coarse partial summed over the groups (the reference's branch,
+    ``pyamg_tpu/parallel/partition.py:87-93``, shards the same three by
+    rows)."""
 
     def __init__(self, R, mesh, groups):
         A, T = R.A, R.Tinj
@@ -317,8 +406,11 @@ class _ShardedNeumannAIR:
 
     def apply(self, r):
         r = neumann_residual(r, self.dinv_f, self.degree, self._apply_A)
-        return self.mesh.sum_groups(windowed_rmatvec(self.Tinj, r),
-                                    self.groups)
+        return self.mesh.sum_groups(self.Tinj.rmatvec(r), self.groups)
+
+    def rapply(self, y):
+        raise TypeError("no sharded transpose of the Neumann AIR "
+                        "restriction (nothing applies R^T)")
 
 
 def _factors(op, block):
@@ -357,9 +449,9 @@ def _shard_factor(f, mesh, k_in, k_out):
     if isinstance(f, NeumannAIRRestriction):
         return _ShardedNeumannAIR(f, mesh, k_in)
     if isinstance(f, DIAMatrix):
-        return _ShardedDIA(f, mesh, k_out)
+        return _ShardedDIA.of(f, mesh, k_out)
     if isinstance(f, BlockDIAMatrix):
-        return _ShardedBlockDIA(f, mesh, k_out)
+        return _ShardedBlockDIA.of(f, mesh, k_out)
     if isinstance(f, DenseOperator):
         return _ShardedDense(f, mesh, k_out)
     return _ShardedWindowed(f, mesh, k_out)
@@ -391,25 +483,44 @@ class ShardedOperator:
         return self.out_layout[1] // self.out_layout[0]
 
     def matvec(self, x):
-        if x.ndim != 1:
-            raise _not_ported("a batched (n, K) apply of a sharded operator",
-                              14)
+        """This rank's block of A x from its block of x: a vector, or a
+        K-major (K, n_local) lane stack (every factor applies lane by
+        lane, its communication one message for all lanes)."""
         cur = self.in_layout
         for f in reversed(self.factors):
             x = f.apply(self.mesh.relayout(x, cur, f.in_layout))
             cur = f.out_layout
         return self.mesh.relayout(x, cur, self.out_layout)
 
+    def rmatvec(self, y):
+        """This rank's block of A^T y from its block of y (in
+        ``out_layout``; the result in ``in_layout``), a vector or a lane
+        stack: each factor's transpose, left to right.  A DIA or block-DIA
+        factor builds its transposed diagonals at its first transpose; an
+        operator never transposed builds nothing."""
+        cur = self.out_layout
+        for f in self.factors:
+            y = f.rapply(self.mesh.relayout(y, cur, f.out_layout))
+            cur = f.in_layout
+        return self.mesh.relayout(y, cur, self.in_layout)
+
     def residual(self, x, b):
         """b - A x on this rank's blocks: one pass where the operator is a
         single factor with a residual form on the operator's own layout
         (a block-DIA level: B1's halo mode ``RESID``), else composed."""
         (f, *rest) = self.factors
-        if (not rest and hasattr(f, "residual") and x.ndim == 1
+        if (not rest and hasattr(f, "residual")
                 and f.in_layout == self.in_layout
                 and f.out_layout == self.out_layout):
             return f.residual(x, b)
         return b - self.matvec(x)
+
+    def schwarz_update(self, inv_blocks, r, window, stride):
+        """Windowed Schwarz's summed window corrections on this rank's
+        block of the residual r (a vector or a lane stack), the windows
+        being those that start in the block (:func:`_schwarz_update`)."""
+        return _schwarz_update(r, inv_blocks, window, stride, self.mesh,
+                               self.in_layout[0])
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -426,17 +537,24 @@ class ShardedHierarchy(DeviceHierarchy):
     n_pads: Tuple[int, ...] = ()
 
     def coarse_solve(self, bc):
-        if bc.ndim != 1:
-            raise _not_ported("a batched (n, K) sharded solve", 14)
+        """The replicated coarse inverse on the gathered coarse vector (or
+        lane stack), this rank's block kept."""
         k = self.groups[-1]
-        xc = torch.matmul(self.coarse_inv, self.mesh.gather(bc, k))
+        xc = super().coarse_solve(self.mesh.gather(bc, k))
         return self.mesh.local(xc, k).contiguous()
 
     def stage(self, v, dtype):
         """This rank's level-0 block of a global vector (numpy or tensor,
-        length n or n_pad)."""
-        full = pad_vector(v, self.n_pads[0], dtype=dtype,
-                          device=self.device)
+        length n or n_pad), or of an (n, K) column stack as a K-major (K,
+        n_local) lane stack."""
+        if np.ndim(v) == 2:
+            if not isinstance(v, torch.Tensor):
+                v = torch.as_tensor(np.asarray(v))
+            full = fit(v.to(dtype=dtype, device=self.device).T,
+                       self.n_pads[0])
+        else:
+            full = pad_vector(v, self.n_pads[0], dtype=dtype,
+                              device=self.device)
         return self.mesh.local(full, self.groups[0]).contiguous()
 
     def gather(self, x):
@@ -456,9 +574,11 @@ class ShardedHierarchy(DeviceHierarchy):
 
 # the roles of a smoother's arrays: one entry per row (a rank keeps its
 # row block, the last axis), one entry per node (a block level's (nb_pad,
-# ...) array: its node-row block, the first axis), or whole on every rank
-# (a 0-d weight, a polynomial's coefficient stack)
-_ROW, _NODE, _WHOLE = "row", "node", "whole"
+# ...) array: its node-row block, the first axis), one entry per window
+# (windowed Schwarz's (n_pad / stride, w, w) blocks: the windows that
+# start in the rank's rows), or whole on every rank (a 0-d weight, a
+# polynomial's coefficient stack)
+_ROW, _NODE, _WINDOW, _WHOLE = "row", "node", "window", "whole"
 # per smoother kind, the role of each array
 _SMOOTHER_ROLES = {
     "identity": (),
@@ -469,29 +589,22 @@ _SMOOTHER_ROLES = {
     "mcgs": (_ROW, _ROW),            # (dinv, colors)
     "poly": (),
     "poly_dyn": (_WHOLE,),
+    "jacobi_ne": (_ROW,),            # 1 / ||A_i,:||^2
+    "jacobi_nr": (_ROW,),            # 1 / ||A_:,j||^2 (A square)
+    "win_schwarz": (_WINDOW,),       # (inv_blocks,)
     "block_jacobi": (_NODE,),        # (Dinv,)
     "block_jacobi_dyn": (_NODE, _WHOLE),
     "block_mcgs": (_NODE, _NODE),    # (Dinv, colours per node)
 }
-# kinds whose sweep needs A^T of the sharded operator, or rolls vectors
-# across shards
-_SMOOTHER_UNSHARDED = {
-    "jacobi_ne": "the Cimmino smoother 'jacobi_ne' (A^T of a sharded "
-                 "operator)",
-    "jacobi_nr": "the Cimmino smoother 'jacobi_nr' (A^T of a sharded "
-                 "operator)",
-    "win_schwarz": "windowed Schwarz (its windows roll across shards)",
-}
 
 
 def _shard_smoother(sm, mesh, groups):
-    """This rank's copy of a smoother: its per-row and per-node arrays cut
-    to the rank's block, by each kind's explicit roles.  The copy is a new
-    smoother, so what it derives from its arrays (the per-colour and
-    per-mask inverse diagonals) is built from the rank's blocks."""
+    """This rank's copy of a smoother: its per-row, per-node and
+    per-window arrays cut to the rank's block, by each kind's explicit
+    roles.  The copy is a new smoother, so what it derives from its arrays
+    (the per-colour and per-mask inverse diagonals) is built from the
+    rank's blocks."""
     kind = sm.config[0]
-    if kind in _SMOOTHER_UNSHARDED:
-        raise _not_ported(f"a sharded {_SMOOTHER_UNSHARDED[kind]}", 14)
     if kind == "masked_jacobi":
         # dinv and one (n_pad,) mask a pass, as many as it has passes
         roles = (_ROW,) * len(sm.arrays)
@@ -505,10 +618,47 @@ def _shard_smoother(sm, mesh, groups):
             return mesh.local(a, groups).contiguous()
         if role == _NODE:
             return _rows(a, mesh, groups)
+        if role == _WINDOW:
+            _check_windows(a.shape[0], sm.config[1], sm.config[2], groups)
+            return _rows(a, mesh, groups)
         return a
 
     return DeviceSmoother(config=sm.config, arrays=tuple(
         cut(role, a) for role, a in zip(roles, sm.arrays, strict=True)))
+
+
+def _check_windows(nwin, window, stride, groups):
+    """Raise unless windowed Schwarz's ``nwin`` windows (one every
+    ``stride`` rows) split over ``groups`` blocks, each block holding
+    whole windows' starts and, on more than one block, at least the
+    ``window - stride`` rows a window reaches into the next block (a
+    ring of one wraps its windows onto its rows as often as they reach
+    past them)."""
+    n_pad = nwin * stride
+    if nwin % groups:
+        raise ValueError(f"windowed Schwarz: {n_pad} rows in {groups} "
+                         f"blocks of {n_pad / groups:g}, not a multiple of "
+                         f"the stride {stride}")
+    n_local = n_pad // groups
+    if groups > 1 and window - stride > n_local:
+        raise ValueError(f"windowed Schwarz: window {window} (stride "
+                         f"{stride}) overruns a block of {n_local} rows")
+
+
+def _schwarz_update(r, inv_blocks, window, stride, mesh, groups):
+    """Windowed Schwarz's update on this rank's block of r (a vector or a
+    K-major lane stack), on a layout of ``groups`` shard groups:
+    :func:`~pyamg_tpu_torch.engine.relaxation.schwarz_corrections` over
+    the windows that start in the block, the right halo of r and the
+    chunks' spills crossing the ring (``ring_send``), which wraps where
+    the unsharded windows wrap.  A block that a window overruns raises
+    ValueError naming the sizes, before any exchange."""
+    if groups > 1 and (inv_blocks.shape[0] * stride != r.shape[-1]
+                       or window - stride > r.shape[-1]):
+        _check_windows(inv_blocks.shape[0] * groups, window, stride, groups)
+    return schwarz_corrections(
+        inv_blocks, r, window, stride,
+        lambda t, to_right: ring_send(t, mesh, groups, to_right))
 
 
 def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):
@@ -537,10 +687,14 @@ def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):
         StructuredDeviceSolver(shard_hierarchy(ds.hierarchy, mesh),
                                ds.grid, ds.grid_p, ds.setup_info)
 
-    (``BlockStructuredDeviceSolver`` also takes ``ds.bs``).  What raises
-    (ROADMAP.md Queue 1 item 14): a batched (n, K) solve, CGNR / CGNE (A^T
-    of a sharded operator), the Cimmino smoothers and windowed Schwarz,
-    and ``precision="mixed"`` (no ``A64``)."""
+    (``BlockStructuredDeviceSolver`` also takes ``ds.bs``).  A sharded
+    hierarchy runs batched (n, K) solves (K-major lane stacks; never the
+    interleaved route, as the reference), CGNR / CGNE (A^T of each
+    sharded level), the Cimmino smoothers (``jacobi_ne``, ``jacobi_nr``)
+    and windowed Schwarz (a level whose blocks cannot hold whole windows
+    raises ValueError naming the sizes).  What raises: ``precision=
+    "mixed"`` (no ``A64``; the reference cannot run it either), and, on a
+    grid solver, a tensor ``b``."""
     if axis != mesh.axis:
         raise ValueError(f"mesh has no axis {axis!r}")
     levels = hierarchy.levels

@@ -530,14 +530,15 @@ def _lib_fn(kind, W):
 
 
 def _k12_rows(W, K):
-    """Rows per K12 CTA: a power of two dividing the block, near
-    ``_K12_PAIRS`` (row, lane group) pairs, its staged slots within the
-    default shared memory."""
+    """Rows per K12 CTA: a power of two near ``_K12_PAIRS`` (row, lane
+    group) pairs, its staged slots within the default shared memory, at
+    most the block (a block's last CTA takes the rows left, so a block
+    that no large power of two divides keeps full CTAs)."""
     groups = -(-min(K, _LANE_TILE) // _K12_LANES_PER_THREAD)
     rows = max(_K12_PAIRS // groups, 1)
     rows = min(rows, max(_SMEM_DEFAULT // (W.k * (W.data.element_size()
                                                   + 4)), 1))
-    return math.gcd(1 << (rows.bit_length() - 1), W.block)
+    return min(1 << (rows.bit_length() - 1), W.block)
 
 
 def _launch_matmat_k(W, Xk, Y):

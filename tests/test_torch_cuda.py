@@ -665,6 +665,26 @@ def test_k12_k13_windowed_lane_kernels_match_twins(cuda, dtype, K):
     assert torch.equal(window.windowed_rmatmat_k(W, R), Z)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k12_block_no_power_of_two_divides(cuda, dtype):
+    """K12 on row blocks of 1100 rows (4 x 275, as the sharded block
+    transfers' candidate remap takes 7524): full CTAs of rows and a
+    shorter last one a block, against its twin on K = 8 lanes, one
+    launch a call, two launches bit-identical."""
+    P = _random_rect(8192, 2600, per_row=4, spread=60, seed=5)
+    W = windowed_from_scipy(P, dtype=dtype, device=cuda, block=1100)
+    assert W.block == 1100
+    X = torch.as_tensor(np.random.default_rng(8).random(
+        (8, W.m_chunks * W.w2)), dtype=dtype, device=cuda)
+    assert window._k12_rows(W, 8) == 512
+    _build.reset_launches()
+    Y = window.windowed_matmat_k(W, X)
+    name = str(dtype).removeprefix("torch.")
+    assert _build.launches == {f"windowed_matmat_k.{name}": 1}
+    assert _rel_err(Y, window.windowed_matmat_k_ref(W, X)) <= TOL[dtype]
+    assert torch.equal(window.windowed_matmat_k(W, X), Y)
+
+
 def _dense_column_rect():
     """2048 x 700, ~5 entries per row, plus column 350 with 1024 entries:
     longer than the tile budget (128 at this size), so it gets a tile of
@@ -1717,3 +1737,103 @@ def test_block_halo_mode_matches_b1_and_twin(cuda, bs, misalign, dtype):
     A_cpu = dataclasses.replace(A, data=A.data.cpu())
     want = bd.block_dia_spmv_ref(A_cpu, x.cpu())
     assert _rel_err(ring.cpu(), want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid", [(96, 128), (64, 16, 16)])
+@pytest.mark.parametrize("K", [3, 17])
+def test_k16_lane_mode_matches_k8(cuda, dtype, grid, K):
+    """K16's lane mode on the card: the ring of one (halos are every
+    lane's own tail and head, ldl = n_local) and P = 4 in-process shards
+    (each block's columns of the stack, halos copied as (K, halo) stacks)
+    equal K8 (``dia_spmm``) bit for bit, and the plain twin to the kernel
+    tolerance; every lane in one launch a ring apply (17 lanes too: the
+    mode has no lane cap), two a shard."""
+    from pyamg_tpu_torch.parallel import halo_width
+    from pyamg_tpu_torch.parallel.halo_spmv import halo_spmv, halo_spmv_shards
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+
+    A = dia_from_scipy(poisson(grid, format="csr"), dtype=dtype,
+                       device=cuda, row_pad=1024)
+    X = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (K, A.n_pad)), dtype=dtype, device=cuda)
+    want = dia.dia_spmm(A, X)
+    one = SolverMesh(rank=0, world=1, device=cuda)
+    _build.reset_launches()
+    ring = halo_spmv(A.data, A.offsets, A.offsets_t, X, halo_width(A), one,
+                     1)
+    shards = halo_spmv_shards(A, X, 4)
+    torch.cuda.synchronize()
+    name = str(dtype).removeprefix("torch.")
+    assert _build.launches == {f"dia_halo_spmm.{name}": 1 + 2 * 4}
+    assert torch.equal(ring, want) and torch.equal(shards, want)
+    A_cpu = dataclasses.replace(A, data=A.data.cpu())
+    assert _rel_err(ring.cpu(), dia.dia_spmm_ref(A_cpu, X.cpu())) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bs", [2, 3])
+@pytest.mark.parametrize("K", [3, 17])
+def test_block_halo_lanes_match_b1(cuda, dtype, bs, K):
+    """B1's halo mode on K lanes on the card: ring of one and 4 in-process
+    node-row blocks, PLAIN and RESID, equal B1 on the whole operator's
+    lanes bit for bit; at most 16 lanes a launch (17 lanes: two launches
+    a part), as B1."""
+    from pyamg_tpu_torch.parallel import halo_spmv as hs
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    A, X, Bv, _, _ = _block_case(bs, dtype, cuda, K, nb=4091)
+    plain, resid = bd.block_dia_apply(A, X), bd.block_dia_resid(A, X, Bv)
+    one = SolverMesh(rank=0, world=1, device=cuda)
+    _build.reset_launches()
+    ring = hs.block_halo_spmv(A.data, A.offsets, A.offsets_t, X, A.halo,
+                              one, 1)
+    ring_r = hs.block_halo_spmv(A.data, A.offsets, A.offsets_t, X, A.halo,
+                                one, 1, b=Bv)
+    shards = hs.block_halo_spmv_shards(A, X, 4)
+    shards_r = hs.block_halo_spmv_shards(A, X, 4, b=Bv)
+    torch.cuda.synchronize()
+    chunks = -(-K // 16)
+    name = str(dtype).removeprefix("torch.")
+    assert _build.launches == {
+        f"block_dia_halo_spmm.{name}": chunks * (2 + 2 * 2 * 4)}
+    assert torch.equal(ring, plain) and torch.equal(shards, plain)
+    assert torch.equal(ring_r, resid) and torch.equal(shards_r, resid)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sharded_transposes_on_card(cuda, dtype):
+    """A^T of a sharded level in a world of one on the card: the DIA
+    level's transposed diagonals through K16 (one launch a vector or a
+    stack) against ``DIAMatrix.rmatvec``'s rolls to the kernel tolerance
+    (the rolls round each product apart from its sum, K16 fuses them),
+    the block level's through B1's halo mode against
+    ``BlockDIAMatrix.rmatvec`` (B1 on its transposed blocks) bit for
+    bit."""
+    from pyamg_tpu_torch.parallel.partition import (ShardedOperator,
+                                                    SolverMesh)
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    one = SolverMesh(rank=0, world=1, device=cuda)
+    A = sp.csr_matrix(poisson((96, 128), format="csr"))
+    A = A + sp.diags(np.linspace(0.1, 0.9, A.shape[0] - 1), 1)
+    D = dia_from_scipy(A, dtype=dtype, device=cuda, row_pad=1024)
+    sh = ShardedOperator(D, one, (1, D.n_pad), (1, D.n_pad), 1)
+    Ab, X, _, _, _ = _block_case(2, dtype, cuda, 3, nb=4091)
+    shb = ShardedOperator(Ab, one, (1, Ab.n_pad), (1, Ab.n_pad), 1)
+    name = str(dtype).removeprefix("torch.")
+    for lanes in (None, 3):
+        y = _rand(D.n_pad, dtype, cuda, 4) if lanes is None else \
+            torch.as_tensor(np.random.default_rng(4).random(
+                (lanes, D.n_pad)), dtype=dtype, device=cuda)
+        sh.rmatvec(y)
+        _build.reset_launches()
+        got = sh.rmatvec(y)
+        torch.cuda.synchronize()
+        kernel = "dia_halo_spmv" if lanes is None else "dia_halo_spmm"
+        assert _build.launches == {f"{kernel}.{name}": 1}
+        assert _rel_err(got, D.rmatvec(y)) <= TOL[dtype]
+        xb = X[0] if lanes is None else X
+        assert torch.equal(shb.rmatvec(xb), bd.block_dia_apply(Ab.T, xb))

@@ -275,26 +275,35 @@ def test_jacobi_dyn_equals_jacobi():
     dict(cycle="X"), dict(accel="gmres2"), dict(precision="double"),
     dict(sharded=True)])
 def test_unported_solve_options_raise(pair32, b, kwargs):
-    """Options that still raise: an unknown cycle or accel, an unknown
-    precision, and an (n, K) solve on a row-sharded hierarchy (ROADMAP.md
-    Queue 1 item 14; a world of one, the raise comes before any
-    collective)."""
+    """Options that raise: an unknown cycle or accel and an unknown
+    precision.  An (n, K) solve on a row-sharded hierarchy (a world of one,
+    every level a ring of one) no longer raises: it runs the lanes through
+    K16's lane mode and gives the unsharded batched solve's histories and
+    x bit for bit."""
     from pyamg_tpu_torch.parallel import shard_hierarchy
     from pyamg_tpu_torch.parallel.partition import SolverMesh
 
     _, ht = pair32
     kw = dict(tol=1e-8, precision="mixed")
     kw.update(kwargs)
-    rhs = b
     if kw.pop("sharded", False):
-        ht = shard_hierarchy(ht, SolverMesh(rank=0, world=1,
+        hs = shard_hierarchy(ht, SolverMesh(rank=0, world=1,
                                             device=torch.device(CPU)))
-        kw["precision"] = "native"
-        rhs = np.stack([b, b], axis=1)
+        rhs = np.stack([b, np.cos(np.arange(b.size))], axis=1)
+        kw.update(precision="native", maxiter=12)
+        res0, res1 = [], []
+        x0 = DeviceMultilevelSolver(ht).solve(rhs, residuals=res0, **kw)
+        x1 = DeviceMultilevelSolver(hs).solve(rhs, residuals=res1, **kw)
+        assert x1.shape == rhs.shape and len(res1) == 2
+        for h0, h1 in zip(res0, res1):
+            assert len(h1) > 3
+            np.testing.assert_array_equal(h1, h0)
+        np.testing.assert_array_equal(x1, x0)
+        return
     match = {"cycle": "cycle", "accel": "accelerator",
-             "precision": "precision"}.get(next(iter(kwargs)), "item 14")
-    with pytest.raises((NotImplementedError, ValueError), match=match):
-        DeviceMultilevelSolver(ht).solve(rhs, **kw)
+             "precision": "precision"}[next(iter(kwargs))]
+    with pytest.raises(ValueError, match=match):
+        DeviceMultilevelSolver(ht).solve(b, **kw)
 
 
 def test_batched_rhs_raises(pair32, b):

@@ -216,3 +216,45 @@ def test_four_blocks_emulation_matches_twin_bit_for_bit(shape, plan_dtype):
             torch.empty(nl, dtype=torch.float64)).numpy()
         assert _same(y, want)
         assert _same(y, whole[blk])
+
+
+def _lane_blocks(plan, part, lanes, super_):
+    """(lane, row block) of each CTA of K16's lane-mode launch over
+    ``part``, as the kernel maps blockIdx.x: the launch's row blocks
+    ([a0, a1) then [b0, b1), nrb in all) in super tiles of ``super_``,
+    the lanes of a tile one after another."""
+    order = [rb for b0, b1 in plan.blocks(part) for rb in range(b0, b1)]
+    nrb = len(order)
+    out = []
+    for bid in range(nrb * lanes):
+        st, rem = divmod(bid, super_ * lanes)
+        tile = min(super_, nrb - st * super_)
+        k, v = divmod(rem, tile)
+        out.append((k, order[st * super_ + v]))
+    return out
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+@pytest.mark.parametrize("plan_dtype", DTYPES)
+def test_lane_mode_maps_every_lane_block_once(plan_dtype, lanes):
+    """K16's lane mode covers every (lane, row block) of a launch once, in
+    super tiles of 128 launch row blocks (float32) or 1 (float64) with the
+    lanes of a tile one after another, for the ring of one's single launch
+    and for an exchange's interior and boundary launches; one lane maps
+    block b to the launch's b-th row block, the one-vector order."""
+    n, offsets = SMALL["2048^2-like"]
+    plan = halo_plan(offsets, n // 4, plan_dtype)
+    super_ = 128 if plan_dtype == torch.float32 else 1
+    for part in ("all", "interior", "boundary"):
+        rbs = [rb for b0, b1 in plan.blocks(part) for rb in range(b0, b1)]
+        got = _lane_blocks(plan, part, lanes, super_)
+        assert sorted(got) == sorted((k, rb) for k in range(lanes)
+                                     for rb in rbs)
+        if lanes == 1:
+            assert [rb for _, rb in got] == rbs
+    # a tile's lanes run back to back: each super tile's first lane ends
+    # before its second begins
+    big = halo_plan((-2048, -1, 0, 1, 2048), 4194304, torch.float32)
+    got = _lane_blocks(big, "all", 2, 128)
+    assert got[127] == (0, 127) and got[128] == (1, 0)
+    assert got[256] == (0, 128)

@@ -19,7 +19,12 @@ rendezvous under the test's temporary directory, each rank
 single-threaded, a 120 s deadline after which the ranks are killed and
 the tests fail), every rank runs every case of the fixture's body
 (:func:`_cases`, :func:`_device_built_rank_cases`) and saves its
-results, and the tests compare.  Inputs come from numpy seeds; the spawned ranks import torch,
+results, and the tests compare.  The first fixture takes 25-29 s alone,
+but ~100 s beside three other test workers, most of it the ranks
+starting and importing under load: the deadline bounds the ranks, not
+the fixture's own setup, and the sharded batched solves have a spawn of
+their own (``tests/test_torch_parallel_batched.py``) so as not to grow
+these two.  Inputs come from numpy seeds; the spawned ranks import torch,
 numpy and the port only (JAX is imported inside the tests).  Tolerances:
 bit-equality where the arithmetic is the same; f64 parity at the
 reference's rtol 1e-9 (1e-10 against the port's one-rank solve), since
@@ -64,12 +69,14 @@ SHARDED_CYCLES = {"bicgstab_w": dict(accel="bicgstab", cycle="W"),
 # the other smoothers on sharded hierarchies: multicolour Gauss-Seidel and
 # Chebyshev host-built (every colour step and Horner step a K16 SpMV), and
 # the unstructured setup's Chebyshev (its coefficient stack, length 3,
-# stays whole on every rank); the Cimmino and Schwarz sweeps raise
+# stays whole on every rank); the sweeps that cross shards: the Cimmino
+# sweep (A^T of the sharded operator, its transposed DIA levels) and
+# windowed Schwarz (a halo of r in, the windows' spills out)
 CHEB = ("chebyshev", {"degree": 3})
 SHARDED_SMOOTHERS = {"mcgs": ("gauss_seidel", {"sweep": "symmetric"}),
                      "chebyshev": CHEB}
-UNSHARDED_SMOOTHERS = {"cimmino": ("gauss_seidel_nr", {}),
-                       "schwarz": ("schwarz", {})}
+CROSS_SHARD_SMOOTHERS = {"cimmino": ("gauss_seidel_nr", {}),
+                         "schwarz": ("schwarz", {})}
 
 
 def _fem(nx):
@@ -222,12 +229,14 @@ def _cases(mesh, inp):
         x = DeviceMultilevelSolver(hs).solve(b, tol=tol, maxiter=maxiter,
                                              accel="cg", residuals=res)
         out[key] = (np.asarray(res), x)
-    for key in UNSHARDED_SMOOTHERS:
-        try:
-            shard_hierarchy(inp[key], mesh, min_local_rows=128)
-            out[key] = None
-        except NotImplementedError as e:
-            out[key] = str(e)
+    for key in CROSS_SHARD_SMOOTHERS:
+        h, b, tol, maxiter = inp[key]
+        hs = shard_hierarchy(h, mesh, min_local_rows=128)
+        res = []
+        x = DeviceMultilevelSolver(hs).solve(b, tol=tol, maxiter=maxiter,
+                                             accel="gmres", restart=10,
+                                             residuals=res)
+        out[key] = (np.asarray(res), x)
     d = torch.arange(1.0, 513.0, dtype=torch.float32)
     d_loc = shard_vector(mesh, d)
     ones = shard_vector(mesh, torch.ones(512))
@@ -312,7 +321,7 @@ def _spmd(tmp_path_factory):
     smoothers, ref_smoothers = {}, {}
     ml_s = smoothed_aggregation_solver(A64, **CONFIG1)
     for key, spec in (list(SHARDED_SMOOTHERS.items())
-                      + list(UNSHARDED_SMOOTHERS.items())):
+                      + list(CROSS_SHARD_SMOOTHERS.items())):
         smoothers[key] = compile_hierarchy(change_smoothers(ml_s, spec, spec),
                                            dtype=torch.float64, device="cpu",
                                            row_pad=64)
@@ -321,6 +330,13 @@ def _spmd(tmp_path_factory):
         x = DeviceMultilevelSolver(smoothers[key]).solve(
             b_host, tol=1e-10, maxiter=20, accel="cg", residuals=res)
         smoothers[key] = (smoothers[key], b_host, 1e-10, 20)
+        ref_smoothers[key] = (res, x)
+    for key in CROSS_SHARD_SMOOTHERS:
+        res = []
+        x = DeviceMultilevelSolver(smoothers[key]).solve(
+            b_host, tol=1e-8, maxiter=12, accel="gmres", restart=10,
+            residuals=res)
+        smoothers[key] = (smoothers[key], b_host, 1e-8, 12)
         ref_smoothers[key] = (res, x)
 
     M = _fem(128)
@@ -553,13 +569,23 @@ def test_sharded_smoothers(spmd, key):
         np.testing.assert_array_equal(out[key][0], res)
 
 
-@pytest.mark.parametrize("key", list(UNSHARDED_SMOOTHERS))
+@pytest.mark.parametrize("key", list(CROSS_SHARD_SMOOTHERS))
 def test_sharded_cimmino_and_schwarz_raise(spmd, key):
-    """The Cimmino sweep needs A^T of a sharded operator and windowed
-    Schwarz rolls across shards: sharding such a hierarchy raises, on
-    every rank (ROADMAP.md Queue 1 item 14)."""
-    for out in spmd["ranks"]:
-        assert out[key] is not None and "item 14" in out[key]
+    """The sweeps that once raised on a sharded hierarchy now shard: the
+    Cimmino sweep (``gauss_seidel_nr``, compiled to ``jacobi_nr``: A^T of
+    the sharded operator through each DIA level's transposed diagonals)
+    and windowed Schwarz (a right halo of r in, each window chunk's spill
+    out, through the ring) on the host-built hierarchy over 8 ranks:
+    GMRES (restart 10) takes the one-rank solve's count, its history to
+    rtol 1e-10 and its solution within 1e-10; every rank holds the same
+    history."""
+    res, x = spmd["ranks"][0][key]
+    res1, x1 = spmd["ref_smoothers"][key]
+    assert len(res) == len(res1) > 3
+    np.testing.assert_allclose(res, res1, rtol=1e-10, atol=1e-14 * res1[0])
+    np.testing.assert_allclose(x, x1, atol=1e-10)
+    for out in spmd["ranks"][1:]:
+        np.testing.assert_array_equal(out[key][0], res)
 
 
 def test_sharded_aspreconditioner(spmd):

@@ -16,8 +16,10 @@ CPU in one process (``pyamg_tpu_torch.parallel.partition``).
 - The masked Jacobi's and the block smoothers' sharded arrays are the
   row and node blocks of the unsharded ones, and the per-mask inverse
   diagonals are built from the rank's blocks.
-- What still raises on a sharded device-built hierarchy raises, citing
-  ROADMAP.md Queue 1 item 14.
+- A sharded device-built solver runs lanes and CGNR with the unsharded
+  histories; mixed precision still raises (no A64, as the reference's),
+  citing ROADMAP.md Queue 1 item 14.  The Cimmino and Schwarz smoothers
+  shard by rows and by window starts.
 """
 import numpy as np
 import pytest
@@ -248,24 +250,38 @@ def sharded_sa():
 
 @pytest.mark.parametrize("what", ["batched", "cgnr", "mixed", "tensor_b"])
 def test_sharded_device_built_raises(sharded_sa, what):
-    """On a sharded device-built solver: a batched (n, K) solve, CGNR and
-    precision="mixed" (a sharded hierarchy carries no A64, as the
-    reference's) raise citing ROADMAP.md Queue 1 item 14; a tensor b
-    raises (its solve would give this rank's block of the padded grid);
-    a numpy b solves with the unsharded history."""
+    """On a sharded device-built solver (a world of one): a batched (n, K)
+    solve and CGNR run (K16's lane mode, the transposed DIA levels in a
+    ring of one), with the unsharded solve's counts and histories to f64
+    rtol 1e-12, as the one-vector solve (the unsharded cycle fuses its
+    level entries and restrictions, the sharded one composes them);
+    precision="mixed" raises (a sharded hierarchy carries no A64, as the
+    reference's, which cannot run it either), citing ROADMAP.md Queue 1
+    item 14; a tensor b raises (its solve would give this rank's block of
+    the padded grid); a numpy b solves with the unsharded history."""
     A, ds, sv = sharded_sa
     b = np.random.default_rng(0).random(A.shape[0])
     kw = dict(tol=1e-8, maxiter=30, accel="cg")
-    if what == "batched":
-        call = lambda: sv.solve(np.stack([b, b], axis=1), **kw)  # noqa: E731
-    elif what == "cgnr":
-        call = lambda: sv.solve(b, **dict(kw, accel="cgnr"))  # noqa: E731
-    elif what == "mixed":
+    if what in ("batched", "cgnr"):
+        rhs = np.stack([b, np.sin(np.arange(b.size))], axis=1) \
+            if what == "batched" else b
+        kw["accel"] = "cg" if what == "batched" else "cgnr"
+        res0, res1 = [], []
+        x0 = ds.solve(rhs, residuals=res0, **kw)
+        x1 = sv.solve(rhs, residuals=res1, **kw)
+        hist0, hist1 = (res0, res1) if what == "batched" else (
+            [res0], [res1])
+        assert len(hist1) == len(hist0) == (2 if what == "batched" else 1)
+        for h0, h1 in zip(hist0, hist1):
+            assert len(h1) == len(h0) > 3
+            np.testing.assert_allclose(h1, h0, rtol=1e-12)
+        np.testing.assert_allclose(x1, x0, rtol=0, atol=1e-12)
+        return
+    if what == "mixed":
         call = lambda: sv.solve(b, precision="mixed", **kw)  # noqa: E731
     else:
         call = lambda: sv.solve(torch.as_tensor(b), **kw)  # noqa: E731
-    exc = TypeError if what == "tensor_b" else (NotImplementedError,
-                                                ValueError)
+    exc = TypeError if what == "tensor_b" else ValueError
     with pytest.raises(exc, match="block" if what == "tensor_b"
                        else "item 14"):
         call()
@@ -281,7 +297,27 @@ def test_sharded_device_built_raises(sharded_sa, what):
                                                      4)],
                          ids=["jacobi_ne", "win_schwarz"])
 def test_cross_shard_smoothers_still_raise(sm):
-    """The Cimmino sweep (A^T of a sharded operator) and windowed Schwarz
-    (windows rolling across shards) still raise, citing item 14."""
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """The Cimmino sweep and windowed Schwarz shard: the Cimmino sweep's
+    inverse row norms by rows (its A^T is the sharded operator's), the
+    Schwarz windows by their starts; windows that cannot split over the
+    blocks (one window of stride 4 over 2 blocks) raise ValueError naming
+    the sizes, as does a window that overruns its block on more than one
+    block."""
+    if sm.config[0] == "jacobi_ne":
+        cut = _shard_smoother(sm, _one(2, 1), 2)
+        assert cut.config == sm.config
+        assert torch.equal(cut.arrays[0], sm.arrays[0][4:])
+        return
+    with pytest.raises(ValueError, match="4 rows in 2 blocks"):
         _shard_smoother(sm, _one(2), 2)
+    blocks = torch.arange(4 * 64, dtype=torch.float64).reshape(4, 8, 8)
+    ok = rel.windowed_schwarz(blocks, 8, 4)
+    cut = _shard_smoother(ok, _one(2, 1), 2)
+    assert torch.equal(cut.arrays[0], blocks[2:])
+    wide = rel.windowed_schwarz(torch.ones(2, 12, 12), 12, 4)
+    with pytest.raises(ValueError, match="overruns a block of 4 rows"):
+        _shard_smoother(wide, _one(2), 2)
+    # a level on one group is a ring of one: its windows wrap onto its
+    # rows however far they reach, as the unsharded sweep's do
+    assert torch.equal(_shard_smoother(wide, _one(2), 1).arrays[0],
+                       wide.arrays[0])

@@ -540,11 +540,13 @@ def test_sharding_the_air_restriction_raises(air64):
     """The AIR level's Neumann restriction shards (rank 0 of 8, level 0's
     two row blocks on two groups: rank 0 keeps the first block of A and
     Tinj and its rows of dinv_f, the masked Jacobi its rows of dinv and of
-    each mask); what still raises is a batched (n, K) apply of it, citing
-    ROADMAP.md Queue 1 item 14, before any communication."""
+    each mask), and a batched (n, K) apply of it no longer raises: sharded
+    over a world of one, it applies a K-major stack as the unsharded
+    restriction does (K12 and K13 on the lanes), bit for bit."""
     from pyamg_tpu_torch import shard_hierarchy
     from pyamg_tpu_torch.parallel.partition import (SolverMesh,
                                                     _ShardedNeumannAIR)
+    from pyamg_tpu_torch.sparse.formats import fit
 
     mesh = SolverMesh(rank=0, world=8, device=torch.device(CPU))
     h = air64[3].hierarchy
@@ -558,8 +560,14 @@ def test_sharding_the_air_restriction_raises(air64):
     for a, a_s in zip(lvl.post.arrays, lvl_s.post.arrays):
         n = a.shape[0] // hs.groups[0]
         assert torch.equal(a_s, a[:n])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        lvl_s.R.matvec(torch.zeros(2, lvl_s.n_pad, dtype=torch.float64))
+    one = shard_hierarchy(h, SolverMesh(rank=0, world=1,
+                                        device=torch.device(CPU)))
+    r = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (2, lvl.n_pad)))
+    got = one.levels[0].R.matvec(r)
+    want = fit(lvl.R @ r, got.shape[-1])
+    assert got.shape == (2, one.levels[1].n_pad)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("setup", ["rs", "air"])
