@@ -615,6 +615,10 @@ PATHS.update({
     "sharded batched config 4 1024^2": (
         "block_dia_halo_spmm.float32", "block_dia_jacobi.float32")
     + _LANE_REMAP,
+    # its unsharded twin: B1 (PLAIN, RESID) and B2 (ZERO_RES, STEP, ZERO)
+    # on the lanes of every block level
+    "batched config 4 1024^2": ("block_dia_spmv.float32",
+                                "block_dia_jacobi.float32"),
     "sharded batched unstructured": _LANE_REMAP,
     "sharded CGNR config 5 RS": _SHARDED_GRID,
     "sharded CGNE config 5 RS": _SHARDED_GRID,
@@ -1259,9 +1263,9 @@ def dia_cost(A, vectors, lanes=1, stacks=0, extra_ops=0):
     return nbytes, (2 * A.ndiags + extra_ops) * n * lanes
 
 
-def dia_to_csr(A):
-    """The DIA operator as a torch CSR matrix on its device (the library
-    yardstick's input)."""
+def dia_to_csr(A, transpose=False):
+    """The DIA operator (its transpose where ``transpose``) as a torch CSR
+    matrix on its device (the library yardstick's input)."""
     import torch
 
     n = A.n_pad
@@ -1273,6 +1277,7 @@ def dia_to_csr(A):
         rows.append(i[m])
         cols.append(j[m])
         vals.append(A.data[d][m])
+    rows, cols = (cols, rows) if transpose else (rows, cols)
     coo = torch.sparse_coo_tensor(
         torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
         (n, n)).coalesce()
@@ -1560,10 +1565,13 @@ def interleaved_phase(check, dla, A, launches):
         path_launches(check, lab, counts)
 
 
-def profile_phase(title, runs):
+def profile_phase(title, runs, top=6):
     """A torch.profiler trace of each (label, fn) call, after a warm one:
     wall time, CUDA kernel time, kernel launches, the device's busy share,
-    and the largest kernels."""
+    and the ``top`` largest kernels (by name with their template
+    arguments: a block-DIA kernel's <T, BS, lane tile, mode>)."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1581,7 +1589,9 @@ def profile_phase(title, runs):
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            name = e.name if len(e.name) < 60 else e.name[:57] + "..."
+            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                          e.name)
+            name = name if len(name) < 60 else name[:57] + "..."
             t, c = kern.get(name, (0.0, 0))
             kern[name] = (t + e.device_time_total / 1e3, c + 1)
         busy = sum(t for t, _ in kern.values())
@@ -1590,7 +1600,8 @@ def profile_phase(title, runs):
                  else "not measured (no device events in the trace)")
         log(f"  {label}: wall {wall * 1e3:.2f} ms, kernel time {busy:.2f} "
             f"ms, {launches} kernels, device busy share {share}")
-        for name, (t, c) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]:
+        for name, (t, c) in sorted(kern.items(),
+                                   key=lambda kv: -kv[1][0])[:top]:
             log(f"    {t:8.3f} ms {c:5d}x  {name}")
 
 
@@ -4281,8 +4292,9 @@ def block_halo_lane_checks(check, A, rand, results, tag, path, side,
     the same bits, launches a call, and PLAIN and RESID bit for bit
     against B1 on the lanes (``block_dia_apply``, B1's own time beside
     it); ``shards`` in-process node-row blocks of the stack against B1
-    bit for bit.  Library: ``torch.sparse.mm`` of A as CSR against the
-    (n, K) columns."""
+    bit for bit; ``RESID`` on the ring of one timed too.  Library:
+    ``torch.sparse.mm`` (``torch.addmm`` for RESID) of A as CSR against
+    the (n, K) columns."""
     import torch
 
     from pyamg_tpu_torch.parallel.dist_spmv import block_dia_halo_rows_ref
@@ -4297,7 +4309,7 @@ def block_halo_lane_checks(check, A, rand, results, tag, path, side,
     halo = max(A.halo, 1)
     hw = halo * A.bs
     X, Bv = rand((LANES, n), dtype), rand((LANES, n), dtype)
-    Xcols = X.T.contiguous()
+    Xcols, Bcols = X.T.contiguous(), Bv.T.contiguous()
     csr = bdia_to_csr(A, A.device)
 
     def ring():
@@ -4321,8 +4333,23 @@ def block_halo_lane_checks(check, A, rand, results, tag, path, side,
     b1, b1_r = bd.block_dia_apply(A, X), bd.block_dia_resid(A, X, Bv)
     row["b1_lanes_ms"] = min(time_ms(lambda: bd.block_dia_apply(A, X))
                              for _ in range(2))
-    ring_r = block_halo_spmv(A.data, A.offsets, A.offsets_t, X, halo, one,
-                             1, b=Bv)
+
+    def ring_resid():
+        return block_halo_spmv(A.data, A.offsets, A.offsets_t, X, halo, one,
+                               1, b=Bv)
+
+    # RESID: b read besides; one more operation a row
+    compare(check, f"block_dia_halo_spmm.{dt} RESID [{tag} K={LANES} ring "
+            "of one]", dtype, ring_resid,
+            lambda: block_dia_halo_rows_ref(
+                A.data, A.offsets, X[:, n - hw:], X, X[:, :hw], halo,
+                ((0, nb),), torch.empty_like(X), Bv), results,
+            block_cost(A, 3 * LANES)[0],
+            LANES * block_cost(A, 0, extra_ops=1)[1],
+            library_fn=lambda: torch.addmm(Bcols, csr, Xcols, alpha=-1.0),
+            path=path, repeat_exact=True)
+    results[-1]["launches_per_call"] = launches_per_call(ring_resid)
+    ring_r = ring_resid()
     split = block_halo_spmv_shards(A, X, shards, side)
     split_r = block_halo_spmv_shards(A, X, shards, side, b=Bv)
     torch.cuda.synchronize()
@@ -4335,46 +4362,82 @@ def block_halo_lane_checks(check, A, rand, results, tag, path, side,
           f"ms, bound {row['bound_ms']:.4f} ms")
 
 
-def block_zero_lane_check(check, Dinv, omega, rand, results, tag, path):
-    """B2 ``ZERO`` (omega Dinv b, node block by node block) on a K = LANES
-    stack, the local update of the sharded block sweep on lanes: against
-    its twin at the kernel tolerance, a second launch with the first
-    one's bits, launches a call, and every lane equal to ``ZERO`` on that
-    lane alone bit for bit.  Library: ``torch.baddbmm`` of Dinv against
-    the stack's (nb, bs, K) view, scaled by omega."""
+def block_lane_checks(check, A, Dinv, omega, colors, rand, results, tag,
+                      path, zero_path):
+    """B1 (PLAIN, RESID) and B2 (ZERO, ZERO_RES, STEP, COLOUR on colour 0
+    of ``colors``) on K = LANES stacks of the block level A, the unsharded
+    batched V-cycle's kernels (ZERO, the local update of the sharded block
+    sweep too, on ``zero_path``): each against its twin at the kernel
+    tolerance, a second launch with the first one's bits, launches a
+    call, and every lane equal to the one-vector kernel on that lane alone
+    bit for bit.  Each row's bound counts the blocks (and Dinv) once and
+    every lane's vectors; the library call: ``torch.sparse.mm`` of A as
+    CSR against the (n, K) columns (``torch.addmm`` for RESID) and
+    ``torch.baddbmm`` of Dinv against the stack's (nb, bs, K) view for
+    ZERO; none for ZERO_RES, STEP and COLOUR."""
     import torch
 
     from pyamg_tpu_torch.sparse import block_dia as bd
 
-    dtype = Dinv.dtype
+    dtype, n, nb, bs = A.dtype, A.n_pad, A.nb_pad, A.bs
     dt = str(dtype).removeprefix("torch.")
-    nb, bs = Dinv.shape[0], Dinv.shape[-1]
-    B = rand((LANES, nb * bs), dtype)
+    X, B = rand((LANES, n), dtype), rand((LANES, n), dtype)
+    Xcols, Bcols = X.T.contiguous(), B.T.contiguous()
     Bv = B.view(LANES, nb, bs).permute(1, 2, 0)
     out = torch.empty((nb, bs, LANES), dtype=dtype, device=B.device)
+    csr = bdia_to_csr(A, A.device)
     w = float(omega)
-    sz = B.element_size()
-    # Dinv once, every lane's b and y; 2 bs operations a row a lane, and
-    # the weight
-    compare(check, f"block_dia_jacobi.{dt} ZERO [{tag} K={LANES}]", dtype,
-            lambda: bd.block_jacobi_zero(Dinv, B, omega),
-            lambda: bd.block_jacobi_zero_ref(Dinv, B, omega), results,
-            Dinv.numel() * sz + 2 * LANES * nb * bs * sz,
-            LANES * (2 * nb * bs * bs + nb * bs),
-            library_fn=lambda: torch.baddbmm(out, Dinv, Bv, beta=0,
-                                             alpha=w),
-            path=path, repeat_exact=True)
-    row = results[-1]
-    k = row["launches_per_call"] = launches_per_call(
-        lambda: bd.block_jacobi_zero(Dinv, B, omega))
-    Y = bd.block_jacobi_zero(Dinv, B, omega)
-    same = all(torch.equal(Y[i], bd.block_jacobi_zero(Dinv, B[i].clone(),
-                                                      omega))
-               for i in range(LANES))
-    check(same and k == 1, f"block_dia_jacobi.{dt} ZERO [{tag} K={LANES}]: "
-          f"every lane equals ZERO on that lane alone bit for bit, {k} "
-          f"launch(es) a call; {row['ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms")
+    n0 = int((colors == 0).sum())
+
+    def lanes_cost(vectors, **kw):
+        """block_cost with every lane's vectors and operations."""
+        return (block_cost(A, LANES * vectors, **kw)[0],
+                LANES * block_cost(A, vectors, **kw)[1])
+
+    zero_bytes = (Dinv.numel() + 2 * LANES * n) * B.element_size()
+    modes = (
+        ("block_dia_spmv", "", lambda X, B: bd.block_dia_apply(A, X),
+         lambda: bd.block_dia_spmv_ref(A, X), lanes_cost(2),
+         lambda: torch.sparse.mm(csr, Xcols)),
+        ("block_dia_spmv", " RESID", lambda X, B: bd.block_dia_resid(A, X, B),
+         lambda: bd.block_dia_resid_ref(A, X, B), lanes_cost(3, extra_ops=1),
+         lambda: torch.addmm(Bcols, csr, Xcols, alpha=-1.0)),
+        ("block_dia_jacobi", " ZERO",
+         lambda X, B: bd.block_jacobi_zero(Dinv, B, omega),
+         lambda: bd.block_jacobi_zero_ref(Dinv, B, omega),
+         (zero_bytes, LANES * (2 * nb * bs * bs + nb * bs)),
+         lambda: torch.baddbmm(out, Dinv, Bv, beta=0, alpha=w)),
+        ("block_dia_jacobi", " ZERO_RES",
+         lambda X, B: bd.block_jacobi_zero_res(A, B, Dinv, omega),
+         lambda: bd.block_jacobi_zero_res_ref(A, B, Dinv, omega),
+         lanes_cost(3, dinv=True, extra_ops=2), None),
+        ("block_dia_jacobi", " STEP",
+         lambda X, B: bd.block_jacobi_step(A, X, B, Dinv, omega),
+         lambda: bd.block_jacobi_step_ref(A, X, B, Dinv, omega),
+         lanes_cost(3, dinv=True, extra_ops=3), None),
+        ("block_dia_jacobi", f" COLOUR 0 ({n0} nodes)",
+         lambda X, B: bd.block_colour_step(A, X, B, Dinv, colors, 0),
+         lambda: bd.block_colour_step_ref(A, X, B, Dinv, colors, 0),
+         (block_cost(A, LANES * (2 + n0 / nb), dinv=True, nodes=n0)[0],
+          LANES * block_cost(A, 2 + n0 / nb, dinv=True, nodes=n0,
+                             extra_ops=3)[1]), None))
+    for kernel, mode, fn, plain, cost, lib in modes:
+        name = f"{kernel}.{dt}{mode} [{tag} K={LANES}]"
+        compare(check, name, dtype, lambda: fn(X, B), plain, results, *cost,
+                library_fn=lib, repeat_exact=True,
+                path=zero_path if mode == " ZERO" else path)
+        row = results[-1]
+        k = row["launches_per_call"] = launches_per_call(lambda: fn(X, B))
+        got = fn(X, B)
+        got = got if isinstance(got, tuple) else (got,)
+        same = True
+        for i in range(LANES):
+            one = fn(X[i].clone(), B[i].clone())
+            one = one if isinstance(one, tuple) else (one,)
+            same &= all(torch.equal(g[i], o) for g, o in zip(got, one))
+        check(same and k == 1, f"{name}: every lane equals the one-vector "
+              f"kernel on that lane alone bit for bit, {k} launch(es) a "
+              f"call; {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
 
 
 def transposed_level_checks(check, A, Ab, rand):
@@ -4384,7 +4447,9 @@ def transposed_level_checks(check, A, Ab, rand):
     stack (the kernel tolerance: the rolls round each product apart from
     its sum), one launch a call after the build; the block level Ab's
     through B1's halo mode against ``BlockDIAMatrix.rmatvec`` (B1 on its
-    transposed blocks) bit for bit; times of both forms."""
+    transposed blocks) bit for bit; times of both forms, and of the library
+    call on A^T as CSR (``torch.mv`` on a vector, ``torch.sparse.mm`` on
+    the stack's (n, K) columns)."""
     import torch
 
     from pyamg_tpu_torch.parallel.partition import (ShardedOperator,
@@ -4394,6 +4459,8 @@ def transposed_level_checks(check, A, Ab, rand):
     one = SolverMesh(rank=0, world=1, device=A.device)
     for M, kind in ((A, "DIA"), (Ab, "block")):
         sh = ShardedOperator(M, one, (1, M.n_pad), (1, M.n_pad), 1)
+        csr_t = (dia_to_csr(M, transpose=True) if kind == "DIA"
+                 else bdia_to_csr(M.T, M.device))
         dt = str(M.dtype).removeprefix("torch.")
         y0 = rand(M.n_pad, M.dtype)
         torch.cuda.synchronize()
@@ -4410,6 +4477,12 @@ def transposed_level_checks(check, A, Ab, rand):
             k = launches_per_call(lambda: sh.rmatvec(y))
             t_sh = time_ms(lambda: sh.rmatvec(y))
             t_un = time_ms(lambda: M.rmatvec(y))
+            if y.ndim == 1:
+                lib = "torch.mv"
+                t_lib = time_ms(lambda: torch.mv(csr_t, y))
+            else:
+                lib, cols = "torch.sparse.mm", y.T.contiguous()
+                t_lib = time_ms(lambda: torch.sparse.mm(csr_t, cols))
             lanes = "one vector" if y.ndim == 1 else f"K={LANES}"
             tol = F32_REL_TOL if M.dtype == torch.float32 else F64_REL_TOL
             ok = (torch.equal(got, want) if kind == "block"
@@ -4419,7 +4492,8 @@ def transposed_level_checks(check, A, Ab, rand):
             check(ok and k == 1,
                   f"sharded A^T [{kind} {dt} n_pad={M.n_pad}, {lanes}]: "
                   f"{how} against the unsharded transpose, {k} launch(es) a call,"
-                  f" {t_sh:.4f} ms (unsharded {t_un:.4f} ms); the first "
+                  f" {t_sh:.4f} ms (unsharded {t_un:.4f} ms; library "
+                  f"{t_lib:.4f} ms, {lib} on A^T as CSR); the first "
                   f"transpose, the diagonals' build included, "
                   f"{t_build * 1e3:.1f} ms")
 
@@ -4430,12 +4504,14 @@ def sharded_lanes_phase(check, dev, card, rand, results, launches, dsa, dml,
     the cross-shard sweeps, in a world of one NCCL rank (file://
     rendezvous).  Kernels: K16's lane mode at config 1's device-built
     2048^2 level-0 S and S^T (float32 and float64) and the 64^3 level-0 S,
-    B1's halo mode on lanes at config 4's 1024^2 level 0, the transposed
-    DIA and block DIA.  Solves at K = LANES, each against its unsharded
+    B1's halo mode on lanes and B1 / B2 in every mode on lanes (the
+    unsharded batched V-cycle's kernels) at config 4's 1024^2 level 0,
+    the transposed DIA and block DIA.  Solves at K = LANES, each against its unsharded
     batched solve in this run (every lane's count, its history within
     SHARDED_HIST_RTOL, its true relres, walls median of 3, launches a
     solve): config 1 device-built and host-built (CG to 1e-5), config 3
-    RS 512^2, config 4 1024^2 (block, its columns grid-encoded), the 640k
+    RS 512^2, config 4 1024^2 (block, its columns grid-encoded; then the
+    unsharded solve's launches and a torch.profiler trace of both), the 640k
     unstructured SA (CG to 1e-6); CGNR and CGNE on config 5's RS 1024^2
     and on AIR 256^2 (20 iterations); the Cimmino sweep and windowed
     Schwarz on a host-built 256^2 float64 hierarchy (CG)."""
@@ -4618,27 +4694,42 @@ def sharded_lanes_phase(check, dev, card, rand, results, launches, dsa, dml,
             d4 = device_sa_setup_block(A4, grid=C4_BIG_NODE_GRID, B=Bm,
                                        max_coarse=400, dtype=f32, device=dev)
             lv4 = d4.hierarchy.levels[0]
+            tag4 = (f"config4 1024^2 level0 A bs={lv4.A.bs} "
+                    f"nd={lv4.A.ndiags} nb={lv4.A.nb_pad}")
             block_halo_lane_checks(
-                check, lv4.A, rand, results,
-                f"config4 1024^2 level0 A bs={lv4.A.bs} nd={lv4.A.ndiags} "
-                f"nb={lv4.A.nb_pad}", "sharded batched config 4 1024^2",
-                side)
-            block_zero_lane_check(
-                check, *lv4.pre.arrays, rand, results,
-                f"config4 1024^2 level0 Dinv nb={lv4.A.nb_pad} "
-                f"bs={lv4.A.bs}", "sharded batched config 4 1024^2")
+                check, lv4.A, rand, results, tag4,
+                "sharded batched config 4 1024^2", side)
+            # the 4-colour parity colouring of the padded node grid
+            gx = lv4.P.fine_grid_p[1]
+            node = torch.arange(lv4.A.nb_pad, device=dev)
+            parity = ((node // gx) % 2 * 2 + node % gx % 2).to(torch.int32)
+            block_lane_checks(check, lv4.A, *lv4.pre.arrays, parity, rand,
+                              results, tag4, "batched config 4 1024^2",
+                              "sharded batched config 4 1024^2")
+            del parity, node
             transposed_level_checks(check, lv0.A, lv4.A, rand)
             B4 = rng.random((A4.shape[0], LANES))
             E4 = np.stack([d4._encode(c) for c in B4.T], axis=1)
             true4 = true_of(A4, B4)
             hs4 = shard_hierarchy(d4.hierarchy, mesh)
-            lane_case("sharded batched config 4 1024^2",
-                      DeviceMultilevelSolver(d4.hierarchy).solve,
-                      DeviceMultilevelSolver(hs4).solve, E4,
+            un4 = DeviceMultilevelSolver(d4.hierarchy).solve
+            sh4 = DeviceMultilevelSolver(hs4).solve
+            lane_case("sharded batched config 4 1024^2", un4, sh4, E4,
                       lambda X: true4(np.stack(
                           [d4._decode(c) for c in X.T], axis=1)), cg5)
             lane_remap("sharded batched config 4 1024^2", d4, hs4)
-            del d4, hs4, lv4, E4, B4
+            label = "batched config 4 1024^2"
+            _, counts, wall = counted(lambda: un4(E4, **cg5))
+            launches[label] = counts
+            log(f"{label} (unsharded, K={LANES}, cg to 1e-5): solve "
+                f"{wall:.4f} s; launches in that solve: "
+                f"{json.dumps(counts, sort_keys=True)}")
+            path_launches(check, label, counts)
+            profile_phase(f"config 4 1024^2 batched CG, K={LANES}", (
+                ("unsharded batched CG to 1e-5", lambda: un4(E4, **cg5)),
+                ("sharded batched CG to 1e-5 (world of one)",
+                 lambda: sh4(E4, **cg5))), top=14)
+            del d4, hs4, lv4, E4, B4, un4, sh4
             # the 640k unstructured SA hierarchy, CG to 1e-6
             Bu = rng.standard_normal((A_un.shape[0], LANES))
             hsu = shard_hierarchy(dus.hierarchy, mesh)

@@ -55,7 +55,8 @@ launches: dict[str, int] = {}
 # lanes per launch of the K-lane DIA and interleaved kernels (K8-K11,
 # K15): each holds its lanes' sums in a register array of this size
 # (kMaxLanes in csrc/dia_k.cu, csrc/interleaved.cu); the block-DIA kernels
-# (csrc/block_dia.cu) take as many lanes on gridDim.y
+# (csrc/block_dia.cu) take as many, a thread serving them in lane tiles
+# of 8
 MAX_LANES = 16
 
 # streaming multiprocessors that a plan for a CPU tensor assumes (an

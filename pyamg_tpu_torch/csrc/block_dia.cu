@@ -10,13 +10,13 @@
 // (a 9x copy of x and an (nb, bs, nd * bs) product written and read
 // again); these kernels take one pass.
 //
-//   block_dia_spmv_kernel<T, BS, Mode>, B1:
+//   block_dia_spmv_kernel<T, BS, L, Mode>, B1:
 //     PLAIN     y = A x
 //     RESID     y = b - A x
-//   block_dia_halo_kernel<T, BS, Mode>, B1's halo mode: PLAIN or RESID on
-//     one rank's block of node rows of a row-sharded operator, x read from
-//     three sources in place (see "B1's halo mode" below)
-//   block_dia_jacobi_kernel<T, BS, Mode>, B2 (and B3's colour step):
+//   block_dia_halo_kernel<T, BS, L, Mode>, B1's halo mode: PLAIN or RESID
+//     on one rank's block of node rows of a row-sharded operator, x read
+//     from three sources in place (see "B1's halo mode" below)
+//   block_dia_jacobi_kernel<T, BS, L, Mode>, B2 (and B3's colour step):
 //     ZERO      y = w Dinv b                     (no read of A)
 //     ZERO_RES  y = w Dinv b,  r = b - A y       (y's neighbours recomputed)
 //     STEP      y = x + w Dinv (b - A x)
@@ -27,31 +27,49 @@
 // Layout: data (nd, nb, bs, bs) row-major, data[d, i] = A_block[i, i +
 // offsets[d]] (a zero block where A has none or the neighbour falls
 // outside the matrix); Dinv (nb, bs, bs); vectors (lanes, nb * bs), node
-// i's components contiguous; colours int32 (nb,).  A K-major lane stack
-// puts the lane on gridDim.y (the wrapper launches at most MAX_LANES
-// lanes at a time, sparse/block_dia.py).
+// i's components contiguous; colours int32 (nb,).
 //
 // Bound: device-memory bandwidth.  A PLAIN apply must read the nd
-// diagonals' blocks (nd * nb * bs^2 values) and x and write y, at 2 flops
-// per block entry: a quarter of a flop per byte in float32.  STEP and
-// ZERO_RES add the (nb, bs, bs) Dinv and one or two vectors.  The design:
-//   - one thread per node row produces that node's bs outputs; a CTA of
-//     256 threads covers consecutive nodes, so for each diagonal the warp
-//     reads one contiguous run of blocks in their stored layout (16-byte
-//     vector loads where a block is a multiple of 16 bytes: bs = 2, 4 in
-//     float32, bs = 2, 4 in float64) and the neighbours' x blocks, also
-//     one contiguous run (x is small enough to stay in L2);
+// diagonals' blocks (nd * nb * bs^2 values) once, x of every lane and
+// write y of every lane, at 2 flops per block entry and lane: a quarter
+// of a flop per byte a lane in float32.  STEP and ZERO_RES add the (nb,
+// bs, bs) Dinv and one or two vectors a lane.  The design:
+//   - one thread per node row produces that node's bs outputs for every
+//     lane of the launch; a CTA of 256 threads covers consecutive nodes,
+//     so for each diagonal the warp reads one contiguous run of blocks in
+//     their stored layout (16-byte vector loads where a block is a
+//     multiple of 16 bytes: bs = 2, 4 in float32, bs = 2, 4 in float64)
+//     and each lane's neighbour x blocks, also one contiguous run (x is
+//     small enough to stay in L2);
+//   - the lane order, the one order of every kernel here (node_product):
+//     the diagonals outermost; for each diagonal the thread loads the
+//     node's block once into registers, then walks the lanes of its lane
+//     tile, loading that lane's neighbour block of x and adding into that
+//     lane's sums (acc[L][BS] in registers).  So the blocks come from
+//     device memory once for all the lanes of a tile;
+//   - a lane tile is a compile-time count L: 1 (the one-vector kernel), or
+//     8 lanes (lane_tile: 4 in float64 at bs 3 and 4, where 8 lanes' sums
+//     would take more than 32 registers).  A tile of 16 at bs <= 2 saved
+//     little at K = 16 (PERF.md §6, B1) and doubled the instances the
+//     build compiles; a larger tile spills or halves the resident CTAs,
+//     and shared-memory staging of the CTA's blocks buys nothing the
+//     registers do not (each block is used by one thread).  A launch
+//     takes up to MAX_LANES = 16 lanes (sparse/block_dia.py): a thread
+//     walks them in one or more tiles, re-reading its blocks from L1 / L2
+//     between them;
 //   - data is read once and nothing is materialised: no padded copy of
 //     x, no row strips, no per-entry product;
 //   - a neighbour outside [0, nb) is skipped, not read (its block is zero
 //     by construction), as K1 skips out-of-range DIA slots;
 //   - each output is summed in registers in a fixed order, the diagonals
 //     ascending and within a block the columns ascending (nvcc contracts
-//     acc += a * x to FMAs); no atomics, so two launches give the same
-//     bits;
+//     acc += a * x to FMAs), lane by lane exactly as for one vector: every
+//     lane of a stack gets the bits of a one-vector call on that lane.  No
+//     atomics, so two launches give the same bits;
 //   - ZERO_RES recomputes each neighbour's w (Dinv_j b_j) instead of
 //     storing y first and reading it back, as K3 does for the scalar
-//     sweep;
+//     sweep; the neighbour's Dinv block is loaded once for the tile's
+//     lanes, STEP's and COLOUR's own Dinv block once after the sums;
 //   - COLOUR: a node of another colour copies x and reads no A data.  A
 //     sweep still moves more than the blocks' bytes once: where colours
 //     alternate node by node (the parity colouring of a node grid), a
@@ -59,8 +77,8 @@
 //     4-colour sweep reads about twice the blocks (PERF.md §6, B3).
 // BS = 1 .. 4 are unrolled template instances; BS = 0 takes the block size
 // at run time (any bs, and bs 2 or 4 whose blocks are not 16-byte
-// aligned), one thread per output component, with the same summation
-// order.
+// aligned), one thread per output component, in the same lane order and
+// summation order (a block row's entry loaded once for the tile's lanes).
 //
 // B1's halo mode (the row-sharded block levels, parallel/partition.py::
 // _ShardedBlockDIA): a rank owns node rows [0, nb) of the operator, data
@@ -82,18 +100,15 @@
 // the operator), and an FMA with a zero block leaves the sum's bits as
 // they were (the sum starts at +0 and never becomes -0), so the result
 // equals B1 PLAIN / RESID on the whole operator bit for bit, in the same
-// instance (the unrolled BS or the run-time one) and the same summation
-// order.  On a K-major lane stack (the wrapper launches at most MAX_LANES
-// lanes at a time, as B1's) the CTAs walk super tiles of the launch's row
-// blocks (128 in float32, 1 in float64), the lanes of a tile one after
-// another, as K16's lane mode does, so a tile's blocks are read from
-// device memory once for all its lanes (B1 puts the lane on gridDim.y
-// and reads them once a lane); the halos are (K, halo * bs) stacks whose
-// lanes lie ldl and ldr values apart (a received buffer, or in a ring of
-// one x's own tail and head), and every lane's value is B1's lane value.
+// instance (the unrolled BS or the run-time one), the same lane tile and
+// the same summation order: both kernels call node_product.  On a K-major
+// lane stack the halos are (K, halo * bs) stacks whose lanes lie ldl and
+// ldr values apart (a received buffer, or in a ring of one x's own tail
+// and head), and every lane's value is B1's lane value.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -101,6 +116,14 @@ enum SpmvMode : int { PLAIN = 0, RESID = 1 };
 enum JacobiMode : int { ZERO = 0, ZERO_RES = 1, STEP = 2, COLOUR = 3 };
 
 constexpr int kThreads = 256;
+
+// The lane tile of an instance's stacks: 8 lanes, or 4 where 8 lanes'
+// sums (8 x max(BS, 1) values of T) would exceed 32 registers.
+template <typename T, int BS>
+constexpr int lane_tile() {
+  constexpr int regs = (BS > 0 ? BS : 1) * static_cast<int>(sizeof(T)) / 4;
+  return 8 * regs <= 32 ? 8 : 4;
+}
 
 template <typename T>
 struct Args {
@@ -110,6 +133,7 @@ struct Args {
   long long nb;
   int bs;
   long long n;            // nb * bs: a lane's stride
+  int lanes;              // lanes of x, b, y and r
   const T* x;             // (lanes, n)
   const T* b;             // (lanes, n)
   const T* dinv;          // (nb, bs, bs)
@@ -157,242 +181,394 @@ __device__ __forceinline__ T weight(const Args<T>& a) {
   return a.omega_dev != nullptr ? *a.omega_dev : a.omega;
 }
 
-// ---- compile-time block size: one thread per node, BS outputs ----------
+// whether lane l of a tile of L is one of its `lanes` live lanes
+template <int L>
+__device__ __forceinline__ bool live(int l, int lanes) {
+  return L == 1 || l < lanes;
+}
 
-// Node j's zero-guess sweep, w (Dinv_j b_j), into v.
+// ---- the zero-guess sweep w (Dinv_j b_j) ----------------------------------
+
+// compile-time block size: node j's BS values from its Dinv block D
 template <typename T, int BS>
-__device__ __forceinline__ void zero_sweep(const Args<T>& a,
-                                           const T* __restrict__ b,
-                                           long long j, T w, T (&v)[BS]) {
-  T D[BS * BS], bj[BS];
-  load_run<T, BS * BS>(a.dinv + j * (BS * BS), D);
+__device__ __forceinline__ void zero_sweep(const T (&D)[BS * BS],
+                                           const T* __restrict__ bj, T w,
+                                           T (&v)[BS]) {
+  T bq[BS];
 #pragma unroll
-  for (int q = 0; q < BS; ++q) bj[q] = b[j * BS + q];
+  for (int q = 0; q < BS; ++q) bq[q] = bj[q];
 #pragma unroll
   for (int p = 0; p < BS; ++p) {
     T s = T(0);
 #pragma unroll
-    for (int q = 0; q < BS; ++q) s += D[p * BS + q] * bj[q];
+    for (int q = 0; q < BS; ++q) s += D[p * BS + q] * bq[q];
     v[p] = w * s;
   }
 }
 
-// ---- run-time block size: one thread per output component -------------
-
-template <typename T>
-__device__ __forceinline__ T zero_sweep_rt(const Args<T>& a,
-                                           const T* __restrict__ b,
-                                           long long j, int q, T w) {
-  const int bs = a.bs;
-  const T* D = a.dinv + (j * bs + q) * bs;
-  T s = T(0);
-  for (int u = 0; u < bs; ++u) s += D[u] * b[j * bs + u];
-  return w * s;
+// run-time block size: component q of node j on each live lane, `row`
+// that component's row of Dinv_j (each entry loaded once for the lanes),
+// `bj` node j's components of lane 0, lanes ld values apart
+template <typename T, int L>
+__device__ __forceinline__ void zero_sweep_rt(const T* row,
+                                              const T* __restrict__ bj,
+                                              long long ld, int bs, T w,
+                                              int lanes, T (&v)[L]) {
+  T s[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) s[l] = T(0);
+  for (int u = 0; u < bs; ++u) {
+    const T du = row[u];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (live<L>(l, lanes)) s[l] += du * bj[l * ld + u];
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < L; ++l) v[l] = w * s[l];
 }
 
 // ---- the node product, shared by B1, B2 and B1's halo mode ------------
 //
-// acc = (A v)_i over every diagonal in order: one summation order for
-// every mode and every source of v.  Node j's components of v come from a
-// source policy:
-//   take(j)         whether the term is summed (B1 and B2 skip a
-//                   neighbour outside the operator; the halo mode never
-//                   does)
-//   load<BS>(j, v)  node j's BS components (compile-time block size)
-//   at(j, q)        node j's component q (run-time block size)
+// acc[l] = (A v_l)_i over every diagonal in order, for each live lane l
+// of a tile: one summation order for every mode, every lane and every
+// source of v.  A source policy gives node j's components of v:
+//   take(j)            whether the term is summed (B1 and B2 skip a
+//                      neighbour outside the operator; the halo mode
+//                      never does)
+//   node<BS>(j)        what every lane shares at node j (an address and
+//                      the lanes' stride; ZeroGuessSource: node j's Dinv
+//                      block, loaded once)
+//   load<BS>(nd, l, v) lane l's BS components (compile-time block size)
+//   at<L>(nd, q, lanes, v)  component q on every live lane (run-time)
 
-// v = x (read-only in every kernel), a neighbour outside [0, nb) skipped
+// a node of a source that reads vectors: its components on lane 0, and
+// the values between lanes
+template <typename T>
+struct Strided {
+  const T* p;
+  long long ld;
+};
+
+// v = x (read-only in every kernel), lanes ld values apart, a neighbour
+// outside [0, nb) skipped
 template <typename T>
 struct LocalSource {
   const T* x;
+  long long ld;
   long long nb;
   int bs;
   __device__ __forceinline__ bool take(long long j) const {
     return j >= 0 && j < nb;
   }
   template <int BS>
-  __device__ __forceinline__ void load(long long j, T (&v)[BS]) const {
-#pragma unroll
-    for (int q = 0; q < BS; ++q) v[q] = __ldg(x + j * BS + q);
+  __device__ __forceinline__ Strided<T> node(long long j) const {
+    return {x + j * (BS > 0 ? BS : bs), ld};
   }
-  __device__ __forceinline__ T at(long long j, int q) const {
-    return __ldg(x + j * bs + q);
+  template <int BS>
+  __device__ __forceinline__ void load(const Strided<T>& nd, int l,
+                                       T (&v)[BS]) const {
+#pragma unroll
+    for (int q = 0; q < BS; ++q) v[q] = __ldg(nd.p + l * nd.ld + q);
+  }
+  template <int L>
+  __device__ __forceinline__ void at(const Strided<T>& nd, int q, int lanes,
+                                     T (&v)[L]) const {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (live<L>(l, lanes)) v[l] = __ldg(nd.p + l * nd.ld + q);
+    }
   }
 };
 
+// a node of ZeroGuessSource: its Dinv block (compile-time block size) or
+// its Dinv rows (run time), and its components of b on lane 0
+template <typename T, int BS>
+struct ZeroNode {
+  T D[BS > 0 ? BS * BS : 1];
+  const T* dinv;
+  const T* b;
+};
+
 // v = the zero-guess sweep w Dinv b, recomputed at each neighbour (B2
-// ZERO_RES), a neighbour outside [0, nb) skipped
+// ZERO_RES), lanes of b ld values apart, a neighbour outside [0, nb)
+// skipped
 template <typename T>
 struct ZeroGuessSource {
   const Args<T>& a;
   const T* b;
+  long long ld;
   T w;
   __device__ __forceinline__ bool take(long long j) const {
     return j >= 0 && j < a.nb;
   }
   template <int BS>
-  __device__ __forceinline__ void load(long long j, T (&v)[BS]) const {
-    zero_sweep<T, BS>(a, b, j, w, v);
+  __device__ __forceinline__ ZeroNode<T, BS> node(long long j) const {
+    ZeroNode<T, BS> nd;
+    if constexpr (BS > 0) {
+      load_run<T, BS * BS>(a.dinv + j * (BS * BS), nd.D);
+      nd.b = b + j * BS;
+    } else {
+      nd.dinv = a.dinv + j * a.bs * a.bs;
+      nd.b = b + j * a.bs;
+    }
+    return nd;
   }
-  __device__ __forceinline__ T at(long long j, int q) const {
-    return zero_sweep_rt(a, b, j, q, w);
+  template <int BS>
+  __device__ __forceinline__ void load(const ZeroNode<T, BS>& nd, int l,
+                                       T (&v)[BS]) const {
+    zero_sweep<T, BS>(nd.D, nd.b + l * ld, w, v);
+  }
+  template <int L>
+  __device__ __forceinline__ void at(const ZeroNode<T, 0>& nd, int q,
+                                     int lanes, T (&v)[L]) const {
+    zero_sweep_rt<T, L>(nd.dinv + q * a.bs, nd.b, ld, a.bs, w, lanes, v);
   }
 };
 
-// B1's halo mode: x, or (not INTERIOR) a halo, none skipped
+// B1's halo mode: x, or (not INTERIOR) a halo, none skipped; each
+// source's lanes its own stride apart
 template <typename T, bool INTERIOR>
 struct HaloSource {
   const T* x;
+  long long ldx;
   const T* left;
+  long long ldl;
   const T* right;
+  long long ldr;
   long long nb;
   int halo;
   int bs;
-  __device__ __forceinline__ const T* node(long long j) const {
-    if (INTERIOR || (j >= 0 && j < nb)) return x + j * bs;
-    return j < 0 ? left + (halo + j) * bs : right + (j - nb) * bs;
-  }
   __device__ __forceinline__ bool take(long long) const { return true; }
   template <int BS>
-  __device__ __forceinline__ void load(long long j, T (&v)[BS]) const {
-    const T* p = node(j);
-#pragma unroll
-    for (int q = 0; q < BS; ++q) v[q] = p[q];
+  __device__ __forceinline__ Strided<T> node(long long j) const {
+    if (INTERIOR || (j >= 0 && j < nb)) return {x + j * bs, ldx};
+    return j < 0 ? Strided<T>{left + (halo + j) * bs, ldl}
+                 : Strided<T>{right + (j - nb) * bs, ldr};
   }
-  __device__ __forceinline__ T at(long long j, int q) const {
-    return node(j)[q];
+  template <int BS>
+  __device__ __forceinline__ void load(const Strided<T>& nd, int l,
+                                       T (&v)[BS]) const {
+#pragma unroll
+    for (int q = 0; q < BS; ++q) v[q] = nd.p[l * nd.ld + q];
+  }
+  template <int L>
+  __device__ __forceinline__ void at(const Strided<T>& nd, int q, int lanes,
+                                     T (&v)[L]) const {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (live<L>(l, lanes)) v[l] = nd.p[l * nd.ld + q];
+    }
   }
 };
 
-// compile-time block size: node i's BS outputs; `blocks` is node i's
-// block of diagonal 0, each diagonal's `stride` values after the last
-template <typename T, int BS, typename Src>
+// compile-time block size: node i's BS outputs on each live lane of a
+// tile; `blocks` is node i's block of diagonal 0, each diagonal's
+// `stride` values after the last.  The diagonals outermost, the block
+// loaded once, then the lanes.
+template <typename T, int BS, int L, typename Src>
 __device__ __forceinline__ void node_product(const T* __restrict__ blocks,
                                              long long stride,
                                              const int* __restrict__ offsets,
                                              int nd, long long i,
-                                             const Src& src, T (&acc)[BS]) {
+                                             const Src& src, int lanes,
+                                             T (&acc)[L][BS]) {
 #pragma unroll
-  for (int p = 0; p < BS; ++p) acc[p] = T(0);
-#pragma unroll 3
+  for (int l = 0; l < L; ++l) {
+#pragma unroll
+    for (int p = 0; p < BS; ++p) acc[l][p] = T(0);
+  }
+#pragma unroll (L == 1 ? 3 : 2)
   for (int d = 0; d < nd; ++d) {
     const long long j = i + __ldg(offsets + d);
     if (!src.take(j)) continue;
-    T blk[BS * BS], xj[BS];
+    T blk[BS * BS];
     load_run<T, BS * BS>(blocks + d * stride, blk);
-    src.template load<BS>(j, xj);
+    const auto node = src.template node<BS>(j);
 #pragma unroll
-    for (int p = 0; p < BS; ++p) {
+    for (int l = 0; l < L; ++l) {
+      if (!live<L>(l, lanes)) continue;
+      T xj[BS];
+      src.template load<BS>(node, l, xj);
 #pragma unroll
-      for (int q = 0; q < BS; ++q) acc[p] += blk[p * BS + q] * xj[q];
+      for (int p = 0; p < BS; ++p) {
+#pragma unroll
+        for (int q = 0; q < BS; ++q) acc[l][p] += blk[p * BS + q] * xj[q];
+      }
     }
   }
 }
 
-// run-time block size: output p of node i; `row` is that output's row of
-// node i's block of diagonal 0, each diagonal's `stride` values after
-template <typename T, typename Src>
-__device__ __forceinline__ T row_product_rt(const T* row, long long stride,
-                                            const int* offsets, int nd,
-                                            long long i, int bs,
-                                            const Src& src) {
-  T acc = T(0);
+// run-time block size: output p of node i on each live lane; `row` is
+// that output's row of node i's block of diagonal 0, each diagonal's
+// `stride` values after.  The same order: the diagonals, the row's
+// entries (each loaded once), then the lanes.
+template <typename T, int L, typename Src>
+__device__ __forceinline__ void row_product_rt(const T* row, long long stride,
+                                               const int* offsets, int nd,
+                                               long long i, int bs,
+                                               const Src& src, int lanes,
+                                               T (&acc)[L]) {
+#pragma unroll
+  for (int l = 0; l < L; ++l) acc[l] = T(0);
   for (int d = 0; d < nd; ++d) {
     const long long j = i + offsets[d];
     if (!src.take(j)) continue;
     const T* blk = row + d * stride;
-    for (int q = 0; q < bs; ++q) acc += blk[q] * src.at(j, q);
+    const auto node = src.template node<0>(j);
+    for (int q = 0; q < bs; ++q) {
+      T v[L];
+      src.template at<L>(node, q, lanes, v);
+      const T e = blk[q];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        if (live<L>(l, lanes)) acc[l] += e * v[l];
+      }
+    }
   }
-  return acc;
 }
 
 // B1 and B2 over the whole operator: node i's outputs, or its output p
-template <typename T, int BS, typename Src>
+template <typename T, int BS, int L, typename Src>
 __device__ __forceinline__ void node_product(const Args<T>& a, long long i,
-                                             const Src& src, T (&acc)[BS]) {
-  node_product<T, BS>(a.data + i * (BS * BS), a.nb * (BS * BS), a.offsets,
-                      a.nd, i, src, acc);
+                                             const Src& src, int lanes,
+                                             T (&acc)[L][BS]) {
+  node_product<T, BS, L>(a.data + i * (BS * BS), a.nb * (BS * BS),
+                         a.offsets, a.nd, i, src, lanes, acc);
 }
 
-template <typename T, typename Src>
-__device__ __forceinline__ T row_product_rt(const Args<T>& a, long long i,
-                                            int p, const Src& src) {
+template <typename T, int L, typename Src>
+__device__ __forceinline__ void row_product_rt(const Args<T>& a, long long i,
+                                               int p, const Src& src,
+                                               int lanes, T (&acc)[L]) {
   const long long bs = a.bs;
-  return row_product_rt<T>(a.data + (i * bs + p) * bs, a.nb * bs * bs,
-                           a.offsets, a.nd, i, a.bs, src);
+  row_product_rt<T, L>(a.data + (i * bs + p) * bs, a.nb * bs * bs,
+                       a.offsets, a.nd, i, a.bs, src, lanes, acc);
 }
 
 // ---- B1 -----------------------------------------------------------------
 
-template <typename T, int BS, int Mode>
+template <typename T, int BS, int L, int Mode>
 __global__ void __launch_bounds__(kThreads)
     block_dia_spmv_kernel(const Args<T> a) {
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long lane = static_cast<long long>(blockIdx.y) * a.n;
-  const T* __restrict__ x = a.x + lane;
-  T* __restrict__ y = a.y + lane;
   if constexpr (BS > 0) {
     if (t >= a.nb) return;
-    T acc[BS];
-    node_product<T, BS>(a, t, LocalSource<T>{x, a.nb, BS}, acc);
+    for (int k0 = 0; k0 < a.lanes; k0 += L) {       // the lane tiles
+      const int lanes = a.lanes - k0 < L ? a.lanes - k0 : L;
+      const long long lane0 = k0 * a.n;
+      T acc[L][BS];
+      node_product<T, BS, L>(a, t, LocalSource<T>{a.x + lane0, a.n, a.nb, BS},
+                             lanes, acc);
 #pragma unroll
-    for (int p = 0; p < BS; ++p) {
-      const long long e = t * BS + p;
-      y[e] = Mode == RESID ? a.b[lane + e] - acc[p] : acc[p];
+      for (int l = 0; l < L; ++l) {
+        if (!live<L>(l, lanes)) continue;
+#pragma unroll
+        for (int p = 0; p < BS; ++p) {
+          const long long e = lane0 + l * a.n + t * BS + p;
+          a.y[e] = Mode == RESID ? a.b[e] - acc[l][p] : acc[l][p];
+        }
+      }
     }
   } else {
     const long long i = t / a.bs;
     const int p = static_cast<int>(t - i * a.bs);
     if (i >= a.nb) return;
-    const T acc = row_product_rt<T>(a, i, p, LocalSource<T>{x, a.nb, a.bs});
-    y[t] = Mode == RESID ? a.b[lane + t] - acc : acc;
+    for (int k0 = 0; k0 < a.lanes; k0 += L) {
+      const int lanes = a.lanes - k0 < L ? a.lanes - k0 : L;
+      const long long lane0 = k0 * a.n;
+      T acc[L];
+      row_product_rt<T, L>(a, i, p,
+                           LocalSource<T>{a.x + lane0, a.n, a.nb, a.bs},
+                           lanes, acc);
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        if (!live<L>(l, lanes)) continue;
+        const long long e = lane0 + l * a.n + t;
+        a.y[e] = Mode == RESID ? a.b[e] - acc[l] : acc[l];
+      }
+    }
   }
 }
 
 // ---- B2 -----------------------------------------------------------------
 
-template <typename T, int BS, int Mode>
+template <typename T, int BS, int L, int Mode>
 __global__ void __launch_bounds__(kThreads)
     block_dia_jacobi_kernel(const Args<T> a) {
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long lane = static_cast<long long>(blockIdx.y) * a.n;
-  const T* __restrict__ x = Mode == STEP || Mode == COLOUR ? a.x + lane : nullptr;
-  const T* __restrict__ b = a.b + lane;
-  T* __restrict__ y = a.y + lane;
   const T w = Mode == COLOUR ? T(1) : weight(a);
+  const long long n = a.n;
   if constexpr (BS > 0) {
     const long long i = t;
     if (i >= a.nb) return;
-    if (Mode == COLOUR && a.colors[i] != a.colour) {
+    const bool other = Mode == COLOUR && a.colors[i] != a.colour;
+    for (int k0 = 0; k0 < a.lanes; k0 += L) {       // the lane tiles
+      const int lanes = a.lanes - k0 < L ? a.lanes - k0 : L;
+      const long long lane0 = k0 * n;
+      const T* __restrict__ x =
+          Mode == STEP || Mode == COLOUR ? a.x + lane0 : nullptr;
+      const T* __restrict__ b = a.b + lane0;
+      T* __restrict__ y = a.y + lane0;
+      if (other) {
 #pragma unroll
-      for (int p = 0; p < BS; ++p) y[i * BS + p] = x[i * BS + p];
-      return;
-    }
-    if constexpr (Mode == ZERO || Mode == ZERO_RES) {
-      T xi[BS];
-      zero_sweep<T, BS>(a, b, i, w, xi);
+        for (int l = 0; l < L; ++l) {
+          if (!live<L>(l, lanes)) continue;
 #pragma unroll
-      for (int p = 0; p < BS; ++p) y[i * BS + p] = xi[p];
-      if constexpr (Mode == ZERO_RES) {
-        T acc[BS];
-        node_product<T, BS>(a, i, ZeroGuessSource<T>{a, b, w}, acc);
-        T* __restrict__ r = a.r + lane;
-#pragma unroll
-        for (int p = 0; p < BS; ++p) r[i * BS + p] = b[i * BS + p] - acc[p];
+          for (int p = 0; p < BS; ++p) {
+            y[l * n + i * BS + p] = x[l * n + i * BS + p];
+          }
+        }
+        continue;
       }
-    } else {
-      T acc[BS], res[BS], D[BS * BS];
-      node_product<T, BS>(a, i, LocalSource<T>{x, a.nb, BS}, acc);
+      if constexpr (Mode == ZERO || Mode == ZERO_RES) {
+        T D[BS * BS];
+        load_run<T, BS * BS>(a.dinv + i * (BS * BS), D);
 #pragma unroll
-      for (int q = 0; q < BS; ++q) res[q] = b[i * BS + q] - acc[q];
-      load_run<T, BS * BS>(a.dinv + i * (BS * BS), D);
+        for (int l = 0; l < L; ++l) {
+          if (!live<L>(l, lanes)) continue;
+          T xi[BS];
+          zero_sweep<T, BS>(D, b + l * n + i * BS, w, xi);
 #pragma unroll
-      for (int p = 0; p < BS; ++p) {
-        T s = T(0);
+          for (int p = 0; p < BS; ++p) y[l * n + i * BS + p] = xi[p];
+        }
+        if constexpr (Mode == ZERO_RES) {
+          T acc[L][BS];
+          node_product<T, BS, L>(a, i, ZeroGuessSource<T>{a, b, n, w}, lanes,
+                                 acc);
+          T* __restrict__ r = a.r + lane0;
 #pragma unroll
-        for (int q = 0; q < BS; ++q) s += D[p * BS + q] * res[q];
-        y[i * BS + p] = Mode == COLOUR ? x[i * BS + p] + s
-                                       : x[i * BS + p] + w * s;
+          for (int l = 0; l < L; ++l) {
+            if (!live<L>(l, lanes)) continue;
+#pragma unroll
+            for (int p = 0; p < BS; ++p) {
+              const long long e = l * n + i * BS + p;
+              r[e] = b[e] - acc[l][p];
+            }
+          }
+        }
+      } else {
+        T acc[L][BS], D[BS * BS];
+        node_product<T, BS, L>(a, i, LocalSource<T>{x, n, a.nb, BS}, lanes,
+                               acc);
+        load_run<T, BS * BS>(a.dinv + i * (BS * BS), D);
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          if (!live<L>(l, lanes)) continue;
+          T res[BS];
+#pragma unroll
+          for (int q = 0; q < BS; ++q) {
+            res[q] = b[l * n + i * BS + q] - acc[l][q];
+          }
+#pragma unroll
+          for (int p = 0; p < BS; ++p) {
+            T s = T(0);
+#pragma unroll
+            for (int q = 0; q < BS; ++q) s += D[p * BS + q] * res[q];
+            const long long e = l * n + i * BS + p;
+            y[e] = Mode == COLOUR ? x[e] + s : x[e] + w * s;
+          }
+        }
       }
     }
   } else {
@@ -400,26 +576,64 @@ __global__ void __launch_bounds__(kThreads)
     const long long i = t / bs;
     const int p = static_cast<int>(t - i * bs);
     if (i >= a.nb) return;
-    if (Mode == COLOUR && a.colors[i] != a.colour) {
-      y[t] = x[t];
-      return;
-    }
-    if constexpr (Mode == ZERO || Mode == ZERO_RES) {
-      y[t] = zero_sweep_rt(a, b, i, p, w);
-      if constexpr (Mode == ZERO_RES) {
-        a.r[lane + t] = b[t] - row_product_rt<T>(a, i, p,
-                                                 ZeroGuessSource<T>{a, b, w});
+    const bool other = Mode == COLOUR && a.colors[i] != a.colour;
+    // this component's row of Dinv_i
+    const T* Drow = a.dinv + (i * bs + p) * bs;
+    for (int k0 = 0; k0 < a.lanes; k0 += L) {
+      const int lanes = a.lanes - k0 < L ? a.lanes - k0 : L;
+      const long long lane0 = k0 * n;
+      const T* __restrict__ x =
+          Mode == STEP || Mode == COLOUR ? a.x + lane0 : nullptr;
+      const T* __restrict__ b = a.b + lane0;
+      T* __restrict__ y = a.y + lane0;
+      if (other) {
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          if (live<L>(l, lanes)) y[l * n + t] = x[l * n + t];
+        }
+        continue;
       }
-    } else {
-      // this component's row of Dinv against the node's whole residual
-      const T* D = a.dinv + (i * bs + p) * bs;
-      T s = T(0);
-      for (int q = 0; q < bs; ++q) {
-        const T res = b[i * bs + q] -
-                      row_product_rt<T>(a, i, q, LocalSource<T>{x, a.nb, bs});
-        s += D[q] * res;
+      if constexpr (Mode == ZERO || Mode == ZERO_RES) {
+        T v[L];
+        zero_sweep_rt<T, L>(Drow, b + i * bs, n, bs, w, lanes, v);
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          if (live<L>(l, lanes)) y[l * n + t] = v[l];
+        }
+        if constexpr (Mode == ZERO_RES) {
+          T acc[L];
+          row_product_rt<T, L>(a, i, p, ZeroGuessSource<T>{a, b, n, w},
+                               lanes, acc);
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            if (live<L>(l, lanes)) a.r[lane0 + l * n + t] = b[l * n + t] - acc[l];
+          }
+        }
+      } else {
+        // the row of Dinv_i against the node's whole residual, lane by lane
+        T s[L];
+#pragma unroll
+        for (int l = 0; l < L; ++l) s[l] = T(0);
+        for (int q = 0; q < bs; ++q) {
+          T acc[L];
+          row_product_rt<T, L>(a, i, q, LocalSource<T>{x, n, a.nb, bs},
+                               lanes, acc);
+          const T dq = Drow[q];
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            if (live<L>(l, lanes)) {
+              const T res = b[l * n + i * bs + q] - acc[l];
+              s[l] += dq * res;
+            }
+          }
+        }
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          if (!live<L>(l, lanes)) continue;
+          const long long e = l * n + t;
+          y[e] = Mode == COLOUR ? x[e] + s[l] : x[e] + w * s[l];
+        }
       }
-      y[t] = Mode == COLOUR ? x[t] + s : x[t] + w * s;
     }
   }
 }
@@ -445,38 +659,26 @@ struct HaloArgs {
   T* y;                   // (lanes, nb * bs)
   int lo, hi;             // the interior row blocks
   int a0, a1, b0;         // the row blocks of this launch: [a0, a1), [b0, ...)
-  int nrb;                // their count
   int lanes;
 };
 
-// node j's source of x (HaloSource) for this block of node rows
+// node j's source of x (HaloSource) for lanes [k0, ...) of this block of
+// node rows
 template <typename T, bool INTERIOR>
 __device__ __forceinline__ HaloSource<T, INTERIOR> halo_source(
-    const HaloArgs<T>& a, int bs) {
-  return HaloSource<T, INTERIOR>{a.x, a.left, a.right, a.nb, a.halo, bs};
+    const HaloArgs<T>& a, int k0, int bs) {
+  return HaloSource<T, INTERIOR>{a.x + k0 * a.ldx, a.ldx,
+                                 a.left + k0 * a.ldl, a.ldl,
+                                 a.right + k0 * a.ldr, a.ldr,
+                                 a.nb, a.halo, bs};
 }
 
-template <typename T, int BS, int Mode>
+template <typename T, int BS, int L, int Mode>
 __global__ void __launch_bounds__(kThreads)
-    block_dia_halo_kernel(HaloArgs<T> a) {
-  // the launch's row blocks, [a0, a1) then [b0, ...), nrb in all, in
-  // super tiles of SUPER, the lanes of a tile one after another (K16's
-  // lane order): a tile's blocks come from device memory once and from L2
-  // for the other lanes
-  constexpr int SUPER = sizeof(T) == 4 ? 128 : 1;
-  const int bid = static_cast<int>(blockIdx.x);
-  const int st = bid / (SUPER * a.lanes);
-  const int base = st * SUPER;
-  const int tile = min(SUPER, a.nrb - base);
-  const int rem = bid - st * SUPER * a.lanes;
-  const int k = rem / tile;
-  const int v = base + rem - k * tile;
-  const long long lane = k;
-  a.x += lane * a.ldx;
-  a.y += lane * a.ldx;
-  if (Mode == RESID) a.b += lane * a.ldx;
-  a.left += lane * a.ldl;
-  a.right += lane * a.ldr;
+    block_dia_halo_kernel(const HaloArgs<T> a) {
+  // the launch's row blocks, [a0, a1) then [b0, ...), one a CTA; every
+  // lane in the thread, in B1's lane tiles
+  const int v = static_cast<int>(blockIdx.x);
   const int na = a.a1 - a.a0;
   const int rb = v < na ? a.a0 + v : a.b0 + (v - na);
   const bool interior = rb >= a.lo && rb < a.hi;
@@ -484,19 +686,26 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (BS > 0) {
     const long long i = n0 + threadIdx.x;
     if (i >= a.nb) return;
-    T acc[BS];
     const T* blocks = a.data + i * (BS * BS);
-    if (interior) {
-      node_product<T, BS>(blocks, a.ld, a.offsets, a.nd, i,
-                          halo_source<T, true>(a, BS), acc);
-    } else {
-      node_product<T, BS>(blocks, a.ld, a.offsets, a.nd, i,
-                          halo_source<T, false>(a, BS), acc);
-    }
+    for (int k0 = 0; k0 < a.lanes; k0 += L) {
+      const int lanes = a.lanes - k0 < L ? a.lanes - k0 : L;
+      T acc[L][BS];
+      if (interior) {
+        node_product<T, BS, L>(blocks, a.ld, a.offsets, a.nd, i,
+                               halo_source<T, true>(a, k0, BS), lanes, acc);
+      } else {
+        node_product<T, BS, L>(blocks, a.ld, a.offsets, a.nd, i,
+                               halo_source<T, false>(a, k0, BS), lanes, acc);
+      }
 #pragma unroll
-    for (int p = 0; p < BS; ++p) {
-      const long long e = i * BS + p;
-      a.y[e] = Mode == RESID ? a.b[e] - acc[p] : acc[p];
+      for (int l = 0; l < L; ++l) {
+        if (!live<L>(l, lanes)) continue;
+#pragma unroll
+        for (int p = 0; p < BS; ++p) {
+          const long long e = (k0 + l) * a.ldx + i * BS + p;
+          a.y[e] = Mode == RESID ? a.b[e] - acc[l][p] : acc[l][p];
+        }
+      }
     }
   } else {
     // run-time bs: the CTA's 256 nodes, a thread per component in turn
@@ -504,26 +713,53 @@ __global__ void __launch_bounds__(kThreads)
     const long long n1 = n0 + kThreads < a.nb ? n0 + kThreads : a.nb;
     for (long long t = n0 * bs + threadIdx.x; t < n1 * bs; t += kThreads) {
       const long long i = t / bs;
-      const int p = static_cast<int>(t - i * bs);
       const T* row = a.data + t * bs;
-      const T acc =
-          interior ? row_product_rt<T>(row, a.ld, a.offsets, a.nd, i, bs,
-                                       halo_source<T, true>(a, bs))
-                   : row_product_rt<T>(row, a.ld, a.offsets, a.nd, i, bs,
-                                       halo_source<T, false>(a, bs));
-      a.y[t] = Mode == RESID ? a.b[t] - acc : acc;
+      for (int k0 = 0; k0 < a.lanes; k0 += L) {
+        const int lanes = a.lanes - k0 < L ? a.lanes - k0 : L;
+        T acc[L];
+        if (interior) {
+          row_product_rt<T, L>(row, a.ld, a.offsets, a.nd, i, bs,
+                               halo_source<T, true>(a, k0, bs), lanes, acc);
+        } else {
+          row_product_rt<T, L>(row, a.ld, a.offsets, a.nd, i, bs,
+                               halo_source<T, false>(a, k0, bs), lanes, acc);
+        }
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          if (!live<L>(l, lanes)) continue;
+          const long long e = (k0 + l) * a.ldx + t;
+          a.y[e] = Mode == RESID ? a.b[e] - acc[l] : acc[l];
+        }
+      }
     }
+  }
+}
+
+// ---- launchers ----------------------------------------------------------
+
+// The lane tile of a launch of `lanes` lanes for the instance (T, BS): 1
+// for one vector, else lane_tile (the kernel walks more lanes in two or
+// more tiles).  Calls run(std::integral_constant<int, L>{}).
+template <typename T, int BS, typename Run>
+void with_tile(int lanes, Run&& run) {
+  if (lanes == 1) {
+    run(std::integral_constant<int, 1>{});
+  } else {
+    run(std::integral_constant<int, lane_tile<T, BS>()>{});
   }
 }
 
 template <typename T, int BS>
 void launch_halo_mode(const HaloArgs<T>& a, dim3 blocks, int mode,
                       cudaStream_t s) {
-  if (mode == RESID) {
-    block_dia_halo_kernel<T, BS, RESID><<<blocks, kThreads, 0, s>>>(a);
-  } else {
-    block_dia_halo_kernel<T, BS, PLAIN><<<blocks, kThreads, 0, s>>>(a);
-  }
+  with_tile<T, BS>(a.lanes, [&](auto tile) {
+    constexpr int L = decltype(tile)::value;
+    if (mode == RESID) {
+      block_dia_halo_kernel<T, BS, L, RESID><<<blocks, kThreads, 0, s>>>(a);
+    } else {
+      block_dia_halo_kernel<T, BS, L, PLAIN><<<blocks, kThreads, 0, s>>>(a);
+    }
+  });
 }
 
 template <typename T>
@@ -539,7 +775,6 @@ int block_halo(const void* data, long long ld, const void* offsets, int nd,
       hi > row_blocks || a0 < 0 || a1 < a0 || b0 < a1 || b1 < b0 ||
       b1 > row_blocks || (mode != PLAIN && mode != RESID) ||
       (mode == RESID && b == nullptr) || lanes < 1 ||
-      (static_cast<long long>(a1 - a0) + (b1 - b0)) * lanes >= (1LL << 31) ||
       (lanes > 1 && (ldl < halo * bs || ldr < halo * bs ||
                      ldx < nb * bs))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -551,9 +786,8 @@ int block_halo(const void* data, long long ld, const void* offsets, int nd,
                       static_cast<const T*>(x), ldx,
                       static_cast<const T*>(right), ldr,
                       static_cast<const T*>(b), static_cast<T*>(y), lo, hi,
-                      a0, a1, b0, (a1 - a0) + (b1 - b0), lanes};
-  const dim3 blocks(static_cast<unsigned int>(
-      static_cast<long long>(a.nrb) * lanes));
+                      a0, a1, b0, lanes};
+  const dim3 blocks(static_cast<unsigned int>((a1 - a0) + (b1 - b0)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // B1's instance choice (dispatch below): the unrolled bs, or the
   // run-time one where a block of 16-byte words does not start aligned
@@ -569,79 +803,87 @@ int block_halo(const void* data, long long ld, const void* offsets, int nd,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- launchers ----------------------------------------------------------
-
 template <typename T, int BS>
-dim3 grid_of(const Args<T>& a, int lanes) {
+dim3 grid_of(const Args<T>& a) {
   const long long threads = BS > 0 ? a.nb : a.nb * a.bs;
-  return dim3(static_cast<unsigned int>((threads + kThreads - 1) / kThreads),
-              static_cast<unsigned int>(lanes));
+  return dim3(static_cast<unsigned int>((threads + kThreads - 1) / kThreads));
 }
 
 template <typename T, int BS>
 struct SpmvLaunch {
-  static void run(const Args<T>& a, int lanes, int mode, cudaStream_t s) {
-    const dim3 g = grid_of<T, BS>(a, lanes);
-    if (mode == RESID) {
-      block_dia_spmv_kernel<T, BS, RESID><<<g, kThreads, 0, s>>>(a);
-    } else {
-      block_dia_spmv_kernel<T, BS, PLAIN><<<g, kThreads, 0, s>>>(a);
-    }
+  static void run(const Args<T>& a, int mode, cudaStream_t s) {
+    const dim3 g = grid_of<T, BS>(a);
+    with_tile<T, BS>(a.lanes, [&](auto tile) {
+      constexpr int L = decltype(tile)::value;
+      if (mode == RESID) {
+        block_dia_spmv_kernel<T, BS, L, RESID><<<g, kThreads, 0, s>>>(a);
+      } else {
+        block_dia_spmv_kernel<T, BS, L, PLAIN><<<g, kThreads, 0, s>>>(a);
+      }
+    });
   }
 };
 
 template <typename T, int BS>
 struct JacobiLaunch {
-  static void run(const Args<T>& a, int lanes, int mode, cudaStream_t s) {
-    const dim3 g = grid_of<T, BS>(a, lanes);
-    switch (mode) {
-      case ZERO:
-        block_dia_jacobi_kernel<T, BS, ZERO><<<g, kThreads, 0, s>>>(a);
-        break;
-      case ZERO_RES:
-        block_dia_jacobi_kernel<T, BS, ZERO_RES><<<g, kThreads, 0, s>>>(a);
-        break;
-      case STEP:
-        block_dia_jacobi_kernel<T, BS, STEP><<<g, kThreads, 0, s>>>(a);
-        break;
-      default:
-        block_dia_jacobi_kernel<T, BS, COLOUR><<<g, kThreads, 0, s>>>(a);
-        break;
-    }
+  static void run(const Args<T>& a, int mode, cudaStream_t s) {
+    const dim3 g = grid_of<T, BS>(a);
+    with_tile<T, BS>(a.lanes, [&](auto tile) {
+      constexpr int L = decltype(tile)::value;
+      switch (mode) {
+        case ZERO:
+          block_dia_jacobi_kernel<T, BS, L, ZERO><<<g, kThreads, 0, s>>>(a);
+          break;
+        case ZERO_RES:
+          block_dia_jacobi_kernel<T, BS, L, ZERO_RES><<<g, kThreads, 0, s>>>(a);
+          break;
+        case STEP:
+          block_dia_jacobi_kernel<T, BS, L, STEP><<<g, kThreads, 0, s>>>(a);
+          break;
+        default:
+          block_dia_jacobi_kernel<T, BS, L, COLOUR><<<g, kThreads, 0, s>>>(a);
+          break;
+      }
+    });
   }
 };
 
 // The instance for a.bs: the unrolled one, or the run-time one where a
 // block of 16-byte words (bs 2, 4) does not start 16-byte aligned.
 template <typename T, template <typename, int> class Launch>
-int dispatch(const Args<T>& a, int lanes, int mode, void* stream) {
-  if (a.nb <= 0 || lanes <= 0) return static_cast<int>(cudaSuccess);
+int dispatch(const Args<T>& a, int mode, void* stream) {
+  if (a.nb <= 0 || a.lanes <= 0) return static_cast<int>(cudaSuccess);
+  if (a.nb * a.bs / kThreads + 1 >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool words = (a.bs * a.bs * sizeof(T)) % 16 == 0;
   const bool aligned =
       reinterpret_cast<uintptr_t>(a.data) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(a.dinv) % 16 == 0;
   switch (words && !aligned ? 0 : a.bs) {
-    case 1: Launch<T, 1>::run(a, lanes, mode, s); break;
-    case 2: Launch<T, 2>::run(a, lanes, mode, s); break;
-    case 3: Launch<T, 3>::run(a, lanes, mode, s); break;
-    case 4: Launch<T, 4>::run(a, lanes, mode, s); break;
-    default: Launch<T, 0>::run(a, lanes, mode, s); break;
+    case 1: Launch<T, 1>::run(a, mode, s); break;
+    case 2: Launch<T, 2>::run(a, mode, s); break;
+    case 3: Launch<T, 3>::run(a, mode, s); break;
+    case 4: Launch<T, 4>::run(a, mode, s); break;
+    default: Launch<T, 0>::run(a, mode, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 Args<T> make_args(const void* data, const void* offsets, int nd,
-                  long long nb, int bs, const void* x, const void* b,
-                  const void* dinv, T omega, const void* omega_dev,
-                  const void* colors, int colour, void* y, void* r) {
+                  long long nb, int bs, int lanes, const void* x,
+                  const void* b, const void* dinv, T omega,
+                  const void* omega_dev, const void* colors, int colour,
+                  void* y, void* r) {
   return Args<T>{static_cast<const T*>(data),
                  static_cast<const int*>(offsets),
                  nd,
                  nb,
                  bs,
                  nb * bs,
+                 lanes,
                  static_cast<const T*>(x),
                  static_cast<const T*>(b),
                  static_cast<const T*>(dinv),
@@ -662,18 +904,18 @@ int pyamg_block_dia_spmv_f32(const void* data, const void* offsets, int nd,
                              long long nb, int bs, int lanes, const void* x,
                              const void* b, void* y, int mode, void* stream) {
   return dispatch<float, SpmvLaunch>(
-      make_args<float>(data, offsets, nd, nb, bs, x, b, nullptr, 0.0f,
+      make_args<float>(data, offsets, nd, nb, bs, lanes, x, b, nullptr, 0.0f,
                        nullptr, nullptr, 0, y, nullptr),
-      lanes, mode, stream);
+      mode, stream);
 }
 
 int pyamg_block_dia_spmv_f64(const void* data, const void* offsets, int nd,
                              long long nb, int bs, int lanes, const void* x,
                              const void* b, void* y, int mode, void* stream) {
   return dispatch<double, SpmvLaunch>(
-      make_args<double>(data, offsets, nd, nb, bs, x, b, nullptr, 0.0,
+      make_args<double>(data, offsets, nd, nb, bs, lanes, x, b, nullptr, 0.0,
                         nullptr, nullptr, 0, y, nullptr),
-      lanes, mode, stream);
+      mode, stream);
 }
 
 // B2: data, offsets, nd, nb, bs, lanes, x, b, dinv, omega, omega_dev,
@@ -685,9 +927,9 @@ int pyamg_block_dia_jacobi_f32(const void* data, const void* offsets, int nd,
                                int colour, void* y, void* r, int mode,
                                void* stream) {
   return dispatch<float, JacobiLaunch>(
-      make_args<float>(data, offsets, nd, nb, bs, x, b, dinv, omega,
+      make_args<float>(data, offsets, nd, nb, bs, lanes, x, b, dinv, omega,
                        omega_dev, colors, colour, y, r),
-      lanes, mode, stream);
+      mode, stream);
 }
 
 int pyamg_block_dia_jacobi_f64(const void* data, const void* offsets, int nd,
@@ -697,9 +939,9 @@ int pyamg_block_dia_jacobi_f64(const void* data, const void* offsets, int nd,
                                int colour, void* y, void* r, int mode,
                                void* stream) {
   return dispatch<double, JacobiLaunch>(
-      make_args<double>(data, offsets, nd, nb, bs, x, b, dinv, omega,
+      make_args<double>(data, offsets, nd, nb, bs, lanes, x, b, dinv, omega,
                         omega_dev, colors, colour, y, r),
-      lanes, mode, stream);
+      mode, stream);
 }
 
 // B1's halo mode: data, ld (values between diagonals), offsets (device),

@@ -132,7 +132,8 @@ def block_dia_halo_rows_ref(data, offsets, left, x, right, halo, ranges,
         if n1 <= n0:
             continue
         nb = n1 - n0
-        strips = data[:, n0:n1].permute(1, 2, 0, 3).reshape(nb, bs, nd * bs)
+        strips = data[:, n0:n1].permute(1, 2, 0, 3).reshape(
+            nb, bs, nd * bs).contiguous()       # the B1 twin's layout
         views = [x_ext.as_strided(lead + (nb, length * bs),
                                   lead_strides + (bs, 1),
                                   x_ext.storage_offset()

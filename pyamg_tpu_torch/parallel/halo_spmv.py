@@ -56,8 +56,8 @@ blocks of 256 nodes (:func:`block_halo_plan`):
 
 - :func:`block_dia_halo_rows`: one launch over a part of the plan's
   blocks, ``PLAIN`` (y = A x) or ``RESID`` (y = b - A x), counted as
-  ``block_dia_halo.<dtype>`` (on lanes, at most 16 a launch, as
-  ``block_dia_halo_spmm.<dtype>``); its twin on CPU tensors is
+  ``block_dia_halo.<dtype>`` (on lanes, at most 16 a launch in B1's lane
+  tiles, as ``block_dia_halo_spmm.<dtype>``); its twin on CPU tensors is
   :func:`~pyamg_tpu_torch.parallel.dist_spmv.block_dia_halo_rows_ref`;
 - :func:`block_halo_spmv`: one rank's block, in K16's order;
 - :func:`block_halo_spmv_shards`: P node-row blocks in one process, as
@@ -278,8 +278,8 @@ def block_dia_halo_rows(data, offsets, offsets_t, left, x, right, halo,
     (``halo`` nodes, ``halo * bs`` entries each), ``x`` and ``y``
     (nb_local * bs,); ``b`` given: y = b - A x (``RESID``), else y = A x
     (``PLAIN``).  K-major (K, nb_local * bs) stacks x, y and b with (K,
-    halo * bs) halos take the lanes in K16's lane order (super tiles of
-    row blocks, the lanes of a tile one after another), at most MAX_LANES
+    halo * bs) halos take B1's lane order (a thread serves every lane of
+    its node, each block read once for a lane tile), at most MAX_LANES
     lanes a launch as B1 (counted as ``block_dia_halo_spmm.<dtype>``; one
     vector as ``block_dia_halo.<dtype>``).  Writes y's rows in place;
     raises on operands the kernel does not take."""

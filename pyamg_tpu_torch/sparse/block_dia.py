@@ -302,7 +302,8 @@ def _launch(kernel, mode, dtype, device, nb, bs, A, x, b, outputs,
             shared=()):
     """Launch B1 (``kernel`` "block_dia_spmv") or B2 ("block_dia_jacobi")
     over the lanes of the outputs in chunks of at most MAX_LANES, one
-    count a launch.  ``shared``: B2's arguments between b and the
+    count a launch (a thread of the kernel serves every lane of a chunk,
+    each block read once for a lane tile).  ``shared``: B2's arguments between b and the
     outputs (Dinv, the weight, the colours and the colour)."""
     suffix, _ = _KERNEL_DTYPES[dtype]
     fn_name = f"pyamg_{kernel}_{suffix}"

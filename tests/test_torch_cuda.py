@@ -1603,7 +1603,7 @@ def _block_call(mode, A, x, b, D, colors, twin=False):
     return (getattr(bd, "block_colour_step" + sfx)(A, x, b, D, colors, 2),)
 
 
-@pytest.mark.parametrize("lanes", [None, 3])
+@pytest.mark.parametrize("lanes", [None, 1, 3, 8, 16, 17])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bs,misalign", [(1, False), (2, False), (3, False),
                                          (4, False), (5, False), (2, True)])
@@ -1613,7 +1613,10 @@ def test_block_dia_kernels_match_twins(cuda, mode, bs, misalign, dtype,
     """B1 / B2 in every mode against the twin on the same card tensors (bs
     1-4 unrolled, bs 5 and a misaligned bs 2 through the run-time block
     size instance), two launches bit-identical, one launch a call for up
-    to MAX_LANES lanes, and the twin not run on the card."""
+    to MAX_LANES lanes (two at 17), every lane of a stack equal to the
+    one-vector kernel on that lane alone bit for bit (the lane tiles sum
+    each lane in the one-vector order), and the twin not run on the
+    card."""
     from pyamg_tpu_torch.sparse import block_dia as bd
 
     A, x, b, D, colors = _block_case(bs, dtype, cuda, lanes,
@@ -1622,6 +1625,7 @@ def test_block_dia_kernels_match_twins(cuda, mode, bs, misalign, dtype,
     kernel = "block_dia_spmv" if mode in ("plain", "resid") \
         else "block_dia_jacobi"
     key = f"{kernel}.{str(dtype).removeprefix('torch.')}"
+    per_call = 1 if (lanes or 1) <= _build.MAX_LANES else 2
     calls = []
     real = bd.block_dia_spmv_ref
     bd.block_dia_spmv_ref = lambda *a: calls.append(1) or real(*a)
@@ -1630,15 +1634,20 @@ def test_block_dia_kernels_match_twins(cuda, mode, bs, misalign, dtype,
         got = _block_call(mode, A, x, b, D, colors)
         again = _block_call(mode, A, x, b, D, colors)
         torch.cuda.synchronize()
-        assert _build.launches.get(key, 0) - before == 2
+        assert _build.launches.get(key, 0) - before == 2 * per_call
+        ones = [] if lanes is None else [
+            _block_call(mode, A, x[k].clone(), b[k].clone(), D, colors)
+            for k in range(lanes)]
     finally:
         bd.block_dia_spmv_ref = real
     assert not calls
-    for g, a, w in zip(got, again, want):
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
         assert g.is_cuda and g.shape == x.shape and g.dtype == dtype
         assert torch.equal(g, a)
         assert _rel_err(g, w) <= TOL[dtype], mode
         assert not g[..., -5 * bs:].any()
+        for k, one in enumerate(ones):
+            assert torch.equal(g[k], one[i]), (mode, k)
 
 
 def test_block_dia_kernel_failure_raises_without_fallback(cuda,
@@ -1773,19 +1782,26 @@ def test_k16_lane_mode_matches_k8(cuda, dtype, grid, K):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("bs", [2, 3])
-@pytest.mark.parametrize("K", [3, 17])
-def test_block_halo_lanes_match_b1(cuda, dtype, bs, K):
+@pytest.mark.parametrize("bs,misalign", [(2, False), (3, False), (5, False),
+                                         (2, True)])
+@pytest.mark.parametrize("K", [1, 3, 8, 16, 17])
+def test_block_halo_lanes_match_b1(cuda, dtype, bs, misalign, K):
     """B1's halo mode on K lanes on the card: ring of one and 4 in-process
     node-row blocks, PLAIN and RESID, equal B1 on the whole operator's
-    lanes bit for bit; at most 16 lanes a launch (17 lanes: two launches
-    a part), as B1."""
+    lanes bit for bit (both kernels take node_product's lane tiles), and
+    each lane of B1 the one-vector B1 on that lane; at most 16 lanes a
+    launch (17 lanes: two launches a part), as B1."""
     from pyamg_tpu_torch.parallel import halo_spmv as hs
     from pyamg_tpu_torch.parallel.partition import SolverMesh
     from pyamg_tpu_torch.sparse import block_dia as bd
 
-    A, X, Bv, _, _ = _block_case(bs, dtype, cuda, K, nb=4091)
+    A, X, Bv, _, _ = _block_case(bs, dtype, cuda, K, nb=4091,
+                                 misalign=misalign)
     plain, resid = bd.block_dia_apply(A, X), bd.block_dia_resid(A, X, Bv)
+    for k in range(K):
+        assert torch.equal(plain[k], bd.block_dia_apply(A, X[k].clone()))
+        assert torch.equal(resid[k], bd.block_dia_resid(A, X[k].clone(),
+                                                        Bv[k].clone()))
     one = SolverMesh(rank=0, world=1, device=cuda)
     _build.reset_launches()
     ring = hs.block_halo_spmv(A.data, A.offsets, A.offsets_t, X, A.halo,

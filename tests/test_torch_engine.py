@@ -272,38 +272,40 @@ def test_jacobi_dyn_equals_jacobi():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(cycle="X"), dict(accel="gmres2"), dict(precision="double"),
-    dict(sharded=True)])
+    dict(cycle="X"), dict(accel="gmres2"), dict(precision="double")])
 def test_unported_solve_options_raise(pair32, b, kwargs):
     """Options that raise: an unknown cycle or accel and an unknown
-    precision.  An (n, K) solve on a row-sharded hierarchy (a world of one,
-    every level a ring of one) no longer raises: it runs the lanes through
-    K16's lane mode and gives the unsharded batched solve's histories and
-    x bit for bit."""
-    from pyamg_tpu_torch.parallel import shard_hierarchy
-    from pyamg_tpu_torch.parallel.partition import SolverMesh
-
+    precision."""
     _, ht = pair32
     kw = dict(tol=1e-8, precision="mixed")
     kw.update(kwargs)
-    if kw.pop("sharded", False):
-        hs = shard_hierarchy(ht, SolverMesh(rank=0, world=1,
-                                            device=torch.device(CPU)))
-        rhs = np.stack([b, np.cos(np.arange(b.size))], axis=1)
-        kw.update(precision="native", maxiter=12)
-        res0, res1 = [], []
-        x0 = DeviceMultilevelSolver(ht).solve(rhs, residuals=res0, **kw)
-        x1 = DeviceMultilevelSolver(hs).solve(rhs, residuals=res1, **kw)
-        assert x1.shape == rhs.shape and len(res1) == 2
-        for h0, h1 in zip(res0, res1):
-            assert len(h1) > 3
-            np.testing.assert_array_equal(h1, h0)
-        np.testing.assert_array_equal(x1, x0)
-        return
     match = {"cycle": "cycle", "accel": "accelerator",
              "precision": "precision"}[next(iter(kwargs))]
     with pytest.raises(ValueError, match=match):
         DeviceMultilevelSolver(ht).solve(b, **kw)
+
+
+@pytest.mark.parametrize("kwargs", [dict(precision="native", maxiter=12)])
+def test_sharded_batched_solve_equals_unsharded(pair32, b, kwargs):
+    """An (n, K) solve on a row-sharded hierarchy (a world of one, every
+    level a ring of one) runs the lanes through K16's lane mode and gives
+    the unsharded batched solve's histories and x bit for bit."""
+    from pyamg_tpu_torch.parallel import shard_hierarchy
+    from pyamg_tpu_torch.parallel.partition import SolverMesh
+
+    _, ht = pair32
+    kw = dict(tol=1e-8, **kwargs)
+    hs = shard_hierarchy(ht, SolverMesh(rank=0, world=1,
+                                        device=torch.device(CPU)))
+    rhs = np.stack([b, np.cos(np.arange(b.size))], axis=1)
+    res0, res1 = [], []
+    x0 = DeviceMultilevelSolver(ht).solve(rhs, residuals=res0, **kw)
+    x1 = DeviceMultilevelSolver(hs).solve(rhs, residuals=res1, **kw)
+    assert x1.shape == rhs.shape and len(res1) == 2
+    for h0, h1 in zip(res0, res1):
+        assert len(h1) > 3
+        np.testing.assert_array_equal(h1, h0)
+    np.testing.assert_array_equal(x1, x0)
 
 
 def test_batched_rhs_raises(pair32, b):

@@ -570,7 +570,7 @@ def test_sharded_smoothers(spmd, key):
 
 
 @pytest.mark.parametrize("key", list(CROSS_SHARD_SMOOTHERS))
-def test_sharded_cimmino_and_schwarz_raise(spmd, key):
+def test_sharded_cimmino_and_schwarz_solve(spmd, key):
     """The sweeps that once raised on a sharded hierarchy now shard: the
     Cimmino sweep (``gauss_seidel_nr``, compiled to ``jacobi_nr``: A^T of
     the sharded operator through each DIA level's transposed diagonals)

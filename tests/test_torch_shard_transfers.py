@@ -248,13 +248,33 @@ def sharded_sa():
                                             ds.setup_info)
 
 
-@pytest.mark.parametrize("what", ["batched", "cgnr", "mixed", "tensor_b"])
-def test_sharded_device_built_raises(sharded_sa, what):
+@pytest.mark.parametrize("what", ["batched", "cgnr"])
+def test_sharded_device_built_lanes_and_cgnr_solve(sharded_sa, what):
     """On a sharded device-built solver (a world of one): a batched (n, K)
     solve and CGNR run (K16's lane mode, the transposed DIA levels in a
     ring of one), with the unsharded solve's counts and histories to f64
     rtol 1e-12, as the one-vector solve (the unsharded cycle fuses its
-    level entries and restrictions, the sharded one composes them);
+    level entries and restrictions, the sharded one composes them)."""
+    A, ds, sv = sharded_sa
+    b = np.random.default_rng(0).random(A.shape[0])
+    kw = dict(tol=1e-8, maxiter=30, accel="cg")
+    rhs = np.stack([b, np.sin(np.arange(b.size))], axis=1) \
+        if what == "batched" else b
+    kw["accel"] = "cg" if what == "batched" else "cgnr"
+    res0, res1 = [], []
+    x0 = ds.solve(rhs, residuals=res0, **kw)
+    x1 = sv.solve(rhs, residuals=res1, **kw)
+    hist0, hist1 = (res0, res1) if what == "batched" else ([res0], [res1])
+    assert len(hist1) == len(hist0) == (2 if what == "batched" else 1)
+    for h0, h1 in zip(hist0, hist1):
+        assert len(h1) == len(h0) > 3
+        np.testing.assert_allclose(h1, h0, rtol=1e-12)
+    np.testing.assert_allclose(x1, x0, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("what", ["mixed", "tensor_b"])
+def test_sharded_device_built_raises(sharded_sa, what):
+    """On a sharded device-built solver (a world of one):
     precision="mixed" raises (a sharded hierarchy carries no A64, as the
     reference's, which cannot run it either), citing ROADMAP.md Queue 1
     item 14; a tensor b raises (its solve would give this rank's block of
@@ -262,21 +282,6 @@ def test_sharded_device_built_raises(sharded_sa, what):
     A, ds, sv = sharded_sa
     b = np.random.default_rng(0).random(A.shape[0])
     kw = dict(tol=1e-8, maxiter=30, accel="cg")
-    if what in ("batched", "cgnr"):
-        rhs = np.stack([b, np.sin(np.arange(b.size))], axis=1) \
-            if what == "batched" else b
-        kw["accel"] = "cg" if what == "batched" else "cgnr"
-        res0, res1 = [], []
-        x0 = ds.solve(rhs, residuals=res0, **kw)
-        x1 = sv.solve(rhs, residuals=res1, **kw)
-        hist0, hist1 = (res0, res1) if what == "batched" else (
-            [res0], [res1])
-        assert len(hist1) == len(hist0) == (2 if what == "batched" else 1)
-        for h0, h1 in zip(hist0, hist1):
-            assert len(h1) == len(h0) > 3
-            np.testing.assert_allclose(h1, h0, rtol=1e-12)
-        np.testing.assert_allclose(x1, x0, rtol=0, atol=1e-12)
-        return
     if what == "mixed":
         call = lambda: sv.solve(b, precision="mixed", **kw)  # noqa: E731
     else:
@@ -292,22 +297,24 @@ def test_sharded_device_built_raises(sharded_sa, what):
     np.testing.assert_allclose(res1, res0, rtol=1e-12)
 
 
-@pytest.mark.parametrize("sm", [rel.jacobi_ne(torch.ones(8), 0.5),
-                                rel.windowed_schwarz(torch.ones(1, 8, 8), 8,
+@pytest.mark.parametrize("sm", [rel.jacobi_ne(torch.ones(8), 0.5)],
+                         ids=["jacobi_ne"])
+def test_cross_shard_cimmino_cuts_by_rows(sm):
+    """The Cimmino sweep shards: its inverse row norms cut by rows (its
+    A^T is the sharded operator's)."""
+    cut = _shard_smoother(sm, _one(2, 1), 2)
+    assert cut.config == sm.config
+    assert torch.equal(cut.arrays[0], sm.arrays[0][4:])
+
+
+@pytest.mark.parametrize("sm", [rel.windowed_schwarz(torch.ones(1, 8, 8), 8,
                                                      4)],
-                         ids=["jacobi_ne", "win_schwarz"])
-def test_cross_shard_smoothers_still_raise(sm):
-    """The Cimmino sweep and windowed Schwarz shard: the Cimmino sweep's
-    inverse row norms by rows (its A^T is the sharded operator's), the
-    Schwarz windows by their starts; windows that cannot split over the
-    blocks (one window of stride 4 over 2 blocks) raise ValueError naming
-    the sizes, as does a window that overruns its block on more than one
-    block."""
-    if sm.config[0] == "jacobi_ne":
-        cut = _shard_smoother(sm, _one(2, 1), 2)
-        assert cut.config == sm.config
-        assert torch.equal(cut.arrays[0], sm.arrays[0][4:])
-        return
+                         ids=["win_schwarz"])
+def test_cross_shard_schwarz_cuts_windows_or_raises(sm):
+    """Windowed Schwarz shards by its windows' starts; windows that cannot
+    split over the blocks (one window of stride 4 over 2 blocks) raise
+    ValueError naming the sizes, as does a window that overruns its block
+    on more than one block."""
     with pytest.raises(ValueError, match="4 rows in 2 blocks"):
         _shard_smoother(sm, _one(2), 2)
     blocks = torch.arange(4 * 64, dtype=torch.float64).reshape(4, 8, 8)

@@ -417,21 +417,25 @@ def test_shard_smoother_keeps_non_row_arrays_whole():
 
 
 @pytest.mark.parametrize("sm", [
-    rel.jacobi_ne(torch.ones(8), 0.5), rel.jacobi_nr(torch.ones(8), 0.5),
-    rel.windowed_schwarz(torch.ones(1, 16, 16), 16, 8)],
-    ids=["jacobi_ne", "jacobi_nr", "win_schwarz"])
-def test_shard_smoother_raises_for_cross_shard_kinds(sm):
-    """The cross-shard kinds shard on a world of 2: the Cimmino sweeps cut
-    their inverse row (column) norms by rows, their A^T coming from the
-    sharded operator; windowed Schwarz cuts its windows by their starts,
-    and raises ValueError where the windows cannot split over the blocks
-    (one window of stride 8 over 2 blocks)."""
+    rel.jacobi_ne(torch.ones(8), 0.5), rel.jacobi_nr(torch.ones(8), 0.5)],
+    ids=["jacobi_ne", "jacobi_nr"])
+def test_shard_smoother_cuts_cimmino_norms(sm):
+    """The Cimmino sweeps shard on a world of 2: their inverse row
+    (column) norms cut by rows, their A^T coming from the sharded
+    operator."""
     mesh = SolverMesh(rank=1, world=2, device=torch.device(CPU))
-    if sm.config[0] != "win_schwarz":
-        cut = _shard_smoother(sm, mesh, 2)
-        assert cut.config == sm.config
-        assert torch.equal(cut.arrays[0], sm.arrays[0][4:])
-        return
+    cut = _shard_smoother(sm, mesh, 2)
+    assert cut.config == sm.config
+    assert torch.equal(cut.arrays[0], sm.arrays[0][4:])
+
+
+@pytest.mark.parametrize("sm", [
+    rel.windowed_schwarz(torch.ones(1, 16, 16), 16, 8)], ids=["win_schwarz"])
+def test_shard_smoother_cuts_schwarz_windows_or_raises(sm):
+    """Windowed Schwarz shards on a world of 2: it cuts its windows by
+    their starts, and raises ValueError where the windows cannot split
+    over the blocks (one window of stride 8 over 2 blocks)."""
+    mesh = SolverMesh(rank=1, world=2, device=torch.device(CPU))
     with pytest.raises(ValueError, match="stride 8"):
         _shard_smoother(sm, mesh, 2)
     blocks = torch.rand(4, 16, 16, dtype=torch.float64)
