@@ -239,7 +239,16 @@ result lines):
     SA): every lane's count, true relres, walls and launches, never the
     interleaved route; CGNR and CGNE on config 5's RS 1024^2 and AIR
     256^2; the Cimmino sweep and windowed Schwarz at 256^2 float64;
-22. result lines: the script's seconds, the kernels' JSON (with the
+22. the partitioned device SA setup (device_sa_setup(..., mesh=mesh),
+    each rank building only its rows of every large level) in a world of
+    one NCCL rank at config 1's 2048^2, float32: every level's arrays
+    equal to device_sa_setup + shard_hierarchy's bit for bit, both
+    setups' times (second calls, synchronised, in the order whole,
+    partitioned, partitioned, whole) and peak device memory, the K16
+    launches of the partitioned setup (its power iterations), K16 at its
+    level-0 A, and the sharded CG to 1e-5 in 13 iterations with the
+    whole route's history;
+23. result lines: the script's seconds, the kernels' JSON (with the
     64^3 checks of config 2's paths and the classical paths' checks under
     ``at_paths``, and every check of the block-DIA kernels under
     ``checks``), the card's name and power limit, and last {"ok": true,
@@ -627,6 +636,14 @@ PATHS.update({
     "sharded Cimmino 256^2 float64": ("dia_halo_spmv.float64",),
     "sharded Schwarz 256^2 float64": ("dia_halo_spmv.float64",),
 })
+# the partitioned setup (phase 22, a world of one): every large level's
+# power iterations through K16 on its A in the solve layout; its sharded
+# solve as phase 20's
+PATHS.update({
+    "partitioned setup config 1": ("dia_halo_spmv.float32",),
+    "partitioned sharded config 1": _SHARDED_GRID,
+})
+REF_ITERS_PARTITIONED = 13   # phase 20's sharded config 1 CG to 1e-5
 # the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
 PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
               for h in ("device-built", "host-built") for a in KRYLOV_2048})
@@ -4215,6 +4232,164 @@ def sharded_device_built_phase(check, dev, card, rand, results, launches,
             dist.destroy_process_group()
 
 
+def sharded_arrays(h):
+    """name -> this rank's block of each array of a sharded structured
+    hierarchy: every level's A, S and S^T diagonals, the remap T's rows
+    (P's and R^T's) with w2, chunk count, nnz, block and shape, the
+    smoothers' arrays, the dense coarsest level, the coarse inverse."""
+    import torch
+
+    out = {}
+    for i, lvl in enumerate(h.levels):
+        out[f"L{i}.A"] = lvl.A.factors[0].data
+        if lvl.P is not None:
+            (S, T), (Tt, St) = lvl.P.factors, lvl.R.factors
+            out[f"L{i}.S"], out[f"L{i}.St"] = S.data, St.data
+            for tag, f in (("T", T), ("Tt", Tt)):
+                W = f.local
+                out.update({f"L{i}.{tag}.data": W.data,
+                            f"L{i}.{tag}.idx": W.idx,
+                            f"L{i}.{tag}.starts": W.starts,
+                            f"L{i}.{tag}.meta": torch.tensor(
+                                [W.w2, W.m_chunks, W.nnz, W.block,
+                                 *W.shape, f.groups])})
+        for side in ("pre", "post"):
+            for j, a in enumerate(getattr(lvl, side).arrays):
+                out[f"L{i}.{side}{j}"] = a
+    out["coarse_inv"] = h.coarse_inv
+    return out
+
+
+def partitioned_setup_phase(check, dev, card, rand, results, launches, A1):
+    """Phase 22: the partitioned device SA setup (``device_sa_setup(...,
+    mesh=mesh)``) in a world of one NCCL rank at config 1's 2048^2,
+    float32.  Every large level is a ring of one (its slab the whole
+    level, its halos the slab's tail and head; K16 gives K1's bits), so
+    the setup must give the whole route's bits: device_sa_setup +
+    shard_hierarchy, array for array.  Both setups timed (warm calls, then
+    whole, partitioned, partitioned, whole, each CUDA-synchronised) with
+    the peak device memory each adds; the partitioned setup's launches
+    (counters zeroed just before, read just after: K16 in its power
+    iterations); K16 at its level-0 A through ``compare``; the sharded CG
+    to 1e-5 in 13 iterations with the whole route's history bit for
+    bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pyamg_tpu_torch import StructuredDeviceSolver, _build, device_sa_setup
+    from pyamg_tpu_torch.parallel import (initialize_distributed,
+                                          make_solver_mesh, shard_hierarchy)
+    from pyamg_tpu_torch.sparse import DIAMatrix
+
+    label, solve_label = ("partitioned setup config 1",
+                          "partitioned sharded config 1")
+    with tempfile.TemporaryDirectory() as tmp:
+        rank, world, _ = initialize_distributed(
+            init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+            device=dev)
+        try:
+            mesh = make_solver_mesh(device=dev)
+            kw = dict(grid=GRID, dtype=torch.float32, device=dev,
+                      max_coarse=400)
+
+            def whole():
+                ds = device_sa_setup(A1, **kw)
+                return StructuredDeviceSolver(
+                    shard_hierarchy(ds.hierarchy, mesh), ds.grid, ds.grid_p,
+                    ds.setup_info)
+
+            def part():
+                return device_sa_setup(A1, mesh=mesh, **kw)
+
+            made = {"whole": whole(), "partitioned": part()}   # warm
+            times = {"whole": [], "partitioned": []}
+            added = {}
+            for key in ("whole", "partitioned", "partitioned", "whole"):
+                made[key] = None
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                if key == "partitioned":
+                    _build.reset_launches()
+                t0 = time.perf_counter()
+                made[key] = (part if key == "partitioned" else whole)()
+                torch.cuda.synchronize()
+                times[key].append(time.perf_counter() - t0)
+                if key == "partitioned":
+                    counts = launches[label] = dict(_build.launches)
+                added[key] = (torch.cuda.max_memory_allocated(dev)
+                              - base) / 2**30
+            dw, dp = made["whole"], made["partitioned"]
+            got, want = sharded_arrays(dp.hierarchy), sharded_arrays(
+                dw.hierarchy)
+            diff = [k for k in want if k not in got or not (
+                got[k].shape == want[k].shape and got[k].dtype ==
+                want[k].dtype and torch.equal(got[k], want[k]))]
+            hp = dp.hierarchy
+            log(f"partitioned setup: torch.distributed {dist.get_backend()},"
+                f" rank {rank} of {world}; {card}; {len(hp.levels)} levels "
+                f"on groups {hp.groups}, n_pads {hp.n_pads}")
+            for key in ("whole", "partitioned"):
+                log(f"  {key} setup{' + shard_hierarchy' * (key == 'whole')}"
+                    f": {min(times[key]):.4f} s (second calls "
+                    f"{', '.join(f'{t:.4f}' for t in times[key])} s, "
+                    f"CUDA-synchronised, host CSR -> device included); peak "
+                    f"device memory {added[key]:.3f} GiB above the "
+                    f"allocation at its start; {card}")
+            log(f"  launches in the partitioned setup: "
+                f"{json.dumps(counts, sort_keys=True)}")
+            differ = f" (differ: {', '.join(diff[:8])})" if diff else ""
+            check(not diff and len(got) == len(want),
+                  f"{label}: {len(want)} arrays of {len(hp.levels)} levels "
+                  f"equal to device_sa_setup + shard_hierarchy bit for bit"
+                  f"{differ}")
+            rho = [(float(a["rho_D_inv_A"]), float(b["rho_D_inv_A"]))
+                   for a, b in zip(dp.setup_info["levels"],
+                                   dw.setup_info["levels"])]
+            check(all(a == b for a, b in rho), f"{label}: rho(D^-1 A) of "
+                  f"every level the whole route's ({rho})")
+            path_launches(check, label, counts)
+            A0 = hp.levels[0].A.factors[0]
+            A_dia = DIAMatrix(data=A0.data, offsets=A0.offsets,
+                              shape=hp.levels[0].A.shape,
+                              nnz=hp.levels[0].A.nnz)
+            halo_ring_check(check, A_dia, rand, results,
+                            f"partitioned setup level0 A nd={A_dia.ndiags} "
+                            f"n_pad={A_dia.n_pad}", label)
+            b = np.random.default_rng(0).random(A1.shape[0])
+            cg = dict(tol=1e-5, maxiter=100, accel="cg")
+            dp.solve(b, **cg)                                  # warm-up
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            res = []
+            t0 = time.perf_counter()
+            x = dp.solve(b, residuals=res, **cg)
+            t_solve = time.perf_counter() - t0
+            counts_solve = launches[solve_label] = dict(_build.launches)
+            res_w = []
+            dw.solve(b, residuals=res_w, **cg)
+            relres = float(np.linalg.norm(
+                b - A1 @ np.asarray(x, dtype=np.float64))
+                / np.linalg.norm(b))
+            log(f"  {solve_label}: CG to 1e-5 in {len(res) - 1} iterations "
+                f"(true relres {relres:.3e}), {t_solve:.4f} s (numpy b), "
+                f"{sum(counts_solve.values())} launches")
+            check(len(res) - 1 == REF_ITERS_PARTITIONED
+                  and bool(np.isfinite(x).all())
+                  and res[-1] <= 1e-5 * res[0],
+                  f"{solve_label}: {len(res) - 1} iterations to 1e-5 (phase "
+                  f"20's {REF_ITERS_PARTITIONED}), finite")
+            check(res == res_w, f"{solve_label}: the whole route's sharded "
+                  f"history bit for bit")
+            path_launches(check, solve_label, counts_solve)
+            del made, dw, dp, hp, got, want
+        finally:
+            dist.destroy_process_group()
+
+
 def halo_lane_checks(check, A, rand, results, tag, path, side, shards=4):
     """K16's lane mode on the DIA operator A at K = LANES: the ring of one
     against its plain twin (the rolled sum over every lane's [tail, x,
@@ -5227,6 +5402,11 @@ def main():
                         A, d2, dla, dus, A_un)
     log(f"sharded lanes phase: {time.perf_counter() - t_sl:.1f} s")
 
+    # 22. the partitioned device SA setup (a world of one)
+    t_ps = time.perf_counter()
+    partitioned_setup_phase(check, dev, card, rand, results, launches, A)
+    log(f"partitioned setup phase: {time.perf_counter() - t_ps:.1f} s")
+
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
               file=sys.stderr)
@@ -5234,7 +5414,7 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 22. result lines: each path kernel instance, with its launches on
+    # 23. result lines: each path kernel instance, with its launches on
     # the paths that run it (``launches``: the first of them) and, where a
     # later path's shapes were checked too (config 2's 64^3), those
     # numbers under ``at_paths``

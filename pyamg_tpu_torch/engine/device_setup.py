@@ -340,13 +340,17 @@ def _dia_spgemm_filtered(A: DIAMatrix, B: DIAMatrix, keep_offsets):
                      nnz=len(offsets) * A.shape[0])
 
 
-def _compact_dia(A_emb: DIAMatrix, grid_p, stride, center) -> DIAMatrix:
+def _compact_dia(A_emb: DIAMatrix, grid_p, stride, center,
+                 data_grid=None) -> DIAMatrix:
     """The coarse operator from its fine-grid embedding: rows at the
     centre positions, each offset's per-dim deltas divided by the
-    stride."""
+    stride.  ``data_grid`` is the grid A_emb's rows lie on when they are
+    a slab of whole aggregate rows of ``grid_p`` (the offsets are
+    ``grid_p``'s; shape and nnz stay the whole coarse operator's)."""
     dim = len(grid_p)
     ss = _tup(stride, dim)
     coarse_grid = tuple(g // s for g, s in zip(grid_p, ss))
+    rows_grid = tuple(g // s for g, s in zip(data_grid or grid_p, ss))
     out_offsets = []
     rows = []
     for d, o in enumerate(A_emb.offsets):
@@ -354,7 +358,7 @@ def _compact_dia(A_emb: DIAMatrix, grid_p, stride, center) -> DIAMatrix:
         assert all(c % s == 0 for c, s in zip(coords, ss)), (o, coords)
         cc = tuple(c // s for c, s in zip(coords, ss))
         out_offsets.append(_coords_to_offset(cc, coarse_grid))
-        rows.append(_compact_fine(A_emb.data[d], coarse_grid, stride,
+        rows.append(_compact_fine(A_emb.data[d], rows_grid, stride,
                                   center))
     order = np.argsort(out_offsets)
     nc = int(np.prod(coarse_grid))
@@ -388,7 +392,7 @@ def _transfer_block(rows):
     return (by4 or divisors)[-1]
 
 
-def _windowed_rows(cols, vals, shape, block, dtype):
+def _windowed_rows(cols, vals, shape, block, dtype, global_max=None):
     """The operator whose row i holds ``vals[i, s]`` at column ``cols[i,
     s]`` (an (n, k) pair of tensors on one device, a column < 0 no entry;
     rows past n empty up to ``shape[0]``) as a WindowedELL in row blocks
@@ -397,7 +401,12 @@ def _windowed_rows(cols, vals, shape, block, dtype):
     (slots in the given order, which is each row's column order here; the
     smallest power-of-two w2 >= 1024 whose two-chunk window spans every
     block's columns, however wide the grid).  The grid remaps of the
-    transfers, in the form a row-sharded hierarchy applies (K6, K7)."""
+    transfers, in the form a row-sharded hierarchy applies (K6, K7).
+
+    For a row block of a row-sharded operator (``shape[0]`` its local
+    rows, whole blocks), ``global_max`` maps a local int64 tensor to its
+    maximum over the ranks, so that w2 and the chunk count are the whole
+    operator's; nnz is then the local entries'."""
     n, k = cols.shape
     n_pad = pad_to(max(shape[0], 1), block)
     nb = n_pad // block
@@ -415,9 +424,12 @@ def _windowed_rows(cols, vals, shape, block, dtype):
     w2 = 1024
     while not bool((hi < (lo // w2 + 2) * w2).all()):
         w2 *= 2
+    if global_max is not None:
+        w2 = int(global_max(torch.tensor(w2, device=cols.device)))
     starts = lo // w2
+    top = starts.max() if global_max is None else global_max(starts.max())
     m_chunks = max(pad_to(max(shape[1], 1), w2) // w2,
-                   int(starts.max()) + 2)            # starts + 1 addressable
+                   int(top) + 2)                     # starts + 1 addressable
     local = torch.where(has, c - starts.repeat_interleave(block)[:, None]
                         * w2, 0)
     return WindowedELL(
@@ -639,34 +651,56 @@ def _tentative_emb(B, grid_p, stride, center, dtype):
     return T, norms, tv.to(dtype)
 
 
-def _power_rho(A, dinv=None, iters=40):
+def _power_rho(A, dinv=None, iters=40, norm=_norm, start=0):
     """Spectral-radius estimate of D^-1 A by power iteration from the
     reference's hashed start vector.  ``A`` is any operator with
     ``diagonal()``, ``n_pad``, ``dtype``, ``device`` and ``@``: the SpMV
     is K1 for a DIAMatrix and K6 for a WindowedELL on the card.  Returns
-    a 0-d device tensor (never read to the host)."""
-    v = _hash_weights(A.n_pad, 12345, device=A.device).to(A.dtype) - 0.5
+    a 0-d device tensor (never read to the host).  On a row block of a
+    row-sharded level, ``start`` is the block's first row (its slice of
+    the start vector) and ``norm`` the global 2-norm of a block."""
+    v = (_hash_weights(A.n_pad, 12345, device=A.device, start=start)
+         .to(A.dtype) - 0.5)
     v = torch.where(A.diagonal() != 0, v, 0)
-    v = v / _norm(v)
+    v = v / norm(v)
     for _ in range(iters):
         w = A @ v
         if dinv is not None:
             w = dinv * w
-        nrm = _norm(w)
+        nrm = norm(w)
         v = w / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
     w = A @ v
     if dinv is not None:
         w = dinv * w
-    return _norm(w)
+    return norm(w)
+
+
+class _WholeProducts:
+    """The products of one coarsening step over the whole padded grid:
+    rolls (the reference's).  The partitioned setup's slab products
+    (``parallel/partitioned_setup.py``) take their place on a slab of
+    whole aggregate rows."""
+
+    @staticmethod
+    def grid(grid_p):
+        """The grid the operands' rows lie on."""
+        return grid_p
+
+    spgemm = staticmethod(dia_spgemm)
+    transpose = staticmethod(dia_transpose)
+    spgemm_filtered = staticmethod(_dia_spgemm_filtered)
+    compact = staticmethod(_compact_dia)
 
 
 def _coarsen_level(A_p: DIAMatrix, B, grid_p, stride, center, omega, dtype,
-                   rho=None):
+                   rho=None, products=_WholeProducts):
     """One SA coarsening step on the padded grid.  Returns
-    (S, S^T, tv, A_c on the coarse grid, B_c, rho)."""
+    (S, S^T, tv, A_c on the coarse grid, B_c, rho).  ``products`` forms
+    the DIA products (the whole grid's rolls, or a slab's)."""
     diag = A_p.diagonal()
     dinv = _dinv_of(diag)
-    T, Bc, tv = _tentative_emb(B, grid_p, stride, center, dtype)
+    T, Bc, tv = _tentative_emb(B, products.grid(grid_p), stride, center,
+                               dtype)
     if rho is None:
         rho = _power_rho(A_p, dinv)
     # S = I - (omega / rho) D^-1 A_dir: A_dir drops offsets that move
@@ -690,17 +724,17 @@ def _coarsen_level(A_p: DIAMatrix, B, grid_p, stride, center, omega, dtype,
                   else bump[None, :])
         S = DIAMatrix(data=s_data, offsets=s_offsets + (0,),
                       shape=A_p.shape, nnz=A_p.nnz)
-    P_emb = dia_spgemm(S, T)
-    R_emb = dia_transpose(P_emb)
-    St = dia_transpose(S)
-    AP = dia_spgemm(A_p, P_emb)
+    P_emb = products.spgemm(S, T)
+    R_emb = products.transpose(P_emb)
+    St = products.transpose(S)
+    AP = products.spgemm(A_p, P_emb)
     # only centre-to-centre offsets (every per-dim delta a multiple of
     # the stride) survive compaction
     ss = _tup(stride, len(grid_p))
     cand = _offset_sums(R_emb.offsets, AP.offsets, grid_p, lambda coords: all(
         c % s == 0 for c, s in zip(coords, ss)))
-    Ac_emb = _dia_spgemm_filtered(R_emb, AP, cand)
-    A_c = _compact_dia(Ac_emb, grid_p, stride, center)
+    Ac_emb = products.spgemm_filtered(R_emb, AP, cand)
+    A_c = products.compact(Ac_emb, grid_p, stride, center)
     return S, St, tv, A_c, Bc, rho
 
 
@@ -737,12 +771,14 @@ def _check_smoother(key):
                          f" got {key[0]!r}")
 
 
-def _smoother_device_arrays(key, A_p, dinv, rho_dinv, dtype):
+def _smoother_device_arrays(key, A_p, dinv, rho_dinv, dtype,
+                            power_rho=_power_rho):
     """The smoother's device tensors, every scalar a device tensor (no host
     read): (dinv, omega) for Jacobi, omega scaled by the estimate of
     rho(D^-1 A); (omega,) for Richardson, scaled by a power-iteration
-    estimate of rho(A); (coefficients,) for Chebyshev, the unit interval's
-    coefficients scaled by that estimate."""
+    estimate of rho(A) (``power_rho(A_p)``); (coefficients,) for
+    Chebyshev, the unit interval's coefficients scaled by that
+    estimate."""
     if key is None:
         return ()
     name, kw = key
@@ -755,7 +791,7 @@ def _smoother_device_arrays(key, A_p, dinv, rho_dinv, dtype):
             omega = omega / torch.clamp_min(rho_dinv, 1e-30)
         return (dinv, omega)
     if name == "richardson":
-        rho_A = _power_rho(A_p)
+        rho_A = power_rho(A_p)
         omega = torch.tensor(float(kw.get("omega", 1.0)), dtype=dtype,
                              device=dev) / torch.clamp_min(rho_A, 1e-30)
         return (omega,)
@@ -768,7 +804,7 @@ def _smoother_device_arrays(key, A_p, dinv, rho_dinv, dtype):
         # rho^-(degree-j) (p_rho(t) = p_unit(t / rho) / rho)
         c_unit = np.asarray(chebyshev_polynomial_coefficients(lower, upper,
                                                               degree))
-        rho_A = _power_rho(A_p)
+        rho_A = power_rho(A_p)
         exps = degree - np.arange(degree)
         return (torch.as_tensor(c_unit, dtype=dtype, device=dev)
                 * torch.clamp_min(rho_A, 1e-30) ** torch.as_tensor(
@@ -867,14 +903,30 @@ def _pad_level_solve(A_p, S_op, St_op, pre_arr, post_arr, pre_key,
             _pad_smoother_arrays(post_key, post_arr, A_p.n_pad))
 
 
+def _improve_candidate(A, Bv, dinv, rho, iters, amax=None):
+    """improve_candidates: ``iters`` weighted-Jacobi sweeps on A z = 0
+    from the candidate (omega = 1 / rho(D^-1 A)), then scaled to max |z|
+    = 1 (``amax``: the max of |z| over a row-sharded level's blocks)."""
+    omega_imp = 1.0 / torch.clamp_min(rho, 1e-30)
+    for _ in range(iters):
+        Bv = Bv - omega_imp * (dinv * (A @ Bv))
+    if iters:
+        top = torch.max(torch.abs(Bv))
+        Bv = Bv / torch.clamp_min(top if amax is None else amax(top), 1e-30)
+    return Bv
+
+
 def _setup_pipeline(A_in, B_in=None, *, plan, omega, dtype, pre_key,
-                    post_key, improve_iters=0):
+                    post_key, improve_iters=0, B_coarse=None):
     """The multi-level setup as one eager loop over the static plan of
     (grid, grid_p, strides) per level.  Returns the per-level operators,
     rho estimates and smoother arrays, the dense coarsest operator and
-    its Newton-Schulz pseudo-inverse; nothing is read to the host."""
+    its Newton-Schulz pseudo-inverse; nothing is read to the host.
+    ``B_coarse`` (with ``A_in`` a coarse operator, the partitioned
+    setup's gathered level) is the candidate a coarser level takes from
+    the one above it."""
     cur = A_in
-    B = None
+    B = B_coarse
     out_levels = []
     for (grid, grid_p, strides) in plan:
         center = tuple(s // 2 for s in strides)
@@ -893,11 +945,7 @@ def _setup_pipeline(A_in, B_in=None, *, plan, omega, dtype, pre_key,
         rho = _power_rho(A_p, dinv)
         # improve_candidates: relax A z = 0 on the candidate before
         # fitting the tentative
-        omega_imp = 1.0 / torch.clamp_min(rho, 1e-30)
-        for _ in range(improve_iters):
-            Bv = Bv - omega_imp * (dinv * (A_p @ Bv))
-        if improve_iters:
-            Bv = Bv / torch.clamp_min(torch.max(torch.abs(Bv)), 1e-30)
+        Bv = _improve_candidate(A_p, Bv, dinv, rho, improve_iters)
         S_op, St_op, tv, A_c, Bc, rho = _coarsen_level(
             A_p, Bv, grid_p, strides, center, omega, dtype, rho=rho)
         pre_arr = _smoother_device_arrays(pre_key, A_p, dinv, rho, dtype)
@@ -986,16 +1034,17 @@ def _stride_coupling(A_dia, grid):
 
 
 def _coarsening_plan(A_dia, grid, stride, base, max_coarse, max_levels,
-                     lane_align=False):
+                     lane_align=False, coupling=_stride_coupling):
     """The static coarsening plan [(grid, grid_p, strides)] per level and
     the coarsest grid.  ``stride`` is an int, a per-dim tuple or
     ``'auto'``: then a dim coarsens by ``base`` where its coupling is
     within base^2 of the strongest, each coupling rescaled by 1/s^2 per
-    level (the 1/h^2 law; SA takes base 3, classical base 2).  Offset
-    decomposition is unambiguous only while every coarsened padded dim is
-    >= 3 * stride, so the plan stops there too."""
+    level (the 1/h^2 law; SA takes base 3, classical base 2; the
+    couplings are ``coupling(A_dia, grid)``).  Offset decomposition is
+    unambiguous only while every coarsened padded dim is >= 3 * stride,
+    so the plan stops there too."""
     dim = len(grid)
-    couple = _stride_coupling(A_dia, grid) if stride == "auto" else None
+    couple = coupling(A_dia, grid) if stride == "auto" else None
 
     def level_strides(cpl):
         if cpl is None:
@@ -1099,6 +1148,14 @@ class StructuredDeviceSolver(DeviceMultilevelSolver):
         return LinearOperator((n, n), matvec=matvec, dtype=np.float64)
 
 
+def _dense_level(Ac_dense, nc):
+    """The dense coarsest level of a device-built hierarchy."""
+    ident = device_relaxation.identity()
+    return DeviceLevel(
+        A=DenseOperator(data=Ac_dense, shape=(nc, nc), nnz=nc * nc), P=None,
+        R=None, pre=ident, post=ident, n=nc, n_pad=nc)
+
+
 def _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
                        Ac_dense, coarse_inv, dtype, device, mixed_precision,
                        family=None):
@@ -1106,10 +1163,7 @@ def _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
     the dense coarsest level appended (and the float64 A64 for the mixed
     loop); ``family`` ("classical", "air") goes into its setup_info."""
     nc = int(np.prod(cur_grid))
-    ident = device_relaxation.identity()
-    dev_levels.append(DeviceLevel(
-        A=DenseOperator(data=Ac_dense, shape=(nc, nc), nnz=nc * nc), P=None,
-        R=None, pre=ident, post=ident, n=nc, n_pad=nc))
+    dev_levels.append(_dense_level(Ac_dense, nc))
     A64 = (_relayout_a64(A, grid, plan[0][1], device) if mixed_precision
            else None)
     hier = DeviceHierarchy(levels=tuple(dev_levels), coarse_inv=coarse_inv,
@@ -1125,7 +1179,7 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
                     presmoother=("jacobi", {"omega": 4.0 / 3.0}),
                     postsmoother=("jacobi", {"omega": 4.0 / 3.0}),
                     improve_candidates_iters=0, mixed_precision=False,
-                    lane_align=False):
+                    lane_align=False, mesh=None):
     """Build a smoothed-aggregation hierarchy on ``device`` for a
     grid-stencil operator and return its :class:`StructuredDeviceSolver`
     (an operator that is not one, with ``grid=None``, goes to the
@@ -1144,8 +1198,19 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
     the lane-aligned padded grid (:func:`_padded_grid`), so that batched
     native float32 CG solves take the interleaved route.  Smoothers:
     ``jacobi``, ``richardson`` or ``chebyshev`` specs (their spectral
-    radii estimated on the device by power iteration)."""
-    device = resolve_device(device)
+    radii estimated on the device by power iteration).
+
+    With a ``mesh`` (:func:`~pyamg_tpu_torch.parallel.make_solver_mesh`,
+    every rank calling with the same arguments) the setup is partitioned
+    (:func:`~pyamg_tpu_torch.parallel.partitioned_setup.
+    partitioned_sa_setup`): ``A`` stays on the host, each rank builds its
+    rows of every large level on its device (the mesh's), and the solver
+    runs over a :class:`~pyamg_tpu_torch.parallel.ShardedHierarchy` equal
+    to ``shard_hierarchy`` of the whole setup's."""
+    device = resolve_device(device if mesh is None or device is not None
+                            else mesh.device)
+    if mesh is not None and device != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     _check_dtype(dtype)
     if grid is None:
         if not (sp.issparse(A) or isinstance(A, np.ndarray)):
@@ -1161,16 +1226,23 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
                 max_coarse=max_coarse, max_levels=max_levels,
                 presmoother=presmoother, postsmoother=postsmoother,
                 improve_candidates_iters=improve_candidates_iters)
-    grid, A_dia = _grid_operator(A, grid, dtype, device)
-    n = int(np.prod(grid))
     pre_key = _spec_key(presmoother)
     post_key = _spec_key(postsmoother)
     _check_smoother(pre_key)
     _check_smoother(post_key)
+    if mesh is not None:
+        from ..parallel.partitioned_setup import partitioned_sa_setup
+        return partitioned_sa_setup(
+            A, grid, mesh, B=B, dtype=dtype, omega=omega, stride=stride,
+            max_coarse=max_coarse, max_levels=max_levels, pre_key=pre_key,
+            post_key=post_key,
+            improve_candidates_iters=improve_candidates_iters,
+            mixed_precision=mixed_precision, lane_align=lane_align)
+    grid, A_dia = _grid_operator(A, grid, dtype, device)
+    n = int(np.prod(grid))
 
     plan, cur_grid = _coarsening_plan(A_dia, grid, stride, 3, max_coarse,
                                       max_levels, lane_align=lane_align)
-    nlev = len(plan)
 
     B_dev = None
     if B is not None:
@@ -1186,11 +1258,22 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
         pre_key=pre_key, post_key=post_key,
         improve_iters=int(improve_candidates_iters))
 
+    dev_levels, infos = _structured_levels(plan, out_levels, pre_key,
+                                           post_key)
+    return _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
+                              Ac_dense, coarse_inv, dtype, device,
+                              mixed_precision)
+
+
+def _structured_levels(plan, out_levels, pre_key, post_key, first=0):
+    """The DeviceLevels and setup_info entries of the structured SA
+    pipeline's levels ``plan[first:]`` (``out_levels`` theirs)."""
+    nlev = len(plan)
     dev_levels = []
     infos = []
-    for i, ((lv_grid, grid_p, strides), (A_p, S_op, St_op, tv, rho,
-                                         pre_arr, post_arr)) in enumerate(
-            zip(plan, out_levels)):
+    for i, (A_p, S_op, St_op, tv, rho, pre_arr, post_arr) in enumerate(
+            out_levels, start=first):
+        grid_p, strides = plan[i][1], plan[i][2]
         centers = tuple(s // 2 for s in strides)
         coarse_grid = tuple(g // s for g, s in zip(grid_p, strides))
         coarse_grid_p = plan[i + 1][1] if i + 1 < nlev else coarse_grid
@@ -1215,10 +1298,7 @@ def device_sa_setup(A, grid=None, B=None, dtype=torch.float32, device=None,
         # rho stays a device scalar
         infos.append({"level": i, "n": npad_lvl, "strides": strides,
                       "ndiags": A_p.ndiags, "rho_D_inv_A": rho})
-
-    return _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
-                              Ac_dense, coarse_inv, dtype, device,
-                              mixed_precision)
+    return dev_levels, infos
 
 
 def device_adaptive_sa_setup(A, grid=None, stages=2, candidate_iters=8,

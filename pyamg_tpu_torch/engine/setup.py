@@ -48,12 +48,14 @@ def _mul32(z, c):
     return (lo + hi) & _MASK32
 
 
-def _hash_weights(n_pad, seed, device=None):
+def _hash_weights(n_pad, seed, device=None, start=0):
     """Deterministic pseudo-random weights in [0, 1): the reference's
     uint32 avalanche hash of the index, bit for bit, computed in int64
     with the wrap-around made explicit (PyTorch's uint32 lacks the
-    operators)."""
-    i = torch.arange(n_pad, dtype=torch.int64, device=device)
+    operators).  ``start`` gives the weights of the indices [start, start
+    + n_pad), a row block of the longer vector's (each weight depends on
+    its index alone)."""
+    i = torch.arange(start, start + n_pad, dtype=torch.int64, device=device)
     z = (i + (int(seed) * 0x9E3779B9 & _MASK32)) & _MASK32
     z = _mul32(z ^ (z >> 16), 0x85EBCA6B)
     z = _mul32(z ^ (z >> 13), 0xC2B2AE35)

@@ -350,10 +350,20 @@ class _ShardedWindowed:
     K13 on lanes) summed over the groups."""
 
     def __init__(self, W, mesh, groups):
-        self.local, groups = _local_windowed(W, mesh, groups)
-        self.mesh, self.groups = mesh, groups
-        self.in_layout = (1, W.m_chunks * W.w2)
-        self.out_layout = (groups, W.n_pad)
+        self._init(*_local_windowed(W, mesh, groups), mesh)
+
+    @classmethod
+    def of_local(cls, local, mesh, groups):
+        """The factor from this rank's row blocks (``local``, a
+        WindowedELL of the whole operator's w2 and chunk count)."""
+        self = cls.__new__(cls)
+        self._init(local, groups, mesh)
+        return self
+
+    def _init(self, local, groups, mesh):
+        self.local, self.mesh, self.groups = local, mesh, groups
+        self.in_layout = (1, local.m_chunks * local.w2)
+        self.out_layout = (groups, local.n_pad * groups)
 
     def apply(self, x):
         return self.local.matvec(x)
@@ -368,10 +378,19 @@ class _ShardedTransposed:
     transpose the local rows of the base operator (K6, K12)."""
 
     def __init__(self, W, mesh, groups):
-        self.local, groups = _local_windowed(W, mesh, groups)
-        self.mesh, self.groups = mesh, groups
-        self.in_layout = (groups, W.n_pad)
-        self.out_layout = (1, W.m_chunks * W.w2)
+        self._init(*_local_windowed(W, mesh, groups), mesh)
+
+    @classmethod
+    def of_local(cls, local, mesh, groups):
+        """The factor from this rank's row blocks of the base operator."""
+        self = cls.__new__(cls)
+        self._init(local, groups, mesh)
+        return self
+
+    def _init(self, local, groups, mesh):
+        self.local, self.mesh, self.groups = local, mesh, groups
+        self.in_layout = (groups, local.n_pad * groups)
+        self.out_layout = (1, local.m_chunks * local.w2)
 
     def apply(self, r):
         return self.mesh.sum_groups(self.local.rmatvec(r), self.groups)
@@ -469,13 +488,26 @@ class ShardedOperator:
         fine = max(in_layout[1], out_layout[1])
         fs = _factors(op, _transfer_block(fine // k_mid))
         last = len(fs) - 1
-        self.factors = tuple(
-            _shard_factor(f, mesh, in_layout[0] if i == last else k_mid,
-                          out_layout[0] if i == 0 else k_mid)
-            for i, f in enumerate(fs))
+        self._init([_shard_factor(f, mesh, in_layout[0] if i == last
+                                  else k_mid,
+                                  out_layout[0] if i == 0 else k_mid)
+                    for i, f in enumerate(fs)], mesh, in_layout, out_layout,
+                   op.shape, op.nnz, fs[0].dtype)
+
+    @classmethod
+    def of_factors(cls, factors, mesh, in_layout, out_layout, shape, nnz,
+                   dtype):
+        """The operator from this rank's sharded factors (applied right to
+        left), built from its own rows (the partitioned setup's)."""
+        self = cls.__new__(cls)
+        self._init(factors, mesh, in_layout, out_layout, shape, nnz, dtype)
+        return self
+
+    def _init(self, factors, mesh, in_layout, out_layout, shape, nnz, dtype):
+        self.factors = tuple(factors)
         self.mesh = mesh
         self.in_layout, self.out_layout = in_layout, out_layout
-        self.shape, self.nnz, self.dtype = op.shape, op.nnz, fs[0].dtype
+        self.shape, self.nnz, self.dtype = shape, nnz, dtype
 
     @property
     def n_pad(self):
@@ -679,9 +711,11 @@ def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):
     ``device_rs_setup``, ``device_air_setup``, ``device_sa_setup_block``,
     adaptive SA): their levels' DIA and block-DIA operators through K16
     and B1's halo mode, their transfers factor by factor, the masked and
-    block smoothers by their rows and nodes.  The setup itself is not
-    partitioned: it runs whole, then this shards its result.  To solve
-    with a device-built hierarchy, keep its solver's grid encoding::
+    block smoothers by their rows and nodes.  This shards a hierarchy
+    built whole; the structured SA setup also runs partitioned
+    (``device_sa_setup(..., mesh=mesh)``: each rank builds only its rows
+    of every large level, and gets what this gives).  To solve with a
+    device-built hierarchy, keep its solver's grid encoding::
 
         ds = device_sa_setup(A, grid)
         StructuredDeviceSolver(shard_hierarchy(ds.hierarchy, mesh),
@@ -705,24 +739,29 @@ def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):
         _level_groups(n, mesh.world, min_local_rows),
         n // lvl.A.bs if isinstance(lvl.A, BlockDIAMatrix) else n)
         for n, lvl in zip(n_pads, levels))
-    new_levels = []
-    for i, lvl in enumerate(levels):
-        k = ks[i]
-        fine = (k, n_pads[i])
-        P = R = None
-        if lvl.P is not None:
-            coarse = (ks[i + 1], n_pads[i + 1])
-            P = ShardedOperator(lvl.P, mesh, coarse, fine, k)
-            R = ShardedOperator(lvl.R, mesh, fine, coarse, k)
-        new_levels.append(DeviceLevel(
-            A=ShardedOperator(lvl.A, mesh, fine, fine, k), P=P, R=R,
-            pre=_shard_smoother(lvl.pre, mesh, k),
-            post=_shard_smoother(lvl.post, mesh, k),
-            n=lvl.n, n_pad=n_pads[i] // k))
+    new_levels = [_shard_level(lvl, mesh, (ks[i], n_pads[i]),
+                               (ks[i + 1], n_pads[i + 1])
+                               if i + 1 < len(levels) else None)
+                  for i, lvl in enumerate(levels)]
     return ShardedHierarchy(
         levels=tuple(new_levels), coarse_inv=hierarchy.coarse_inv,
         nc=hierarchy.nc, nc_pad=n_pads[-1] // ks[-1], dtype=hierarchy.dtype,
         A64=None, mesh=mesh, groups=ks, n_pads=n_pads)
+
+
+def _shard_level(lvl, mesh, fine, coarse):
+    """This rank's copy of one level whose rows lie on the layout
+    ``fine`` (its transfers' coarse side on ``coarse``)."""
+    k = fine[0]
+    P = R = None
+    if lvl.P is not None:
+        P = ShardedOperator(lvl.P, mesh, coarse, fine, k)
+        R = ShardedOperator(lvl.R, mesh, fine, coarse, k)
+    return DeviceLevel(
+        A=ShardedOperator(lvl.A, mesh, fine, fine, k), P=P, R=R,
+        pre=_shard_smoother(lvl.pre, mesh, k),
+        post=_shard_smoother(lvl.post, mesh, k), n=lvl.n,
+        n_pad=fine[1] // k)
 
 
 def _node_groups(k, nodes):

@@ -30,8 +30,17 @@ a digest of the histories.  Per operation: its bound (``block_cost``).
 The card's name and power limit, then one JSON line, end the output;
 ``--json PATH`` writes every run's numbers there too.
 
-    python scripts/measure_block_lanes.py --parent DIR [--json PATH]   # one GPU
-"""
+``--yardsticks`` (no parent) times, in this tree alone, what the lane
+rows lack: at the A64 (float64) level 0 B1 ``PLAIN`` / ``RESID`` on K = 8
+and at level 1 B1 ``PLAIN`` on K = 8, each beside its plain twin and
+``torch.sparse.mm`` / ``torch.addmm`` of the operator as CSR against the
+(n, 8) columns; at level 1 B2 ``STEP`` / ``ZERO_RES`` on K = 8 beside
+their twins; the kernel against its twin at the kernel tolerance.
+
+    python scripts/measure_block_lanes.py --parent DIR [--json PATH]
+    python scripts/measure_block_lanes.py --yardsticks
+
+(one GPU each)."""
 import argparse
 import hashlib
 import importlib.util
@@ -228,10 +237,84 @@ def tree_run(tree):
     print(json.dumps(out))
 
 
+def yardsticks():
+    """The lane rows' plain-twin and library times (``--yardsticks``);
+    one line an operation, then the card's line and a JSON line."""
+    import dataclasses
+
+    from pyamg_tpu_torch import device_sa_setup_block, linear_elasticity
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(21)
+    A4, Bm = linear_elasticity(cs.C4_BIG)
+    d4 = device_sa_setup_block(A4, grid=cs.C4_BIG_NODE_GRID, B=Bm,
+                               max_coarse=400, dtype=torch.float32,
+                               device=dev)
+    lv0, lv1 = d4.hierarchy.levels[:2]
+    A64 = dataclasses.replace(lv0.A, data=lv0.A.data.double())
+    rows, ok = [], True
+
+    def lanes_cost(A, vectors, **kw):
+        return (cs.block_cost(A, LANES * vectors, **kw)[0],
+                LANES * cs.block_cost(A, vectors, **kw)[1])
+
+    for tag, A, Dinv, omega, modes in (
+            ("A64 level0 f64", A64, None, None, ("PLAIN", "RESID")),
+            ("level1 f32", lv1.A, *lv1.pre.arrays,
+             ("PLAIN", "STEP", "ZERO_RES"))):
+        dt = A.dtype
+        X, B = (torch.as_tensor(rng.random((LANES, A.n_pad)), dtype=dt,
+                                device=dev) for _ in range(2))
+        csr = cs.bdia_to_csr(A, dev)
+        Xc, Bc = X.T.contiguous(), B.T.contiguous()
+        calls = {
+            "PLAIN": (lambda: bd.block_dia_apply(A, X),
+                      lambda: bd.block_dia_spmv_ref(A, X),
+                      lambda: torch.sparse.mm(csr, Xc), lanes_cost(A, 2)),
+            "RESID": (lambda: bd.block_dia_resid(A, X, B),
+                      lambda: bd.block_dia_resid_ref(A, X, B),
+                      lambda: torch.addmm(Bc, csr, Xc, alpha=-1.0),
+                      lanes_cost(A, 3, extra_ops=1)),
+            "STEP": (lambda: bd.block_jacobi_step(A, X, B, Dinv, omega),
+                     lambda: bd.block_jacobi_step_ref(A, X, B, Dinv, omega),
+                     None, lanes_cost(A, 3, dinv=True, extra_ops=3)),
+            "ZERO_RES": (lambda: bd.block_jacobi_zero_res(A, B, Dinv, omega),
+                         lambda: bd.block_jacobi_zero_res_ref(A, B, Dinv,
+                                                              omega),
+                         None, lanes_cost(A, 3, dinv=True, extra_ops=2)),
+        }
+        for m in modes:
+            kern, plain, lib, cost = calls[m]
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(float((g - w).abs().max() / w.abs().max())
+                      for g, w in zip(got, want))
+            tol = cs.F32_REL_TOL if dt == torch.float32 else cs.F64_REL_TOL
+            ok = ok and err <= tol
+            row = dict(name=f"{m} {tag} bs={A.bs} nb={A.nb_pad} K={LANES}",
+                       ms=_time(kern), plain_ms=_time(plain),
+                       library_ms=_time(lib) if lib is not None else None,
+                       bound_ms=_bound_ms(*cost, dt), max_rel_err=err)
+            rows.append(row)
+            lib_s = (f"{row['library_ms']:.4f} ms" if lib is not None
+                     else "none")
+            print(f"{row['name']}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, library {lib_s}, bound "
+                  f"{row['bound_ms']:.4f} ms, max_rel_err {err:.2e} "
+                  f"(tol {tol:g})", flush=True)
+    print(cs.nvidia_smi_line())
+    print(json.dumps(dict(device=torch.cuda.get_device_name(0),
+                          yardsticks=rows, ok=ok)))
+    sys.exit(0 if ok else 1)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", required=True,
-                    help="a checkout timed beside this one")
+    ap.add_argument("--parent", help="a checkout timed beside this one")
+    ap.add_argument("--yardsticks", action="store_true",
+                    help="this tree's lane rows' twin and library times")
     ap.add_argument("--json", help="write every run's numbers to this file")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -240,6 +323,11 @@ def main():
     if args.tree:
         tree_run(os.path.abspath(args.tree))
         return
+    if args.yardsticks:
+        yardsticks()
+        return
+    if not args.parent:
+        ap.error("--parent DIR is required (or --yardsticks)")
     parent = os.path.abspath(args.parent)
     rows = []
     for tree in (parent, ROOT, ROOT, parent):
