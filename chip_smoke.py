@@ -636,14 +636,26 @@ PATHS.update({
     "sharded Cimmino 256^2 float64": ("dia_halo_spmv.float64",),
     "sharded Schwarz 256^2 float64": ("dia_halo_spmv.float64",),
 })
-# the partitioned setup (phase 22, a world of one): every large level's
-# power iterations through K16 on its A in the solve layout; its sharded
-# solve as phase 20's
+# the partitioned setups (phase 22, a world of one): every large level's
+# power iterations through K16 on its A in the solve layout (SA, RS), or
+# through B1's halo mode (the block setup); their sharded solves as phase
+# 20's
 PATHS.update({
     "partitioned setup config 1": ("dia_halo_spmv.float32",),
     "partitioned sharded config 1": _SHARDED_GRID,
+    "partitioned setup config 3 RS": ("dia_halo_spmv.float32",),
+    "partitioned sharded config 3 RS": _SHARDED_GRID,
+    "partitioned setup config 5 RS": ("dia_halo_spmv.float32",),
+    "partitioned sharded config 5 RS": _SHARDED_GRID,
+    "partitioned setup config 4 1024^2": ("block_dia_halo.float32",),
+    "partitioned sharded config 4 1024^2": _SHARDED_BLOCK,
 })
 REF_ITERS_PARTITIONED = 13   # phase 20's sharded config 1 CG to 1e-5
+# the partitioned RS and block routes' sharded solves: config 3 CG to 1e-5
+# (13, the reference's), config 4 1024^2 CG to 1e-5 (18, phase 20's), and
+# config 5 FGMRES as phase 20 runs it (its count the whole route's)
+REF_ITERS_PARTITIONED_C3 = REF_ITERS_C3_RS
+REF_ITERS_PARTITIONED_C4 = 18
 # the Krylov solves at 2048^2 run their hierarchy's CG path's kernels
 PATHS.update({f"{h} config 1 {a}": PATHS[f"{h} config 1"]
               for h in ("device-built", "host-built") for a in KRYLOV_2048})
@@ -4233,20 +4245,23 @@ def sharded_device_built_phase(check, dev, card, rand, results, launches,
 
 
 def sharded_arrays(h):
-    """name -> this rank's block of each array of a sharded structured
-    hierarchy: every level's A, S and S^T diagonals, the remap T's rows
-    (P's and R^T's) with w2, chunk count, nnz, block and shape, the
-    smoothers' arrays, the dense coarsest level, the coarse inverse."""
+    """name -> this rank's block of each array of a sharded structured or
+    block hierarchy: every level's A and every factor of its P and R (a
+    DIA or block-DIA factor's diagonals; a grid remap's rows, with w2,
+    chunk count, nnz, block, shape and groups), the smoothers' arrays,
+    the dense coarsest level, the coarse inverse."""
     import torch
 
     out = {}
     for i, lvl in enumerate(h.levels):
         out[f"L{i}.A"] = lvl.A.factors[0].data
         if lvl.P is not None:
-            (S, T), (Tt, St) = lvl.P.factors, lvl.R.factors
-            out[f"L{i}.S"], out[f"L{i}.St"] = S.data, St.data
-            for tag, f in (("T", T), ("Tt", Tt)):
-                W = f.local
+            for tag, f in zip(("P0", "P1", "R0", "R1"),
+                              lvl.P.factors + lvl.R.factors):
+                W = getattr(f, "local", None)
+                if W is None:
+                    out[f"L{i}.{tag}"] = f.data
+                    continue
                 out.update({f"L{i}.{tag}.data": W.data,
                             f"L{i}.{tag}.idx": W.idx,
                             f"L{i}.{tag}.starts": W.starts,
@@ -4260,30 +4275,182 @@ def sharded_arrays(h):
     return out
 
 
+def timed_setups(label, whole, part, launches):
+    """Warm calls of both setups, then whole, partitioned, partitioned,
+    whole, each CUDA-synchronised, with the peak device memory each adds
+    above the allocation at its start; the launch counters zeroed just
+    before each partitioned call and read just after (the last kept
+    under ``label``).  Returns (the last solvers by key, seconds by key,
+    GiB by key, the partitioned setup's launches)."""
+    import torch
+
+    from pyamg_tpu_torch import _build
+
+    dev = torch.device("cuda")
+    made = {"whole": whole(), "partitioned": part()}       # warm
+    times = {"whole": [], "partitioned": []}
+    added = {}
+    for key in ("whole", "partitioned", "partitioned", "whole"):
+        made[key] = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        if key == "partitioned":
+            _build.reset_launches()
+        t0 = time.perf_counter()
+        made[key] = (part if key == "partitioned" else whole)()
+        torch.cuda.synchronize()
+        times[key].append(time.perf_counter() - t0)
+        if key == "partitioned":
+            counts = launches[label] = dict(_build.launches)
+        added[key] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    return made, times, added, counts
+
+
+def same_arrays(check, label, dp, dw):
+    """Every array of the partitioned hierarchy ``dp`` the whole route's
+    ``dw`` bit for bit (shape, dtype and values); returns the count."""
+    import torch
+
+    got, want = sharded_arrays(dp.hierarchy), sharded_arrays(dw.hierarchy)
+    diff = [k for k in want if k not in got or not (
+        got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+        and torch.equal(got[k], want[k]))]
+    differ = f" (differ: {', '.join(diff[:8])})" if diff else ""
+    nlev = len(dp.hierarchy.levels)
+    check(not diff and len(got) == len(want),
+          f"{label}: {len(want)} arrays of {nlev} levels equal to the whole "
+          f"route's (setup + shard_hierarchy) bit for bit{differ}")
+    return len(want)
+
+
+def partitioned_route(check, card, mesh, rand, results, launches, name, A,
+                      make, solve_kw, ref_iters, side):
+    """One partitioned route of phase 22 beside its whole route (the
+    setup + ``shard_hierarchy``): ``make(mesh)`` builds the setup of the
+    host operator ``A`` with ``mesh``, or whole with None; the setups
+    timed and their peak
+    memory (:func:`timed_setups`), the partitioned setup's launches,
+    every array and every level's rho bit for bit, the kernel of its
+    power iterations at its level-0 A through ``compare`` (K16, or B1's
+    halo mode on a block level), and its sharded solve (a warm call, then
+    the counted one) with the whole route's history bit for bit."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import (BlockStructuredDeviceSolver,
+                                 StructuredDeviceSolver, _build)
+    from pyamg_tpu_torch.parallel import shard_hierarchy
+    from pyamg_tpu_torch.sparse import BlockDIAMatrix, DIAMatrix
+
+    label, solve_label = (f"partitioned setup {name}",
+                          f"partitioned sharded {name}")
+
+    def whole():
+        ds = make(None)
+        hs = shard_hierarchy(ds.hierarchy, mesh)
+        if isinstance(ds, BlockStructuredDeviceSolver):
+            return BlockStructuredDeviceSolver(hs, ds.grid, ds.grid_p, ds.bs,
+                                               ds.setup_info)
+        return StructuredDeviceSolver(hs, ds.grid, ds.grid_p, ds.setup_info)
+
+    made, times, added, counts = timed_setups(label, whole,
+                                              lambda: make(mesh), launches)
+    dw, dp = made["whole"], made["partitioned"]
+    hp = dp.hierarchy
+    log(f"{label}: {len(hp.levels)} levels on groups {hp.groups}, n_pads "
+        f"{hp.n_pads}; {card}")
+    for key in ("whole", "partitioned"):
+        log(f"  {key} setup{' + shard_hierarchy' * (key == 'whole')}: "
+            f"{min(times[key]):.4f} s (second calls "
+            f"{', '.join(f'{t:.4f}' for t in times[key])} s, "
+            f"CUDA-synchronised, host CSR -> device included); peak device "
+            f"memory {added[key]:.3f} GiB above the allocation at its "
+            f"start; {card}")
+    log(f"  launches in the partitioned setup: "
+        f"{json.dumps(counts, sort_keys=True)}")
+    same_arrays(check, label, dp, dw)
+    rk = "rho" if "rho" in dp.setup_info["levels"][0] else "rho_D_inv_A"
+    rho = [(float(a[rk]), float(b[rk])) for a, b in zip(
+        dp.setup_info["levels"], dw.setup_info["levels"])]
+    check(all(a == b for a, b in rho), f"{label}: rho of every level the "
+          f"whole route's ({rho})")
+    path_launches(check, label, counts)
+    f0, lv0 = hp.levels[0].A.factors[0], hp.levels[0].A
+    if isinstance(dp, BlockStructuredDeviceSolver):
+        A0 = BlockDIAMatrix(data=f0.data, offsets=f0.offsets, shape=lv0.shape,
+                            bs=dp.bs, nnz=lv0.nnz)
+        block_halo_checks(check, A0, rand, results,
+                          f"partitioned {name} level0 A bs={A0.bs} "
+                          f"nd={A0.ndiags} nb={A0.nb_pad}", label, side)
+    else:
+        A0 = DIAMatrix(data=f0.data, offsets=f0.offsets, shape=lv0.shape,
+                       nnz=lv0.nnz)
+        halo_ring_check(check, A0, rand, results,
+                        f"partitioned {name} level0 A nd={A0.ndiags} "
+                        f"n_pad={A0.n_pad}", label)
+    b = np.random.default_rng(0).random(A.shape[0])
+    dp.solve(b, **solve_kw)                                # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = []
+    t0 = time.perf_counter()
+    x = dp.solve(b, residuals=res, **solve_kw)
+    t_solve = time.perf_counter() - t0
+    counts_solve = launches[solve_label] = dict(_build.launches)
+    res_w = []
+    dw.solve(b, residuals=res_w, **solve_kw)
+    relres = float(np.linalg.norm(b - A @ np.asarray(x, dtype=np.float64))
+                   / np.linalg.norm(b))
+    its = len(res) - 1
+    log(f"  {solve_label}: {solve_kw['accel']} to {solve_kw['tol']:g} in "
+        f"{its} iterations (whole route {len(res_w) - 1}; true relres "
+        f"{relres:.3e}), {t_solve:.4f} s (numpy b), "
+        f"{sum(counts_solve.values())} launches")
+    check((ref_iters is None or its == ref_iters)
+          and bool(np.isfinite(x).all())
+          and res[-1] <= solve_kw["tol"] * res[0],
+          f"{solve_label}: {its} iterations to {solve_kw['tol']:g}"
+          f"{'' if ref_iters is None else f' (want {ref_iters})'}, finite")
+    check(res == res_w, f"{solve_label}: the whole route's sharded history "
+          f"bit for bit")
+    path_launches(check, solve_label, counts_solve)
+
+
 def partitioned_setup_phase(check, dev, card, rand, results, launches, A1):
-    """Phase 22: the partitioned device SA setup (``device_sa_setup(...,
-    mesh=mesh)``) in a world of one NCCL rank at config 1's 2048^2,
-    float32.  Every large level is a ring of one (its slab the whole
-    level, its halos the slab's tail and head; K16 gives K1's bits), so
-    the setup must give the whole route's bits: device_sa_setup +
-    shard_hierarchy, array for array.  Both setups timed (warm calls, then
-    whole, partitioned, partitioned, whole, each CUDA-synchronised) with
-    the peak device memory each adds; the partitioned setup's launches
-    (counters zeroed just before, read just after: K16 in its power
-    iterations); K16 at its level-0 A through ``compare``; the sharded CG
-    to 1e-5 in 13 iterations with the whole route's history bit for
-    bit."""
+    """Phase 22: the partitioned device setups in a world of one NCCL rank,
+    float32, full width: the SA setup (``device_sa_setup(..., mesh=mesh)``)
+    at config 1's 2048^2, the RS setup (``device_rs_setup(...,
+    mesh=mesh)``) at config 3's 512^2 (``stride="auto"``) and config 5's
+    1024^2, and the block setup (``device_sa_setup_block(...,
+    mesh=mesh)``) at config 4's 1024^2.  Every large level is a ring of
+    one (its slab the whole level, its halos the slab's tail and head; K16
+    gives K1's bits, B1's halo mode B1's), so each setup must give the
+    whole route's bits: the setup + shard_hierarchy, array for array.
+    Each pair timed (warm calls, then whole, partitioned, partitioned,
+    whole, each CUDA-synchronised) with the peak device memory each adds;
+    the partitioned setup's launches (counters zeroed just before, read
+    just after: K16, or B1's halo mode, in its power iterations); that
+    kernel at its level-0 A through ``compare``; the sharded solve with the
+    whole route's history bit for bit (config 1 CG to 1e-5 in 13
+    iterations, config 3 CG to 1e-5 in 13, config 5 FGMRES to 1e-5 as
+    phase 20 runs it, config 4 CG to 1e-5 in 18)."""
     import tempfile
 
     import numpy as np
     import torch
     import torch.distributed as dist
 
-    from pyamg_tpu_torch import StructuredDeviceSolver, _build, device_sa_setup
+    from pyamg_tpu_torch import (StructuredDeviceSolver, _build,
+                                 device_rs_setup, device_sa_setup,
+                                 device_sa_setup_block, diffusion_stencil_2d,
+                                 linear_elasticity, recirc_flow,
+                                 stencil_grid)
     from pyamg_tpu_torch.parallel import (initialize_distributed,
                                           make_solver_mesh, shard_hierarchy)
     from pyamg_tpu_torch.sparse import DIAMatrix
 
+    f32 = torch.float32
     label, solve_label = ("partitioned setup config 1",
                           "partitioned sharded config 1")
     with tempfile.TemporaryDirectory() as tmp:
@@ -4292,8 +4459,7 @@ def partitioned_setup_phase(check, dev, card, rand, results, launches, A1):
             device=dev)
         try:
             mesh = make_solver_mesh(device=dev)
-            kw = dict(grid=GRID, dtype=torch.float32, device=dev,
-                      max_coarse=400)
+            kw = dict(grid=GRID, dtype=f32, device=dev, max_coarse=400)
 
             def whole():
                 ds = device_sa_setup(A1, **kw)
@@ -4304,30 +4470,9 @@ def partitioned_setup_phase(check, dev, card, rand, results, launches, A1):
             def part():
                 return device_sa_setup(A1, mesh=mesh, **kw)
 
-            made = {"whole": whole(), "partitioned": part()}   # warm
-            times = {"whole": [], "partitioned": []}
-            added = {}
-            for key in ("whole", "partitioned", "partitioned", "whole"):
-                made[key] = None
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats(dev)
-                base = torch.cuda.memory_allocated(dev)
-                if key == "partitioned":
-                    _build.reset_launches()
-                t0 = time.perf_counter()
-                made[key] = (part if key == "partitioned" else whole)()
-                torch.cuda.synchronize()
-                times[key].append(time.perf_counter() - t0)
-                if key == "partitioned":
-                    counts = launches[label] = dict(_build.launches)
-                added[key] = (torch.cuda.max_memory_allocated(dev)
-                              - base) / 2**30
+            made, times, added, counts = timed_setups(label, whole, part,
+                                                      launches)
             dw, dp = made["whole"], made["partitioned"]
-            got, want = sharded_arrays(dp.hierarchy), sharded_arrays(
-                dw.hierarchy)
-            diff = [k for k in want if k not in got or not (
-                got[k].shape == want[k].shape and got[k].dtype ==
-                want[k].dtype and torch.equal(got[k], want[k]))]
             hp = dp.hierarchy
             log(f"partitioned setup: torch.distributed {dist.get_backend()},"
                 f" rank {rank} of {world}; {card}; {len(hp.levels)} levels "
@@ -4341,11 +4486,7 @@ def partitioned_setup_phase(check, dev, card, rand, results, launches, A1):
                     f"allocation at its start; {card}")
             log(f"  launches in the partitioned setup: "
                 f"{json.dumps(counts, sort_keys=True)}")
-            differ = f" (differ: {', '.join(diff[:8])})" if diff else ""
-            check(not diff and len(got) == len(want),
-                  f"{label}: {len(want)} arrays of {len(hp.levels)} levels "
-                  f"equal to device_sa_setup + shard_hierarchy bit for bit"
-                  f"{differ}")
+            same_arrays(check, label, dp, dw)
             rho = [(float(a["rho_D_inv_A"]), float(b["rho_D_inv_A"]))
                    for a, b in zip(dp.setup_info["levels"],
                                    dw.setup_info["levels"])]
@@ -4385,7 +4526,39 @@ def partitioned_setup_phase(check, dev, card, rand, results, launches, A1):
             check(res == res_w, f"{solve_label}: the whole route's sharded "
                   f"history bit for bit")
             path_launches(check, solve_label, counts_solve)
-            del made, dw, dp, hp, got, want
+            del made, dw, dp, hp
+
+            # the partitioned RS and block setups (each operator made once
+            # on the host, outside the timed setups)
+            def rs(A, grid):
+                return A, lambda mesh_: device_rs_setup(
+                    A, grid=grid, dtype=f32, device=dev, max_coarse=400,
+                    mesh=mesh_)
+
+            def c4():
+                A, B = linear_elasticity(C4_BIG)
+                return A, lambda mesh_: device_sa_setup_block(
+                    A, grid=C4_BIG_NODE_GRID, B=B, max_coarse=400, dtype=f32,
+                    device=dev, mesh=mesh_)
+
+            side = torch.cuda.Stream()
+            cg5 = dict(tol=1e-5, maxiter=100, accel="cg")
+            for name, route, solve_kw, ref in (
+                    ("config 3 RS", lambda: rs(stencil_grid(
+                        diffusion_stencil_2d(epsilon=1e-3, theta=0.0,
+                                             type="FD"), C3_GRID).tocsr(),
+                        C3_GRID), dict(cg5, maxiter=60),
+                     REF_ITERS_PARTITIONED_C3),
+                    ("config 5 RS", lambda: rs(recirc_flow(
+                        C5_GRID, epsilon=1e-2), C5_GRID),
+                     dict(tol=1e-5, maxiter=150, accel="fgmres"), None),
+                    ("config 4 1024^2", c4, cg5, REF_ITERS_PARTITIONED_C4)):
+                t0 = time.perf_counter()
+                A, make = route()
+                partitioned_route(check, card, mesh, rand, results, launches,
+                                  name, A, make, solve_kw, ref, side)
+                log(f"  partitioned {name}: {time.perf_counter() - t0:.1f} s "
+                    "in all")
         finally:
             dist.destroy_process_group()
 

@@ -41,14 +41,13 @@ import torch
 from ..backend import resolve_device
 from ..relaxation.chebyshev import chebyshev_polynomial_coefficients
 from ..sparse.block_dia import BlockDIAMatrix, block_dia_from_scipy
-from ..sparse.dia import DenseOperator
 from ..sparse.formats import fit
 from ..sparse.window import TransposedWindowed
 from . import relaxation as device_relaxation
 from .device_setup import (StructuredDeviceSolver, _block_sum,
                            _broadcast_coarse, _check_dtype, _coarse_index,
-                           _compact_fine, _coords_to_offset, _grid_pad_vec,
-                           _grid_pads, _ns_pinv,
+                           _compact_fine, _coords_to_offset, _dense_level,
+                           _grid_pad_vec, _grid_pads, _ns_pinv,
                            _offset_to_coords, _padded_grid,
                            _shared_factor, _spec_key, _transfer_block,
                            _windowed_rows)
@@ -290,10 +289,15 @@ def _relayout_block(A: BlockDIAMatrix, grid, grid_p) -> BlockDIAMatrix:
         shape=(nbp * A.bs, nbp * A.bs), bs=A.bs, nnz=A.nnz)
 
 
-def _compact_bdia(C: _BDia, grid_p, stride, center, m, nnz) -> BlockDIAMatrix:
+def _compact_bdia(C: _BDia, grid_p, stride, center, m, nnz,
+                  data_grid=None) -> BlockDIAMatrix:
     """The coarse block operator from its fine-node embedding: the centre
-    rows, each offset's per-dim deltas divided by the stride."""
+    rows, each offset's per-dim deltas divided by the stride.
+    ``data_grid`` is the grid C's rows lie on when they are a slab of
+    whole aggregate rows of ``grid_p`` (the offsets are ``grid_p``'s;
+    shape and nnz stay the whole coarse operator's)."""
     coarse_grid = tuple(g // stride for g in grid_p)
+    rows_grid = tuple(g // stride for g in (data_grid or grid_p))
     out_offsets = []
     rows = []
     for d, o in enumerate(C.offsets):
@@ -302,7 +306,7 @@ def _compact_bdia(C: _BDia, grid_p, stride, center, m, nnz) -> BlockDIAMatrix:
         out_offsets.append(_coords_to_offset(
             tuple(c // stride for c in coords), coarse_grid))
         lanes = C.data[d].reshape(C.data[d].shape[0], m * m).T
-        rows.append(_compact_fine(lanes, coarse_grid, stride,
+        rows.append(_compact_fine(lanes, rows_grid, stride,
                                   center).T.reshape(-1, m, m))
     order = np.argsort(out_offsets)
     nc = int(np.prod(coarse_grid))
@@ -312,12 +316,18 @@ def _compact_bdia(C: _BDia, grid_p, stride, center, m, nnz) -> BlockDIAMatrix:
         shape=(nc * m, nc * m), bs=m, nnz=nnz)
 
 
-def _block_power_rho(A: BlockDIAMatrix, Dinv, iters=40):
+def _block_power_rho(A: BlockDIAMatrix, Dinv, iters=40,
+                     norm=torch.linalg.vector_norm, start=0):
     """rho(D^-1 A) by power iteration with the batched block D^-1, from
-    the reference's hashed start vector: a 0-d device tensor."""
-    v = _hash_weights(A.n_pad, 12345, device=A.device).to(A.dtype) - 0.5
+    the reference's hashed start vector: a 0-d device tensor.  ``A`` is
+    any operator with ``diagonal()``, ``n_pad``, ``bs``, ``dtype``,
+    ``device`` and ``@``; on the node rows of a row-sharded level,
+    ``start`` is the block's first scalar row (its slice of the start
+    vector) and ``norm`` the global 2-norm of a block."""
+    v = (_hash_weights(A.n_pad, 12345, device=A.device, start=start)
+         .to(A.dtype) - 0.5)
     v = torch.where(A.diagonal() != 0, v, 0)
-    v = v / torch.clamp_min(torch.linalg.vector_norm(v), 1e-30)
+    v = v / torch.clamp_min(norm(v), 1e-30)
     bs = A.bs
 
     def dapply(w):
@@ -325,9 +335,9 @@ def _block_power_rho(A: BlockDIAMatrix, Dinv, iters=40):
 
     for _ in range(iters):
         w = dapply(A @ v)
-        nrm = torch.linalg.vector_norm(w)
+        nrm = norm(w)
         v = w / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
-    return torch.linalg.vector_norm(dapply(A @ v))
+    return norm(dapply(A @ v))
 
 
 # ---------------------------------------------------------------------------
@@ -459,16 +469,36 @@ class BlockStructuredRestrictor(_CandidateRemap):
 # the setup pipeline
 # ---------------------------------------------------------------------------
 
+class _WholeBlockProducts:
+    """The block products of one coarsening step over the whole padded
+    node grid (the partitioned block setup's slab products,
+    ``parallel/partitioned_block.py``, take their place on a slab of
+    whole aggregate rows)."""
+
+    @staticmethod
+    def grid(grid_p):
+        """The grid the operands' node rows lie on."""
+        return grid_p
+
+    spgemm = staticmethod(_bspgemm)
+    transpose = staticmethod(_btranspose)
+    compact = staticmethod(_compact_bdia)
+
+
 def _coarsen_level_block(A_p: BlockDIAMatrix, B, grid_p, stride, center,
-                         omega, m, dtype):
+                         omega, m, dtype, rho=None,
+                         products=_WholeBlockProducts):
     """One block SA coarsening step (B: (nb_pad, bs, m)): (S, S^T, Qv,
-    Dinv, A_c, B_c, rho)."""
+    Dinv, A_c, B_c, rho).  ``products`` forms the block products (the
+    whole grid's, or a slab's)."""
     bs = A_p.bs
     Dblk = A_p.block_diagonal()
     Dinv = _spd_inv_small(Dblk)
-    Qv, Bc_blocks = _fit_candidates_gram(B, grid_p, stride, dtype)
-    T = _tentative_bdia(Qv, grid_p, stride, center, dtype)
-    rho = _block_power_rho(A_p, Dinv)
+    Qv, Bc_blocks = _fit_candidates_gram(B, products.grid(grid_p), stride,
+                                         dtype)
+    T = _tentative_bdia(Qv, products.grid(grid_p), stride, center, dtype)
+    if rho is None:
+        rho = _block_power_rho(A_p, Dinv)
     # S = I - (omega / rho) D^-1 A: A's rows scaled by the blocks, plus
     # the identity on the nodes with a nonzero diagonal block
     scale = -(omega / torch.where(rho == 0, torch.ones_like(rho), rho))
@@ -486,9 +516,9 @@ def _coarsen_level_block(A_p: BlockDIAMatrix, B, grid_p, stride, center,
     S = BlockDIAMatrix(data=s_data, offsets=s_offsets, shape=A_p.shape,
                        bs=bs, nnz=A_p.nnz)
     S_b = _BDia(data=S.data, offsets=S.offsets)
-    P_emb = _bspgemm(S_b, T)
-    R_emb = _btranspose(P_emb)
-    AP = _bspgemm(_BDia(data=A_p.data, offsets=A_p.offsets), P_emb)
+    P_emb = products.spgemm(S_b, T)
+    R_emb = products.transpose(P_emb)
+    AP = products.spgemm(_BDia(data=A_p.data, offsets=A_p.offsets), P_emb)
     # only centre-to-centre offsets survive compaction
     cand = set()
     for oa in R_emb.offsets:
@@ -500,11 +530,11 @@ def _coarsen_level_block(A_p: BlockDIAMatrix, B, grid_p, stride, center,
                 continue
             if all(c % stride == 0 for c in coords):
                 cand.add(oc)
-    Ac_emb = _bspgemm(R_emb, AP, keep=cand)
+    Ac_emb = products.spgemm(R_emb, AP, keep=cand)
     nb_c = int(np.prod(grid_p)) // stride ** len(grid_p)
-    A_c = _compact_bdia(Ac_emb, grid_p, stride, center, m,
-                        nnz=nb_c * m * m * len(Ac_emb.offsets))
-    St_b = _btranspose(S_b)
+    A_c = products.compact(Ac_emb, grid_p, stride, center, m,
+                           nnz=nb_c * m * m * len(Ac_emb.offsets))
+    St_b = products.transpose(S_b)
     St = BlockDIAMatrix(data=St_b.data, offsets=St_b.offsets,
                         shape=A_p.shape, bs=bs, nnz=S.nnz)
     return S, St, Qv, Dinv, A_c, Bc_blocks, rho
@@ -515,11 +545,13 @@ def _identity_blocks(A):
         A.nb_pad, A.bs, A.bs)
 
 
-def _block_smoother_arrays(key, A_p, Dinv, rho, dtype):
+def _block_smoother_arrays(key, A_p, Dinv, rho, dtype,
+                           power_rho=_block_power_rho):
     """The smoother's device tensors: (Dinv, omega) for ``jacobi`` and
     ``block_jacobi`` (the block-diagonal inverse; omega scaled by the
     estimate of rho(D^-1 A)), (omega,) for Richardson and (coefficients,)
-    for Chebyshev, scaled by a power-iteration estimate of rho(A)."""
+    for Chebyshev, scaled by a power-iteration estimate of rho(A)
+    (``power_rho(A_p, I)``)."""
     if key is None:
         return ()
     name, kw = key
@@ -532,7 +564,7 @@ def _block_smoother_arrays(key, A_p, Dinv, rho, dtype):
             omega = omega / torch.clamp_min(rho, 1e-30)
         return (Dinv, omega)
     if name == "richardson":
-        rho_A = _block_power_rho(A_p, _identity_blocks(A_p))
+        rho_A = power_rho(A_p, _identity_blocks(A_p))
         return (torch.tensor(float(kw.get("omega", 1.0)), dtype=dtype,
                              device=dev) / torch.clamp_min(rho_A, 1e-30),)
     if name == "chebyshev":
@@ -541,7 +573,7 @@ def _block_smoother_arrays(key, A_p, Dinv, rho, dtype):
         degree = int(kw.get("degree", 3))
         c_unit = np.asarray(chebyshev_polynomial_coefficients(lower, upper,
                                                               degree))
-        rho_A = _block_power_rho(A_p, _identity_blocks(A_p))
+        rho_A = power_rho(A_p, _identity_blocks(A_p))
         exps = degree - np.arange(degree)
         return (torch.as_tensor(c_unit, dtype=dtype, device=dev)
                 * torch.clamp_min(rho_A, 1e-30) ** torch.as_tensor(
@@ -628,13 +660,60 @@ class BlockStructuredDeviceSolver(StructuredDeviceSolver):
         return v.reshape(self.grid_p + (self.bs,))[sl].reshape(-1)
 
 
+def _block_plan(grid, bs, m, stride, max_coarse, max_levels):
+    """The static coarsening plan [(grid, grid_p)] on the node grid and
+    the coarsest grid."""
+    plan = []
+    cur_grid = grid
+    while (int(np.prod(cur_grid)) * max(bs, m) > max_coarse
+           and len(plan) < max_levels - 1
+           and min(_padded_grid(cur_grid, stride)) >= 3 * stride):
+        grid_p = _padded_grid(cur_grid, stride)
+        plan.append((cur_grid, grid_p))
+        cur_grid = tuple(g // stride for g in grid_p)
+    if not plan:
+        raise ValueError(
+            f"grid {grid} is below the coarsening threshold "
+            f"(max_coarse={max_coarse}); use the host setup path")
+    return plan, cur_grid
+
+
+def _block_levels(plan, out_levels, stride, pre_key, post_key, first=0):
+    """The DeviceLevels and setup_info entries of the block pipeline's
+    levels ``plan[first:]`` (``out_levels`` theirs); each level's remap Q
+    is built once, for its P and R."""
+    nlev = len(plan)
+    dev_levels = []
+    infos = []
+    for i, (A_p, S, St, Qv, rho, pre_arr, post_arr) in enumerate(
+            out_levels, start=first):
+        grid_p = plan[i][1]
+        coarse_grid = tuple(g // stride for g in grid_p)
+        coarse_grid_p = plan[i + 1][1] if i + 1 < nlev else coarse_grid
+        geometry = dict(Qv=Qv, fine_grid_p=grid_p, coarse_grid=coarse_grid,
+                        coarse_grid_p=coarse_grid_p, stride=stride,
+                        center=stride // 2, remaps={})
+        npad_lvl = int(np.prod(grid_p)) * A_p.bs
+        P = BlockStructuredProlongator(S=S, **geometry)
+        P.Q                          # built here, once for P and R
+        dev_levels.append(DeviceLevel(
+            A=A_p, P=P, R=BlockStructuredRestrictor(St=St, **geometry),
+            pre=_block_smoother_wrap(pre_key, pre_arr),
+            post=_block_smoother_wrap(post_key, post_arr), n=npad_lvl,
+            n_pad=npad_lvl))
+        # rho stays a device scalar
+        infos.append({"level": i, "n": npad_lvl, "bs": A_p.bs,
+                      "ndiags": A_p.ndiags, "rho": rho})
+    return dev_levels, infos
+
+
 def device_sa_setup_block(A, grid, B, dtype=torch.float32, device=None,
                           omega=4.0 / 3.0, stride=3, max_coarse=400,
                           max_levels=12,
                           presmoother=("block_jacobi", {"omega": 4.0 / 3.0}),
                           postsmoother=("block_jacobi",
                                         {"omega": 4.0 / 3.0}),
-                          mixed_precision=False):
+                          mixed_precision=False, mesh=None):
     """Build a block / multi-candidate SA hierarchy on ``device`` and
     return its :class:`BlockStructuredDeviceSolver`.
 
@@ -647,10 +726,30 @@ def device_sa_setup_block(A, grid, B, dtype=torch.float32, device=None,
     ``richardson``, ``chebyshev``.  Aggregates are stride^d node blocks;
     the finest level has the input's blocks, every coarser one m x m.
     ``mixed_precision=True`` also stores the finest operator in float64
-    for the mixed-precision outer loop (needs the scipy operator)."""
-    device = resolve_device(device)
+    for the mixed-precision outer loop (needs the scipy operator).
+
+    With a ``mesh`` (:func:`~pyamg_tpu_torch.parallel.make_solver_mesh`,
+    every rank calling with the same arguments) the setup is partitioned
+    (:func:`~pyamg_tpu_torch.parallel.partitioned_block.
+    partitioned_block_setup`): ``A`` and ``B`` stay on the host, each rank
+    builds its node rows of every large level on its device (the mesh's),
+    and the solver runs over a :class:`~pyamg_tpu_torch.parallel.
+    ShardedHierarchy` equal to ``shard_hierarchy`` of the whole setup's;
+    ``mixed_precision=True`` raises there."""
+    device = resolve_device(device if mesh is None or device is not None
+                            else mesh.device)
+    if mesh is not None and device != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     _check_dtype(dtype)
     grid = tuple(int(g) for g in grid)
+    pre_key = _spec_key(presmoother)
+    post_key = _spec_key(postsmoother)
+    if mesh is not None:
+        from ..parallel.partitioned_block import partitioned_block_setup
+        return partitioned_block_setup(
+            A, grid, B, mesh, dtype=dtype, omega=omega, stride=stride,
+            max_coarse=max_coarse, max_levels=max_levels, pre_key=pre_key,
+            post_key=post_key, mixed_precision=mixed_precision)
     nb = int(np.prod(grid))
     Absr = None
     if sp.issparse(A):
@@ -692,22 +791,8 @@ def device_sa_setup_block(A, grid, B, dtype=torch.float32, device=None,
     if B_dev.shape[0] != nb * bs:
         raise ValueError("B rows must equal n")
 
-    # the static coarsening plan on the node grid
-    plan = []
-    cur_grid = grid
-    while (int(np.prod(cur_grid)) * max(bs, m) > max_coarse
-           and len(plan) < max_levels - 1
-           and min(_padded_grid(cur_grid, stride)) >= 3 * stride):
-        grid_p = _padded_grid(cur_grid, stride)
-        plan.append((cur_grid, grid_p))
-        cur_grid = tuple(g // stride for g in grid_p)
-    if not plan:
-        raise ValueError(
-            f"grid {grid} is below the coarsening threshold "
-            f"(max_coarse={max_coarse}); use the host setup path")
+    plan, cur_grid = _block_plan(grid, bs, m, stride, max_coarse, max_levels)
     nlev = len(plan)
-    pre_key = _spec_key(presmoother)
-    post_key = _spec_key(postsmoother)
 
     A_in = A_bd
     if A_bd.dtype != dtype:
@@ -717,32 +802,10 @@ def device_sa_setup_block(A, grid, B, dtype=torch.float32, device=None,
         A_in, B_dev.reshape(nb, bs, m), plan=tuple(plan), stride=stride,
         omega=omega, m=m, dtype=dtype, pre_key=pre_key, post_key=post_key)
 
-    dev_levels = []
-    infos = []
-    for i, ((_, grid_p), (A_p, S, St, Qv, rho, pre_arr, post_arr)) in (
-            enumerate(zip(plan, out_levels))):
-        coarse_grid = tuple(g // stride for g in grid_p)
-        coarse_grid_p = plan[i + 1][1] if i + 1 < nlev else coarse_grid
-        geometry = dict(Qv=Qv, fine_grid_p=grid_p, coarse_grid=coarse_grid,
-                        coarse_grid_p=coarse_grid_p, stride=stride,
-                        center=stride // 2, remaps={})
-        npad_lvl = int(np.prod(grid_p)) * A_p.bs
-        P = BlockStructuredProlongator(S=S, **geometry)
-        P.Q                          # built here, once for P and R
-        dev_levels.append(DeviceLevel(
-            A=A_p, P=P, R=BlockStructuredRestrictor(St=St, **geometry),
-            pre=_block_smoother_wrap(pre_key, pre_arr),
-            post=_block_smoother_wrap(post_key, post_arr), n=npad_lvl,
-            n_pad=npad_lvl))
-        # rho stays a device scalar
-        infos.append({"level": i, "n": npad_lvl, "bs": A_p.bs,
-                      "ndiags": A_p.ndiags, "rho": rho})
-
+    dev_levels, infos = _block_levels(plan, out_levels, stride, pre_key,
+                                      post_key)
     nc = int(np.prod(cur_grid)) * m
-    ident = device_relaxation.identity()
-    dev_levels.append(DeviceLevel(
-        A=DenseOperator(data=Ac_dense, shape=(nc, nc), nnz=nc * nc), P=None,
-        R=None, pre=ident, post=ident, n=nc, n_pad=nc))
+    dev_levels.append(_dense_level(Ac_dense, nc))
 
     A64 = (_relayout_block(A_bd, grid, plan[0][1]) if mixed_precision
            else None)

@@ -41,6 +41,7 @@ goes to the unstructured classical setups
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -50,17 +51,16 @@ import torch
 import torch.nn.functional as F
 
 from ..backend import resolve_device
-from ..sparse.dia import DIAMatrix, dia_spmm_add, dia_spmv_add, dia_transpose
+from ..sparse.dia import DIAMatrix, dia_spmm_add, dia_spmv_add
 from ..sparse.formats import fit
 from ..sparse.window import TransposedWindowed
 from . import relaxation as device_relaxation
-from .device_setup import (_check_dtype, _check_smoother, _coarse_index,
-                           _coarsening_plan, _compact_dia, _compact_fine,
-                           _dia_spgemm_filtered, _shared_factor,
-                           _windowed_rows,
+from .device_setup import (_WholeProducts, _check_dtype, _check_smoother,
+                           _coarse_index, _coarsening_plan, _compact_fine,
+                           _shared_factor, _windowed_rows,
                            _dia_to_dense, _dinv_of, _embed_coarse,
                            _grid_operator, _grid_pad_vec, _grid_unpad_vec,
-                           _ns_pinv, _offset_sums,
+                           _not_ported, _ns_pinv, _offset_sums,
                            _offset_to_coords, _pad_smoother_arrays,
                            _pad_solve_items, _power_rho, _relayout_dia,
                            _smoother_device_arrays, _smoother_wrap,
@@ -198,25 +198,52 @@ class EmbeddedRestrictor:
 # splitting and interpolation
 # ---------------------------------------------------------------------------
 
-def _oddness_masks(grid_p, stride, center, device):
-    """Flat bool masks by pass: mask[m] holds the points whose number of
-    coarsened dims with coord != center (mod stride) is m; mask[0] is the
-    C sublattice.  Returns (masks, number of coarsened dims)."""
-    dim = len(grid_p)
-    ss = _tup(stride, dim)
-    cc = _tup(center, dim)
-    n_coarse_dims = sum(1 for s in ss if s > 1)
-    oddness = torch.zeros(grid_p, dtype=torch.int32, device=device)
-    for d in range(dim):
-        if ss[d] == 1:
-            continue
-        od = (torch.arange(grid_p[d], device=device) % ss[d]
-              != cc[d]).to(torch.int32)
-        shape = [1] * dim
-        shape[d] = grid_p[d]
-        oddness = oddness + od.reshape(shape)
-    flat = oddness.reshape(-1)
-    return [flat == m for m in range(n_coarse_dims + 1)], n_coarse_dims
+class _GridMarks:
+    """The C/F marks of a level's rows: each point's count of coarsened
+    dims whose coord != center (mod stride), read off its flat index on
+    the padded grid ``grid_p`` (0 on the C sublattice, m on the pass-m
+    points).  ``rows`` is the range of flat indices the level's operands
+    hold: the whole grid (None), or a slab of whole grid rows (the
+    partitioned setup's), whose marks and shifted marks are those of the
+    whole grid's rolls: the marks of the slab extended by ``halo`` rows
+    each side, read off the global indices modulo the grid's points."""
+
+    def __init__(self, grid_p, stride, center, device, rows=None, halo=0):
+        dim = len(grid_p)
+        self.grid_p = tuple(grid_p)
+        self.ss, self.cc = _tup(stride, dim), _tup(center, dim)
+        n = int(np.prod(grid_p))
+        self.n_passes = sum(1 for s in self.ss if s > 1)
+        self.slab = rows is not None
+        r0, r1 = rows if self.slab else (0, n)
+        self.halo = halo if self.slab else 0
+        self.length = r1 - r0
+        self.ext = self._oddness(torch.arange(
+            r0 - self.halo, r1 + self.halo, device=device) % n)
+        self.odd = self.ext[self.halo:self.halo + self.length]
+
+    def _oddness(self, index):
+        odd = torch.zeros(index.shape, dtype=torch.int32,
+                          device=index.device)
+        step = 1
+        for g, s, c in reversed(list(zip(self.grid_p, self.ss, self.cc))):
+            if s > 1:
+                odd += ((index // step) % g % s != c).to(torch.int32)
+            step *= g
+        return odd
+
+    def mask(self, m):
+        """The pass-m points (m = 0: the C points)."""
+        return self.odd == m
+
+    def targets(self, m, o):
+        """Whether row i's entry at offset ``o`` lands on a target of pass
+        m (a C point or an earlier pass's), the column taken modulo the
+        grid's points as the whole grid's roll wraps it."""
+        if not self.slab:
+            return torch.roll(self.odd < m, -o)
+        lo = self.halo + o
+        return self.ext[lo:lo + self.length] < m
 
 
 def _sorted_dia(rows, offsets, n):
@@ -234,12 +261,13 @@ def _injection(cmask, dtype):
                      offsets=(0,), shape=(n, n), nnz=n)
 
 
-def _pass_interp(A_p: DIAMatrix, fmask, tmask, dtype):
+def _pass_interp(A_p: DIAMatrix, fmask, targets, dtype):
     """One interpolation pass as an embedded DIA operator S: pass rows
-    (``fmask``) hold direct-interpolation weights toward the targets
-    (``tmask``: the C and earlier-pass points), every other row is the
-    identity.  The weights are rs_direct_interpolation_pass2's with the
-    targets as the strong C neighbours:
+    (``fmask``) hold direct-interpolation weights toward the targets (the
+    C and earlier-pass points; ``targets(o)`` whether row i's entry at
+    offset o lands on one), every other row is the identity.  The weights
+    are rs_direct_interpolation_pass2's with the targets as the strong C
+    neighbours:
 
         alpha_i = sum_{j != i} a_ij^- / sum_{j target} a_ij^-
         beta_i  = sum_{j != i} a_ij^+ / sum_{j target} a_ij^+
@@ -260,7 +288,7 @@ def _pass_interp(A_p: DIAMatrix, fmask, tmask, dtype):
         a = A_p.data[d]
         neg_all = neg_all + torch.clamp_max(a, 0)
         pos_all = pos_all + torch.clamp_min(a, 0)
-        ind = torch.roll(tmask, -o)          # entry (i, i+o) lands on a target
+        ind = targets(o)                     # entry (i, i+o) lands on a target
         t_ind.append(ind)
         at = torch.where(ind, a, 0)
         neg_t = neg_t + torch.clamp_max(at, 0)
@@ -298,51 +326,60 @@ def _span_filter(A: DIAMatrix, B: DIAMatrix, grid_p, bound):
         abs(c) <= b for c, b in zip(coords, bound)))
 
 
-def _spans(A_p, grid_p, stride):
-    """(per-dim stencil span, the interpolation bound)."""
+def _spans(offsets, grid_p, stride):
+    """(per-dim stencil span of A's ``offsets``, the interpolation
+    bound)."""
     ss = _tup(stride, len(grid_p))
     a_span = [0] * len(grid_p)
-    for o in A_p.offsets:
+    for o in offsets:
         for d, c in enumerate(_offset_to_coords(o, grid_p)):
             a_span[d] = max(a_span[d], abs(c))
     return a_span, tuple(a if s > 1 else 0 for a, s in zip(a_span, ss))
 
 
-def _interpolation(A_p, masks, n_passes, grid_p, p_bound, pass_fn, dtype):
-    """P_emb = S_n ... S_1 D_C, S_m = ``pass_fn`` on the pass-m rows."""
-    P_emb = _injection(masks[0], dtype)
-    tmask = masks[0]
-    for m in range(1, n_passes + 1):
-        S_m = pass_fn(A_p, masks[m], tmask, dtype)
-        P_emb = _dia_spgemm_filtered(
+def _interpolation(A_p, marks, grid_p, p_bound, pass_fn, dtype,
+                   products=_WholeProducts):
+    """P_emb = S_n ... S_1 D_C, S_m = ``pass_fn`` on the pass-m rows of
+    ``marks`` (a :class:`_GridMarks`), each product through
+    ``products``."""
+    P_emb = _injection(marks.mask(0), dtype)
+    for m in range(1, marks.n_passes + 1):
+        S_m = pass_fn(A_p, marks.mask(m), functools.partial(marks.targets, m),
+                      dtype)
+        P_emb = products.spgemm_filtered(
             S_m, P_emb, _span_filter(S_m, P_emb, grid_p, p_bound))
-        tmask = tmask | masks[m]
     return P_emb
 
 
-def _galerkin(A_p, P_emb, R_emb, grid_p, stride, center, rap_bound):
+def _galerkin(A_p, P_emb, R_emb, grid_p, stride, center, rap_bound,
+              products=_WholeProducts):
     """A_c = compaction of R_emb (A_p P_emb), both products span-filtered
     and the second kept to the C-to-C offsets."""
     ss = _tup(stride, len(grid_p))
-    AP = _dia_spgemm_filtered(
+    AP = products.spgemm_filtered(
         A_p, P_emb, _span_filter(A_p, P_emb, grid_p, rap_bound))
     cand = _offset_sums(R_emb.offsets, AP.offsets, grid_p, lambda coords: all(
         c % s == 0 and abs(c) <= b for c, s, b in zip(coords, ss, rap_bound)))
-    Ac_emb = _dia_spgemm_filtered(R_emb, AP, cand)
-    return _compact_dia(Ac_emb, grid_p, stride, center)
+    Ac_emb = products.spgemm_filtered(R_emb, AP, cand)
+    return products.compact(Ac_emb, grid_p, stride, center)
 
 
-def _rs_coarsen_level(A_p: DIAMatrix, grid_p, stride, center, dtype):
+def _rs_coarsen_level(A_p: DIAMatrix, grid_p, stride, center, dtype,
+                      products=_WholeProducts, marks=None):
     """One classical coarsening step: masks, multi-pass P, R = P^T, the
-    filtered Galerkin product and its compaction.  (P_emb, R_emb, A_c)."""
-    masks, n_passes = _oddness_masks(grid_p, stride, center, A_p.device)
+    filtered Galerkin product and its compaction.  (P_emb, R_emb, A_c).
+    ``products`` forms the DIA products (the whole grid's rolls, or a
+    slab's, with the slab's ``marks``)."""
+    if marks is None:
+        marks = _GridMarks(grid_p, stride, center, A_p.device)
     ss = _tup(stride, len(grid_p))
-    a_span, p_bound = _spans(A_p, grid_p, stride)
-    P_emb = _interpolation(A_p, masks, n_passes, grid_p, p_bound,
-                           _pass_interp, dtype)
-    R_emb = dia_transpose(P_emb)
+    a_span, p_bound = _spans(A_p.offsets, grid_p, stride)
+    P_emb = _interpolation(A_p, marks, grid_p, p_bound, _pass_interp, dtype,
+                           products)
+    R_emb = products.transpose(P_emb)
     rap_bound = tuple(max(s, a) for s, a in zip(ss, a_span))
-    A_c = _galerkin(A_p, P_emb, R_emb, grid_p, stride, center, rap_bound)
+    A_c = _galerkin(A_p, P_emb, R_emb, grid_p, stride, center, rap_bound,
+                    products)
     return P_emb, R_emb, A_c
 
 
@@ -375,7 +412,7 @@ def _rs_setup_pipeline(A_in, *, plan, dtype, pre_key, post_key):
 # AIR: one-point prolongation and local approximate ideal restriction
 # ---------------------------------------------------------------------------
 
-def _pass_onepoint(A_p: DIAMatrix, fmask, tmask, dtype):
+def _pass_onepoint(A_p: DIAMatrix, fmask, targets, dtype):
     """One one-point interpolation pass as an embedded DIA operator: each
     pass row puts a single 1 at its strongest target neighbour (largest
     |a_ij|, the first such offset on a tie); other rows are the
@@ -384,7 +421,7 @@ def _pass_onepoint(A_p: DIAMatrix, fmask, tmask, dtype):
     scores = []
     for o in offs:
         d = A_p.offsets.index(o)
-        ind = torch.roll(tmask, -o)
+        ind = targets(o)
         scores.append(torch.where(ind, torch.abs(A_p.data[d]), 0.0))
     smax = scores[0]
     for s in scores[1:]:
@@ -497,16 +534,16 @@ def _air_coarsen_level(A_p: DIAMatrix, grid_p, stride, center, dtype,
     """One AIR coarsening step: one-point P, local AIR R, the
     nonsymmetric Galerkin product with its span capped at 2 coarse cells
     per coarsened dim.  (P_emb, R_emb, A_c, cmask)."""
-    masks, n_passes = _oddness_masks(grid_p, stride, center, A_p.device)
+    marks = _GridMarks(grid_p, stride, center, A_p.device)
     ss = _tup(stride, len(grid_p))
-    a_span, p_bound = _spans(A_p, grid_p, stride)
-    P_emb = _interpolation(A_p, masks, n_passes, grid_p, p_bound,
-                           _pass_onepoint, dtype)
-    R_emb = _local_air_restriction(A_p, masks[0], grid_p, dtype,
-                                   degree=degree)
+    a_span, p_bound = _spans(A_p.offsets, grid_p, stride)
+    P_emb = _interpolation(A_p, marks, grid_p, p_bound, _pass_onepoint,
+                           dtype)
+    cmask = marks.mask(0)
+    R_emb = _local_air_restriction(A_p, cmask, grid_p, dtype, degree=degree)
     rap_bound = tuple(2 * s if s > 1 else a for s, a in zip(ss, a_span))
     A_c = _galerkin(A_p, P_emb, R_emb, grid_p, stride, center, rap_bound)
-    return P_emb, R_emb, A_c, masks[0]
+    return P_emb, R_emb, A_c, cmask
 
 
 def _air_level_stage(cur, *, grid, grid_p, strides, dtype, degree):
@@ -569,11 +606,31 @@ def _embedded_transfers(plan, i, P_emb, R_emb):
         R_emb=R_emb, **geom)
 
 
+def _rs_levels(plan, out_levels, pre_key, post_key, first=0):
+    """The DeviceLevels and setup_info entries of the RS pipeline's levels
+    ``plan[first:]`` (``out_levels`` theirs)."""
+    dev_levels = []
+    infos = []
+    for i, (A_p, P_emb, R_emb, rho, pre_arr, post_arr) in enumerate(
+            out_levels, start=first):
+        grid_p, strides = plan[i][1], plan[i][2]
+        P, R = _embedded_transfers(plan, i, P_emb, R_emb)
+        npad_lvl = int(np.prod(grid_p))
+        dev_levels.append(DeviceLevel(
+            A=A_p, P=P, R=R, pre=_smoother_wrap(pre_key, pre_arr),
+            post=_smoother_wrap(post_key, post_arr), n=npad_lvl,
+            n_pad=int(A_p.n_pad)))
+        # rho stays a device scalar
+        infos.append({"level": i, "n": npad_lvl, "strides": strides,
+                      "ndiags": A_p.ndiags, "rho_D_inv_A": rho})
+    return dev_levels, infos
+
+
 def device_rs_setup(A, grid=None, dtype=torch.float32, device=None,
                     stride="auto", max_coarse=400, max_levels=12,
                     presmoother=("jacobi", {"omega": 4.0 / 3.0}),
                     postsmoother=("jacobi", {"omega": 4.0 / 3.0}),
-                    mixed_precision=False):
+                    mixed_precision=False, mesh=None):
     """Build a classical (Ruge-Stüben) hierarchy on ``device`` for a
     grid-stencil operator and return its :class:`StructuredDeviceSolver`.
 
@@ -593,11 +650,28 @@ def device_rs_setup(A, grid=None, dtype=torch.float32, device=None,
     :func:`device_unstructured_rs_setup` with ``dtype``, ``device``,
     ``max_coarse``, ``max_levels``, ``mixed_precision`` and the smoothers
     the caller changed from ``("jacobi", {"omega": 4/3})`` (the
-    reference's routing; the unstructured setup's defaults sweep twice)."""
-    device = resolve_device(device)
+    reference's routing; the unstructured setup's defaults sweep twice).
+
+    With a ``mesh`` (:func:`~pyamg_tpu_torch.parallel.make_solver_mesh`,
+    every rank calling with the same arguments) the setup is partitioned
+    (:func:`~pyamg_tpu_torch.parallel.partitioned_classical.
+    partitioned_rs_setup`): ``A`` stays on the host, each rank builds its
+    rows of every large level on its device (the mesh's), and the solver
+    runs over a :class:`~pyamg_tpu_torch.parallel.ShardedHierarchy` equal
+    to ``shard_hierarchy`` of the whole setup's.  An operator that is not
+    a grid stencil raises there (the unstructured route is not
+    partitioned), and so does ``mixed_precision=True``."""
+    device = resolve_device(device if mesh is None or device is not None
+                            else mesh.device)
+    if mesh is not None and device != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     _check_dtype(dtype)
     grid = _stencil_grid_of(A, grid)
     if grid is None:
+        if mesh is not None:
+            raise _not_ported("the partitioned RS setup of an operator that "
+                              "is not a grid stencil (the unstructured RS "
+                              "route)", 14)
         default = ("jacobi", {"omega": 4.0 / 3.0})
         kw = {name: spec for name, spec in (("presmoother", presmoother),
                                             ("postsmoother", postsmoother))
@@ -605,31 +679,23 @@ def device_rs_setup(A, grid=None, dtype=torch.float32, device=None,
         return device_unstructured_rs_setup(
             A, dtype=dtype, device=device, max_coarse=max_coarse,
             max_levels=max_levels, mixed_precision=mixed_precision, **kw)
-    grid, A_dia = _grid_operator(A, grid, dtype, device)
     pre_key = _spec_key(presmoother)
     post_key = _spec_key(postsmoother)
     _check_smoother(pre_key)
     _check_smoother(post_key)
+    if mesh is not None:
+        from ..parallel.partitioned_classical import partitioned_rs_setup
+        return partitioned_rs_setup(
+            A, grid, mesh, dtype=dtype, stride=stride, max_coarse=max_coarse,
+            max_levels=max_levels, pre_key=pre_key, post_key=post_key,
+            mixed_precision=mixed_precision)
+    grid, A_dia = _grid_operator(A, grid, dtype, device)
     plan, cur_grid = _coarsening_plan(A_dia, grid, stride, 2, max_coarse,
                                       max_levels)
     out_levels, Ac_dense, coarse_inv = _rs_setup_pipeline(
         A_dia, plan=tuple(plan), dtype=dtype, pre_key=pre_key,
         post_key=post_key)
-
-    dev_levels = []
-    infos = []
-    for i, ((_, grid_p, strides), (A_p, P_emb, R_emb, rho, pre_arr,
-                                   post_arr)) in enumerate(
-            zip(plan, out_levels)):
-        P, R = _embedded_transfers(plan, i, P_emb, R_emb)
-        npad_lvl = int(np.prod(grid_p))
-        dev_levels.append(DeviceLevel(
-            A=A_p, P=P, R=R, pre=_smoother_wrap(pre_key, pre_arr),
-            post=_smoother_wrap(post_key, post_arr), n=npad_lvl,
-            n_pad=int(A_p.n_pad)))
-        # rho stays a device scalar
-        infos.append({"level": i, "n": npad_lvl, "strides": strides,
-                      "ndiags": A_p.ndiags, "rho_D_inv_A": rho})
+    dev_levels, infos = _rs_levels(plan, out_levels, pre_key, post_key)
     return _structured_solver(A, grid, plan, cur_grid, dev_levels, infos,
                               Ac_dense, coarse_inv, dtype, device,
                               mixed_precision, "classical")
@@ -638,7 +704,7 @@ def device_rs_setup(A, grid=None, dtype=torch.float32, device=None,
 def device_air_setup(A, grid=None, dtype=torch.float32, device=None,
                      stride=2, max_coarse=400, max_levels=4, degree=2,
                      f_iterations=2, c_iterations=1, omega=1.0,
-                     mixed_precision=False):
+                     mixed_precision=False, mesh=None):
     """Build an AIR (approximate ideal restriction) hierarchy on
     ``device`` for a grid-stencil operator and return its
     :class:`StructuredDeviceSolver`: one-point prolongation, the local
@@ -656,7 +722,12 @@ def device_air_setup(A, grid=None, dtype=torch.float32, device=None,
     :func:`device_unstructured_air_setup` with ``dtype``, ``device``,
     ``degree``, ``max_coarse``, ``max_levels``, ``f_iterations``,
     ``c_iterations``, ``omega`` and ``mixed_precision`` (the reference's
-    routing)."""
+    routing).  A ``mesh`` raises: the partitioned AIR setup is not
+    ported (its neighbourhood solves read a degree-2 halo), so build the
+    hierarchy whole and shard it with ``shard_hierarchy``."""
+    if mesh is not None:
+        raise _not_ported("the partitioned AIR setup (device_air_setup(..., "
+                          "mesh=mesh))", 14)
     device = resolve_device(device)
     _check_dtype(dtype)
     grid = _stencil_grid_of(A, grid)

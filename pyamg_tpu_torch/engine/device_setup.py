@@ -417,8 +417,8 @@ def _windowed_rows(cols, vals, shape, block, dtype, global_max=None):
     v = torch.zeros((n_pad, k), dtype=dtype, device=cols.device)
     v[:n] = vals.to(dtype)
     lo = torch.where(has, c, torch.iinfo(torch.int64).max).reshape(
-        nb, -1).amin(1)
-    hi = torch.where(has, c, -1).reshape(nb, -1).amax(1)
+        nb, block, k).amin((1, 2))
+    hi = torch.where(has, c, -1).reshape(nb, block, k).amax((1, 2))
     lo = torch.where(hi < 0, 0, lo)                  # an empty block
     hi = torch.clamp_min(hi, 0)
     w2 = 1024

@@ -28,11 +28,14 @@ around the sharded hierarchy.
 A sharded hierarchy also solves an (n, K) stack of right-hand sides (K16
 and B1's halo mode on every lane at once), CGNR / CGNE (A^T of each
 sharded level) and with the Cimmino and windowed Schwarz smoothers.  The
-structured SA setup partitions its own work over the ranks
-(``device_sa_setup(A, grid, mesh=mesh)``, :mod:`.partitioned_setup`:
-each rank builds only its rows of every large level); the other device
-setups run whole and are then sharded, and NCCL on several GPUs is not
-measured yet (ROADMAP.md Queue 1 item 14).  Mixed precision on a sharded
+structured SA, classical RS and block setups partition their own work
+over the ranks (``device_sa_setup(A, grid, mesh=mesh)``,
+:mod:`.partitioned_setup`; ``device_rs_setup(A, grid, mesh=mesh)``,
+:mod:`.partitioned_classical`; ``device_sa_setup_block(A, grid, B,
+mesh=mesh)``, :mod:`.partitioned_block`: each rank builds only its rows
+of every large level); the AIR and unstructured setups run whole and are
+then sharded, and NCCL on several GPUs is not measured yet (ROADMAP.md
+Queue 1 item 14).  Mixed precision on a sharded
 hierarchy raises: it carries no float64 copy, as the reference's.
 
 Importing this package initialises nothing.

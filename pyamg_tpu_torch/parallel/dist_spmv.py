@@ -46,25 +46,26 @@ def halo_width(dia: DIAMatrix):
     return max(max(abs(o) for o in dia.offsets), 1)
 
 
-def start_halo_exchange(x, halo, mesh, groups):
+def start_halo_exchange(x, halo, mesh, groups, axis=-1):
     """Start the ring exchange of a rank's block ``x`` (a vector, or a
     K-major (K, n) lane stack) on a layout of ``groups`` shard groups;
     returns ``(from_left, from_right, requests)``: the left neighbour's
     last and the right neighbour's first ``halo`` entries (of every lane:
     (K, halo) stacks) once every request has been waited on.  Each side
     goes as one contiguous buffer, all lanes in one message.  A ring of
-    one returns views of x's own tail and head and no request."""
-    n = x.shape[-1]
+    one returns views of x's own tail and head and no request.  ``axis``
+    is the axis of the rows (the node rows of a block operator's (nd, nb,
+    r, c) blocks: its halos then (nd, halo, r, c))."""
+    n = x.shape[axis]
     left, right = mesh.partners(groups)
     if left == mesh.rank:
-        return x[..., n - halo:], x[..., :halo], []
-    shape = tuple(x.shape[:-1]) + (halo,)
-    from_left = torch.empty(shape, dtype=x.dtype, device=x.device)
-    from_right = torch.empty(shape, dtype=x.dtype, device=x.device)
-    ops = [dist.P2POp(dist.isend, x[..., n - halo:].contiguous(), right,
-                      tag=_TO_RIGHT),
+        return x.narrow(axis, n - halo, halo), x.narrow(axis, 0, halo), []
+    tail = x.narrow(axis, n - halo, halo).contiguous()
+    from_left = torch.empty_like(tail)
+    from_right = torch.empty_like(tail)
+    ops = [dist.P2POp(dist.isend, tail, right, tag=_TO_RIGHT),
            dist.P2POp(dist.irecv, from_left, left, tag=_TO_RIGHT),
-           dist.P2POp(dist.isend, x[..., :halo].contiguous(), left,
+           dist.P2POp(dist.isend, x.narrow(axis, 0, halo).contiguous(), left,
                       tag=_TO_LEFT),
            dist.P2POp(dist.irecv, from_right, right, tag=_TO_LEFT)]
     return from_left, from_right, dist.batch_isend_irecv(ops)

@@ -712,9 +712,11 @@ def shard_hierarchy(hierarchy, mesh, axis="x", min_local_rows=256):
     adaptive SA): their levels' DIA and block-DIA operators through K16
     and B1's halo mode, their transfers factor by factor, the masked and
     block smoothers by their rows and nodes.  This shards a hierarchy
-    built whole; the structured SA setup also runs partitioned
-    (``device_sa_setup(..., mesh=mesh)``: each rank builds only its rows
-    of every large level, and gets what this gives).  To solve with a
+    built whole; the structured SA, classical RS and block setups also
+    run partitioned (``device_sa_setup(..., mesh=mesh)``,
+    ``device_rs_setup(..., mesh=mesh)``, ``device_sa_setup_block(...,
+    mesh=mesh)``: each rank builds only its rows of every large level,
+    and gets what this gives).  To solve with a
     device-built hierarchy, keep its solver's grid encoding::
 
         ds = device_sa_setup(A, grid)

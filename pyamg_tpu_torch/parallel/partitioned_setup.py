@@ -123,16 +123,21 @@ def _parts(items, groups):
 class _Level:
     """One planned level: its grids, strides and group count, and the
     aggregate rows of dim 0 each group's slab holds (``agg[g]`` to
-    ``agg[g + 1]``)."""
+    ``agg[g + 1]``).  Its rows are the padded grid's points (a block
+    level's: its nodes).  ``centered``: the aggregates' roots are their
+    centres (SA; the classical C points are at offset 0); ``padded``: the
+    solve layout takes the solve padding (a block level takes none)."""
 
     grid: tuple
     grid_p: tuple
     strides: tuple
     groups: int
+    centered: bool = True
+    padded: bool = True
 
     @property
     def center(self):
-        return tuple(s // 2 for s in self.strides)
+        return tuple(s // 2 if self.centered else 0 for s in self.strides)
 
     @property
     def n(self):
@@ -140,7 +145,7 @@ class _Level:
 
     @property
     def n_pad(self):
-        return _solve_pad(self.n)
+        return _solve_pad(self.n) if self.padded else self.n
 
     @property
     def row(self):
@@ -180,25 +185,36 @@ class _Level:
         return ((a[g + 1] - a[g]) * self.strides[0],) + tuple(self.grid_p[1:])
 
     def reach(self, offsets):
-        """An upper bound of the products' halo: A's reach plus the
-        tentative's (P_emb = S T, the widest operand a product reads)."""
+        """An upper bound of the products' halo: A's reach plus its
+        transfer's (P_emb, the widest operand a product reads: SA's S T,
+        the tentative reaching an aggregate's root; the classical
+        interpolation, A's span in each coarsened dim)."""
+        if not self.centered:
+            coords = [_offset_to_coords(o, self.grid_p) for o in offsets]
         t = 0
         step = 1
-        for g, s, c in reversed(list(zip(self.grid_p, self.strides,
-                                         self.center))):
-            t += max(c, s - 1 - c) * step
-            step *= g
+        for d in reversed(range(len(self.grid_p))):
+            s, c = self.strides[d], self.center[d]
+            if self.centered:
+                t += max(c, s - 1 - c) * step
+            elif s > 1:
+                t += max(abs(c[d]) for c in coords) * step
+            step *= self.grid_p[d]
         return max(abs(o) for o in offsets) + t
 
 
-def _partitioned(lv, offsets, mesh):
+def _partitioned(lv, offsets, mesh, groups=None):
     """Whether level ``lv`` (its A's ``offsets`` on its padded grid) is
     built on slabs: large (a world of two or more puts it on several
-    groups; a world of one takes what a world of two would split), every
-    slab at least the products' reach, and A's halo within a solve block
-    (else ``shard_hierarchy`` would replicate A)."""
+    groups; a world of one takes what a world of two would split;
+    ``groups(world)`` its group count, by default ``_level_groups`` of
+    its n_pad), every slab at least the products' reach, and A's halo
+    within a solve block (else ``shard_hierarchy`` would replicate A)."""
     world = mesh.world if mesh.world > 1 else 2
-    if _level_groups(lv.n_pad, world, _MIN_LOCAL_ROWS) < 2:
+    if groups is None:
+        def groups(w):
+            return _level_groups(lv.n_pad, w, _MIN_LOCAL_ROWS)
+    if groups(world) < 2:
         return False
     a = lv.agg
     span = lv.strides[0] * lv.row
@@ -207,14 +223,19 @@ def _partitioned(lv, offsets, mesh):
             and max(abs(o) for o in offsets) <= lv.n_pad // lv.groups)
 
 
-def _move(mesh, t, src, dst):
-    """This rank's rows of ``t`` (its last axis, the rows ``src`` gives
-    the rank) as the rows ``dst`` gives it, zeros where no source holds a
-    row (padding past the sources' last row): one ``all_to_all_single``
-    with split sizes, a destination rank served by the replica of its own
-    index within each source group.  In a world of one, a cut or a zero
-    pad."""
+def _move(mesh, t, src, dst, axis=-1):
+    """This rank's rows of ``t`` (its ``axis``, by default the last, the
+    rows ``src`` gives the rank) as the rows ``dst`` gives it, zeros where
+    no source holds a row (padding past the sources' last row): one
+    ``all_to_all_single`` with split sizes, a destination rank served by
+    the replica of its own index within each source group.  In a world of
+    one, a cut or a zero pad."""
     d0, d1 = dst.mine(mesh)
+    if axis % t.ndim != t.ndim - 1:
+        if mesh.world == 1 and t.shape[axis] == d1 - d0:
+            return t
+        return _move(mesh, t.movedim(axis, -1), src, dst).movedim(
+            -1, axis).contiguous()
     if mesh.world == 1:
         return fit(t, d1 - d0)
     ss, ds = mesh.stride(src.groups), mesh.stride(dst.groups)
@@ -284,6 +305,7 @@ class _HostOperator:
             self.lut = (np.cumsum(present) - 1).astype(np.int32)
             self.nnz = int(self.csr.nnz)
             self.dia = None
+            self._last = (None, None)
         elif isinstance(A, DIAMatrix):
             self.csr, self.dia = None, A
             self.offsets, self.nnz = tuple(A.offsets), A.nnz
@@ -297,14 +319,19 @@ class _HostOperator:
 
     def rows(self, r0, r1):
         """(nd, r1 - r0) host array: row i's entry at each offset (as
-        ``dia_from_scipy`` stores it), from those rows' entries alone."""
+        ``dia_from_scipy`` stores it), from those rows' entries alone.
+        The last range read is kept (the couplings' rows are level 0's
+        slab in a world of one)."""
         if self.dia is not None:
             return self.dia.data[:, r0:r1].cpu().numpy()
+        if self._last[0] == (r0, r1):
+            return self._last[1]
         data = np.zeros((len(self.offsets), r1 - r0))
         e0, e1 = self.csr.indptr[r0], self.csr.indptr[r1]
         row = self._row_of(r0, r1)
         diag = self.lut[self.csr.indices[e0:e1] - row - (r0 + self.lo)]
         data[diag, row] = self.csr.data[e0:e1]
+        self._last = ((r0, r1), data)
         return data
 
     def padded_rows(self, grid_p, g0, g1, dtype, device):
@@ -504,42 +531,92 @@ class _BlockRows:
         return self.factor.apply(x)
 
 
+def _coarse_columns(f, lv, coarse_grid_p):
+    """For the level's points ``f`` (global indices on its padded grid):
+    their aggregate's index on the coarse padded grid, and whether each is
+    its aggregate's root (the C point of a classical level)."""
+    col = torch.zeros_like(f)
+    root = torch.ones(f.shape, dtype=torch.bool, device=f.device)
+    step = 1
+    for g, s, c, cg in reversed(list(zip(lv.grid_p, lv.strides, lv.center,
+                                         coarse_grid_p))):
+        x = f % g
+        root &= x % s == c
+        col += x // s * step
+        f = f // g
+        step *= cg
+    return col, root
+
+
+def _local_windowed_rows(cols, vals, shape, block, nnz, mesh):
+    """This rank's row blocks of a grid remap (``_windowed_rows`` of its
+    own rows, global columns) with the whole operator's w2 and chunk
+    count (maxima over the ranks) and ``nnz``, its share of the whole
+    operator's (the row blocks ``shard_hierarchy`` cuts)."""
+    W = _windowed_rows(cols, vals, shape, block, vals.dtype,
+                       global_max=lambda t: _all_max(t, mesh))
+    return dataclasses.replace(W, nnz=nnz)
+
+
 def _local_remap(tv, r0, lv, coarse_grid_p, block, mesh):
     """This rank's row blocks of the remap T (``_remap_factor``: fine row
     f's one entry tv[f] at its aggregate's index on the coarse padded
-    grid) from its tv rows [r0, r0 + len(tv)) of the solve layout, with
-    the whole operator's w2, chunk count and nnz share (the row blocks
-    ``shard_hierarchy`` cuts from the whole remap)."""
+    grid) from its tv rows [r0, r0 + len(tv)) of the solve layout."""
     length = tv.shape[0]
-    f = torch.arange(r0, r0 + length, device=tv.device)
-    col = torch.zeros_like(f)
-    step = 1
-    for g, s, cg in reversed(list(zip(lv.grid_p, lv.strides,
-                                      coarse_grid_p))):
-        col += (f % g) // s * step
-        f = f // g
-        step *= cg
+    col, _ = _coarse_columns(torch.arange(r0, r0 + length, device=tv.device),
+                             lv, coarse_grid_p)
     have = max(0, min(lv.n - r0, length))
-    W = _windowed_rows(col[:have, None], tv[:have, None],
-                       (length, int(np.prod(coarse_grid_p))), block,
-                       tv.dtype, global_max=lambda t: _all_max(t, mesh))
-    return dataclasses.replace(W, nnz=lv.n // lv.groups)
+    return _local_windowed_rows(
+        col[:have, None], tv[:have, None],
+        (length, int(np.prod(coarse_grid_p))), block, lv.n // lv.groups,
+        mesh)
+
+
+def _solve_rows(mesh, lv, A):
+    """Level ``lv``'s A (this rank's slab) in the solve layout: its K16
+    factor, the operator ``_power_rho`` takes, and the power iteration on
+    it (from this rank's slice of the hashed start vector, each norm one
+    all_reduce over the groups)."""
+    k = lv.groups
+    r0, r1 = lv.solve.mine(mesh)
+    valid = max(0, min(lv.n - r0, r1 - r0))
+
+    def norm(v):
+        part = v[..., :valid]
+        return torch.sqrt(mesh.sum_groups(torch.sum(part * part, dim=-1),
+                                          k))
+
+    A_f = _sharded_dia(mesh, lv, A)
+    d0 = A.offsets.index(0) if 0 in A.offsets else None
+    rows = _BlockRows(A_f, A_f.data[d0] if d0 is not None
+                      else A_f.data.new_zeros(A_f.data.shape[1]))
+    return A_f, rows, functools.partial(_power_rho, norm=norm, start=r0)
+
+
+def _sharded_dia(mesh, lv, M):
+    """This rank's K16 factor of a level's DIA operator from its slab
+    rows."""
+    return _ShardedDIA(_move(mesh, M.data, lv.slabs, lv.solve), M.offsets,
+                       halo_width(M), mesh, lv.groups, lv.n_pad)
 
 
 class _Setup:
-    """What every partitioned level of one setup shares."""
+    """What every partitioned level of one setup shares (``m``: the
+    candidates an aggregate; ``layout``: ``_Level``'s ``centered`` and
+    ``padded``)."""
 
     def __init__(self, mesh, plan, ks, n_pads, dtype, omega, pre_key,
-                 post_key, improve_iters):
+                 post_key, improve_iters=0, m=1, **layout):
         self.mesh, self.plan, self.ks, self.n_pads = mesh, plan, ks, n_pads
         self.dtype, self.omega = dtype, omega
         self.pre_key, self.post_key = pre_key, post_key
-        self.improve_iters = improve_iters
+        self.improve_iters, self.m = improve_iters, m
+        self.layout = layout
 
     def level(self, i):
         grid, grid_p, strides = self.plan[i]
         return _Level(tuple(grid), tuple(grid_p), tuple(strides),
-                      self.ks[i])
+                      self.ks[i], **self.layout)
 
     def coarse_grid_p(self, i):
         lv = self.level(i)
@@ -556,23 +633,8 @@ def _partition_level(st, i, A, Bv):
 
     mesh, lv = st.mesh, st.level(i)
     k = lv.groups
-    r0, r1 = lv.solve.mine(mesh)
-    valid = max(0, min(lv.n - r0, r1 - r0))
-
-    def norm(v):
-        part = v[..., :valid]
-        return torch.sqrt(mesh.sum_groups(torch.sum(part * part, dim=-1),
-                                          k))
-
-    def sharded(M):
-        return _ShardedDIA(_move(mesh, M.data, lv.slabs, lv.solve),
-                           M.offsets, halo_width(M), mesh, k, lv.n_pad)
-
-    A_f = sharded(A)
-    d0 = A.offsets.index(0) if 0 in A.offsets else None
-    rows = _BlockRows(A_f, A_f.data[d0] if d0 is not None
-                      else A_f.data.new_zeros(A_f.data.shape[1]))
-    power = functools.partial(_power_rho, norm=norm, start=r0)
+    r0, _ = lv.solve.mine(mesh)
+    A_f, rows, power = _solve_rows(mesh, lv, A)
     dinv = _dinv_of(rows.diagonal())
     rho = power(rows, dinv)
     if st.improve_iters:
@@ -594,7 +656,7 @@ def _partition_level(st, i, A, Bv):
     coarse = (st.ks[i + 1], st.n_pads[i + 1])
     T = _local_remap(_move(mesh, tv, lv.slabs, lv.solve), r0, lv, cgp,
                      _transfer_block(lv.n_pad // k), mesh)
-    S_f, St_f = sharded(S), sharded(St)
+    S_f, St_f = _sharded_dia(mesh, lv, S), _sharded_dia(mesh, lv, St)
     level = DeviceLevel(
         A=ShardedOperator.of_factors([A_f], mesh, fine, fine, A.shape,
                                      A.nnz, A.dtype),
@@ -612,13 +674,14 @@ def _partition_level(st, i, A, Bv):
     return level, info, A_c, Bc
 
 
-def _next_slabs(st, i, A_c, Bc):
+def _next_slabs(st, i, A_c, Bc=None):
     """Level ``i``'s coarse rows (each slab's, on the coarse grid) as
     level ``i + 1``'s slabs, re-laid on its padded grid: every dim but
     the first padded on the rank, the first dim's padding rows the
-    move's zeros."""
+    move's zeros.  ``Bc``: the coarse candidate (none for a classical
+    level)."""
     lv, nxt = st.level(i), st.level(i + 1)
-    rows0 = Bc.shape[0] // int(np.prod(lv.coarse_grid[1:]))
+    rows0 = A_c.data.shape[-1] // int(np.prod(lv.coarse_grid[1:]))
     here = (rows0,) + lv.coarse_grid[1:]
     there = (rows0,) + nxt.grid_p[1:]
     offsets, order = _relaid_offsets(A_c.offsets, lv.coarse_grid,
@@ -627,6 +690,8 @@ def _next_slabs(st, i, A_c, Bc):
     data = _ordered(_grid_pad_vec(A_c.data, here, there), order)
     A = DIAMatrix(data=_move(st.mesh, data, held, nxt.slabs),
                   offsets=offsets, shape=(nxt.n, nxt.n), nnz=A_c.nnz)
+    if Bc is None:
+        return A, None
     return A, _move(st.mesh, _grid_pad_vec(Bc, here, there), held,
                     nxt.slabs)
 
@@ -652,15 +717,16 @@ def _first_slab(st, src, B_host):
         B, (h1 - h0,) + grid[1:], (g1 - g0,) + lv.grid_p[1:]), 0)
 
 
-def _gathered(st, i, A_c, Bc):
-    """Level ``i``'s coarse A and candidate whole on every rank."""
+def _gathered(st, i, A_c, Bc=None):
+    """Level ``i``'s coarse A and candidate (if any) whole on every
+    rank."""
     lv = st.level(i)
     held = lv.coarse_rows(int(np.prod(lv.coarse_grid[1:])))
     nc = int(np.prod(lv.coarse_grid))
     whole = _Layout(1, ((0, nc),))
     return (DIAMatrix(data=_move(st.mesh, A_c.data, held, whole),
                       offsets=A_c.offsets, shape=A_c.shape, nnz=A_c.nnz),
-            _move(st.mesh, Bc, held, whole))
+            None if Bc is None else _move(st.mesh, Bc, held, whole))
 
 
 # ---------------------------------------------------------------------------

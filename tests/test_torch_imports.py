@@ -65,9 +65,14 @@ def test_import_loads_no_jax():
     classical (Ruge-Stüben) and AIR device setups with a solve each, the
     unstructured classical (Ruge-Stüben and AIR) setups with a solve
     each, and the block device setup of elasticity with a mixed solve and adaptive
-    SA with a solve, in a fresh interpreter, leaves every ``jax*`` and
-    ``pyamg_tpu*`` module (but the port's own) out of sys.modules."""
-    code = ("import sys, numpy as np, pyamg_tpu_torch as pt, "
+    SA with a solve, the partitioned RS and block setups in the same world
+    of one with a solve each, in a fresh interpreter, leaves every
+    ``jax*`` and ``pyamg_tpu*`` module (but the port's own) out of
+    sys.modules.  The interpreter runs one intra-op thread (beside the
+    other test workers, torch's default thread count oversubscribes the
+    cores)."""
+    code = ("import torch; torch.set_num_threads(1)\n"
+            "import sys, numpy as np, pyamg_tpu_torch as pt, "
             "pyamg_tpu_torch.convert, pyamg_tpu_torch.engine, "
             "pyamg_tpu_torch.sparse\n"
             "A = pt.poisson((40, 40), format='csr')\n"
@@ -88,6 +93,12 @@ def test_import_loads_no_jax():
             "mesh = pt.make_solver_mesh(device='cpu')\n"
             "pt.DeviceMultilevelSolver(pt.shard_hierarchy(dml.hierarchy, "
             "mesh)).solve(b[:, 0], accel='cg')\n"
+            "pt.device_rs_setup(A, grid=(40, 40), device='cpu', "
+            "max_coarse=100, mesh=mesh).solve(b[:, 0], accel='cg')\n"
+            "Ap, Bp = pt.linear_elasticity((24, 24))\n"
+            "pt.device_sa_setup_block(Ap, grid=(24, 23), B=Bp, device='cpu', "
+            "max_coarse=120, mesh=mesh).solve(np.ones(Ap.shape[0]), "
+            "accel='cg')\n"
             "pt.device_sa_setup(A, grid=(40, 40), device='cpu', "
             "max_coarse=100).solve(b, accel='cg')\n"
             "A2 = pt.poisson((24, 512), format='csr')\n"
@@ -119,6 +130,7 @@ def test_import_loads_no_jax():
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
