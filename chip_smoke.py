@@ -349,6 +349,18 @@ C4_BIG = (1024, 1024)
 C4_BIG_NODE_GRID = (1024, 1023)
 C4_BIG_LEVELS = [2099196, 350892, 38988, 4563, 675]
 REF_ITERS_C4_BIG = 25   # the port's count on the H100 (no reference run)
+# the host-built columns of configs 3 and 4 (phase 23; bench.py:482-486,
+# :536-539, :562-568, :737-747): the port's own ruge_stuben_solver (the
+# reference's defaults) and rootnode_solver (strength="symmetric") on the
+# host, compile_hierarchy f32 with the f64 A64 and cut at 1024 rows, mixed
+# GMRES and CG to 1e-8 (history relres res[-1] / res[0]); the level sizes
+# are the JAX package's host setups' (on the CPU), the iterations
+# bench_detail.json config3.iters_to_1e8 and config4.iters_to_1e8
+C3_HOST_LEVELS = [262144, 131072, 65536, 32768, 16384, 8192, 3586, 897, 256,
+                  105, 22, 11]
+REF_ITERS_C3_HOST = 5
+C4_HOST_LEVELS = [32512, 3698, 450, 50, 8]
+REF_ITERS_C4_HOST = 13
 ADAPT_GRID = (512, 512)
 ADAPT_LEVELS = [(263169, 1, 5), (58482, 2, 9), (6498, 2, 9), (882, 2, 9)]
 ADAPT_COARSE = 98
@@ -552,6 +564,21 @@ PATHS.update({
         "block_dia_jacobi.float32") + _BLOCK_REMAP,
     "adaptive SA CG": ("block_dia_spmv.float32",
                        "block_dia_jacobi.float32") + _BLOCK_REMAP,
+})
+# the host-built configs 3 and 4 (phase 23): config 3's DIA levels apply
+# A through K1 and smooth by multicolour GS, one K2 a colour step; its
+# windowed P through K6 and R = P^T through K7; config 4's block-DIA levels
+# 0 and 1 apply A through B1 (PLAIN, RESID) and smooth by block multicolour
+# GS, one B2 COLOUR launch a colour step; the float64 A64 of both is a
+# DIAMatrix (K1)
+_HOST_TRANSFERS = ("windowed_matvec.float32", "windowed_rmatvec.float32")
+PATHS.update({
+    "host-built config 3 mixed GMRES": (
+        "dia_spmv.float32", "dia_spmv.float64", "dia_jacobi.float32")
+    + _HOST_TRANSFERS,
+    "host-built config 4 mixed CG": (
+        "block_dia_spmv.float32", "block_dia_jacobi.float32",
+        "dia_spmv.float64") + _HOST_TRANSFERS,
 })
 # the unstructured classical setups: PMIS's selects (K14) and lambda (K7),
 # the power iteration (K6), the probe chains (K12 on P's factors and A, K13
@@ -3604,14 +3631,16 @@ def counted_no_twin(check, label, fn):
 
 
 def block_level_checks(check, where, A, Dinv, omega, rand, results, path,
-                       csr=None, lanes=0, colors=None, ncolors=0):
+                       csr=None, lanes=0, colors=None, ncolors=0,
+                       jacobi=True):
     """B1 (PLAIN, RESID, and PLAIN on a K = ``lanes`` stack) and B2 (ZERO,
-    ZERO_RES, STEP, and with ``colors`` one COLOUR step and the forward
-    sweep over ``ncolors`` colours, B3) on the block-DIA level operator A
-    against their twins on the same card tensors, two launches
-    bit-identical; each with its launches per call, its bound, and
-    torch.mv / torch.sparse.mm on ``csr`` (the same operator as CSR) for
-    B1; ZERO_RES beside its composed alternative (ZERO, then RESID)."""
+    ZERO_RES and STEP where ``jacobi``, and with ``colors`` one COLOUR
+    step and the forward sweep over ``ncolors`` colours, B3) on the
+    block-DIA level operator A against their twins on the same card
+    tensors, two launches bit-identical; each with its launches per call,
+    its bound, and torch.mv / torch.sparse.mm on ``csr`` (the same
+    operator as CSR) for B1; ZERO_RES beside its composed alternative
+    (ZERO, then RESID)."""
     import torch
 
     from pyamg_tpu_torch.engine import relaxation as rel
@@ -3648,27 +3677,29 @@ def block_level_checks(check, where, A, Dinv, omega, rand, results, path,
         del X, Xc
     if Dinv is None:
         return
-    run(f"{jac} STEP [{tag}]",
-        lambda: bd.block_jacobi_step(A, x, b, Dinv, omega),
-        lambda: bd.block_jacobi_step_ref(A, x, b, Dinv, omega),
-        block_cost(A, 3, dinv=True, extra_ops=3))
-    run(f"{jac} ZERO [{tag}]", lambda: bd.block_jacobi_zero(Dinv, b, omega),
-        lambda: bd.block_jacobi_zero_ref(Dinv, b, omega),
-        (block_cost(A, 2, dinv=True)[0] - A.data.numel()
-         * A.data.element_size(), 2 * nb * bs * bs + nb * bs))
-    run(f"{jac} ZERO_RES [{tag}]",
-        lambda: bd.block_jacobi_zero_res(A, b, Dinv, omega),
-        lambda: bd.block_jacobi_zero_res_ref(A, b, Dinv, omega),
-        block_cost(A, 3, dinv=True, extra_ops=2))
+    if jacobi:
+        run(f"{jac} STEP [{tag}]",
+            lambda: bd.block_jacobi_step(A, x, b, Dinv, omega),
+            lambda: bd.block_jacobi_step_ref(A, x, b, Dinv, omega),
+            block_cost(A, 3, dinv=True, extra_ops=3))
+        run(f"{jac} ZERO [{tag}]",
+            lambda: bd.block_jacobi_zero(Dinv, b, omega),
+            lambda: bd.block_jacobi_zero_ref(Dinv, b, omega),
+            (block_cost(A, 2, dinv=True)[0] - A.data.numel()
+             * A.data.element_size(), 2 * nb * bs * bs + nb * bs))
+        run(f"{jac} ZERO_RES [{tag}]",
+            lambda: bd.block_jacobi_zero_res(A, b, Dinv, omega),
+            lambda: bd.block_jacobi_zero_res_ref(A, b, Dinv, omega),
+            block_cost(A, 3, dinv=True, extra_ops=2))
 
-    def composed():
-        x0 = bd.block_jacobi_zero(Dinv, b, omega)
-        return x0, bd.block_dia_resid(A, x0, b)
+        def composed():
+            x0 = bd.block_jacobi_zero(Dinv, b, omega)
+            return x0, bd.block_dia_resid(A, x0, b)
 
-    t_comp = min(time_ms(composed) for _ in range(2))
-    results[-1]["composed_ms"] = t_comp
-    log(f"    composed alternative (ZERO, then RESID: 2 launches) "
-        f"{t_comp:.4f} ms against ZERO_RES {results[-1]['ms']:.4f} ms")
+        t_comp = min(time_ms(composed) for _ in range(2))
+        results[-1]["composed_ms"] = t_comp
+        log(f"    composed alternative (ZERO, then RESID: 2 launches) "
+            f"{t_comp:.4f} ms against ZERO_RES {results[-1]['ms']:.4f} ms")
     if colors is None:
         return
     n0 = int((colors == 0).sum())
@@ -4561,6 +4592,253 @@ def partitioned_setup_phase(check, dev, card, rand, results, launches, A1):
                     "in all")
         finally:
             dist.destroy_process_group()
+
+
+class ColourSpy:
+    """Counts the B2 ``COLOUR`` steps (``block_colour_step`` calls on CUDA
+    tensors, one launch each) the block multicolour smoother takes while
+    active."""
+
+    def __enter__(self):
+        import torch
+
+        from pyamg_tpu_torch.engine import relaxation as rel
+
+        self.module, self.saved, self.calls = rel, rel.block_colour_step, 0
+
+        def spy(A, x, *args, **kw):
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                self.calls += 1
+            return self.saved(A, x, *args, **kw)
+
+        rel.block_colour_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.block_colour_step = self.saved
+
+
+def host_built_solve(check, label, solver, A, b, kw, ref_iters, launches,
+                     card):
+    """One host-built mixed solve on the card (after a warm one) with the
+    counters zeroed just before and read just after, no block twin run on
+    the card and the B2 COLOUR steps counted; then three more for the
+    median wall.  Returns the B2 COLOUR launches."""
+    import numpy as np
+    import torch
+
+    solver.solve(b, **kw)                         # warm-up
+    res = []
+    with ColourSpy() as spy:
+        x, counts, wall = counted_no_twin(
+            check, label, lambda: solver.solve(b, residuals=res, **kw))
+    launches[label] = counts
+    walls = [wall]
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solver.solve(b, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    normb = float(np.linalg.norm(b))
+    iters = len(res) - 1
+    hist = res[-1] / res[0]
+    true = float(np.linalg.norm(b - A @ x)) / normb
+    log(f"{label}: {iters} iterations, history relres {hist:.4e}, true "
+        f"relres {true:.4e}, solve walls "
+        f"{', '.join(f'{t:.4f}' for t in walls)} s (median of the last 3 "
+        f"{float(np.median(walls[1:])):.4f} s; {card})")
+    log(f"  history: {' '.join(f'{r / res[0]:.3e}' for r in res)}")
+    log(f"  launches of hand-written kernels: "
+        f"{json.dumps(counts, sort_keys=True)}; B2 COLOUR steps "
+        f"{spy.calls}")
+    check(abs(iters - ref_iters) <= 1 and hist <= 1e-8
+          and x.shape == b.shape and bool(np.isfinite(x).all()),
+          f"{label}: {iters} iterations within {ref_iters} +- 1 (the "
+          f"reference's), history relres {hist:.3e} <= 1e-8, x finite")
+    path_launches(check, label, counts)
+    return spy.calls, true
+
+
+def host_level_checks(check, where, lvl, rand, results, path):
+    """K1 on a DIA level's A, K2 with its first colour's inverse diagonal
+    (the multicolour smoother's step), and K6 / K7 on its windowed P and
+    R = P^T, each against its twin at the path's shapes."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import DIAMatrix, dia
+
+    A = lvl.A
+    assert isinstance(A, DIAMatrix)
+    f32 = torch.float32
+    x, b = rand(A.n_pad, f32), rand(A.n_pad, f32)
+    tag = f"{where} nd={A.ndiags} n_pad={A.n_pad}"
+    A_csr = dia_to_csr(A)
+    compare(check, f"dia_spmv.float32 [{tag}]", f32,
+            lambda: dia.dia_spmv(A, x), lambda: dia.dia_spmv_ref(A, x),
+            results, *dia_cost(A, 2), path=path,
+            library_fn=lambda: torch.mv(A_csr, x))
+    if lvl.pre.config[0] == "mcgs":
+        ncolors = lvl.pre.config[1]
+        dinv0 = lvl.pre.color_dinv[0]
+        compare(check, f"dia_jacobi.float32 [{tag}, colour 0 of {ncolors}]",
+                f32, lambda: dia.dia_jacobi(A, x, b, dinv0, 1.0),
+                lambda: dia.dia_jacobi_ref(A, x, b, dinv0, 1.0), results,
+                *dia_cost(A, 4, extra_ops=4), path=path)
+    transfer_checks(check, where, lvl, rand, results, path)
+
+
+def transfer_checks(check, where, lvl, rand, results, path):
+    """K6 / K7 on a level's windowed P (R = P^T shares its arrays) by
+    ``windowed_kernel_checks``."""
+    import torch
+
+    from pyamg_tpu_torch.sparse import WindowedELL
+
+    P = lvl.P
+    ok = isinstance(P, WindowedELL) and getattr(lvl.R, "base", None) is P
+    check(ok, f"{where}: P a WindowedELL and R its transpose (P "
+          f"{type(P).__name__}, R {type(lvl.R).__name__})")
+    if ok:
+        windowed_kernel_checks(check, where, (), [("P", P)], (),
+                               torch.float32, rand, results, path)
+
+
+def host_setup_phase(check, dev, card, rand, results, launches):
+    """Phase 23: the host-built columns of configs 3 and 4 on the card.
+    The port's own ruge_stuben_solver on config 3's 512^2 stencil and
+    rootnode_solver on config 4's 128^2 elasticity (host seconds, the
+    reference's level sizes), compile_hierarchy f32 with the f64 A64 and
+    cut at 1024 rows (each level's forms and smoother), mixed GMRES / CG
+    to 1e-8 at the reference's counts with the launches of every kernel
+    (B2 COLOUR on config 4's block levels), and each of those kernels
+    against its twin at the paths' shapes."""
+    import numpy as np
+    import torch
+
+    from pyamg_tpu_torch import (DeviceMultilevelSolver, compile_hierarchy,
+                                 diffusion_stencil_2d, linear_elasticity,
+                                 rootnode_solver, ruge_stuben_solver,
+                                 stencil_grid)
+    from pyamg_tpu_torch.sparse import BlockDIAMatrix, DIAMatrix, dia
+
+    f32, f64 = torch.float32, torch.float64
+    parts, last = {}, [time.perf_counter()]
+
+    def lap(part):
+        """Adds the seconds since the last lap to ``parts[part]``."""
+        now = time.perf_counter()
+        parts[part] = parts.get(part, 0.0) + now - last[0]
+        last[0] = now
+
+    def setup_and_compile(label, build, want_sizes):
+        t0 = time.perf_counter()
+        ml = build()
+        t_setup = time.perf_counter() - t0
+        sizes = [lvl.A.shape[0] for lvl in ml.levels]
+        t0 = time.perf_counter()
+        h = compile_hierarchy(ml, f32, device=dev, mixed_precision=True,
+                              coarse_cutoff=COARSE_CUTOFF)
+        torch.cuda.synchronize()
+        t_compile = time.perf_counter() - t0
+        log(f"{label}: the port's host setup {t_setup:.3f} s, levels "
+            f"{sizes}; compile to the card {t_compile:.3f} s, "
+            f"{len(h.levels)} device levels")
+        for i, lvl in enumerate(h.levels):
+            log(f"  level {i}: n={lvl.n} n_pad={lvl.n_pad} {forms(lvl)}; "
+                f"smoother {lvl.pre.config[:2]}")
+        check(sizes == want_sizes, f"{label}: levels {sizes} (the "
+              f"reference's {want_sizes})")
+        return ml, h
+
+    # config 3: Ruge-Stuben, the reference's defaults, mixed GMRES
+    A3 = stencil_grid(diffusion_stencil_2d(epsilon=1e-3, theta=0.0,
+                                           type="FD"), C3_GRID).tocsr()
+    b3 = np.random.default_rng(2).random(A3.shape[0])
+    _, h3 = setup_and_compile("config 3 host-built RS 512^2",
+                              lambda: ruge_stuben_solver(A3), C3_HOST_LEVELS)
+    big = h3.levels[:-1]
+    check(len(big) == 7 and all(
+        isinstance(lvl.A, DIAMatrix) and lvl.pre.config[0] == "mcgs"
+        for lvl in big),
+        f"config 3 host-built: levels 0-6 DIA with multicolour GS, as the "
+        f"reference's compile gives at 512^2: "
+        f"{[lvl.pre.config[:2] for lvl in big]}")
+    lap("setups and compiles")
+    d3 = DeviceMultilevelSolver(h3)
+    kw3 = dict(tol=1e-8, maxiter=60, accel="gmres", precision="mixed")
+    path3 = "host-built config 3 mixed GMRES"
+    _, true3 = host_built_solve(check, path3, d3, A3, b3, kw3,
+                                REF_ITERS_C3_HOST, launches, card)
+    log(f"  config 3 mixed GMRES is left preconditioned: its true relres "
+        f"{true3:.3e} is printed, not held to 1e-8 (reference history "
+        f"relres 7.27e-9)")
+    lap("solves")
+    log("config 3 host-built kernels (kernel vs plain twin):")
+    for i in (0, 1):
+        host_level_checks(check, f"host-built config3 level{i}",
+                          h3.levels[i], rand, results, path3)
+    x, A64 = rand(h3.A64.n_pad, f64), h3.A64
+    A64_csr = dia_to_csr(A64)
+    compare(check, f"dia_spmv.float64 [host-built config3 A64 "
+            f"nd={A64.ndiags} n_pad={A64.n_pad}]", f64,
+            lambda: dia.dia_spmv(A64, x), lambda: dia.dia_spmv_ref(A64, x),
+            results, *dia_cost(A64, 2), path=path3,
+            library_fn=lambda: torch.mv(A64_csr, x))
+
+    lap("kernel checks")
+
+    # config 4: rootnode, 2x2 blocks, mixed CG
+    A4, B4 = linear_elasticity(C4_GRID)
+    b4 = np.random.default_rng(3).random(A4.shape[0])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # B truncated to 2 columns
+        _, h4 = setup_and_compile(
+            "config 4 host-built rootnode 128^2",
+            lambda: rootnode_solver(A4, B=B4, strength="symmetric"),
+            C4_HOST_LEVELS)
+    blocks = h4.levels[:2]
+    check(len(h4.levels) == 3 and all(
+        isinstance(lvl.A, BlockDIAMatrix) and lvl.pre.config[0]
+        == "block_mcgs" for lvl in blocks),
+        f"config 4 host-built: levels 0 and 1 BlockDIAMatrix with block "
+        f"multicolour GS ({[lvl.pre.config[:2] for lvl in blocks]})")
+    lap("setups and compiles")
+    d4 = DeviceMultilevelSolver(h4)
+    kw4 = dict(tol=1e-8, maxiter=60, accel="cg", precision="mixed")
+    path4 = "host-built config 4 mixed CG"
+    colour4, true4 = host_built_solve(check, path4, d4, A4, b4, kw4,
+                                      REF_ITERS_C4_HOST, launches, card)
+    check(true4 <= 1e-8 and colour4 > 0,
+          f"{path4}: true relres {true4:.3e} <= 1e-8 (reference history "
+          f"4.64e-9); B2 COLOUR steps {colour4} > 0")
+    lap("solves")
+    log("config 4 host-built kernels (kernel vs plain twin):")
+    for i, lvl in enumerate(blocks):
+        if not isinstance(lvl.A, BlockDIAMatrix):
+            continue
+        Dinv, colors = lvl.pre.arrays
+        block_level_checks(check, f"host-built config4 level{i}", lvl.A,
+                           Dinv, None, rand, results, path4,
+                           csr=bdia_to_csr(lvl.A, dev), colors=colors,
+                           ncolors=lvl.pre.config[1], jacobi=False)
+        transfer_checks(check, f"host-built config4 level{i}", lvl, rand,
+                        results, path4)
+    x, A64 = rand(h4.A64.n_pad, f64), h4.A64
+    A64_csr = dia_to_csr(A64)
+    compare(check, f"dia_spmv.float64 [host-built config4 A64 "
+            f"nd={A64.ndiags} n_pad={A64.n_pad}]", f64,
+            lambda: dia.dia_spmv(A64, x), lambda: dia.dia_spmv_ref(A64, x),
+            results, *dia_cost(A64, 2), path=path4,
+            library_fn=lambda: torch.mv(A64_csr, x))
+    lap("kernel checks")
+    profile_phase("host-built configs 3 and 4", (
+        ("config 3 RS 512^2 mixed GMRES to 1e-8",
+         lambda: d3.solve(b3, **kw3)),
+        ("config 4 rootnode 128^2 mixed CG to 1e-8",
+         lambda: d4.solve(b4, **kw4))))
+    lap("profile")
+    log("  phase 23 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in parts.items()))
 
 
 def halo_lane_checks(check, A, rand, results, tag, path, side, shards=4):
@@ -5580,6 +5858,13 @@ def main():
     partitioned_setup_phase(check, dev, card, rand, results, launches, A)
     log(f"partitioned setup phase: {time.perf_counter() - t_ps:.1f} s")
 
+    # 23. the host-built columns of configs 3 and 4 (the port's own
+    # Ruge-Stuben and rootnode setups)
+    t_hs = time.perf_counter()
+    host_setup_phase(check, dev, card, rand, results, launches)
+    log(f"host-built configs 3 and 4 phase: "
+        f"{time.perf_counter() - t_hs:.1f} s")
+
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} check(s) failed:",
               file=sys.stderr)
@@ -5587,7 +5872,7 @@ def main():
             print(f"  {f}", file=sys.stderr)
         return 1
 
-    # 23. result lines: each path kernel instance, with its launches on
+    # 24. result lines: each path kernel instance, with its launches on
     # the paths that run it (``launches``: the first of them) and, where a
     # later path's shapes were checked too (config 2's 64^3), those
     # numbers under ``at_paths``

@@ -1,9 +1,10 @@
 """pyamg_tpu_torch: the PyTorch/CUDA port of pyamg_tpu's device engine.
 
-It holds its own copy of the JAX package's host smoothed-aggregation
-setup for the options config 1 runs (``aggregation``, ``strength``,
-``relaxation``, ``util``, ``gallery``, ``multilevel`` and a native C++
-subset in ``amg_core``, NumPy/SciPy), and the device half: padded DIA /
+It holds its own copy of the JAX package's host setups for the options
+configs 1, 3 and 4 run: smoothed aggregation, rootnode and Ruge-Stuben
+(``aggregation``, ``classical``, ``strength``, ``relaxation``, ``util``,
+``gallery``, ``multilevel`` and a native C++ subset in ``amg_core``,
+NumPy/SciPy), and the device half: padded DIA /
 dense / windowed operators as tensors, the smoothers, the V-cycle and CG
 (one right-hand side, or a K-lane batch on either hierarchy), the
 device-built smoothed-aggregation setup of grid-stencil operators (its
@@ -23,6 +24,23 @@ passes ``device="cpu"``.
     dml = as_device_solver(ml, mixed_precision=True, coarse_cutoff=1024)
     x = dml.solve(b, tol=1e-8, accel="cg", precision="mixed")
     X = dml.solve(B, tol=1e-8, accel="cg", precision="mixed")  # B (n, K)
+
+or the host-built columns of configs 3 (Ruge-Stüben) and 4 (rootnode, 2x2
+blocks, the rigid-body modes):
+
+    from pyamg_tpu_torch import (compile_hierarchy, DeviceMultilevelSolver,
+                                 diffusion_stencil_2d, linear_elasticity,
+                                 rootnode_solver, ruge_stuben_solver,
+                                 stencil_grid)
+
+    A3 = stencil_grid(diffusion_stencil_2d(epsilon=1e-3, type="FD"),
+                      (512, 512)).tocsr()
+    h3 = compile_hierarchy(ruge_stuben_solver(A3), mixed_precision=True,
+                           coarse_cutoff=1024)
+    x = DeviceMultilevelSolver(h3).solve(b, tol=1e-8, accel="gmres",
+                                         precision="mixed")
+    A4, B4 = linear_elasticity((128, 128))
+    ml4 = rootnode_solver(A4, B=B4, strength="symmetric")
 
 or, with the hierarchy built on the card, and K right-hand sides at once:
 
@@ -93,7 +111,8 @@ PyTorch twin instead, which is what the CPU tests exercise.
 
 from . import backend
 from ._build import launches, reset_launches
-from .aggregation import smoothed_aggregation_solver
+from .aggregation import rootnode_solver, smoothed_aggregation_solver
+from .classical import ruge_stuben_solver
 from .convert import (block_solver_from_jax, hierarchy_from_jax,
                       structured_solver_from_jax,
                       unstructured_solver_from_jax)
@@ -130,6 +149,7 @@ __all__ = ["BlockDIAMatrix", "BlockStructuredDeviceSolver",
            "launches", "linear_elasticity",
            "make_halo_dia_spmv", "make_solver_mesh", "poisson",
            "recirc_flow", "regular_triangle_mesh", "reset_launches",
+           "rootnode_solver", "ruge_stuben_solver",
            "shard_hierarchy", "shard_vector", "smoothed_aggregation_solver",
            "stencil_grid",
            "structured_solver_from_jax", "unstructured_solver_from_jax"]

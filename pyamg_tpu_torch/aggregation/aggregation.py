@@ -9,8 +9,13 @@ scalar candidate, Jacobi prolongation smoothing (omega 4/3) with its
 reference's arithmetic step for step, so the port's hierarchy equals the
 JAX package's level for level.  The reference's other setup options take
 only their default value here; any other value raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 16), as does a
-nonsymmetric or BSR operator.
+``NotImplementedError`` (ROADMAP.md Queue 1 item 16), as do a
+nonsymmetric or BSR operator and several candidates.
+
+The spec resolvers ``_strength_measure``, ``_do_aggregate`` and
+``_improve_candidates`` are the reference's, for the names the rootnode
+and Ruge-Stuben setups run (symmetric and classical strength, standard
+aggregation, block Gauss-Seidel candidate improvement).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..multilevel import MultilevelSolver
+from .. import strength as strength_module
 from ..relaxation.relaxation import block_gauss_seidel
 from ..relaxation.smoothing import change_smoothers
 from ..strength import symmetric_strength_of_connection
@@ -53,6 +59,56 @@ _OPTIONS = {
 def _not_ported(what):
     return NotImplementedError(f"{what} is not ported to pyamg_tpu_torch "
                                "yet (ROADMAP.md Queue 1 item 16)")
+
+
+# the strength names the resolver below knows; each solver passes the
+# ones it ports (rootnode: symmetric, Ruge-Stuben: classical)
+_STRENGTH = {
+    "symmetric": strength_module.symmetric_strength_of_connection,
+    "classical": strength_module.classical_strength_of_connection,
+}
+
+
+def _spec(spec):
+    name, kwargs = spec if isinstance(spec, tuple) else (spec, {})
+    return name, dict(kwargs or {})
+
+
+def _strength_measure(A, spec, ported):
+    """The strength matrix C of a spec ('name' or ('name', kwargs)) whose
+    name is one of the caller's ``ported`` names."""
+    name, kwargs = _spec(spec)
+    if name not in ported:
+        raise _not_ported(f"the strength of connection {name!r}")
+    return _STRENGTH[name](A, **kwargs)
+
+
+def _do_aggregate(C, spec, A=None):
+    """(AggOp, Cnodes) of an aggregate spec: the aggregation and each
+    aggregate's root node.  ``A`` is accepted for the reference's
+    signature (pairwise aggregation reads it)."""
+    del A
+    name, kwargs = _spec(spec)
+    if name != "standard" or kwargs:
+        raise _not_ported(f"the aggregation {spec!r}")
+    return standard_aggregation(C)
+
+
+def _improve_candidates(A, B, spec):
+    """Relax A z = 0 from each candidate column of B, in place."""
+    if spec is None:
+        return B
+    name, kwargs = _spec(spec)
+    if name is None:
+        return B
+    if name != "block_gauss_seidel":
+        raise _not_ported(f"the candidate improvement {name!r}")
+    b = np.zeros(A.shape[0], dtype=B.dtype)
+    for c in range(B.shape[1]):
+        x = np.ascontiguousarray(B[:, c])
+        block_gauss_seidel(A, x, b, **kwargs)
+        B[:, c] = x
+    return B
 
 
 def _check_options(options):
@@ -94,6 +150,8 @@ def smoothed_aggregation_solver(A, B=None, presmoother=DEFAULT_SMOOTHER,
             B = B.reshape(-1, 1)
         if B.shape[0] != n:
             raise ValueError("invalid candidate dimensions")
+        if B.shape[1] != 1:
+            raise _not_ported("the SA setup of several candidates")
     B = B.copy()
 
     levels = [MultilevelSolver.Level()]
@@ -122,12 +180,9 @@ def _extend_hierarchy(levels):
     C = symmetric_strength_of_connection(A)
     AggOp, _Cpts = standard_aggregation(C)
     if len(levels) == 1:
-        # relax A z = 0 from each candidate column, in place
-        b = np.zeros(A.shape[0], dtype=B.dtype)
-        for c in range(B.shape[1]):
-            x = np.ascontiguousarray(B[:, c])
-            block_gauss_seidel(A, x, b, iterations=4, sweep="symmetric")
-            B[:, c] = x
+        B = _improve_candidates(A, B, ("block_gauss_seidel",
+                                       {"sweep": "symmetric",
+                                        "iterations": 4}))
     levels[-1].B = B
     T, B_coarse = fit_candidates(AggOp, B)
     P = jacobi_prolongation_smoother(A, T, C, B, omega=4.0 / 3.0)

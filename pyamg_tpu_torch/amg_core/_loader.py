@@ -94,6 +94,16 @@ class _Native:
         lib.gauss_seidel.argtypes = [
             ctypes.c_int64, i64, i64, f64, f64, f64,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+        lib.rs_cf_splitting.restype = None
+        lib.rs_cf_splitting.argtypes = [ctypes.c_int64, i64, i64, i64, i64,
+                                        ctypes.c_int64, i64]
+        lib.rs_classical_interpolation_pass1.restype = None
+        lib.rs_classical_interpolation_pass1.argtypes = [
+            ctypes.c_int64, i64, i64, i8, i64, i64]
+        lib.rs_classical_interpolation_pass2.restype = None
+        lib.rs_classical_interpolation_pass2.argtypes = [
+            ctypes.c_int64, i64, i64, f64, i8, i64, i64, ctypes.c_int64,
+            i64, i64, f64]
 
     @staticmethod
     def _i64(a):
@@ -205,6 +215,45 @@ class _Native:
             n, self._ptr(self._i64(indptr)), self._ptr(self._i64(indices)),
             self._ptr_f(data), self._ptr_f(x), self._ptr_f(b),
             int(row_start), int(row_stop), int(row_step))
+
+
+    def rs_cf_splitting(self, Sp, Sj, Tp, Tj, second_pass=False):
+        """The Ruge-Stuben C/F splitting (int64: 0 F, 1 C) of the strength
+        pattern S (row i: the points i strongly depends on) and T = S^T."""
+        n = len(Sp) - 1
+        Sp, Sj, Tp, Tj = (self._i64(a) for a in (Sp, Sj, Tp, Tj))
+        splitting = np.full(n, 2, dtype=np.int64)   # U_NODE
+        self._lib.rs_cf_splitting(
+            n, self._ptr(Sp), self._ptr(Sj), self._ptr(Tp), self._ptr(Tj),
+            1 if second_pass else 0, self._ptr(splitting))
+        return splitting
+
+    def rs_classical_interpolation(self, indptr, indices, data, strong,
+                                   splitting, cmap, nc, modified=True):
+        """Classical interpolation P (n, nc) as CSR, by the two passes
+        (row lengths, then values)."""
+        n = len(indptr) - 1
+        indptr, indices = self._i64(indptr), self._i64(indices)
+        data = np.ascontiguousarray(data, dtype=np.float64)
+        strong = np.ascontiguousarray(strong, dtype=np.int8)
+        splitting, cmap = self._i64(splitting), self._i64(cmap)
+        sptr = strong.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
+        counts = np.zeros(n, dtype=np.int64)
+        self._lib.rs_classical_interpolation_pass1(
+            n, self._ptr(indptr), self._ptr(indices), sptr,
+            self._ptr(splitting), self._ptr(counts))
+        Pp = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=Pp[1:])
+        Pj = np.zeros(int(Pp[-1]), dtype=np.int64)
+        Px = np.zeros(int(Pp[-1]), dtype=np.float64)
+        self._lib.rs_classical_interpolation_pass2(
+            n, self._ptr(indptr), self._ptr(indices), self._ptr_f(data), sptr,
+            self._ptr(splitting), self._ptr(cmap), 1 if modified else 0,
+            self._ptr(Pp), self._ptr(Pj), self._ptr_f(Px))
+        P = sp.csr_matrix((Px, Pj, Pp), shape=(n, int(nc)))
+        P.eliminate_zeros()
+        P.sort_indices()
+        return P
 
 
 def native() -> _Native:

@@ -1,10 +1,12 @@
 // Native setup-phase routines of pyamg_tpu_torch's host SA setup.
 //
-// A copy of the five routines of pyamg_tpu/amg_core/amg_core.cpp that the
-// smoothed-aggregation setup of BASELINE config 1 calls: the parallel
-// SpGEMM (Galerkin product), the fused prolongation-smoothing step, the
-// symmetric strength of connection, standard aggregation and the
-// sequential Gauss-Seidel sweep (candidate improvement).  The port keeps
+// A copy of the routines of pyamg_tpu/amg_core/amg_core.cpp that the
+// port's host setups call: the parallel SpGEMM (Galerkin product), the
+// fused prolongation-smoothing step, the symmetric strength of
+// connection, standard aggregation and the sequential Gauss-Seidel sweep
+// (candidate improvement) for SA and rootnode; the Ruge-Stuben C/F
+// splitting and the two passes of classical interpolation for the
+// Ruge-Stuben setup.  The port keeps
 // its own copy so that it imports nothing of the JAX package; the
 // arithmetic is the reference's, line for line, so the two setups give
 // the same hierarchy.
@@ -16,6 +18,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <vector>
 
 #ifdef _OPENMP
@@ -344,6 +347,225 @@ void gauss_seidel(int64_t n, const int64_t* indptr, const int64_t* indices,
       else rsum += data[k] * x[j];
     }
     if (diag != 0.0) x[i] = (b[i] - rsum) / diag;
+  }
+}
+
+// Ruge-Stuben C/F splitting.  S: row i = {j : i strongly depends on j};
+// T = S^T.  splitting (out): F_NODE=0, C_NODE=1, U_NODE=2 on entry (all
+// 2).  The first pass picks C points from a bucket priority queue on
+// lambda = |{undecided j depending on i}| (+1 per new F dependent); the
+// optional second pass enforces the F-F common-C heuristic.
+
+static const int64_t F_NODE = 0;
+static const int64_t C_NODE = 1;
+static const int64_t U_NODE = 2;
+
+void rs_cf_splitting(int64_t n, const int64_t* Sp, const int64_t* Sj,
+                     const int64_t* Tp, const int64_t* Tj,
+                     int64_t second_pass, int64_t* splitting) {
+  std::vector<int64_t> lambda(n, 0);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t cnt = 0;
+    for (int64_t k = Tp[i]; k < Tp[i + 1]; ++k)
+      if (Tj[k] != i) ++cnt;
+    lambda[i] = cnt;
+  }
+
+  // bucket queue: nodes grouped by lambda value; lambda can grow to 2n
+  int64_t max_lambda = 2 * n + 1;
+  std::vector<int64_t> head(max_lambda + 1, -1);
+  std::vector<int64_t> next(n, -1), prev(n, -1), cur_lambda(n);
+  int64_t top = 0;
+
+  auto bucket_insert = [&](int64_t i, int64_t lam) {
+    cur_lambda[i] = lam;
+    next[i] = head[lam];
+    prev[i] = -1;
+    if (head[lam] != -1) prev[head[lam]] = i;
+    head[lam] = i;
+    if (lam > top) top = lam;
+  };
+  auto bucket_remove = [&](int64_t i) {
+    int64_t lam = cur_lambda[i];
+    if (prev[i] != -1) next[prev[i]] = next[i];
+    else head[lam] = next[i];
+    if (next[i] != -1) prev[next[i]] = prev[i];
+    next[i] = prev[i] = -1;
+  };
+
+  for (int64_t i = 0; i < n; ++i) bucket_insert(i, lambda[i]);
+
+  int64_t remaining = n;
+  while (remaining > 0) {
+    while (top > 0 && head[top] == -1) --top;
+    if (head[top] == -1 && top == 0) {
+      // only isolated nodes left
+      bool any = false;
+      for (int64_t i = 0; i < n; ++i) {
+        if (splitting[i] == U_NODE) {
+          splitting[i] = C_NODE;  // isolated -> C (harmless)
+          --remaining;
+          any = true;
+        }
+      }
+      if (!any) break;
+      continue;
+    }
+    int64_t i = head[top];
+    bucket_remove(i);
+    splitting[i] = C_NODE;
+    --remaining;
+    // every undecided j depending on i becomes F
+    for (int64_t k = Tp[i]; k < Tp[i + 1]; ++k) {
+      int64_t j = Tj[k];
+      if (j == i || splitting[j] != U_NODE) continue;
+      splitting[j] = F_NODE;
+      bucket_remove(j);
+      --remaining;
+      // j's undecided influences become more attractive C candidates
+      for (int64_t m = Sp[j]; m < Sp[j + 1]; ++m) {
+        int64_t kk = Sj[m];
+        if (kk != j && splitting[kk] == U_NODE) {
+          bucket_remove(kk);
+          bucket_insert(kk, cur_lambda[kk] + 1);
+        }
+      }
+    }
+    // i's undecided influences lose one potential dependent
+    for (int64_t k = Sp[i]; k < Sp[i + 1]; ++k) {
+      int64_t j = Sj[k];
+      if (j != i && splitting[j] == U_NODE && cur_lambda[j] > 0) {
+        bucket_remove(j);
+        bucket_insert(j, cur_lambda[j] - 1);
+      }
+    }
+  }
+
+  if (second_pass) {
+    // enforce: every strong F-F pair shares a common strong C point
+    std::vector<int64_t> marker(n, -1);
+    for (int64_t i = 0; i < n; ++i) {
+      if (splitting[i] != F_NODE) continue;
+      for (int64_t k = Sp[i]; k < Sp[i + 1]; ++k) {
+        int64_t c = Sj[k];
+        if (c != i && splitting[c] == C_NODE) marker[c] = i;
+      }
+      for (int64_t k = Sp[i]; k < Sp[i + 1]; ++k) {
+        int64_t j = Sj[k];
+        if (j == i || splitting[j] != F_NODE) continue;
+        bool ok = false;
+        for (int64_t m = Sp[j]; m < Sp[j + 1]; ++m) {
+          int64_t c = Sj[m];
+          if (c != j && splitting[c] == C_NODE && marker[c] == i) {
+            ok = true;
+            break;
+          }
+        }
+        if (!ok) {
+          splitting[i] = C_NODE;  // promote i and move to next i
+          break;
+        }
+      }
+    }
+  }
+}
+
+// Classical (Ruge-Stuben) interpolation, two-pass symbolic / numeric.
+// strong: per-A-entry flag (entry in the strength pattern, off-diagonal)
+// splitting: F=0/C=1; cmap: fine index -> coarse index (C points only)
+//
+// For F row i the interpolatory set is its strong C neighbors; strong
+// F-F connections distribute through common C points (or lump to the
+// diagonal when none exists and modified != 0); weak connections lump
+// to the diagonal.
+
+// pass 1: count P row lengths (C rows get 1)
+void rs_classical_interpolation_pass1(
+    int64_t n, const int64_t* Ap, const int64_t* Aj, const int8_t* strong,
+    const int64_t* splitting, int64_t* counts) {
+  std::vector<int64_t> marker(n, -1);
+  for (int64_t i = 0; i < n; ++i) {
+    if (splitting[i] == 1) {  // C row: identity
+      counts[i] = 1;
+      continue;
+    }
+    int64_t cnt = 0;
+    for (int64_t k = Ap[i]; k < Ap[i + 1]; ++k) {
+      int64_t j = Aj[k];
+      if (strong[k] && splitting[j] == 1 && marker[j] != i) {
+        marker[j] = i;
+        ++cnt;
+      }
+    }
+    // distance-two C points contribute only through C_i (classical
+    // interpolation distributes onto C_i), so the count above is final
+    counts[i] = cnt;
+  }
+}
+
+// pass 2: fill P (row pointer Pp prepared by the caller from pass 1)
+void rs_classical_interpolation_pass2(
+    int64_t n, const int64_t* Ap, const int64_t* Aj, const double* Ax,
+    const int8_t* strong, const int64_t* splitting, const int64_t* cmap,
+    int64_t modified, const int64_t* Pp, int64_t* Pj, double* Px) {
+  std::vector<int64_t> marker(n, -1);   // col -> slot in current row
+  std::vector<int64_t> ci_marker(n, -1);  // membership of C_i
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t pstart = Pp[i];
+    if (splitting[i] == 1) {
+      Pj[pstart] = cmap[i];
+      Px[pstart] = 1.0;
+      continue;
+    }
+    int64_t nlocal = 0;
+    double diag = 0.0;
+    // first sweep: diagonal, weak lumping, strong C slots
+    for (int64_t k = Ap[i]; k < Ap[i + 1]; ++k) {
+      int64_t j = Aj[k];
+      double a = Ax[k];
+      if (j == i) {
+        diag += a;
+      } else if (strong[k] && splitting[j] == 1) {
+        if (marker[j] < 0) {
+          marker[j] = nlocal;
+          Pj[pstart + nlocal] = j;  // fine index for now
+          Px[pstart + nlocal] = 0.0;
+          ++nlocal;
+        }
+        ci_marker[j] = i;
+        Px[pstart + marker[j]] -= a;
+      } else if (!strong[k]) {
+        diag += a;  // weak: lump
+      }
+    }
+    // second sweep: distribute strong F-F connections
+    for (int64_t k = Ap[i]; k < Ap[i + 1]; ++k) {
+      int64_t m = Aj[k];
+      if (m == i || !strong[k] || splitting[m] != 0) continue;
+      double a_im = Ax[k];
+      // denominator: sum of m's connections into C_i
+      double denom = 0.0;
+      for (int64_t kk = Ap[m]; kk < Ap[m + 1]; ++kk) {
+        int64_t j = Aj[kk];
+        if (ci_marker[j] == i) denom += Ax[kk];
+      }
+      if (denom == 0.0) {
+        if (modified) diag += a_im;
+        continue;
+      }
+      double scale = a_im / denom;
+      for (int64_t kk = Ap[m]; kk < Ap[m + 1]; ++kk) {
+        int64_t j = Aj[kk];
+        if (ci_marker[j] == i) Px[pstart + marker[j]] -= scale * Ax[kk];
+      }
+    }
+    // finalize: divide by diagonal, map to coarse indices, reset markers
+    for (int64_t s = 0; s < nlocal; ++s) {
+      int64_t j = Pj[pstart + s];
+      marker[j] = -1;
+      Pj[pstart + s] = cmap[j];
+      Px[pstart + s] = (diag != 0.0) ? Px[pstart + s] / diag : 0.0;
+    }
   }
 }
 

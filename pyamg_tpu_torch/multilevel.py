@@ -1,4 +1,4 @@
-"""The host hierarchy container of the port's SA setup (the level half of
+"""The host hierarchy container of the port's host setups (the level half of
 ``pyamg_tpu/multilevel.py::MultilevelSolver``).  It holds the levels'
 scipy operators and smoother specs for the device compile
 (``engine/hierarchy.py::compile_hierarchy``); it has no host solve."""
@@ -13,8 +13,10 @@ class MultilevelSolver:
 
     class Level:
         """One grid level: ``A``; ``P`` and ``R`` on all but the coarsest;
-        ``B`` (the candidates), ``R_is_PT`` and the smoother specs as the
-        setup records them."""
+        ``B`` (the candidates), ``R_is_PT``, the smoother specs and, as
+        the setup records them, ``splitting`` (Ruge-Stuben; the compile's
+        C/F smoothers read it) and ``Cnodes`` / ``Cpts`` / ``Fpts``
+        (rootnode)."""
 
         def __init__(self):
             self.A = None

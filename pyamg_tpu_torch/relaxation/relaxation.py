@@ -1,8 +1,8 @@
-"""Host Gauss-Seidel for the port's SA candidate improvement (a copy of
-``pyamg_tpu/relaxation/relaxation.py::gauss_seidel`` and
-``block_gauss_seidel`` for scalar blocks, their native sweeps).  Block
-sweeps with blocksize > 1 and the other host relaxations are ROADMAP.md
-Queue 1 item 16."""
+"""Host Gauss-Seidel for the port's candidate improvement (a copy of
+``pyamg_tpu/relaxation/relaxation.py::gauss_seidel``, its native sweep,
+and ``block_gauss_seidel``: the pointwise sweep at blocksize 1, the
+reference's loop over node blocks above it).  The other host relaxations
+are ROADMAP.md Queue 1 item 16."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..amg_core import native
-from ..util.utils import upcast
+from ..util.utils import get_block_diag, upcast
 
 __all__ = ["make_system", "gauss_seidel", "block_gauss_seidel"]
 
@@ -70,17 +70,47 @@ def gauss_seidel(A, x, b, iterations=1, sweep="forward"):
     return x
 
 
+def _resolve_blocksize(A, blocksize):
+    if blocksize is None:
+        return A.blocksize[0] if sp.issparse(A) and A.format == "bsr" else 1
+    return int(blocksize)
+
+
 def block_gauss_seidel(A, x, b, iterations=1, sweep="forward",
                        blocksize=None, Dinv=None):
-    """Block Gauss-Seidel; with blocksize 1 (a CSR operator), the
-    pointwise sweep.  ``Dinv`` is accepted for the reference's signature
-    and unused at blocksize 1."""
-    del Dinv
+    """Block Gauss-Seidel in place: with blocksize 1 the pointwise sweep;
+    above it, node block by node block, x_i <- Dinv_i (b_i - sum_{j != i}
+    A_ij x_j) with the reference's summation (all of the row's block
+    products, then the diagonal block's subtracted), so the improved
+    candidates have its bits."""
     A, x, b = make_system(A, x, b)
-    bs = (A.blocksize[0] if A.format == "bsr" else 1) if blocksize is None \
-        else int(blocksize)
-    if bs != 1:
-        raise NotImplementedError(
-            "block Gauss-Seidel with blocksize > 1 is not ported to "
-            "pyamg_tpu_torch yet (ROADMAP.md Queue 1 item 16)")
-    return gauss_seidel(A, x, b, iterations=iterations, sweep=sweep)
+    bs = _resolve_blocksize(A, blocksize)
+    if bs == 1:
+        return gauss_seidel(A, x, b, iterations=iterations, sweep=sweep)
+    if sweep == "symmetric":
+        for _ in range(int(iterations)):
+            block_gauss_seidel(A, x, b, 1, "forward", bs, Dinv)
+            block_gauss_seidel(A, x, b, 1, "backward", bs, Dinv)
+        return x
+    if sweep not in ("forward", "backward"):
+        raise ValueError("sweep must be forward/backward/symmetric")
+    if Dinv is None:
+        Dinv = get_block_diag(A, bs, inv_flag=True)
+    Ab = A if (A.format == "bsr" and A.blocksize == (bs, bs)) else \
+        A.tobsr(blocksize=(bs, bs))
+    n_blocks = A.shape[0] // bs
+    indptr, indices, data = Ab.indptr, Ab.indices, Ab.data
+    xb = x.reshape(n_blocks, bs)
+    bb = b.reshape(n_blocks, bs)
+    order = (range(n_blocks) if sweep == "forward"
+             else range(n_blocks - 1, -1, -1))
+    for _ in range(int(iterations)):
+        for i in order:
+            s, e = indptr[i], indptr[i + 1]
+            cols = indices[s:e]
+            rsum = np.einsum("kij,kj->i", data[s:e], xb[cols])
+            dmask = cols == i
+            if dmask.any():
+                rsum = rsum - data[s:e][dmask][0] @ xb[i]
+            xb[i] = Dinv[i] @ (bb[i] - rsum)
+    return x

@@ -66,7 +66,8 @@ def test_import_loads_no_jax():
     unstructured classical (Ruge-Stüben and AIR) setups with a solve
     each, and the block device setup of elasticity with a mixed solve and adaptive
     SA with a solve, the partitioned RS and block setups in the same world
-    of one with a solve each, in a fresh interpreter, leaves every
+    of one with a solve each, and the host Ruge-Stüben and rootnode setups
+    with a solve each, in a fresh interpreter, leaves every
     ``jax*`` and ``pyamg_tpu*`` module (but the port's own) out of
     sys.modules.  The interpreter runs one intra-op thread (beside the
     other test workers, torch's default thread count oversubscribes the
@@ -125,6 +126,11 @@ def test_import_loads_no_jax():
             ", accel='cg', precision='mixed')\n"
             "pt.device_adaptive_sa_setup(A, grid=(40, 40), device='cpu', "
             "max_coarse=100).solve(b[:, 0], accel='cg')\n"
+            "pt.as_device_solver(pt.ruge_stuben_solver(A), device='cpu')"
+            ".solve(b[:, 0], accel='gmres')\n"
+            "pt.as_device_solver(pt.rootnode_solver(Ae, B=Be[:, :2], "
+            "strength='symmetric'), device='cpu').solve("
+            "np.ones(Ae.shape[0]), accel='cg')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyamg_tpu'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
