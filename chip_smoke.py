@@ -158,7 +158,9 @@ result lines):
     the JP colourings of levels 0 and 1 and the compile (float32, float64
     A64, cut at 1024 rows), each timed; multicolour GS with 6 colours at
     level 0 and the Chebyshev fallback at level 1; K2 with one colour's
-    inverse diagonal and K9 at K = 8 at level 0, K1 there in both types,
+    inverse diagonal and K9 at K = 8 at level 0, the one-launch
+    multicolour sweep (S1) there bit for bit against the chain of K2
+    colour steps it replaced, K1 there in both types,
     K6 / K7 / K12 / K13 (K = 8) on level 0's T and level 1's windowed
     operators; the mixed stationary W-cycle to 1e-8 with b =
     default_rng(1).random(n) (the reference's 14 +- 1 iterations, true
@@ -174,7 +176,7 @@ result lines):
     four in-process row blocks, with their times; and Richardson, SOR,
     Cimmino NE and NR, windowed Schwarz, polynomial and Chebyshev on a
     float64 256^2 host-built hierarchy, each CG solve at its CPU copy's
-    count;
+    count (S1 in float64 at SOR's level 0);
 18. the classical device setups: config 3's classical column
     (bench.py:502-520; rotated anisotropic diffusion 512^2,
     device_rs_setup float32, max_coarse=400): its levels against the JAX
@@ -214,7 +216,9 @@ result lines):
     memory), each solve profiled; the block-DIA kernels (B1
     block_dia_spmv: PLAIN, RESID, K = 4; B2 block_dia_jacobi: STEP, ZERO,
     ZERO_RES beside its composed alternative, one COLOUR step and the
-    4-colour forward sweep) at its level 0 (bs 2, float32, and A64 in
+    4-colour forward sweep as a chain of COLOUR steps; B3
+    block_mcgs_sweep, the whole sweep in one launch, bit for bit against
+    that chain) at its level 0 (bs 2, float32, and A64 in
     float64) and level 1 (bs 3) against their twins on the same tensors,
     two launches bit-identical, with launches per call (one call captured
     in a CUDA graph), the bound and torch.mv / torch.sparse.mm on the
@@ -248,9 +252,21 @@ result lines):
     launches of the partitioned setup (its power iterations), K16 at its
     level-0 A, and the sharded CG to 1e-5 in 13 iterations with the
     whole route's history;
-23. result lines: the script's seconds, the kernels' JSON (with the
+23. the host-built columns of configs 3 and 4: the port's own
+    ruge_stuben_solver (512^2) and rootnode_solver (128^2), their level
+    sizes against the reference's, compiled float32 with the float64 A64;
+    mixed GMRES to 1e-8 (5 iterations) and mixed CG to 1e-8 (13), each
+    smoother call one launch of the multicolour sweep (S1 on config 3's
+    DIA levels, B3 on config 4's block levels; no K2 colour step and no
+    B2 COLOUR launch), counters around each solve; at levels 0 and 1 of
+    both, each sweep bit for bit against the colour-by-colour chain of the
+    parent kernels in every form (its plan's barrier route, the other
+    route, staged), within tolerance of its twin, one launch a call, with
+    the chain's time; both routes timed at every multicolour level of
+    config 3; K1, K6 / K7 and B1 at their shapes; both solves profiled;
+24. result lines: the script's seconds, the kernels' JSON (with the
     64^3 checks of config 2's paths and the classical paths' checks under
-    ``at_paths``, and every check of the block-DIA kernels under
+    ``at_paths``, and every check of the block-DIA and sweep kernels under
     ``checks``), the card's name and power limit, and last {"ok": true,
     "device": {...}}.
 """
@@ -370,10 +386,12 @@ REF_ITERS_ADAPT = 13
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 
-# the block-DIA kernels (B1, B2, B1's halo mode): the kernels line lists
-# each of their checks (every mode and shape) beside the row
+# the block-DIA kernels (B1, B2, B1's halo mode) and the one-launch
+# multicolour sweeps (S1, B3): the kernels line lists each of their checks
+# (every mode, form and shape) beside the row
 BLOCK_KERNELS = ("block_dia_spmv", "block_dia_jacobi", "block_dia_halo",
                  "block_dia_halo_spmm")
+SWEEP_KERNELS = ("dia_mcgs_sweep", "block_mcgs_sweep")
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("pyamg_tpu_torch/csrc/dia.cu",
@@ -431,6 +449,14 @@ KERNELS = {
               "none: plain jnp in pyamg_tpu/sparse/block_dia.py:77, "
               "row-sharded by GSPMD (tests/test_parallel.py:277)")
        for name in BLOCK_KERNELS[2:]},
+    # a multicolour GS call in one launch: it replaces the chain of K2
+    # colour steps (each the reference's step, engine/relaxation.py:400)
+    "dia_mcgs_sweep": ("pyamg_tpu_torch/csrc/mcgs.cu",
+                       "pyamg_tpu/sparse/dia.py:579 (K2, one launch a colour "
+                       "step of pyamg_tpu/engine/relaxation.py:400)"),
+    "block_mcgs_sweep": ("pyamg_tpu_torch/csrc/block_dia.cu",
+                         "none: plain jnp in "
+                         "pyamg_tpu/engine/relaxation.py:417 (block_mcgs)"),
 }
 # path -> the kernel instances it must launch
 PATHS = {
@@ -503,15 +529,16 @@ PATHS = {
     "device-built float64 config 1 gmres": (
         "dia_zero_chain.float64", "dia_spmv_add.float64",
         "dia_jacobi.float64", "dia_spmv.float64"),
-    # config 2 host-built: every multicolour GS colour step at level 0 is
-    # K2 (K9 on lanes); level 1 (windowed) smooths by Chebyshev through K6
-    # (K12); R = T^T S^T and level 1's R through K7 (K13)
+    # config 2 host-built: every multicolour GS call at level 0 is one S1
+    # launch (a colour step K9 on lanes); level 1 (windowed) smooths by
+    # Chebyshev through K6 (K12); R = T^T S^T and level 1's R through K7
+    # (K13)
     "config 2 host-built W-cycle": (
-        "dia_jacobi.float32", "dia_spmv.float32", "dia_spmv.float64",
+        "dia_mcgs_sweep.float32", "dia_spmv.float32", "dia_spmv.float64",
         "windowed_matvec.float32", "windowed_rmatvec.float32"),
     "config 2 host-built W-cycle CG native": (
-        "dia_jacobi.float32", "dia_spmv.float32", "windowed_matvec.float32",
-        "windowed_rmatvec.float32"),
+        "dia_mcgs_sweep.float32", "dia_spmv.float32",
+        "windowed_matvec.float32", "windowed_rmatvec.float32"),
     "config 2 host-built batched W-cycle": (
         "dia_jacobi_k.float32", "dia_spmm.float32",
         "windowed_matmat_k.float32", "windowed_rmatmat_k.float32"),
@@ -524,7 +551,7 @@ PATHS = {
         "dia_spmv_add.float32", "dia_spmv_scaled.float32",
         "dia_spmv.float32", "dia_spmv.float64"),
     **{f"256^2 float64 {kind}": (
-        ("dia_jacobi.float64", "dia_spmv.float64") if kind == "sor" else
+        ("dia_mcgs_sweep.float64", "dia_spmv.float64") if kind == "sor" else
         ("dia_spmv_add.float64", "dia_spmv.float64")
         if kind in ("polynomial", "chebyshev") else ("dia_spmv.float64",))
        for kind in SMOOTHER_KINDS},
@@ -566,20 +593,29 @@ PATHS.update({
                        "block_dia_jacobi.float32") + _BLOCK_REMAP,
 })
 # the host-built configs 3 and 4 (phase 23): config 3's DIA levels apply
-# A through K1 and smooth by multicolour GS, one K2 a colour step; its
-# windowed P through K6 and R = P^T through K7; config 4's block-DIA levels
-# 0 and 1 apply A through B1 (PLAIN, RESID) and smooth by block multicolour
-# GS, one B2 COLOUR launch a colour step; the float64 A64 of both is a
-# DIAMatrix (K1)
+# A through K1 and smooth by multicolour GS, one S1 launch a smoother call;
+# its windowed P through K6 and R = P^T through K7; config 4's block-DIA
+# levels 0 and 1 apply A through B1 (PLAIN, RESID) and smooth by block
+# multicolour GS, one B3 launch a smoother call; the float64 A64 of both
+# is a DIAMatrix (K1).  The colour-step kernels these sweeps replaced (K2
+# with a colour's inverse diagonal, B2 COLOUR) must not launch there.
 _HOST_TRANSFERS = ("windowed_matvec.float32", "windowed_rmatvec.float32")
 PATHS.update({
     "host-built config 3 mixed GMRES": (
-        "dia_spmv.float32", "dia_spmv.float64", "dia_jacobi.float32")
+        "dia_spmv.float32", "dia_spmv.float64", "dia_mcgs_sweep.float32")
     + _HOST_TRANSFERS,
     "host-built config 4 mixed CG": (
-        "block_dia_spmv.float32", "block_dia_jacobi.float32",
+        "block_dia_spmv.float32", "block_mcgs_sweep.float32",
         "dia_spmv.float64") + _HOST_TRANSFERS,
 })
+# path -> (the sweep kernel instance it smooths with, the colour-step
+# instance that sweep replaced, which must not launch on the path)
+HOST_SWEEPS = {
+    "host-built config 3 mixed GMRES": ("dia_mcgs_sweep.float32",
+                                        "dia_jacobi.float32"),
+    "host-built config 4 mixed CG": ("block_mcgs_sweep.float32",
+                                     "block_dia_jacobi.float32"),
+}
 # the unstructured classical setups: PMIS's selects (K14) and lambda (K7),
 # the power iteration (K6), the probe chains (K12 on P's factors and A, K13
 # on P^T's factors or the Neumann restriction's injection); their solves
@@ -2923,6 +2959,8 @@ def config2_host_phase(check, dev, rand, results, launches):
             lambda: dia.dia_spmv(A0, x), lambda: dia.dia_spmv_ref(A0, x),
             results, *dia_cost(A0, 2),
             library_fn=lambda: torch.mv(A0_csr, x), path=path)
+    scalar_sweep_checks(check, "config2 host level0", A0, lv0.pre, rand,
+                        results, path)
     A64 = h2.A64
     x64 = x.double()
     A64_csr = dia_to_csr(A64)
@@ -3105,11 +3143,12 @@ def sharded_config2_phase(check, dev, dml2, b2, rand, results, launches):
     halo_shards_check(check, A, x, k1, nbytes, tag, torch.cuda.Stream())
 
 
-def smoother_kinds_phase(check, dev, launches):
+def smoother_kinds_phase(check, dev, rand, results, launches):
     """Every other smoother kind on a host-built float64 256^2 hierarchy:
     V-cycle CG to 1e-8 (maxiter 40) on the card, counters around it,
     against the same solve on the hierarchy's CPU copy (the plain twins):
-    the same count, histories to rtol 1e-8."""
+    the same count, histories to rtol 1e-8; S1 in float64 at SOR's level
+    0 (its multicolour form)."""
     import warnings
 
     import numpy as np
@@ -3155,6 +3194,10 @@ def smoother_kinds_phase(check, dev, launches):
               f"history rel diff {err:.2e} (tol 1e-8), last "
               f"{res_g[-1] / res_g[0]:.3e} of the first, wall {wall:.4f} s")
         path_launches(check, label, counts)
+        if kind == "sor":
+            scalar_sweep_checks(check, "256^2 float64 sor level0",
+                                h.levels[0].A, h.levels[0].pre, rand,
+                                results, label)
 
 
 def classical_levels(solver):
@@ -3587,20 +3630,24 @@ def block_cost(A, vectors, dinv=False, nodes=None, extra_ops=0):
 
 
 class TwinSpy:
-    """Counts calls of the block-DIA twins with a CUDA tensor among their
-    arguments while active: on the card every wrapper must launch its
-    kernel, so the count must stay 0 through a solve."""
+    """Counts calls of the block-DIA twins and the multicolour sweeps'
+    twins with a CUDA tensor among their arguments while active: on the
+    card every wrapper must launch its kernel, so the count must stay 0
+    through a solve."""
 
-    NAMES = ("block_dia_spmv_ref", "block_dia_resid_ref",
-             "block_jacobi_zero_ref", "block_jacobi_zero_res_ref",
-             "block_jacobi_step_ref", "block_colour_step_ref")
+    NAMES = {"block_dia": ("block_dia_spmv_ref", "block_dia_resid_ref",
+                           "block_jacobi_zero_ref",
+                           "block_jacobi_zero_res_ref",
+                           "block_jacobi_step_ref", "block_colour_step_ref",
+                           "block_mcgs_sweep_ref"),
+             "dia": ("dia_mcgs_sweep_ref",)}
 
     def __enter__(self):
+        import importlib
+
         import torch
 
-        from pyamg_tpu_torch.sparse import block_dia
-
-        self.module, self.saved, self.calls = block_dia, {}, 0
+        self.saved, self.calls = [], 0
 
         def spying(fn):
             def spy(*args, **kw):
@@ -3610,24 +3657,198 @@ class TwinSpy:
                 return fn(*args, **kw)
             return spy
 
-        for name in self.NAMES:
-            self.saved[name] = getattr(block_dia, name)
-            setattr(block_dia, name, spying(self.saved[name]))
+        for mod, names in self.NAMES.items():
+            module = importlib.import_module(f"pyamg_tpu_torch.sparse.{mod}")
+            for name in names:
+                self.saved.append((module, name, getattr(module, name)))
+                setattr(module, name, spying(getattr(module, name)))
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.module, name, fn)
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
 
 
 def counted_no_twin(check, label, fn):
-    """``counted(fn)`` with the block twins watched: (result, counts,
-    wall); checks that no twin ran on the card."""
+    """``counted(fn)`` with the block and sweep twins watched: (result,
+    counts, wall); checks that no twin ran on the card."""
     with TwinSpy() as spy:
         out = counted(fn)
-    check(spy.calls == 0, f"{label}: no block-DIA twin ran on the card "
-          f"({spy.calls} calls on CUDA tensors)")
+    check(spy.calls == 0, f"{label}: no block-DIA or sweep twin ran on the "
+          f"card ({spy.calls} calls on CUDA tensors)")
     return out
+
+
+def sweep_forms(plan, x_bytes):
+    """(label, plan) of each form of a multicolour sweep that is right
+    for ``plan``'s colouring on an iterate of ``x_bytes``: the plan's own
+    first, then the other barrier route (the one-CTA route only where the
+    iterate fits its shared memory), then, where the plan runs in place,
+    those routes staged (staging is right for any colouring)."""
+    from pyamg_tpu_torch.sparse import dia
+
+    threads = {"cta": dia._SWEEP_CTA_THREADS,
+               "grid": dia._SWEEP_GRID_THREADS}
+    other = "cta" if plan.route == "grid" else "grid"
+    forms = [plan]
+    if other == "grid" or x_bytes <= dia._SWEEP_CTA_X_BYTES:
+        forms.append(dataclasses.replace(plan, route=other,
+                                         threads=threads[other]))
+    if not plan.staged:
+        forms += [dataclasses.replace(p, staged=True) for p in forms]
+    return [(f"{p.route} {p.threads}{' staged' if p.staged else ''}", p)
+            for p in forms]
+
+
+def sweep_cost(A, dirs):
+    """(bytes, operations) of a multicolour sweep of ``dirs`` directions
+    on A (DIA or block DIA): the operator's stored values, its inverse
+    diagonal (blocks), b and x read once and the result written once; each
+    direction's products, residuals and updates over every row."""
+    if hasattr(A, "bs"):
+        nbytes, ops = block_cost(A, 3, dinv=True, extra_ops=2)
+        return nbytes, dirs * ops
+    nbytes, ops = dia_cost(A, 4, extra_ops=3)
+    return nbytes, dirs * ops
+
+
+def sweep_checks(check, name, dtype, forms, chain_fn, twin_fn, results,
+                 cost, path):
+    """A one-launch multicolour sweep: its plan's form (the first of
+    ``forms``, label -> fn) by ``compare`` against the colour-by-colour
+    chain of the parent kernels (``chain_fn``) bit for bit, two launches
+    bit-identical, the twin timed as the plain version; within tolerance
+    of the twin; one launch a call; the chain's time beside it; and every
+    other form the chain's bits, each timed."""
+    import torch
+
+    (label0, fn0), *others = forms.items()
+    compare(check, f"{name} [{label0}]", dtype, fn0, twin_fn, results,
+            *cost, path=path, exact=True, repeat_exact=True,
+            want_fn=chain_fn)
+    r = results[-1]
+    k = launches_per_call(fn0)
+    r["launches_per_call"] = k
+    check(k == 1, f"{name} [{label0}]: {k} launch(es) a call (one)")
+    got, twin, want = fn0(), twin_fn(), chain_fn()
+    err = float((got - twin).abs().max() / twin.abs().max())
+    tol = F32_REL_TOL if dtype == torch.float32 else F64_REL_TOL
+    r["twin_rel_err"] = err
+    check(err <= tol, f"{name}: within {tol:g} of its twin (max rel err "
+          f"{err:.3e})")
+    r["chain_ms"] = min(time_ms(chain_fn) for _ in range(2))
+    r["forms"] = {label0: r["ms"]}
+    for label, fn in others:
+        same = torch.equal(fn(), want)
+        t = time_ms(fn)
+        r["forms"][label] = t
+        check(same, f"{name} [{label}]: the chain's bits "
+              f"({'equal' if same else 'DIFFER'}), {t:.4f} ms")
+    log(f"    the parent's chain {r['chain_ms']:.4f} ms; forms "
+        + ", ".join(f"{k} {v:.4f}" for k, v in r["forms"].items()) + " ms")
+
+
+def scalar_sweep_checks(check, where, A, sm, rand, results, path,
+                        sweep=None):
+    """S1 on the DIA level A with the multicolour smoother ``sm`` (its
+    colouring and plan; ``sweep`` in place of its direction where given)
+    against the chain of K2 colour steps with each colour's inverse
+    diagonal (the parent's path) and the twin, by ``sweep_checks``."""
+    from pyamg_tpu_torch.engine import relaxation as rel
+    from pyamg_tpu_torch.sparse import dia
+
+    _, ncolors, own, iterations = sm.config
+    sweep = sweep or own
+    dinv = sm.arrays[0]
+    plan, stack = sm.plan(A), sm.color_dinv
+    order = rel._sweeps(ncolors, sweep) * iterations
+    x, b = rand(A.n_pad, A.dtype), rand(A.n_pad, A.dtype)
+
+    def chain():
+        y = x
+        for c in order:
+            y = dia.dia_jacobi(A, y, b, stack[c], 1.0)
+        return y
+
+    dt = str(A.dtype).removeprefix("torch.")
+    forms = {label: (lambda p=p: dia.dia_mcgs_sweep(A, x, b, dinv, p, order))
+             for label, p in sweep_forms(plan, x.numel() * x.element_size())}
+    sweep_checks(
+        check, f"dia_mcgs_sweep.{dt} [{where} nd={A.ndiags} n_pad="
+        f"{A.n_pad}, {ncolors} colours (largest {plan.max_rows} rows) "
+        f"{sweep} x{iterations}, {'staged' if plan.staged else 'in place'}]",
+        A.dtype, forms, chain,
+        lambda: dia.dia_mcgs_sweep_ref(A, x, b, dinv, plan, order), results,
+        sweep_cost(A, len(order) // ncolors), path)
+
+
+def block_sweep_checks(check, tag, A, Dinv, colors, ncolors, sweep, x, b,
+                       results, path):
+    """B3 on the block-DIA operator A over ``ncolors`` node colours, one
+    ``sweep``, against the chain of B2 COLOUR steps (the parent's path)
+    and the twin, by ``sweep_checks``."""
+    from pyamg_tpu_torch.engine import relaxation as rel
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    plan = bd.block_mcgs_plan(A, colors, ncolors)
+    order = rel._sweeps(ncolors, sweep)
+
+    def chain():
+        y = x
+        for c in order:
+            y = bd.block_colour_step(A, y, b, Dinv, colors, c)
+        return y
+
+    dt = str(A.dtype).removeprefix("torch.")
+    forms = {label: (lambda p=p: bd.block_mcgs_sweep(A, x, b, Dinv, p,
+                                                      order))
+             for label, p in sweep_forms(plan, x.numel() * x.element_size())}
+    sweep_checks(
+        check, f"block_mcgs_sweep.{dt} [{tag}, {ncolors} colours (largest "
+        f"{plan.max_rows} nodes) {sweep}, "
+        f"{'staged' if plan.staged else 'in place'}]", A.dtype, forms, chain,
+        lambda: bd.block_mcgs_sweep_ref(A, x, b, Dinv, plan, order),
+        results, sweep_cost(A, len(order) // ncolors), path)
+
+
+def sweep_route_times(where, h):
+    """Both barrier routes of S1 (one CTA of 1024 threads, the iterate in
+    its shared memory where it fits; a cooperative grid of 256 or
+    128-thread CTAs) timed at every multicolour DIA level of the hierarchy
+    ``h``, the smoother's own sweep: the crossover that
+    ``sparse/dia.py::sweep_route`` encodes."""
+    import torch
+
+    from pyamg_tpu_torch.engine import relaxation as rel
+    from pyamg_tpu_torch.sparse import DIAMatrix, dia
+
+    log(f"{where}: S1's barrier routes at each multicolour level (ms a "
+        f"symmetric sweep; the plan's route marked *):")
+    rng = torch.Generator(device=h.levels[0].A.device).manual_seed(11)
+    for i, lvl in enumerate(h.levels):
+        sm, A = lvl.pre, lvl.A
+        if sm.config[0] != "mcgs" or not isinstance(A, DIAMatrix):
+            continue
+        plan = sm.plan(A)
+        order = rel._sweeps(sm.config[1], sm.config[2]) * sm.config[3]
+        x = torch.rand(A.n_pad, generator=rng, device=A.device,
+                       dtype=A.dtype)
+        b = torch.rand(A.n_pad, generator=rng, device=A.device,
+                       dtype=A.dtype)
+        times = []
+        fits = A.n_pad * A.data.element_size() <= dia._SWEEP_CTA_X_BYTES
+        for route, threads in (("cta", 1024), ("grid", 256),
+                               ("grid", 128)):
+            if route == "cta" and not fits:
+                continue
+            p = dataclasses.replace(plan, route=route, threads=threads)
+            t = time_ms(lambda: dia.dia_mcgs_sweep(A, x, b, sm.arrays[0], p,
+                                                   order))
+            mark = "*" if (route, threads) == (plan.route,
+                                               plan.threads) else ""
+            times.append(f"{route} {threads}{mark} {t:.4f}")
+        log(f"  level {i}: n_pad {A.n_pad}, {sm.config[1]} colours, "
+            f"largest {plan.max_rows} rows: {', '.join(times)}")
 
 
 def block_level_checks(check, where, A, Dinv, omega, rand, results, path,
@@ -3635,15 +3856,16 @@ def block_level_checks(check, where, A, Dinv, omega, rand, results, path,
                        jacobi=True):
     """B1 (PLAIN, RESID, and PLAIN on a K = ``lanes`` stack) and B2 (ZERO,
     ZERO_RES and STEP where ``jacobi``, and with ``colors`` one COLOUR
-    step and the forward sweep over ``ncolors`` colours, B3) on the
-    block-DIA level operator A against their twins on the same card
-    tensors, two launches bit-identical; each with its launches per call,
+    step and the forward sweep over ``ncolors`` colours as a chain of
+    COLOUR steps) on the block-DIA level operator A against their twins
+    on the same card tensors, two launches bit-identical, and B3 (the
+    symmetric and forward sweeps in one launch each) bit for bit against
+    that chain (``block_sweep_checks``); each with its launches per call,
     its bound, and torch.mv / torch.sparse.mm on ``csr`` (the same
     operator as CSR) for B1; ZERO_RES beside its composed alternative
     (ZERO, then RESID)."""
     import torch
 
-    from pyamg_tpu_torch.engine import relaxation as rel
     from pyamg_tpu_torch.sparse import block_dia as bd
 
     dt = str(A.dtype).removeprefix("torch.")
@@ -3707,18 +3929,29 @@ def block_level_checks(check, where, A, Dinv, omega, rand, results, path,
         lambda: bd.block_colour_step(A, x, b, Dinv, colors, 0),
         lambda: bd.block_colour_step_ref(A, x, b, Dinv, colors, 0),
         block_cost(A, 2 + n0 / nb, dinv=True, nodes=n0, extra_ops=3))
-    gs = rel.block_multicolor_gs(Dinv, colors, ncolors)
 
-    def gs_plain():
+    def chain():
+        y = x
+        for c in range(ncolors):
+            y = bd.block_colour_step(A, y, b, Dinv, colors, c)
+        return y
+
+    def chain_plain():
         y = x
         for c in range(ncolors):
             y = bd.block_colour_step_ref(A, y, b, Dinv, colors, c)
         return y
 
-    # the sweep needs the blocks and Dinv once, b once, x and y each step
-    run(f"{jac} COLOUR forward sweep ({ncolors} colours) [{tag}]",
-        lambda: gs(A, x, b), gs_plain,
+    # the parent's form of a forward sweep, a chain of COLOUR steps; it
+    # needs the blocks and Dinv once, b once, x and y each step
+    run(f"{jac} COLOUR forward sweep, the chain ({ncolors} colours) [{tag}]",
+        chain, chain_plain,
         block_cost(A, 1 + 2 * ncolors, dinv=True, extra_ops=3))
+    # B3: the smoother's symmetric sweep, and the forward one, one launch
+    # each
+    for sweep in ("symmetric", "forward"):
+        block_sweep_checks(check, tag, A, Dinv, colors, ncolors, sweep, x, b,
+                           results, path)
 
 
 def config4_phase(check, dev, card, rand, results, launches):
@@ -4594,45 +4827,24 @@ def partitioned_setup_phase(check, dev, card, rand, results, launches, A1):
             dist.destroy_process_group()
 
 
-class ColourSpy:
-    """Counts the B2 ``COLOUR`` steps (``block_colour_step`` calls on CUDA
-    tensors, one launch each) the block multicolour smoother takes while
-    active."""
-
-    def __enter__(self):
-        import torch
-
-        from pyamg_tpu_torch.engine import relaxation as rel
-
-        self.module, self.saved, self.calls = rel, rel.block_colour_step, 0
-
-        def spy(A, x, *args, **kw):
-            if isinstance(x, torch.Tensor) and x.is_cuda:
-                self.calls += 1
-            return self.saved(A, x, *args, **kw)
-
-        rel.block_colour_step = spy
-        return self
-
-    def __exit__(self, *exc):
-        self.module.block_colour_step = self.saved
-
-
 def host_built_solve(check, label, solver, A, b, kw, ref_iters, launches,
                      card):
     """One host-built mixed solve on the card (after a warm one) with the
-    counters zeroed just before and read just after, no block twin run on
-    the card and the B2 COLOUR steps counted; then three more for the
-    median wall.  Returns the B2 COLOUR launches."""
+    counters zeroed just before and read just after, no block or sweep
+    twin run on the card, every smoother call one launch of the path's
+    sweep kernel and no launch of the colour-step kernel it replaced
+    (``HOST_SWEEPS``); then three more for the median wall.  Returns (the
+    sweep launches, the true relres)."""
     import numpy as np
     import torch
 
     solver.solve(b, **kw)                         # warm-up
     res = []
-    with ColourSpy() as spy:
-        x, counts, wall = counted_no_twin(
-            check, label, lambda: solver.solve(b, residuals=res, **kw))
+    x, counts, wall = counted_no_twin(
+        check, label, lambda: solver.solve(b, residuals=res, **kw))
     launches[label] = counts
+    sweep, step = HOST_SWEEPS[label]
+    sweeps, steps = counts.get(sweep, 0), counts.get(step, 0)
     walls = [wall]
     for _ in range(3):
         t0 = time.perf_counter()
@@ -4649,20 +4861,24 @@ def host_built_solve(check, label, solver, A, b, kw, ref_iters, launches,
         f"{float(np.median(walls[1:])):.4f} s; {card})")
     log(f"  history: {' '.join(f'{r / res[0]:.3e}' for r in res)}")
     log(f"  launches of hand-written kernels: "
-        f"{json.dumps(counts, sort_keys=True)}; B2 COLOUR steps "
-        f"{spy.calls}")
+        f"{json.dumps(counts, sort_keys=True)}; sweeps ({sweep}) {sweeps}, "
+        f"colour steps ({step}) {steps}")
+    check(sweeps > 0 and steps == 0,
+          f"{label}: {sweeps} one-launch sweeps ({sweep}), {steps} colour "
+          f"steps ({step}, none expected)")
     check(abs(iters - ref_iters) <= 1 and hist <= 1e-8
           and x.shape == b.shape and bool(np.isfinite(x).all()),
           f"{label}: {iters} iterations within {ref_iters} +- 1 (the "
           f"reference's), history relres {hist:.3e} <= 1e-8, x finite")
     path_launches(check, label, counts)
-    return spy.calls, true
+    return sweeps, true
 
 
 def host_level_checks(check, where, lvl, rand, results, path):
     """K1 on a DIA level's A, K2 with its first colour's inverse diagonal
-    (the multicolour smoother's step), and K6 / K7 on its windowed P and
-    R = P^T, each against its twin at the path's shapes."""
+    (the parent's multicolour step), S1 (the smoother's sweep in one
+    launch) against the chain of those steps, and K6 / K7 on its windowed
+    P and R = P^T, each against its twin at the path's shapes."""
     import torch
 
     from pyamg_tpu_torch.sparse import DIAMatrix, dia
@@ -4684,6 +4900,7 @@ def host_level_checks(check, where, lvl, rand, results, path):
                 f32, lambda: dia.dia_jacobi(A, x, b, dinv0, 1.0),
                 lambda: dia.dia_jacobi_ref(A, x, b, dinv0, 1.0), results,
                 *dia_cost(A, 4, extra_ops=4), path=path)
+        scalar_sweep_checks(check, where, A, lvl.pre, rand, results, path)
     transfer_checks(check, where, lvl, rand, results, path)
 
 
@@ -4710,8 +4927,11 @@ def host_setup_phase(check, dev, card, rand, results, launches):
     reference's level sizes), compile_hierarchy f32 with the f64 A64 and
     cut at 1024 rows (each level's forms and smoother), mixed GMRES / CG
     to 1e-8 at the reference's counts with the launches of every kernel
-    (B2 COLOUR on config 4's block levels), and each of those kernels
-    against its twin at the paths' shapes."""
+    (one sweep launch a smoother call: S1 on config 3's DIA levels, B3 on
+    config 4's block levels), and each of those kernels against its twin
+    at the paths' shapes, the sweeps bit for bit against the parent's
+    colour-step chains, both barrier routes timed at config 3's
+    multicolour levels."""
     import numpy as np
     import torch
 
@@ -4767,8 +4987,8 @@ def host_setup_phase(check, dev, card, rand, results, launches):
     d3 = DeviceMultilevelSolver(h3)
     kw3 = dict(tol=1e-8, maxiter=60, accel="gmres", precision="mixed")
     path3 = "host-built config 3 mixed GMRES"
-    _, true3 = host_built_solve(check, path3, d3, A3, b3, kw3,
-                                REF_ITERS_C3_HOST, launches, card)
+    sweeps3, true3 = host_built_solve(check, path3, d3, A3, b3, kw3,
+                                      REF_ITERS_C3_HOST, launches, card)
     log(f"  config 3 mixed GMRES is left preconditioned: its true relres "
         f"{true3:.3e} is printed, not held to 1e-8 (reference history "
         f"relres 7.27e-9)")
@@ -4777,6 +4997,7 @@ def host_setup_phase(check, dev, card, rand, results, launches):
     for i in (0, 1):
         host_level_checks(check, f"host-built config3 level{i}",
                           h3.levels[i], rand, results, path3)
+    sweep_route_times("config 3 host-built", h3)
     x, A64 = rand(h3.A64.n_pad, f64), h3.A64
     A64_csr = dia_to_csr(A64)
     compare(check, f"dia_spmv.float64 [host-built config3 A64 "
@@ -4806,11 +5027,12 @@ def host_setup_phase(check, dev, card, rand, results, launches):
     d4 = DeviceMultilevelSolver(h4)
     kw4 = dict(tol=1e-8, maxiter=60, accel="cg", precision="mixed")
     path4 = "host-built config 4 mixed CG"
-    colour4, true4 = host_built_solve(check, path4, d4, A4, b4, kw4,
+    sweeps4, true4 = host_built_solve(check, path4, d4, A4, b4, kw4,
                                       REF_ITERS_C4_HOST, launches, card)
-    check(true4 <= 1e-8 and colour4 > 0,
-          f"{path4}: true relres {true4:.3e} <= 1e-8 (reference history "
-          f"4.64e-9); B2 COLOUR steps {colour4} > 0")
+    check(true4 <= 1e-8, f"{path4}: true relres {true4:.3e} <= 1e-8 "
+          f"(reference history 4.64e-9)")
+    log(f"  one-launch sweeps: config 3 {sweeps3} (S1), config 4 {sweeps4} "
+        f"(B3)")
     lap("solves")
     log("config 4 host-built kernels (kernel vs plain twin):")
     for i, lvl in enumerate(blocks):
@@ -5826,7 +6048,7 @@ def main():
     t_m = time.perf_counter()
     dml2, b2 = config2_host_phase(check, dev, rand, results, launches)
     sharded_config2_phase(check, dev, dml2, b2, rand, results, launches)
-    smoother_kinds_phase(check, dev, launches)
+    smoother_kinds_phase(check, dev, rand, results, launches)
     log(f"smoother phase: {time.perf_counter() - t_m:.1f} s")
 
     # 18. the classical device setups: configs 3 and 5, AIR
@@ -5907,8 +6129,10 @@ def main():
                      **({"checks": [{k: r[k] for k in (
                          "name", "ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms", "max_abs_err", "launches_per_call",
-                         "composed_ms") if k in r} for r in mine]}
-                        if base in BLOCK_KERNELS else {})})
+                         "composed_ms", "chain_ms", "twin_rel_err",
+                         "forms") if k in r} for r in mine]}
+                        if base in BLOCK_KERNELS + SWEEP_KERNELS
+                        else {})})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())

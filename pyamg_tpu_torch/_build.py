@@ -167,6 +167,22 @@ _SIGNATURES = {
     # data, offsets, nd, nb, bs, lanes, x, b, y, mode, stream
     "pyamg_block_dia_spmv_f32": (_P, _P, _I, _L, _I, _I, _P, _P, _P, _I, _P),
     "pyamg_block_dia_spmv_f64": (_P, _P, _I, _L, _I, _I, _P, _P, _P, _I, _P),
+    # data, offsets, nd, n_pad, x_in, x, b, dinv, omega, colors, rows,
+    # coff, ncolours, max_rows, scratch, order (host ints), norder,
+    # threads, grid_route, staged, stream
+    "pyamg_mcgs_sweep_f32": (_P, _P, _I, _L, _P, _P, _P, _P, ctypes.c_float,
+                             _P, _P, _P, _I, _L, _P, _IP, _I, _I, _I, _I,
+                             _P),
+    "pyamg_mcgs_sweep_f64": (_P, _P, _I, _L, _P, _P, _P, _P, ctypes.c_double,
+                             _P, _P, _P, _I, _L, _P, _IP, _I, _I, _I, _I,
+                             _P),
+    # data, offsets, nd, nb, bs, x_in, x, b, dinv, colors, rows, coff,
+    # ncolours, max_nodes, scratch, order (host ints), norder, threads,
+    # grid_route, staged, stream
+    "pyamg_block_mcgs_sweep_f32": (_P, _P, _I, _L, _I, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _L, _P, _IP, _I, _I, _I, _I, _P),
+    "pyamg_block_mcgs_sweep_f64": (_P, _P, _I, _L, _I, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _L, _P, _IP, _I, _I, _I, _I, _P),
     # data, ld, offsets, nd, nb, bs, halo, left, ldl, x, ldx, right, ldr,
     # b, y, lanes, lo, hi, a0, a1, b0, b1, mode, stream
     "pyamg_block_dia_halo_f32": (_P, _L, _P, _I, _L, _I, _I, _P, _L, _P, _L,

@@ -16,13 +16,16 @@
 //   block_dia_halo_kernel<T, BS, L, Mode>, B1's halo mode: PLAIN or RESID
 //     on one rank's block of node rows of a row-sharded operator, x read
 //     from three sources in place (see "B1's halo mode" below)
-//   block_dia_jacobi_kernel<T, BS, L, Mode>, B2 (and B3's colour step):
+//   block_dia_jacobi_kernel<T, BS, L, Mode>, B2:
 //     ZERO      y = w Dinv b                     (no read of A)
 //     ZERO_RES  y = w Dinv b,  r = b - A y       (y's neighbours recomputed)
 //     STEP      y = x + w Dinv (b - A x)
 //     COLOUR    y = x + Dinv (b - A x) on the nodes of colour c, y = x
 //               on every other node (which reads no A data)
-// T is float or double.  Every mode writes out of place.
+//   block_mcgs_sweep_kernel<T, BS, GRID>, B3, the block
+//     multicolour Gauss-Seidel sweep in one launch (see "B3" below)
+// T is float or double.  Every mode of B1 and B2 writes out of place; B3
+// updates x in place.
 //
 // Layout: data (nd, nb, bs, bs) row-major, data[d, i] = A_block[i, i +
 // offsets[d]] (a zero block where A has none or the neighbour falls
@@ -105,10 +108,30 @@
 // lane stack the halos are (K, halo * bs) stacks whose lanes lie ldl and
 // ldr values apart (a received buffer, or in a ring of one x's own tail
 // and head), and every lane's value is B1's lane value.
+//
+// B3, the block multicolour sweep (sparse/block_dia.py::block_mcgs_sweep):
+// one launch runs a whole smoother call, every phase of `order` (a colour
+// of each direction of every iteration, in turn), as the scalar sweep of
+// csrc/mcgs.cu does with the barriers of sweep.cuh.  A colour phase
+// updates only that colour's nodes (the plan's nodes sorted by colour,
+// sparse/block_dia.py::block_mcgs_plan): node_product, then the node's own
+// Dinv block, B2 COLOUR's arithmetic in B2 COLOUR's instance, so every
+// node gets the bits of the parent's B2 COLOUR chain.  On the grid route
+// the first phase alone runs over every node, out of place (its colour's
+// nodes from the caller's x, the others copied), so a call needs no copy
+// launch and leaves its x as it was.  The later phases update the result
+// in place where no stored nonzero block couples two nodes of one colour;
+// else staged (the new values to scratch, a barrier, then to the result).
+// The run-time block size is always staged: its threads each own one
+// component, and a node's components read each other.  On the grid route
+// the result is read through L2 (__ldcg); on the one-CTA route x is
+// staged in the CTA's shared memory for the whole call (sweep.cuh).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <type_traits>
+
+#include "sweep.cuh"
 
 namespace {
 
@@ -250,9 +273,26 @@ struct Strided {
   long long ld;
 };
 
-// v = x (read-only in every kernel), lanes ld values apart, a neighbour
-// outside [0, nb) skipped
-template <typename T>
+// How a source reads x: LOAD_RO through the read-only path (x is never
+// written during the launch: B1, B2, B3's first phase); LOAD_L2 through L2
+// only (B3's later phases on the grid route, where other CTAs update x
+// between phases and a read-only line could be stale); LOAD_SHARED a plain
+// load (B3's one-CTA route, x in shared memory)
+enum XLoad : int { LOAD_RO = 0, LOAD_L2 = 1, LOAD_SHARED = 2 };
+
+template <int M, typename T>
+__device__ __forceinline__ T load_x(const T* p) {
+  if constexpr (M == LOAD_RO) {
+    return __ldg(p);
+  } else if constexpr (M == LOAD_L2) {
+    return __ldcg(p);
+  } else {
+    return *p;
+  }
+}
+
+// v = x, lanes ld values apart, a neighbour outside [0, nb) skipped
+template <typename T, int M = LOAD_RO>
 struct LocalSource {
   const T* x;
   long long ld;
@@ -269,14 +309,14 @@ struct LocalSource {
   __device__ __forceinline__ void load(const Strided<T>& nd, int l,
                                        T (&v)[BS]) const {
 #pragma unroll
-    for (int q = 0; q < BS; ++q) v[q] = __ldg(nd.p + l * nd.ld + q);
+    for (int q = 0; q < BS; ++q) v[q] = load_x<M>(nd.p + l * nd.ld + q);
   }
   template <int L>
   __device__ __forceinline__ void at(const Strided<T>& nd, int q, int lanes,
                                      T (&v)[L]) const {
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      if (live<L>(l, lanes)) v[l] = __ldg(nd.p + l * nd.ld + q);
+      if (live<L>(l, lanes)) v[l] = load_x<M>(nd.p + l * nd.ld + q);
     }
   }
 };
@@ -365,8 +405,11 @@ struct HaloSource {
 // compile-time block size: node i's BS outputs on each live lane of a
 // tile; `blocks` is node i's block of diagonal 0, each diagonal's
 // `stride` values after the last.  The diagonals outermost, the block
-// loaded once, then the lanes.
-template <typename T, int BS, int L, typename Src>
+// loaded once, then the lanes.  CH > 1 (one vector only, B3): the blocks
+// and neighbours of CH diagonals are loaded before their terms are summed
+// (one round trip to L2 a node where a sweep's phase leaves few warps an
+// SM), in the same order; the offsets may lie in shared memory.
+template <typename T, int BS, int L, int CH = 1, typename Src>
 __device__ __forceinline__ void node_product(const T* __restrict__ blocks,
                                              long long stride,
                                              const int* __restrict__ offsets,
@@ -378,22 +421,49 @@ __device__ __forceinline__ void node_product(const T* __restrict__ blocks,
 #pragma unroll
     for (int p = 0; p < BS; ++p) acc[l][p] = T(0);
   }
+  if constexpr (CH > 1) {
+    static_assert(L == 1, "the batched loads serve one vector");
+    for (int d0 = 0; d0 < nd; d0 += CH) {
+      T blk[CH][BS * BS], xj[CH][BS];
+      bool ok[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int d = d0 + c;
+        const long long j = i + (d < nd ? offsets[d] : 0);
+        ok[c] = d < nd && src.take(j);
+        if (ok[c]) {
+          load_run<T, BS * BS>(blocks + d * stride, blk[c]);
+          src.template load<BS>(src.template node<BS>(j), 0, xj[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (!ok[c]) continue;
+#pragma unroll
+        for (int p = 0; p < BS; ++p) {
+#pragma unroll
+          for (int q = 0; q < BS; ++q) acc[0][p] += blk[c][p * BS + q] * xj[c][q];
+        }
+      }
+    }
+  } else {
 #pragma unroll (L == 1 ? 3 : 2)
-  for (int d = 0; d < nd; ++d) {
-    const long long j = i + __ldg(offsets + d);
-    if (!src.take(j)) continue;
-    T blk[BS * BS];
-    load_run<T, BS * BS>(blocks + d * stride, blk);
-    const auto node = src.template node<BS>(j);
+    for (int d = 0; d < nd; ++d) {
+      const long long j = i + __ldg(offsets + d);
+      if (!src.take(j)) continue;
+      T blk[BS * BS];
+      load_run<T, BS * BS>(blocks + d * stride, blk);
+      const auto node = src.template node<BS>(j);
 #pragma unroll
-    for (int l = 0; l < L; ++l) {
-      if (!live<L>(l, lanes)) continue;
-      T xj[BS];
-      src.template load<BS>(node, l, xj);
+      for (int l = 0; l < L; ++l) {
+        if (!live<L>(l, lanes)) continue;
+        T xj[BS];
+        src.template load<BS>(node, l, xj);
 #pragma unroll
-      for (int p = 0; p < BS; ++p) {
+        for (int p = 0; p < BS; ++p) {
 #pragma unroll
-        for (int q = 0; q < BS; ++q) acc[l][p] += blk[p * BS + q] * xj[q];
+          for (int q = 0; q < BS; ++q) acc[l][p] += blk[p * BS + q] * xj[q];
+        }
       }
     }
   }
@@ -429,12 +499,12 @@ __device__ __forceinline__ void row_product_rt(const T* row, long long stride,
 }
 
 // B1 and B2 over the whole operator: node i's outputs, or its output p
-template <typename T, int BS, int L, typename Src>
+template <typename T, int BS, int L, int CH = 1, typename Src>
 __device__ __forceinline__ void node_product(const Args<T>& a, long long i,
                                              const Src& src, int lanes,
                                              T (&acc)[L][BS]) {
-  node_product<T, BS, L>(a.data + i * (BS * BS), a.nb * (BS * BS),
-                         a.offsets, a.nd, i, src, lanes, acc);
+  node_product<T, BS, L, CH>(a.data + i * (BS * BS), a.nb * (BS * BS),
+                             a.offsets, a.nd, i, src, lanes, acc);
 }
 
 template <typename T, int L, typename Src>
@@ -635,6 +705,234 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
+  }
+}
+
+// ---- B3 -----------------------------------------------------------------
+
+// block diagonals whose loads a node issues together (node_product): on
+// the grid route all of a 9-point node stencil's at bs <= 2 and a third
+// of them at larger blocks; on the one-CTA route, whose 1024 threads have
+// 64 registers each, a third, or two at bs > 2
+template <int BS, bool GRID>
+struct SweepChunk {
+  static constexpr int value =
+      GRID ? (BS > 0 && BS <= 2 ? 9 : 3) : (BS > 0 && BS <= 2 ? 3 : 2);
+};
+
+template <typename T>
+struct SweepArgs {
+  Args<T> a;              // x the caller's iterate (read only), y the
+                          // result (x itself for a launch that continues
+                          // one), b, Dinv, the colours
+  const int* rows;        // the coloured nodes, by colour
+  const int* coff;        // (ncolours + 1,)
+  int ncolours;
+  T* scratch;             // (largest colour * bs,), where staged
+  int staged;             // a phase's values go through scratch
+};
+
+// B2 COLOUR's update of node i less its x: Dinv_i (b_i - (A v)_i), v
+// from `src`; compile-time block size, one vector.  Dinv_i and b_i are
+// loaded with the neighbours, not after them (one round trip a node).
+template <typename T, int BS, int CH, typename Src>
+__device__ __forceinline__ void colour_delta(const Args<T>& a, long long i,
+                                             const Src& src, T (&out)[BS]) {
+  T acc[1][BS], D[BS * BS], bi[BS];
+  load_run<T, BS * BS>(a.dinv + i * (BS * BS), D);
+#pragma unroll
+  for (int q = 0; q < BS; ++q) bi[q] = __ldg(a.b + i * BS + q);
+  node_product<T, BS, 1, CH>(a, i, src, 1, acc);
+  T res[BS];
+#pragma unroll
+  for (int q = 0; q < BS; ++q) res[q] = bi[q] - acc[0][q];
+#pragma unroll
+  for (int p = 0; p < BS; ++p) {
+    T sum = T(0);
+#pragma unroll
+    for (int q = 0; q < BS; ++q) sum += D[p * BS + q] * res[q];
+    out[p] = sum;
+  }
+}
+
+// ... its component p (run-time block size), as B2's run-time instance
+template <typename T, typename Src>
+__device__ __forceinline__ T colour_delta_rt(const Args<T>& a, long long i,
+                                             int p, const Src& src) {
+  const long long bs = a.bs;
+  const T* Drow = a.dinv + (i * bs + p) * bs;
+  T sum = T(0);
+  for (int q = 0; q < a.bs; ++q) {
+    T acc[1];
+    row_product_rt<T, 1>(a, i, q, src, 1, acc);
+    const T dq = Drow[q];
+    const T res = __ldg(a.b + i * bs + q) - acc[0];
+    sum += dq * res;
+  }
+  return sum;
+}
+
+// The grid route: the first phase out of place over every node, the later
+// ones in place in y (or staged), a grid-wide barrier between phases.
+template <typename T, int BS>
+__device__ __forceinline__ void grid_block_sweep(const SweepArgs<T>& s,
+                                                 const Args<T>& a,
+                                                 const Order& order,
+                                                 const int* coff) {
+  constexpr int CH = SweepChunk<BS, true>::value;
+  const long long t0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long bs = BS > 0 ? BS : a.bs;
+  int ph = 0;
+  if (a.x != a.y) {
+    // the first phase out of place, over every node: its colour's nodes
+    // from x, every other node (the padding too) copied
+    const int c = order.c[0];
+    const LocalSource<T> in{a.x, 0, a.nb, a.bs};
+    if constexpr (BS > 0) {
+      for (long long i = t0; i < a.nb; i += stride) {
+        const bool mine = __ldg(a.colors + i) == c;
+        T xi[BS], delta[BS];
+#pragma unroll
+        for (int p = 0; p < BS; ++p) xi[p] = __ldg(a.x + i * BS + p);
+        if (mine) colour_delta<T, BS, CH>(a, i, in, delta);
+#pragma unroll
+        for (int p = 0; p < BS; ++p) {
+          a.y[i * BS + p] = mine ? xi[p] + delta[p] : xi[p];
+        }
+      }
+    } else {
+      for (long long t = t0; t < a.nb * bs; t += stride) {
+        const long long i = t / bs;
+        const T xi = __ldg(a.x + t);
+        a.y[t] = __ldg(a.colors + i) == c
+                     ? xi + colour_delta_rt(a, i, static_cast<int>(t - i * bs), in)
+                     : xi;
+      }
+    }
+    ph = 1;
+  }
+  // the thread's first node of phase q, loaded before the barrier that
+  // opens the phase (the nodes are read only; the run-time block size
+  // takes its nodes one component a thread, and no prefetch)
+  auto first_node = [&](int q) -> long long {
+    if (BS == 0 || q >= order.n) return -1;
+    const long long k = coff[order.c[q]] + t0;
+    return k < coff[order.c[q] + 1] ? __ldg(s.rows + k) : -1;
+  };
+  long long next = first_node(ph);
+  if (ph == 1) phase_barrier<true>();
+  const LocalSource<T, LOAD_L2> src{a.y, 0, a.nb, a.bs};
+  for (; ph < order.n; ++ph) {
+    const int c = order.c[ph];
+    const long long lo = coff[c], hi = coff[c + 1];
+    const long long mine = next;
+    if constexpr (BS > 0) {
+      // a thread a node
+      for (long long k = lo + t0; k < hi; k += stride) {
+        const long long i = k == lo + t0 ? mine : __ldg(s.rows + k);
+        T xi[BS], delta[BS];
+#pragma unroll
+        for (int p = 0; p < BS; ++p) xi[p] = __ldcg(a.y + i * BS + p);
+        colour_delta<T, BS, CH>(a, i, src, delta);
+#pragma unroll
+        for (int p = 0; p < BS; ++p) {
+          const T v = xi[p] + delta[p];
+          if (s.staged) {
+            s.scratch[(k - lo) * BS + p] = v;
+          } else {
+            a.y[i * BS + p] = v;
+          }
+        }
+      }
+    } else {
+      // a thread a component
+      for (long long t = lo * bs + t0; t < hi * bs; t += stride) {
+        const long long k = t / bs;
+        const int p = static_cast<int>(t - k * bs);
+        const long long i = __ldg(s.rows + k);
+        s.scratch[t - lo * bs] =
+            __ldcg(a.y + i * bs + p) + colour_delta_rt(a, i, p, src);
+      }
+    }
+    next = first_node(ph + 1);
+    phase_barrier<true>();
+    if (s.staged) {
+      for (long long t = lo * bs + t0; t < hi * bs; t += stride) {
+        const long long k = t / bs;
+        a.y[__ldg(s.rows + k) * bs + (t - k * bs)] = s.scratch[t - lo * bs];
+      }
+      phase_barrier<true>();
+    }
+  }
+}
+
+// The one-CTA route: x copied into shared memory (xs), every phase in
+// place there (its colour's nodes only), the result written to y at the
+// end.
+template <typename T, int BS>
+__device__ __forceinline__ void cta_block_sweep(const SweepArgs<T>& s,
+                                                const Args<T>& a,
+                                                const Order& order,
+                                                const int* coff, T* xs) {
+  constexpr int CH = SweepChunk<BS, false>::value;
+  const long long bs = BS > 0 ? BS : a.bs;
+  const long long n = a.nb * bs;
+  for (long long t = threadIdx.x; t < n; t += blockDim.x) xs[t] = a.x[t];
+  __syncthreads();
+  const LocalSource<T, LOAD_SHARED> src{xs, 0, a.nb, a.bs};
+  for (int ph = 0; ph < order.n; ++ph) {
+    const int c = order.c[ph];
+    const long long lo = coff[c], hi = coff[c + 1];
+    if constexpr (BS > 0) {
+      for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) {
+        const long long i = __ldg(s.rows + k);
+        T delta[BS];
+        colour_delta<T, BS, CH>(a, i, src, delta);
+#pragma unroll
+        for (int p = 0; p < BS; ++p) {
+          const T v = xs[i * BS + p] + delta[p];
+          if (s.staged) {
+            s.scratch[(k - lo) * BS + p] = v;
+          } else {
+            xs[i * BS + p] = v;
+          }
+        }
+      }
+    } else {
+      for (long long t = lo * bs + threadIdx.x; t < hi * bs;
+           t += blockDim.x) {
+        const long long k = t / bs;
+        const int p = static_cast<int>(t - k * bs);
+        const long long i = __ldg(s.rows + k);
+        s.scratch[t - lo * bs] = xs[i * bs + p] + colour_delta_rt(a, i, p, src);
+      }
+    }
+    __syncthreads();
+    if (s.staged) {
+      for (long long t = lo * bs + threadIdx.x; t < hi * bs;
+           t += blockDim.x) {
+        const long long k = t / bs;
+        xs[__ldg(s.rows + k) * bs + (t - k * bs)] = s.scratch[t - lo * bs];
+      }
+      __syncthreads();
+    }
+  }
+  for (long long t = threadIdx.x; t < n; t += blockDim.x) a.y[t] = xs[t];
+}
+
+template <typename T, int BS, bool GRID>
+__global__ void __launch_bounds__(GRID ? kGridThreads : kMaxThreads)
+    block_mcgs_sweep_kernel(const SweepArgs<T> s, const Order order) {
+  extern __shared__ __align__(16) int smem[];
+  // the operator with its diagonal offsets in shared memory
+  Args<T> a = s.a;
+  a.offsets = stage_offsets(smem, s.coff, s.ncolours, s.a.offsets, a.nd);
+  if constexpr (GRID) {
+    grid_block_sweep<T, BS>(s, a, order, smem);
+  } else {
+    cta_block_sweep<T, BS>(s, a, order, smem,
+                           shared_x<T>(smem, s.ncolours, a.nd));
   }
 }
 
@@ -895,6 +1193,71 @@ Args<T> make_args(const void* data, const void* offsets, int nd,
                  static_cast<T*>(r)};
 }
 
+template <typename T, int BS>
+cudaError_t launch_block_sweep(const SweepArgs<T>& s, const Order& o,
+                               int threads, long long max_nodes,
+                               int grid_route, cudaStream_t st) {
+  // the run-time block size's threads own a component each: staged
+  if (BS == 0 && !s.staged) return cudaErrorInvalidValue;
+  return launch_sweep_route(
+      block_mcgs_sweep_kernel<T, BS, true>,
+      block_mcgs_sweep_kernel<T, BS, false>, s, o, threads,
+      BS > 0 ? max_nodes : max_nodes * s.a.bs, grid_route, s.ncolours,
+      s.a.nd, static_cast<size_t>(s.a.n) * sizeof(T), st);
+}
+
+template <typename T>
+int block_sweep(const void* data, const void* offsets, int nd, long long nb,
+                int bs, const void* x_in, void* x, const void* b,
+                const void* dinv, const void* colors, const void* rows,
+                const void* coff, int ncolours, long long max_nodes,
+                void* scratch, const int* order, int norder, int threads,
+                int grid_route, int staged, void* stream) {
+  Order o;
+  if (nb <= 0 || bs < 1 || nd < 0 || ncolours < 1 ||
+      nb * bs / kMaxThreads + 1 >= (1LL << 31) ||
+      !make_order(order, norder, o) ||
+      !sweep_threads_ok(threads, grid_route) ||
+      max_nodes < 0 || (staged && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const SweepArgs<T> s{
+      make_args<T>(data, offsets, nd, nb, bs, 1, x_in, b, dinv, T(1),
+                   nullptr, colors, 0, x, nullptr),
+      static_cast<const int*>(rows), static_cast<const int*>(coff), ncolours,
+      static_cast<T*>(scratch), staged};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // B2's instance choice (dispatch above), so each node keeps B2's bits
+  const bool words = (bs * bs * sizeof(T)) % 16 == 0;
+  const bool aligned = reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dinv) % 16 == 0;
+  cudaError_t err;
+  switch (words && !aligned ? 0 : bs) {
+    case 1:
+      err = launch_block_sweep<T, 1>(s, o, threads, max_nodes, grid_route,
+                                     st);
+      break;
+    case 2:
+      err = launch_block_sweep<T, 2>(s, o, threads, max_nodes, grid_route,
+                                     st);
+      break;
+    case 3:
+      err = launch_block_sweep<T, 3>(s, o, threads, max_nodes, grid_route,
+                                     st);
+      break;
+    case 4:
+      err = launch_block_sweep<T, 4>(s, o, threads, max_nodes, grid_route,
+                                     st);
+      break;
+    default:
+      err = launch_block_sweep<T, 0>(s, o, threads, max_nodes, grid_route,
+                                     st);
+      break;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -942,6 +1305,39 @@ int pyamg_block_dia_jacobi_f64(const void* data, const void* offsets, int nd,
       make_args<double>(data, offsets, nd, nb, bs, lanes, x, b, dinv, omega,
                         omega_dev, colors, colour, y, r),
       mode, stream);
+}
+
+// B3: data, offsets, nd, nb, bs, x_in (the caller's iterate, read only;
+// x itself for a launch that continues one), x (the result), b, dinv,
+// colors, rows, coff, ncolours, max_nodes (the largest colour), scratch
+// (staged, else null), order (host ints), norder, threads, grid_route,
+// staged (the run-time block size requires it), stream
+int pyamg_block_mcgs_sweep_f32(const void* data, const void* offsets, int nd,
+                               long long nb, int bs, const void* x_in,
+                               void* x, const void* b, const void* dinv,
+                               const void* colors, const void* rows,
+                               const void* coff, int ncolours,
+                               long long max_nodes, void* scratch,
+                               const int* order, int norder, int threads,
+                               int grid_route, int staged, void* stream) {
+  return block_sweep<float>(data, offsets, nd, nb, bs, x_in, x, b, dinv,
+                            colors, rows, coff, ncolours, max_nodes, scratch,
+                            order, norder, threads, grid_route, staged,
+                            stream);
+}
+
+int pyamg_block_mcgs_sweep_f64(const void* data, const void* offsets, int nd,
+                               long long nb, int bs, const void* x_in,
+                               void* x, const void* b, const void* dinv,
+                               const void* colors, const void* rows,
+                               const void* coff, int ncolours,
+                               long long max_nodes, void* scratch,
+                               const int* order, int norder, int threads,
+                               int grid_route, int staged, void* stream) {
+  return block_sweep<double>(data, offsets, nd, nb, bs, x_in, x, b, dinv,
+                             colors, rows, coff, ncolours, max_nodes,
+                             scratch, order, norder, threads, grid_route,
+                             staged, stream);
 }
 
 // B1's halo mode: data, ld (values between diagonals), offsets (device),

@@ -41,9 +41,15 @@
 // Out-of-range neighbours: the TPU kernels clamp their halo reads and
 // rely on out-of-range slots holding zero.  Here a read past
 // [0, n_pad) would fault, so the term is skipped instead.
+//
+// The row sum and the Jacobi update live in dia_row.cuh, which the
+// one-launch multicolour sweep (csrc/mcgs.cu) shares, so a sweep's colour
+// phase gives K2's bits.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "dia_row.cuh"
 
 namespace {
 
@@ -69,18 +75,10 @@ __global__ void dia_kernel(const T* __restrict__ data,
   if (Mode == JACOBI || Mode == JACOBI_ZERO_RES) {
     if (omega_dev != nullptr) w = *omega_dev;
   }
-  T acc = T(0);
-  for (int d = 0; d < nd; ++d) {
-    const int64_t j = i + offsets[d];
-    if (j < 0 || j >= n_pad) continue;
-    T xj;
-    if (Mode == JACOBI_ZERO_RES) {
-      xj = w * (dinv[j] * b[j]);
-    } else {
-      xj = x[j];
-    }
-    acc += data[static_cast<int64_t>(d) * n_pad + i] * xj;
-  }
+  const T acc = dia_row_sum(data, offsets, nd, n_pad, i, [&](int64_t j) {
+    if (Mode == JACOBI_ZERO_RES) return w * (dinv[j] * b[j]);
+    return x[j];
+  });
   if (Mode == SPMV) {
     y[i] = acc;
   } else if (Mode == SPMV_SCALED) {
@@ -88,7 +86,7 @@ __global__ void dia_kernel(const T* __restrict__ data,
   } else if (Mode == SPMV_ADD) {
     y[i] = acc + b[i];
   } else if (Mode == JACOBI) {
-    y[i] = x[i] + w * (dinv[i] * (b[i] - acc));
+    y[i] = jacobi_update(x[i], w, dinv[i], b[i], acc);
   } else {
     y[i] = w * (dinv[i] * b[i]);
     r[i] = b[i] - acc;

@@ -29,12 +29,17 @@ x and b (the batched solve).  The kernels they run on a DIA operator:
   dia_jacobi`; K9 for lanes), the zero-guess sweep plus its residual one
   K3 pass (K10), a sweep from a nonzero guess plus the residual of its
   result one K4 pass (K9 then K8 for lanes);
-- a multicolour Gauss-Seidel colour step is one K2 pass (K9) with omega 1
-  and that colour's inverse diagonal, ``where(colors == c, dinv, 0)``:
-  inside the colour ``x + 1 * (dinv * r)`` is the reference's
-  ``x + dinv * r``, outside it ``x + 0`` is ``x``.  The smoother builds
-  the (ncolors, n_pad) stack of those diagonals on the device at its
-  first step on a DIA operator, and keeps it;
+- a multicolour Gauss-Seidel call on one vector is one launch of the
+  sweep kernel (:func:`~pyamg_tpu_torch.sparse.dia.dia_mcgs_sweep`,
+  ``csrc/mcgs.cu``): every colour of each direction of every iteration, a
+  colour phase updating only its own rows by ``x + 1 * (dinv * r)``, the
+  reference's ``x + dinv * r``.  The smoother builds its colour plan (the
+  rows sorted by colour, :func:`~pyamg_tpu_torch.sparse.dia.mcgs_plan`)
+  on the device at its first call on a DIA operator, and keeps it.  On a
+  lane stack a colour step is one K9 pass with omega 1 and that colour's
+  inverse diagonal, ``where(colors == c, dinv, 0)``: inside the colour
+  ``x + 1 * (dinv * r)``, outside it ``x + 0`` is ``x``; the smoother
+  builds the (ncolors, n_pad) stack of those diagonals likewise;
 - a masked Jacobi sweep is one K2 pass (K9) with ``where(mask, dinv,
   0)`` as its inverse diagonal: on the mask ``x + w * (dinv * r)`` is the
   reference's update, off it ``x + w * 0`` is ``x``.  The (nmasks, n_pad)
@@ -58,7 +63,10 @@ The block forms on a
 ``ZERO`` pass (on any operator: it reads only Dinv and b), a later sweep
 one ``STEP`` pass, the single zero-guess sweep plus its residual one
 ``ZERO_RES`` pass (:meth:`DeviceSmoother.zero_call_residual`), and a
-block multicolour Gauss-Seidel colour step one ``COLOUR`` pass.  On any
+block multicolour Gauss-Seidel call on one vector one B3 launch
+(:func:`~pyamg_tpu_torch.sparse.block_dia.block_mcgs_sweep`, by the
+smoother's node colour plan), a colour step on lanes one ``COLOUR`` pass.
+On any
 other operator a sweep is the operator's residual (:func:`residual`:
 one B1 halo ``RESID`` pass on a row-sharded block level, whose STEP and
 ZERO_RES would read neighbouring ranks' nodes) and then the local block
@@ -78,11 +86,13 @@ import torch
 from ..sparse.block_dia import (BlockDIAMatrix, _block_apply,
                                 block_colour_step, block_dia_resid,
                                 block_jacobi_step, block_jacobi_zero,
-                                block_jacobi_zero_res)
+                                block_jacobi_zero_res, block_mcgs_plan,
+                                block_mcgs_sweep)
 from ..sparse.dia import (DIAMatrix, dia_jacobi, dia_jacobi_k,
                           dia_jacobi_res, dia_jacobi_res_k,
                           dia_jacobi_zero_res, dia_jacobi_zero_res_k,
-                          dia_spmm_add, dia_spmv_add)
+                          dia_mcgs_sweep, dia_spmm_add, dia_spmv_add,
+                          mcgs_plan)
 from ..sparse.formats import fit as _fit_len
 
 __all__ = ["DeviceSmoother", "apply_smoother", "apply_smoother_zero",
@@ -101,7 +111,9 @@ class DeviceSmoother:
     (ncolors, n_pad) per-colour inverse diagonals, and a masked Jacobi
     smoother ``mask_dinv``, its (nmasks, n_pad) per-mask ones, each built
     from ``arrays`` on the device when first read (its first step on a
-    DIA operator)."""
+    DIA operator's lane stack, or its first sweep); a multicolour
+    smoother (scalar or block) its colour plan for the operator of its
+    last one-vector call (:meth:`plan`)."""
 
     config: Tuple
     arrays: Tuple
@@ -125,6 +137,22 @@ class DeviceSmoother:
             return None
         return _dinv_stack(self.arrays[0], torch.stack(self.arrays[1:]))
 
+    def plan(self, A):
+        """The colour plan of a multicolour smoother on A (a DIA operator
+        for ``mcgs``, a block-DIA one for ``block_mcgs``), built on the
+        device at the first call on A (one host read) and kept; None for
+        any other kind or operator."""
+        kind = self.config[0]
+        if not ((kind == "mcgs" and isinstance(A, DIAMatrix))
+                or (kind == "block_mcgs" and isinstance(A, BlockDIAMatrix))):
+            return None
+        kept = self.__dict__.get("_plan")
+        if kept is None or kept[0] is not A:
+            build = mcgs_plan if kind == "mcgs" else block_mcgs_plan
+            kept = (A, build(A, self.arrays[1], self.config[1]))
+            self.__dict__["_plan"] = kept
+        return kept[1]
+
     def _stack(self, A):
         """The per-colour or per-mask stack where a colour step or a
         masked sweep is one K2 / K9 pass."""
@@ -147,16 +175,25 @@ class DeviceSmoother:
             return None
         return dinv, omega, iterations
 
+    def _forms(self, A, x):
+        """apply_smoother's keyword arguments for A and an x of x.ndim
+        axes: the colour plan of a one-vector multicolour call, else the
+        per-colour or per-mask stack."""
+        plan = self.plan(A) if x.ndim == 1 else None
+        if plan is not None:
+            return dict(plan=plan)
+        return dict(dinv_stack=self._stack(A))
+
     def __call__(self, A, x, b):
         return apply_smoother(self.config, self.arrays, A, x, b,
-                              dinv_stack=self._stack(A))
+                              **self._forms(A, x))
 
     def zero_call(self, A, b):
         """Apply with a known-zero initial guess: the first Jacobi or
         Richardson sweep collapses to a scaling of b, the first polynomial
         residual is b."""
         return apply_smoother_zero(self.config, self.arrays, A, b,
-                                   dinv_stack=self._stack(A))
+                                   **self._forms(A, b))
 
     def zero_call_residual(self, A, b):
         """(x, r) = (zero_call(A, b), b - A @ x) in one kernel pass when
@@ -440,7 +477,7 @@ def _sweeps(ncolors, sweep):
     return order
 
 
-def apply_smoother_zero(config, arrays, A, b, dinv_stack=None):
+def apply_smoother_zero(config, arrays, A, b, dinv_stack=None, plan=None):
     """apply_smoother with x = 0: the first sweep collapses (a Jacobi or
     Richardson sweep to a scaling of b, the first polynomial residual to
     b); the remaining sweeps run the general form."""
@@ -491,16 +528,19 @@ def apply_smoother_zero(config, arrays, A, b, dinv_stack=None):
         return h
 
     return apply_smoother(config, arrays, A, torch.zeros_like(b), b,
-                          dinv_stack=dinv_stack)
+                          dinv_stack=dinv_stack, plan=plan)
 
 
-def apply_smoother(config, arrays, A, x, b, dinv_stack=None):
+def apply_smoother(config, arrays, A, x, b, dinv_stack=None, plan=None):
     """The smoother ``config``/``arrays`` applied to (A, x, b); x and b
     are vectors or K-major (K, n_pad) lane stacks.  ``dinv_stack``: a
     multicolour smoother's per-colour stack (``DeviceSmoother.color_dinv``)
     or a masked Jacobi smoother's per-mask one (``mask_dinv``) on a DIA
     operator, where each colour step or masked sweep is then one K2 / K9
-    pass; without it the steps compose, as the reference's."""
+    pass; ``plan``: a multicolour smoother's colour plan
+    (:meth:`DeviceSmoother.plan`) for a one-vector call on a DIA (block-DIA)
+    operator, which is then one sweep launch; without either the steps
+    compose, as the reference's."""
     kind = config[0]
 
     if kind == "identity":
@@ -530,6 +570,9 @@ def apply_smoother(config, arrays, A, x, b, dinv_stack=None):
     if kind == "mcgs":
         _, ncolors, sweep, iterations = config
         dinv, colors = arrays
+        if plan is not None:
+            return dia_mcgs_sweep(A, x, b, dinv, plan,
+                                  _sweeps(ncolors, sweep) * iterations)
         if dinv_stack is not None:
             for _ in range(iterations):
                 for c in _sweeps(ncolors, sweep):
@@ -550,6 +593,9 @@ def apply_smoother(config, arrays, A, x, b, dinv_stack=None):
     if kind == "block_mcgs":
         _, ncolors, sweep, iterations = config
         Dinv, colors = arrays
+        if plan is not None:
+            return block_mcgs_sweep(A, x, b, Dinv, plan,
+                                    _sweeps(ncolors, sweep) * iterations)
         if isinstance(A, BlockDIAMatrix):
             for _ in range(iterations):
                 for c in _sweeps(ncolors, sweep):

@@ -20,9 +20,14 @@ CUDA kernels (``csrc/block_dia.cu``), one pass each, no temporary:
 - :func:`block_jacobi_step`    x + w Dinv (b - A x)           (B2 ``STEP``)
 - :func:`block_colour_step`    x + Dinv (b - A x) on the nodes of one
                                colour, x elsewhere            (B2 ``COLOUR``)
+- :func:`block_mcgs_sweep`     a block multicolour Gauss-Seidel smoother
+                               call, every colour step in one launch (B3)
 
-x and b are vectors (n_pad,) or K-major (K, n_pad) lane stacks; Dinv is
-the (nb_pad, bs, bs) inverse diagonal blocks, colours int32 (nb_pad,).
+x and b are vectors (n_pad,) or K-major (K, n_pad) lane stacks (B3 takes
+one vector); Dinv is the (nb_pad, bs, bs) inverse diagonal blocks,
+colours int32 (nb_pad,).  B3 runs by a colour plan of the nodes
+(:func:`block_mcgs_plan`, the scalar sweep's
+:class:`~pyamg_tpu_torch.sparse.dia.MCGSPlan` over nodes).
 
 No Pallas kernel stands behind this format in the reference (its block
 algebra is plain ``jnp``), so these replace none; they exist because the
@@ -43,6 +48,7 @@ contributes exactly zero; the kernels skip such a neighbour.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Tuple
@@ -53,14 +59,17 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .dia import _KERNEL_DTYPES, _omega_args
+from .dia import (_KERNEL_DTYPES, MCGSPlan, _omega_args, _ptr,
+                  _same_colour_coupling, _sweep_chunks, _sweep_order,
+                  colour_plan)
 
 __all__ = ["BlockDIAMatrix", "block_dia_from_scipy", "block_dia_apply",
            "block_dia_resid", "block_jacobi_zero", "block_jacobi_zero_res",
            "block_jacobi_step", "block_colour_step", "block_dia_spmv_ref",
            "block_dia_resid_ref", "block_jacobi_zero_ref",
            "block_jacobi_zero_res_ref", "block_jacobi_step_ref",
-           "block_colour_step_ref"]
+           "block_colour_step_ref", "block_mcgs_plan", "block_mcgs_sweep",
+           "block_mcgs_sweep_ref"]
 
 # modes of csrc/block_dia.cu: block_dia_spmv_kernel (B1) and
 # block_dia_jacobi_kernel (B2)
@@ -254,6 +263,42 @@ def block_colour_step_ref(A: BlockDIAMatrix, x, b, Dinv, colors, colour):
         x.shape)
 
 
+def block_mcgs_sweep_ref(A: BlockDIAMatrix, x, b, Dinv, plan, order):
+    """The colour steps of ``order`` one after another, each B2 COLOUR's
+    twin (the parent chain's form)."""
+    for c in order:
+        x = block_colour_step_ref(A, x, b, Dinv, plan.colors, c)
+    return x
+
+
+def _runtime_block_size(A: BlockDIAMatrix, Dinv):
+    """Whether B2 and B3 take the run-time block size instance for A and
+    Dinv (csrc/block_dia.cu, dispatch): bs beyond 4, or a block of 16-byte
+    words whose storage does not start 16-byte aligned."""
+    words = A.bs * A.bs * A.data.element_size() % 16 == 0
+    aligned = A.data.data_ptr() % 16 == 0 and Dinv.data_ptr() % 16 == 0
+    return A.bs > 4 or (words and not aligned)
+
+
+def block_mcgs_plan(A: BlockDIAMatrix, colors, ncolors):
+    """The node colour plan of a block multicolour smoother (int32
+    ``colors`` (nb_pad,), -1 on padded nodes) on A: staged where a stored
+    nonzero block of A couples two nodes of one colour (the amalgamated
+    node pattern's JP colouring of a symmetric operator never does), or
+    where B3 takes the run-time block size, whose threads own a component
+    each."""
+    if colors.shape != (A.nb_pad,) or colors.dtype != torch.int32:
+        raise ValueError(f"colors: expected int32 ({A.nb_pad},), got "
+                         f"{colors.dtype} {tuple(colors.shape)}")
+    nonzero = (A.data != 0).flatten(2).any(-1)           # (nd, nb_pad)
+    coupled = _same_colour_coupling(colors, A.offsets,
+                                    lambda d, lo, hi: nonzero[d, lo:hi])
+    runtime = A.bs > 4
+    return colour_plan(colors, ncolors, coupled | runtime,
+                       A.n_pad * A.data.element_size(),
+                       A.bs if runtime else 1)
+
+
 # -- the kernel wrappers ------------------------------------------------------
 #
 # Each checks its operands on either device (float32 or float64 throughout,
@@ -422,6 +467,46 @@ def block_colour_step(A: BlockDIAMatrix, x, b, Dinv, colors, colour):
     y = torch.empty_like(x)
     _launch("block_dia_jacobi", _COLOUR, A.dtype, A.device, A.nb_pad, A.bs,
             A, x, b, (y, None), _jacobi_shared(Dinv, 1.0, colors, colour))
+    return y
+
+
+def block_mcgs_sweep(A: BlockDIAMatrix, x, b, Dinv, plan: MCGSPlan, order):
+    """A block multicolour Gauss-Seidel smoother call on one vector: for
+    each colour c of ``order``, x + Dinv (b - A x) on the nodes of colour
+    c, in one B3 launch by ``plan`` (:func:`block_mcgs_plan`), each node B2
+    ``COLOUR``'s bits.  The caller's x is not changed."""
+    cpu = _build.on_cpu(A.data, x, b, Dinv, plan.rows)
+    _check_matrix(A)
+    _check_operand("Dinv", Dinv, A.dtype, (A.nb_pad, A.bs, A.bs))
+    _check_operand("x", x, A.dtype, (A.n_pad,))
+    _check_operand("b", b, A.dtype, (A.n_pad,))
+    _check_operand("plan.colors", plan.colors, torch.int32, (A.nb_pad,))
+    if cpu:
+        return block_mcgs_sweep_ref(A, x, b, Dinv, plan, order)
+    order = _sweep_order(order, plan.ncolors)
+    if not order:
+        return x
+    suffix, _ = _KERNEL_DTYPES[A.dtype]
+    fn_name = f"pyamg_block_mcgs_sweep_{suffix}"
+    fn = getattr(_build.library(), fn_name)
+    staged = plan.staged or _runtime_block_size(A, Dinv)
+    y = torch.empty_like(x)
+    scratch = (torch.empty(max(plan.max_rows, 1) * A.bs, dtype=x.dtype,
+                           device=x.device) if staged else None)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    x_in = x
+    for chunk in _sweep_chunks(order):
+        err = fn(A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags,
+                 A.nb_pad, A.bs, x_in.data_ptr(), y.data_ptr(), b.data_ptr(),
+                 Dinv.data_ptr(), plan.colors.data_ptr(),
+                 plan.rows.data_ptr(), plan.offsets.data_ptr(),
+                 plan.ncolors, plan.max_rows, _ptr(scratch),
+                 (ctypes.c_int * len(chunk))(*chunk), len(chunk),
+                 plan.threads, int(plan.route == "grid"), int(staged),
+                 stream)
+        _build.check(fn_name, err)
+        _build.count_launch(f"block_mcgs_sweep.{_build.dtype_name(A.dtype)}")
+        x_in = y
     return y
 
 

@@ -17,6 +17,9 @@ Kernel entry points (``csrc/dia.cu``, one template in five modes, and
                                                              (TPU: ``dia_pallas_jacobi_res``)
 - :func:`dia_zero_chain`      (x, tv (St (b - A x))), x = w dinv b
                                                              (TPU: ``dia_pallas_zero_chain``)
+- :func:`dia_mcgs_sweep`      a multicolour Gauss-Seidel smoother call, every
+                              colour step in one launch (``csrc/mcgs.cu``;
+                              was one ``dia_pallas_jacobi`` a colour step)
 
 K-lane entry points (``csrc/dia_k.cu``) over K-major (K, n_pad) lane
 stacks, the batched solve's layout:
@@ -33,6 +36,12 @@ stacks, the batched solve's layout:
 through three stages with two rings in shared memory, so each inner value
 is computed once, by the plan of :func:`chain_plan`; a shape that plan
 refuses takes the per-row kernel, with the same bits.
+
+:func:`dia_mcgs_sweep` runs the colours of a smoother call by the colour
+plan of :func:`mcgs_plan` (the rows sorted by colour, built once per
+smoother and operator on the device): a phase a colour, each touching
+only that colour's rows, a barrier between phases (a cooperative grid,
+or one CTA on a small level, :func:`sweep_route`).
 
 :func:`dia_spmm` (all three modes), :func:`dia_jacobi_k` and
 :func:`dia_jacobi_zero_res_k` put the lane on the grid, every lane in one
@@ -84,7 +93,9 @@ __all__ = ["DIAMatrix", "dia_from_scipy", "dia_from_stencil", "dia_spgemm",
            "dia_jacobi_res_k", "dia_jacobi_zero_res_k", "dia_spmm_ref",
            "dia_spmm_scaled_ref", "dia_spmm_add_ref", "dia_jacobi_k_ref",
            "dia_jacobi_zero_res_k_ref", "dia_zero_chain_k_ref", "K8Plan",
-           "k8_plan", "K11Plan", "k11_plan", "ChainPlan", "chain_plan"]
+           "k8_plan", "K11Plan", "k11_plan", "ChainPlan", "chain_plan",
+           "MCGSPlan", "mcgs_plan", "colour_plan", "sweep_route",
+           "dia_mcgs_sweep", "dia_mcgs_sweep_ref"]
 
 # modes of csrc/dia.cu::dia_kernel and csrc/dia_chain.cu
 _SPMV, _JACOBI, _JACOBI_ZERO_RES, _SPMV_SCALED, _SPMV_ADD = 0, 1, 2, 3, 4
@@ -113,6 +124,19 @@ _SMEM_BLOCK = 232448
 _CHAIN_VEC = {torch.float32: 4, torch.float64: 2}
 _CHAIN_THREADS = (1024, 512, 256)
 _CHAIN_MAX_DIAGS = 32
+# the multicolour sweeps (csrc/mcgs.cu, csrc/block_dia.cu's B3; the
+# barriers of csrc/sweep.cuh): phases a launch at most (kMaxPhases), the
+# threads of the one-CTA route (its one CTA) and of the grid route (a
+# CTA), the largest colour, in work items (rows, nodes, or a node's
+# components at a run-time block size), that the one-CTA route takes (a
+# work item a thread; PERF.md §6, S1 and B3: the grid route wins from
+# ~1600 rows a colour, the one CTA below ~400), and the iterate's bytes
+# that its shared memory holds (227 KB less the offsets' few)
+_SWEEP_MAX_PHASES = 256
+_SWEEP_CTA_THREADS = 1024
+_SWEEP_GRID_THREADS = 128
+_SWEEP_CTA_ITEMS = 1024
+_SWEEP_CTA_X_BYTES = _SMEM_BLOCK - 4096
 
 
 @dataclass(frozen=True)
@@ -299,6 +323,17 @@ def dia_jacobi_res_ref(A: DIAMatrix, x, b, dinv, omega):
 def dia_zero_chain_ref(A: DIAMatrix, St: DIAMatrix, b, dinv, tv, omega):
     x, r = dia_jacobi_zero_res_ref(A, b, dinv, omega)
     return x, tv * dia_spmv_ref(St, r)
+
+
+def dia_mcgs_sweep_ref(A: DIAMatrix, x, b, dinv, plan, order):
+    """The colour steps of ``order`` one after another, each K2's twin with
+    that colour's inverse diagonal ``where(colors == c, dinv, 0)`` and
+    omega 1 (the parent chain's form)."""
+    zero = torch.zeros((), dtype=dinv.dtype, device=dinv.device)
+    for c in order:
+        x = dia_jacobi_ref(A, x, b, torch.where(plan.colors == c, dinv, zero),
+                           1.0)
+    return x
 
 
 def dia_spmm_ref(A: DIAMatrix, Xk):
@@ -538,6 +573,122 @@ def chain_plan(offsets, soffsets, n_pad, dtype, sms, aligned=True):
     strips = max(1, min(sms, strips))
     strip = -(-(-(-n_pad // strips)) // vec) * vec
     return dataclasses.replace(plan, strip=strip, strips=-(-n_pad // strip))
+
+
+@dataclass(frozen=True)
+class MCGSPlan:
+    """A multicolour smoother's colour plan on one operator: the coloured
+    rows (of a scalar DIA operator; nodes of a block one) sorted by colour
+    with the padding (colour -1) dropped, ``rows[offsets[c]:offsets[c +
+    1]]`` colour c's, both int32 on the device (the kernels read
+    ``offsets`` themselves); ``sizes`` the rows of each colour (host);
+    ``colors`` the colouring itself (the first phase and the twins read
+    it); ``staged`` whether a stored nonzero couples two rows of one colour
+    (a colour phase then stages its new values); ``route`` "grid" (a
+    cooperative launch) or "cta" (one CTA) and its ``threads`` a CTA."""
+
+    rows: torch.Tensor
+    offsets: torch.Tensor
+    sizes: Tuple[int, ...]
+    colors: torch.Tensor
+    staged: bool
+    route: str
+    threads: int
+
+    @property
+    def ncolors(self):
+        return len(self.sizes)
+
+    @property
+    def max_rows(self):
+        """The largest colour's rows (the staged scratch, the grid)."""
+        return max(self.sizes, default=0)
+
+
+def sweep_route(items, x_bytes):
+    """(route, threads) of a multicolour sweep whose largest colour holds
+    ``items`` work items on an iterate of ``x_bytes``: one CTA of 1024
+    threads (its barrier a __syncthreads(), the iterate in its shared
+    memory) where every thread holds at most one item and the iterate
+    fits, else a cooperative grid of 128-thread CTAs (a grid-wide barrier
+    costs microseconds; one CTA's items, a memory round trip each, cost
+    more beyond the crossover, PERF.md §6, S1)."""
+    if items <= _SWEEP_CTA_ITEMS and x_bytes <= _SWEEP_CTA_X_BYTES:
+        return "cta", _SWEEP_CTA_THREADS
+    return "grid", _SWEEP_GRID_THREADS
+
+
+def colour_plan(colors, ncolors, coupled, x_bytes, items_per_row=1):
+    """The :class:`MCGSPlan` of the int32 colouring ``colors`` (-1 on the
+    padding) with ``ncolors`` colours, built on its device: a stable sort
+    of the rows by colour, a count of each colour and its prefix sum.
+    ``coupled``: a 0-d bool tensor, whether a stored nonzero couples two
+    rows of one colour.  The counts and that verdict come to the host in
+    one read; nothing later reads the device.  ``x_bytes``: the
+    iterate's size; ``items_per_row``: work items a row gives the kernel
+    (a node's components at a run-time block size); both for the
+    route."""
+    dev = colors.device
+    key = torch.where(colors >= 0, colors,
+                      torch.full((), ncolors, dtype=colors.dtype, device=dev))
+    rows = torch.argsort(key, stable=True).to(torch.int32)
+    # a count by index_add_ (bincount reads its maximum to the host)
+    counts = torch.zeros(ncolors + 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, key.long(), torch.ones_like(key, dtype=torch.int64))
+    counts = counts[:ncolors]
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(counts, 0)]).to(torch.int32)
+    host = torch.cat([counts, coupled.reshape(1).to(torch.int64)]).tolist()
+    sizes = tuple(int(v) for v in host[:-1])
+    route, threads = sweep_route(max(sizes, default=0) * items_per_row,
+                                 x_bytes)
+    return MCGSPlan(rows=rows[:sum(sizes)].contiguous(), offsets=offsets,
+                    sizes=sizes, colors=colors, staged=bool(host[-1]),
+                    route=route, threads=threads)
+
+
+def _same_colour_coupling(colors, offsets, nonzero):
+    """0-d bool: whether some row i and its neighbour j = i + offsets[d]
+    (both in range) share a colour (not -1) while ``nonzero(d, lo, hi)``,
+    the stored entries of diagonal d on rows [lo, hi), is True there."""
+    n = colors.shape[0]
+    found = torch.zeros((), dtype=torch.bool, device=colors.device)
+    for d, o in enumerate(offsets):
+        if o == 0 or abs(o) >= n:
+            continue
+        lo, hi = max(0, -o), n - max(0, o)
+        ci, cj = colors[lo:hi], colors[lo + o:hi + o]
+        found = found | (nonzero(d, lo, hi) & (ci == cj) & (ci >= 0)).any()
+    return found
+
+
+def mcgs_plan(A: DIAMatrix, colors, ncolors):
+    """The colour plan of a multicolour smoother (int32 ``colors`` (n_pad,),
+    -1 on padded rows) on the DIA operator A: staged where a stored nonzero
+    of A couples two rows of one colour (a one-sided pattern coloured as
+    it is can; a JP colouring of a symmetric one never does)."""
+    if colors.shape != (A.n_pad,) or colors.dtype != torch.int32:
+        raise ValueError(f"colors: expected int32 ({A.n_pad},), got "
+                         f"{colors.dtype} {tuple(colors.shape)}")
+    coupled = _same_colour_coupling(
+        colors, A.offsets, lambda d, lo, hi: A.data[d, lo:hi] != 0)
+    return colour_plan(colors, ncolors, coupled,
+                       A.n_pad * A.data.element_size())
+
+
+def _sweep_order(order, ncolors):
+    """The phases of a sweep as ints, each a colour of the plan."""
+    order = [int(c) for c in order]
+    if any(c < 0 or c >= ncolors for c in order):
+        raise ValueError(f"order: colours must lie in [0, {ncolors}), got "
+                         f"{order}")
+    return order
+
+
+def _sweep_chunks(order):
+    """The phases of each launch: at most _SWEEP_MAX_PHASES a launch."""
+    return [order[k:k + _SWEEP_MAX_PHASES]
+            for k in range(0, len(order), _SWEEP_MAX_PHASES)]
 
 
 # ---------------------------------------------------------------------------
@@ -812,6 +963,45 @@ def dia_zero_chain(A: DIAMatrix, St: DIAMatrix, b, dinv, tv, omega):
     _chain(_ZERO_CHAIN, "dia_zero_chain", plan, A, St, None, b, dinv, tv,
            omega, x, y)
     return x, y
+
+
+def dia_mcgs_sweep(A: DIAMatrix, x, b, dinv, plan: MCGSPlan, order):
+    """A multicolour Gauss-Seidel smoother call on one vector: for each
+    colour c of ``order`` (every colour of each direction of every
+    iteration), x = x + 1 * (dinv * (b - A @ x)) on the rows of colour c,
+    in one launch of ``csrc/mcgs.cu`` by ``plan`` (:func:`mcgs_plan`), each
+    row K2's bits.  The caller's x is not changed."""
+    if _build.on_cpu(A.data, x, b, dinv, plan.rows):
+        return dia_mcgs_sweep_ref(A, x, b, dinv, plan, order)
+    _kernel_operand(A)
+    _check_vectors(A, x=x, b=b, dinv=dinv)
+    order = _sweep_order(order, plan.ncolors)
+    if plan.colors.shape != (A.n_pad,):
+        raise ValueError(f"plan: built for {tuple(plan.colors.shape)} rows, "
+                         f"not {A.n_pad}")
+    if not order:
+        return x
+    suffix, c_scalar = _KERNEL_DTYPES[A.dtype]
+    fn_name = f"pyamg_mcgs_sweep_{suffix}"
+    fn = getattr(_build.library(), fn_name)
+    y = torch.empty_like(x)
+    scratch = (torch.empty(max(plan.max_rows, 1), dtype=x.dtype,
+                           device=x.device) if plan.staged else None)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    x_in = x
+    for chunk in _sweep_chunks(order):
+        err = fn(A.data.data_ptr(), A.offsets_t.data_ptr(), A.ndiags,
+                 A.n_pad, x_in.data_ptr(), y.data_ptr(), b.data_ptr(),
+                 dinv.data_ptr(), c_scalar(1.0), plan.colors.data_ptr(),
+                 plan.rows.data_ptr(), plan.offsets.data_ptr(),
+                 plan.ncolors, plan.max_rows, _ptr(scratch),
+                 (ctypes.c_int * len(chunk))(*chunk), len(chunk),
+                 plan.threads, int(plan.route == "grid"), int(plan.staged),
+                 stream)
+        _build.check(fn_name, err)
+        _count("dia_mcgs_sweep", A)
+        x_in = y
+    return y
 
 
 def dia_spmm(A: DIAMatrix, Xk):

@@ -1198,9 +1198,9 @@ def test_smoothers_on_card_match_cpu(cuda, name):
     """Each smoother kind compiled from a host-built 128^2 float64
     hierarchy, applied on the card and on the CPU copy (the twins) to the
     same inputs, on the DIA level 0, from a guess and from zero, to a
-    vector and to K = 3 lanes, to rtol 1e-12; a multicolour colour step
-    launches K2 (K9 on lanes), a Horner step K1 ``SPMV_ADD`` (K8 on
-    lanes)."""
+    vector and to K = 3 lanes, to rtol 1e-12; a multicolour call on one
+    vector is one launch of the sweep kernel (a colour step K9 on lanes),
+    a Horner step K1 ``SPMV_ADD`` (K8 on lanes)."""
     import warnings
 
     from pyamg_tpu_torch import compile_hierarchy
@@ -1229,7 +1229,10 @@ def test_smoothers_on_card_match_cpu(cuda, name):
             assert _rel_err(g.cpu(), w) <= 1e-12
         k = "_k" if len(shape) == 2 else ""
         if name in ("mcgs", "sor"):
-            assert counts.get(f"dia_jacobi{k}.float64", 0) > 0, counts
+            if k:
+                assert counts.get("dia_jacobi_k.float64", 0) > 0, counts
+            else:
+                assert counts == {"dia_mcgs_sweep.float64": 2}, counts
         if name == "chebyshev":
             key = "dia_spmm_add" if k else "dia_spmv_add"
             assert counts.get(f"{key}.float64", 0) > 0, counts
@@ -1853,3 +1856,214 @@ def test_sharded_transposes_on_card(cuda, dtype):
         assert _rel_err(got, D.rmatvec(y)) <= TOL[dtype]
         xb = X[0] if lanes is None else X
         assert torch.equal(shb.rmatvec(xb), bd.block_dia_apply(Ab.T, xb))
+
+
+# ---------------------------------------------------------------------------
+# the one-launch multicolour sweeps (S1: csrc/mcgs.cu; B3: csrc/block_dia.cu)
+# ---------------------------------------------------------------------------
+
+SWEEP_THREADS = {"cta": 1024, "grid": 128}
+
+
+def _forced(plan, route, staged):
+    return dataclasses.replace(plan, route=route,
+                               threads=SWEEP_THREADS[route], staged=staged)
+
+
+def _scalar_sweep_case(which, dtype, dev):
+    """(DIA, dinv, colours, ncolours, plan) of a symmetric operator
+    (Poisson 64^2, JP colouring: in place) or upwind advection 64^2 (its
+    one-sided pattern's JP colouring couples a colour: staged)."""
+    from pyamg_tpu_torch import advection_2d
+    from pyamg_tpu_torch.graph import vertex_coloring
+
+    A = (poisson((64, 64), format="csr") if which == "poisson"
+         else advection_2d((64, 64))[0].tocsr())
+    D = dia_from_scipy(A, dtype=dtype, device=dev, row_pad=1024)
+    c = vertex_coloring(A, method="JP")
+    colors = np.full(D.n_pad, -1, dtype=np.int32)
+    colors[: len(c)] = c
+    dinv = torch.zeros(D.n_pad, dtype=dtype, device=dev)
+    dinv[: A.shape[0]] = torch.as_tensor(1.0 / A.diagonal(), dtype=dtype)
+    colors = torch.as_tensor(colors, device=dev)
+    ncolors = int(c.max()) + 1
+    return D, dinv, colors, ncolors, dia.mcgs_plan(D, colors, ncolors)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", ["cta", "grid"])
+# in place only where no stored nonzero couples a colour (Poisson)
+@pytest.mark.parametrize("which,staged", [("poisson", False),
+                                          ("poisson", True),
+                                          ("advection", True)])
+def test_mcgs_sweep_matches_k2_chain(cuda, which, staged, route, dtype):
+    """S1 in both barrier routes, in place and staged (in place only where
+    the plan allows it), symmetric with 2 iterations: bit for bit the
+    chain of K2 colour steps with each colour's inverse diagonal (the
+    parent's path), within tolerance of its twin, one launch a call, two
+    launches bit-identical, the caller's x unchanged, the twin not run."""
+    from pyamg_tpu_torch.engine import relaxation as rel
+
+    D, dinv, colors, ncolors, plan = _scalar_sweep_case(which, dtype, cuda)
+    assert plan.staged == (which == "advection")
+    p = _forced(plan, route, staged)
+    order = rel._sweeps(ncolors, "symmetric") * 2
+    x, b = (_rand(D.n_pad, dtype, cuda, s) for s in (3, 4))
+    x0 = x.clone()
+    stack = rel.multicolor_gs(dinv, colors, ncolors).color_dinv
+    want = x
+    for c in order:
+        want = dia.dia_jacobi(D, want, b, stack[c], 1.0)
+    name = f"dia_mcgs_sweep.{str(dtype).removeprefix('torch.')}"
+    calls = []
+    real = dia.dia_mcgs_sweep_ref
+    dia.dia_mcgs_sweep_ref = lambda *a: calls.append(1) or real(*a)
+    try:
+        _build.reset_launches()
+        got = dia.dia_mcgs_sweep(D, x, b, dinv, p, order)
+        again = dia.dia_mcgs_sweep(D, x, b, dinv, p, order)
+        torch.cuda.synchronize()
+        assert _build.launches == {name: 2}
+    finally:
+        dia.dia_mcgs_sweep_ref = real
+    assert not calls
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert torch.equal(x, x0)
+    twin = dia.dia_mcgs_sweep_ref(D, x, b, dinv, plan, order)
+    assert _rel_err(got, twin) <= TOL[dtype]
+
+
+def test_mcgs_sweep_long_order_and_smoother(cuda):
+    """An order longer than a launch's 256 phases takes two launches with
+    the chain's bits; the smoother's own call on one vector is one sweep
+    launch (its plan kept), on lanes K9 colour steps."""
+    from pyamg_tpu_torch.engine import relaxation as rel
+
+    D, dinv, colors, ncolors, plan = _scalar_sweep_case(
+        "poisson", torch.float32, cuda)
+    order = rel._sweeps(ncolors, "symmetric") * 40
+    assert len(order) > 256
+    x, b = (_rand(D.n_pad, torch.float32, cuda, s) for s in (5, 6))
+    stack = rel.multicolor_gs(dinv, colors, ncolors).color_dinv
+    want = x
+    for c in order:
+        want = dia.dia_jacobi(D, want, b, stack[c], 1.0)
+    _build.reset_launches()
+    got = dia.dia_mcgs_sweep(D, x, b, dinv, plan, order)
+    assert _build.launches == {"dia_mcgs_sweep.float32": 2}
+    assert torch.equal(got, want)
+    sm = rel.multicolor_gs(dinv, colors, ncolors, sweep="symmetric",
+                           iterations=40)
+    _build.reset_launches()
+    assert torch.equal(sm(D, x, b), want)
+    assert sm.plan(D) is sm.plan(D)
+    assert _build.launches == {"dia_mcgs_sweep.float32": 2}
+    _build.reset_launches()
+    sm1 = rel.multicolor_gs(dinv, colors, ncolors, sweep="symmetric")
+    X = torch.stack([x, b])
+    sm1(D, X, X)
+    assert _build.launches == {"dia_jacobi_k.float32": 2 * ncolors}
+
+
+def _block_sweep_case(dtype, dev, bs=2, misalign=False):
+    """A block level with a valid colouring (elasticity 24^2, 2x2 blocks,
+    the JP node colouring, Dinv its inverse diagonal blocks: in place),
+    or for bs != 2 or a misaligned bs 2 the random banded case of
+    ``_block_case`` with its random colours 0..3 (staged)."""
+    from pyamg_tpu_torch import linear_elasticity
+    from pyamg_tpu_torch.engine.hierarchy import (_block_colors_for,
+                                                  _device_block_dinv)
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    if bs == 2 and not misalign:
+        A4, _ = linear_elasticity((24, 24))
+        A = bd.block_dia_from_scipy(A4.tobsr(blocksize=(2, 2)), dtype=dtype,
+                                    device=dev)
+        D = _device_block_dinv(A4, 2, A.nb_pad, dtype, dev)
+        colors, ncolors = _block_colors_for(A4, 2, A.nb_pad, dev)
+        x, b = (_rand(A.n_pad, dtype, dev, s) for s in (7, 8))
+    else:
+        A, x, b, D, colors = _block_case(bs, dtype, dev, None,
+                                         misalign=misalign)
+        ncolors = 4
+    return A, x, b, D, colors, ncolors, bd.block_mcgs_plan(A, colors,
+                                                             ncolors)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", ["cta", "grid"])
+# in place only on the elasticity level (bs 2, aligned): the others'
+# random colours couple a colour
+@pytest.mark.parametrize("bs,misalign,staged", [
+    (2, False, False), (2, False, True), (1, False, True), (3, False, True),
+    (4, False, True), (5, False, True), (2, True, True)])
+def test_block_mcgs_sweep_matches_colour_chain(cuda, bs, misalign, staged,
+                                               route, dtype):
+    """B3 in both barrier routes, in place and staged (in place only where
+    the plan allows it), symmetric with 2 iterations, bs 1-4 unrolled, bs
+    5 and a misaligned bs 2 through the run-time block size: bit for bit
+    the chain of B2 COLOUR steps (the parent's path), within tolerance of
+    its twin, one launch a call, the caller's x unchanged, the twin not
+    run."""
+    from pyamg_tpu_torch.engine import relaxation as rel
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    A, x, b, D, colors, ncolors, plan = _block_sweep_case(dtype, cuda, bs,
+                                                          misalign)
+    assert plan.staged == (bs != 2 or misalign)
+    p = _forced(plan, route, staged)
+    order = rel._sweeps(ncolors, "symmetric") * 2
+    x0 = x.clone()
+    want = x
+    for c in order:
+        want = bd.block_colour_step(A, want, b, D, colors, c)
+    name = f"block_mcgs_sweep.{str(dtype).removeprefix('torch.')}"
+    calls = []
+    real = bd.block_mcgs_sweep_ref
+    bd.block_mcgs_sweep_ref = lambda *a: calls.append(1) or real(*a)
+    try:
+        _build.reset_launches()
+        got = bd.block_mcgs_sweep(A, x, b, D, p, order)
+        again = bd.block_mcgs_sweep(A, x, b, D, p, order)
+        torch.cuda.synchronize()
+        assert _build.launches == {name: 2}
+    finally:
+        bd.block_mcgs_sweep_ref = real
+    assert not calls
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert torch.equal(x, x0)
+    twin = bd.block_mcgs_sweep_ref(A, x, b, D, plan, order)
+    assert _rel_err(got, twin) <= TOL[dtype]
+
+
+def test_mcgs_sweep_failures_raise_without_fallback(cuda):
+    """A launch the kernel refuses (a CTA of 2000 threads) and a colour
+    outside the plan raise from the scalar wrapper with neither its twin
+    nor the K2 chain run; the refused launch raises from the block
+    wrapper too."""
+    from pyamg_tpu_torch.engine import relaxation as rel
+    from pyamg_tpu_torch.sparse import block_dia as bd
+
+    D, dinv, colors, ncolors, plan = _scalar_sweep_case(
+        "poisson", torch.float32, cuda)
+    order = rel._sweeps(ncolors, "forward")
+    x, b = (_rand(D.n_pad, torch.float32, cuda, s) for s in (1, 2))
+    calls = []
+    real, real_k2 = dia.dia_mcgs_sweep_ref, dia.dia_jacobi
+    dia.dia_mcgs_sweep_ref = lambda *a: calls.append(1)
+    dia.dia_jacobi = lambda *a: calls.append(1)
+    try:
+        with pytest.raises(RuntimeError, match="pyamg_mcgs_sweep_f32"):
+            dia.dia_mcgs_sweep(D, x, b, dinv,
+                               dataclasses.replace(plan, threads=2000),
+                               order)
+        with pytest.raises(ValueError):
+            dia.dia_mcgs_sweep(D, x, b, dinv, plan, [ncolors])
+    finally:
+        dia.dia_mcgs_sweep_ref, dia.dia_jacobi = real, real_k2
+    assert not calls
+    A, xb, bb, Db, cb, nc, bplan = _block_sweep_case(torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="pyamg_block_mcgs_sweep_f32"):
+        bd.block_mcgs_sweep(A, xb, bb, Db,
+                            dataclasses.replace(bplan, threads=2000),
+                            rel._sweeps(nc, "forward"))
